@@ -3,22 +3,34 @@
 
     python3 chip_smoke.py
 
-Phases, one output line each:
+Phases, one output line each (several for 2 and 4):
   1. card and build: the card's name and power limit (nvidia-smi), and the
-     time to build the CUDA kernels from csrc/;
+     time to build the CUDA kernels from csrc/ (one nvcc per source, all
+     started together);
   2. each kernel against its plain PyTorch version on the card, exact
      equality of every output (all outputs are integer or bool, so the
      tolerance is zero), at the slice's shapes: K1 static_eval at S=16 over
      the 10k-node bucket, K2 sig_scan at P=4096, K3 usage_checksum on K2's
-     final state; with the kernel's, the plain version's and (K3) a
-     torch.sum's time;
-  3. the config0 drain — 10k nodes, 100k pending pods, residentDrain false —
-     through Scheduler() on cuda, held pod for pod against the same drain on
-     the port's host FastCommitter alone (device="cpu", every batch on the
-     committer), with no node over its allocatable, and the launches of
-     each kernel in that drain;
-  4. a mixed drain (1k nodes, 10k pods: NoSchedule taints, tolerations,
-     nodeSelector, required node affinity, images), held the same way;
+     final state, and K4 resident_run at config0's shape (P=16384, N=10240,
+     S=16 with the nine north-star signatures, W=2048) in both tail modes,
+     on the north-star feed, on an interleaved feed that makes the adaptive
+     stop fire, and on a one-signature feed of full windows, and on the
+     north-star feed over config0's empty cluster with each score term
+     switched off in turn; with the kernel's, the plain version's and (K3)
+     a torch.sum's time;
+  3. the transport: ops/wire.py's single-buffer upload of config0's usage
+     state, timed;
+  4. drains through Scheduler() on cuda, each held pod for pod against the
+     same workload on the port's host FastCommitter alone (device="cpu",
+     every batch on the committer), with no node over its allocatable, and
+     the launches of each kernel in that drain, each of which must be > 0
+     for the kernels of its route: config0 (10k nodes, 100k pending pods)
+     with residentDrain false (K1, K2, K3) and under the default
+     configuration (K1, K4 with its host tail, K3), in turns, three times
+     each, with their spread; config0 once with residentSerialTail (K1, K4,
+     K2 for its tail, K3); a mixed drain (1k nodes, 10k pods: NoSchedule
+     taints, tolerations, nodeSelector, required node affinity, images) on
+     the first two routes and with residentSerialTail;
   5. the kernels line.
 
 The second-to-last line is the kernels JSON; the last line is
@@ -32,6 +44,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import statistics
 import subprocess
 import sys
 import time
@@ -42,6 +55,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # tensor-core) 32-bit rate, used as the rate of the kernels' integer work
 PEAK_BYTES_S = 3.35e12
 PEAK_SCALAR_OPS_S = 67e12
+# config0 drains per route, taken in turns, to show the host clock's spread
+DRAIN_REPEATS = 3
 
 
 def log(**kw) -> None:
@@ -380,6 +395,67 @@ def k2_inputs(torch, device, nt, mask, P=4096, seed=5):
     return to(fixed), to(state)
 
 
+def k4_inputs(torch, device, n_nodes=10000, P=16384, S=16, n_pads=384, seed=9):
+    """config0's shape: bench.py's basic nodes in their 10240-node bucket, the
+    nine north-star signatures (3 cpu x 3 memory requests) in a 16-row stack,
+    a P-pod feed in the north-star order with a pad suffix, and a partly used
+    cluster."""
+    from kubernetes_tpu_torch.fastpath import signature_key
+    from kubernetes_tpu_torch.snapshot.interner import Vocab
+    from kubernetes_tpu_torch.snapshot.schema import ResourceLanes, pack_nodes
+
+    vocab = Vocab()
+    nt = pack_nodes(basic_nodes(n_nodes), vocab)
+    N, R = nt.allocatable.shape
+    lanes = ResourceLanes(vocab)
+    sids, rows, ids = {}, [], []
+    for pod in north_star_pods(P - n_pads):
+        k = signature_key(pod, lanes, R)
+        if k not in sids:
+            sids[k] = len(rows)
+            rows.append(k)
+        ids.append(sids[k])
+    ids += [-1] * n_pads
+    req = torch.zeros((S, R), dtype=torch.int64)
+    nz = torch.zeros((S, 2), dtype=torch.int64)
+    ok = torch.zeros((S, N), dtype=torch.bool)
+    for i, k in enumerate(rows):
+        req[i] = torch.tensor(k[0])
+        nz[i] = torch.tensor(k[1])
+        ok[i] = torch.as_tensor(nt.valid)
+    g = torch.Generator().manual_seed(seed)
+    alloc = torch.as_tensor(nt.allocatable, dtype=torch.int64)
+    used = torch.zeros_like(alloc)
+    used[:, :2] = alloc[:, :2] * torch.randint(0, 60, (N, 1), generator=g) // 100
+    fixed = {
+        "sig_ids": torch.tensor(ids, dtype=torch.int32), "sig_req": req, "sig_nz": nz,
+        "sig_allzero": (req == 0).all(dim=1), "sig_ok": ok,
+        "sig_img": torch.zeros((S, N), dtype=torch.int64), "alloc": alloc,
+        "allowed": torch.as_tensor(nt.allowed_pods, dtype=torch.int32),
+    }
+    state = {"used": used, "nz0": used[:, 0].clone(), "nz1": used[:, 1].clone(),
+             "num_pods": torch.randint(0, 40, (N,), generator=g, dtype=torch.int32)}
+    to = lambda d: {k: v.to(device).contiguous() for k, v in d.items()}  # noqa: E731
+    return to(fixed), to(state)
+
+
+def k4_interleaved(torch, fixed, P=4096, n_pads=64):
+    """An adversarial feed over k4_inputs' cluster: two signatures on the
+    even and the odd nodes, alternating, so the walk of each round follows
+    the head's half and every round admits one pod until the adaptive stop
+    hands the tail over."""
+    fx = dict(fixed)
+    ok = torch.zeros_like(fixed["sig_ok"])
+    valid = fixed["sig_ok"][0]
+    ok[0, 0::2] = valid[0::2]
+    ok[1, 1::2] = valid[1::2]
+    fx["sig_ok"] = ok
+    ids = torch.arange(P, dtype=torch.int32, device=ok.device) % 2
+    ids[P - n_pads :] = -1
+    fx["sig_ids"] = ids
+    return fx
+
+
 def max_abs_err(torch, a, b) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -503,13 +579,144 @@ def phase_kernels(torch, device, n_nodes=10000, reps=20):
     }
 
 
-def drain(device, nodes, pods, host_only=False):
+def phase_resident(torch, device, reps=5, n_nodes=10000, P=16384, P_adv=4096):
+    """K4 against its plain version on the card, in both tail modes, on the
+    config0-shaped run and on the interleaved feed that makes the adaptive
+    stop fire; K4's time in the default (host-tail) mode."""
+    from kubernetes_tpu_torch.ops import resident as ops_res
+
+    fixed, state0 = k4_inputs(torch, device, n_nodes=n_nodes, P=P)
+    N, R = fixed["alloc"].shape
+    S = fixed["sig_req"].shape[0]
+    W = min(2048, N)
+    w = dict(w_fit=1, w_bal=1, w_img=0, check_fit=True, window=W)
+
+    def run(fn, fx, st, serial_tail, wk=w):
+        return fn(fx["sig_ids"], fx["sig_req"], fx["sig_nz"], fx["sig_allzero"], fx["sig_ok"],
+                  fx["sig_img"], fx["alloc"], fx["allowed"], st["used"], st["nz0"], st["nz1"],
+                  st["num_pods"], **wk, serial_tail=serial_tail)
+
+    def check(label, fx, serial_tail, st0=state0, weights=None):
+        wk = dict(w, **(weights or {}))
+        outs = []
+        for fn in (ops_res.resident_run, ops_res.resident_run_plain):
+            st = {k: v.clone() for k, v in st0.items()}
+            ch, _, stats = run(fn, fx, st, serial_tail, wk)
+            outs.append((ch, st, stats))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        (ck, sk, tk), (cp, sp, tp) = outs
+        err = max([max_abs_err(torch, ck, cp), max_abs_err(torch, tk, tp)]
+                  + [max_abs_err(torch, sk[k], sp[k]) for k in sk])
+        if err:
+            raise AssertionError(f"resident_run kernel != plain version ({label}, serial_tail={serial_tail})")
+        rounds, q, tail_left = tk.tolist()
+        row = dict(case=label, P=int(fx["sig_ids"].shape[0]), N=N, S=S, W=W, serial_tail=serial_tail,
+                   rounds=rounds, resolved=q, tail_left=tail_left,
+                   unresolved=int((ck == ops_res.UNRESOLVED).sum()), placed=int((ck >= 0).sum()),
+                   nodes_written=int((sk["num_pods"] != st0["num_pods"]).sum()), max_abs_err=err,
+                   **{k: wk[k] for k in ("w_fit", "w_bal", "w_img")})
+        log(phase="kernel_check", kernel="resident_run", **row)
+        return row
+
+    adv = k4_interleaved(torch, fixed, P=P_adv)
+    one = dict(fixed, sig_ids=fixed["sig_ids"].clamp(max=0))  # one signature: full windows
+    rows = [check("config0", fixed, st) for st in (False, True)]
+    rows += [check("interleaved", adv, st) for st in (False, True)]
+    rows += [check("one_signature", one, st) for st in (False, True)]
+    if not all(r["tail_left"] for r in rows[2:4]):
+        raise AssertionError("the interleaved feed did not stop the fixed point early")
+    # why north-star runs stop early: the same feed on config0's empty
+    # cluster (the drain's first run) with each score term switched off
+    empty = {k: torch.zeros_like(v) for k, v in state0.items()}
+    for wf, wb in ((1, 1), (1, 0), (0, 1), (0, 0)):
+        check("config0_empty", fixed, False, st0=empty, weights=dict(w_fit=wf, w_bal=wb))
+
+    scratch = {}
+
+    def reset():
+        for k, v in state0.items():
+            scratch.setdefault(k, torch.empty_like(v)).copy_(v)
+
+    def bounds(fx, row):
+        """K4's bound for one run: (once, per_round).  Bytes: each input
+        that this run's data needs read once (the rows of the signatures in
+        the feed; sig_img only when ImageLocality is scored), the choices
+        written once and the committed nodes' usage rows written once;
+        per_round also reads the static rows and the usage state again in
+        every round, as one [S, N] key pass per round does.  Operations:
+        per round the key formulas for the live signatures over N nodes and
+        over the W window slots, plus a sort's N log2 N compares."""
+        ids = fx["sig_ids"]
+        s_live = int(ids[ids >= 0].unique().numel())
+        row_bytes = s_live * N * (fx["sig_ok"].element_size()
+                                  + (fx["sig_img"].element_size() if w["w_img"] else 0))
+        sig_bytes = s_live * (R * 8 + 2 * 8 + 1)
+        static = row_bytes + sig_bytes + nbytes(fx["alloc"], fx["allowed"])
+        state = nbytes(*state0.values())
+        out = ids.numel() * 4 + row["nodes_written"] * (R * 8 + 8 + 8 + 4) + 3 * 8
+        ops = row["rounds"] * ((s_live * N + W * s_live) * (R * 4 + 40) + N * max(1, N.bit_length()))
+        once = bound_ms(nbytes(ids) + static + state + out, ops)
+        per_round = bound_ms(nbytes(ids) + row["rounds"] * (static + state) + out, ops)
+        return once, per_round
+
+    ms = time_ms(torch, lambda: run(ops_res.resident_run, fixed, scratch, False), reps, setup=reset)
+    plain_ms = time_ms(torch, lambda: run(ops_res.resident_run_plain, fixed, scratch, False), 1, setup=reset)
+    # full windows: the one-signature feed resolves the whole run in rounds
+    one_ms = time_ms(torch, lambda: run(ops_res.resident_run, one, scratch, False), reps, setup=reset)
+    one_plain_ms = time_ms(torch, lambda: run(ops_res.resident_run_plain, one, scratch, False), 1, setup=reset)
+    (bound, by), (round_bound, round_by) = bounds(fixed, rows[0])
+    (one_bound, one_by), (one_round_bound, one_round_by) = bounds(one, rows[4])
+    log(phase="kernel_time", kernel="resident_run", case="config0", serial_tail=False, rounds=rows[0]["rounds"],
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, round_bound_ms=round_bound,
+        round_bound_by=round_by, library_ms=None)
+    log(phase="kernel_time", kernel="resident_run", case="one_signature", serial_tail=False,
+        rounds=rows[4]["rounds"], ms=one_ms, plain_ms=one_plain_ms, bound_ms=one_bound, bound_by=one_by,
+        round_bound_ms=one_round_bound, round_bound_by=one_round_by)
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+                rounds=rows[0]["rounds"], round_bound_ms=round_bound, round_bound_by=round_by,
+                one_signature_ms=one_ms, one_signature_rounds=rows[4]["rounds"],
+                one_signature_bound_ms=one_bound)
+
+
+def phase_transport(torch, device, reps=20, n_nodes=10000):
+    """The single-buffer upload (ops/wire.py, the port of the transport root
+    _unpacker.run) of config0's usage state: host clock around
+    device_put_packed and a synchronize.  Bound: the packed bytes read once
+    and written once into their typed leaves at the card's memory rate."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops import wire
+    from kubernetes_tpu_torch.scheduler import UsageState
+
+    fixed, state0 = k4_inputs(torch, torch.device("cpu"), n_nodes=n_nodes, P=64, n_pads=0)
+    us = UsageState(alloc=fixed["alloc"].numpy(), allowed=fixed["allowed"].numpy(),
+                    **{k: v.numpy() for k, v in state0.items()})
+    buf, _ = wire.pack_tree(us)
+    wire.device_put_packed(us, device)
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = wire.device_put_packed(us, device)
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    if not np.array_equal(out.used.cpu().numpy(), us.used):
+        raise AssertionError("device_put_packed changed the usage rows")
+    ms = total / reps * 1e3
+    bound, by = bound_ms(2 * buf.nbytes, 0)
+    log(phase="transport", root="ops/wire.py:77 _unpacker.run", bytes=int(buf.nbytes), ms=ms,
+        bound_ms=bound, bound_by=by)
+    return dict(ms=ms, bound_ms=bound, bound_by=by, bytes=int(buf.nbytes))
+
+
+def drain(device, nodes, pods, host_only=False, **cfg_over):
     """One drain through the port's entry points; returns (placements,
     seconds, scheduler)."""
     from kubernetes_tpu_torch.framework.config import SchedulerConfiguration
     from kubernetes_tpu_torch.scheduler import Scheduler
 
-    cfg = SchedulerConfiguration(resident_drain=False)
+    cfg = SchedulerConfiguration(**cfg_over)
     if host_only:
         cfg.fast_device_min = 1 << 62  # every batch on the host FastCommitter
     sched = Scheduler(cfg, device=device)
@@ -549,23 +756,34 @@ def check_capacity(sched) -> None:
             raise AssertionError(f"node {cn.node.name} is over its allocatable")
 
 
-def phase_drain(torch, name, device, make_nodes, make_pods):
+def phase_drain(torch, name, device, make_nodes, make_pods, kernels, want=None, **cfg):
+    """One drain on the card under SchedulerConfiguration(**cfg), held pod
+    for pod against the port's host committer alone (computed here, or
+    `want` from an earlier drain of the same workload: the committer's
+    choices do not depend on the batch boundaries).  Every kernel in
+    `kernels` must have launched in this drain.  Returns (launches, want,
+    drain seconds)."""
     from kubernetes_tpu_torch.ops import _build
 
     _build.reset_launches()
-    got, dt, sched = drain(device, make_nodes(), make_pods())
+    got, dt, sched = drain(device, make_nodes(), make_pods(), **cfg)
     launches = dict(_build.launches)
-    want, dt_host, _ = drain(torch.device("cpu"), make_nodes(), make_pods(), host_only=True)
+    dt_host = None
+    if want is None:
+        want, dt_host, _ = drain(torch.device("cpu"), make_nodes(), make_pods(), host_only=True)
     diff = [k for k in want if want[k] != got.get(k)]
     if diff:
         raise AssertionError(f"{name}: {len(diff)} placements differ from the host committer, "
                              f"first {diff[0]}: {got.get(diff[0])} vs {want[diff[0]]}")
     check_capacity(sched)
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{name}: the drain never launched {missing}: {launches}")
     placed = sum(v is not None for v in got.values())
-    log(phase="drain", name=name, nodes=len(sched.cache.real_nodes()), pods=len(got), placed=placed,
-        drain_s=dt, pods_per_s=len(got) / dt, host_committer_drain_s=dt_host, launches=launches,
-        metrics=sched.metrics, identical_to_host_committer=True)
-    return launches
+    log(phase="drain", name=name, config=cfg, nodes=len(sched.cache.real_nodes()), pods=len(got),
+        placed=placed, drain_s=dt, pods_per_s=len(got) / dt, host_committer_drain_s=dt_host,
+        launches=launches, metrics=sched.metrics, identical_to_host_committer=True)
+    return launches, want, dt
 
 
 def main() -> int:
@@ -592,22 +810,50 @@ def main() -> int:
     log(phase="build", card=card, build_s=time.perf_counter() - t0, cached=_build.build_log == "")
 
     checks = phase_kernels(torch, device)
-    launches = phase_drain(torch, "config0", device, lambda: basic_nodes(10000),
-                           lambda: north_star_pods(100000))
-    mixed = phase_drain(torch, "mixed", device, lambda: mixed_nodes(1000), lambda: mixed_pods(10000))
-    if min(mixed.values()) <= 0:
-        raise AssertionError(f"mixed drain skipped a kernel: {mixed}")
+    checks["resident_run"] = phase_resident(torch, device)
+    phase_transport(torch, device)
+
+    # config0 under residentDrain: false (K1, K2, K3) and under the default
+    # configuration (K1, K4, K3; its host tail on the committer), taken in
+    # turns DRAIN_REPEATS times each so that their spread is seen; then once
+    # with residentSerialTail (K1, K4, its tail on K2, K3)
+    config0 = (lambda: basic_nodes(10000), lambda: north_star_pods(100000))
+    want, spread = None, {"config0": [], "config0_default": []}
+    for _ in range(DRAIN_REPEATS):
+        off, want, dt = phase_drain(torch, "config0", device, *config0,
+                                    ("static_eval", "sig_scan", "usage_checksum"), want=want,
+                                    resident_drain=False)
+        spread["config0"].append(dt)
+        default, _, dt = phase_drain(torch, "config0_default", device, *config0,
+                                     ("static_eval", "resident_run", "usage_checksum"), want=want)
+        spread["config0_default"].append(dt)
+    for name, dts in spread.items():
+        log(phase="drain_spread", name=name, drain_s=dts, min_s=min(dts), median_s=statistics.median(dts),
+            max_s=max(dts))
+    phase_drain(torch, "config0_serial_tail", device, *config0,
+                ("static_eval", "resident_run", "sig_scan", "usage_checksum"), want=want,
+                resident_serial_tail=True)
+    mixed = (lambda: mixed_nodes(1000), lambda: mixed_pods(10000))
+    _, want, _ = phase_drain(torch, "mixed", device, *mixed,
+                             ("static_eval", "sig_scan", "usage_checksum"), resident_drain=False)
+    phase_drain(torch, "mixed_default", device, *mixed, ("static_eval", "resident_run", "usage_checksum"),
+                want=want)
+    phase_drain(torch, "mixed_serial_tail", device, *mixed,
+                ("static_eval", "resident_run", "usage_checksum"), want=want, resident_serial_tail=True)
 
     sources = {
-        "static_eval": ("kubernetes_tpu_torch/csrc/static_eval.cu", "kubernetes_tpu/ops/fastpath.py:50"),
-        "sig_scan": ("kubernetes_tpu_torch/csrc/sig_scan.cu", "kubernetes_tpu/ops/fastpath.py:220"),
-        "usage_checksum": ("kubernetes_tpu_torch/csrc/usage_checksum.cu", "kubernetes_tpu/ops/resident.py:451"),
+        "static_eval": ("kubernetes_tpu_torch/csrc/static_eval.cu", "kubernetes_tpu/ops/fastpath.py:50",
+                        "config0_default", default),
+        "sig_scan": ("kubernetes_tpu_torch/csrc/sig_scan.cu", "kubernetes_tpu/ops/fastpath.py:220",
+                     "config0", off),
+        "usage_checksum": ("kubernetes_tpu_torch/csrc/usage_checksum.cu", "kubernetes_tpu/ops/resident.py:451",
+                           "config0_default", default),
+        "resident_run": ("kubernetes_tpu_torch/csrc/resident_run.cu", "kubernetes_tpu/ops/resident.py:265",
+                         "config0_default", default),
     }
     kernels = []
-    for name, (src, replaces) in sources.items():
-        if launches[name] <= 0:
-            raise AssertionError(f"config0 drain never launched {name}")
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+    for name, (src, replaces, path, launches) in sources.items():
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces, path=path,
                             launches=launches[name], check="equal", **checks[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

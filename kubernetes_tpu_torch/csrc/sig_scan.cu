@@ -20,10 +20,8 @@
 // operations per (pod, node); but P dependent steps each pay a block-wide
 // reduction and two barriers, and a single block uses one SM of 132.
 //
-// Integer arithmetic is int64 throughout.  Every division has a
-// non-negative numerator: LeastAllocated masks c > a to 0 before computing
-// (a - c) * 100 / a, and BalancedAllocation divides 50 * |d| + den - 1 by
-// den >= 1; so C++ truncation equals the reference's floor division.
+// The feasibility and score formulas are ktpu.cuh's fits / score_total,
+// shared with K4 (resident_run); integer arithmetic is int64 throughout.
 #include <climits>
 
 #include "ktpu.cuh"
@@ -81,54 +79,13 @@ __global__ void __launch_bounds__(SCAN_THREADS)
       if (!ok[n]) continue;
       const long long* al = a.alloc + (long long)n * R;
       const long long* us = a.used + (long long)n * R;
-      if (a.check_fit) {
-        if (a.num_pods[n] + 1 > a.allowed[n]) continue;
-        if (!all_zero) {
-          bool fit = true;
-          for (int r = 0; r < R; ++r) {
-            const long long v = req[r];
-            if (r >= N_FIXED_LANES && v == 0) continue;  // unrequested scalar
-            if (v > al[r] - us[r]) {
-              fit = false;
-              break;
-            }
-          }
-          if (!fit) continue;
-        }
-      }
-      const long long a0 = al[LANE_CPU];
-      const long long a1 = al[LANE_MEM];
-      long long total = 0;
-      if (a.w_fit) {
-        long long sum = 0;
-        int w = 0;
-        if (a0 > 0) {
-          const long long c0 = a.nz0[n] + snz0;
-          sum += c0 > a0 ? 0 : (a0 - c0) * MAX_NODE_SCORE / a0;
-          ++w;
-        }
-        if (a1 > 0) {
-          const long long c1 = a.nz1[n] + snz1;
-          sum += c1 > a1 ? 0 : (a1 - c1) * MAX_NODE_SCORE / a1;
-          ++w;
-        }
-        total += a.w_fit * (w ? sum / w : 0);
-      }
-      if (a.w_bal) {
-        long long bal = MAX_NODE_SCORE;
-        if (a0 > 0 && a1 > 0) {
-          long long r0 = us[LANE_CPU] + req[LANE_CPU];
-          long long r1 = us[LANE_MEM] + req[LANE_MEM];
-          if (r0 > a0) r0 = a0;
-          if (r1 > a1) r1 = a1;
-          long long d = r0 * a1 - r1 * a0;
-          if (d < 0) d = -d;
-          const long long den = a0 * a1;
-          bal = MAX_NODE_SCORE - (50 * d + den - 1) / den;
-        }
-        total += a.w_bal * bal;
-      }
-      if (a.w_img) total += a.w_img * simg[n];
+      if (a.check_fit &&
+          !fits(req, all_zero, al, us, nullptr, a.num_pods[n], a.allowed[n], R))
+        continue;
+      const long long total = score_total(
+          al[LANE_CPU], al[LANE_MEM], a.nz0[n] + snz0, a.nz1[n] + snz1,
+          us[LANE_CPU] + req[LANE_CPU], us[LANE_MEM] + req[LANE_MEM],
+          a.w_img ? simg[n] : 0, a.w_fit, a.w_bal, a.w_img);
       if (total > best) {  // ascending n: strict > keeps the first max
         best = total;
         best_n = n;

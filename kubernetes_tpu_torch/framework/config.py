@@ -1,10 +1,10 @@
 """SchedulerConfiguration: the knobs the signature fast path reads.
 
 Defaults and meanings are the JAX package's (its framework/config.py).
-``resident_drain`` defaults to True there and here; this slice ports the
-``residentDrain: false`` route, so a device-sized fast batch under the
-default raises NotImplementedError until ``resident_run`` is ported
-(ROADMAP B3).
+``resident_drain`` defaults to True there and here: device-sized fast
+batches extend up to ``resident_run_max`` pods and are placed by
+``resident_run`` (kernel K4); ``resident_drain=False`` places them with
+``sig_scan`` (K2).
 """
 
 from __future__ import annotations
@@ -55,8 +55,18 @@ class SchedulerConfiguration:
     # fast batches smaller than this commit on the host FastCommitter; larger
     # ones take the device sig_scan kernel
     fast_device_min: int = 1024
-    # device-resident drain loop (resident_run): not ported yet (ROADMAP B3)
+    # device-resident drain loop: large fast batches are placed by
+    # resident_run's speculation/admission fixed point; off = sig_scan
     resident_drain: bool = True
+    # resident RUN width: fast batches extend up to this many pods when the
+    # resident path is engaged (supersedes fast_batch_max there)
+    resident_run_max: int = 16384
+    # speculation window per fixed-point round (clamped to the node count)
+    resident_window: int = 2048
+    # finish a run's unresolved tail on the device with the serial sig_scan
+    # replay; off = unresolved pods come back UNRESOLVED and the host
+    # committer finishes them
+    resident_serial_tail: bool = False
     # every device batch also runs usage_checksum and checks it against the
     # host-tracked sum
     resident_epoch_guard: bool = True
@@ -64,6 +74,10 @@ class SchedulerConfiguration:
     def validate(self) -> None:
         if self.batch_size < 1 or self.fast_batch_max < self.batch_size:
             raise ValueError("need 1 <= batch_size <= fast_batch_max")
+        if self.resident_run_max < self.batch_size:
+            raise ValueError("need batch_size <= resident_run_max")
+        if self.resident_window < 1:
+            raise ValueError("resident_window must be >= 1")
         names = [p.scheduler_name for p in self.profiles]
         if not names or len(set(names)) != len(names):
             raise ValueError("profiles need distinct scheduler names")

@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("static_eval.cu", "sig_scan.cu", "usage_checksum.cu", "runtime.cu")
+SOURCES = ("static_eval.cu", "sig_scan.cu", "usage_checksum.cu", "resident_run.cu", "runtime.cu")
 HEADERS = ("ktpu.cuh",)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -37,7 +37,7 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
-launches: Dict[str, int] = {"static_eval": 0, "sig_scan": 0, "usage_checksum": 0}
+launches: Dict[str, int] = {"static_eval": 0, "sig_scan": 0, "usage_checksum": 0, "resident_run": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""  # nvcc's output (ptxas register / spill report), also in nvcc_build.log
@@ -129,6 +129,18 @@ class SigScanArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
+class ResidentArgs(ctypes.Structure):
+    """Mirror of csrc/ktpu.cuh ResidentArgs (pointers, then ints)."""
+
+    _PTRS = (
+        "ids sig_req sig_nz sig_allzero sig_ok sig_img alloc allowed "
+        "used nz0 nz1 num_pods choices ctl keys rank order sufmax "
+        "slot_sig slot_node slot_flags slot_ckey slot_csuf slot_thr"
+    ).split()
+    _INTS = "P N R S W w_fit w_bal w_img check_fit r_cap min_yield stop_grace".split()
+    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built on first call in this process."""
     global _lib
@@ -147,6 +159,15 @@ def load() -> ctypes.CDLL:
         vp, ctypes.c_longlong, vp, vp, vp, ctypes.c_longlong, vp, vp
     ]
     lib.ktpu_usage_checksum.restype = ctypes.c_int
+    res = ctypes.POINTER(ResidentArgs)
+    for fn, extra in (
+        ("ktpu_resident_init", []),
+        ("ktpu_resident_rounds", [ctypes.c_int]),
+        ("ktpu_resident_tail_ids", [vp]),
+        ("ktpu_resident_tail_merge", [vp]),
+    ):
+        getattr(lib, fn).argtypes = [res, *extra, vp]
+        getattr(lib, fn).restype = ctypes.c_int
     lib.ktpu_error_string.argtypes = [ctypes.c_int]
     lib.ktpu_error_string.restype = ctypes.c_char_p
     _lib = lib

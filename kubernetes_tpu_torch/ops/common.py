@@ -220,19 +220,30 @@ def gather_at(cols_t, key):
 
 
 # ---------------------------------------------------------------------------
-# The per-commit usage update (scalar form)
+# The per-commit usage update
 # ---------------------------------------------------------------------------
 
 
 def usage_carry_update(rows, deltas, node, live):
-    """One serial-recurrence commit, in place: every ``rows[k]`` ([N, ...])
-    gains ``deltas[k]`` at row ``node`` when ``live``.  ``node`` and
-    ``live`` are 0-d tensors, so no host sync happens; the rank-1 one-hot
-    form is the reference's scatter-free update.  The JAX package donates
-    the carried buffers; here the same tensors are updated in place."""
-    N = next(iter(rows.values())).shape[0]
-    onehot = (torch.arange(N, device=node.device) == node) & live
+    """THE serial-recurrence commit, in place: every ``rows[k]`` ([N, ...])
+    gains ``deltas[k]`` at row ``node`` when ``live``.
+
+    ``node`` and ``live`` are 0-d tensors (one commit: the rank-1 one-hot
+    form, no host sync) or [W] tensors (a resident round's window of
+    commits: a scatter-add; within a round each walk position commits at
+    most once, so the adds are disjoint and equal replaying the scalar form
+    slot by slot).  The JAX package donates the carried buffers; here the
+    same tensors are updated in place."""
+    if node.dim() == 0:
+        N = next(iter(rows.values())).shape[0]
+        onehot = (torch.arange(N, device=node.device) == node) & live
+        for k, row in rows.items():
+            oh = onehot.reshape((N,) + (1,) * (row.dim() - 1)).to(row.dtype)
+            row.add_(oh * torch.as_tensor(deltas[k], dtype=row.dtype, device=row.device))
+        return rows
+    idx = node.long()
     for k, row in rows.items():
-        oh = onehot.reshape((N,) + (1,) * (row.dim() - 1)).to(row.dtype)
-        row.add_(oh * torch.as_tensor(deltas[k], dtype=row.dtype, device=row.device))
+        d = torch.as_tensor(deltas[k], dtype=row.dtype, device=row.device)
+        gate = live.reshape(live.shape + (1,) * (row.dim() - 1)).to(row.dtype)
+        row.index_add_(0, idx, d.expand(idx.shape + row.shape[1:]) * gate)
     return rows

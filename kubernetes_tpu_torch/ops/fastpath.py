@@ -295,15 +295,16 @@ def sig_scan_plain(sig_ids, sig_req, sig_nz, sig_allzero, sig_ok, sig_img, alloc
                    used, nz0, nz1, num_pods, w_fit, w_bal, w_img, check_fit):
     """Plain PyTorch version of K2: a Python loop of make_sig_step with no
     host synchronisation inside the loop.  A pad id (-1) chooses nothing and
-    commits nothing, so on the CPU, where reading the ids is free, pad steps
-    are skipped."""
+    commits nothing, so the ids are read to the host once, before the loop,
+    and pad steps are skipped (resident_run's serial tail masks its resolved
+    prefix to pads)."""
     step = make_sig_step(sig_req, sig_nz, sig_allzero, sig_ok, sig_img, alloc, allowed,
                          w_fit, w_bal, w_img, check_fit)
     state = {"used": used, "nz0": nz0, "nz1": nz1, "num_pods": num_pods}
     choices = torch.full_like(sig_ids, -1)
-    host_ids = sig_ids.tolist() if sig_ids.device.type == "cpu" else None
+    host_ids = sig_ids.tolist()
     for p in range(sig_ids.shape[0]):
-        if host_ids is not None and host_ids[p] < 0:
+        if host_ids[p] < 0:
             continue
         choices[p] = step(state, sig_ids[p])
     return choices, (used, nz0, nz1, num_pods)

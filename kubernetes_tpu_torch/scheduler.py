@@ -2,18 +2,27 @@
 
 Follows the JAX package's fast route step for step (its scheduler.py
 ``_fast_gate_ok`` → ``_fast_sig_rows`` → ``_fast_dispatch`` →
-``_finish_fast``), with ``residentDrain: false``:
+``_finish_fast``):
 
 1. pop a batch in queue order and gate it: every pod must be a fast-path
    pod (resources are its only batch-dynamic constraint);
 2. key each pod by its signature (identical requests + static constraints);
 3. evaluate the static rows of each NEW signature once (kernel K1), cached
    until the static snapshot changes;
-4. extend the batch from the queue head with pods of known signatures;
+4. extend the batch from the queue head with pods of known signatures, up
+   to ``resident_run_max`` pods under ``residentDrain: true`` (the default)
+   and ``fast_batch_max`` otherwise;
 5. place the batch: below ``fast_device_min`` pods on the host
-   FastCommitter, else with kernel K2 on the device-resident usage tensors,
-   followed by kernel K3's checksum against the host-tracked sum;
+   FastCommitter, else on the device-resident usage tensors with kernel K4
+   (resident_run; its unresolved tail on the host committer, or with
+   ``residentSerialTail`` on K2 in the same call) or, with
+   ``residentDrain: false``, kernel K2 (sig_scan); then kernel K3's
+   checksum against the host-tracked sum;
 6. advance the committer, assume and bind in bulk, report outcomes.
+
+The drain is synchronous, one batch in flight, which is what the reference
+does on its default route: with ``residentSerialTail: false`` it harvests
+each resident run before the next dispatch.
 
 Pods outside this slice raise NotImplementedError naming the ROADMAP item
 that ports their path; a kernel failure or a checksum mismatch raises too.
@@ -145,6 +154,10 @@ class Scheduler:
             "fast_batches": 0,
             "host_batches": 0,
             "device_batches": 0,
+            "resident_batches": 0,
+            "resident_pods": 0,  # pods the fixed point resolved
+            "resident_rounds": 0,
+            "resident_tail_pods": 0,  # unresolved pods the host committer finished
             "static_evals": 0,
             "state_uploads": 0,
             "snapshot_packs": 0,
@@ -233,8 +246,11 @@ class Scheduler:
         rows = self._fast_sig_rows(profile, batch, keys)
 
         # extend from the queue head with pods whose signatures are already
-        # evaluated and argmax-neutral (a novel signature seeds a later batch)
-        ext = self.config.fast_batch_max - len(batch)
+        # evaluated and argmax-neutral (a novel signature seeds a later batch);
+        # a resident run rides one dispatch, so it extends further
+        cfg = self.config
+        cap = cfg.resident_run_max if cfg.resident_drain else cfg.fast_batch_max
+        ext = cap - len(batch)
         if ext > 0:
             def known(qp: QueuedPodInfo) -> bool:
                 if qp.pod.scheduler_name != profile.scheduler_name:
@@ -458,12 +474,6 @@ class Scheduler:
             self.metrics["host_batches"] += 1
             holder["dev"] = None  # the device copy (if any) is now stale
             return fc.run(pod_sigs)
-        if self.config.resident_drain:
-            self._refuse(
-                batch,
-                "residentDrain: true places device batches with resident_run, "
-                "which is not ported yet (ROADMAP B3); set resident_drain=False",
-            )
         try:
             return self._place_device(holder, batch, pod_sigs, weights, check_fit)
         except BaseException:
@@ -475,14 +485,20 @@ class Scheduler:
             raise
 
     def _place_device(self, holder: dict, batch, pod_sigs, weights, check_fit: bool) -> List[int]:
-        """One K2 launch for the whole batch, then K3, then the replay of
-        the choices into the host committer."""
+        """One K4 launch (or, with residentDrain off, one K2 launch) for the
+        whole batch, then K3, then the replay of the choices into the host
+        committer; a resident run's unresolved tail is finished on it."""
         fc = holder["fc"]
+        cfg = self.config
+        resident = cfg.resident_drain
         if holder["stack"] is None:
             self._stack_signatures(holder)
-        # p_cap quantized to three levels, as the reference's kernel shapes
+        # p_cap quantized to the reference's kernel-shape levels: a resident
+        # run's round cap depends on the padded P, so equal levels give
+        # equal rounds
         need = len(batch)
-        for level in (64, 512, self.config.fast_batch_max):
+        levels = [64, 512, cfg.fast_batch_max] + ([cfg.resident_run_max] if resident else [])
+        for level in levels:
             if need <= level:
                 need = level
                 break
@@ -495,23 +511,35 @@ class Scheduler:
             self._upload_state(holder)
         st, us = holder["stack"], holder["dev"]
         ids = torch.from_numpy(ids_np).to(self.device)
-        choices_dev, _ = ops_fp.sig_scan(
-            ids, st.req, st.nz, st.az, st.ok, st.img, us.alloc, us.allowed,
-            us.used, us.nz0, us.nz1, us.num_pods,
+        kw = dict(
             w_fit=weights[4],
             w_bal=weights[5],
             w_img=weights[6] if holder["any_img"] else 0,
             check_fit=check_fit,
         )
+        args = (ids, st.req, st.nz, st.az, st.ok, st.img, us.alloc, us.allowed,
+                us.used, us.nz0, us.nz1, us.num_pods)
+        stats = None
+        if resident:
+            choices_dev, _, stats_dev = ops_res.resident_run(
+                *args, **kw, window=min(cfg.resident_window, fc.n), serial_tail=cfg.resident_serial_tail
+            )
+            stats = stats_dev.tolist()
+        else:
+            choices_dev, _ = ops_fp.sig_scan(*args, **kw)
         csum_dev = None
-        if self.config.resident_epoch_guard:
+        if cfg.resident_epoch_guard:
             csum_dev = ops_res.usage_checksum(us.used, us.nz0, us.nz1, us.num_pods)
         choices_np = choices_dev.cpu().numpy()[: len(batch)].astype(np.int64)
-        if ((choices_np < -1) | (choices_np >= fc.n)).any():
-            raise RuntimeError("sig_scan returned a node index out of range")
+        if ((choices_np < ops_res.UNRESOLVED) | (choices_np >= fc.n)).any():
+            raise RuntimeError("device placement returned a node index out of range")
         self.metrics["device_batches"] += 1
+        if stats is not None:
+            self.metrics["resident_batches"] += 1
+            self.metrics["resident_pods"] += min(stats[1], len(batch))
+            self.metrics["resident_rounds"] += stats[0]
 
-        # per-node aggregates of this batch's commits
+        # per-node aggregates of this batch's resolved commits
         sel = choices_np >= 0
         nodes = choices_np[sel]
         stn = holder["stack_np"]
@@ -542,7 +570,20 @@ class Scheduler:
             fc.nz1[n] += int(add1[n])
             fc.num_pods[n] += int(cnt[n])
         holder["heaps_dirty"] = True
-        return choices_np.tolist()
+        choices = choices_np.tolist()
+        tail = np.nonzero(choices_np == ops_res.UNRESOLVED)[0].tolist()
+        if tail:
+            # the host-committer tail: the fixed point handed back the pods
+            # it did not resolve; the committer finishes them exactly, and
+            # the device copy, which now lags its commits, is dropped
+            fc.invalidate_heaps()
+            self.metrics["resident_tail_pods"] += len(tail)
+            for i, c in zip(tail, fc.run([pod_sigs[i] for i in tail])):
+                choices[i] = c
+            holder["heaps_dirty"] = False
+            holder["dev"] = None
+            holder["dev_sum"] = None
+        return choices
 
     # ----- commit --------------------------------------------------------
 

@@ -8,8 +8,8 @@ none; run it there without the JAX suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 The plain versions are held against the JAX package on the CPU by
-tests/test_torch_static_eval.py, test_torch_sig_scan.py and
-test_torch_scheduler.py.
+tests/test_torch_static_eval.py, test_torch_sig_scan.py,
+test_torch_resident.py and test_torch_scheduler.py.
 """
 
 import pytest
@@ -73,8 +73,86 @@ def test_scheduler_on_cuda_matches_the_host_committer(cuda):
     nodes = lambda: chip_smoke.mixed_nodes(150)  # noqa: E731
     pods = lambda: chip_smoke.mixed_pods(3000)  # noqa: E731
     _build.reset_launches()
-    got, _, sched = chip_smoke.drain(cuda, nodes(), pods())
-    assert min(_build.launches.values()) > 0
+    got, _, sched = chip_smoke.drain(cuda, nodes(), pods(), resident_drain=False)
+    assert all(_build.launches[k] > 0 for k in ("static_eval", "sig_scan", "usage_checksum"))
+    want, _, _ = chip_smoke.drain(torch.device("cpu"), nodes(), pods(), host_only=True)
+    assert got == want
+    chip_smoke.check_capacity(sched)
+
+
+def _resident_feeds(cuda):
+    fixed, state = chip_smoke.k4_inputs(torch, cuda, n_nodes=700, P=2048, n_pads=100)
+    return {
+        "north_star": fixed,
+        "interleaved": chip_smoke.k4_interleaved(torch, fixed, P=1024),
+        "one_signature": dict(fixed, sig_ids=fixed["sig_ids"].clamp(max=0)),
+    }, state
+
+
+@pytest.mark.parametrize("serial_tail", [False, True])
+@pytest.mark.parametrize("window", [256, 1 << 20])  # W < N, and W == N (clamped)
+@pytest.mark.parametrize("feed", ["north_star", "interleaved", "one_signature"])
+def test_resident_run_kernel_matches_plain(cuda, feed, window, serial_tail):
+    feeds, state = _resident_feeds(cuda)
+    fx = feeds[feed]
+    w = dict(w_fit=1, w_bal=1, w_img=0, check_fit=True, window=window, serial_tail=serial_tail)
+    outs = []
+    for fn in (ops_res.resident_run, ops_res.resident_run_plain):
+        st = {k: v.clone() for k, v in state.items()}
+        n0 = dict(_build.launches)
+        ch, new, stats = fn(fx["sig_ids"], fx["sig_req"], fx["sig_nz"], fx["sig_allzero"], fx["sig_ok"],
+                            fx["sig_img"], fx["alloc"], fx["allowed"],
+                            st["used"], st["nz0"], st["nz1"], st["num_pods"], **w)
+        assert all(a is st[k] for a, k in zip(new, ("used", "nz0", "nz1", "num_pods")))
+        outs.append((ch, st, stats, {k: _build.launches[k] - n0[k] for k in n0}))
+    (ch_k, st_k, stats_k, dl_k), (ch_p, st_p, stats_p, dl_p) = outs
+    _equal(ch_k, ch_p)
+    _equal(stats_k, stats_p)
+    for k in st_k:
+        _equal(st_k[k], st_p[k])
+    # one K4 launch; the serial tail is one K2 launch; the plain version none
+    tail = bool(stats_k[2]) and serial_tail
+    assert dl_k == {"static_eval": 0, "sig_scan": int(tail), "usage_checksum": 0, "resident_run": 1}
+    assert not any(dl_p.values())
+    if feed == "interleaved":
+        assert int(stats_k[2]) == 1
+
+
+def test_sig_scan_kernel_unchanged_by_the_shared_score(cuda):
+    """K2 now scores through ktpu.cuh's shared fits / score_total: it still
+    equals its plain version, and, from the same state, places every pod as
+    K4 with its serial tail does."""
+    feeds, state = _resident_feeds(cuda)
+    fx = feeds["north_star"]
+    w = dict(w_fit=1, w_bal=1, w_img=0, check_fit=True)
+    outs = []
+    for fn in (ops_fp.sig_scan, ops_fp.sig_scan_plain):
+        st = {k: v.clone() for k, v in state.items()}
+        ch, _ = fn(fx["sig_ids"], fx["sig_req"], fx["sig_nz"], fx["sig_allzero"], fx["sig_ok"], fx["sig_img"],
+                   fx["alloc"], fx["allowed"], st["used"], st["nz0"], st["nz1"], st["num_pods"], **w)
+        outs.append((ch, st))
+    (ch_k, st_k), (ch_p, st_p) = outs
+    _equal(ch_k, ch_p)
+    for k in st_k:
+        _equal(st_k[k], st_p[k])
+    st = {k: v.clone() for k, v in state.items()}
+    ch_r, _, _ = ops_res.resident_run(fx["sig_ids"], fx["sig_req"], fx["sig_nz"], fx["sig_allzero"],
+                                      fx["sig_ok"], fx["sig_img"], fx["alloc"], fx["allowed"],
+                                      st["used"], st["nz0"], st["nz1"], st["num_pods"], **w,
+                                      window=256, serial_tail=True)
+    live = fx["sig_ids"] >= 0
+    _equal(ch_r[live], ch_k[live])
+    for k in st:
+        _equal(st[k], st_k[k])
+
+
+@pytest.mark.parametrize("serial_tail", [False, True])
+def test_default_scheduler_on_cuda_matches_the_host_committer(cuda, serial_tail):
+    nodes = lambda: chip_smoke.mixed_nodes(150)  # noqa: E731
+    pods = lambda: chip_smoke.mixed_pods(3000)  # noqa: E731
+    _build.reset_launches()
+    got, _, sched = chip_smoke.drain(cuda, nodes(), pods(), resident_serial_tail=serial_tail)
+    assert _build.launches["resident_run"] > 0 and sched.metrics["resident_batches"] > 0
     want, _, _ = chip_smoke.drain(torch.device("cpu"), nodes(), pods(), host_only=True)
     assert got == want
     chip_smoke.check_capacity(sched)

@@ -2,14 +2,18 @@
 
 Both drain the same seeded fast workloads (the tests/test_fastpath.py
 generators, plus numpy-seeded specs with images and overcommit) with
-``residentDrain: false`` and ``fastDeviceMin: 64``, so large batches take
-sig_scan (the plain version on the CPU) and small ones the host committer.
+``fastDeviceMin: 64``, so small batches take the host committer and large
+ones the device route: sig_scan under ``residentDrain: false``, and
+resident_run under the default ``residentDrain: true`` (with the window and
+run width of tests/test_resident.py), in both tail modes, with equal
+resident rounds and resolved pods.  On the CPU the kernels run their plain
+versions.
 Placements must be identical pod for pod — they are node names, so the
 tolerance is zero — and so must the diagnosis of every unschedulable pod.
 The JAX scheduler runs with its dispatch ledger off.
 
-Also checked: refusals of pods and configurations outside the slice, no
-automatic CPU fallback for a missing card, and the checksum guard.
+Also checked: refusals of pods outside the slice, no automatic CPU
+fallback for a missing card, and the checksum guard on both routes.
 """
 
 import random
@@ -117,10 +121,11 @@ def drain(sched, nodes, pods):
     return placed, diag
 
 
-def jax_drain(workload, seed, n_nodes, n_pods):
+def jax_drain(workload, seed, n_nodes, n_pods, **cfg):
     from kubernetes_tpu.observability import kernels
 
-    sched = JScheduler(JConfig(resident_drain=False, fast_device_min=64, kernel_ledger=False))
+    cfg = {"resident_drain": False, **cfg}
+    sched = JScheduler(JConfig(fast_device_min=64, kernel_ledger=False, **cfg))
     kernels.deactivate()
     sched.binding_sink = lambda pod, node: None
     return drain(sched, *workload(JAX_API, seed, n_nodes, n_pods)), sched
@@ -128,8 +133,9 @@ def jax_drain(workload, seed, n_nodes, n_pods):
 
 def port_drain(workload, seed, n_nodes, n_pods, **cfg):
     bound = {}
+    cfg = {"resident_drain": False, **cfg}
     sched = PScheduler(
-        PConfig(resident_drain=False, fast_device_min=64, **cfg),
+        PConfig(fast_device_min=64, **cfg),
         binding_sink=lambda pod, node: bound.__setitem__(pod.name, node),
         device="cpu",
     )
@@ -216,16 +222,152 @@ def test_nonconstant_static_score_raises_not_implemented():
         sched.schedule_pending()
 
 
-def test_default_resident_drain_refuses_device_batches():
-    sched = PScheduler(PConfig(fast_device_min=64), device="cpu")
-    nodes, pods = fastpath_workload(PORT_API, 1, 20, 200)
+RESIDENT = dict(resident_drain=True, resident_window=64, resident_run_max=512)
+RESIDENT_METRICS = ("resident_batches", "resident_pods", "resident_rounds")
+
+
+@pytest.mark.parametrize("serial_tail", [False, True])
+@pytest.mark.parametrize(
+    "workload,seed,n_nodes,n_pods",
+    [
+        (fastpath_workload, 0, 40, 600),
+        (fastpath_workload, 1, 40, 900),
+        (fastpath_workload, 2, 30, 1200),
+        (spec_workload, 3, 120, 1500),
+        (spec_workload, 4, 200, 700),
+    ],
+)
+def test_default_resident_drain_matches_reference(workload, seed, n_nodes, n_pods, serial_tail):
+    """residentDrain: true, the default: device-sized batches are resident
+    runs (resident_run's plain version on the CPU), with the reference's
+    rounds and resolved pods."""
+    cfg = dict(RESIDENT, resident_serial_tail=serial_tail)
+    (want, want_diag), js = jax_drain(workload, seed, n_nodes, n_pods, **cfg)
+    (got, got_diag), ps = port_drain(workload, seed, n_nodes, n_pods, **cfg)
+    assert got == want, {k: (want[k], got.get(k)) for k in want if want[k] != got.get(k)}
+    assert got_diag == want_diag
+    assert ps.metrics["resident_batches"] > 0
+    assert {k: ps.metrics[k] for k in RESIDENT_METRICS} == {k: js.metrics[k] for k in RESIDENT_METRICS}
+
+
+def interleaved_workload(api, seed, n_nodes, n_pods):
+    """Half the nodes labelled disk=ssd, half disk=hdd, and pods that
+    alternate between the two selectors: every resident round admits one
+    pod, so the adaptive stop hands the run's tail over."""
+    T, R = api
+    nodes = [
+        T.Node(
+            name=f"n{i:03d}",
+            labels={"kubernetes.io/hostname": f"n{i:03d}", "disk": ("ssd", "hdd")[i % 2]},
+            capacity=R.Resource.from_map({"cpu": "16", "memory": "64Gi", "pods": 110}),
+        )
+        for i in range(n_nodes)
+    ]
+    rng = random.Random(seed)
+    pods = [
+        T.Pod(
+            name=f"p{i:04d}",
+            containers=[T.Container(name="c", requests={"cpu": rng.choice(["100m", "250m"]), "memory": "128Mi"})],
+            node_selector={"disk": ("ssd", "hdd")[i % 2]},
+        )
+        for i in range(n_pods)
+    ]
+    return nodes, pods
+
+
+@pytest.mark.parametrize("serial_tail", [False, True])
+def test_resident_tail_matches_reference(serial_tail):
+    """The adaptive stop fires: the unresolved tail is finished on the host
+    committer (the lineage is dropped and the next run re-uploads) or, with
+    residentSerialTail, by the serial replay inside the run."""
+    cfg = dict(RESIDENT, resident_serial_tail=serial_tail)
+    (want, want_diag), js = jax_drain(interleaved_workload, 6, 40, 1100, **cfg)
+    (got, got_diag), ps = port_drain(interleaved_workload, 6, 40, 1100, **cfg)
+    assert got == want and got_diag == want_diag
+    assert {k: ps.metrics[k] for k in RESIDENT_METRICS} == {k: js.metrics[k] for k in RESIDENT_METRICS}
+    m = ps.metrics
+    # 512 + 512 + 76 pods: every batch of this drain is a resident run
+    assert m["resident_batches"] == m["device_batches"] == 3
+    assert m["resident_pods"] < 1100
+    # host tail: each run drops the lineage, so each run uploads anew
+    assert m["state_uploads"] == (1 if serial_tail else 3)
+
+
+def north_star_workload(api, seed, n_nodes, n_pods):
+    """bench.py's config0 templates: 8-cpu / 32Gi nodes in three zones, and
+    pods of nine cpu x memory request shapes drawn from a seeded stream."""
+    T, R = api
+    nodes = [
+        T.Node(
+            name=f"node-{i}",
+            labels={"topology.kubernetes.io/zone": f"zone-{i % 3}", "kubernetes.io/hostname": f"node-{i}"},
+            capacity=R.Resource.from_map({"cpu": "8", "memory": "32Gi", "pods": 110}),
+        )
+        for i in range(n_nodes)
+    ]
+    rng = random.Random(seed)
+    pods = [
+        T.Pod(
+            name=f"ns-{i}",
+            labels={"app": f"app-{i % 16}"},
+            containers=[
+                T.Container(
+                    name="c",
+                    requests={"cpu": f"{rng.choice([100, 250, 500])}m", "memory": f"{rng.choice([128, 256, 512])}Mi"},
+                )
+            ],
+        )
+        for i in range(n_pods)
+    ]
+    return nodes, pods
+
+
+@pytest.mark.parametrize("serial_tail", [False, True])
+def test_north_star_default_configuration_matches_reference(serial_tail):
+    """config0's templates at 1k nodes and 10k pods under the default
+    window and run size: one resident run, whose adaptive stop hands most
+    of it to the tail, with the reference's rounds and resolved pods."""
+    cfg = dict(resident_drain=True, resident_serial_tail=serial_tail)
+    (want, want_diag), js = jax_drain(north_star_workload, 4242, 1000, 10000, **cfg)
+    (got, got_diag), ps = port_drain(north_star_workload, 4242, 1000, 10000, **cfg)
+    assert got == want and got_diag == want_diag
+    assert {k: ps.metrics[k] for k in RESIDENT_METRICS} == {k: js.metrics[k] for k in RESIDENT_METRICS}
+    assert ps.metrics["resident_batches"] == 1
+    assert sum(v is not None for v in got.values()) == 10000
+
+
+def test_default_resident_checksum_mismatch_raises_and_requeues():
+    """The epoch guard on the resident route: a usage row changed behind
+    the scheduler's back fails the checksum after the next run; the batch
+    goes back to the queue and nothing reaches the cache or the committer."""
+    sched = PScheduler(
+        PConfig(fast_device_min=64, batch_size=64, fast_batch_max=64, resident_run_max=64,
+                resident_window=64),
+        device="cpu",
+    )
+    nodes, _ = interleaved_workload(PORT_API, 2, 100, 0)
+    pods = [
+        p_types.Pod(name=f"u{i}", containers=[p_types.Container(name="c", requests={"cpu": "100m"})])
+        for i in range(128)
+    ]
     for n in nodes:
         sched.on_node_add(n)
-    for p in pods:
+    for p in pods[:64]:
         sched.on_pod_add(p)
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+    sched.schedule_pending()
+    # the whole run resolved on the device, so the lineage stays resident
+    assert sched.metrics["resident_batches"] == 1 and sched.metrics["resident_pods"] == 64
+    holder = sched._holder
+    holder["dev"].nz1[3] += 7
+    committed = [list(r) for r in holder["fc"].used_rows]
+    placed = len(sched.cache.pod_states)
+    for p in pods[64:128]:
+        sched.on_pod_add(p)
+    with pytest.raises(RuntimeError, match="checksum mismatch"):
         sched.schedule_pending()
-    assert len(sched.queue) == 200
+    assert len(sched.queue) == 64
+    assert len(sched.cache.pod_states) == placed
+    assert holder["fc"].used_rows == committed and holder["dev"] is None
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])
