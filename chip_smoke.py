@@ -31,7 +31,20 @@ Phases, one output line each (several for 2 and 4):
      K2 for its tail, K3); a mixed drain (1k nodes, 10k pods: NoSchedule
      taints, tolerations, nodeSelector, required node affinity, images) on
      the first two routes and with residentSerialTail;
-  5. the kernels line.
+  5. the gang path: K5 gang_scan, K6 gang_spread_statics and K7
+     gang_interpod_statics against their plain versions on the card, exact on
+     every GangStatics field and every scan output, at config4's shape
+     (N=5000 in 8 zones, P=512, 45,000 placed spread pods), config3's (N=1000,
+     P=512, 4,500 placed anti-affinity pods) and a tests/gen.py-style mixed
+     batch at N=5000 with 500 placed pods, with each kernel's, its plain version's and (K7) a
+     float64 torch.matmul's time; then drains through Scheduler(): config4
+     (5k nodes, 50k spread pods) and config3 (1k nodes, 5k anti-affinity
+     pods) under waveDispatch: false, with their zone-skew and
+     anti-affinity checks, and 20k preferred-affinity pods on config0's 10k
+     tiered nodes under the default configuration; and a parity drain of
+     2,000 mixed gang-path pods on 500 nodes, on cuda and on the CPU, whose
+     placements and diagnoses must be identical;
+  6. the kernels line.
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Without
@@ -249,6 +262,248 @@ def mixed_pods(n, seed=11):
             )
         )
     return pods
+
+
+# ---------------------------------------------------------------------------
+# Gang-path workloads (the port's copies of bench.py's config3 / config4
+# generators and of the tests/gen.py mixed pods)
+# ---------------------------------------------------------------------------
+
+ZONE = "topology.kubernetes.io/zone"
+HOSTNAME = "kubernetes.io/hostname"
+
+
+def tier_nodes(n, zones=3):
+    """basic_nodes with a tier label (gold / silver / bronze) for the
+    preferred node-affinity drain."""
+    nodes = basic_nodes(n, zones)
+    for i, node in enumerate(nodes):
+        node.labels["tier"] = ("gold", "silver", "bronze")[i % 3]
+    return nodes
+
+
+def spread_pods(n_pods, prefix="pod"):
+    """bench.py bench_spread (config4): maxSkew 5 over zones, 20 apps."""
+    from kubernetes_tpu_torch.api import Container, LabelSelector, Pod, TopologySpreadConstraint
+
+    pods = []
+    for i in range(n_pods):
+        app = f"a{i % 20}"
+        pods.append(Pod(
+            name=f"{prefix}-{i}",
+            labels={"app": app},
+            topology_spread_constraints=(TopologySpreadConstraint(
+                max_skew=5, topology_key=ZONE, when_unsatisfiable="DoNotSchedule",
+                label_selector=LabelSelector(match_labels={"app": app})),),
+            containers=[Container(name="c", requests={"cpu": "100m", "memory": "64Mi"})],
+        ))
+    return pods
+
+
+def interpod_pods(n_pods, groups=50, prefix="pod"):
+    """bench.py bench_interpod (config3): required anti-affinity on the
+    hostname within each of 50 groups."""
+    from kubernetes_tpu_torch.api import (
+        Affinity, Container, LabelSelector, Pod, PodAffinityTerm, PodAntiAffinity,
+    )
+
+    pods = []
+    for i in range(n_pods):
+        group = f"g{i % groups}"
+        anti = PodAntiAffinity(required_during_scheduling_ignored_during_execution=(
+            PodAffinityTerm(topology_key=HOSTNAME, label_selector=LabelSelector(match_labels={"group": group})),))
+        pods.append(Pod(
+            name=f"{prefix}-{i}", labels={"group": group}, affinity=Affinity(pod_anti_affinity=anti),
+            containers=[Container(name="c", requests={"cpu": "100m", "memory": "64Mi"})],
+        ))
+    return pods
+
+
+def preferred_pods(n_pods):
+    """Pods with one preferred node-affinity term each (a tier), so their
+    static scores vary over their feasible nodes: the direct gang_run."""
+    from kubernetes_tpu_torch.api import (
+        Affinity, Container, NodeAffinity, NodeSelectorRequirement, NodeSelectorTerm, Pod,
+        PreferredSchedulingTerm,
+    )
+
+    pods = []
+    for i in range(n_pods):
+        term = NodeSelectorTerm(match_expressions=(
+            NodeSelectorRequirement("tier", "In", (("gold", "silver", "bronze")[i % 3],)),))
+        na = NodeAffinity(preferred_during_scheduling_ignored_during_execution=(
+            PreferredSchedulingTerm(weight=10 + i % 7, preference=term),))
+        pods.append(Pod(
+            name=f"pref-{i}", labels={"app": f"app-{i % 16}"}, affinity=Affinity(node_affinity=na),
+            containers=[Container(name="c", requests={"cpu": "250m", "memory": "256Mi"})],
+        ))
+    return pods
+
+
+_GEN_ZONES = ["zone-a", "zone-b", "zone-c"]
+_GEN_APPS = ["web", "db", "cache", "batch"]
+_GEN_NS = ["default", "prod", "dev"]
+_GEN_TAINTS = ["dedicated", "gpu", "spot"]
+_GEN_IMAGES = ["img/web:1", "img/db:2", "img/cache:3"]
+
+
+def gen_node(rng, i):
+    """tests/gen.py make_node: zones, regions, disks, numeric tiers, taints
+    of every effect, unschedulable nodes and images."""
+    from kubernetes_tpu_torch.api import Node, Resource, Taint
+
+    labels = {ZONE: rng.choice(_GEN_ZONES), "topology.kubernetes.io/region": rng.choice(["r1", "r2"]),
+              HOSTNAME: f"node-{i}"}
+    if rng.random() < 0.5:
+        labels["disk"] = rng.choice(["ssd", "hdd"])
+    if rng.random() < 0.3:
+        labels["tier"] = str(rng.randrange(1, 5))
+    taints = ()
+    if rng.random() < 0.2:
+        taints = (Taint(key=rng.choice(_GEN_TAINTS), value=rng.choice(["", "true", "team-a"]),
+                        effect=rng.choice(["NoSchedule", "PreferNoSchedule", "NoExecute"])),)
+    images = {img: rng.randrange(50, 900) << 20 for img in _GEN_IMAGES if rng.random() < 0.4}
+    return Node(
+        name=f"node-{i}", labels=labels,
+        capacity=Resource.from_map({"cpu": str(rng.choice([2, 4, 8, 16])), "memory": f"{rng.choice([4, 8, 16, 32])}Gi",
+                                    "pods": rng.choice([16, 32, 110])}),
+        taints=taints, unschedulable=rng.random() < 0.05, images=images,
+    )
+
+
+def _gen_selector(rng):
+    from kubernetes_tpu_torch.api import LabelSelector, LabelSelectorRequirement
+
+    r = rng.random()
+    if r < 0.5:
+        return LabelSelector(match_labels={"app": rng.choice(_GEN_APPS)})
+    if r < 0.8:
+        return LabelSelector(match_expressions=(LabelSelectorRequirement(
+            "app", rng.choice(["In", "NotIn", "Exists", "DoesNotExist"]),
+            tuple(rng.sample(_GEN_APPS, rng.randrange(1, 3)))),))
+    return LabelSelector()
+
+
+def _gen_term(rng):
+    from kubernetes_tpu_torch.api import LabelSelector, PodAffinityTerm
+
+    kw = dict(topology_key=rng.choice([ZONE, HOSTNAME]), label_selector=_gen_selector(rng))
+    r = rng.random()
+    if r < 0.2:
+        kw["namespaces"] = tuple(rng.sample(_GEN_NS, rng.randrange(1, 3)))
+    elif r < 0.3:
+        kw["namespace_selector"] = LabelSelector()
+    return PodAffinityTerm(**kw)
+
+
+def gen_pod(rng, name, node_name="", ports=True):
+    """tests/gen.py make_pod with every pod at priority 0 (preemption is not
+    ported): node selectors, required / preferred node affinity,
+    tolerations, required / preferred (anti-)affinity with namespace lists
+    and selectors, hard / soft spread with minDomains and both inclusion
+    policies, host ports, images."""
+    from kubernetes_tpu_torch.api import (
+        Affinity, Container, ContainerPort, NodeAffinity, NodeSelector, NodeSelectorRequirement,
+        NodeSelectorTerm, Pod, PodAffinity, PodAntiAffinity, PreferredSchedulingTerm, Toleration,
+        TopologySpreadConstraint, WeightedPodAffinityTerm,
+    )
+
+    labels = {"app": rng.choice(_GEN_APPS)}
+    if rng.random() < 0.3:
+        labels["tier"] = str(rng.randrange(1, 5))
+    containers = [Container(name="c0", requests={"cpu": f"{rng.choice([0, 100, 250, 500, 1000])}m",
+                                                 "memory": f"{rng.choice([0, 128, 256, 512, 1024])}Mi"})]
+    kw = dict(name=name, namespace=rng.choice(_GEN_NS), labels=labels, node_name=node_name,
+              containers=containers, images=tuple(rng.sample(_GEN_IMAGES, rng.randrange(0, 3))))
+    if rng.random() < 0.35:
+        kw["node_selector"] = {"disk": rng.choice(["ssd", "hdd"])} if rng.random() < 0.7 else \
+            {ZONE: rng.choice(_GEN_ZONES)}
+    node_aff = None
+    if rng.random() < 0.35:
+        req = None
+        if rng.random() < 0.7:
+            op = rng.choice(["In", "NotIn", "Exists", "Gt", "Lt"])
+            key, vals = ("tier", (str(rng.randrange(1, 5)),)) if op in ("Gt", "Lt") else \
+                ("disk", tuple(rng.sample(["ssd", "hdd"], rng.randrange(1, 3))))
+            req = NodeSelector((NodeSelectorTerm(match_expressions=(NodeSelectorRequirement(key, op, vals),)),))
+        pref = ()
+        if rng.random() < 0.5:
+            pref = (PreferredSchedulingTerm(weight=rng.randrange(1, 100), preference=NodeSelectorTerm(
+                match_expressions=(NodeSelectorRequirement("disk", "In", (rng.choice(["ssd", "hdd"]),)),))),)
+        node_aff = NodeAffinity(required_during_scheduling_ignored_during_execution=req,
+                                preferred_during_scheduling_ignored_during_execution=pref)
+        kw["affinity"] = Affinity(node_affinity=node_aff)
+    if rng.random() < 0.3:
+        kw["tolerations"] = (Toleration(key=rng.choice(_GEN_TAINTS + [""]), operator=rng.choice(["Exists", "Equal"]),
+                                        value=rng.choice(["", "true"]),
+                                        effect=rng.choice(["", "NoSchedule", "PreferNoSchedule"])),)
+    if rng.random() < 0.3:
+        groups = []
+        for cls in (PodAffinity, PodAntiAffinity):
+            g = None
+            if rng.random() < 0.6:
+                req_terms = (_gen_term(rng),) if rng.random() < 0.55 else ()
+                pref_terms = ((WeightedPodAffinityTerm(weight=rng.randrange(1, 100), pod_affinity_term=_gen_term(rng)),)
+                              if rng.random() < 0.6 else ())
+                if req_terms or pref_terms:
+                    g = cls(required_during_scheduling_ignored_during_execution=req_terms,
+                            preferred_during_scheduling_ignored_during_execution=pref_terms)
+            groups.append(g)
+        if groups[0] or groups[1]:
+            kw["affinity"] = Affinity(node_affinity=node_aff, pod_affinity=groups[0], pod_anti_affinity=groups[1])
+    if rng.random() < 0.25:
+        kw["topology_spread_constraints"] = (TopologySpreadConstraint(
+            max_skew=rng.randrange(1, 3), topology_key=rng.choice([ZONE, HOSTNAME]),
+            when_unsatisfiable=rng.choice(["DoNotSchedule", "ScheduleAnyway"]), label_selector=_gen_selector(rng),
+            min_domains=rng.choice([None, 2]), node_affinity_policy=rng.choice(["Honor", "Ignore"]),
+            node_taints_policy=rng.choice(["Honor", "Ignore"])),)
+    if rng.random() < 0.15 and ports:
+        kw["containers"] = containers + [Container(name="c1", ports=(ContainerPort(
+            container_port=8080, host_port=rng.choice([8080, 9090])),))]
+    return Pod(**kw)
+
+
+def gen_cluster(seed, n_nodes, n_placed, n_pending, ports_from=0):
+    """Nodes, placed pods and pending pods; pending pods before `ports_from`
+    want no host ports (a batch with one port pod takes the direct scan)."""
+    rng = random.Random(seed)
+    nodes = [gen_node(rng, i) for i in range(n_nodes)]
+    placed = [gen_pod(rng, f"placed-{j}", node_name=rng.choice(nodes).name) for j in range(n_placed)]
+    pending = [gen_pod(rng, f"pend-{i}", ports=i >= ports_from) for i in range(n_pending)]
+    return nodes, placed, pending
+
+
+def gang_inputs(torch, device, nodes, placed, pending, P=512):
+    """Pack a cluster with its placed pods and one pending batch through the
+    port's packers, as the scheduler's mirror does, onto `device`.  Returns
+    (dc, db, kwargs of precompute without the has_* flags, d_cap)."""
+    from kubernetes_tpu_torch.cache.mirror import accumulate_node_usage
+    from kubernetes_tpu_torch.ops import gang
+    from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster
+    from kubernetes_tpu_torch.snapshot.interner import Vocab
+    from kubernetes_tpu_torch.snapshot.schema import bucket_cap, pack_existing_pods, pack_nodes, pack_pod_batch
+
+    vocab = Vocab()
+    for p in list(placed) + list(pending):
+        for k, v in p.labels.items():
+            vocab.intern_label(k, v)
+    nt = pack_nodes(nodes, vocab)
+    accumulate_node_usage(nt, placed, vocab)
+    ep = pack_existing_pods(placed, nt.name_to_idx, vocab, k_cap=nt.k_cap)
+    pb = pack_pod_batch(pending[:P], vocab, k_cap=nt.k_cap, p_cap=P)
+    hk = vocab.label_keys.lookup(HOSTNAME)
+    tables = gang.batch_tables(pb.tsc_topo_key, pb.aff_topo_key, nt.label_vals, hk)
+    d_cap = tables.pop("d_cap")
+    kw = dict(hostname_key=hk, v_cap=bucket_cap(len(vocab.label_vals)),
+              **{k: torch.as_tensor(v, device=device) for k, v in tables.items()})
+    flags = dict(  # as the scheduler derives them (scheduler.py _gang_flags)
+        has_interpod=bool((pb.aff_kind >= 0).any() or (ep.term_kind >= 0).any()),
+        has_spread=bool((pb.tsc_topo_key >= 0).any()),
+        has_images=bool((pb.img_ids >= 0).any()),
+        has_ports=bool((pb.want_ppk >= 0).any() or (nt.used_ppk >= 0).any()),
+    )
+    dc = DeviceCluster.from_host(nt, vocab, device, ep)
+    return dc, DeviceBatch.from_host(pb, device), kw, d_cap, flags
 
 
 # ---------------------------------------------------------------------------
@@ -679,6 +934,196 @@ def phase_resident(torch, device, reps=5, n_nodes=10000, P=16384, P_adv=4096):
                 one_signature_bound_ms=one_bound)
 
 
+def gang_shapes(n_config4=5000, n_config3=1000, n_mixed=5000, n_preferred=10000, P=512):
+    """The four full-width shapes of the gang kernel checks: (name, nodes,
+    placed pods, pending pods).  Placed pods are bound round-robin.  The
+    last is the first batch of the preferred-affinity drain: config0's
+    nodes with tier labels and no placed pods (K1, K7's port masks, K5)."""
+    def place(pods, nodes):
+        for i, p in enumerate(pods):
+            p.node_name = nodes[i % len(nodes)].name
+        return pods
+
+    c4 = basic_nodes(n_config4, zones=8)
+    c3 = basic_nodes(n_config3)
+    # a tenth as many placed pods as nodes: their required anti-affinity
+    # over three zones would otherwise leave no node for most pods
+    mixed = gen_cluster(5, n_mixed, n_mixed // 10, P)
+    return [
+        ("config4", c4, place(spread_pods(9 * n_config4, prefix="placed"), c4), spread_pods(P, prefix="new")),
+        ("config3", c3, place(interpod_pods(9 * n_config3 // 2, prefix="placed"), c3),
+         interpod_pods(P, prefix="new")),
+        ("mixed", *mixed),
+        ("preferred", tier_nodes(n_preferred), [], preferred_pods(P)),
+    ]
+
+
+# The GangStatics fields each kernel of the gang precompute writes (the
+# rest are torch expressions of the batch's own fields).
+K1_FIELDS = ("static_mask", "sc_taint", "sc_nodeaff", "sc_image", "d_nodename", "d_unsched", "d_taints",
+             "d_nodeaff")
+K6_FIELDS = ("sp_dv", "sp_te", "sp_dom_cnt", "sp_dom_pres", "sp_ndom", "sp_self", "sp_bmatch", "sp_counting",
+             "sp_node_cnt", "sp_sc_dom", "sp_all_keys", "sp_cdv")
+K7_FIELDS = ("ip_dv", "ip_dom_cnt", "ip_viol_existing", "ip_sym", "ip_any_static", "ip_self_all", "ip_bmatch",
+             "d_ports", "port_b")
+
+
+def _live(t) -> int:
+    return int((t >= 0).sum().item())
+
+
+def k5_bytes(torch, dc, db, g, chosen, n_feas, weights) -> int:
+    """The bytes gang_schedule must move for this run's data, each read
+    once: the [P, N] rows of the valid pods at the valid nodes; a spread
+    slot's rows (sp_node_cnt for a hostname constraint, sp_sc_dom for the
+    others) and an inter-pod slot's only where the slot is live; the score
+    rows only at each pod's feasible nodes; sp_counting only at the nodes
+    of the matching committed peers; the batch-peer match rows only at
+    committed peers j < p; one compact-domain row per topology key in use;
+    the cluster's usage rows once; the outputs once."""
+    P, N = g.static_mask.shape
+    C, AT, JP = g.sp_dv.shape[1], g.ip_dv.shape[1], g.port_b.shape[1]
+    valid = db.valid
+    n_live = int(dc.node_valid.sum().item())
+    p_live = int(valid.sum().item())
+    placed = chosen >= 0
+    idx = torch.arange(P, device=valid.device)
+    peers = (idx[None, :] < idx[:, None]) & placed[None, :] & valid[:, None]  # [p, j]: j < p, committed
+    n_peers = peers.sum(1)
+    sp_live = (db.tsc_topo[:, :C] >= 0) & valid[:, None]
+    ip_live = (db.aff_kind[:, :AT] >= 0) & valid[:, None]
+    b = p_live * n_live * 7  # static_mask and the six d_* rows
+    b += int(n_feas.sum().item()) * (8 * (weights[0] != 0) + 8 * (weights[1] != 0) + 8 * (weights[6] != 0)
+                                    + (1 if C else 0))  # sc_taint, sc_nodeaff, sc_image, sp_all_keys
+    b += int(sp_live.sum().item()) * n_live * (1 + 1 + 4 + 4)  # sp_te, sp_dom_pres, sp_dom_cnt, one count row
+    b += int((sp_live * n_peers[:, None]).sum().item())  # sp_bmatch at committed peers
+    m = g.sp_bmatch & peers[:, None, :] & (sp_live & ~g.sp_is_host)[:, :, None]
+    pc, j = m.reshape(P * C, P).nonzero(as_tuple=True)
+    b += int(torch.unique(pc.long() * N + chosen[j].long()).numel())  # sp_counting at the peers' nodes
+    b += int(ip_live.sum().item()) * n_live * 4  # ip_dom_cnt
+    b += int((ip_live * n_peers[:, None]).sum().item())  # ip_bmatch rows at committed peers
+    b += int((peers.sum(0) * ip_live.sum(1)).sum().item())  # the peers' own terms against later pods
+    if AT:
+        b += p_live * n_live * (1 + 8)  # ip_viol_existing, ip_sym
+    if JP:
+        b += int(n_peers.sum().item())  # port_b at committed peers
+    keys = torch.cat([db.tsc_topo[:, :C][sp_live], db.aff_topo[:, :AT][ip_live]])
+    b += int(torch.unique(keys).numel()) * n_live * 4  # dom_ids rows
+    b += nbytes(g.sp_hard, g.sp_soft, g.sp_ndom, g.sp_self, g.sp_is_host, g.ip_any_static, g.ip_self_all,
+                g.ip_is_aff, g.ip_is_anti, g.ip_pref_w, g.ip_sym_w, g.ip_key_idx, db.requests, db.nonzero_req,
+                db.valid) + P * C * 8  # per-pod and per-slot values, max_skew, min_domains
+    Rn = dc.allocatable.shape[1]
+    b += n_live * (2 * Rn * 4 + 8 + 4 + 4 + 1)  # allocatable, requested, nonzero, num_pods, allowed, valid
+    b += P * (4 + 8 + 9 * 8) + int(placed.sum().item()) * (Rn * 4 + 12)  # outputs and the commits
+    return b
+
+
+def gang_bounds(torch, dc, db, g, chosen, n_feas, weights):
+    """(K6, K7, K5) bound_ms from this run's inputs: each input read once,
+    each output written once, over the card's memory rate, against the
+    integer operations these inputs need over its scalar rate.  Operation
+    counts: a selector evaluation costs R * (V + 4) compares per live
+    requirement table; only valid placed pods, live terms and live
+    constraint slots are counted."""
+    N, K = dc.node_labels.shape
+    P, C = db.tsc_topo.shape
+    AT = db.aff_kind.shape[1]
+    e_live = int(dc.epod_valid.sum().item())
+    m_live = _live(dc.term_kind)
+    c_live = _live(db.tsc_topo)
+    at_live = _live(db.aff_kind)
+    _, _, R, V = db.tsc_table.req_vals.shape
+    _, _, AR, AV = db.aff_table.req_vals.shape
+    _, _, TR, TV = dc.term_table.req_vals.shape
+    epods = nbytes(dc.epod_node, dc.epod_ns, dc.epod_labels, dc.epod_valid, dc.epod_deleting)
+    sp_out = nbytes(*(getattr(g, f) for f in K6_FIELDS))
+    k6 = bound_ms(nbytes(dc.node_labels, dc.dom_ids, db.labels, db.tsc_topo, db.tsc_hard) + epods
+                  + nbytes(*(getattr(db.tsc_table, f) for f in ("req_key", "req_op", "req_vals", "req_rhs")))
+                  + 2 * P * N + sp_out,
+                  c_live * (e_live + P) * (R * (V + 4) + 8) + P * C * N * (4 * C + 20))
+    ip_out = nbytes(*(getattr(g, f) for f in K7_FIELDS))
+    terms = nbytes(dc.term_pod, dc.term_kind, dc.term_topo, dc.term_weight, dc.term_ns_all, dc.term_ns_ids,
+                   *(getattr(dc.term_table, f) for f in ("req_key", "req_op", "req_vals", "req_rhs")))
+    k_live = sum(1 for c in dc.dom_counts if c)
+    W, U = db.want_ppk.shape[1], dc.used_ppk.shape[1]
+    k7 = bound_ms(nbytes(dc.node_labels, dc.dom_ids, db.labels, db.aff_kind, db.aff_topo, db.want_ppk,
+                         dc.used_ppk) + epods + terms + ip_out,
+                  P * m_live * (TR * (TV + 4) + 12) + at_live * (e_live + P) * (AR * (AV + 4) + 12)
+                  + P * N * (4 * k_live + W * U * 6) + P * P * W * W * 6)
+    p_live = int(db.valid.sum().item())
+    n_live = int(dc.node_valid.sum().item())
+    KD2 = g.ip_key_cols.shape[0]
+    Rp = db.requests.shape[1]
+    slots = int(((db.tsc_topo[:, :g.sp_dv.shape[1]] >= 0) & db.valid[:, None]).sum().item())
+    terms_live = int(((db.aff_kind[:, :g.ip_dv.shape[1]] >= 0) & db.valid[:, None]).sum().item())
+    k5_ops = n_live * (p_live * (KD2 * 4 + Rp * 3 + 80) + (slots + terms_live) * 12) \
+        + p_live * p_live // 2 * (C + 2 * AT) * 6
+    return k6, k7, bound_ms(k5_bytes(torch, dc, db, g, chosen, n_feas, weights), k5_ops)
+
+
+def phase_gang_kernels(torch, device, reps=5, shapes=None):
+    """K5, K6 and K7 against their plain versions on the card: precompute
+    (K1 + K6 + K7) against precompute_plain on every one of the 39
+    GangStatics fields, and gang_schedule (K5) against its plain loop on
+    chosen, n_feas, the reason counts and the tallies, all exact.  Then each
+    kernel's time, its plain version's, its bound, and (K7) the float64
+    torch.matmul of interpod_weighted_ext's product at the same shapes."""
+    from kubernetes_tpu_torch.ops import fastpath as ops_fp
+    from kubernetes_tpu_torch.ops import filters as F
+    from kubernetes_tpu_torch.ops import gang
+
+    rows = {}
+    for name, nodes, placed, pending in (shapes or gang_shapes()):
+        dc, db, kw, d_cap, flags = gang_inputs(torch, device, nodes, placed, pending)
+        hk, v_cap = kw["hostname_key"], kw["v_cap"]
+        tab = {k: kw[k] for k in ("sp_keys", "sp_cdv_tab", "ip_keys")}
+        got = gang.precompute(dc, db, **kw, **flags)
+        want = gang.precompute_plain(dc, db, hk, v_cap, hard_pod_affinity_weight=1, enabled=gang.ALL_FILTER_KERNELS,
+                                     **flags, **tab)
+        errs = {f: max_abs_err(torch, getattr(got, f), getattr(want, f)) for f in gang.GangStatics._fields}
+        if any(errs.values()):
+            raise AssertionError(f"{name}: precompute kernels != plain on {[f for f, e in errs.items() if e]}")
+        outs = [fn(dc, db, want, v_cap, d_cap=d_cap) for fn in (gang.gang_schedule, gang.gang_schedule_plain)]
+        torch.cuda.synchronize()
+        (ck, nk, rk, tk), (cp, np_, rp, tp) = outs
+        k5_err = max([max_abs_err(torch, ck, cp), max_abs_err(torch, nk, np_), max_abs_err(torch, rk, rp)]
+                     + [max_abs_err(torch, tk[k], tp[k]) for k in tk])
+        if k5_err:
+            raise AssertionError(f"{name}: gang_scan kernel != plain")
+        st = ops_fp.static_eval_plain(dc, db, frozenset({"TaintToleration", "NodeAffinity"}), False)
+        naff, taints = st["m_nodeaff"], st["m_taints"]
+        row = dict(shape=name, N=int(dc.node_valid.sum().item()), P=int(db.valid.sum().item()),
+                   placed=int(dc.epod_valid.sum().item()), terms=_live(dc.term_kind),
+                   scheduled=int((ck >= 0).sum().item()), k1_err=max(errs[f] for f in K1_FIELDS),
+                   k6_err=max(errs[f] for f in K6_FIELDS), k7_err=max(errs[f] for f in K7_FIELDS),
+                   k5_err=k5_err, **flags)
+        (b6, by6), (b7, by7), (b5, by5) = gang_bounds(torch, dc, db, want, cp, np_, gang.DEFAULT_WEIGHTS)
+        row["gang_scan"] = dict(
+            ms=time_ms(torch, lambda: gang.gang_schedule(dc, db, want, v_cap, d_cap=d_cap), reps),
+            plain_ms=time_ms(torch, lambda: gang.gang_schedule_plain(dc, db, want, v_cap, d_cap=d_cap), 1),
+            bound_ms=b5, bound_by=by5, library_ms=None)
+        if flags["has_spread"]:
+            row["gang_spread_statics"] = dict(
+                ms=time_ms(torch, lambda: gang.spread_statics(dc, db, naff, taints, hk), reps),
+                plain_ms=time_ms(torch, lambda: gang.spread_statics_plain(dc, db, naff, taints, hk, v_cap,
+                                                                          tab["sp_keys"], tab["sp_cdv_tab"]), 1),
+                bound_ms=b6, bound_by=by6, library_ms=None)
+        if flags["has_interpod"]:
+            pre = F.interpod_precompute(dc, db)
+            w = torch.ones_like(dc.term_kind, dtype=torch.float64)
+            lhs = (pre.ext_match.to(torch.float64) * w[:, None]).T.contiguous()
+            rhs = pre.ext_topo_eq.to(torch.float64).contiguous()
+            row["gang_interpod_statics"] = dict(
+                ms=time_ms(torch, lambda: gang.interpod_statics(dc, db, do_interpod=True, do_ports=True), reps),
+                plain_ms=time_ms(torch, lambda: (gang.interpod_statics_plain(dc, db, v_cap, tab["ip_keys"]),
+                                                 gang.port_masks_plain(dc, db)), 1),
+                bound_ms=b7, bound_by=by7, library_ms=time_ms(torch, lambda: torch.matmul(lhs, rhs), reps),
+                library_call=f"torch.matmul float64 [{lhs.shape[0]}, {lhs.shape[1]}] x [{rhs.shape[0]}, {rhs.shape[1]}]")
+        log(phase="gang_kernel_check", **row)
+        rows[name] = row
+    return rows
+
+
 def phase_transport(torch, device, reps=20, n_nodes=10000):
     """The single-buffer upload (ops/wire.py, the port of the transport root
     _unpacker.run) of config0's usage state: host clock around
@@ -786,6 +1231,115 @@ def phase_drain(torch, name, device, make_nodes, make_pods, kernels, want=None, 
     return launches, want, dt
 
 
+def zone_skew_ok(sched, placements, max_skew=5) -> int:
+    """The largest zone skew over config4's apps; raises above maxSkew."""
+    zone = {cn.node.name: cn.node.labels[ZONE] for cn in sched.cache.real_nodes()}
+    counts = {}
+    for name, node in placements.items():
+        if node is not None:
+            app = f"a{int(name.rsplit('-', 1)[1]) % 20}"
+            counts.setdefault(app, {}).setdefault(zone[node], 0)
+            counts[app][zone[node]] += 1
+    zones = sorted(set(zone.values()))
+    worst = max(max(c.get(z, 0) for z in zones) - min(c.get(z, 0) for z in zones) for c in counts.values())
+    if worst > max_skew:
+        raise AssertionError(f"config4: a zone skew of {worst} > maxSkew {max_skew}")
+    return worst
+
+
+def anti_affinity_ok(placements, groups=50) -> int:
+    """config3: no two pods of one group on one node; returns the pairs
+    checked."""
+    seen = set()
+    for name, node in placements.items():
+        if node is None:
+            continue
+        key = (int(name.rsplit("-", 1)[1]) % groups, node)
+        if key in seen:
+            raise AssertionError(f"config3: two pods of group g{key[0]} share node {node}")
+        seen.add(key)
+    return len(seen)
+
+
+def first_pods_match_cpu(torch, nodes, pods):
+    """A drain check: the drain's placements of `pods` (its first pods)
+    against a drain of `nodes` and those pods alone with device="cpu" (the
+    plain versions).  Batches are popped in arrival order, so those pods
+    form the same batches, on the same cluster state, in both drains."""
+    def check(sched, got):
+        want, dt, _ = drain(torch.device("cpu"), nodes, pods)
+        diff = [k for k in want if want[k] != got.get(k)]
+        if diff:
+            raise AssertionError(f"{len(diff)} of the first {len(want)} placements differ from device=cpu, "
+                                 f"first {diff[0]}: {got.get(diff[0])} vs {want[diff[0]]}")
+        return dict(compared_with_cpu=len(want), cpu_drain_s=dt)
+    return check
+
+
+def phase_gang_drain(torch, name, device, nodes, pods, kernels, check=None, **cfg):
+    """One gang-path drain through Scheduler() on the card: every pod gets an
+    outcome and every placement is bound, no node ends over its allocatable,
+    `check` (the workload's constraint check) passes, and every kernel in
+    `kernels` launched in this drain.  Returns the launches."""
+    from kubernetes_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    got, dt, sched = drain(device, nodes, pods, **cfg)
+    launches = dict(_build.launches)
+    check_capacity(sched)
+    checked = check(sched, got) if check is not None else None
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{name}: the drain never launched {missing}: {launches}")
+    placed = sum(v is not None for v in got.values())
+    m = sched.metrics
+    log(phase="gang_drain", name=name, config=cfg, nodes=len(sched.cache.real_nodes()), pods=len(got),
+        placed=placed, drain_s=dt, pods_per_s=len(got) / dt, launches=launches,
+        scan_batches=m["scan_batches"], chain_batches=m["chain_batches"], fast_batches=m["fast_batches"],
+        constraint_check=checked, capacity_ok=True)
+    return launches
+
+
+def phase_gang_parity(torch, device, n_nodes=500, n_pods=2000, n_placed=200):
+    """The same mixed gang-path drain on the card and with device="cpu" (the
+    plain versions): placements, FitError messages and diagnoses must be
+    identical.  Host ports only in the last batch, so the first batch takes
+    the direct scan, the middle ones the chained scan, the last the direct
+    scan with ports.  The card's machine has no JAX, so this is the
+    end-to-end check there."""
+    from kubernetes_tpu_torch.framework.config import SchedulerConfiguration
+    from kubernetes_tpu_torch.ops import _build
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    def run(dev):
+        last = n_pods % 512 or 512  # the default batch size
+        nodes, placed, pending = gen_cluster(11, n_nodes, n_placed, n_pods, ports_from=n_pods - last)
+        sched = Scheduler(SchedulerConfiguration(wave_dispatch=False), device=dev)
+        for n in nodes:
+            sched.on_node_add(n)
+        for p in placed + pending:
+            sched.on_pod_add(p)
+        t0 = time.perf_counter()
+        out = sched.schedule_pending()
+        return {o.pod.name: (o.node, o.reason, o.diagnosis) for o in out}, time.perf_counter() - t0, sched
+
+    _build.reset_launches()
+    got, dt, sched = run(device)
+    launches = dict(_build.launches)
+    want, dt_cpu, _ = run(torch.device("cpu"))
+    diff = [k for k in want if want[k] != got.get(k)]
+    if diff or len(got) != len(want):
+        raise AssertionError(f"parity: {len(diff)} outcomes differ between cuda and cpu, first {diff[:1]}")
+    for k in ("static_eval", "gang_spread_statics", "gang_interpod_statics", "gang_scan"):
+        if launches[k] <= 0:
+            raise AssertionError(f"parity: the cuda drain never launched {k}")
+    m = sched.metrics
+    log(phase="gang_parity", nodes=n_nodes, pods=n_pods, placed_before=n_placed,
+        placed=sum(v[0] is not None for v in got.values()), unschedulable=sum(v[0] is None for v in got.values()),
+        identical=True, cuda_drain_s=dt, cpu_drain_s=dt_cpu, launches=launches, scan_batches=m["scan_batches"],
+        chain_batches=m["chain_batches"], fast_batches=m["fast_batches"])
+
+
 def main() -> int:
     try:
         import torch
@@ -841,6 +1395,26 @@ def main() -> int:
     phase_drain(torch, "mixed_serial_tail", device, *mixed,
                 ("static_eval", "resident_run", "usage_checksum"), want=want, resident_serial_tail=True)
 
+    # the gang path: K5-K7 against their plain versions at full width, then
+    # config4 and config3 under waveDispatch: false (the wave is not ported),
+    # the preferred-affinity drain under the default configuration, and the
+    # cuda-vs-cpu parity drain
+    gang = phase_gang_kernels(torch, device)
+    spread_l = phase_gang_drain(torch, "config4", device, basic_nodes(5000, zones=8), spread_pods(50000),
+                                ("static_eval", "gang_spread_statics", "gang_scan"),
+                                check=lambda sched, got: zone_skew_ok(sched, got), wave_dispatch=False)
+    interpod_l = phase_gang_drain(torch, "config3", device, basic_nodes(1000), interpod_pods(5000),
+                                  ("static_eval", "gang_interpod_statics", "gang_scan"),
+                                  check=lambda sched, got: anti_affinity_ok(got), wave_dispatch=False)
+    phase_gang_drain(torch, "preferred", device, tier_nodes(10000), preferred_pods(20000),
+                     ("static_eval", "gang_interpod_statics", "gang_scan"),
+                     check=first_pods_match_cpu(torch, tier_nodes(10000), preferred_pods(1024)))
+    phase_gang_parity(torch, device)
+    # each kernel's error: the largest over the shapes of this run
+    for kernel, err in (("gang_scan", "k5_err"), ("gang_spread_statics", "k6_err"),
+                        ("gang_interpod_statics", "k7_err")):
+        checks[kernel] = dict(max_abs_err=max(row[err] for row in gang.values()),
+                              **gang["config3" if kernel == "gang_interpod_statics" else "config4"][kernel])
     sources = {
         "static_eval": ("kubernetes_tpu_torch/csrc/static_eval.cu", "kubernetes_tpu/ops/fastpath.py:50",
                         "config0_default", default),
@@ -850,11 +1424,18 @@ def main() -> int:
                            "config0_default", default),
         "resident_run": ("kubernetes_tpu_torch/csrc/resident_run.cu", "kubernetes_tpu/ops/resident.py:265",
                          "config0_default", default),
+        "gang_spread_statics": ("kubernetes_tpu_torch/csrc/gang_statics.cu", "kubernetes_tpu/ops/gang.py:268",
+                                "config4", spread_l),
+        "gang_interpod_statics": ("kubernetes_tpu_torch/csrc/gang_statics.cu", "kubernetes_tpu/ops/gang.py:268",
+                                  "config3", interpod_l),
+        "gang_scan": ("kubernetes_tpu_torch/csrc/gang_scan.cu", "kubernetes_tpu/ops/gang.py:975", "config4",
+                      spread_l),
     }
     kernels = []
     for name, (src, replaces, path, launches) in sources.items():
+        keep = {k: v for k, v in checks[name].items() if k != "library_call"}
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces, path=path,
-                            launches=launches[name], check="equal", **checks[name]))
+                            launches=launches[name], check="equal", **keep))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,9 @@
 """Carry the JAX package's packed state into the port's tensors.
 
 The tests feed the same packed inputs to the JAX root and to the port's
-counterpart: the reference's ``NodeTensors`` / ``PodBatch`` (numpy arrays),
-its stacked signature rows and its ``FastCommitter`` usage rows become the
-port's containers here, dtype for dtype and shape for shape, with no
+counterpart: the reference's ``NodeTensors`` / ``ExistingPodTensors`` /
+``PodBatch`` (numpy arrays), its ``GangStatics``, its stacked signature rows
+and its ``FastCommitter`` usage rows become the port's containers here, dtype for dtype and shape for shape, with no
 reordering.  The arguments are duck-typed (any object with the reference's
 attribute names), so this module imports nothing of the JAX package; the
 port itself never calls it.
@@ -17,56 +17,30 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.ops import wire
-from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster, DTable
+from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster
+from kubernetes_tpu_torch.ops.gang import GangStatics
+from kubernetes_tpu_torch.snapshot.interner import Vocab
+from kubernetes_tpu_torch.snapshot.schema import pack_existing_pods
 
 
-def _table(t) -> DTable:
-    return DTable(
-        req_key=np.asarray(t.req_key, np.int32),
-        req_op=np.asarray(t.req_op, np.int32),
-        req_vals=np.asarray(t.req_vals, np.int32),
-        req_rhs=np.asarray(t.req_rhs, np.int32),
-        term_valid=np.asarray(t.term_valid, bool),
-    )
-
-
-def cluster_from_numpy(nt, *, name_key: int, unsched_key: int, empty_val: int, device) -> DeviceCluster:
-    """A reference NodeTensors (plus its vocabulary's scalar ids) → DeviceCluster."""
-    host = DeviceCluster(
-        allocatable=np.asarray(nt.allocatable, np.int32),
-        allowed_pods=np.asarray(nt.allowed_pods, np.int32),
-        node_labels=np.asarray(nt.label_vals, np.int32),
-        val_ints=np.asarray(nt.val_ints, np.int32),
-        taint_key=np.asarray(nt.taint_key, np.int32),
-        taint_val=np.asarray(nt.taint_val, np.int32),
-        taint_effect=np.asarray(nt.taint_effect, np.int32),
-        unschedulable=np.asarray(nt.unschedulable, bool),
-        node_valid=np.asarray(nt.valid, bool),
-        img_sizes=np.asarray(nt.img_sizes, np.int64),
-        name_key=int(name_key),
-        unsched_key=int(unsched_key),
-        empty_val=int(empty_val),
-        n_valid_nodes=int(np.asarray(nt.valid).sum()),
-    )
+def cluster_from_numpy(nt, *, name_key: int, unsched_key: int, empty_val: int, device, ep=None) -> DeviceCluster:
+    """A reference NodeTensors (and ExistingPodTensors; none placed when
+    omitted) plus its vocabulary's scalar ids → DeviceCluster."""
+    if ep is None:
+        ep = pack_existing_pods([], {}, Vocab(), k_cap=np.asarray(nt.label_vals).shape[1])
+    host = DeviceCluster.from_arrays(nt, ep, name_key=name_key, unsched_key=unsched_key, empty_val=empty_val)
     return wire.device_put_packed(host, device)
 
 
 def batch_from_numpy(pb, device) -> DeviceBatch:
     """A reference PodBatch → DeviceBatch."""
-    host = DeviceBatch(
-        valid=np.asarray(pb.valid, bool),
-        node_sel=_table(pb.node_sel),
-        pref_node=_table(pb.pref_node),
-        pref_weight=np.asarray(pb.pref_weight, np.int32),
-        tol_key=np.asarray(pb.tol_key, np.int32),
-        tol_op=np.asarray(pb.tol_op, np.int32),
-        tol_val=np.asarray(pb.tol_val, np.int32),
-        tol_effect=np.asarray(pb.tol_effect, np.int32),
-        target_name_val=np.asarray(pb.target_name_val, np.int32),
-        img_ids=np.asarray(pb.img_ids, np.int32),
-        n_containers=np.asarray(pb.n_containers, np.int32),
-    )
-    return wire.device_put_packed(host, device)
+    return wire.device_put_packed(DeviceBatch.host_tree(pb), device)
+
+
+def statics_from_numpy(g, device) -> GangStatics:
+    """A reference GangStatics (any object with its field names, leaves
+    convertible by numpy) → the port's GangStatics, dtype for dtype."""
+    return GangStatics(*(torch.as_tensor(np.array(getattr(g, f)), device=device) for f in GangStatics._fields))
 
 
 def sig_stack_from_numpy(req, nz, az, ok, img, device) -> Dict[str, torch.Tensor]:

@@ -18,8 +18,9 @@
 // signature tables are a few KB and stay in L1/L2.  The arithmetic is a few
 // hundred integer operations per pair.
 //
-// Semantics are those of kubernetes_tpu_torch/ops/common.py eval_table and
-// ops/filters.py / ops/scores.py, which the chip check holds this kernel to
+// Semantics are those of kubernetes_tpu_torch/ops/common.py eval_table
+// (ktpu.cuh eval_term, shared with K6 and K7) and ops/filters.py /
+// ops/scores.py, which the chip check holds this kernel to
 // with exact equality.  Every division has a non-negative numerator (sizes,
 // node counts, a clamped sum minus its lower clamp), so C++ truncation
 // equals the reference's floor division.
@@ -31,47 +32,6 @@ namespace {
 
 constexpr int SPREAD_THREADS = 256;
 constexpr int EVAL_THREADS = 256;
-
-// One DNF term: AND over its requirement slots (labels.Requirement.Matches).
-__device__ bool eval_term(const int* key, const int* op, const int* vals,
-                          const int* rhs, int R, int V, const int* labels,
-                          int K, const int* val_ints, int NVI) {
-  for (int r = 0; r < R; ++r) {
-    const int o = op[r];
-    if (o == PAD) continue;  // padded requirement slot passes
-    const int k = key[r];
-    const int val = (k >= 0 && k < K) ? labels[k] : ABSENT;
-    const bool present = val >= 0;
-    bool res;
-    if (o == OP_IN || o == OP_NOT_IN) {
-      bool in_any = false;
-      if (present) {
-        const int* vs = vals + r * V;
-        for (int v = 0; v < V; ++v) {
-          const int rv = vs[v];
-          if (rv >= 0 && rv == val) {
-            in_any = true;
-            break;
-          }
-        }
-      }
-      res = (o == OP_IN) ? in_any : !in_any;  // NotIn matches absent keys
-    } else if (o == OP_EXISTS) {
-      res = present;
-    } else if (o == OP_DOES_NOT_EXIST) {
-      res = !present;
-    } else {
-      // Gt, and Lt for every other code: both sides must parse as integers
-      int iv = INT_INVALID;
-      if (present) iv = val_ints[min(max(val, 0), NVI - 1)];
-      const int rh = rhs[r];
-      const bool int_ok = iv != INT_INVALID && rh != INT_INVALID;
-      res = int_ok && (o == OP_GT ? iv > rh : iv < rh);
-    }
-    if (!res) return false;
-  }
-  return true;
-}
 
 // OR over the terms of one signature's table (term_valid folded in).
 __device__ bool any_term(const int* key, const int* op, const int* vals,

@@ -4,7 +4,11 @@ Defaults and meanings are the JAX package's (its framework/config.py).
 ``resident_drain`` defaults to True there and here: device-sized fast
 batches extend up to ``resident_run_max`` pods and are placed by
 ``resident_run`` (kernel K4); ``resident_drain=False`` places them with
-``sig_scan`` (K2).
+``sig_scan`` (K2).  ``wave_dispatch`` defaults to True as there: batches
+with their own cross-pod constraints (spread, inter-pod terms, host ports)
+belong to the speculative wave, which is not ported yet (ROADMAP B7), so
+under the default they raise; ``wave_dispatch=False`` sends them to the
+gang scan.
 """
 
 from __future__ import annotations
@@ -70,6 +74,9 @@ class SchedulerConfiguration:
     # every device batch also runs usage_checksum and checks it against the
     # host-tracked sum
     resident_epoch_guard: bool = True
+    # cross-pod-constraint batches (spread / inter-pod terms / host ports)
+    # take the speculative wave; off = every such batch takes the gang scan
+    wave_dispatch: bool = True
 
     def validate(self) -> None:
         if self.batch_size < 1 or self.fast_batch_max < self.batch_size:

@@ -27,7 +27,15 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("static_eval.cu", "sig_scan.cu", "usage_checksum.cu", "resident_run.cu", "runtime.cu")
+SOURCES = (
+    "static_eval.cu",
+    "sig_scan.cu",
+    "usage_checksum.cu",
+    "resident_run.cu",
+    "gang_statics.cu",
+    "gang_scan.cu",
+    "runtime.cu",
+)
 HEADERS = ("ktpu.cuh",)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -37,7 +45,15 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
-launches: Dict[str, int] = {"static_eval": 0, "sig_scan": 0, "usage_checksum": 0, "resident_run": 0}
+launches: Dict[str, int] = {
+    "static_eval": 0,
+    "sig_scan": 0,
+    "usage_checksum": 0,
+    "resident_run": 0,
+    "gang_spread_statics": 0,
+    "gang_interpod_statics": 0,
+    "gang_scan": 0,
+}
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""  # nvcc's output (ptxas register / spill report), also in nvcc_build.log
@@ -141,6 +157,51 @@ class ResidentArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
+class GangSpreadArgs(ctypes.Structure):
+    """Mirror of csrc/ktpu.cuh GangSpreadArgs (pointers, then ints)."""
+
+    _PTRS = (
+        "node_labels val_ints dom_ids dom_counts epod_node epod_ns epod_labels epod_valid epod_deleting "
+        "valid ns_id labels tsc_key tsc_op tsc_vals tsc_rhs tsc_tv tsc_topo tsc_hard honor_aff honor_taints "
+        "naff taints sp_dv sp_te sp_dom_cnt sp_dom_pres sp_ndom sp_self sp_bmatch sp_counting sp_node_cnt "
+        "sp_sc_dom sp_all_keys sp_cdv acc"
+    ).split()
+    _INTS = "N K NVI E P C R V D hostname_key".split()
+    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
+
+
+class GangInterpodArgs(ctypes.Structure):
+    """Mirror of csrc/ktpu.cuh GangInterpodArgs (pointers, then ints)."""
+
+    _PTRS = (
+        "node_labels val_ints dom_ids dom_counts dom_off epod_node epod_ns epod_labels epod_valid "
+        "term_pod term_kind term_topo term_weight tt_key tt_op tt_vals tt_rhs tt_tv term_ns_all term_ns_ids "
+        "used_ppk used_ip used_wild valid ns_id labels aff_key aff_op aff_vals aff_rhs aff_tv aff_kind "
+        "aff_topo aff_ns_all aff_ns_ids want_ppk want_ip want_wild ip_dv ip_dom_cnt ip_viol_existing ip_sym "
+        "inc_any self_ok ip_bmatch d_ports port_b ext_acc inc_acc"
+    ).split()
+    _INTS = "N K NVI E M TR TV TNS U P AT AR AV NS W DSUM D hard_weight do_interpod do_ports".split()
+    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
+
+
+class GangScanArgs(ctypes.Structure):
+    """Mirror of csrc/ktpu.cuh GangScanArgs (pointers, then ints)."""
+
+    _PTRS = (
+        "allocatable allowed_pods node_valid log_tab requested nonzero num_pods requests nonzero_req valid "
+        "max_skew min_domains static_mask sp_hard sp_soft sp_te sp_dom_cnt sp_dom_pres sp_ndom sp_self "
+        "sp_bmatch sp_is_host sp_counting sp_node_cnt sp_sc_dom sp_all_keys ip_dom_cnt "
+        "ip_viol_existing ip_sym ip_any_static ip_self_all ip_bmatch ip_is_aff ip_is_anti ip_pref_w ip_sym_w "
+        "ip_key_idx sc_taint sc_nodeaff sc_image port_b d_nodename d_unsched d_taints d_nodeaff "
+        "d_ports d_extra chosen n_feas reason_counts dom_ids sp_key ip_key kd2_key cnt cnt_h port_stamp "
+        "feas ip_raw sp_raw sp_cnt"
+    ).split()
+    _INTS = (
+        "N K Rn Rp L P C AT KD2 D JP use_smem w_taint w_naff w_spread w_ip w_fit w_bal w_img check_fit"
+    ).split()
+    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built on first call in this process."""
     global _lib
@@ -168,6 +229,15 @@ def load() -> ctypes.CDLL:
     ):
         getattr(lib, fn).argtypes = [res, *extra, vp]
         getattr(lib, fn).restype = ctypes.c_int
+    for fn, st in (
+        ("ktpu_gang_spread_statics", GangSpreadArgs),
+        ("ktpu_gang_interpod_statics", GangInterpodArgs),
+        ("ktpu_gang_scan", GangScanArgs),
+    ):
+        getattr(lib, fn).argtypes = [ctypes.POINTER(st), vp]
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.ktpu_gang_scan_smem_max.argtypes = []
+    lib.ktpu_gang_scan_smem_max.restype = ctypes.c_int
     lib.ktpu_error_string.argtypes = [ctypes.c_int]
     lib.ktpu_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -2,12 +2,16 @@
 PyTorch).
 
 Each function reproduces one in-tree Filter plugin for every (pending pod,
-node) pair at once; the reference citations point at the Go plugins.  These
-are the plain versions of the filter half of kernel K1 (ops/fastpath.py
-static_eval) and run on the CPU path and in the kernel checks.
+node) pair at once; the reference citations point at the Go plugins.  The
+static ones are the plain versions of the filter half of kernel K1
+(ops/fastpath.py static_eval); the port, spread and inter-pod ones are the
+plain halves of K6 and K7 (ops/gang.py precompute).  They run on the CPU path
+and in the kernel checks.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -16,15 +20,21 @@ from kubernetes_tpu_torch.ops.common import (
     DeviceCluster,
     dnf_any,
     eval_table,
+    eval_table_self,
     gather_at,
+    ns_member,
+    per_node_counts,
 )
 from kubernetes_tpu_torch.snapshot.interner import ABSENT, PAD
 from kubernetes_tpu_torch.snapshot.schema import (
     EFFECT_ALL,
     EFFECT_NO_EXECUTE,
     EFFECT_NO_SCHEDULE,
+    TERM_REQUIRED_ANTI,
     TOL_OP_EXISTS,
 )
+
+I32 = torch.int32
 
 
 # ---------------------------------------------------------------------------
@@ -110,3 +120,131 @@ def mask_unschedulable(dc: DeviceCluster, db: DeviceBatch):
 def mask_node_affinity(dc: DeviceCluster, db: DeviceBatch):
     terms = eval_table(db.node_sel, dc.node_labels, dc.val_ints)  # [P, T, N]
     return dnf_any(terms)
+
+
+# ---------------------------------------------------------------------------
+# NodePorts (plugins/nodeports/node_ports.go)
+# ---------------------------------------------------------------------------
+
+
+def port_conflicts(want_ppk, want_ip, want_wild, used_ppk, used_ip, used_wild):
+    """[A, B]: does any wanted port of row a conflict with any used port of
+    row b (same proto:port, and the same host IP or either side 0.0.0.0)."""
+    out = torch.zeros((want_ppk.shape[0], used_ppk.shape[0]), dtype=torch.bool, device=want_ppk.device)
+    for w in range(want_ppk.shape[1]):
+        wk = want_ppk[:, w][:, None]
+        wi = want_ip[:, w][:, None]
+        ww = want_wild[:, w][:, None]
+        for u in range(used_ppk.shape[1]):
+            uk = used_ppk[:, u][None, :]
+            ui = used_ip[:, u][None, :]
+            uw = used_wild[:, u][None, :]
+            out = out | ((wk != PAD) & (uk != PAD) & (wk == uk) & ((wi == ui) | ww | uw))
+    return out
+
+
+def mask_ports(dc: DeviceCluster, db: DeviceBatch):
+    return ~port_conflicts(db.want_ppk, db.want_ip, db.want_wild, dc.used_ppk, dc.used_ip, dc.used_wild)
+
+
+# ---------------------------------------------------------------------------
+# InterPodAffinity (plugins/interpodaffinity/filtering.go:306-365)
+# ---------------------------------------------------------------------------
+
+
+class InterPodPre(NamedTuple):
+    """Precomputed inter-pod state shared by the filter and score kernels."""
+
+    ext_match: torch.Tensor  # bool [M, P] term matches incoming pod
+    ext_topo_eq: torch.Tensor  # bool [M, N] node shares term's topology value
+    inc_match: torch.Tensor  # bool [P, AT, E]
+    inc_dv: torch.Tensor  # i32 [P, AT, N] node's domain id per incoming term
+    inc_cnt: torch.Tensor  # i32 [P, AT, N] matching placed pods per node
+
+
+def interpod_precompute(dc: DeviceCluster, db: DeviceBatch) -> InterPodPre:
+    # Existing terms vs incoming pods (selector on pod labels, incoming
+    # namespace in the term's namespace set).
+    ext_sel = eval_table(dc.term_table, db.labels, dc.val_ints)[:, 0, :]  # [M, P]
+    ext_ns = ns_member(dc.term_ns_all, dc.term_ns_ids, db.ns_id)  # [M, P]
+    E = dc.epod_valid.shape[0]
+    tp = dc.term_pod.clamp(0, E - 1).long()
+    src_valid = (dc.term_pod >= 0) & dc.epod_valid[tp]
+    ext_match = ext_sel & ext_ns & src_valid[:, None]
+
+    # The term's topology value at its own pod's node, compared to all nodes.
+    node_of = torch.where(dc.term_pod >= 0, dc.epod_node[tp], ABSENT)
+    cols = dc.node_labels.T  # [K, N]
+    nv = gather_at(cols, dc.term_topo)  # [M, N]
+    ev = torch.gather(nv, 1, node_of.clamp(0, nv.shape[1] - 1).long()[:, None])[:, 0]
+    ev = torch.where(node_of >= 0, ev, ABSENT)
+    ext_topo_eq = (ev >= 0)[:, None] & (nv == ev[:, None])
+
+    # Incoming terms vs existing pods.
+    inc_sel = eval_table(db.aff_table, dc.epod_labels, dc.val_ints)  # [P, AT, E]
+    inc_ns = ns_member(db.aff_ns_all, db.aff_ns_ids, dc.epod_ns)  # [P, AT, E]
+    inc_match = inc_sel & inc_ns & dc.epod_valid[None, None, :]
+    inc_cnt = per_node_counts(inc_match.to(I32), dc.epod_node, dc.node_labels.shape[0])
+    inc_dv = gather_at(cols, db.aff_topo)  # [P, AT, N]
+    return InterPodPre(ext_match, ext_topo_eq, inc_match, inc_dv, inc_cnt)
+
+
+def interpod_weighted_ext(dc: DeviceCluster, pre: InterPodPre, row_weight):
+    """Σ over existing-term rows of row_weight · [term matches pod] · [node
+    shares the term's topology value]: the shared core of the existing-anti-
+    affinity filter and the symmetric score.  row_weight: i32 [M]; returns
+    i32 [P, N].  The reference takes an int32 [P, M] × [M, N] product; here
+    the same sum is taken in int64, over row chunks of at most 2**26
+    products (PyTorch has no integer matmul on CUDA), and wrapped to int32,
+    which equals int32 accumulation."""
+    m = pre.ext_match.to(torch.int64) * row_weight.to(torch.int64)[:, None]  # [M, P]
+    eq = pre.ext_topo_eq.to(torch.int64)  # [M, N]
+    M, P = m.shape
+    N = eq.shape[1]
+    out = torch.zeros((P, N), dtype=torch.int64, device=m.device)
+    step = max(1, (1 << 26) // max(P * N, 1))
+    for lo in range(0, M, step):
+        out += (m[lo : lo + step, :, None] * eq[lo : lo + step, None, :]).sum(dim=0)
+    return out.to(I32)
+
+
+def interpod_existing_violation(dc: DeviceCluster, pre: InterPodPre):
+    """[P, N]: forbidden by some existing pod's required anti-affinity."""
+    anti_row = (dc.term_kind == TERM_REQUIRED_ANTI).to(I32)
+    return interpod_weighted_ext(dc, pre, anti_row) > 0
+
+
+# ---------------------------------------------------------------------------
+# PodTopologySpread (plugins/podtopologyspread/filtering.go)
+# ---------------------------------------------------------------------------
+
+
+class SpreadPre(NamedTuple):
+    """Shared spread-filter state (also read by the gang scan)."""
+
+    exists: torch.Tensor  # bool [P, C] constraint slot holds a constraint
+    sel_match: torch.Tensor  # bool [P, C, E] selector matches placed pod
+    self_match: torch.Tensor  # bool [P, C] selector matches the pod itself
+    dv: torch.Tensor  # i32 [P, C, N] domain id per node
+    eligible: torch.Tensor  # bool [P, C, N] inclusion-policy eligibility
+    tracked: torch.Tensor  # bool [P, N] node has all hard topo keys
+
+
+def spread_precompute(dc: DeviceCluster, db: DeviceBatch, node_affinity_mask, taint_mask) -> SpreadPre:
+    exists = db.tsc_topo != PAD  # [P, C]
+    cols = dc.node_labels.T
+    dv = gather_at(cols, db.tsc_topo)  # [P, C, N]
+    topo_present = dv >= 0
+
+    hard = exists & db.tsc_hard
+    tracked = (~hard[:, :, None] | topo_present).all(dim=1)  # [P, N]
+
+    eligible = torch.where(db.tsc_honor_affinity[:, :, None], node_affinity_mask[:, None, :], True) & torch.where(
+        db.tsc_honor_taints[:, :, None], taint_mask[:, None, :], True
+    )
+
+    sel = eval_table(db.tsc_table, dc.epod_labels, dc.val_ints)  # [P, C, E]
+    same_ns = db.ns_id[:, None] == dc.epod_ns[None, :]  # [P, E]
+    sel_match = sel & same_ns[:, None, :] & dc.epod_valid[None, None, :] & ~dc.epod_deleting[None, None, :]
+    self_match = eval_table_self(db.tsc_table, db.labels, dc.val_ints)  # [P, C]
+    return SpreadPre(exists, sel_match, self_match, dv, eligible, tracked)

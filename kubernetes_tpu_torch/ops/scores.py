@@ -1,8 +1,9 @@
 """Raw static Score plugins → ``[P, N]`` int64 (plain PyTorch).
 
 All score math is exact int64, like the reference's fixed-point kernels.
-These are the plain versions of the score half of kernel K1
-(ops/fastpath.py static_eval).
+The static ones are the plain versions of the score half of kernel K1
+(ops/fastpath.py static_eval); the symmetric inter-pod score is part of K7's
+plain version (ops/gang.py precompute).
 """
 
 from __future__ import annotations
@@ -12,7 +13,13 @@ import torch
 from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster, eval_table
 from kubernetes_tpu_torch.ops.filters import any_tolerates
 from kubernetes_tpu_torch.snapshot.interner import PAD
-from kubernetes_tpu_torch.snapshot.schema import EFFECT_ALL, EFFECT_PREFER_NO_SCHEDULE
+from kubernetes_tpu_torch.snapshot.schema import (
+    EFFECT_ALL,
+    EFFECT_PREFER_NO_SCHEDULE,
+    TERM_PREFERRED_AFFINITY,
+    TERM_PREFERRED_ANTI,
+    TERM_REQUIRED_AFFINITY,
+)
 
 I64 = torch.int64
 MAX_NODE_SCORE = 100
@@ -87,6 +94,30 @@ def score_image_locality(dc: DeviceCluster, db: DeviceBatch):
     )
     has_imgs = (db.img_ids >= 0).any(dim=1)
     return torch.where(has_imgs[:, None], score, 0)
+
+
+# ---------------------------------------------------------------------------
+# InterPodAffinity, symmetric half (interpodaffinity/scoring.go
+# processExistingPod)
+# ---------------------------------------------------------------------------
+
+
+def interpod_symmetric_score(dc: DeviceCluster, pre, hard_pod_affinity_weight: int = 1):
+    """[P, N] i64: existing pods' terms matching the incoming pod, credited
+    to nodes sharing the term's topology value."""
+    from kubernetes_tpu_torch.ops.filters import interpod_weighted_ext
+
+    kind = dc.term_kind
+    ew = torch.where(
+        kind == TERM_REQUIRED_AFFINITY,
+        torch.full_like(dc.term_weight, hard_pod_affinity_weight),
+        torch.where(
+            kind == TERM_PREFERRED_AFFINITY,
+            dc.term_weight,
+            torch.where(kind == TERM_PREFERRED_ANTI, -dc.term_weight, torch.zeros_like(dc.term_weight)),
+        ),
+    ).to(torch.int32)
+    return interpod_weighted_ext(dc, pre, ew).to(I64)
 
 
 # ---------------------------------------------------------------------------

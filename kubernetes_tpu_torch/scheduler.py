@@ -1,33 +1,38 @@
-"""The port's Scheduler: the signature fast path, synchronously.
+"""The port's Scheduler: the signature fast path and the gang scan,
+synchronously.
 
-Follows the JAX package's fast route step for step (its scheduler.py
-``_fast_gate_ok`` → ``_fast_sig_rows`` → ``_fast_dispatch`` →
-``_finish_fast``):
+Routes each batch the way the JAX package's scheduler.py does:
 
-1. pop a batch in queue order and gate it: every pod must be a fast-path
-   pod (resources are its only batch-dynamic constraint);
-2. key each pod by its signature (identical requests + static constraints);
-3. evaluate the static rows of each NEW signature once (kernel K1), cached
-   until the static snapshot changes;
-4. extend the batch from the queue head with pods of known signatures, up
-   to ``resident_run_max`` pods under ``residentDrain: true`` (the default)
-   and ``fast_batch_max`` otherwise;
-5. place the batch: below ``fast_device_min`` pods on the host
-   FastCommitter, else on the device-resident usage tensors with kernel K4
-   (resident_run; its unresolved tail on the host committer, or with
-   ``residentSerialTail`` on K2 in the same call) or, with
-   ``residentDrain: false``, kernel K2 (sig_scan); then kernel K3's
-   checksum against the host-tracked sum;
-6. advance the committer, assume and bind in bulk, report outcomes.
+1. the CHAINED scan (``_chain_quickcheck`` → ``_try_dispatch_chained``):
+   once the mirror is packed, a batch that is not a fast-path candidate is
+   gang-scheduled on the resident device cluster by ``chain_dispatch``,
+   which also appends the batch's placed pods and their terms into it, so
+   the next chained batch needs no upload;
+2. the signature FAST path (``_fast_gate_ok`` → signature rows → dispatch):
+   pods whose only batch-dynamic constraint is resources collapse into
+   signatures; new signatures get their static rows from kernel K1; device-
+   sized batches extend from the queue head and are placed by K4
+   (resident_run) or, with ``residentDrain: false``, K2 (sig_scan), small
+   ones on the host FastCommitter; K3 checks the usage checksum;
+3. the DIRECT scan (``gang_run``): everything else, on the snapshot the
+   device mirror keeps current (K1 + K6 + K7 for the statics, K5 for the
+   scan).
 
-The drain is synchronous, one batch in flight, which is what the reference
-does on its default route: with ``residentSerialTail: false`` it harvests
-each resident run before the next dispatch.
+A batch whose pods carry their own cross-pod constraints (spread, inter-pod
+terms, host ports) belongs to the speculative wave under the default
+``waveDispatch: true``; the wave is not ported yet, so such a batch raises
+NotImplementedError naming ROADMAP B7, and ``wave_dispatch=False`` sends it
+to the gang scan instead.
 
-Pods outside this slice raise NotImplementedError naming the ROADMAP item
-that ports their path; a kernel failure or a checksum mismatch raises too.
-Nothing falls back to another path by itself.  In both cases the batch goes
-back to the queue unscheduled.
+The drain is synchronous: each batch is harvested (placements assumed and
+bound, failures diagnosed) before the next dispatch; the reference keeps up
+to two chained batches in flight (ROADMAP A3).  Gang commits invalidate the
+fast lineage and the mirror's usage rows; fast batches end the chain.
+
+Pods outside the ported paths raise NotImplementedError naming the ROADMAP
+item that ports them; a kernel failure or a checksum mismatch raises too.
+Nothing falls back to another path by itself, and the batch goes back to
+the queue unscheduled.
 """
 
 from __future__ import annotations
@@ -40,24 +45,30 @@ import torch
 
 from kubernetes_tpu_torch import fastpath as fp
 from kubernetes_tpu_torch.api.types import Node, Pod
-from kubernetes_tpu_torch.cache.cache import Cache, has_pod_terms
+from kubernetes_tpu_torch.cache.cache import Cache
+from kubernetes_tpu_torch.cache.device_mirror import DeviceClusterCache
+from kubernetes_tpu_torch.cache.mirror import SnapshotMirror
 from kubernetes_tpu_torch.framework.config import Profile, SchedulerConfiguration
+from kubernetes_tpu_torch.ops import chain as ops_chain
 from kubernetes_tpu_torch.ops import fastpath as ops_fp
+from kubernetes_tpu_torch.ops import gang as ops_gang
 from kubernetes_tpu_torch.ops import resident as ops_res
 from kubernetes_tpu_torch.ops import wire
 from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster
 from kubernetes_tpu_torch.queue.scheduling_queue import QueuedPodInfo, SchedulingQueue
-from kubernetes_tpu_torch.snapshot.interner import Vocab
+from kubernetes_tpu_torch.snapshot.interner import PAD, Vocab
 from kubernetes_tpu_torch.snapshot.schema import (
     NodeTensors,
     ResourceLanes,
     bucket_cap,
-    pack_nodes,
     pack_pod_batch,
-    write_usage_row,
 )
 
 GROUP_LABEL = "pod-group.scheduling.sigs.k8s.io/name"
+HOSTNAME_LABEL = "kubernetes.io/hostname"
+# placed term pods beyond this make the fast gate's probes cost more than
+# the scan they would save (the reference's cut-off)
+MAX_PROBED_TERM_PODS = 64
 
 
 @dataclass
@@ -70,13 +81,17 @@ class ScheduleOutcome:
     diagnosis: Optional[Dict[str, int]] = None
 
 
-# FitError reason strings keyed by plugin (framework/types.go:420-465)
+# FitError reason strings keyed by diagnosis kernel (framework/types.go:420-465)
 _DIAG_REASONS = {
     "NodeUnschedulable": "node(s) were unschedulable",
     "NodeName": "node(s) didn't match the requested node name",
     "TaintToleration": "node(s) had untolerated taints",
     "NodeAffinity": "node(s) didn't match Pod's node affinity/selector",
+    "NodePorts": "node(s) didn't have free ports for the requested pod ports",
+    "HostFilters": "node(s) were rejected by host filter plugins",
     "NodeResourcesFit": "node(s) had insufficient resources",
+    "PodTopologySpread": "node(s) didn't match pod topology spread constraints",
+    "InterPodAffinity": "node(s) didn't satisfy inter-pod affinity/anti-affinity rules",
 }
 
 
@@ -160,19 +175,32 @@ class Scheduler:
             "resident_tail_pods": 0,  # unresolved pods the host committer finished
             "static_evals": 0,
             "state_uploads": 0,
-            "snapshot_packs": 0,
+            "scan_batches": 0,  # direct gang_run batches
+            "chain_batches": 0,  # chain_dispatch batches
+            "wave_batches": 0,  # the speculative wave (not ported: stays 0)
         }
-        self.nodes: Optional[NodeTensors] = None
-        self._external_mutations = 0  # cluster changes the committer can't see
-        self._pack_token = 0  # bumped on every full pack
-        self._packed_static = -1  # cache.static_version at the last pack
-        self._packed_usage = -1  # _external_mutations at the last usage write
+        # the packed host snapshot (nodes, placed pods, their terms) and its
+        # device-resident image
+        self.mirror = SnapshotMirror(self.vocab)
+        self._dc_cache = DeviceClusterCache(self.device)
+        self._external_mutations = 0  # cluster changes no committer tracked
+        self._nonfast_commits = 0  # gang commits (the fast lineage's blind spot)
+        self._mirror_sync = None  # (external, nonfast) at the last repack
         self._static_dc = None
         self._static_dc_key = None
         self._sig_cache: Dict[object, dict] = {}
         self._sig_cache_key = None
         self._speckey_cache: Dict[tuple, object] = {}
         self._holder: Optional[dict] = None
+        self._term_probe_cache = None
+        self._chain: Optional[dict] = None
+        self._p_cap_max = 1  # sticky gang batch bucket
+        self._tables = None
+        self._tables_key = None
+
+    @property
+    def nodes(self) -> Optional[NodeTensors]:
+        return self.mirror.nodes
 
     # ----- informer events ---------------------------------------------------
 
@@ -191,7 +219,12 @@ class Scheduler:
     # ----- the drain -----------------------------------------------------
 
     def schedule_pending(self) -> List[ScheduleOutcome]:
-        """Drain the active queue in fast batches; returns all outcomes."""
+        """Drain the active queue; returns all outcomes."""
+        # pre-size the placed-pod axes for the whole drain, so a growing
+        # drain keeps one shape
+        self.mirror.e_cap_hint = max(
+            self.mirror.e_cap_hint, len(self.cache.pod_states) + len(self.queue) + self.config.batch_size
+        )
         outcomes: List[ScheduleOutcome] = []
         while True:
             batch = self.queue.pop_batch(self.config.batch_size)
@@ -201,17 +234,25 @@ class Scheduler:
             for qp in batch:
                 groups.setdefault(qp.pod.scheduler_name, []).append(qp)
             for name, group in groups.items():
-                outcomes.extend(self._schedule_fast(self.profiles[name], group))
+                outcomes.extend(self._schedule_group(self.profiles[name], group))
         return outcomes
 
+    def _schedule_group(self, profile: Profile, batch: List[QueuedPodInfo]) -> List[ScheduleOutcome]:
+        for qp in batch:
+            why = self._refusal(qp.pod)
+            if why is not None:
+                self._refuse(batch, f"pod {qp.pod.key}: {why}")
+        if self._chain_quickcheck(batch):
+            out = self._try_dispatch_chained(profile, batch)
+            if out is not None:
+                return out
+        out = self._try_fast(profile, batch)
+        if out is not None:
+            return out
+        return self._schedule_direct(profile, batch)
+
     def _refusal(self, pod: Pod) -> Optional[str]:
-        """Why a pod is outside this slice (None when it is a fast-path pod)."""
-        if pod.topology_spread_constraints:
-            return "topology spread constraints take the wave/gang path (ROADMAP A6)"
-        if has_pod_terms(pod):
-            return "inter-pod (anti-)affinity takes the wave/gang path (ROADMAP A6)"
-        if pod.host_ports():
-            return "host ports take the wave/gang path (ROADMAP A6)"
+        """Why a pod is outside the ported paths (None when it is inside)."""
         if pod.nominated_node_name:
             return "nominated pods take the nominated-node path (ROADMAP A7)"
         if pod.pod_group or pod.labels.get(GROUP_LABEL):
@@ -222,8 +263,6 @@ class Scheduler:
             return "volumes need the host Filter plugins (ROADMAP A6)"
         if pod.scheduling_gates:
             return "scheduling gates need the PreEnqueue queue tier (ROADMAP A5)"
-        if self.cache.n_term_pods:
-            return "placed pods carry inter-pod terms, which the fast gate probes (ROADMAP A6)"
         if (
             pod.preemption_policy != "Never"
             and self.cache.priorities
@@ -236,14 +275,63 @@ class Scheduler:
         self.queue.push_back(batch)
         raise NotImplementedError(why)
 
-    def _schedule_fast(self, profile: Profile, batch: List[QueuedPodInfo]) -> List[ScheduleOutcome]:
-        for qp in batch:
-            why = self._refusal(qp.pod)
-            if why is not None:
-                self._refuse(batch, f"pod {qp.pod.key}: {why}")
-        self._sync_snapshot()
+    def _refuse_wave(self, batch: List[QueuedPodInfo]) -> None:
+        self._refuse(
+            batch,
+            "the batch carries spread, inter-pod or host-port constraints, which take the speculative "
+            "wave under waveDispatch: true; the wave is not ported yet (ROADMAP B7), "
+            "wave_dispatch=False takes the gang scan",
+        )
+
+    # ----- the fast path -------------------------------------------------
+
+    def _fast_gate_ok(self, batch) -> bool:
+        """Per-batch fast-path eligibility: a placed pod's terms poison only
+        the newcomers its selectors could admit, checked per label group
+        against the cache's term-pod registry."""
+        n_t = self.cache.n_term_pods
+        if not n_t:
+            return True
+        if n_t > MAX_PROBED_TERM_PODS:
+            return False
+        probes = self._term_probes()
+        memo: Dict[tuple, bool] = {}
+        return not any(self._admitted(qp.pod, probes, memo) for qp in batch)
+
+    @staticmethod
+    def _admitted(pod: Pod, probes, memo: Dict[tuple, bool]) -> bool:
+        """Could a placed pod's term admit ``pod``: one probe walk per label
+        group (namespace and labels), memoized in ``memo``."""
+        gk = (pod.namespace, tuple(sorted(pod.labels.items())))
+        hit = memo.get(gk)
+        if hit is None:
+            hit = memo[gk] = any(pr.admits(pod) for pr in probes)
+        return hit
+
+    def _term_probes(self):
+        key = self.cache.term_version
+        if self._term_probe_cache is None or self._term_probe_cache[0] != key:
+            probes = []
+            for p in self.cache.term_pods.values():
+                probes.extend(fp._pod_probes(p))
+            self._term_probe_cache = (key, probes)
+        return self._term_probe_cache[1]
+
+    def _try_fast(self, profile: Profile, batch: List[QueuedPodInfo]) -> Optional[List[ScheduleOutcome]]:
+        """The signature fast path; None when the batch is not eligible (a
+        placed term could admit a pod, a pod has no signature, or a
+        signature's static scores vary over its feasible nodes)."""
+        if self.mirror.nodes is None:
+            self._repack_mirror()
+        if not self._fast_gate_ok(batch):
+            return None
         keys = [self._sig_key(qp.pod) for qp in batch]
+        if any(k is None for k in keys):
+            return None
+        self._sync_mirror_external()
         rows = self._fast_sig_rows(profile, batch, keys)
+        if rows is None:
+            return None
 
         # extend from the queue head with pods whose signatures are already
         # evaluated and argmax-neutral (a novel signature seeds a later batch);
@@ -252,12 +340,16 @@ class Scheduler:
         cap = cfg.resident_run_max if cfg.resident_drain else cfg.fast_batch_max
         ext = cap - len(batch)
         if ext > 0:
+            probes = self._term_probes() if self.cache.n_term_pods else ()
+            group_hit: Dict[tuple, bool] = {}
+
             def known(qp: QueuedPodInfo) -> bool:
-                if qp.pod.scheduler_name != profile.scheduler_name:
+                p = qp.pod
+                if p.scheduler_name != profile.scheduler_name or self._refusal(p) is not None:
                     return False
-                if self._refusal(qp.pod) is not None:
+                if probes and self._admitted(p, probes, group_hit):
                     return False
-                row = rows.get(self._sig_key(qp.pod))
+                row = rows.get(self._sig_key(p))
                 return row is not None and row["const_ok"]
 
             extra = self.queue.pop_batch_while(ext, known)
@@ -273,34 +365,37 @@ class Scheduler:
 
     # ----- snapshot ------------------------------------------------------
 
-    def _sync_snapshot(self) -> None:
-        """Pack the node snapshot when a Node object changed; rewrite the
-        usage columns when placed pods changed outside the fast path."""
-        real = self.cache.real_nodes()
-        if self.nodes is None or self._packed_static != self.cache.static_version:
-            self.nodes = pack_nodes([cn.node for cn in real], self.vocab)
-            self._packed_static = self.cache.static_version
-            self._packed_usage = -1
-            self._pack_token += 1
-            self.metrics["snapshot_packs"] += 1
-        if self._packed_usage != self._external_mutations:
-            for cn in real:
-                write_usage_row(
-                    self.nodes,
-                    self.nodes.name_to_idx[cn.node.name],
-                    cn.requested,
-                    cn.non_zero_requested,
-                    len(cn.pods),
-                    self.vocab,
-                )
-            self._packed_usage = self._external_mutations
+    def _repack_mirror(self) -> None:
+        """mirror.update, plus one forced full repack when the label-key
+        bucket outgrew the packed node tensors.  When the live fast lineage
+        owns every usage change since the last repack, its committer's
+        state is written into the mirror in one pass first."""
+        h = self._holder
+        if (
+            h is not None
+            and h["key"][:3] == (self._external_mutations, self._nonfast_commits, self.mirror._full_packs)
+            and self.mirror.nodes is h["nt"]
+        ):
+            self.mirror.apply_fast_usage(h["fc"], self.cache)
+        self.mirror.update(self.cache)
+        if bucket_cap(len(self.vocab.label_keys)) > self.mirror.nodes.k_cap:
+            self.mirror._force_full = True
+            self.mirror.update(self.cache)
+        self._mirror_sync = (self._external_mutations, self._nonfast_commits)
+
+    def _sync_mirror_external(self) -> None:
+        """Repack only when state the fast path reads could have moved:
+        cluster events or gang commits, which no committer tracked."""
+        if self.mirror.nodes is None or self._mirror_sync != (self._external_mutations, self._nonfast_commits):
+            self._repack_mirror()
 
     def _static_device_cluster(self) -> DeviceCluster:
         """The node snapshot on the device, for static reads only: usage
         churn does not re-upload it."""
-        key = (self._pack_token, len(self.vocab.label_vals))
+        m = self.mirror
+        key = (m.static_generation, m._full_packs, len(self.vocab.label_vals), len(self.vocab.label_keys))
         if self._static_dc_key != key:
-            self._static_dc = DeviceCluster.from_host(self.nodes, self.vocab, self.device)
+            self._static_dc = DeviceCluster.from_host(m.nodes, self.vocab, self.device)
             self._static_dc_key = key
         return self._static_dc
 
@@ -326,12 +421,12 @@ class Scheduler:
         d["_sigkey_memo"] = (params, k)
         return k
 
-    def _fast_sig_rows(self, profile: Profile, batch, keys) -> Dict[object, dict]:
+    def _fast_sig_rows(self, profile: Profile, batch, keys) -> Optional[Dict[object, dict]]:
         """Static rows (masks + raw scores) per signature, cached until the
-        snapshot is repacked.  Signatures whose static score raws vary over
-        their feasible set are outside the fast path (normalization would
-        depend on the batch state; JAX sends them to the gang scan)."""
-        dc_key = (self._pack_token, profile.scheduler_name)
+        static snapshot moves.  None when a signature's static score raws
+        vary over its feasible set: normalization would then depend on the
+        batch state, and the batch takes the gang scan."""
+        dc_key = (self.mirror.static_generation, self.mirror._full_packs, profile.scheduler_name)
         if self._sig_cache_key != dc_key:
             self._sig_cache = {}
             self._sig_cache_key = dc_key
@@ -369,26 +464,23 @@ class Scheduler:
                         const_ok = False
                 row["const_ok"] = const_ok
                 cache[k] = row
-        for k, qp in zip(keys, batch):
-            if not cache[k]["const_ok"]:
-                self._refuse(
-                    batch,
-                    f"pod {qp.pod.key}: its static scores vary over its feasible "
-                    "nodes, which takes the gang scan (ROADMAP A6)",
-                )
+        if any(not cache[k]["const_ok"] for k in keys):
+            return None
         return cache
 
     # ----- the committer lineage ------------------------------------------
 
     def _lineage(self, profile: Profile, weights, check_fit: bool) -> dict:
         """The host committer and its device twin.  Only an external cluster
-        change, a repack or another profile rebuilds it; fast commits keep
-        it (the committer is the committed truth)."""
-        key = (self._external_mutations, self._pack_token, profile.scheduler_name, weights, check_fit)
+        change, a gang commit, a full repack or another profile rebuilds it;
+        fast commits keep it (the committer is the committed truth)."""
+        key = (self._external_mutations, self._nonfast_commits, self.mirror._full_packs,
+               profile.scheduler_name, weights, check_fit)
         h = self._holder
         if h is None or h["key"] != key:
             h = self._holder = {
                 "key": key,
+                "nt": self.nodes,
                 "fc": fp.FastCommitter(self.nodes, weights, check_fit=check_fit),
                 "sigs": {},  # signature key → fp.Signature
                 "sig_list": [],
@@ -584,6 +676,217 @@ class Scheduler:
             holder["dev"] = None
             holder["dev_sum"] = None
         return choices
+
+    # ----- the gang scan: chained and direct ------------------------------
+
+    def _chain_epoch(self):
+        """What the chained device cluster cannot see: cluster events, fast
+        commits, full repacks and vocabulary growth restart the chain."""
+        return (
+            self._external_mutations,
+            self.metrics["fast_batches"],
+            self.mirror._full_packs,
+            len(self.vocab.label_vals),
+            len(self.vocab.label_keys),
+        )
+
+    def _chain_quickcheck(self, batch) -> bool:
+        """Spec-only gate of the chained path: the mirror is packed, no pod
+        wants host ports (the append does not splice port rows), and the
+        batch is not a fast-path candidate."""
+        if self.mirror.nodes is None:
+            return False
+        if any(qp.pod.host_ports() for qp in batch):
+            return False
+        if self._fast_gate_ok(batch) and all(self._sig_key(qp.pod) is not None for qp in batch):
+            return False
+        return True
+
+    def _gang_prep(self, batch):
+        """Pack the batch at the sticky bucket; returns (pods, pb)."""
+        for qp in batch:
+            for k, v in qp.pod.labels.items():
+                self.vocab.intern_label(k, v)
+        pods = [qp.pod for qp in batch]
+        self._p_cap_max = max(self._p_cap_max, bucket_cap(len(pods), 1))
+        pb = pack_pod_batch(pods, self.vocab, k_cap=self.mirror.nodes.k_cap, p_cap=self._p_cap_max)
+        return pods, pb
+
+    def _gang_tables(self, pb) -> dict:
+        """batch_tables, reused across batches with the same key sets and
+        node labels."""
+        key = (
+            self.mirror.static_generation,
+            self.mirror._full_packs,
+            len(self.vocab.label_vals),
+            tuple(np.unique(pb.tsc_topo_key).tolist()),
+            tuple(np.unique(pb.aff_topo_key).tolist()),
+        )
+        if self._tables_key != key:
+            t = ops_gang.batch_tables(
+                pb.tsc_topo_key, pb.aff_topo_key, self.mirror.nodes.label_vals, self._hostname_key()
+            )
+            for k in ("sp_keys", "sp_cdv_tab", "ip_keys"):
+                t[k] = torch.as_tensor(t[k], device=self.device)
+            self._tables = t
+            self._tables_key = key
+        return self._tables
+
+    def _hostname_key(self) -> int:
+        return self.vocab.label_keys.lookup(HOSTNAME_LABEL)
+
+    def _gang_flags(self, pb, any_terms: bool) -> dict:
+        """The has_* flags of the reference (scheduler.py:1702-1710)."""
+        return dict(
+            has_interpod=bool((pb.aff_kind != PAD).any()) or any_terms,
+            has_spread=bool((pb.tsc_topo_key != PAD).any()),
+            has_images=bool((pb.img_ids >= 0).any()),
+            has_ports=bool((pb.want_ppk != PAD).any() or (self.mirror.nodes.used_ppk != PAD).any()),
+        )
+
+    @staticmethod
+    def _wave_shaped(pb) -> bool:
+        return bool(
+            (pb.aff_kind != PAD).any() or (pb.tsc_topo_key != PAD).any() or (pb.want_ppk != PAD).any()
+        )
+
+    def _try_dispatch_chained(self, profile: Profile, batch) -> Optional[List[ScheduleOutcome]]:
+        """chain_dispatch on the resident cluster, restarting the chain from
+        the device mirror when its epoch moved; None when the batch's term
+        tables do not fit the chained cluster's widths or its cursors cannot
+        be grown (the direct path takes it)."""
+        self._repack_mirror()
+        pods, pb = self._gang_prep(batch)
+        epoch = self._chain_epoch()
+        ch = self._chain
+        if ch is None or ch["epoch"] != epoch:
+            ch = self._restart_chain(epoch)
+        cdc = ch["dc"]
+        dc_shapes = (
+            cdc.term_table.req_key.shape[2],
+            cdc.term_table.req_vals.shape[3],
+            cdc.term_ns_ids.shape[1],
+            cdc.epod_labels.shape[1],
+        )
+        if not ops_chain.caps_compatible(dc_shapes, pb):
+            return None
+        P = pb.valid.shape[0]
+        append_terms = bool((pb.aff_kind != PAD).any())
+        AT = pb.aff_kind.shape[1] if append_terms else 0
+        if ch["e"] + P > cdc.epod_node.shape[0] or ch["m"] + P * AT > cdc.term_pod.shape[0]:
+            # cursor overflow: grow the host axes, repack the placed pods,
+            # and restart the chain once from that state
+            self._chain = None
+            m = self.mirror
+            m._m_cap_max = max(m._m_cap_max, bucket_cap(max((ch["m"] + P * AT) * 2, 1), 1))
+            m.e_cap_hint = max(m.e_cap_hint, ch["e"] + 2 * P)
+            m._epod_slots = None
+            m._existing_version = -1
+            ch = self._restart_chain(epoch)
+            cdc = ch["dc"]
+            if ch["e"] + P > cdc.epod_node.shape[0] or ch["m"] + P * AT > cdc.term_pod.shape[0]:
+                return None
+        if self.config.wave_dispatch and self._wave_shaped(pb):
+            self._refuse_wave(batch)
+        db = DeviceBatch.from_host(pb, self.device)
+        tables = self._gang_tables(pb)
+        try:
+            dc2, results, reasons = ops_chain.chain_dispatch(
+                cdc,
+                db,
+                self._hostname_key(),
+                ch["e"],
+                ch["m"],
+                bucket_cap(len(self.vocab.label_vals)),
+                enabled=profile.enabled,
+                weights=profile.weights(),
+                append_terms=append_terms,
+                # any term row in the chained cluster keeps inter-pod on
+                **self._gang_flags(pb, ch["m"] > 0),
+                **tables,
+            )
+            results = results.cpu()
+        except BaseException:
+            # the chained cluster may be torn: drop it, return the batch
+            self._chain = None
+            self.queue.push_back(batch)
+            raise
+        self._chain = {"dc": dc2, "e": ch["e"] + P, "m": ch["m"] + P * AT, "epoch": epoch}
+        self.metrics["chain_batches"] += 1
+        return self._process_results(batch, results[0], results[1], reasons)
+
+    def _restart_chain(self, epoch) -> dict:
+        dc = self._dc_cache.sync(self.mirror, self.vocab)
+        # the chain writes into these tensors: the device mirror must not
+        # treat them as its own image again
+        self._dc_cache.invalidate()
+        return {"dc": dc, "e": self.mirror.e_used, "m": self.mirror.m_used, "epoch": epoch}
+
+    def _schedule_direct(self, profile: Profile, batch) -> List[ScheduleOutcome]:
+        """gang_run on the snapshot the device mirror keeps current."""
+        self._chain = None  # direct commits happen outside any chain
+        self._repack_mirror()
+        pods, pb = self._gang_prep(batch)
+        if self.config.wave_dispatch and self._wave_shaped(pb):
+            self._refuse_wave(batch)
+        try:
+            dc = self._dc_cache.sync(self.mirror, self.vocab)
+            db = DeviceBatch.from_host(pb, self.device)
+            tables = self._gang_tables(pb)
+            any_terms = bool((self.mirror.existing.term_kind != PAD).any())
+            self.metrics["scan_batches"] += 1
+            chosen, n_feas, reasons, _ = ops_gang.gang_run(
+                dc,
+                db,
+                self._hostname_key(),
+                bucket_cap(len(self.vocab.label_vals)),
+                enabled=profile.enabled,
+                weights=profile.weights(),
+                **self._gang_flags(pb, any_terms),
+                **tables,
+            )
+            chosen, n_feas = chosen.cpu(), n_feas.cpu()
+        except BaseException:
+            self._dc_cache.invalidate()
+            self.queue.push_back(batch)
+            raise
+        return self._process_results(batch, chosen, n_feas, reasons)
+
+    def _process_results(self, batch, chosen, n_feas, reasons) -> List[ScheduleOutcome]:
+        """The gang path's harvest: placements are assumed and bound in bulk
+        (the scan's decisions are final), every failure gets a FitError built
+        from the first-failure reason counts."""
+        names = self.nodes.names
+        chosen = chosen.numpy()[: len(batch)]
+        if ((chosen < -1) | (chosen >= len(names))).any():
+            raise RuntimeError("gang scan returned a node index out of range")
+        n = len(batch)
+        self.metrics["schedule_attempts"] += n
+        placed = [i for i in range(n) if chosen[i] >= 0]
+        pairs = [(batch[i].pod, names[chosen[i]]) for i in placed]
+        self.cache.assume_pods_bulk(pairs)
+        self._nonfast_commits += len(pairs)
+        errors = self._bind(pairs)
+        out: List[Optional[ScheduleOutcome]] = [None] * n
+        for i, (pod, node), err in zip(placed, pairs, errors):
+            if err is None:
+                out[i] = ScheduleOutcome(pod, node)
+            else:
+                self.cache.forget_pod(pod)
+                self._external_mutations += 1
+                self.queue.mark_unschedulable(batch[i])
+                out[i] = ScheduleOutcome(pod, None, f"binding rejected: {err}")
+        if len(placed) < n:
+            counts = reasons.cpu().numpy()
+            n_nodes = len(self.cache.real_nodes())
+            for i in range(n):
+                if chosen[i] >= 0:
+                    continue
+                diag = {k: int(c) for k, c in zip(ops_gang.DIAG_KERNELS, counts[i]) if c > 0}
+                diag.pop("HostFilters", None)  # no host Filter plugins in the port
+                self.queue.mark_unschedulable(batch[i])
+                out[i] = ScheduleOutcome(batch[i].pod, None, fit_error_message(n_nodes, diag), diag)
+        return out
 
     # ----- commit --------------------------------------------------------
 

@@ -9,7 +9,8 @@ none; run it there without the JAX suite's conftest:
 
 The plain versions are held against the JAX package on the CPU by
 tests/test_torch_static_eval.py, test_torch_sig_scan.py,
-test_torch_resident.py and test_torch_scheduler.py.
+test_torch_resident.py, test_torch_scheduler.py, test_torch_gang.py,
+test_torch_chain.py and test_torch_scheduler_gang.py.
 """
 
 import pytest
@@ -18,6 +19,7 @@ import torch
 import chip_smoke
 from kubernetes_tpu_torch.ops import _build
 from kubernetes_tpu_torch.ops import fastpath as ops_fp
+from kubernetes_tpu_torch.ops import gang as ops_gang
 from kubernetes_tpu_torch.ops import resident as ops_res
 
 pytestmark = pytest.mark.cuda
@@ -110,9 +112,10 @@ def test_resident_run_kernel_matches_plain(cuda, feed, window, serial_tail):
     _equal(stats_k, stats_p)
     for k in st_k:
         _equal(st_k[k], st_p[k])
-    # one K4 launch; the serial tail is one K2 launch; the plain version none
+    # one K4 launch; the serial tail is one K2 launch; no other kernel; the
+    # plain version none
     tail = bool(stats_k[2]) and serial_tail
-    assert dl_k == {"static_eval": 0, "sig_scan": int(tail), "usage_checksum": 0, "resident_run": 1}
+    assert dl_k == {**{k: 0 for k in dl_k}, "sig_scan": int(tail), "resident_run": 1}
     assert not any(dl_p.values())
     if feed == "interleaved":
         assert int(stats_k[2]) == 1
@@ -156,3 +159,121 @@ def test_default_scheduler_on_cuda_matches_the_host_committer(cuda, serial_tail)
     want, _, _ = chip_smoke.drain(torch.device("cpu"), nodes(), pods(), host_only=True)
     assert got == want
     chip_smoke.check_capacity(sched)
+
+
+# the tests/gen.py-style cases of tests/test_torch_gang.py, built with the
+# port's own types (no JAX here): (seed, nodes, placed pods, pending pods)
+GANG_CASES = [(31, 10, 20, 20), (33, 10, 20, 20), (101, 40, 80, 120), (303, 40, 80, 120)]
+NO_SPREAD_IP = frozenset({"NodeName", "NodeUnschedulable", "NodeAffinity", "NodePorts", "NodeResourcesFit"})
+
+
+@pytest.mark.parametrize("enabled", [ops_gang.ALL_FILTER_KERNELS, NO_SPREAD_IP], ids=["all", "no-spread-ip"])
+@pytest.mark.parametrize("case", GANG_CASES)
+def test_gang_kernels_match_plain(cuda, case, enabled):
+    """K1 + K6 + K7 (precompute) on all 39 GangStatics fields, and K5
+    (gang_schedule) on chosen, n_feas, reason counts and tallies."""
+    dc, db, kw, d_cap, flags = chip_smoke.gang_inputs(torch, cuda, *chip_smoke.gen_cluster(*case), P=128)
+    tab = {k: kw[k] for k in ("sp_keys", "sp_cdv_tab", "ip_keys")}
+    n0 = {k: _build.launches[k] for k in ("gang_spread_statics", "gang_interpod_statics", "gang_scan")}
+    got = ops_gang.precompute(dc, db, **kw, **flags, enabled=enabled)
+    want = ops_gang.precompute_plain(
+        dc, db, kw["hostname_key"], kw["v_cap"], hard_pod_affinity_weight=1, enabled=enabled,
+        **dict(flags, has_spread=flags["has_spread"] and "PodTopologySpread" in enabled,
+               has_interpod=flags["has_interpod"] and "InterPodAffinity" in enabled), **tab,
+    )
+    for f in ops_gang.GangStatics._fields:
+        _equal(getattr(got, f), getattr(want, f))
+    outs = [fn(dc, db, want, kw["v_cap"], d_cap=d_cap) for fn in (ops_gang.gang_schedule, ops_gang.gang_schedule_plain)]
+    (ck, nk, rk, tk), (cp, np_, rp, tp) = outs
+    for a, b in [(ck, cp), (nk, np_), (rk, rp)] + [(tk[k], tp[k]) for k in tk]:
+        _equal(a, b)
+    assert _build.launches["gang_scan"] == n0["gang_scan"] + 1
+    if enabled == ops_gang.ALL_FILTER_KERNELS:
+        assert _build.launches["gang_spread_statics"] == n0["gang_spread_statics"] + 1
+        assert _build.launches["gang_interpod_statics"] == n0["gang_interpod_statics"] + 1
+
+
+def test_gang_scheduler_on_cuda_matches_plain(cuda):
+    """A mixed gang-path drain (direct, chained, and direct with ports) on
+    the card equals the same drain with device="cpu", outcome for outcome."""
+    chip_smoke.phase_gang_parity(torch, cuda, n_nodes=120, n_pods=1100, n_placed=60)
+
+
+def _gang_check(cuda, nodes, placed, pending, P):
+    """precompute (K1 + K6 + K7) and gang_schedule (K5) against their plain
+    versions on one packed batch, exactly; returns K5's outputs."""
+    dc, db, kw, d_cap, flags = chip_smoke.gang_inputs(torch, cuda, nodes, placed, pending, P=P)
+    tab = {k: kw[k] for k in ("sp_keys", "sp_cdv_tab", "ip_keys")}
+    got = ops_gang.precompute(dc, db, **kw, **flags)
+    want = ops_gang.precompute_plain(dc, db, kw["hostname_key"], kw["v_cap"], hard_pod_affinity_weight=1,
+                                     enabled=ops_gang.ALL_FILTER_KERNELS, **flags, **tab)
+    for f in ops_gang.GangStatics._fields:
+        _equal(getattr(got, f), getattr(want, f))
+    n0 = _build.launches["gang_scan"]
+    (ck, nk, rk, tk), (cp, np_, rp, tp) = [fn(dc, db, want, kw["v_cap"], d_cap=d_cap)
+                                           for fn in (ops_gang.gang_schedule, ops_gang.gang_schedule_plain)]
+    for a, b in [(ck, cp), (nk, np_), (rk, rp)] + [(tk[k], tp[k]) for k in tk]:
+        _equal(a, b)
+    assert _build.launches["gang_scan"] == n0 + 1
+    return ck
+
+
+@pytest.mark.parametrize("case", GANG_CASES)
+def test_gang_scan_global_counters_match_plain(cuda, case, monkeypatch):
+    """K5 with its peer counters in global memory (no shared memory allowed
+    for them) equals its plain version, as with them in shared memory."""
+    monkeypatch.setattr(ops_gang, "SCAN_SMEM_CAP", 0)
+    _gang_check(cuda, *chip_smoke.gen_cluster(*case), P=128)
+
+
+def _wide_pods(n, prefix, n_slots=10):
+    """Pods with n_slots spread constraints and n_slots inter-pod terms each
+    (zone and hostname keys, hard ones on the zone, all four term kinds)."""
+    from kubernetes_tpu_torch.api import (
+        Affinity, Container, LabelSelector, Pod, PodAffinity, PodAffinityTerm, PodAntiAffinity,
+        TopologySpreadConstraint, WeightedPodAffinityTerm,
+    )
+
+    keys = (chip_smoke.ZONE, chip_smoke.HOSTNAME)
+    pods = []
+    for i in range(n):
+        def sel(s):
+            return LabelSelector(match_labels={"app": f"a{(i + s) % 4}"})
+
+        spread = tuple(TopologySpreadConstraint(
+            max_skew=1 + s % 3, topology_key=keys[s % 2],
+            when_unsatisfiable="DoNotSchedule" if s % 4 == 0 else "ScheduleAnyway",
+            label_selector=sel(s)) for s in range(n_slots))
+        pref_aff = tuple(WeightedPodAffinityTerm(weight=1 + s, pod_affinity_term=PodAffinityTerm(
+            topology_key=keys[s % 2], label_selector=sel(s))) for s in range(n_slots // 2))
+        pref_anti = tuple(WeightedPodAffinityTerm(weight=2 + s, pod_affinity_term=PodAffinityTerm(
+            topology_key=keys[(s + 1) % 2], label_selector=sel(s + 1))) for s in range(n_slots // 2 - 2))
+        req_anti = (PodAffinityTerm(topology_key=chip_smoke.HOSTNAME,
+                                    label_selector=LabelSelector(match_labels={"grp": f"g{i % 7}"})),)
+        req_aff = (PodAffinityTerm(topology_key=chip_smoke.ZONE,
+                                   label_selector=LabelSelector(match_labels={"app": "a0"})),)
+        pods.append(Pod(
+            name=f"{prefix}-{i}", labels={"app": f"a{i % 4}", "grp": f"g{i % 7}"},
+            topology_spread_constraints=spread,
+            affinity=Affinity(
+                pod_affinity=PodAffinity(required_during_scheduling_ignored_during_execution=req_aff,
+                                         preferred_during_scheduling_ignored_during_execution=pref_aff),
+                pod_anti_affinity=PodAntiAffinity(required_during_scheduling_ignored_during_execution=req_anti,
+                                                  preferred_during_scheduling_ignored_during_execution=pref_anti)),
+            containers=[Container(name="c", requests={"cpu": "100m", "memory": "64Mi"})],
+        ))
+    return pods
+
+
+@pytest.mark.parametrize("smem_cap", [1 << 30, 0], ids=["shared", "global"])
+def test_gang_scan_wide_slots_match_plain(cuda, smem_cap, monkeypatch):
+    """Ten spread constraints and ten inter-pod terms per pod (sixteen slots
+    of each once bucketed): K5 takes any number of slots and equals its
+    plain version, with its counters in shared or in global memory."""
+    monkeypatch.setattr(ops_gang, "SCAN_SMEM_CAP", smem_cap)
+    nodes = chip_smoke.basic_nodes(48, zones=4)
+    placed = _wide_pods(60, "placed")
+    for j, p in enumerate(placed):
+        p.node_name = nodes[(5 * j + j // 4) % len(nodes)].name
+    chosen = _gang_check(cuda, nodes, placed, _wide_pods(64, "new"), P=64)
+    assert int((chosen >= 0).sum()) > 0
