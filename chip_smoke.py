@@ -44,7 +44,17 @@ Phases, one output line each (several for 2 and 4):
      tiered nodes under the default configuration; and a parity drain of
      2,000 mixed gang-path pods on 500 nodes, on cuda and on the CPU, whose
      placements and diagnoses must be identical;
-  6. the kernels line.
+  6. the wave: K8 wave_speculate and K9 wave_admit against their plain
+     versions, exact on every output, and K9 against K5 on the same
+     statics, at config4's and config3's shapes, a port-contended batch and
+     a mixed batch without ports, with each kernel's, its plain version's
+     and K5's time; then config4 and config3 under the default
+     configuration (every batch on the wave), placed pod for pod as their
+     waveDispatch: false drains above; a port-contended drain (1k nodes,
+     4,096 pods, every batch a direct wave with the port carry) against the
+     same drain on the gang scan; and the parity drain again under the
+     default configuration;
+  7. the kernels line.
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Without
@@ -340,6 +350,31 @@ def preferred_pods(n_pods):
     return pods
 
 
+def port_heavy_pods(n_pods, seed=5, apps=6, prefix="pt"):
+    """The reference's port-contended mix (tools/paritycheck.py
+    _port_heavy_pods): two of three pods race a host port (8080 or 9090,
+    TCP or UDP, wildcard or one host IP) and every other pod spreads over
+    zones with maxSkew 2.  Every batch of it takes the direct wave with the
+    port-occupancy carry."""
+    from kubernetes_tpu_torch.api import Container, ContainerPort, LabelSelector, Pod, TopologySpreadConstraint
+
+    rng = random.Random(seed)
+    pods = []
+    for i in range(n_pods):
+        kw = {"labels": {"app": f"srv-{i % apps}"}}
+        containers = [Container(name="c", requests={"cpu": f"{rng.choice([100, 250])}m", "memory": "128Mi"})]
+        if i % 3 != 2:
+            containers.append(Container(name="srv", ports=(ContainerPort(
+                container_port=8080, host_port=rng.choice([8080, 9090]), protocol=rng.choice(["TCP", "UDP"]),
+                host_ip=rng.choice(["", "", "10.0.0.1"])),)))
+        if i % 2 == 0:
+            kw["topology_spread_constraints"] = (TopologySpreadConstraint(
+                max_skew=2, topology_key=ZONE, when_unsatisfiable="DoNotSchedule",
+                label_selector=LabelSelector(match_labels={"app": kw["labels"]["app"]})),)
+        pods.append(Pod(name=f"{prefix}-{i}", containers=containers, **kw))
+    return pods
+
+
 _GEN_ZONES = ["zone-a", "zone-b", "zone-c"]
 _GEN_APPS = ["web", "db", "cache", "batch"]
 _GEN_NS = ["default", "prod", "dev"]
@@ -473,10 +508,9 @@ def gen_cluster(seed, n_nodes, n_placed, n_pending, ports_from=0):
     return nodes, placed, pending
 
 
-def gang_inputs(torch, device, nodes, placed, pending, P=512):
+def _gang_pack(torch, device, nodes, placed, pending, P):
     """Pack a cluster with its placed pods and one pending batch through the
-    port's packers, as the scheduler's mirror does, onto `device`.  Returns
-    (dc, db, kwargs of precompute without the has_* flags, d_cap)."""
+    port's packers, as the scheduler's mirror does, onto `device`."""
     from kubernetes_tpu_torch.cache.mirror import accumulate_node_usage
     from kubernetes_tpu_torch.ops import gang
     from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster
@@ -503,7 +537,26 @@ def gang_inputs(torch, device, nodes, placed, pending, P=512):
         has_ports=bool((pb.want_ppk >= 0).any() or (nt.used_ppk >= 0).any()),
     )
     dc = DeviceCluster.from_host(nt, vocab, device, ep)
-    return dc, DeviceBatch.from_host(pb, device), kw, d_cap, flags
+    return dc, DeviceBatch.from_host(pb, device), kw, d_cap, flags, pb, nt
+
+
+def gang_inputs(torch, device, nodes, placed, pending, P=512):
+    """Pack a cluster with its placed pods and one pending batch through the
+    port's packers, as the scheduler's mirror does, onto `device`.  Returns
+    (dc, db, kwargs of precompute without the has_* flags, d_cap, flags)."""
+    return _gang_pack(torch, device, nodes, placed, pending, P)[:5]
+
+
+def wave_inputs(torch, device, nodes, placed, pending, P=512):
+    """gang_inputs and the batch's wave tables (wave.wave_tables) on
+    `device`."""
+    from kubernetes_tpu_torch.ops import wave
+
+    dc, db, kw, d_cap, flags, pb, nt = _gang_pack(torch, device, nodes, placed, pending, P)
+    wt = wave.wave_tables(pb, nt.label_vals, kw["hostname_key"], device=device)
+    if wt is None:
+        raise AssertionError("the wave's inputs need unique hostnames")
+    return dc, db, kw, d_cap, flags, wt
 
 
 # ---------------------------------------------------------------------------
@@ -934,16 +987,19 @@ def phase_resident(torch, device, reps=5, n_nodes=10000, P=16384, P_adv=4096):
                 one_signature_bound_ms=one_bound)
 
 
+def place_round_robin(pods, nodes):
+    """Bind `pods` to `nodes` in turn (the placed pods of a kernel check)."""
+    for i, p in enumerate(pods):
+        p.node_name = nodes[i % len(nodes)].name
+    return pods
+
+
 def gang_shapes(n_config4=5000, n_config3=1000, n_mixed=5000, n_preferred=10000, P=512):
     """The four full-width shapes of the gang kernel checks: (name, nodes,
     placed pods, pending pods).  Placed pods are bound round-robin.  The
     last is the first batch of the preferred-affinity drain: config0's
     nodes with tier labels and no placed pods (K1, K7's port masks, K5)."""
-    def place(pods, nodes):
-        for i, p in enumerate(pods):
-            p.node_name = nodes[i % len(nodes)].name
-        return pods
-
+    place = place_round_robin
     c4 = basic_nodes(n_config4, zones=8)
     c3 = basic_nodes(n_config3)
     # a tenth as many placed pods as nodes: their required anti-affinity
@@ -1061,20 +1117,23 @@ def gang_bounds(torch, dc, db, g, chosen, n_feas, weights):
     return k6, k7, bound_ms(k5_bytes(torch, dc, db, g, chosen, n_feas, weights), k5_ops)
 
 
-def phase_gang_kernels(torch, device, reps=5, shapes=None):
+def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "config3")):
     """K5, K6 and K7 against their plain versions on the card: precompute
     (K1 + K6 + K7) against precompute_plain on every one of the 39
     GangStatics fields, and gang_schedule (K5) against its plain loop on
     chosen, n_feas, the reason counts and the tallies, all exact.  Then each
     kernel's time, its plain version's, its bound, and (K7) the float64
-    torch.matmul of interpod_weighted_ext's product at the same shapes."""
+    torch.matmul of interpod_weighted_ext's product at the same shapes.  On
+    the shapes named in `wave_on`, also K8 and K9 (wave_row) on the same
+    packed inputs and plain statics, beside K5's outputs and time.  Returns
+    (gang rows, wave rows) by shape name."""
     from kubernetes_tpu_torch.ops import fastpath as ops_fp
     from kubernetes_tpu_torch.ops import filters as F
-    from kubernetes_tpu_torch.ops import gang
+    from kubernetes_tpu_torch.ops import gang, wave
 
-    rows = {}
+    rows, waves = {}, {}
     for name, nodes, placed, pending in (shapes or gang_shapes()):
-        dc, db, kw, d_cap, flags = gang_inputs(torch, device, nodes, placed, pending)
+        dc, db, kw, d_cap, flags, pb, nt = _gang_pack(torch, device, nodes, placed, pending, 512)
         hk, v_cap = kw["hostname_key"], kw["v_cap"]
         tab = {k: kw[k] for k in ("sp_keys", "sp_cdv_tab", "ip_keys")}
         got = gang.precompute(dc, db, **kw, **flags)
@@ -1121,6 +1180,157 @@ def phase_gang_kernels(torch, device, reps=5, shapes=None):
                 library_call=f"torch.matmul float64 [{lhs.shape[0]}, {lhs.shape[1]}] x [{rhs.shape[0]}, {rhs.shape[1]}]")
         log(phase="gang_kernel_check", **row)
         rows[name] = row
+        if name in wave_on:
+            wt = wave.wave_tables(pb, nt.label_vals, hk, device=device)
+            if wt is None or wt["has_ports"] or flags["has_ports"]:
+                raise AssertionError(f"{name}: a wave check on the gang inputs needs unique hostnames, no ports")
+            waves[name] = wave_row(torch, name, dc, db, kw, d_cap, flags, wt, reps, g=want,
+                                   k5=(ck, nk, rk, row["gang_scan"]["ms"]))
+    return rows, waves
+
+
+def wave_shapes(n_ports=1000, n_mixed=5000, P=512):
+    """The wave kernel checks' shapes beyond config4's and config3's (those
+    run in phase_gang_kernels on its own inputs): (name, nodes, placed pods,
+    pending pods).  A port-contended batch over placed port holders (Tpt >
+    0), and a tests/gen.py-style mixed batch without host ports, on which K9
+    must also equal K5."""
+    cp = basic_nodes(n_ports, zones=4)
+    return [
+        ("ports", cp, place_round_robin(port_heavy_pods(n_ports, seed=3, prefix="placed"), cp),
+         port_heavy_pods(P, seed=7)),
+        ("mixed", *gen_cluster(5, n_mixed, n_mixed // 10, P, ports_from=P)),
+    ]
+
+
+WAVE_TABLES = ("tid_sp", "rep_sp_p", "rep_sp_c", "tid_ip", "rep_ip_p", "rep_ip_u", "ip_cdv_tab")
+
+
+def wave_bounds(torch, dc, db, g, wt, c0, spec_feas, chosen, n_feas, weights):
+    """(K8, K9) bound_ms from this run's inputs.  K8's only output is c0:
+    it must read static_mask (already the AND of the diagnosis masks) at
+    every valid (pod, node); each live spread slot's eligibility and domain
+    count rows there too (the min-match runs over every eligible node); a
+    live slot's presence row, each live inter-pod term's count row and
+    ip_viol_existing only at the pod's statically feasible nodes; the score
+    rows (sc_taint, sc_nodeaff, sc_image by weight, ip_sym, one spread count
+    row per live slot, sp_all_keys) only at its speculatively feasible
+    nodes; one compact-domain row per topology key in use, at the nodes
+    some pod finds statically feasible; the usage rows once; c0.  The
+    diagnosis masks feed only reason counts, which K8 does not emit.  K9:
+    K5's k5_bytes for the same statics and placements (reason counts
+    included), plus the wave tables, the stats, and one pass over the live
+    carry rows ([T, N] int32).  Operations: ~80 + 3 Rp integer operations
+    per (pod, node), 12 more per live slot."""
+    P, N = g.static_mask.shape
+    C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
+    valid = db.valid
+    n_live = int(dc.node_valid.sum().item())
+    p_live = int(valid.sum().item())
+    sp_live = (db.tsc_topo[:, :C] >= 0) & valid[:, None]
+    ip_live = (db.aff_kind[:, :AT] >= 0) & valid[:, None]
+    slots, terms = int(sp_live.sum().item()), int(ip_live.sum().item())
+    stat = g.static_mask & valid[:, None] & dc.node_valid[None, :]
+    n_stat = stat.sum(1)  # [P] statically feasible nodes
+    Rn, Rp = dc.allocatable.shape[1], db.requests.shape[1]
+    b8 = p_live * n_live + slots * n_live * (1 + 4)  # static_mask; sp_te, sp_dom_cnt
+    b8 += int((n_stat * (sp_live.sum(1) + 4 * ip_live.sum(1) + (1 if AT else 0))).sum().item())
+    per_feas = (8 * (weights[0] != 0) + 8 * (weights[1] != 0) + 8 * (weights[6] != 0) + (8 if AT else 0)
+                + (1 if C else 0))  # sc_taint, sc_nodeaff, sc_image, ip_sym, sp_all_keys
+    b8 += int((spec_feas * (per_feas + 4 * sp_live.sum(1))).sum().item())  # and one count row per slot
+    keys = torch.cat([db.tsc_topo[:, :C][sp_live], db.aff_topo[:, :AT][ip_live]])
+    b8 += int(torch.unique(keys).numel()) * int(stat.any(0).sum().item()) * 4  # dom_ids rows
+    b8 += n_live * (2 * Rn * 4 + 8 + 4 + 4 + 1) + nbytes(db.requests, db.nonzero_req, db.valid) + P * 4
+    ops = n_live * (p_live * (Rp * 3 + 80) + (slots + terms) * 12)
+    t_live = _live(wt["rep_sp_p"]) + 2 * _live(wt["rep_ip_p"]) + (int(wt["port_conf"].any(1).sum().item())
+                                                                   if wt["has_ports"] else 0)
+    b9 = k5_bytes(torch, dc, db, g, chosen, n_feas, weights) + nbytes(*(wt[k] for k in WAVE_TABLES[:6]))
+    b9 += nbytes(wt["tid_pt"], wt["port_conf"], c0) + 2 * P * 4 + t_live * n_live * 4
+    return bound_ms(b8, ops), bound_ms(b9, ops + t_live * n_live * 2)
+
+
+def wave_check(torch, dc, db, kw, d_cap, flags, wt, g=None, k5=None):
+    """K8 and K9 against their plain versions on one packed batch, on the
+    plain statics without ports `g` (made here when None; K1/K6/K7 are held
+    against theirs by the gang phase), and K9 against K5 (the same
+    placements, feasible counts and reasons, by the admission invariant):
+    `k5` is K5's (chosen, n_feas, reason counts) on these statics when the
+    caller has them (a batch without ports), else K5 runs here on the
+    statics with ports.  K9 runs on the plain version's c0, so it is checked
+    apart from K8.  Returns (g, K5's statics, plain c0, speculatively
+    feasible counts, plain admission outputs, errors)."""
+    from kubernetes_tpu_torch.ops import gang, wave
+
+    hk, v_cap = kw["hostname_key"], kw["v_cap"]
+    tab = {k: kw[k] for k in ("sp_keys", "sp_cdv_tab", "ip_keys")}
+    plain = dict(hard_pod_affinity_weight=1, enabled=gang.ALL_FILTER_KERNELS, **tab)
+    if g is None:
+        g = gang.precompute_plain(dc, db, hk, v_cap, **dict(flags, has_ports=False), **plain)
+    targs = [wt[k] for k in WAVE_TABLES]
+    tkw = dict(d_cap=d_cap, d2_cap=wt["d2_cap"], has_ports=wt["has_ports"], tid_pt=wt["tid_pt"],
+               port_conf=wt["port_conf"])
+    spec_feas = torch.zeros((db.valid.shape[0],), dtype=torch.int64, device=dc.node_valid.device)
+    c0 = wave.wave_speculate_plain(dc, db, g, d_cap=d_cap, n_feas=spec_feas)
+    c0_k = wave.wave_speculate(dc, db, g, d_cap=d_cap)
+    adm = wave.wave_admit_plain(dc, db, g, hk, c0, *targs, **tkw)
+    adm_k = wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw)
+    g5 = g if not wt["has_ports"] else gang.precompute_plain(dc, db, hk, v_cap, **flags, **plain)
+    ck, nk, rk = k5 if k5 is not None else gang.gang_schedule(dc, db, g5, v_cap, d_cap=d_cap)[:3]
+    torch.cuda.synchronize()
+    (ca, na, ra, ta, ka, xa), (cb, nb, rb, tb, kb, xb) = adm_k, adm
+    errs = dict(k8_err=max_abs_err(torch, c0_k, c0),
+                k9_err=max([max_abs_err(torch, u, v) for u, v in ((ca, cb), (na, nb), (ra, rb), (ka, kb), (xa, xb))]
+                           + [max_abs_err(torch, ta[k], tb[k]) for k in ta]),
+                k9_vs_k5=max(max_abs_err(torch, ck, ca), max_abs_err(torch, nk, na), max_abs_err(torch, rk, ra)))
+    return g, g5, c0, spec_feas, adm, errs
+
+
+def wave_row(torch, name, dc, db, kw, d_cap, flags, wt, reps, g=None, k5=None):
+    """wave_check, exact on every output (c0; chosen, n_feas, the reason
+    counts, the tallies, kinds, conflicting terms), then each kernel's time,
+    its plain version's, K5's on the same statics (the fourth entry of `k5`
+    when the caller timed it), and the bounds.  Returns the row."""
+    from kubernetes_tpu_torch.ops import gang, wave
+
+    g, g5, c0, spec_feas, adm, errs = wave_check(torch, dc, db, kw, d_cap, flags, wt, g=g,
+                                                  k5=k5[:3] if k5 is not None else None)
+    if any(errs.values()):
+        raise AssertionError(f"{name}: wave kernels differ: {errs}")
+    hk, v_cap = kw["hostname_key"], kw["v_cap"]
+    targs = [wt[k] for k in WAVE_TABLES]
+    tkw = dict(d_cap=d_cap, d2_cap=wt["d2_cap"], has_ports=wt["has_ports"], tid_pt=wt["tid_pt"],
+               port_conf=wt["port_conf"])
+    chosen, n_feas = adm[0], adm[1]
+    (b8, by8), (b9, by9) = wave_bounds(torch, dc, db, g, wt, c0, spec_feas, chosen, n_feas, gang.DEFAULT_WEIGHTS)
+    row = dict(shape=name, N=int(dc.node_valid.sum().item()), P=int(db.valid.sum().item()),
+               placed=int(dc.epod_valid.sum().item()), terms=wt["n_terms"], has_ports=wt["has_ports"],
+               Tsp=_live(wt["rep_sp_p"]), Tip=_live(wt["rep_ip_p"]),
+               Tpt=int(wt["port_conf"].shape[0]) if wt["has_ports"] else 0,
+               scheduled=int((chosen >= 0).sum().item()),
+               admitted=int(((chosen == c0) & (chosen >= 0)).sum().item()),
+               demoted=int((chosen != c0).sum().item()), **errs)
+    row["wave_speculate"] = dict(
+        ms=time_ms(torch, lambda: wave.wave_speculate(dc, db, g, d_cap=d_cap), reps),
+        plain_ms=time_ms(torch, lambda: wave.wave_speculate_plain(dc, db, g, d_cap=d_cap), 1),
+        bound_ms=b8, bound_by=by8, library_ms=None)
+    row["wave_admit"] = dict(
+        ms=time_ms(torch, lambda: wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw), reps),
+        plain_ms=time_ms(torch, lambda: wave.wave_admit_plain(dc, db, g, hk, c0, *targs, **tkw), 1),
+        bound_ms=b9, bound_by=by9, library_ms=None)
+    row["gang_scan_ms_same_statics"] = (k5[3] if k5 is not None else
+                                        time_ms(torch, lambda: gang.gang_schedule(dc, db, g5, v_cap, d_cap=d_cap),
+                                                reps))
+    log(phase="wave_kernel_check", **row)
+    return row
+
+
+def phase_wave_kernels(torch, device, reps=5, shapes=None):
+    """wave_row on the wave-only shapes (wave_shapes): the port-contended
+    batch and the port-free mixed batch.  Returns the rows by shape name."""
+    rows = {}
+    for name, nodes, placed, pending in (shapes or wave_shapes()):
+        dc, db, kw, d_cap, flags, wt = wave_inputs(torch, device, nodes, placed, pending)
+        rows[name] = wave_row(torch, name, dc, db, kw, d_cap, flags, wt, reps)
     return rows
 
 
@@ -1276,11 +1486,19 @@ def first_pods_match_cpu(torch, nodes, pods):
     return check
 
 
-def phase_gang_drain(torch, name, device, nodes, pods, kernels, check=None, **cfg):
+WAVE_METRICS = ("wave_batches", "wave_pods", "wave_admitted", "wave_groups", "wave_conflicts",
+                "wave_fallback_dup_hostname", "wave_fallback_kill_switch")
+
+
+def phase_gang_drain(torch, name, device, nodes, pods, kernels, check=None, want=None, wave_batches=None,
+                     **cfg):
     """One gang-path drain through Scheduler() on the card: every pod gets an
     outcome and every placement is bound, no node ends over its allocatable,
     `check` (the workload's constraint check) passes, and every kernel in
-    `kernels` launched in this drain.  Returns the launches."""
+    `kernels` launched in this drain.  With `want` (the placements of a
+    drain of the same workload on another route), the placements must equal
+    it pod for pod; with `wave_batches`, that many batches must have taken
+    the wave and none the scan.  Returns (launches, placements)."""
     from kubernetes_tpu_torch.ops import _build
 
     _build.reset_launches()
@@ -1291,22 +1509,32 @@ def phase_gang_drain(torch, name, device, nodes, pods, kernels, check=None, **cf
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{name}: the drain never launched {missing}: {launches}")
-    placed = sum(v is not None for v in got.values())
     m = sched.metrics
+    if wave_batches is not None and (m["wave_batches"] != wave_batches or m["scan_batches"] or m["chain_batches"]):
+        raise AssertionError(f"{name}: {m['wave_batches']} wave batches of {wave_batches}, "
+                             f"{m['scan_batches']} scan, {m['chain_batches']} chain")
+    if want is not None:
+        diff = [k for k in want if want[k] != got.get(k)]
+        if diff or len(want) != len(got):
+            raise AssertionError(f"{name}: {len(diff)} placements differ from the other route's drain, "
+                                 f"first {diff[:1]}")
+    placed = sum(v is not None for v in got.values())
     log(phase="gang_drain", name=name, config=cfg, nodes=len(sched.cache.real_nodes()), pods=len(got),
         placed=placed, drain_s=dt, pods_per_s=len(got) / dt, launches=launches,
         scan_batches=m["scan_batches"], chain_batches=m["chain_batches"], fast_batches=m["fast_batches"],
-        constraint_check=checked, capacity_ok=True)
-    return launches
+        **{k: m[k] for k in WAVE_METRICS}, constraint_check=checked, capacity_ok=True,
+        equal_to_other_route=want is not None)
+    return launches, got
 
 
-def phase_gang_parity(torch, device, n_nodes=500, n_pods=2000, n_placed=200):
+def phase_gang_parity(torch, device, n_nodes=500, n_pods=2000, n_placed=200, wave=False):
     """The same mixed gang-path drain on the card and with device="cpu" (the
     plain versions): placements, FitError messages and diagnoses must be
     identical.  Host ports only in the last batch, so the first batch takes
-    the direct scan, the middle ones the chained scan, the last the direct
-    scan with ports.  The card's machine has no JAX, so this is the
-    end-to-end check there."""
+    the direct route, the middle ones the chained route, the last the
+    direct route with ports: the gang scan under waveDispatch: false, the
+    wave under the default configuration (`wave`).  The card's machine has
+    no JAX, so this is the end-to-end check there."""
     from kubernetes_tpu_torch.framework.config import SchedulerConfiguration
     from kubernetes_tpu_torch.ops import _build
     from kubernetes_tpu_torch.scheduler import Scheduler
@@ -1314,7 +1542,7 @@ def phase_gang_parity(torch, device, n_nodes=500, n_pods=2000, n_placed=200):
     def run(dev):
         last = n_pods % 512 or 512  # the default batch size
         nodes, placed, pending = gen_cluster(11, n_nodes, n_placed, n_pods, ports_from=n_pods - last)
-        sched = Scheduler(SchedulerConfiguration(wave_dispatch=False), device=dev)
+        sched = Scheduler(SchedulerConfiguration(wave_dispatch=wave), device=dev)
         for n in nodes:
             sched.on_node_add(n)
         for p in placed + pending:
@@ -1330,11 +1558,15 @@ def phase_gang_parity(torch, device, n_nodes=500, n_pods=2000, n_placed=200):
     diff = [k for k in want if want[k] != got.get(k)]
     if diff or len(got) != len(want):
         raise AssertionError(f"parity: {len(diff)} outcomes differ between cuda and cpu, first {diff[:1]}")
-    for k in ("static_eval", "gang_spread_statics", "gang_interpod_statics", "gang_scan"):
+    route = ("wave_speculate", "wave_admit") if wave else ("gang_scan",)
+    for k in ("static_eval", "gang_spread_statics", "gang_interpod_statics") + route:
         if launches[k] <= 0:
             raise AssertionError(f"parity: the cuda drain never launched {k}")
     m = sched.metrics
-    log(phase="gang_parity", nodes=n_nodes, pods=n_pods, placed_before=n_placed,
+    if wave and (m["scan_batches"] or m["chain_batches"] or not m["wave_batches"]):
+        raise AssertionError(f"parity: a batch left the wave: {m}")
+    log(phase="gang_parity", wave_dispatch=wave, wave_batches=m["wave_batches"], nodes=n_nodes, pods=n_pods,
+        placed_before=n_placed,
         placed=sum(v[0] is not None for v in got.values()), unschedulable=sum(v[0] is None for v in got.values()),
         identical=True, cuda_drain_s=dt, cpu_drain_s=dt_cpu, launches=launches, scan_batches=m["scan_batches"],
         chain_batches=m["chain_batches"], fast_batches=m["fast_batches"])
@@ -1396,25 +1628,52 @@ def main() -> int:
                 ("static_eval", "resident_run", "usage_checksum"), want=want, resident_serial_tail=True)
 
     # the gang path: K5-K7 against their plain versions at full width, then
-    # config4 and config3 under waveDispatch: false (the wave is not ported),
-    # the preferred-affinity drain under the default configuration, and the
+    # config4 and config3 under waveDispatch: false (the gang scan), the
+    # preferred-affinity drain under the default configuration, and the
     # cuda-vs-cpu parity drain
-    gang = phase_gang_kernels(torch, device)
-    spread_l = phase_gang_drain(torch, "config4", device, basic_nodes(5000, zones=8), spread_pods(50000),
-                                ("static_eval", "gang_spread_statics", "gang_scan"),
-                                check=lambda sched, got: zone_skew_ok(sched, got), wave_dispatch=False)
-    interpod_l = phase_gang_drain(torch, "config3", device, basic_nodes(1000), interpod_pods(5000),
-                                  ("static_eval", "gang_interpod_statics", "gang_scan"),
-                                  check=lambda sched, got: anti_affinity_ok(got), wave_dispatch=False)
+    gang, wave = phase_gang_kernels(torch, device)
+    c4 = (lambda: basic_nodes(5000, zones=8), lambda: spread_pods(50000))
+    c3 = (lambda: basic_nodes(1000), lambda: interpod_pods(5000))
+    check4 = lambda sched, got: zone_skew_ok(sched, got)  # noqa: E731
+    check3 = lambda sched, got: anti_affinity_ok(got)  # noqa: E731
+    spread_l, want4 = phase_gang_drain(torch, "config4", device, c4[0](), c4[1](),
+                                       ("static_eval", "gang_spread_statics", "gang_scan"), check=check4,
+                                       wave_dispatch=False)
+    interpod_l, want3 = phase_gang_drain(torch, "config3", device, c3[0](), c3[1](),
+                                         ("static_eval", "gang_interpod_statics", "gang_scan"), check=check3,
+                                         wave_dispatch=False)
     phase_gang_drain(torch, "preferred", device, tier_nodes(10000), preferred_pods(20000),
                      ("static_eval", "gang_interpod_statics", "gang_scan"),
                      check=first_pods_match_cpu(torch, tier_nodes(10000), preferred_pods(1024)))
     phase_gang_parity(torch, device)
+
+    # the wave: K8 and K9 against their plain versions (and K9 against K5)
+    # at full width (config4's and config3's shapes ran with the gang
+    # kernels above); config4 and config3 under the default configuration,
+    # every batch on the wave, placed as the gang-scan drains above placed
+    # them; a port-contended drain (every batch a direct wave with the port
+    # carry) against the same drain under waveDispatch: false; and the parity
+    # drain under the default configuration
+    wave.update(phase_wave_kernels(torch, device))
+    wave_k = ("wave_speculate", "wave_admit")
+    wave4_l, _ = phase_gang_drain(torch, "config4_wave", device, c4[0](), c4[1](),
+                                  ("static_eval", "gang_spread_statics") + wave_k, check=check4, want=want4,
+                                  wave_batches=98)
+    phase_gang_drain(torch, "config3_wave", device, c3[0](), c3[1](), ("static_eval", "gang_interpod_statics")
+                     + wave_k, check=check3, want=want3, wave_batches=10)
+    ports = (lambda: basic_nodes(1000, zones=4), lambda: port_heavy_pods(4096))
+    _, want_p = phase_gang_drain(torch, "ports", device, ports[0](), ports[1](), ("static_eval", "gang_scan"),
+                                 wave_dispatch=False)
+    phase_gang_drain(torch, "ports_wave", device, ports[0](), ports[1](), ("static_eval",) + wave_k, want=want_p,
+                     wave_batches=8)
+    phase_gang_parity(torch, device, wave=True)
     # each kernel's error: the largest over the shapes of this run
     for kernel, err in (("gang_scan", "k5_err"), ("gang_spread_statics", "k6_err"),
                         ("gang_interpod_statics", "k7_err")):
         checks[kernel] = dict(max_abs_err=max(row[err] for row in gang.values()),
                               **gang["config3" if kernel == "gang_interpod_statics" else "config4"][kernel])
+    for kernel, err in (("wave_speculate", "k8_err"), ("wave_admit", "k9_err")):
+        checks[kernel] = dict(max_abs_err=max(row[err] for row in wave.values()), **wave["config4"][kernel])
     sources = {
         "static_eval": ("kubernetes_tpu_torch/csrc/static_eval.cu", "kubernetes_tpu/ops/fastpath.py:50",
                         "config0_default", default),
@@ -1430,6 +1689,10 @@ def main() -> int:
                                   "config3", interpod_l),
         "gang_scan": ("kubernetes_tpu_torch/csrc/gang_scan.cu", "kubernetes_tpu/ops/gang.py:975", "config4",
                       spread_l),
+        "wave_speculate": ("kubernetes_tpu_torch/csrc/wave.cu", "kubernetes_tpu/ops/wave.py:666", "config4_wave",
+                           wave4_l),
+        "wave_admit": ("kubernetes_tpu_torch/csrc/wave.cu", "kubernetes_tpu/ops/wave.py:666", "config4_wave",
+                       wave4_l),
     }
     kernels = []
     for name, (src, replaces, path, launches) in sources.items():

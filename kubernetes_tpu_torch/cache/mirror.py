@@ -36,6 +36,8 @@ from kubernetes_tpu_torch.snapshot.schema import (
     write_node_row,
 )
 
+HOSTNAME_LABEL = "kubernetes.io/hostname"
+
 
 def accumulate_node_usage(nt: NodeTensors, placed_pods, vocab: Vocab) -> None:
     """Fold placed pods into per-node requested / non-zero / pod-count /
@@ -101,6 +103,7 @@ class SnapshotMirror:
         self._m_cap_max = 1  # sticky: the term axis never shrinks
         # expected total placed pods: pre-sizes the E/M axes for a drain
         self.e_cap_hint = 0
+        self._hostnames_unique_memo = None
 
     @property
     def e_used(self) -> int:
@@ -195,6 +198,30 @@ class SnapshotMirror:
         est = self._e_cap(len(placed)) * (n_terms * 4) // n
         self._m_cap_max = max(self._m_cap_max, bucket_cap(max(est, 1), 1))
         return self._m_cap_max
+
+    @property
+    def hostnames_unique(self) -> bool:
+        """True when no two nodes share a hostname label value: the
+        precondition of the wave's factored algebra, which counts hostname
+        topology domains per node.  Memoized on the static lineage (full
+        packs, static generation, node population); usage churn never
+        moves it, since hostname labels are static row content."""
+        nt = self.nodes
+        if nt is None:
+            return True
+        key = (self._full_packs, self.static_generation, len(nt.name_to_idx))
+        memo = self._hostnames_unique_memo
+        if memo is not None and memo[0] == key:
+            return memo[1]
+        hk = self.vocab.label_keys.lookup(HOSTNAME_LABEL)
+        unique = True
+        lv = nt.label_vals
+        if 0 <= hk < lv.shape[1]:
+            col = lv[:, hk]
+            vals = col[col >= 0]
+            unique = len(vals) == len(np.unique(vals))
+        self._hostnames_unique_memo = (key, unique)
+        return unique
 
     def apply_fast_usage(self, fc, cache: Cache) -> bool:
         """Vectorized usage refresh from a live FastCommitter whose lineage

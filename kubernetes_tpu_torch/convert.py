@@ -65,3 +65,9 @@ def usage_from_committer(fc, device) -> Dict[str, torch.Tensor]:
         "nz1": torch.as_tensor(np.asarray(fc.nz1, np.int64), device=device),
         "num_pods": torch.as_tensor(np.asarray(fc.num_pods, np.int32), device=device),
     }
+
+
+def wave_tables_from_numpy(wt, device) -> dict:
+    """A reference wave_tables dict (arrays and static ints) → the port's:
+    arrays become tensors, dtype for dtype; the ints and flags stay."""
+    return {k: torch.as_tensor(np.array(v), device=device) if np.ndim(v) else v for k, v in wt.items()}

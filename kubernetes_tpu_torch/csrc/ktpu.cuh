@@ -461,3 +461,447 @@ struct GangScanArgs {
   int N, K, Rn, Rp, L, P, C, AT, KD2, D, JP, use_smem;
   int w_taint, w_naff, w_spread, w_ip, w_fit, w_bal, w_img, check_fit;
 };
+
+// The speculative wave's tables and outputs (csrc/wave.cu): K8 and K9 take
+// a GangScanArgs (the statics, the usage state, chosen / n_feas /
+// reason_counts and the per-node scratch) and this block.
+struct WaveArgs {
+  const int* tid_sp;                // [P, C]   distinct spread-term id per slot (-1 empty)
+  const int* rep_sp_p;              // [Tsp]    a representative slot per term (-1 pad)
+  const int* rep_sp_c;              // [Tsp]
+  const int* tid_ip;                // [P, AT]  distinct inter-pod-term id per slot
+  const int* rep_ip_p;              // [Tip]
+  const int* rep_ip_u;              // [Tip]
+  const int* tid_pt;                // [P, W]   distinct port-term id per want slot
+  const unsigned char* port_conf;   // [Tpt, Tpt] term-pair conflicts
+  const int* c0;                    // [P]      K9: the speculative nodes
+  int* kinds;                       // [P]      K9: demote kind
+  int* cterms;                      // [P]      K9: conflicting term slot
+  int* sums;                        // K8: [P, C, Dsp] domain stamps; K9: the per-pod
+                                    // region unless sums_smem (see wave.cu)
+  int* carries;                     // K9: [(Tsp + 2 Tip + Tpt) * N] unless carry_smem
+  int Tsp, Tip, Tpt, W, Dsp, D2, hostname_key, has_ports, sums_smem, carry_smem;
+};
+
+namespace ktpu {
+namespace step {
+
+// ---------------------------------------------------------------------------
+// The gang path's per-pod step, shared by K5 (gang_scan), K8 (wave_speculate)
+// and K9 (wave_admit), as the reference shares gang.pod_step,
+// spread_constraints and interpod_constraints between the scan, the wave's
+// speculation and its admission: the dynamic resource fit, the spread and
+// inter-pod verdicts from the batch peers' counts, the first-failure reason
+// counts in DIAG_KERNELS order, the seven weighted scores with their
+// normalizations over the live feasible set, and the first-max argmax (ties
+// to the lower node index).  Only where the peers' counts come from differs:
+// the caller passes a Dyn with
+//   f(c, pc, n, d)        filter-side peer count of spread slot c at node n
+//   sc(c, pc, n, d, host) score-side peer count (per node for a hostname
+//                         constraint, per domain otherwise)
+//   ip(u, pc, n, d)       peers matching inter-pod term u in n's domain
+//   viol(n), sym(n)       the committed peers' own terms against the pod:
+//                         anti-affinity at n, symmetric score at n
+//   portb(n)              no committed peer's host port conflicts at n
+// where d is n's compact domain id under the slot's topology key (in
+// namespace ktpu::step, apart from the fast path's helpers).  Scores are
+// int64; every division is a floor division; the spread score's 32.32 fixed
+// point uses an arithmetic >> and round-half-to-even, as _spread_raw does.
+// ---------------------------------------------------------------------------
+
+constexpr int N_DIAG = 9;
+constexpr int RED_CHUNK = 8;  // slots per block-wide min reduction
+constexpr int FX = 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr long long I64_MAX = 0x7fffffffffffffffLL;
+constexpr int I32_MAX = 0x7fffffff;
+
+enum RedOp { RED_SUM = 0, RED_MIN = 1, RED_MAX = 2 };
+
+// floor division for b > 0 (the reference's // on int64)
+__device__ __forceinline__ long long fdiv(long long a, long long b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+__device__ __forceinline__ long long combine(long long x, long long y, int op) {
+  return op == RED_SUM ? x + y : (op == RED_MIN ? (y < x ? y : x) : (y > x ? y : x));
+}
+
+__device__ __forceinline__ long long identity(int op) {
+  return op == RED_SUM ? 0 : (op == RED_MIN ? I64_MAX : -I64_MAX - 1);
+}
+
+// Block-wide reduction of nv <= NV values under their ops; every thread gets
+// the results in v.  s_buf holds 32 * NV entries.
+template <int NV>
+__device__ void block_reduce(long long (&v)[NV], const int (&op)[NV], int nv, long long* s_buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = 0; i < nv; ++i)
+    for (int off = 16; off > 0; off >>= 1) v[i] = combine(v[i], __shfl_down_sync(FULL_MASK, v[i], off), op[i]);
+  if (lane == 0)
+    for (int i = 0; i < nv; ++i) s_buf[warp * NV + i] = v[i];
+  __syncthreads();
+  if (warp == 0) {
+    for (int i = 0; i < nv; ++i) {
+      long long x = lane < (int)(blockDim.x >> 5) ? s_buf[lane * NV + i] : identity(op[i]);
+      for (int off = 16; off > 0; off >>= 1) x = combine(x, __shfl_down_sync(FULL_MASK, x, off), op[i]);
+      if (lane == 0) s_buf[i] = x;
+    }
+  }
+  __syncthreads();
+  for (int i = 0; i < nv; ++i) v[i] = s_buf[i];
+  __syncthreads();
+}
+
+__device__ __forceinline__ void better(long long& v, int& i, long long ov, int oi) {
+  if (ov > v || (ov == v && oi < i)) {
+    v = ov;
+    i = oi;
+  }
+}
+
+// Node n's compact domain id under topology key `key` (-1: absent).
+__device__ __forceinline__ int dom_at(const GangScanArgs& a, int key, int n) {
+  return key >= 0 && key < a.K ? a.dom_ids[(long long)key * a.N + n] : -1;
+}
+
+// Per-node scratch of one step (global memory; one set per block).
+struct StepScratch {
+  unsigned char* feas;  // [N]
+  long long* ip_raw;    // [N]
+  long long* sp_raw;    // [N]
+  int* sp_cnt;          // [C, N] the spread score's per-node counts
+  int* seen;            // [C, seen_stride] stamp of the last step that counted
+                        // a domain (the spread score's domain counts)
+  int seen_stride;
+};
+
+// The block's shared memory for a step.
+struct StepShared {
+  long long* s_buf;     // [32 * 16] block_reduce
+  long long* s_wfx;     // [C] topology weights
+  int* s_min;           // [C] min-match
+  int* s_ndom;          // [C] distinct counted domains
+  long long* s_best_v;  // [32]
+  int* s_best_i;        // [32]; [0] carries the choice out
+  int* s_at;            // [6] at the node `at`: m_portb, m_spread, m_interpod,
+                        // m_fit, first violating hard spread slot, first
+                        // violated anti-affinity slot
+};
+
+struct StepOut {
+  int choice;
+  long long n_feas;
+  long long rc[N_DIAG];
+};
+
+// One pod's Filter -> Score -> Select against the usage state in `a`
+// (requested / nonzero / num_pods, read only here: the caller commits).
+// `at` >= 0 asks for the verdict's pieces at that node (the wave's demotion
+// attribution).  Without `diagnose` the reason counts stay 0 and the
+// diagnosis masks are not read (a caller that emits only the choice).
+// Every thread of the block calls it and gets the result.
+template <class Dyn>
+__device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, bool any_dyn,
+                                  const StepScratch& sc, const StepShared& sh, int at, bool diagnose = true) {
+  const int tid = threadIdx.x;
+  const int N = a.N, C = a.C, AT = a.AT;
+  for (int c = tid; c < C; c += blockDim.x) sh.s_ndom[c] = 0;
+  __syncthreads();
+
+  // ---- spread min-match per constraint (filtering.go:313 minMatch),
+  // RED_CHUNK constraints per block-wide reduction
+  for (int c0 = 0; c0 < C; c0 += RED_CHUNK) {
+    const int nc = C - c0 < RED_CHUNK ? C - c0 : RED_CHUNK;
+    long long v[RED_CHUNK];
+    int op[RED_CHUNK];
+    for (int i = 0; i < RED_CHUNK; ++i) {
+      v[i] = I32_MAX;
+      op[i] = RED_MIN;
+    }
+    for (int n = tid; n < N; n += blockDim.x)
+      for (int i = 0; i < nc; ++i) {
+        const long long pc = (long long)p * C + c0 + i;
+        const long long o = pc * N + n;
+        if (!a.sp_te[o]) continue;
+        const int d = dom_at(a, a.sp_key[pc], n);
+        const long long total = a.sp_dom_cnt[o] + dyn.f(c0 + i, pc, n, d);
+        if (total < v[i]) v[i] = total;
+      }
+    block_reduce(v, op, nc, sh.s_buf);
+    if (tid < nc) {
+      const long long pc = (long long)p * C + c0 + tid;
+      const int md = a.min_domains[pc];
+      sh.s_min[c0 + tid] = (md > 0 && a.sp_ndom[pc] < md) ? 0 : (int)v[tid];
+    }
+  }
+  __syncthreads();
+
+  // ---- filters, diagnosis, and the normalizers' min / max
+  bool has_aff = false, has_soft = false;
+  for (int u = 0; u < AT; ++u) has_aff = has_aff || a.ip_is_aff[(long long)p * AT + u];
+  for (int c = 0; c < C; ++c) has_soft = has_soft || a.sp_soft[(long long)p * C + c];
+  const bool any_match = a.ip_any_static[p] || any_dyn;
+  const bool escape = has_aff && !any_match && a.ip_self_all[p];
+  const int* req = a.requests + (long long)p * a.Rp;
+  bool all_zero = true;
+  for (int r = 0; r < a.Rp; ++r) all_zero = all_zero && req[r] == 0;
+  const int stamp = p + 1;
+
+  // 0 n_feas, 1..9 reason counts, 10 taint max, 11 naff max, 12 ip min,
+  // 13 ip max, 14 counted nodes
+  long long red[15];
+  const int red_op[15] = {RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM,
+                          RED_SUM, RED_SUM, RED_MAX, RED_MAX, RED_MIN, RED_MAX, RED_SUM};
+  for (int i = 0; i < 15; ++i) red[i] = identity(red_op[i]);
+  red[10] = red[11] = 0;  // max(where(feas, raw, 0))
+  for (int n = tid; n < N; n += blockDim.x) {
+    const long long pn = (long long)p * N + n;
+    const bool m_portb = dyn.portb(n);
+    bool m_fit = true;
+    if (a.check_fit) {
+      m_fit = a.num_pods[n] + 1 <= a.allowed_pods[n];
+      if (m_fit && !all_zero) {
+        for (int r = 0; r < a.Rp; ++r) {
+          const long long v = req[r];
+          if (r >= N_FIXED_LANES && v == 0) continue;  // unrequested scalar lane
+          const long long avail = r < a.Rn
+              ? (long long)a.allocatable[(long long)n * a.Rn + r] - a.requested[(long long)n * a.Rn + r]
+              : 0;
+          if (v > avail) {
+            m_fit = false;
+            break;
+          }
+        }
+      }
+    }
+    bool m_spread = true;
+    int sp_term = -1;
+    for (int c = 0; c < C; ++c) {
+      const long long pc = (long long)p * C + c;
+      const long long o = pc * N + n;
+      const int d = dom_at(a, a.sp_key[pc], n);
+      const bool host = a.sp_is_host[pc];
+      const long long total = a.sp_dom_cnt[o] + dyn.f(c, pc, n, d);
+      const long long skew = total + (a.sp_self[pc] ? 1 : 0) - sh.s_min[c];
+      const bool c_ok = d >= 0 && (!a.sp_dom_pres[o] || skew <= a.max_skew[pc]);
+      if (a.sp_hard[pc] && !c_ok) {
+        m_spread = false;
+        if (sp_term < 0) sp_term = c;
+      }
+      sc.sp_cnt[(long long)c * N + n] =
+          (host ? a.sp_node_cnt[o] : a.sp_sc_dom[o]) + dyn.sc(c, pc, n, d, host);
+    }
+    bool m_interpod = true;
+    long long ip_raw = 0;
+    int ip_term = -1;
+    if (AT) {
+      ip_raw = a.ip_sym[pn];
+      bool viol2 = false, aff_ok = true, topo_all = true;
+      long long pref = 0;
+      for (int u = 0; u < AT; ++u) {
+        const long long pu = (long long)p * AT + u;
+        const long long o = pu * N + n;
+        const int d = dom_at(a, a.ip_key[pu], n);
+        const bool present = d >= 0;
+        const long long tot = a.ip_dom_cnt[o] + dyn.ip(u, pu, n, d);
+        if (a.ip_is_anti[pu] && present && tot > 0) {
+          viol2 = true;
+          if (ip_term < 0) ip_term = u;
+        }
+        if (a.ip_is_aff[pu]) {
+          aff_ok = aff_ok && present && tot > 0;
+          topo_all = topo_all && present;
+        }
+        if (present) pref += tot * a.ip_pref_w[pu];
+      }
+      const bool ok3 = aff_ok || (escape && topo_all);
+      m_interpod = !a.ip_viol_existing[pn] && !viol2 && ok3 && !dyn.viol(n);
+      ip_raw += pref + dyn.sym(n);
+    }
+    const bool feas = a.static_mask[pn] && m_portb && m_fit && m_spread && m_interpod;
+    sc.feas[n] = feas;
+    sc.ip_raw[n] = ip_raw;
+    if (n == at) {
+      sh.s_at[0] = m_portb;
+      sh.s_at[1] = m_spread;
+      sh.s_at[2] = m_interpod;
+      sh.s_at[3] = m_fit;
+      sh.s_at[4] = sp_term;
+      sh.s_at[5] = ip_term;
+    }
+
+    // first failure in the filter chain's order
+    if (diagnose && a.node_valid[n]) {
+      const bool comp[N_DIAG] = {a.d_unsched[pn] != 0, a.d_nodename[pn] != 0, a.d_taints[pn] != 0,
+                                 a.d_nodeaff[pn] != 0, a.d_ports[pn] && m_portb, a.d_extra[pn] != 0,
+                                 m_fit, m_spread, m_interpod};
+      for (int r = 0; r < N_DIAG; ++r)
+        if (!comp[r]) {
+          red[1 + r] += 1;
+          break;
+        }
+    }
+    if (feas) {
+      red[0] += 1;
+      if (a.sc_taint[pn] > red[10]) red[10] = a.sc_taint[pn];
+      if (a.sc_nodeaff[pn] > red[11]) red[11] = a.sc_nodeaff[pn];
+      if (ip_raw < red[12]) red[12] = ip_raw;
+      if (ip_raw > red[13]) red[13] = ip_raw;
+      if (a.sp_all_keys[pn]) {
+        red[14] += 1;
+        // distinct domains among the counted nodes, per non-hostname
+        // constraint (the hostname's topology size is red[14])
+        for (int c = 0; c < C; ++c) {
+          const long long pc = (long long)p * C + c;
+          if (a.sp_is_host[pc]) continue;
+          const int d = dom_at(a, a.sp_key[pc], n);
+          if (d < 0) continue;
+          if (atomicExch(sc.seen + (long long)c * sc.seen_stride + d, stamp) != stamp) atomicAdd(sh.s_ndom + c, 1);
+        }
+      }
+    }
+  }
+  block_reduce(red, red_op, 15, sh.s_buf);
+  StepOut out;
+  out.n_feas = red[0];
+  for (int r = 0; r < N_DIAG; ++r) out.rc[r] = red[1 + r];
+
+  // ---- spread score (_spread_raw): topology weights, then per-node raws
+  long long sp_mn = I64_MAX, sp_mx = -I64_MAX, n_use = 0;
+  if (C && a.w_spread) {
+    for (int c = tid; c < C; c += blockDim.x) {
+      const long long pc = (long long)p * C + c;
+      const long long size = a.sp_is_host[pc] ? red[14] : sh.s_ndom[c];
+      sh.s_wfx[c] = a.log_tab[size < 0 ? 0 : (size >= a.L ? a.L - 1 : size)];
+    }
+    __syncthreads();
+    long long v[3] = {I64_MAX, -I64_MAX - 1, 0};
+    const int op[3] = {RED_MIN, RED_MAX, RED_SUM};
+    for (int n = tid; n < N; n += blockDim.x) {
+      if (!sc.feas[n]) continue;
+      const long long pn = (long long)p * N + n;
+      long long raw = 0;
+      bool use = true;
+      if (has_soft) {
+        use = a.sp_all_keys[pn];  // valid & feas == counted
+        long long total_fx = 0;
+        for (int c = 0; c < C; ++c) {
+          const long long pc = (long long)p * C + c;
+          if (!a.sp_soft[pc]) continue;
+          total_fx += (long long)sc.sp_cnt[(long long)c * N + n] * sh.s_wfx[c] +
+                      (long long)(a.max_skew[pc] - 1) * (1LL << FX);
+        }
+        const long long q = total_fx >> FX;  // arithmetic shift
+        const long long frac = total_fx & ((1LL << FX) - 1);
+        const long long half = 1LL << (FX - 1);
+        raw = q + ((frac > half || (frac == half && (q & 1))) ? 1 : 0);
+      }
+      sc.sp_raw[n] = raw;
+      if (use) {
+        if (raw < v[0]) v[0] = raw;
+        if (raw > v[1]) v[1] = raw;
+        v[2] += 1;
+      }
+    }
+    block_reduce(v, op, 3, sh.s_buf);
+    sp_mn = v[0];
+    sp_mx = v[1];
+    n_use = v[2];
+  }
+
+  // ---- weighted total and the first-max argmax over the feasible nodes
+  long long best = -I64_MAX - 1;
+  int best_n = I32_MAX;
+  const long long taint_mx = red[10], naff_mx = red[11], ip_mn = red[12], ip_mx = red[13];
+  for (int n = tid; n < N; n += blockDim.x) {
+    if (!sc.feas[n]) continue;
+    const long long pn = (long long)p * N + n;
+    long long total = 0;
+    if (a.w_taint) {
+      const long long raw = a.sc_taint[pn];
+      total += a.w_taint * (taint_mx > 0 ? MAX_NODE_SCORE - fdiv(MAX_NODE_SCORE * raw, taint_mx) : MAX_NODE_SCORE);
+    }
+    if (a.w_naff) {
+      const long long raw = a.sc_nodeaff[pn];
+      total += a.w_naff * (naff_mx > 0 ? fdiv(MAX_NODE_SCORE * raw, naff_mx) : raw);
+    }
+    if (a.w_spread) {
+      long long s = MAX_NODE_SCORE;  // C == 0: every feasible node is "used", mx == 0
+      if (C) {
+        const bool use = !has_soft || a.sp_all_keys[pn];
+        s = 0;
+        if (use && n_use > 0)
+          s = sp_mx == 0 ? MAX_NODE_SCORE
+                         : fdiv(MAX_NODE_SCORE * (sp_mx + sp_mn - sc.sp_raw[n]), sp_mx > 1 ? sp_mx : 1);
+      }
+      total += a.w_spread * s;
+    }
+    if (a.w_ip) {
+      const long long diff = ip_mx - ip_mn;
+      total += a.w_ip * (diff > 0 ? fdiv(MAX_NODE_SCORE * (sc.ip_raw[n] - ip_mn), diff) : 0);
+    }
+    if (a.w_fit || a.w_bal) {
+      const long long a0 = a.allocatable[(long long)n * a.Rn + LANE_CPU];
+      const long long a1 = a.allocatable[(long long)n * a.Rn + LANE_MEM];
+      total += score_total(a0, a1, (long long)a.nonzero[2 * n] + a.nonzero_req[2 * p],
+                           (long long)a.nonzero[2 * n + 1] + a.nonzero_req[2 * p + 1],
+                           (long long)a.requested[(long long)n * a.Rn + LANE_CPU] + req[LANE_CPU],
+                           (long long)a.requested[(long long)n * a.Rn + LANE_MEM] + req[LANE_MEM], 0, a.w_fit,
+                           a.w_bal, 0);
+    }
+    if (a.w_img) total += a.w_img * a.sc_image[pn];
+    if (total > best) {  // ascending n: strict > keeps the first max
+      best = total;
+      best_n = n;
+    }
+  }
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int off = 16; off > 0; off >>= 1) {
+    const long long ov = __shfl_down_sync(FULL_MASK, best, off);
+    const int oi = __shfl_down_sync(FULL_MASK, best_n, off);
+    better(best, best_n, ov, oi);
+  }
+  if (lane == 0) {
+    sh.s_best_v[warp] = best;
+    sh.s_best_i[warp] = best_n;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = blockDim.x >> 5;
+    best = lane < n_warps ? sh.s_best_v[lane] : -I64_MAX - 1;
+    best_n = lane < n_warps ? sh.s_best_i[lane] : I32_MAX;
+    for (int off = 16; off > 0; off >>= 1) {
+      const long long ov = __shfl_down_sync(FULL_MASK, best, off);
+      const int oi = __shfl_down_sync(FULL_MASK, best_n, off);
+      better(best, best_n, ov, oi);
+    }
+    __syncwarp();
+    if (lane == 0) sh.s_best_i[0] = out.n_feas > 0 ? best_n : ABSENT;
+  }
+  __syncthreads();
+  out.choice = sh.s_best_i[0];
+  __syncthreads();  // s_best_i is written again by the next step
+  return out;
+}
+
+// The usage commit of one placement (usage_carry_update); one thread.
+__device__ __forceinline__ void commit_usage(const GangScanArgs& a, int p, int choice) {
+  if (choice < 0) return;
+  const int* req = a.requests + (long long)p * a.Rp;
+  const int rn = a.Rn < a.Rp ? a.Rn : a.Rp;
+  for (int r = 0; r < rn; ++r) a.requested[(long long)choice * a.Rn + r] += req[r];
+  a.nonzero[2 * choice] += a.nonzero_req[2 * p];
+  a.nonzero[2 * choice + 1] += a.nonzero_req[2 * p + 1];
+  a.num_pods[choice] += 1;
+}
+
+// The step's outputs for pod p; one thread.
+__device__ __forceinline__ void write_step(const GangScanArgs& a, int p, const StepOut& out) {
+  a.chosen[p] = out.choice;
+  a.n_feas[p] = out.n_feas;
+  for (int r = 0; r < N_DIAG; ++r) a.reason_counts[(long long)p * N_DIAG + r] = out.rc[r];
+}
+
+}  // namespace step
+}  // namespace ktpu

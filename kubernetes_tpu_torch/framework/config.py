@@ -6,9 +6,9 @@ batches extend up to ``resident_run_max`` pods and are placed by
 ``resident_run`` (kernel K4); ``resident_drain=False`` places them with
 ``sig_scan`` (K2).  ``wave_dispatch`` defaults to True as there: batches
 with their own cross-pod constraints (spread, inter-pod terms, host ports)
-belong to the speculative wave, which is not ported yet (ROADMAP B7), so
-under the default they raise; ``wave_dispatch=False`` sends them to the
-gang scan.
+take the speculative wave (``wave_run`` / ``chain_dispatch(wave=True)``,
+kernels K8 and K9); ``wave_dispatch=False`` sends them to the gang scan
+(K5), with the same placements.
 """
 
 from __future__ import annotations
@@ -75,7 +75,8 @@ class SchedulerConfiguration:
     # host-tracked sum
     resident_epoch_guard: bool = True
     # cross-pod-constraint batches (spread / inter-pod terms / host ports)
-    # take the speculative wave; off = every such batch takes the gang scan
+    # take the speculative wave (K8 + K9); off = every such batch takes the
+    # gang scan (K5), counted in wave_fallback_kill_switch
     wave_dispatch: bool = True
 
     def validate(self) -> None:

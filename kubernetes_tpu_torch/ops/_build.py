@@ -34,6 +34,7 @@ SOURCES = (
     "resident_run.cu",
     "gang_statics.cu",
     "gang_scan.cu",
+    "wave.cu",
     "runtime.cu",
 )
 HEADERS = ("ktpu.cuh",)
@@ -53,6 +54,8 @@ launches: Dict[str, int] = {
     "gang_spread_statics": 0,
     "gang_interpod_statics": 0,
     "gang_scan": 0,
+    "wave_speculate": 0,
+    "wave_admit": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -202,6 +205,14 @@ class GangScanArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
+class WaveArgs(ctypes.Structure):
+    """Mirror of csrc/ktpu.cuh WaveArgs (pointers, then ints)."""
+
+    _PTRS = "tid_sp rep_sp_p rep_sp_c tid_ip rep_ip_p rep_ip_u tid_pt port_conf c0 kinds cterms sums carries".split()
+    _INTS = "Tsp Tip Tpt W Dsp D2 hostname_key has_ports sums_smem carry_smem".split()
+    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built on first call in this process."""
     global _lib
@@ -236,8 +247,12 @@ def load() -> ctypes.CDLL:
     ):
         getattr(lib, fn).argtypes = [ctypes.POINTER(st), vp]
         getattr(lib, fn).restype = ctypes.c_int
-    lib.ktpu_gang_scan_smem_max.argtypes = []
-    lib.ktpu_gang_scan_smem_max.restype = ctypes.c_int
+    for fn in ("ktpu_wave_speculate", "ktpu_wave_admit"):
+        getattr(lib, fn).argtypes = [ctypes.POINTER(GangScanArgs), ctypes.POINTER(WaveArgs), vp]
+        getattr(lib, fn).restype = ctypes.c_int
+    for fn in ("ktpu_gang_scan_smem_max", "ktpu_wave_admit_smem_max"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
     lib.ktpu_error_string.argtypes = [ctypes.c_int]
     lib.ktpu_error_string.restype = ctypes.c_char_p
     _lib = lib

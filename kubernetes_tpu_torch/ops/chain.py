@@ -1,15 +1,16 @@
-"""Chained batch dispatch: the gang scan plus the append of the batch's own
-placements into the resident cluster.
+"""Chained batch dispatch: the gang scan or the speculative wave, plus the
+append of the batch's own placements into the resident cluster.
 
-Port of the JAX package's ops/chain.py (jit root ``chain_dispatch``) on its
-scan branch.  One call schedules the batch with the gang scan and then
-writes its committed pods into the DeviceCluster the call was given (rows
-of placed pods and of their (anti-)affinity terms, the device analogue of
+Port of the JAX package's ops/chain.py (jit root ``chain_dispatch``), both
+branches.  One call schedules the batch (the gang scan, or with
+``wave=True`` the wave of ops/wave.py) and then writes its committed pods
+into the DeviceCluster the call was given (rows of placed pods and of their
+(anti-)affinity terms, the device analogue of
 schema.append_existing_pods), so the next batch schedules against that
 cluster without a host upload.  The reference donates the cluster and
-returns a new one; here the usage tensors are replaced by the scan's
-tallies and the placed-pod and term rows are ``copy_``-ed in place at the
-host-checked cursors.
+returns a new one; here the usage tensors are replaced by the tallies and
+the placed-pod and term rows are ``copy_``-ed in place at the host-checked
+cursors.
 
 Anything the device cannot see (informer events, bind failures, fast-path
 commits) changes the scheduler's chain epoch and forces a fresh upload.
@@ -25,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from kubernetes_tpu_torch.ops import gang
+from kubernetes_tpu_torch.ops import wave as ops_wave
 from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster
 from kubernetes_tpu_torch.snapshot.interner import ABSENT, PAD
 
@@ -78,29 +80,51 @@ def chain_dispatch(
     d_cap: int = 8,
     append_terms: bool = True,
     wave: bool = False,
+    tid_sp=None,
+    rep_sp_p=None,
+    rep_sp_c=None,
+    tid_ip=None,
+    rep_ip_p=None,
+    rep_ip_u=None,
+    ip_cdv_tab=None,
+    d2_cap: int = 8,
 ):
-    """Gang schedule the batch, then append its committed pods into ``dc`` at
-    the given cursors (host ints the caller checked against the cluster's
+    """Schedule the batch, then append its committed pods into ``dc`` at the
+    given cursors (host ints the caller checked against the cluster's
     capacity).  ``append_terms=False`` skips the term-row splice for batches
     without affinity terms.
 
-    Returns (dc, stacked [2, P] i64 (chosen, n_feas), reason_counts)."""
-    if wave:
-        raise NotImplementedError(
-            "chain_dispatch(wave=True): the speculative wave is not ported yet (ROADMAP B7)"
-        )
+    ``wave=True`` schedules with the speculative wave (the tid_* / rep_* /
+    ip_cdv_tab / d2_cap tables from wave.wave_tables) instead of the gang
+    scan, with the same decisions, and returns a fourth output: the [3, P]
+    wave stats.  The wave runs without its port-occupancy carry: the chained
+    route refuses batches with host ports (the append does not splice port
+    rows).
+
+    Returns (dc, stacked [2, P] i64 (chosen, n_feas), reason_counts
+    [, wave_stats])."""
     P = db.valid.shape[0]
     E = dc.epod_node.shape[0]
     M = dc.term_pod.shape[0]
     AT = db.aff_kind.shape[1]
     if e_cursor + P > E or (AT and append_terms and m_cursor + P * AT > M):
         raise ValueError(f"chain_dispatch: cursors ({e_cursor}, {m_cursor}) + batch overflow ({E}, {M})")
+    # the wave never reads the scan's pod×pod port matrix: in-batch ports
+    # ride its occupancy carry
     g = gang.precompute(dc, db, hostname_key, v_cap, hard_pod_affinity_weight, has_interpod=has_interpod,
-                        has_spread=has_spread, has_ports=has_ports, has_images=has_images, enabled=enabled,
-                        sp_keys=sp_keys, sp_cdv_tab=sp_cdv_tab, ip_keys=ip_keys)
-    chosen, n_feas, reason_counts, tallies = gang.gang_schedule(
-        dc, db, g, v_cap, weights=weights, check_fit="NodeResourcesFit" in enabled, d_cap=d_cap
-    )
+                        has_spread=has_spread, has_ports=has_ports and not wave, has_images=has_images,
+                        enabled=enabled, sp_keys=sp_keys, sp_cdv_tab=sp_cdv_tab, ip_keys=ip_keys)
+    check_fit = "NodeResourcesFit" in enabled
+    wave_stats = None
+    if wave:
+        chosen, n_feas, reason_counts, tallies, wave_stats = ops_wave.wave_schedule(
+            dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
+            weights=weights, check_fit=check_fit, d_cap=d_cap, d2_cap=d2_cap, has_ports=False,
+        )
+    else:
+        chosen, n_feas, reason_counts, tallies = gang.gang_schedule(
+            dc, db, g, v_cap, weights=weights, check_fit=check_fit, d_cap=d_cap
+        )
     committed = (chosen >= 0) & db.valid
     dc.requested = tallies["requested"]
     dc.nonzero_req = tallies["nonzero"]
@@ -130,4 +154,6 @@ def chain_dispatch(
         _put(tt.req_vals, _pad_to(_pad_to(rv, 3, Vc, PAD), 2, Rc, PAD), m_cursor)
         _put(tt.term_valid, bt.term_valid.reshape(P * AT, 1), m_cursor)
     results = torch.stack([chosen.to(torch.int64), n_feas])
+    if wave:
+        return dc, results, reason_counts, wave_stats
     return dc, results, reason_counts

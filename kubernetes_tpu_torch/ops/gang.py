@@ -531,10 +531,13 @@ def _spread_raw(dc, db, g, p, feas, cnt, d_cap):
     return raw, valid
 
 
-def pod_step(dc, db, g: GangStatics, p: int, state, hv, *, check_fit: bool, weights: tuple, d_cap: int):
+def pod_step(dc, db, g: GangStatics, p: int, state, hv, *, check_fit: bool, weights: tuple, d_cap: int,
+             commit: bool = True):
     """One pod's Filter → Score → Select → commit against ``state``
     (requested [N, Rn] / nonzero [N, 2] / num_pods [N], updated in place),
-    pod_step's default branch.  Returns (choice, n_feas, reason_counts)."""
+    pod_step's default branch.  With ``commit=False`` the state is left
+    untouched (the wave's speculation evaluates without placing).  Returns
+    (choice, n_feas, reason_counts)."""
     N = g.static_mask.shape[1]
     Rn = dc.allocatable.shape[1]
     Rp = db.requests.shape[1]
@@ -614,6 +617,8 @@ def pod_step(dc, db, g: GangStatics, p: int, state, hv, *, check_fit: bool, weig
     # first-max argmax over the feasible nodes (ties go to the lower index)
     ranked = torch.where(feas, total, -INT64_MAX - 1)
     choice = torch.where(n_feas > 0, torch.argmax(ranked).to(I32), ABSENT)
+    if not commit:
+        return choice, n_feas, reason_counts
     usage_carry_update(
         state,
         {"requested": db.requests[p][:Rn], "nonzero": db.nonzero_req[p], "num_pods": 1},
@@ -795,11 +800,16 @@ def _statics_spec(P, N, C, AT, KD2, JP):
 
 def _set_ptrs(args, dev, pairs):
     """args.<name> = pointer of each (name, tensor, dtype, shape) after the
-    wrapper checks (device, dtype, shape, contiguity)."""
+    wrapper checks (device, dtype, shape, contiguity).  Each tensor is kept
+    on ``args`` until the next one set under its name: a temporary freed
+    before the launch would hand its memory to the wrapper's next
+    allocation, and the kernel would read that instead."""
+    keep = args.__dict__.setdefault("_tensors", {})
     for name, t, dt, shape in pairs:
         if name not in type(args)._PTRS:
             raise AttributeError(f"{type(args).__name__} has no pointer field {name}")
         setattr(args, name, _build.check_cuda(name, t, dev, dt, shape))
+        keep[name] = t
 
 
 def _table_ptrs(prefix, tab, lead, R, V):
@@ -1015,11 +1025,13 @@ def _scan_domains(dc, db, g: GangStatics, C: int, AT: int):
     return sp_key, ip_key, kd2_key, max(D, 1)
 
 
-def _gang_scan_cuda(dc, db, g: GangStatics, weights, check_fit):
-    """K5 launch: the whole batch's scan in one persistent block."""
+def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch) -> "_build.GangScanArgs":
+    """The GangScanArgs of a kernel that runs the shared per-pod step (K5,
+    and the wave's K8 and K9): the statics, the usage ``state``
+    (requested / nonzero / num_pods), ``outs`` (chosen, n_feas,
+    reason_counts) and the ``scratch`` tensors, after the wrapper checks.
+    K5's counter layout (``use_smem``) is left at 0 for the caller."""
     dev = dc.node_valid.device
-    lib = _build.load()
-    g = GangStatics(*(t.contiguous() for t in g))
     P, N = g.static_mask.shape
     K = dc.node_labels.shape[1]
     C = g.sp_dv.shape[1]
@@ -1030,25 +1042,7 @@ def _gang_scan_cuda(dc, db, g: GangStatics, weights, check_fit):
     Rp = db.requests.shape[1]
     L = dc.log_tab.shape[0]
     sp_key, ip_key, kd2_key, D = _scan_domains(dc, db, g, C, AT)
-    cells = (3 * C + AT + 2 * KD2) * D
-    smem_max = min(lib.ktpu_gang_scan_smem_max(), SCAN_SMEM_CAP) - 16 * C
-    use_smem = 4 * cells <= smem_max
-    state = {
-        "requested": dc.requested.clone(),
-        "nonzero": dc.nonzero_req.clone(),
-        "num_pods": dc.num_pods.clone(),
-    }
-    chosen = torch.empty((P,), dtype=I32, device=dev)
-    n_feas = torch.empty((P,), dtype=I64, device=dev)
-    reason_counts = torch.empty((P, N_DIAG), dtype=I64, device=dev)
-
-    def zeros(*shape, dtype=I32):
-        return torch.zeros(tuple(max(s, 1) for s in shape), dtype=dtype, device=dev)
-
-    scratch = dict(
-        cnt=zeros(1 if use_smem else cells), cnt_h=zeros(C, N), port_stamp=zeros(N),
-        feas=zeros(N, dtype=BOOL), ip_raw=zeros(N, dtype=I64), sp_raw=zeros(N, dtype=I64), sp_cnt=zeros(C, N),
-    )
+    chosen, n_feas, reason_counts = outs
     spec = _statics_spec(P, N, C, AT, KD2, JP)
     a = _build.GangScanArgs()
     _set_ptrs(a, dev, [
@@ -1068,9 +1062,45 @@ def _gang_scan_cuda(dc, db, g: GangStatics, weights, check_fit):
         *[(k, t, t.dtype, None) for k, t in scratch.items()],
     ])
     a.N, a.K, a.Rn, a.Rp, a.L, a.P, a.C, a.AT, a.KD2, a.D, a.JP = N, K, Rn, Rp, L, P, C, AT, KD2, D, JP
-    a.use_smem = int(use_smem)
+    a.use_smem = 0
     (a.w_taint, a.w_naff, a.w_spread, a.w_ip, a.w_fit, a.w_bal, a.w_img) = (int(w) for w in weights)
     a.check_fit = int(bool(check_fit))
+    return a
+
+
+def _gang_scan_cuda(dc, db, g: GangStatics, weights, check_fit):
+    """K5 launch: the whole batch's scan in one persistent block."""
+    dev = dc.node_valid.device
+    lib = _build.load()
+    g = GangStatics(*(t.contiguous() for t in g))
+    P, N = g.static_mask.shape
+    C = g.sp_dv.shape[1]
+    AT = g.ip_dv.shape[1]
+    KD2 = g.ip_key_cols.shape[0]
+    state = {
+        "requested": dc.requested.clone(),
+        "nonzero": dc.nonzero_req.clone(),
+        "num_pods": dc.num_pods.clone(),
+    }
+    chosen = torch.empty((P,), dtype=I32, device=dev)
+    n_feas = torch.empty((P,), dtype=I64, device=dev)
+    reason_counts = torch.empty((P, N_DIAG), dtype=I64, device=dev)
+
+    def zeros(*shape, dtype=I32):
+        return torch.zeros(tuple(max(s, 1) for s in shape), dtype=dtype, device=dev)
+
+    scratch = dict(
+        cnt=zeros(1), cnt_h=zeros(C, N), port_stamp=zeros(N),
+        feas=zeros(N, dtype=BOOL), ip_raw=zeros(N, dtype=I64), sp_raw=zeros(N, dtype=I64), sp_cnt=zeros(C, N),
+    )
+    a = step_args(dc, db, g, weights, check_fit, state, (chosen, n_feas, reason_counts), scratch)
+    cells = (3 * C + AT + 2 * KD2) * a.D
+    smem_max = min(lib.ktpu_gang_scan_smem_max(), SCAN_SMEM_CAP) - 16 * C
+    use_smem = 4 * cells <= smem_max
+    if not use_smem:  # the counters in a global scratch row
+        scratch["cnt"] = zeros(cells)
+        _set_ptrs(a, dev, [("cnt", scratch["cnt"], I32, None)])
+    a.use_smem = int(use_smem)
     rc = lib.ktpu_gang_scan(ctypes.byref(a), _build.stream_handle(dev))
     _build.check_launch(lib, rc, "gang_scan")
     _build.launches["gang_scan"] += 1

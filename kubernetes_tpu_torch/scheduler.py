@@ -1,28 +1,32 @@
-"""The port's Scheduler: the signature fast path and the gang scan,
-synchronously.
+"""The port's Scheduler: the signature fast path, the speculative wave and
+the gang scan, synchronously.
 
 Routes each batch the way the JAX package's scheduler.py does:
 
-1. the CHAINED scan (``_chain_quickcheck`` → ``_try_dispatch_chained``):
+1. the CHAINED dispatch (``_chain_quickcheck`` → ``_try_dispatch_chained``):
    once the mirror is packed, a batch that is not a fast-path candidate is
-   gang-scheduled on the resident device cluster by ``chain_dispatch``,
-   which also appends the batch's placed pods and their terms into it, so
-   the next chained batch needs no upload;
+   scheduled on the resident device cluster by ``chain_dispatch``, which
+   also appends the batch's placed pods and their terms into it, so the
+   next chained batch needs no upload;
 2. the signature FAST path (``_fast_gate_ok`` → signature rows → dispatch):
    pods whose only batch-dynamic constraint is resources collapse into
    signatures; new signatures get their static rows from kernel K1; device-
    sized batches extend from the queue head and are placed by K4
    (resident_run) or, with ``residentDrain: false``, K2 (sig_scan), small
    ones on the host FastCommitter; K3 checks the usage checksum;
-3. the DIRECT scan (``gang_run``): everything else, on the snapshot the
-   device mirror keeps current (K1 + K6 + K7 for the statics, K5 for the
-   scan).
+3. the DIRECT dispatch (``wave_run`` or ``gang_run``): everything else, on
+   the snapshot the device mirror keeps current (K1 + K6 + K7 for the
+   statics).
 
-A batch whose pods carry their own cross-pod constraints (spread, inter-pod
-terms, host ports) belongs to the speculative wave under the default
-``waveDispatch: true``; the wave is not ported yet, so such a batch raises
-NotImplementedError naming ROADMAP B7, and ``wave_dispatch=False`` sends it
-to the gang scan instead.
+On the chained and the direct route, a batch whose pods carry their own
+cross-pod constraints (spread, inter-pod terms, host ports) takes the
+speculative wave under the default ``waveDispatch: true`` (K8 speculates
+every pod against the frozen snapshot, K9 admits them in queue order over
+the term-factored carries; ``_wave_resolve`` turns its stats into the
+``wave_*`` metrics).  Such a batch takes the gang scan (K5) instead when
+two nodes share a hostname label value or ``wave_dispatch=False``; both
+fallbacks are counted (``wave_fallback_dup_hostname`` /
+``wave_fallback_kill_switch``).  Other gang-path batches take the scan.
 
 The drain is synchronous: each batch is harvested (placements assumed and
 bound, failures diagnosed) before the next dispatch; the reference keeps up
@@ -37,6 +41,7 @@ the queue unscheduled.
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
@@ -47,12 +52,13 @@ from kubernetes_tpu_torch import fastpath as fp
 from kubernetes_tpu_torch.api.types import Node, Pod
 from kubernetes_tpu_torch.cache.cache import Cache
 from kubernetes_tpu_torch.cache.device_mirror import DeviceClusterCache
-from kubernetes_tpu_torch.cache.mirror import SnapshotMirror
+from kubernetes_tpu_torch.cache.mirror import HOSTNAME_LABEL, SnapshotMirror
 from kubernetes_tpu_torch.framework.config import Profile, SchedulerConfiguration
 from kubernetes_tpu_torch.ops import chain as ops_chain
 from kubernetes_tpu_torch.ops import fastpath as ops_fp
 from kubernetes_tpu_torch.ops import gang as ops_gang
 from kubernetes_tpu_torch.ops import resident as ops_res
+from kubernetes_tpu_torch.ops import wave as ops_wave
 from kubernetes_tpu_torch.ops import wire
 from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster
 from kubernetes_tpu_torch.queue.scheduling_queue import QueuedPodInfo, SchedulingQueue
@@ -65,7 +71,6 @@ from kubernetes_tpu_torch.snapshot.schema import (
 )
 
 GROUP_LABEL = "pod-group.scheduling.sigs.k8s.io/name"
-HOSTNAME_LABEL = "kubernetes.io/hostname"
 # placed term pods beyond this make the fast gate's probes cost more than
 # the scan they would save (the reference's cut-off)
 MAX_PROBED_TERM_PODS = 64
@@ -177,7 +182,14 @@ class Scheduler:
             "state_uploads": 0,
             "scan_batches": 0,  # direct gang_run batches
             "chain_batches": 0,  # chain_dispatch batches
-            "wave_batches": 0,  # the speculative wave (not ported: stays 0)
+            "wave_batches": 0,  # wave_run and chain_dispatch(wave=True) batches
+            "wave_pods": 0,
+            "wave_admitted": 0,  # pods placed on their speculative node
+            "wave_groups": 0,  # interaction groups over the wave batches
+            "wave_conflicts": {},  # demotion kind → pods
+            # wave-shaped batches the gang scan took, by reason
+            "wave_fallback_dup_hostname": 0,
+            "wave_fallback_kill_switch": 0,
         }
         # the packed host snapshot (nodes, placed pods, their terms) and its
         # device-resident image
@@ -197,6 +209,7 @@ class Scheduler:
         self._p_cap_max = 1  # sticky gang batch bucket
         self._tables = None
         self._tables_key = None
+        self._wave_tables_memo = None
 
     @property
     def nodes(self) -> Optional[NodeTensors]:
@@ -274,14 +287,6 @@ class Scheduler:
     def _refuse(self, batch: List[QueuedPodInfo], why: str) -> None:
         self.queue.push_back(batch)
         raise NotImplementedError(why)
-
-    def _refuse_wave(self, batch: List[QueuedPodInfo]) -> None:
-        self._refuse(
-            batch,
-            "the batch carries spread, inter-pod or host-port constraints, which take the speculative "
-            "wave under waveDispatch: true; the wave is not ported yet (ROADMAP B7), "
-            "wave_dispatch=False takes the gang scan",
-        )
 
     # ----- the fast path -------------------------------------------------
 
@@ -744,11 +749,73 @@ class Scheduler:
             has_ports=bool((pb.want_ppk != PAD).any() or (self.mirror.nodes.used_ppk != PAD).any()),
         )
 
-    @staticmethod
-    def _wave_shaped(pb) -> bool:
-        return bool(
+    def _wave_route(self, pb) -> Optional[dict]:
+        """The wave's tables when the batch takes the wave: it carries its
+        own cross-pod constraints (spread, inter-pod terms, host ports), the
+        wave is on, and no two nodes share a hostname.  None sends it to the
+        gang scan; a wave-shaped batch sent there is counted by reason."""
+        wave_shaped = bool(
             (pb.aff_kind != PAD).any() or (pb.tsc_topo_key != PAD).any() or (pb.want_ppk != PAD).any()
         )
+        if not wave_shaped:
+            return None
+        if not self.config.wave_dispatch:
+            self.metrics["wave_fallback_kill_switch"] += 1
+            return None
+        wt = self._wave_tables(pb)
+        if wt is None:
+            self.metrics["wave_fallback_dup_hostname"] += 1
+        return wt
+
+    def _wave_tables(self, pb) -> Optional[dict]:
+        """wave_tables, memoized on the static snapshot and a digest of the
+        batch's term content: template-stamped drains repeat the same terms
+        batch after batch.  None when duplicate hostnames rule the wave out."""
+        hk = self._hostname_key()
+        h = hashlib.blake2b(digest_size=16)
+        for a in (pb.valid, pb.ns_id, pb.want_ppk, pb.want_ip, pb.want_wild, pb.tsc_topo_key,
+                  *(getattr(pb.tsc_table, f) for f in ("req_key", "req_op", "req_vals", "req_rhs", "term_valid")),
+                  pb.aff_kind, pb.aff_topo_key, pb.aff_weight, pb.aff_ns_all, pb.aff_ns_ids,
+                  *(getattr(pb.aff_table, f) for f in ("req_key", "req_op", "req_vals", "req_rhs", "term_valid"))):
+            h.update(np.ascontiguousarray(a).tobytes())
+        m = self.mirror
+        key = (m.static_generation, m._full_packs, len(self.vocab.label_vals), hk, h.digest())
+        memo = self._wave_tables_memo
+        if memo is not None and memo[0] == key:
+            return memo[1]
+        wt = ops_wave.wave_tables(pb, m.nodes.label_vals, hk, hostnames_unique=m.hostnames_unique,
+                                  device=self.device)
+        self._wave_tables_memo = (key, wt)
+        return wt
+
+    @staticmethod
+    def _wave_kw(wt: dict, ports: bool = True) -> dict:
+        """The wave tables as wave_run's keyword arguments; without `ports`,
+        as chain_dispatch's (the chained route carries no host ports)."""
+        keys = ("tid_sp", "rep_sp_p", "rep_sp_c", "tid_ip", "rep_ip_p", "rep_ip_u", "ip_cdv_tab", "d2_cap")
+        return {k: wt[k] for k in keys + (("tid_pt", "port_conf") if ports else ())}
+
+    def _wave_resolve(self, batch, chosen, stats) -> None:
+        """Harvest one wave's stats: the pods admitted at their speculative
+        node, the demotions by kind (an upgrade, a pod placed although
+        speculation found no node, is not a conflict), and the batch's
+        interaction groups.  The port has no host Filter plugins, no
+        Reserve/Permit and no extenders, so the groups are always formed,
+        as the reference forms them under its default profile."""
+        n = len(batch)
+        stats = stats.cpu().numpy()
+        spec, kinds = stats[0][:n], stats[1][:n]
+        chosen_n = np.asarray(chosen)[:n]
+        m = self.metrics
+        conflicts = m["wave_conflicts"]
+        for i in np.nonzero(chosen_n != spec)[0].tolist():
+            code = int(kinds[i])
+            if code != ops_wave.DEMOTE_UPGRADE:
+                kind = ops_wave.DEMOTE_KINDS.get(code, "score")
+                conflicts[kind] = conflicts.get(kind, 0) + 1
+        m["wave_pods"] += n
+        m["wave_admitted"] += int(np.sum((chosen_n == spec) & (chosen_n >= 0)))
+        m["wave_groups"] += ops_wave.interaction_groups([qp.pod for qp in batch])[1]
 
     def _try_dispatch_chained(self, profile: Profile, batch) -> Optional[List[ScheduleOutcome]]:
         """chain_dispatch on the resident cluster, restarting the chain from
@@ -786,12 +853,15 @@ class Scheduler:
             cdc = ch["dc"]
             if ch["e"] + P > cdc.epod_node.shape[0] or ch["m"] + P * AT > cdc.term_pod.shape[0]:
                 return None
-        if self.config.wave_dispatch and self._wave_shaped(pb):
-            self._refuse_wave(batch)
+        wt = self._wave_route(pb)
+        wave_kw = {}
+        if wt is not None:
+            # no port batch reaches the chain, so the port carry stays off
+            wave_kw = dict(wave=True, **self._wave_kw(wt, ports=False))
         db = DeviceBatch.from_host(pb, self.device)
         tables = self._gang_tables(pb)
         try:
-            dc2, results, reasons = ops_chain.chain_dispatch(
+            out = ops_chain.chain_dispatch(
                 cdc,
                 db,
                 self._hostname_key(),
@@ -804,7 +874,9 @@ class Scheduler:
                 # any term row in the chained cluster keeps inter-pod on
                 **self._gang_flags(pb, ch["m"] > 0),
                 **tables,
+                **wave_kw,
             )
+            dc2, results, reasons = out[:3]
             results = results.cpu()
         except BaseException:
             # the chained cluster may be torn: drop it, return the batch
@@ -812,7 +884,11 @@ class Scheduler:
             self.queue.push_back(batch)
             raise
         self._chain = {"dc": dc2, "e": ch["e"] + P, "m": ch["m"] + P * AT, "epoch": epoch}
-        self.metrics["chain_batches"] += 1
+        if wt is not None:
+            self.metrics["wave_batches"] += 1
+            self._wave_resolve(batch, results[0], out[3])
+        else:
+            self.metrics["chain_batches"] += 1
         return self._process_results(batch, results[0], results[1], reasons)
 
     def _restart_chain(self, epoch) -> dict:
@@ -823,33 +899,35 @@ class Scheduler:
         return {"dc": dc, "e": self.mirror.e_used, "m": self.mirror.m_used, "epoch": epoch}
 
     def _schedule_direct(self, profile: Profile, batch) -> List[ScheduleOutcome]:
-        """gang_run on the snapshot the device mirror keeps current."""
+        """wave_run (a wave-shaped batch under waveDispatch) or gang_run on
+        the snapshot the device mirror keeps current."""
         self._chain = None  # direct commits happen outside any chain
         self._repack_mirror()
         pods, pb = self._gang_prep(batch)
-        if self.config.wave_dispatch and self._wave_shaped(pb):
-            self._refuse_wave(batch)
         try:
+            wt = self._wave_route(pb)
             dc = self._dc_cache.sync(self.mirror, self.vocab)
             db = DeviceBatch.from_host(pb, self.device)
             tables = self._gang_tables(pb)
             any_terms = bool((self.mirror.existing.term_kind != PAD).any())
-            self.metrics["scan_batches"] += 1
-            chosen, n_feas, reasons, _ = ops_gang.gang_run(
-                dc,
-                db,
-                self._hostname_key(),
-                bucket_cap(len(self.vocab.label_vals)),
-                enabled=profile.enabled,
-                weights=profile.weights(),
-                **self._gang_flags(pb, any_terms),
-                **tables,
-            )
+            flags = self._gang_flags(pb, any_terms)
+            args = (dc, db, self._hostname_key(), bucket_cap(len(self.vocab.label_vals)))
+            kw = dict(enabled=profile.enabled, weights=profile.weights(), **tables)
+            stats = None
+            if wt is not None:
+                self.metrics["wave_batches"] += 1
+                flags["has_ports"] = wt["has_ports"]  # the occupancy carry, not the pod×pod matrix
+                chosen, n_feas, reasons, _, stats = ops_wave.wave_run(*args, **self._wave_kw(wt), **kw, **flags)
+            else:
+                self.metrics["scan_batches"] += 1
+                chosen, n_feas, reasons, _ = ops_gang.gang_run(*args, **kw, **flags)
             chosen, n_feas = chosen.cpu(), n_feas.cpu()
         except BaseException:
             self._dc_cache.invalidate()
             self.queue.push_back(batch)
             raise
+        if stats is not None:
+            self._wave_resolve(batch, chosen, stats)
         return self._process_results(batch, chosen, n_feas, reasons)
 
     def _process_results(self, batch, chosen, n_feas, reasons) -> List[ScheduleOutcome]:

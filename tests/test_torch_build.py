@@ -9,7 +9,8 @@ import pytest
 
 from kubernetes_tpu_torch.ops import _build
 
-STRUCTS = ["StaticEvalArgs", "SigScanArgs", "ResidentArgs", "GangSpreadArgs", "GangInterpodArgs", "GangScanArgs"]
+STRUCTS = ["StaticEvalArgs", "SigScanArgs", "ResidentArgs", "GangSpreadArgs", "GangInterpodArgs", "GangScanArgs",
+           "WaveArgs"]
 
 
 def header_fields(struct: str):
@@ -35,3 +36,29 @@ def test_ctypes_mirror_matches_header(struct):
     ptrs, ints = header_fields(struct)
     assert list(mirror._PTRS) == ptrs
     assert list(mirror._INTS) == ints
+
+
+def test_set_ptrs_keeps_each_operand_alive():
+    """A wrapper's operand built inline (a .contiguous() copy, a table made
+    for the launch) must outlive the call that takes its pointer: freed
+    early, its memory goes to the wrapper's next allocation before the
+    kernel reads it (K5 read zeroed slot keys that way once its global
+    counters were allocated after the argument block)."""
+    import gc
+    import weakref
+
+    import torch
+
+    from kubernetes_tpu_torch.ops import gang
+
+    a = _build.GangScanArgs()
+    cpu = torch.device("cpu")
+    gang._set_ptrs(a, cpu, [("sp_key", torch.arange(6, dtype=torch.int32).reshape(2, 3)[:, :2].contiguous(),
+                             torch.int32, (2, 2))])
+    ref = weakref.ref(a._tensors["sp_key"])
+    gc.collect()
+    assert ref() is not None and a.sp_key == ref().data_ptr()
+    assert ref().tolist() == [[0, 1], [3, 4]]
+    gang._set_ptrs(a, cpu, [("sp_key", torch.zeros((2, 2), dtype=torch.int32), torch.int32, (2, 2))])
+    gc.collect()
+    assert ref() is None  # replaced under the same name: released

@@ -1,10 +1,11 @@
 """Chained dispatch and the device mirror.
 
-chain_dispatch (wave=False): three consecutive batches of tests/gen.py pods
-(spread, inter-pod terms, preferred terms) on one cluster, each batch
-scheduled against the cluster the previous call appended into.  The port's
-plain version must equal the JAX root exactly: the placements and feasible
-counts, the reason counts, and every row of the cluster afterwards (usage
+chain_dispatch, on the gang scan and on the wave: three consecutive batches
+of tests/gen.py pods (spread, inter-pod terms, preferred terms) on one
+cluster, each batch scheduled against the cluster the previous call
+appended into.  The port's plain version must equal the JAX root exactly:
+the placements and feasible counts, the reason counts, the wave's stats,
+and every row of the cluster afterwards (usage
 tallies, the appended placed-pod rows at the pod cursor and term rows at
 the term cursor).  The tolerance is zero.
 
@@ -25,6 +26,7 @@ from kubernetes_tpu.observability import kernels as j_kernels
 from kubernetes_tpu.oracle.scores import HOSTNAME_LABEL
 from kubernetes_tpu.ops import chain as j_chain
 from kubernetes_tpu.ops import gang as j_gang
+from kubernetes_tpu.ops import wave as j_wave
 from kubernetes_tpu.ops.common import DeviceBatch as JBatch
 from kubernetes_tpu.ops.common import DeviceCluster as JCluster
 from kubernetes_tpu.ops.common import I32 as J_I32
@@ -77,6 +79,10 @@ def _batches(seed):
 
 @pytest.mark.parametrize("seed", [7, 8])
 def test_chain_dispatch_three_batches_match_reference(seed):
+    _chain_three_batches(seed, wave=False)
+
+
+def _chain_three_batches(seed, wave: bool):
     j_kernels.deactivate()
     nodes, placed, batches = _batches(seed)
     vocab = Vocab()
@@ -109,24 +115,44 @@ def test_chain_dispatch_three_batches_match_reference(seed):
         tables = j_gang.batch_tables(pb.tsc_topo_key, pb.aff_topo_key, nt.label_vals, hk)
         d_cap = tables.pop("d_cap")
         append = bool((pb.aff_kind != PAD).any())
-        jdc, jres, jrc = j_chain.chain_dispatch(
+        jkw = pkw = {}
+        if wave:
+            wt = j_wave.wave_tables(pb, nt.label_vals, hk)
+            jkw = _wave_kw(wt)
+            pkw = _wave_kw(convert.wave_tables_from_numpy(wt, "cpu"))
+        jout = j_chain.chain_dispatch(
             jdc, JBatch.from_host(pb), jnp.asarray(hk, J_I32), jnp.asarray(e, J_I32), jnp.asarray(m, J_I32), v_cap,
-            d_cap=d_cap, append_terms=append, **tables,
+            d_cap=d_cap, append_terms=append, **tables, **jkw,
         )
-        pdc, pres, prc = p_chain.chain_dispatch(
-            pdc, convert.batch_from_numpy(pb, "cpu"), hk, e, m, v_cap, d_cap=d_cap, append_terms=append, **tables
+        pout = p_chain.chain_dispatch(
+            pdc, convert.batch_from_numpy(pb, "cpu"), hk, e, m, v_cap, d_cap=d_cap, append_terms=append, **tables,
+            **pkw,
         )
-        assert np.array_equal(np.asarray(jres), pres.numpy())
-        assert np.array_equal(np.asarray(jrc), prc.numpy())
+        assert len(jout) == len(pout) == (4 if wave else 3)
+        (jdc, jres, jrc), (pdc, pres, prc) = jout[:3], pout[:3]
+        for w, o in zip(jout[1:], pout[1:]):
+            assert np.asarray(w).dtype == o.numpy().dtype
+            assert np.array_equal(np.asarray(w), o.numpy())
         _assert_cluster(jdc, pdc)
         e += P_CAP
         m += P_CAP * pb.aff_kind.shape[1] if append else 0
     assert int((pres[0] >= 0).sum()) > 0
 
 
-def test_chain_dispatch_wave_raises_b7():
-    with pytest.raises(NotImplementedError, match="ROADMAP B7"):
-        p_chain.chain_dispatch(None, None, 0, 0, 0, 8, wave=True)
+@pytest.mark.parametrize("seed", [7])
+def test_chain_dispatch_wave_raises_b7(seed):
+    """chain_dispatch(wave=True) (it raised before the wave was ported):
+    three chained batches on the speculative wave equal the JAX root's four
+    outputs (results, reason counts, the [3, P] wave stats) and the cluster
+    it appends into, row for row."""
+    _chain_three_batches(seed, wave=True)
+
+
+def _wave_kw(wt):
+    """chain_dispatch's wave arguments from a wave_tables dict; the chained
+    route never carries host ports, so the port carry stays off."""
+    keys = ("tid_sp", "rep_sp_p", "rep_sp_c", "tid_ip", "rep_ip_p", "rep_ip_u", "ip_cdv_tab", "d2_cap")
+    return dict(wave=True, **{k: wt[k] for k in keys})
 
 
 def _assert_synced(sched):

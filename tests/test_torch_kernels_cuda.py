@@ -10,7 +10,8 @@ none; run it there without the JAX suite's conftest:
 The plain versions are held against the JAX package on the CPU by
 tests/test_torch_static_eval.py, test_torch_sig_scan.py,
 test_torch_resident.py, test_torch_scheduler.py, test_torch_gang.py,
-test_torch_chain.py and test_torch_scheduler_gang.py.
+test_torch_chain.py, test_torch_scheduler_gang.py, test_torch_wave.py and
+test_torch_scheduler_wave.py.
 """
 
 import pytest
@@ -277,3 +278,72 @@ def test_gang_scan_wide_slots_match_plain(cuda, smem_cap, monkeypatch):
         p.node_name = nodes[(5 * j + j // 4) % len(nodes)].name
     chosen = _gang_check(cuda, nodes, placed, _wide_pods(64, "new"), P=64)
     assert int((chosen >= 0).sum()) > 0
+
+
+# (seed, nodes, placed pods, pending pods, first pending pod that may want
+# host ports): with and without the port-occupancy carry
+WAVE_CASES = [(5, 300, 30, 128, 0), (9, 200, 100, 128, 128), (13, 150, 40, 128, 64)]
+
+
+def _wave_kernels_check(cuda, nodes, placed, pending, P):
+    """K8 and K9 against their plain versions, and K9 against K5, on one
+    packed batch (chip_smoke.wave_check), each kernel launched once."""
+    dc, db, kw, d_cap, flags, wt = chip_smoke.wave_inputs(torch, cuda, nodes, placed, pending, P=P)
+    n0 = dict(_build.launches)
+    *_, adm, errs = chip_smoke.wave_check(torch, dc, db, kw, d_cap, flags, wt)
+    assert errs == {"k8_err": 0, "k9_err": 0, "k9_vs_k5": 0}
+    assert _build.launches["wave_speculate"] == n0["wave_speculate"] + 1
+    assert _build.launches["wave_admit"] == n0["wave_admit"] + 1
+    return wt, adm
+
+
+@pytest.mark.parametrize("smem_cap", [1 << 30, 0], ids=["shared", "global"])
+@pytest.mark.parametrize("case", WAVE_CASES)
+def test_wave_kernels_match_plain(cuda, case, smem_cap, monkeypatch):
+    """The gen-style cases, with K9's carries and per-pod sums in shared
+    memory where they fit and, with the cap at 0, in global memory."""
+    from kubernetes_tpu_torch.ops import wave as ops_wave
+
+    monkeypatch.setattr(ops_wave, "ADMIT_SMEM_CAP", smem_cap)
+    wt, adm = _wave_kernels_check(cuda, *chip_smoke.gen_cluster(*case), P=128)
+    assert wt["has_ports"] == (case[4] < case[3])
+    assert int((adm[0] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("smem_cap", [1 << 30, 0], ids=["shared", "global"])
+@pytest.mark.parametrize("shape", range(4), ids=["config4", "config3", "ports", "mixed"])
+def test_wave_kernels_match_plain_on_the_drain_shapes(cuda, shape, smem_cap, monkeypatch):
+    """chip_smoke's four wave shapes at reduced size: config4's spread batch,
+    config3's 50 anti-affinity terms (both from gang_shapes, on which
+    chip_smoke also checks the wave), the port-contended batch (Tpt > 0) and
+    the mixed batch without ports (wave_shapes)."""
+    from kubernetes_tpu_torch.ops import wave as ops_wave
+
+    monkeypatch.setattr(ops_wave, "ADMIT_SMEM_CAP", smem_cap)
+    shapes = chip_smoke.gang_shapes(400, 150, 400, 400, P=128)[:2] + chip_smoke.wave_shapes(80, 400, P=128)
+    _, nodes, placed, pending = shapes[shape]
+    wt, _ = _wave_kernels_check(cuda, nodes, placed, pending, P=128)
+    assert wt["has_ports"] == (shape == 2)
+
+
+@pytest.mark.parametrize("smem_cap", [1 << 30, 0], ids=["shared", "global"])
+def test_wave_kernels_wide_slots_match_plain(cuda, smem_cap, monkeypatch):
+    """Ten spread constraints and ten inter-pod terms per pod: more than 8
+    distinct terms of each kind, in shared and in global memory."""
+    from kubernetes_tpu_torch.ops import wave as ops_wave
+
+    monkeypatch.setattr(ops_wave, "ADMIT_SMEM_CAP", smem_cap)
+    nodes = chip_smoke.basic_nodes(48, zones=4)
+    placed = _wide_pods(60, "placed")
+    for j, p in enumerate(placed):
+        p.node_name = nodes[(5 * j + j // 4) % len(nodes)].name
+    wt, adm = _wave_kernels_check(cuda, nodes, placed, _wide_pods(64, "new"), P=64)
+    assert wt["n_terms"] > 16
+    assert int((adm[0] >= 0).sum()) > 0
+
+
+def test_wave_scheduler_on_cuda_matches_plain(cuda):
+    """The mixed drain under the default configuration (direct wave, chained
+    waves, a direct wave with ports) on the card equals the same drain with
+    device="cpu", outcome for outcome."""
+    chip_smoke.phase_gang_parity(torch, cuda, n_nodes=120, n_pods=1100, n_placed=60, wave=True)

@@ -195,18 +195,31 @@ def _spread_pod(T, name="spread"):
 
 
 def test_spread_pod_raises_not_implemented_and_stays_queued():
+    """A spread pod in a batch of resource-only pods: under the default
+    waveDispatch: true the batch takes the speculative wave (it raised
+    before the wave was ported), which places every pod, as the JAX
+    scheduler does."""
+    def run(sched, api):
+        T, _ = api
+        nodes, pods = fastpath_workload(api, 0, 10, 5)
+        for n in nodes:
+            sched.on_node_add(n)
+        for p in pods + [_spread_pod(T)]:
+            sched.on_pod_add(p)
+        return {o.pod.name: o.node for o in sched.schedule_pending()}
+
+    from kubernetes_tpu.observability import kernels
+
+    js = JScheduler(JConfig(kernel_ledger=False, resident_drain=False))
+    kernels.deactivate()
+    js.binding_sink = lambda pod, node: None
     sched = PScheduler(PConfig(resident_drain=False), device="cpu")
-    nodes, pods = fastpath_workload(PORT_API, 0, 10, 5)
-    for n in nodes:
-        sched.on_node_add(n)
-    for p in pods + [_spread_pod(p_types)]:
-        sched.on_pod_add(p)
-    # under the default waveDispatch: true a spread batch belongs to the
-    # speculative wave, which is not ported yet
-    with pytest.raises(NotImplementedError, match="ROADMAP B7"):
-        sched.schedule_pending()
-    assert len(sched.queue) == 6
-    assert not sched.cache.pod_states
+    got = run(sched, PORT_API)
+    assert got == run(js, JAX_API)
+    assert len(got) == 6 and None not in got.values()
+    assert not len(sched.queue)
+    assert sched.metrics["wave_batches"] == 1 and sched.metrics["wave_pods"] == 6
+    assert sched.metrics["scan_batches"] == 0 and sched.metrics["chain_batches"] == 0
 
 
 def test_nonconstant_static_score_raises_not_implemented():

@@ -5,7 +5,9 @@ configuration; on the CPU the port runs its kernels' plain versions.  The
 placements (node names), the FitError message and diagnosis of every
 unschedulable pod, and the route counts (scan_batches, chain_batches,
 fast_batches, resident_batches) must be identical: the tolerance is zero.
-The JAX scheduler runs with its dispatch ledger off.
+The JAX scheduler runs with its dispatch ledger off.  (The default
+configuration's wave drains of these workloads are held against the JAX
+scheduler in tests/test_torch_scheduler_wave.py.)
 
 Workloads, at a few dozen nodes:
   (a) bench.py's config4 spread pods under wave_dispatch=False;
@@ -226,14 +228,11 @@ def test_gang_drain_matches_reference(workload, cfg, routes):
 
 
 def test_spread_batch_under_default_raises_b7_and_requeues():
-    ps = PScheduler(PConfig(batch_size=BATCH), device="cpu")
-    nodes, _, pods = workload_a(PORT_API)
-    for n in nodes:
-        ps.on_node_add(n)
-    for p in pods[:50]:
-        ps.on_pod_add(p)
-    with pytest.raises(NotImplementedError, match="ROADMAP B7"):
-        ps.schedule_pending()
-    assert len(ps.queue) == 50
-    assert not ps.cache.pod_states
+    """The config4 spread drain under the default configuration (it raised
+    before the wave was ported): every batch takes the wave, direct then
+    chained, and the drain equals the JAX scheduler's."""
+    want, got, js, ps = run_both(workload_a)
+    assert_same_drain(want, got, js, ps)
+    assert ps.metrics["wave_batches"] == js.metrics["wave_batches"] == 3
     assert ps.metrics["scan_batches"] == 0 and ps.metrics["chain_batches"] == 0
+    assert not len(ps.queue) and len(ps.cache.pod_states) == 700
