@@ -26,8 +26,8 @@ Phases, one output line each (several for 2 and 4):
      the launches of each kernel in that drain, each of which must be > 0
      for the kernels of its route: config0 (10k nodes, 100k pending pods)
      with residentDrain false (K1, K2, K3) and under the default
-     configuration (K1, K4 with its host tail, K3), in turns, three times
-     each, with their spread; config0 once with residentSerialTail (K1, K4,
+     configuration (K1, K4 with its host tail, K3), in turns, twice each,
+     with their spread; config0 once with residentSerialTail (K1, K4,
      K2 for its tail, K3); a mixed drain (1k nodes, 10k pods: NoSchedule
      taints, tolerations, nodeSelector, required node affinity, images) on
      the first two routes and with residentSerialTail;
@@ -54,7 +54,24 @@ Phases, one output line each (several for 2 and 4):
      4,096 pods, every batch a direct wave with the port carry) against the
      same drain on the gang scan; and the parity drain again under the
      default configuration;
-  7. the kernels line.
+  7. preemption: K10 narrow_candidates against its plain version, exact,
+     at config0's node count (N=10,240, 20,000 placed pods at priorities
+     0 / 10 / 50, 512 failed pods in four priority groups, 512 batch
+     peers), with its time, the plain version's and the library's
+     index_add_ segment sums of its kept plane; K5, K8 and K9 with 64 open
+     nominations against their plain versions at config4's and the mixed
+     shape (inside phases 5 and 6); bench.py bench_preemption's drain (500
+     nodes of 4 cpu each holding two priority-0 victims, 500 preemptors of
+     3 cpu at priority 100, a manual clock +30 s per round, at most 12
+     rounds, victims evicted through on_pod_delete) on cuda and on the CPU
+     with identical bindings, evictions and nominations, every preemptor
+     bound, each node emptied of exactly its two victims, no node over its
+     allocatable; the same drain at 5,000 nodes with 1,000 preemptors on
+     cuda; and a gang-path drain with priorities (500 nodes, 1,500 placed
+     priority-0 pods, 2,000 spread and anti-affinity pods at priorities 0 /
+     50 / 100, some too big to fit before a preemption) in two rounds on
+     cuda and on the CPU, identical;
+  8. the kernels line.
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Without
@@ -79,7 +96,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 PEAK_SCALAR_OPS_S = 67e12
 # config0 drains per route, taken in turns, to show the host clock's spread
-DRAIN_REPEATS = 3
+DRAIN_REPEATS = 2
 
 
 def log(**kw) -> None:
@@ -1117,7 +1134,7 @@ def gang_bounds(torch, dc, db, g, chosen, n_feas, weights):
     return k6, k7, bound_ms(k5_bytes(torch, dc, db, g, chosen, n_feas, weights), k5_ops)
 
 
-def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "config3")):
+def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "config3"), nominated=("config4",)):
     """K5, K6 and K7 against their plain versions on the card: precompute
     (K1 + K6 + K7) against precompute_plain on every one of the 39
     GangStatics fields, and gang_schedule (K5) against its plain loop on
@@ -1125,8 +1142,10 @@ def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "
     kernel's time, its plain version's, its bound, and (K7) the float64
     torch.matmul of interpod_weighted_ext's product at the same shapes.  On
     the shapes named in `wave_on`, also K8 and K9 (wave_row) on the same
-    packed inputs and plain statics, beside K5's outputs and time.  Returns
-    (gang rows, wave rows) by shape name."""
+    packed inputs and plain statics, beside K5's outputs and time; on those
+    also named in `nominated`, K5, K8 and K9 with 64 open nominations
+    (nominated_row, kept in the wave row under "nominated").  Returns (gang
+    rows, wave rows) by shape name."""
     from kubernetes_tpu_torch.ops import fastpath as ops_fp
     from kubernetes_tpu_torch.ops import filters as F
     from kubernetes_tpu_torch.ops import gang, wave
@@ -1186,6 +1205,8 @@ def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "
                 raise AssertionError(f"{name}: a wave check on the gang inputs needs unique hostnames, no ports")
             waves[name] = wave_row(torch, name, dc, db, kw, d_cap, flags, wt, reps, g=want,
                                    k5=(ck, nk, rk, row["gang_scan"]["ms"]))
+            if name in nominated:
+                waves[name]["nominated"] = nominated_row(torch, name, dc, db, kw, d_cap, want, wt, reps)
     return rows, waves
 
 
@@ -1324,13 +1345,25 @@ def wave_row(torch, name, dc, db, kw, d_cap, flags, wt, reps, g=None, k5=None):
     return row
 
 
-def phase_wave_kernels(torch, device, reps=5, shapes=None):
+def phase_wave_kernels(torch, device, reps=5, shapes=None, nominated=("mixed",)):
     """wave_row on the wave-only shapes (wave_shapes): the port-contended
-    batch and the port-free mixed batch.  Returns the rows by shape name."""
+    batch and the port-free mixed batch; on the shapes named in `nominated`
+    (without ports), also K5, K8 and K9 with 64 open nominations
+    (nominated_row, in the row under "nominated").  Returns the rows by
+    shape name."""
+    from kubernetes_tpu_torch.ops import gang
+
     rows = {}
     for name, nodes, placed, pending in (shapes or wave_shapes()):
         dc, db, kw, d_cap, flags, wt = wave_inputs(torch, device, nodes, placed, pending)
-        rows[name] = wave_row(torch, name, dc, db, kw, d_cap, flags, wt, reps)
+        g = None
+        if name in nominated:
+            tab = {k: kw[k] for k in ("sp_keys", "sp_cdv_tab", "ip_keys")}
+            g = gang.precompute_plain(dc, db, kw["hostname_key"], kw["v_cap"], hard_pod_affinity_weight=1,
+                                      enabled=gang.ALL_FILTER_KERNELS, **dict(flags, has_ports=False), **tab)
+        rows[name] = wave_row(torch, name, dc, db, kw, d_cap, flags, wt, reps, g=g)
+        if name in nominated:
+            rows[name]["nominated"] = nominated_row(torch, name, dc, db, kw, d_cap, g, wt, reps)
     return rows
 
 
@@ -1490,6 +1523,73 @@ WAVE_METRICS = ("wave_batches", "wave_pods", "wave_admitted", "wave_groups", "wa
                 "wave_fallback_dup_hostname", "wave_fallback_kill_switch")
 
 
+def _tensor_bytes(obj) -> int:
+    """Bytes of every tensor in a (nested) dataclass of tensors."""
+    import dataclasses
+
+    import torch
+
+    total = 0
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            total += v.numel() * v.element_size()
+        elif dataclasses.is_dataclass(v):
+            total += _tensor_bytes(v)
+    return total
+
+
+class SyncTimer:
+    """Times every DeviceClusterCache.sync (the port of the transport root
+    cache/device_mirror.py:62 apply) while installed: host clock around the
+    call between two synchronizes, and the bytes it moved to the card (the
+    whole snapshot on a full upload; on a delta sync the usage rows and the
+    appended placed-pod and term rows)."""
+
+    def __init__(self, torch):
+        from kubernetes_tpu_torch.cache import device_mirror as dm
+
+        self.torch, self.cls, self.records = torch, dm.DeviceClusterCache, []
+        self._orig = self.cls.sync
+        timer = self
+
+        def sync(cache, mirror, vocab):
+            e0, m0, full0 = cache._e_done, cache._m_done, cache.full_uploads
+            timer.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dc = timer._orig(cache, mirror, vocab)
+            timer.torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if cache.full_uploads != full0:
+                moved, kind = _tensor_bytes(dc), "full"
+            else:
+                usage = nbytes(dc.requested, dc.nonzero_req, dc.num_pods, dc.used_ppk, dc.used_ip, dc.used_wild)
+                epod = sum(t[0].numel() * t.element_size() for t in (dc.epod_node, dc.epod_ns, dc.epod_labels,
+                                                                      dc.epod_valid, dc.epod_deleting))
+                tt = dc.term_table
+                term = sum(t[0].numel() * t.element_size() for t in (
+                    dc.term_pod, dc.term_kind, dc.term_topo, dc.term_weight, dc.term_ns_all, dc.term_ns_ids,
+                    tt.req_key, tt.req_op, tt.req_vals, tt.req_rhs, tt.term_valid))
+                moved = usage + (cache._e_done - e0) * epod + (cache._m_done - m0) * term
+                kind = "delta"
+            timer.records.append((kind, ms, moved))
+            return dc
+
+        self.cls.sync = sync
+
+    def close(self) -> dict:
+        self.cls.sync = self._orig
+        out = {}
+        for kind in ("full", "delta"):
+            rs = [r for r in self.records if r[0] == kind]
+            if rs:
+                ms = [r[1] for r in rs]
+                b = statistics.mean(r[2] for r in rs)
+                out[kind] = dict(syncs=len(rs), mean_ms=statistics.mean(ms), median_ms=statistics.median(ms),
+                                 max_ms=max(ms), mean_bytes=b, bound_ms=b / PEAK_BYTES_S * 1e3, bound_by="bytes")
+        return out
+
+
 def phase_gang_drain(torch, name, device, nodes, pods, kernels, check=None, want=None, wave_batches=None,
                      **cfg):
     """One gang-path drain through Scheduler() on the card: every pod gets an
@@ -1502,7 +1602,11 @@ def phase_gang_drain(torch, name, device, nodes, pods, kernels, check=None, want
     from kubernetes_tpu_torch.ops import _build
 
     _build.reset_launches()
-    got, dt, sched = drain(device, nodes, pods, **cfg)
+    timer = SyncTimer(torch)
+    try:
+        got, dt, sched = drain(device, nodes, pods, **cfg)
+    finally:
+        syncs = timer.close()
     launches = dict(_build.launches)
     check_capacity(sched)
     checked = check(sched, got) if check is not None else None
@@ -1523,7 +1627,7 @@ def phase_gang_drain(torch, name, device, nodes, pods, kernels, check=None, want
         placed=placed, drain_s=dt, pods_per_s=len(got) / dt, launches=launches,
         scan_batches=m["scan_batches"], chain_batches=m["chain_batches"], fast_batches=m["fast_batches"],
         **{k: m[k] for k in WAVE_METRICS}, constraint_check=checked, capacity_ok=True,
-        equal_to_other_route=want is not None)
+        equal_to_other_route=want is not None, device_mirror_syncs=syncs)
     return launches, got
 
 
@@ -1570,6 +1674,391 @@ def phase_gang_parity(torch, device, n_nodes=500, n_pods=2000, n_placed=200, wav
         placed=sum(v[0] is not None for v in got.values()), unschedulable=sum(v[0] is None for v in got.values()),
         identical=True, cuda_drain_s=dt, cpu_drain_s=dt_cpu, launches=launches, scan_batches=m["scan_batches"],
         chain_batches=m["chain_batches"], fast_batches=m["fast_batches"])
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: preemption
+# ---------------------------------------------------------------------------
+
+# the failed pods' four priority groups in K10's check, and the placed pods'
+# priorities (all lower than every group's)
+PREEMPT_GROUPS = (20, 60, 100, 200)
+PLACED_PRIOS = (0, 10, 50)
+
+
+def k10_inputs(torch, device, n_nodes=10000, E=20000, P=512, B2=512, seed=13):
+    """K10's inputs at config0's node count: the mixed cluster (NoSchedule
+    taints, unschedulable nodes, labels) packed as the scheduler's static
+    snapshot; E placed pods at priorities {0, 10, 50} with config0's
+    request mix on seeded nodes; P failed mixed pods (tolerations,
+    nodeSelector, required node affinity) in four priority groups; B2
+    committed batch peers on seeded nodes (a twentieth of them pads) at
+    priorities just below, at and just above the groups'.  Returns (dc, db,
+    the victim / group rows, the batch-peer rows), all on `device`."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster
+    from kubernetes_tpu_torch.snapshot.interner import Vocab
+    from kubernetes_tpu_torch.snapshot.schema import ResourceLanes, pack_nodes, pack_pod_batch
+
+    rng = np.random.default_rng(seed)
+    nodes = mixed_nodes(n_nodes, seed=seed)
+    pods = mixed_pods(P, seed=seed + 1)
+    for i, p in enumerate(pods):
+        p.priority = PREEMPT_GROUPS[i % len(PREEMPT_GROUPS)]
+    vocab = Vocab()
+    for p in pods:
+        for k, v in p.labels.items():
+            vocab.intern_label(k, v)
+    nt = pack_nodes(nodes, vocab)
+    pb = pack_pod_batch(pods, vocab, k_cap=nt.k_cap, p_cap=P)
+    R = nt.allocatable.shape[1]
+    lanes = ResourceLanes(vocab)
+    n_real = len(nodes)
+    vreq = np.zeros((E, R), np.int32)
+    vreq[:, 0] = rng.choice([100, 250, 500, 1000], size=E)
+    vreq[:, 1] = rng.choice([128, 256, 512, 1024], size=E)
+    breq = np.zeros((B2, R), np.int32)
+    breq[:, 0] = rng.choice([100, 250, 500], size=B2)
+    breq[:, 1] = rng.choice([128, 256, 512], size=B2)
+    bnode = rng.integers(0, n_real, size=B2).astype(np.int32)
+    bnode[rng.random(B2) < 0.05] = -1
+    groups = np.asarray(PREEMPT_GROUPS, np.int32)
+    assert lanes.n_lanes >= 2
+    rows = dict(
+        victim_node=rng.integers(0, n_real, size=E).astype(np.int32),
+        victim_prio=rng.choice(PLACED_PRIOS, size=E).astype(np.int32),
+        victim_req=vreq,
+        prio_groups=groups,
+        pod_group=(np.arange(P) % len(groups)).astype(np.int32),
+    )
+    peers = dict(batch_node=bnode,
+                 batch_prio=rng.choice(sorted({g + d for g in groups for d in (-1, 0, 1)}), size=B2).astype(np.int32),
+                 batch_req=breq)
+    to = lambda d: {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in d.items()}  # noqa: E731
+    return DeviceCluster.from_host(nt, vocab, device), DeviceBatch.from_host(pb, device), to(rows), to(peers)
+
+
+def k10_bound(torch, dc, db, rows, peers, mask):
+    """K10's least time: bytes (the victim, group and peer rows, the nodes'
+    static tables, allocatable and pod limits, and the pods' tables read
+    once; the [P, N] mask written once) against operations (per group and
+    row, the comparison and R + 2 adds; per (pod, node), the static filters'
+    compares — taint slots × toleration slots, affinity requirement slots —
+    and 3 per resource lane)."""
+    G = rows["prio_groups"].shape[0]
+    E, R = rows["victim_req"].shape
+    B2 = peers["batch_node"].shape[0]
+    P, N = mask.shape
+    T, TL = dc.taint_key.shape[1], db.tol_key.shape[1]
+    _, NT, NR = db.node_sel.req_key.shape
+    ins = nbytes(*rows.values(), *peers.values(), dc.node_labels, dc.val_ints, dc.taint_key, dc.taint_val,
+                 dc.taint_effect, dc.unschedulable, dc.node_valid, dc.allocatable, dc.allowed_pods, db.valid,
+                 db.requests, db.tol_key, db.tol_op, db.tol_val, db.tol_effect, db.target_name_val,
+                 *(getattr(db.node_sel, f) for f in ("req_key", "req_op", "req_vals", "req_rhs", "term_valid")))
+    ops = G * (E + B2) * (R + 3) + P * N * (T * TL + NT * NR + 3 * R + 6)
+    return bound_ms(ins + nbytes(mask), ops)
+
+
+def phase_preempt_kernels(torch, device, reps=20, **size):
+    """K10 against narrow_candidates_plain on the card, exactly, with and
+    without batch peers, at config0's node count (k10_inputs); its time, the
+    plain version's, its bound, and the library call for its kept plane:
+    the G × 3 index_add_ segment sums (requests, counts, victims) of the
+    plain version, on the same rows, the per-group row masks made outside
+    the timed window.  Returns the row."""
+    from kubernetes_tpu_torch.ops import _build
+    from kubernetes_tpu_torch.ops import preemption as pre
+
+    dc, db, rows, peers = k10_inputs(torch, device, **size)
+    n0 = _build.launches["narrow_candidates"]
+    errs = []
+    for kw in ({}, peers):
+        got = pre.narrow_candidates(dc, db, *rows.values(), **kw)
+        want = pre.narrow_candidates_plain(dc, db, *rows.values(), **kw)
+        torch.cuda.synchronize()
+        errs.append(max_abs_err(torch, got, want))
+    if any(errs) or _build.launches["narrow_candidates"] != n0 + 2:
+        raise AssertionError(f"narrow_candidates kernel != plain version (errors {errs})")
+    # the kept plane by the library: one index_add_ per group and plane
+    N, R = dc.allocatable.shape
+    seg = torch.where(rows["victim_node"] >= 0, rows["victim_node"], N).long()
+    per_group = []
+    for thr in rows["prio_groups"].tolist():
+        lower = rows["victim_prio"] < thr
+        keep = (~lower).to(torch.int32)
+        per_group.append((rows["victim_req"] * keep[:, None], keep, lower.to(torch.int32)))
+    bufs = [(torch.zeros((N + 1, R), dtype=torch.int32, device=device),
+             torch.zeros((N + 1,), dtype=torch.int32, device=device),
+             torch.zeros((N + 1,), dtype=torch.int32, device=device)) for _ in per_group]
+
+    def zero():
+        for b in bufs:
+            for t in b:
+                t.zero_()
+
+    def library():
+        for (req, cnt, vic), (br, bc, bv) in zip(per_group, bufs):
+            br.index_add_(0, seg, req)
+            bc.index_add_(0, seg, cnt)
+            bv.index_add_(0, seg, vic)
+
+    b, by = k10_bound(torch, dc, db, rows, peers, got)
+    row = dict(
+        N=N, P=int(db.valid.sum().item()), E=rows["victim_node"].shape[0], G=rows["prio_groups"].shape[0],
+        B2=peers["batch_node"].shape[0], candidates=int(got.sum().item()), max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: pre.narrow_candidates(dc, db, *rows.values(), **peers), reps),
+        plain_ms=time_ms(torch, lambda: pre.narrow_candidates_plain(dc, db, *rows.values(), **peers), 3),
+        bound_ms=b, bound_by=by, library_ms=time_ms(torch, library, reps, setup=zero),
+        library_call=f"{3 * len(per_group)} x index_add_ of [{seg.shape[0]}, {R}] rows into [{N + 1}, {R}]",
+    )
+    log(phase="preempt_kernel_check", **row)
+    return row
+
+
+def nominations(torch, dc, db, n=64, seed=17):
+    """`n` open nominations on seeded valid nodes at priorities just below,
+    at and just above the batch's highest, each asking 90 % to 105 % of its
+    node's free cpu (so the charge leaves most of those nodes without room
+    for a pod it gates) and a tenth to a half of its memory."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    valid = dc.node_valid.nonzero().flatten().cpu().numpy()
+    base = int(db.priority[db.valid].max().item())
+    node = rng.choice(valid, size=n).astype(np.int32)
+    alloc = dc.allocatable.cpu().numpy()
+    free = alloc[node, 0] - dc.requested.cpu().numpy()[node, 0]
+    req = np.zeros((n, alloc.shape[1]), np.int32)
+    req[:, 0] = np.maximum(free * rng.uniform(0.9, 1.05, size=n), 0).astype(np.int32)
+    req[:, 1] = (alloc[node, 1] * rng.uniform(0.1, 0.5, size=n)).astype(np.int32)
+    prio = rng.choice([base - 1, base, base + 1], size=n).astype(np.int32)
+    dev = dc.node_valid.device
+    return dict(nom_node=torch.from_numpy(node).to(dev), nom_prio=torch.from_numpy(prio).to(dev),
+                nom_req=torch.from_numpy(req).to(dev))
+
+
+def timed_once(torch, fn):
+    """(fn's result, its host-clock ms between two synchronizes): one run of
+    a plain version, which is host-bound, checked and timed at once."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def nominated_row(torch, name, dc, db, kw, d_cap, g, wt, reps, n=64):
+    """K5, and with wave tables K8 and K9, with `n` open nominations
+    (nominations()) against their plain versions on the same statics `g`,
+    exactly, and K9 against K5 with them; the pods whose feasible-node
+    count the charge changed (K5 with against without; none raises: the
+    charge would be untested) and those it moved; each kernel's time and
+    its plain version's (one run, host clock).  Returns the row."""
+    from kubernetes_tpu_torch.ops import gang, wave
+
+    nom = nominations(torch, dc, db, n)
+    v_cap, hk = kw["v_cap"], kw["hostname_key"]
+    ck, nk, rk, tk = gang.gang_schedule(dc, db, g, v_cap, d_cap=d_cap, **nom)
+    (cp, np_, rp, tp), k5_plain_ms = timed_once(
+        torch, lambda: gang.gang_schedule_plain(dc, db, g, v_cap, d_cap=d_cap, **nom))
+    base, base_feas = gang.gang_schedule(dc, db, g, v_cap, d_cap=d_cap)[:2]
+    torch.cuda.synchronize()
+    k5 = max([max_abs_err(torch, a, b) for a, b in ((ck, cp), (nk, np_), (rk, rp))]
+             + [max_abs_err(torch, tk[k], tp[k]) for k in tk])
+    row = dict(shape=name, nominations=n, k5_nom_err=k5, moved_by_nominations=int((base != ck).sum().item()),
+               feas_changed_by_nominations=int((base_feas != nk).sum().item()),
+               scheduled=int((ck >= 0).sum().item()))
+    if not row["feas_changed_by_nominations"]:
+        raise AssertionError(f"{name}: the nominations changed no pod's feasible nodes")
+    row["gang_scan"] = dict(ms=time_ms(torch, lambda: gang.gang_schedule(dc, db, g, v_cap, d_cap=d_cap, **nom), reps),
+                            plain_ms=k5_plain_ms)
+    if wt is not None:
+        targs = [wt[k] for k in WAVE_TABLES]
+        tkw = dict(d_cap=d_cap, d2_cap=wt["d2_cap"], has_ports=wt["has_ports"], tid_pt=wt["tid_pt"],
+                   port_conf=wt["port_conf"], **nom)
+        c0, k8_plain_ms = timed_once(torch, lambda: wave.wave_speculate_plain(dc, db, g, d_cap=d_cap, **nom))
+        c0_k = wave.wave_speculate(dc, db, g, d_cap=d_cap, **nom)
+        adm, k9_plain_ms = timed_once(torch, lambda: wave.wave_admit_plain(dc, db, g, hk, c0, *targs, **tkw))
+        adm_k = wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw)
+        torch.cuda.synchronize()
+        row["k8_nom_err"] = max_abs_err(torch, c0_k, c0)
+        row["k9_nom_err"] = max([max_abs_err(torch, u, v) for u, v in zip(adm_k[:3] + adm_k[4:], adm[:3] + adm[4:])]
+                                + [max_abs_err(torch, adm_k[3][k], adm[3][k]) for k in adm[3]])
+        row["k9_vs_k5_nom"] = max(max_abs_err(torch, adm[0], ck), max_abs_err(torch, adm[1], nk),
+                                  max_abs_err(torch, adm[2], rk))
+        row["wave_speculate"] = dict(
+            ms=time_ms(torch, lambda: wave.wave_speculate(dc, db, g, d_cap=d_cap, **nom), reps),
+            plain_ms=k8_plain_ms)
+        row["wave_admit"] = dict(
+            ms=time_ms(torch, lambda: wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw), reps),
+            plain_ms=k9_plain_ms)
+    bad = {k: v for k, v in row.items() if k.endswith("_err") or k == "k9_vs_k5_nom"}
+    if any(bad.values()):
+        raise AssertionError(f"{name}: kernels with nominations differ from their plain versions: {bad}")
+    log(phase="nominated_kernel_check", **row)
+    return row
+
+
+def preemption_world(n_nodes, n_preemptors):
+    """bench.py bench_preemption's cluster: nodes of 4 cpu / 16Gi, each with
+    two priority-0 victims of 1500m / 2Gi, and preemptors of 3 cpu / 4Gi at
+    priority 100.  Returns (nodes, victims, preemptors)."""
+    from kubernetes_tpu_torch.api import Container, Node, Pod, Resource
+
+    nodes = [Node(name=f"node-{i}", labels={HOSTNAME: f"node-{i}"},
+                  capacity=Resource.from_map({"cpu": "4", "memory": "16Gi"})) for i in range(n_nodes)]
+    victims = [Pod(name=f"victim-{i}-{v}", node_name=f"node-{i}", priority=0,
+                   containers=[Container(requests={"cpu": "1500m", "memory": "2Gi"})])
+               for i in range(n_nodes) for v in range(2)]
+    preemptors = [Pod(name=f"hi-{i}", priority=100, containers=[Container(requests={"cpu": "3", "memory": "4Gi"})])
+                  for i in range(n_preemptors)]
+    return nodes, victims, preemptors
+
+
+def preemption_drain(torch, device, nodes, placed, pending, rounds=12, advance=30.0, **cfg):
+    """A drain in rounds through Scheduler() with a manual clock that moves
+    `advance` seconds between rounds (the preemptors' backoff), victims
+    evicted through ``pod_deleter = on_pod_delete``, until every pending pod
+    is bound or `rounds` ran.  Returns (record, seconds, scheduler,
+    launches): the record holds the bindings, the evictions in order, every
+    nomination in the order it was made, and the rounds taken."""
+    from kubernetes_tpu_torch.framework.config import SchedulerConfiguration
+    from kubernetes_tpu_torch.ops import _build
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    now = [1000.0]
+    sched = Scheduler(SchedulerConfiguration(**cfg), device=device, clock=lambda: now[0])
+    rec = dict(bindings={}, evictions=[], nominations=[], rounds=0)
+    sched.binding_sink = lambda pod, node: rec["bindings"].__setitem__(pod.name, node)
+    sched.status_patcher = lambda pod: rec["nominations"].append((pod.name, pod.nominated_node_name))
+
+    def evict(pod):
+        rec["evictions"].append(pod.name)
+        sched.on_pod_delete(pod)
+
+    sched.pod_deleter = evict
+    for n in nodes:
+        sched.on_node_add(n)
+    for p in placed + pending:
+        sched.on_pod_add(p)
+    _build.reset_launches()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        sched.schedule_pending()
+        rec["rounds"] = r + 1
+        if all(p.name in rec["bindings"] for p in pending):
+            break
+        now[0] += advance
+    return rec, time.perf_counter() - t0, sched, dict(_build.launches)
+
+
+def check_evictions(rec, n_nodes, n_preemptors):
+    """bench_preemption's invariants: every preemptor bound, each node lost
+    either none or both of its victims, and exactly one node per preemptor
+    lost them, the one it is bound to.  Returns the nodes that lost both."""
+    lost = {}
+    for v in rec["evictions"]:
+        _, i, _ = v.split("-")
+        lost[int(i)] = lost.get(int(i), 0) + 1
+    if len(rec["evictions"]) != len(set(rec["evictions"])):
+        raise AssertionError("a victim was evicted twice")
+    bound = [rec["bindings"].get(f"hi-{i}") for i in range(n_preemptors)]
+    if None in bound:
+        raise AssertionError(f"{bound.count(None)} preemptors left unbound after {rec['rounds']} rounds")
+    emptied = {f"node-{i}" for i, c in lost.items() if c == 2}
+    if any(c != 2 for c in lost.values()) or len(emptied) != n_preemptors or set(bound) != emptied:
+        raise AssertionError(f"evictions do not match bench_preemption's: {len(emptied)} nodes emptied for "
+                             f"{n_preemptors} preemptors")
+    return len(emptied)
+
+
+def phase_preempt_drains(torch, device, n_small=500, n_large=5000, large_preemptors=1000):
+    """bench_preemption's drain (preemption_world) at its own size on cuda
+    and with device="cpu": bindings, evictions and nominations identical,
+    every invariant of check_evictions, no node over its allocatable; then
+    at n_large nodes with large_preemptors preemptors on cuda alone.  K10
+    must launch in each cuda drain.  Returns (small launches, large row)."""
+    out = {}
+    for name, n, k, devices in (("bench_preemption", n_small, n_small, (device, torch.device("cpu"))),
+                                ("bench_preemption_large", n_large, large_preemptors, (device,))):
+        runs = []
+        for dev in devices:
+            rec, dt, sched, launches = preemption_drain(torch, dev, *preemption_world(n, k))
+            check_capacity(sched)
+            emptied = check_evictions(rec, n, k)
+            runs.append((rec, dt, sched, launches))
+        rec, dt, sched, launches = runs[0]
+        if len(runs) > 1 and runs[1][0] != rec:
+            raise AssertionError(f"{name}: the cuda drain's bindings, evictions or nominations differ from cpu's")
+        if launches["narrow_candidates"] <= 0:
+            raise AssertionError(f"{name}: K10 never launched: {launches}")
+        m = sched.metrics
+        row = dict(name=name, nodes=n, preemptors=k, rounds=rec["rounds"], drain_s=dt,
+                   cpu_drain_s=runs[1][1] if len(runs) > 1 else None, identical_to_cpu=len(runs) > 1 or None,
+                   evictions=len(rec["evictions"]), nodes_emptied=emptied, nominations=len(rec["nominations"]),
+                   launches=launches, **{key: m[key] for key in ("preemption_attempts", "preemption_victims",
+                                                                "narrow_batches", "nominated_binds",
+                                                                "fast_batches", "chain_batches", "scan_batches",
+                                                                "wave_batches", "host_cycles")})
+        log(phase="preempt_drain", **row)
+        out[name] = row
+    return out
+
+
+def priority_world(n_nodes, n_placed, n_pods, n_big=16, seed=23):
+    """The gang-path drain with priorities: nodes of 4 cpu in 3 zones, each
+    holding n_placed / n_nodes priority-0 pods of 1 cpu, and n_pods pending
+    pods at seeded priorities 0, 50 and 100: config4's spread pods and
+    config3's anti-affinity pods of 250m, interleaved, and among them n_big
+    pods of 2 cpu that fit no node until lower-priority pods go (they
+    preempt, and their nominations stay open while the rest schedule)."""
+    from kubernetes_tpu_torch.api import Container, Node, Pod, Resource
+
+    rng = random.Random(seed)
+    nodes = [Node(name=f"node-{i}", labels={ZONE: f"zone-{i % 3}", HOSTNAME: f"node-{i}"},
+                  capacity=Resource.from_map({"cpu": "4", "memory": "32Gi", "pods": 110})) for i in range(n_nodes)]
+    placed = [Pod(name=f"low-{j}", node_name=f"node-{j % n_nodes}", priority=0, labels={"tier": "batch"},
+                  containers=[Container(requests={"cpu": "1", "memory": "1Gi"})]) for j in range(n_placed)]
+    pending = []
+    for a, b in zip(spread_pods(n_pods // 2, prefix="sp"), interpod_pods(n_pods // 2, prefix="aa")):
+        pending += [a, b]
+    step = max(len(pending) // max(n_big, 1), 1)
+    for i, p in enumerate(pending):
+        p.priority = rng.choice([0, 50, 100])
+        p.containers[0].requests["cpu"] = "2" if n_big and i % step == 0 and i // step < n_big else "250m"
+    return nodes, placed, pending
+
+
+def phase_preempt_parity(torch, device, n_nodes=500, n_placed=1500, n_pods=2000, wave=True):
+    """The gang-path drain with priorities (priority_world) in two rounds
+    (the second 30 s later, for the preemptors' backoff) on cuda and with
+    device="cpu": bindings, evictions and nominations identical, no node
+    over its allocatable; K10 and the route's kernels (K8 and K9 under the
+    default configuration, K5 under waveDispatch: false) launched, with
+    nominations open in the second round."""
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        rec, dt, sched, launches = preemption_drain(torch, dev, *priority_world(n_nodes, n_placed, n_pods),
+                                                    rounds=2, wave_dispatch=wave)
+        check_capacity(sched)
+        runs.append((rec, dt, sched, launches))
+    (rec, dt, sched, launches), (rec_cpu, dt_cpu, _, _) = runs
+    if rec != rec_cpu:
+        raise AssertionError("preempt parity: cuda and cpu differ in bindings, evictions or nominations")
+    route = ("wave_speculate", "wave_admit") if wave else ("gang_scan",)
+    missing = [k for k in ("narrow_candidates",) + route if launches[k] <= 0]
+    if missing or not rec["nominations"]:
+        raise AssertionError(f"preempt parity: no nomination, or {missing} never launched: {launches}")
+    m = sched.metrics
+    log(phase="preempt_parity", wave_dispatch=wave, nodes=n_nodes, placed_before=n_placed, pods=n_pods,
+        bound=len(rec["bindings"]), evictions=len(rec["evictions"]), nominations=len(rec["nominations"]),
+        identical=True, cuda_drain_s=dt, cpu_drain_s=dt_cpu, launches=launches,
+        **{k: m[k] for k in ("preemption_attempts", "narrow_batches", "nominated_binds", "host_cycles",
+                             "wave_batches", "chain_batches", "scan_batches", "fast_batches")})
+    return launches
 
 
 def main() -> int:
@@ -1667,6 +2156,14 @@ def main() -> int:
     phase_gang_drain(torch, "ports_wave", device, ports[0](), ports[1](), ("static_eval",) + wave_k, want=want_p,
                      wave_batches=8)
     phase_gang_parity(torch, device, wave=True)
+
+    # preemption: K10 against its plain version at config0's node count (K5,
+    # K8 and K9 with 64 open nominations ran with the kernel checks above);
+    # bench_preemption's drain on cuda and on the CPU, and at 5k nodes; the
+    # gang-path drain with priorities on cuda and on the CPU
+    checks["narrow_candidates"] = phase_preempt_kernels(torch, device)
+    preempt = phase_preempt_drains(torch, device)
+    phase_preempt_parity(torch, device)
     # each kernel's error: the largest over the shapes of this run
     for kernel, err in (("gang_scan", "k5_err"), ("gang_spread_statics", "k6_err"),
                         ("gang_interpod_statics", "k7_err")):
@@ -1693,6 +2190,8 @@ def main() -> int:
                            wave4_l),
         "wave_admit": ("kubernetes_tpu_torch/csrc/wave.cu", "kubernetes_tpu/ops/wave.py:666", "config4_wave",
                        wave4_l),
+        "narrow_candidates": ("kubernetes_tpu_torch/csrc/preemption.cu", "kubernetes_tpu/ops/preemption.py:63",
+                              "bench_preemption", preempt["bench_preemption"]["launches"]),
     }
     kernels = []
     for name, (src, replaces, path, launches) in sources.items():

@@ -1,18 +1,23 @@
-"""Scheduler-relevant object model (the subset the signature fast path reads).
+"""Scheduler-relevant object model.
 
 A copy of the JAX package's object model, kept in this package so the port
 imports nothing of it.  Field names are snake_case versions of the corev1
 fields.  Pods carry every field the fast gate inspects (spread constraints,
 inter-pod terms, host ports, volumes, claims, gangs) so the scheduler can
-refuse the ones whose paths are not ported yet.
+refuse the ones whose paths are not ported yet, and the fields preemption
+reads (priority, preemption policy, start time, deletion timestamp,
+nominated node).  ``PodDisruptionBudget`` and the node-selector and taint
+matching helpers at the end serve the host filters (oracle/) and the
+preemption evaluator.
 """
 
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
+from kubernetes_tpu_torch.api import labels as k8slabels
 from kubernetes_tpu_torch.api.resource import Resource
 
 # ---------------------------------------------------------------------------
@@ -356,3 +361,90 @@ class Pod:
     @property
     def key(self) -> str:
         return f"{self.namespace}/{self.name}"
+
+
+# ---------------------------------------------------------------------------
+# PodDisruptionBudget (policy/v1; the scheduler only reads selector +
+# disruptionsAllowed — preemption.go filterPodsWithPDBViolation)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PodDisruptionBudget:
+    name: str
+    namespace: str = "default"
+    selector: Optional[LabelSelector] = None
+    # status.disruptionsAllowed — how many more voluntary evictions the
+    # budget tolerates right now
+    disruptions_allowed: int = 0
+
+    def matches(self, pod: "Pod") -> bool:
+        if pod.namespace != self.namespace or self.selector is None:
+            return False
+        sel = k8slabels.selector_from_label_selector(self.selector)
+        return sel.matches(pod.labels)
+
+
+# ---------------------------------------------------------------------------
+# Node-selector matching (component-helpers/scheduling/corev1/nodeaffinity)
+# ---------------------------------------------------------------------------
+
+
+def _node_requirement_matches(req: NodeSelectorRequirement, node: Node) -> bool:
+    r = k8slabels.Requirement(req.key, req.operator, tuple(req.values))
+    return r.matches(node.labels)
+
+
+def _node_field_matches(req: NodeSelectorRequirement, node: Node) -> bool:
+    # Only metadata.name is a valid field selector (nodeaffinity.go).
+    if req.key != "metadata.name":
+        return False
+    if req.operator == k8slabels.IN:
+        return len(req.values) == 1 and node.name in req.values
+    if req.operator == k8slabels.NOT_IN:
+        return node.name not in req.values
+    return False
+
+
+def node_selector_term_matches(term: NodeSelectorTerm, node: Node) -> bool:
+    if not term.match_expressions and not term.match_fields:
+        return False  # empty term matches nothing
+    return all(
+        _node_requirement_matches(r, node) for r in term.match_expressions
+    ) and all(_node_field_matches(r, node) for r in term.match_fields)
+
+
+def node_selector_matches(sel: Optional[NodeSelector], node: Node) -> bool:
+    """Terms ORed; nil selector (None) matches everything at this level —
+    callers decide presence. Empty term list matches nothing."""
+    if sel is None:
+        return True
+    return any(node_selector_term_matches(t, node) for t in sel.node_selector_terms)
+
+
+def required_node_affinity_matches(pod: Pod, node: Node) -> bool:
+    """RequiredNodeAffinity.Match: spec.nodeSelector AND required node
+    affinity (nodeaffinity/node_affinity.go:182)."""
+    for k, v in (pod.node_selector or {}).items():
+        if node.labels.get(k) != v:
+            return False
+    if pod.affinity and pod.affinity.node_affinity:
+        req = pod.affinity.node_affinity.required_during_scheduling_ignored_during_execution
+        if req is not None and not node_selector_matches(req, node):
+            return False
+    return True
+
+
+def find_untolerated_taint(
+    taints: Sequence[Taint],
+    tolerations: Sequence[Toleration],
+    effects: Sequence[str] = (TAINT_NO_SCHEDULE, TAINT_NO_EXECUTE),
+) -> Optional[Taint]:
+    """First taint with an effect in ``effects`` not tolerated by any
+    toleration (v1helper.FindMatchingUntoleratedTaint)."""
+    for t in taints:
+        if t.effect not in effects:
+            continue
+        if not any(tol.tolerates(t) for tol in tolerations):
+            return t
+    return None

@@ -1,6 +1,6 @@
 """Host scheduler cache (pkg/scheduler/backend/cache/cache.go): node infos
-with their usage accounting, informer adds of nodes and placed pods, the
-assume protocol, and the registry of placed pods that carry (anti-)affinity
+with their usage accounting, informer adds and deletes of nodes and placed
+pods, the assume protocol, and the registry of placed pods that carry (anti-)affinity
 terms.
 
 Every mutation bumps the node's ``generation``; a change to the Node object
@@ -153,6 +153,17 @@ class Cache:
             self.assumed.add(pod.uid)
             out.append(assumed)
         return out
+
+    def remove_pod(self, pod: Pod) -> None:
+        """Informer delete of a placed (or assumed) pod; unknown pods are
+        ignored.  The node's usage, the placed-pod population and the term
+        registry all move, so the mirror repacks the node's usage row and
+        rebuilds its placed-pod tensors."""
+        old = self.pod_states.get(pod.uid)
+        if old is None:
+            return
+        self._unplace(old)
+        self.assumed.discard(pod.uid)
 
     def forget_pod(self, pod: Pod) -> None:
         if pod.uid not in self.assumed:

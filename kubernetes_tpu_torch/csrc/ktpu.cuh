@@ -234,6 +234,77 @@ struct StaticEvalArgs {
   int enabled, has_images;
 };
 
+namespace ktpu {
+
+// OR over the DNF terms of row s of a [S, T, R(, V)] selector table
+// (term_valid folded in), against one node's label row.
+__device__ inline bool any_term(const int* key, const int* op, const int* vals, const int* rhs,
+                                const unsigned char* tv, int s, int T, int R, int V, const int* labels, int K,
+                                const int* val_ints, int NVI) {
+  for (int t = 0; t < T; ++t) {
+    const long long st = (long long)s * T + t;
+    if (tv[st] && eval_term(key + st * R, op + st * R, vals + st * R * V, rhs + st * R, R, V, labels, K,
+                            val_ints, NVI))
+      return true;
+  }
+  return false;
+}
+
+// Does any toleration of row s tolerate the taint (key, val, eff)?
+// pref_only restricts to tolerations with effect "" or PreferNoSchedule.
+__device__ inline bool tolerated(const StaticEvalArgs& a, int s, int tk_taint, int tv_taint, int te_taint,
+                                 bool pref_only) {
+  for (int l = 0; l < a.TL; ++l) {
+    const int i = s * a.TL + l;
+    const int to = a.tol_op[i];
+    if (to == PAD) continue;
+    const int te = a.tol_eff[i];
+    if (pref_only && te != EFFECT_ALL && te != EFFECT_PREFER_NO_SCHEDULE) continue;
+    const int tk = a.tol_key[i];
+    const bool effect_ok = te == EFFECT_ALL || te == te_taint;
+    const bool wildcard = tk == ABSENT && to == TOL_OP_EXISTS;
+    const bool key_eq = tk == tk_taint;
+    const bool val_ok = to == TOL_OP_EXISTS || a.tol_val[i] == tv_taint;
+    if (effect_ok && (wildcard || (key_eq && val_ok))) return true;
+  }
+  return false;
+}
+
+// The four static filters of row s at node n, each true where it passes
+// (or is not enabled): NodeName, NodeUnschedulable, TaintToleration
+// (NoSchedule / NoExecute taints) and required NodeAffinity.  K1 evaluates
+// them per signature, K10 per failed pod.
+struct StaticVerdict {
+  bool name, unsched, taints, affinity;
+};
+
+__device__ inline StaticVerdict static_filters(const StaticEvalArgs& a, int s, int n) {
+  const int* labels = a.node_labels + (long long)n * a.K;
+  StaticVerdict v{true, true, true, true};
+  if (a.enabled & EN_NODE_NAME) {
+    const int tgt = a.target_name[s];
+    const int nv = (a.name_key >= 0 && a.name_key < a.K) ? labels[a.name_key] : ABSENT;
+    v.name = tgt == ABSENT || nv == tgt;
+  }
+  if (a.enabled & EN_UNSCHEDULABLE)
+    v.unsched = !a.unsched[n] || tolerated(a, s, a.unsched_key, a.empty_val, EFFECT_NO_SCHEDULE, false);
+  if (a.enabled & EN_TAINTS)
+    for (int t = 0; t < a.T && v.taints; ++t) {
+      const long long nt = (long long)n * a.T + t;
+      const int tk = a.taint_key[nt];
+      if (tk == PAD) continue;
+      const int te = a.taint_eff[nt];
+      if ((te == EFFECT_NO_SCHEDULE || te == EFFECT_NO_EXECUTE) && !tolerated(a, s, tk, a.taint_val[nt], te, false))
+        v.taints = false;
+    }
+  if (a.enabled & EN_NODE_AFFINITY)
+    v.affinity = any_term(a.ns_key, a.ns_op, a.ns_vals, a.ns_rhs, a.ns_tv, s, a.NT, a.NR, a.NV, labels, a.K,
+                          a.val_ints, a.NVI);
+  return v;
+}
+
+}  // namespace ktpu
+
 struct SigScanArgs {
   const int* ids;                   // [P]  signature id per pod, -1 pads
   const long long* sig_req;         // [S, R]
@@ -458,8 +529,37 @@ struct GangScanArgs {
   long long* ip_raw;                // [N]
   long long* sp_raw;                // [N]
   int* sp_cnt;                      // [C, N]
+  // open nominations (preemptors whose victims are still terminating),
+  // grouped by node: rows nom_off[n] .. nom_off[n + 1] sit on node n.  A
+  // pod's fit charges the rows of priority >= its own.  nom_off null: none.
+  const int* priority;              // [P]
+  const int* nom_off;               // [N + 1]
+  const int* nom_prio;              // [G]
+  const int* nom_req;               // [G, Rn]
   int N, K, Rn, Rp, L, P, C, AT, KD2, D, JP, use_smem;
   int w_taint, w_naff, w_spread, w_ip, w_fit, w_bal, w_img, check_fit;
+};
+
+// K10's inputs beyond the static tables (csrc/preemption.cu): the placed
+// pods, the failed pods' priority groups, the batch's committed peers, the
+// per-(group, node) planes and the [P, N] mask.
+struct PreemptArgs {
+  const int* victim_node;   // [E]     placed pod's node (< 0: pad)
+  const int* victim_prio;   // [E]
+  const int* victim_req;    // [E, R]
+  const int* groups;        // [G]     distinct failed-pod priorities (INT32_MIN: pad)
+  const int* pod_group;     // [P]     group of each failed pod
+  const int* batch_node;    // [B2]    committed batch peer's node (< 0: pad)
+  const int* batch_prio;    // [B2]
+  const int* batch_req;     // [B2, R]
+  const int* allocatable;   // [N, R]
+  const int* allowed_pods;  // [N]
+  const int* requests;      // [P, Rp]
+  int* kept_req;            // [G, N, R] scratch
+  int* kept_cnt;            // [G, N]    scratch
+  int* victims;             // [G, N]    scratch
+  unsigned char* mask;      // [P, N]    out
+  int N, R, Rp, E, B2, G, P;
 };
 
 // The speculative wave's tables and outputs (csrc/wave.cu): K8 and K9 take
@@ -595,6 +695,35 @@ struct StepOut {
   long long rc[N_DIAG];
 };
 
+// NodeResourcesFit at node n for the pod with requests `req` and priority
+// `prio`: pod count and every requested lane (a scalar lane only when
+// requested) against allocatable minus the usage state, and, with `nom`,
+// minus the open nominations on n of priority >= prio (each also counts as
+// a pod).
+__device__ inline bool step_fits(const GangScanArgs& a, int n, const int* req, bool all_zero, int prio, bool nom) {
+  int g0 = 0, g1 = 0;
+  if (nom) {
+    g0 = a.nom_off[n];
+    g1 = a.nom_off[n + 1];
+  }
+  long long n_nom = 0;
+  for (int g = g0; g < g1; ++g) n_nom += a.nom_prio[g] >= prio;
+  if (a.num_pods[n] + n_nom + 1 > a.allowed_pods[n]) return false;
+  if (all_zero) return true;
+  for (int r = 0; r < a.Rp; ++r) {
+    const long long v = req[r];
+    if (r >= N_FIXED_LANES && v == 0) continue;  // unrequested scalar lane
+    long long avail = 0;
+    if (r < a.Rn) {
+      avail = (long long)a.allocatable[(long long)n * a.Rn + r] - a.requested[(long long)n * a.Rn + r];
+      for (int g = g0; g < g1; ++g)
+        if (a.nom_prio[g] >= prio) avail -= a.nom_req[(long long)g * a.Rn + r];
+    }
+    if (v > avail) return false;
+  }
+  return true;
+}
+
 // One pod's Filter -> Score -> Select against the usage state in `a`
 // (requested / nonzero / num_pods, read only here: the caller commits).
 // `at` >= 0 asks for the verdict's pieces at that node (the wave's demotion
@@ -646,6 +775,7 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
   const int* req = a.requests + (long long)p * a.Rp;
   bool all_zero = true;
   for (int r = 0; r < a.Rp; ++r) all_zero = all_zero && req[r] == 0;
+  const int prio = a.priority[p];
   const int stamp = p + 1;
 
   // 0 n_feas, 1..9 reason counts, 10 taint max, 11 naff max, 12 ip min,
@@ -658,22 +788,15 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
   for (int n = tid; n < N; n += blockDim.x) {
     const long long pn = (long long)p * N + n;
     const bool m_portb = dyn.portb(n);
-    bool m_fit = true;
+    // m_fit: the resource fit with the nominations charged (the filter);
+    // fit_own: without them (the wave's demotion attribution, which the
+    // reference computes from the usage state alone)
+    bool m_fit = true, fit_own = true;
     if (a.check_fit) {
-      m_fit = a.num_pods[n] + 1 <= a.allowed_pods[n];
-      if (m_fit && !all_zero) {
-        for (int r = 0; r < a.Rp; ++r) {
-          const long long v = req[r];
-          if (r >= N_FIXED_LANES && v == 0) continue;  // unrequested scalar lane
-          const long long avail = r < a.Rn
-              ? (long long)a.allocatable[(long long)n * a.Rn + r] - a.requested[(long long)n * a.Rn + r]
-              : 0;
-          if (v > avail) {
-            m_fit = false;
-            break;
-          }
-        }
-      }
+      fit_own = step_fits(a, n, req, all_zero, prio, false);
+      m_fit = fit_own;
+      if (a.nom_off != nullptr && a.nom_off[n + 1] > a.nom_off[n])
+        m_fit = step_fits(a, n, req, all_zero, prio, true);
     }
     bool m_spread = true;
     int sp_term = -1;
@@ -726,7 +849,7 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
       sh.s_at[0] = m_portb;
       sh.s_at[1] = m_spread;
       sh.s_at[2] = m_interpod;
-      sh.s_at[3] = m_fit;
+      sh.s_at[3] = fit_own;
       sh.s_at[4] = sp_term;
       sh.s_at[5] = ip_term;
     }

@@ -19,7 +19,8 @@
 // hundred integer operations per pair.
 //
 // Semantics are those of kubernetes_tpu_torch/ops/common.py eval_table
-// (ktpu.cuh eval_term, shared with K6 and K7) and ops/filters.py /
+// (ktpu.cuh eval_term, shared with K6 and K7; the four filter verdicts are
+// ktpu.cuh static_filters, shared with K10) and ops/filters.py /
 // ops/scores.py, which the chip check holds this kernel to
 // with exact equality.  Every division has a non-negative numerator (sizes,
 // node counts, a clamped sum minus its lower clamp), so C++ truncation
@@ -32,41 +33,6 @@ namespace {
 
 constexpr int SPREAD_THREADS = 256;
 constexpr int EVAL_THREADS = 256;
-
-// OR over the terms of one signature's table (term_valid folded in).
-__device__ bool any_term(const int* key, const int* op, const int* vals,
-                         const int* rhs, const unsigned char* tv, int s,
-                         int T, int R, int V, const int* labels, int K,
-                         const int* val_ints, int NVI) {
-  for (int t = 0; t < T; ++t) {
-    const long long st = (long long)s * T + t;
-    if (tv[st] && eval_term(key + st * R, op + st * R, vals + st * R * V,
-                            rhs + st * R, R, V, labels, K, val_ints, NVI))
-      return true;
-  }
-  return false;
-}
-
-// Does any toleration of signature s tolerate the taint (key, val, eff)?
-// pref_only restricts to tolerations with effect "" or PreferNoSchedule.
-__device__ bool tolerated(const StaticEvalArgs& a, int s, int tk_taint,
-                          int tv_taint, int te_taint, bool pref_only) {
-  for (int l = 0; l < a.TL; ++l) {
-    const int i = s * a.TL + l;
-    const int to = a.tol_op[i];
-    if (to == PAD) continue;
-    const int te = a.tol_eff[i];
-    if (pref_only && te != EFFECT_ALL && te != EFFECT_PREFER_NO_SCHEDULE)
-      continue;
-    const int tk = a.tol_key[i];
-    const bool effect_ok = te == EFFECT_ALL || te == te_taint;
-    const bool wildcard = tk == ABSENT && to == TOL_OP_EXISTS;
-    const bool key_eq = tk == tk_taint;
-    const bool val_ok = to == TOL_OP_EXISTS || a.tol_val[i] == tv_taint;
-    if (effect_ok && (wildcard || (key_eq && val_ok))) return true;
-  }
-  return false;
-}
 
 __global__ void image_spread_kernel(const long long* img_sizes,
                                     const unsigned char* node_valid, int N,
@@ -93,40 +59,15 @@ __global__ void __launch_bounds__(EVAL_THREADS)
   const int n = (int)(idx % a.N);
   const int* labels = a.node_labels + (long long)n * a.K;
 
-  bool m_name = true;
-  if (a.enabled & EN_NODE_NAME) {
-    const int tgt = a.target_name[s];
-    const int nv =
-        (a.name_key >= 0 && a.name_key < a.K) ? labels[a.name_key] : ABSENT;
-    m_name = tgt == ABSENT || nv == tgt;
-  }
-
-  bool m_uns = true;
-  if (a.enabled & EN_UNSCHEDULABLE)
-    m_uns = !a.unsched[n] ||
-            tolerated(a, s, a.unsched_key, a.empty_val, EFFECT_NO_SCHEDULE,
-                      false);
-
-  bool m_taint = true;
+  const StaticVerdict v = static_filters(a, s, n);
   long long taint_raw = 0;
   for (int t = 0; t < a.T; ++t) {
     const long long nt = (long long)n * a.T + t;
     const int tk = a.taint_key[nt];
     if (tk == PAD) continue;
     const int te = a.taint_eff[nt];
-    const int tv = a.taint_val[nt];
-    if ((a.enabled & EN_TAINTS) && m_taint &&
-        (te == EFFECT_NO_SCHEDULE || te == EFFECT_NO_EXECUTE) &&
-        !tolerated(a, s, tk, tv, te, false))
-      m_taint = false;
-    if (te == EFFECT_PREFER_NO_SCHEDULE && !tolerated(a, s, tk, tv, te, true))
-      ++taint_raw;
+    if (te == EFFECT_PREFER_NO_SCHEDULE && !tolerated(a, s, tk, a.taint_val[nt], te, true)) ++taint_raw;
   }
-
-  bool m_aff = true;
-  if (a.enabled & EN_NODE_AFFINITY)
-    m_aff = any_term(a.ns_key, a.ns_op, a.ns_vals, a.ns_rhs, a.ns_tv, s, a.NT,
-                     a.NR, a.NV, labels, a.K, a.val_ints, a.NVI);
 
   long long naff_raw = 0;
   for (int t = 0; t < a.PT; ++t) {
@@ -159,12 +100,11 @@ __global__ void __launch_bounds__(EVAL_THREADS)
     }
   }
 
-  a.mask[idx] = a.node_valid[n] && a.valid[s] && m_name && m_uns && m_taint &&
-                m_aff;
-  a.m_nodename[idx] = m_name;
-  a.m_unsched[idx] = m_uns;
-  a.m_taints[idx] = m_taint;
-  a.m_nodeaff[idx] = m_aff;
+  a.mask[idx] = a.node_valid[n] && a.valid[s] && v.name && v.unsched && v.taints && v.affinity;
+  a.m_nodename[idx] = v.name;
+  a.m_unsched[idx] = v.unsched;
+  a.m_taints[idx] = v.taints;
+  a.m_nodeaff[idx] = v.affinity;
   a.taint_raw[idx] = taint_raw;
   a.naff_raw[idx] = naff_raw;
   a.img[idx] = img;

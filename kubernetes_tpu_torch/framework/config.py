@@ -8,7 +8,9 @@ batches extend up to ``resident_run_max`` pods and are placed by
 with their own cross-pod constraints (spread, inter-pod terms, host ports)
 take the speculative wave (``wave_run`` / ``chain_dispatch(wave=True)``,
 kernels K8 and K9); ``wave_dispatch=False`` sends them to the gang scan
-(K5), with the same placements.
+(K5), with the same placements.  A profile's ``post_filter`` (on by
+default, DefaultPreemption) preempts lower-priority pods for pods that fail
+to schedule.
 """
 
 from __future__ import annotations
@@ -42,6 +44,11 @@ class Profile:
     scheduler_name: str = DEFAULT_SCHEDULER_NAME
     enabled: frozenset = DEFAULT_ENABLED
     score_weights: Dict[str, int] = field(default_factory=lambda: dict(DEFAULT_SCORE_WEIGHTS))
+    # the DefaultPreemption PostFilter (on in the default profile) and its
+    # candidate sizing: max(nodes·percentage/100, absolute), capped at nodes
+    post_filter: bool = True
+    min_candidate_nodes_percentage: int = 10
+    min_candidate_nodes_absolute: int = 100
 
     def weights(self) -> tuple:
         """Score weights in WEIGHT_ORDER: [0] taint, [1] naff, [4] fit,
@@ -92,3 +99,5 @@ class SchedulerConfiguration:
         for p in self.profiles:
             if any(w < 0 for w in p.score_weights.values()):
                 raise ValueError("score weights must be non-negative")
+            if not 0 <= p.min_candidate_nodes_percentage <= 100 or p.min_candidate_nodes_absolute < 0:
+                raise ValueError("min candidate nodes: percentage in [0, 100], absolute >= 0")

@@ -35,6 +35,7 @@ SOURCES = (
     "gang_statics.cu",
     "gang_scan.cu",
     "wave.cu",
+    "preemption.cu",
     "runtime.cu",
 )
 HEADERS = ("ktpu.cuh",)
@@ -56,6 +57,7 @@ launches: Dict[str, int] = {
     "gang_scan": 0,
     "wave_speculate": 0,
     "wave_admit": 0,
+    "narrow_candidates": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -197,7 +199,7 @@ class GangScanArgs(ctypes.Structure):
         "ip_viol_existing ip_sym ip_any_static ip_self_all ip_bmatch ip_is_aff ip_is_anti ip_pref_w ip_sym_w "
         "ip_key_idx sc_taint sc_nodeaff sc_image port_b d_nodename d_unsched d_taints d_nodeaff "
         "d_ports d_extra chosen n_feas reason_counts dom_ids sp_key ip_key kd2_key cnt cnt_h port_stamp "
-        "feas ip_raw sp_raw sp_cnt"
+        "feas ip_raw sp_raw sp_cnt priority nom_off nom_prio nom_req"
     ).split()
     _INTS = (
         "N K Rn Rp L P C AT KD2 D JP use_smem w_taint w_naff w_spread w_ip w_fit w_bal w_img check_fit"
@@ -210,6 +212,17 @@ class WaveArgs(ctypes.Structure):
 
     _PTRS = "tid_sp rep_sp_p rep_sp_c tid_ip rep_ip_p rep_ip_u tid_pt port_conf c0 kinds cterms sums carries".split()
     _INTS = "Tsp Tip Tpt W Dsp D2 hostname_key has_ports sums_smem carry_smem".split()
+    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
+
+
+class PreemptArgs(ctypes.Structure):
+    """Mirror of csrc/ktpu.cuh PreemptArgs (pointers, then ints)."""
+
+    _PTRS = (
+        "victim_node victim_prio victim_req groups pod_group batch_node batch_prio batch_req allocatable "
+        "allowed_pods requests kept_req kept_cnt victims mask"
+    ).split()
+    _INTS = "N R Rp E B2 G P".split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
@@ -250,6 +263,8 @@ def load() -> ctypes.CDLL:
     for fn in ("ktpu_wave_speculate", "ktpu_wave_admit"):
         getattr(lib, fn).argtypes = [ctypes.POINTER(GangScanArgs), ctypes.POINTER(WaveArgs), vp]
         getattr(lib, fn).restype = ctypes.c_int
+    lib.ktpu_preempt_narrow.argtypes = [ctypes.POINTER(StaticEvalArgs), ctypes.POINTER(PreemptArgs), vp]
+    lib.ktpu_preempt_narrow.restype = ctypes.c_int
     for fn in ("ktpu_gang_scan_smem_max", "ktpu_wave_admit_smem_max"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int

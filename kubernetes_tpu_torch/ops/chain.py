@@ -88,6 +88,9 @@ def chain_dispatch(
     rep_ip_u=None,
     ip_cdv_tab=None,
     d2_cap: int = 8,
+    nom_node=None,
+    nom_prio=None,
+    nom_req=None,
 ):
     """Schedule the batch, then append its committed pods into ``dc`` at the
     given cursors (host ints the caller checked against the cluster's
@@ -99,7 +102,8 @@ def chain_dispatch(
     scan, with the same decisions, and returns a fourth output: the [3, P]
     wave stats.  The wave runs without its port-occupancy carry: the chained
     route refuses batches with host ports (the append does not splice port
-    rows).
+    rows).  ``nom_*`` are the open nominations (ops/gang.py), charged on
+    either branch.
 
     Returns (dc, stacked [2, P] i64 (chosen, n_feas), reason_counts
     [, wave_stats])."""
@@ -115,15 +119,16 @@ def chain_dispatch(
                         has_spread=has_spread, has_ports=has_ports and not wave, has_images=has_images,
                         enabled=enabled, sp_keys=sp_keys, sp_cdv_tab=sp_cdv_tab, ip_keys=ip_keys)
     check_fit = "NodeResourcesFit" in enabled
+    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
     wave_stats = None
     if wave:
         chosen, n_feas, reason_counts, tallies, wave_stats = ops_wave.wave_schedule(
             dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
-            weights=weights, check_fit=check_fit, d_cap=d_cap, d2_cap=d2_cap, has_ports=False,
+            weights=weights, check_fit=check_fit, d_cap=d_cap, d2_cap=d2_cap, has_ports=False, **nom,
         )
     else:
         chosen, n_feas, reason_counts, tallies = gang.gang_schedule(
-            dc, db, g, v_cap, weights=weights, check_fit=check_fit, d_cap=d_cap
+            dc, db, g, v_cap, weights=weights, check_fit=check_fit, d_cap=d_cap, **nom
         )
     committed = (chosen >= 0) & db.valid
     dc.requested = tallies["requested"]

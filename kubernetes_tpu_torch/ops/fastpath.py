@@ -106,9 +106,12 @@ def static_eval_plain(dc: DeviceCluster, db: DeviceBatch, enabled: frozenset, ha
     }
 
 
-def _static_eval_cuda(dc: DeviceCluster, db: DeviceBatch, enabled: frozenset, has_images: bool):
+def static_eval_args(dc: DeviceCluster, db: DeviceBatch, enabled: frozenset, has_images: bool):
+    """The StaticEvalArgs of (dc, db) after the wrapper checks, with the
+    output pointers left null, and the scratch tensor it points at (keep it
+    alive until the launch).  K1 fills in its outputs; K10 reads the four
+    static filters of each batch row through the same block."""
     dev = dc.node_valid.device
-    lib = _build.load()
     N, K = dc.node_labels.shape
     T = dc.taint_key.shape[1]
     IMG = dc.img_sizes.shape[1]
@@ -149,17 +152,24 @@ def _static_eval_cuda(dc: DeviceCluster, db: DeviceBatch, enabled: frozenset, ha
     a.n_containers = c("n_containers", db.n_containers, dev, I32, (Sg,))
     spread = torch.empty((max(IMG, 1),), dtype=I64, device=dev)
     a.spread = spread.data_ptr()
-    out = {}
-    for k in STATIC_KEYS:
-        dt = I64 if k in ("taint_raw", "naff_raw", "img") else BOOL
-        out[k] = torch.empty((Sg, N), dtype=dt, device=dev)
-        setattr(a, k, out[k].data_ptr())
     a.N, a.K, a.NVI, a.T, a.IMG = N, K, dc.val_ints.shape[0], T, IMG
     a.S, a.NT, a.NR, a.NV, a.PT, a.PR, a.PV, a.TL, a.I = Sg, NT, NR, NV, PT, PR, PV, TL, I
     a.name_key, a.unsched_key = dc.name_key, dc.unsched_key
     a.empty_val, a.n_valid_nodes = dc.empty_val, dc.n_valid_nodes
     a.enabled = sum(bit for name, bit in _ENABLED_BITS.items() if name in enabled)
     a.has_images = int(bool(has_images))
+    return a, spread
+
+
+def _static_eval_cuda(dc: DeviceCluster, db: DeviceBatch, enabled: frozenset, has_images: bool):
+    dev = dc.node_valid.device
+    lib = _build.load()
+    a, _spread = static_eval_args(dc, db, enabled, has_images)
+    out = {}
+    for k in STATIC_KEYS:
+        dt = I64 if k in ("taint_raw", "naff_raw", "img") else BOOL
+        out[k] = torch.empty((db.valid.shape[0], dc.node_valid.shape[0]), dtype=dt, device=dev)
+        setattr(a, k, out[k].data_ptr())
     rc = lib.ktpu_static_eval(ctypes.byref(a), _build.stream_handle(dev))
     _build.check_launch(lib, rc, "static_eval")
     _build.launches["static_eval"] += 1

@@ -23,9 +23,14 @@ launches the hand-written kernels (csrc/) or raises:
   K7 gang_interpod_statics the inter-pod half and the host-port masks
   K5 gang_scan            gang_schedule's serial scan
 
-Only pod_step's default branch is ported: LeastAllocated fit scoring, no
-sampling window, no seeded tie-break, no nominated pods and no host-plugin
-masks or scores (ROADMAP B6, A5/A7 and A6 port those).
+pod_step's default branch is ported, with the nominated-pod charge:
+``nom_node`` / ``nom_prio`` / ``nom_req`` (optional [G] / [G] / [G, Rn])
+carry preemptors whose victims are still terminating, charged to their
+nominated node for every pod of lower or equal priority
+(RunFilterPluginsWithNominatedPods, runtime/framework.go:973).  The kernels
+read them as a per-node CSR built on the host (``nominations_csr``).  Not
+ported: fit strategies other than LeastAllocated, the sampling window, the
+seeded tie-break and host-plugin masks or scores (ROADMAP B6 and A6).
 """
 
 from __future__ import annotations
@@ -531,12 +536,57 @@ def _spread_raw(dc, db, g, p, feas, cnt, d_cap):
     return raw, valid
 
 
+def nominated_charge(nom, priority, N: int, Rn: int, dev):
+    """(count [N], request delta [N, Rn]) of the nominations whose priority
+    is >= ``priority``, per node; ``nom`` is (one-hot [G, N], prio [G],
+    req [G, Rn]) or None."""
+    if nom is None:
+        return 0, 0
+    oh, prio, req = nom
+    gate = (prio >= priority).to(I64)  # [G]
+    cnt = (gate[:, None] * oh).sum(dim=0)  # [N]
+    delta = ((req.to(I64) * gate[:, None])[:, None, :] * oh[:, :, None]).sum(dim=0)  # [N, Rn]
+    return cnt.to(I32), delta.to(I32)
+
+
+def nominations_onehot(nom_node, nom_prio, nom_req, N: int):
+    """The plain versions' form of the nominations: (one-hot [G, N] i64,
+    prio, req), or None without nominations (rows with node < 0 match no
+    node)."""
+    if nom_node is None:
+        return None
+    oh = (nom_node.long()[:, None] == torch.arange(N, device=nom_node.device)[None, :]).to(I64)
+    return oh, nom_prio, nom_req
+
+
+def nominations_csr(nom_node, nom_prio, nom_req, N: int, dev):
+    """The kernels' form of the nominations, built on the host: rows
+    grouped by node (a stable sort, so node order keeps the input order),
+    ``off`` [N + 1] i32 their offsets, ``prio`` [G] i32, ``req`` [G, Rn]
+    i32.  Rows with node < 0 never enter it.  None without nominations."""
+    if nom_node is None:
+        return None
+    node = nom_node.cpu().numpy().astype(np.int64)
+    keep = np.nonzero((node >= 0) & (node < N))[0]
+    order = keep[np.argsort(node[keep], kind="stable")]
+    off = np.zeros(N + 1, np.int32)
+    np.cumsum(np.bincount(node[order], minlength=N), out=off[1:])
+    prio = nom_prio.cpu().numpy().astype(np.int32)[order]
+    req = nom_req.cpu().numpy().astype(np.int32)[order]
+    if not len(order):  # keep one row so every pointer is valid
+        prio = np.zeros(1, np.int32)
+        req = np.zeros((1, nom_req.shape[1]), np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (off, prio, req))
+
+
 def pod_step(dc, db, g: GangStatics, p: int, state, hv, *, check_fit: bool, weights: tuple, d_cap: int,
-             commit: bool = True):
+             commit: bool = True, nom=None):
     """One pod's Filter → Score → Select → commit against ``state``
     (requested [N, Rn] / nonzero [N, 2] / num_pods [N], updated in place),
-    pod_step's default branch.  With ``commit=False`` the state is left
-    untouched (the wave's speculation evaluates without placing).  Returns
+    pod_step's default branch.  ``nom`` (``nominations_onehot``) charges
+    the open nominations of priority >= the pod's to their nodes in the
+    resource fit.  With ``commit=False`` the state is left untouched (the
+    wave's speculation evaluates without placing).  Returns
     (choice, n_feas, reason_counts)."""
     N = g.static_mask.shape[1]
     Rn = dc.allocatable.shape[1]
@@ -549,9 +599,10 @@ def pod_step(dc, db, g: GangStatics, p: int, state, hv, *, check_fit: bool, weig
     mask = g.static_mask[p] & hv["m_portb"]
     m_fit = true_n
     if check_fit:
-        fits = state["num_pods"] + 1 <= dc.allowed_pods
+        nom_cnt, nom_delta = nominated_charge(nom, db.priority[p], N, Rn, dev)
+        fits = state["num_pods"] + nom_cnt + 1 <= dc.allowed_pods
         all_zero = (req == 0).all()
-        avail = dc.allocatable - state["requested"]  # [N, Rn]
+        avail = dc.allocatable - state["requested"] - nom_delta  # [N, Rn]
         if Rp > Rn:
             avail = torch.cat([avail, torch.zeros((N, Rp - Rn), dtype=I32, device=dev)], dim=1)
         conflict = req[None, :] > avail[:, :Rp]
@@ -708,22 +759,29 @@ def gang_schedule(
     weights: tuple = DEFAULT_WEIGHTS,
     check_fit: bool = True,
     d_cap: int = 8,
+    nom_node=None,
+    nom_prio=None,
+    nom_req=None,
 ):
     """Scan the batch in order; each pod sees every earlier in-batch
-    placement.  The cluster's usage rows are read, not written: the carried
-    usage starts as copies and comes back in the tallies.
+    placement and the open nominations of priority >= its own (``nom_*``,
+    see the module docstring).  The cluster's usage rows are read, not
+    written: the carried usage starts as copies and comes back in the
+    tallies.
 
     Returns (chosen i32 [P] node index or -1, n_feas i64 [P], reason_counts
     i64 [P, N_DIAG], tallies {requested, nonzero, num_pods})."""
     if dc.node_valid.device.type == "cpu":
-        return gang_schedule_plain(dc, db, g, v_cap, weights, check_fit, d_cap)
-    return _gang_scan_cuda(dc, db, g, weights, check_fit)
+        return gang_schedule_plain(dc, db, g, v_cap, weights, check_fit, d_cap, nom_node, nom_prio, nom_req)
+    return _gang_scan_cuda(dc, db, g, weights, check_fit, nom_node, nom_prio, nom_req)
 
 
-def gang_schedule_plain(dc, db, g, v_cap, weights=DEFAULT_WEIGHTS, check_fit=True, d_cap=8):
+def gang_schedule_plain(dc, db, g, v_cap, weights=DEFAULT_WEIGHTS, check_fit=True, d_cap=8, nom_node=None,
+                        nom_prio=None, nom_req=None):
     """Plain PyTorch version of K5: a Python loop of the reference's step."""
-    P = g.static_mask.shape[0]
+    P, N = g.static_mask.shape
     dev = g.static_mask.device
+    nom = nominations_onehot(nom_node, nom_prio, nom_req, N)
     state = {
         "requested": dc.requested.clone(),
         "nonzero": dc.nonzero_req.clone(),
@@ -735,7 +793,8 @@ def gang_schedule_plain(dc, db, g, v_cap, weights=DEFAULT_WEIGHTS, check_fit=Tru
     reason_counts = torch.zeros((P, N_DIAG), dtype=I64, device=dev)
     for p in range(P):
         hv = _heavy_parts(db, g, p, assigned)
-        choice, nf, rc = pod_step(dc, db, g, p, state, hv, check_fit=check_fit, weights=weights, d_cap=d_cap)
+        choice, nf, rc = pod_step(dc, db, g, p, state, hv, check_fit=check_fit, weights=weights, d_cap=d_cap,
+                                  nom=nom)
         assigned[p] = choice
         chosen[p] = choice
         n_feas[p] = nf
@@ -759,12 +818,16 @@ def gang_run(
     sp_cdv_tab=None,
     ip_keys=None,
     d_cap: int = 8,
+    nom_node=None,
+    nom_prio=None,
+    nom_req=None,
 ):
     """precompute + gang_schedule for one batch."""
     g = precompute(dc, db, hostname_key, v_cap, hard_pod_affinity_weight, has_interpod=has_interpod,
                    has_spread=has_spread, has_ports=has_ports, has_images=has_images, enabled=enabled,
                    sp_keys=sp_keys, sp_cdv_tab=sp_cdv_tab, ip_keys=ip_keys)
-    return gang_schedule(dc, db, g, v_cap, weights=weights, check_fit="NodeResourcesFit" in enabled, d_cap=d_cap)
+    return gang_schedule(dc, db, g, v_cap, weights=weights, check_fit="NodeResourcesFit" in enabled, d_cap=d_cap,
+                         nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
 
 
 # ---------------------------------------------------------------------------
@@ -1025,12 +1088,13 @@ def _scan_domains(dc, db, g: GangStatics, C: int, AT: int):
     return sp_key, ip_key, kd2_key, max(D, 1)
 
 
-def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch) -> "_build.GangScanArgs":
+def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch, nom=None) -> "_build.GangScanArgs":
     """The GangScanArgs of a kernel that runs the shared per-pod step (K5,
     and the wave's K8 and K9): the statics, the usage ``state``
     (requested / nonzero / num_pods), ``outs`` (chosen, n_feas,
-    reason_counts) and the ``scratch`` tensors, after the wrapper checks.
-    K5's counter layout (``use_smem``) is left at 0 for the caller."""
+    reason_counts), the ``scratch`` tensors and the nominations' CSR
+    (``nominations_csr``, or None), after the wrapper checks.  K5's counter
+    layout (``use_smem``) is left at 0 for the caller."""
     dev = dc.node_valid.device
     P, N = g.static_mask.shape
     K = dc.node_labels.shape[1]
@@ -1058,9 +1122,14 @@ def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch) 
         ("chosen", chosen, I32, (P,)), ("n_feas", n_feas, I64, (P,)),
         ("reason_counts", reason_counts, I64, (P, N_DIAG)),
         ("dom_ids", dc.dom_ids, I32, (K, N)), ("sp_key", sp_key, I32, (P, C)), ("ip_key", ip_key, I32, (P, AT)),
-        ("kd2_key", kd2_key, I32, (KD2,)),
+        ("kd2_key", kd2_key, I32, (KD2,)), ("priority", db.priority, I32, (P,)),
         *[(k, t, t.dtype, None) for k, t in scratch.items()],
     ])
+    if nom is not None:
+        off, prio, req = nom
+        G = prio.shape[0]
+        _set_ptrs(a, dev, [("nom_off", off, I32, (N + 1,)), ("nom_prio", prio, I32, (G,)),
+                           ("nom_req", req, I32, (G, Rn))])
     a.N, a.K, a.Rn, a.Rp, a.L, a.P, a.C, a.AT, a.KD2, a.D, a.JP = N, K, Rn, Rp, L, P, C, AT, KD2, D, JP
     a.use_smem = 0
     (a.w_taint, a.w_naff, a.w_spread, a.w_ip, a.w_fit, a.w_bal, a.w_img) = (int(w) for w in weights)
@@ -1068,7 +1137,7 @@ def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch) 
     return a
 
 
-def _gang_scan_cuda(dc, db, g: GangStatics, weights, check_fit):
+def _gang_scan_cuda(dc, db, g: GangStatics, weights, check_fit, nom_node=None, nom_prio=None, nom_req=None):
     """K5 launch: the whole batch's scan in one persistent block."""
     dev = dc.node_valid.device
     lib = _build.load()
@@ -1093,7 +1162,8 @@ def _gang_scan_cuda(dc, db, g: GangStatics, weights, check_fit):
         cnt=zeros(1), cnt_h=zeros(C, N), port_stamp=zeros(N),
         feas=zeros(N, dtype=BOOL), ip_raw=zeros(N, dtype=I64), sp_raw=zeros(N, dtype=I64), sp_cnt=zeros(C, N),
     )
-    a = step_args(dc, db, g, weights, check_fit, state, (chosen, n_feas, reason_counts), scratch)
+    nom = nominations_csr(nom_node, nom_prio, nom_req, N, dev)
+    a = step_args(dc, db, g, weights, check_fit, state, (chosen, n_feas, reason_counts), scratch, nom)
     cells = (3 * C + AT + 2 * KD2) * a.D
     smem_max = min(lib.ktpu_gang_scan_smem_max(), SCAN_SMEM_CAP) - 16 * C
     use_smem = 4 * cells <= smem_max

@@ -34,8 +34,10 @@ hand-written kernels (csrc/wave.cu) or raises:
 
 The factored algebra below (``term_match_rows``, ``factored_*``) is kept one
 to one with the reference's functions of the same names.  Only the default
-branch is ported: no sampling window, no seeded tie-break, no nominated
-pods, no host-plugin masks or scores (ROADMAP B6, A7, A6).
+branch is ported, with the nominated-pod charge of the shared step
+(``nom_node`` / ``nom_prio`` / ``nom_req``, ops/gang.py): no sampling
+window, no seeded tie-break, no host-plugin masks or scores (ROADMAP B6,
+A6).
 """
 
 from __future__ import annotations
@@ -493,11 +495,13 @@ def _base_state(dc):
     return {"requested": dc.requested.clone(), "nonzero": dc.nonzero_req.clone(), "num_pods": dc.num_pods.clone()}
 
 
-def wave_speculate_plain(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, n_feas=None):
+def wave_speculate_plain(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, n_feas=None,
+                         nom_node=None, nom_prio=None, nom_req=None):
     """Plain version of K8: every pod's step against the frozen snapshot,
     with zero batch-peer counts and every port free.  Returns c0 i32 [P];
     fills ``n_feas`` [P], when given, with each pod's feasible-node count."""
     P, N = g.static_mask.shape
+    nom = gang.nominations_onehot(nom_node, nom_prio, nom_req, N)
     C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
     dev = g.static_mask.device
     base = _base_state(dc)
@@ -506,7 +510,7 @@ def wave_speculate_plain(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True
     for p in range(P):
         hv, _, _ = _build_hv(db, g, p, _zero_sdyn(C, N, dev), _zero_idyn(AT, N, dev), true_n)
         c0[p], nf, _ = gang.pod_step(dc, db, g, p, base, hv, check_fit=check_fit, weights=weights, d_cap=d_cap,
-                                     commit=False)
+                                     commit=False, nom=nom)
         if n_feas is not None:
             n_feas[p] = nf
     return c0
@@ -514,12 +518,15 @@ def wave_speculate_plain(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True
 
 def wave_admit_plain(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                      ip_cdv_tab, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, d2_cap=8,
-                     has_ports=False, tid_pt=None, port_conf=None):
+                     has_ports=False, tid_pt=None, port_conf=None, nom_node=None, nom_prio=None, nom_req=None):
     """Plain version of K9: the admission recurrence over the factored
     carries, with each pod's demotion attribution against the state its own
-    step saw.  Returns (chosen i32 [P], n_feas i64 [P], reason_counts i64
-    [P, N_DIAG], tallies, kinds i32 [P], cterms i32 [P])."""
+    step saw (the usage alone: a fit lost to a nomination reports as a
+    score demotion, as in the reference).  Returns (chosen i32 [P], n_feas
+    i64 [P], reason_counts i64 [P, N_DIAG], tallies, kinds i32 [P], cterms
+    i32 [P])."""
     P, N = g.static_mask.shape
+    nom = gang.nominations_onehot(nom_node, nom_prio, nom_req, N)
     C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
     dev = g.static_mask.device
     Tpt = port_conf.shape[0] if has_ports else 0
@@ -565,7 +572,8 @@ def wave_admit_plain(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, ti
             pods_bad = state["num_pods"][at] + 1 > dc.allowed_pods[at]
             fit_bad = spec_live & (lane_bad | pods_bad)
 
-        choice, nf, rc = gang.pod_step(dc, db, g, p, state, hv, check_fit=check_fit, weights=weights, d_cap=d_cap)
+        choice, nf, rc = gang.pod_step(dc, db, g, p, state, hv, check_fit=check_fit, weights=weights, d_cap=d_cap,
+                                       nom=nom)
         carries = factored_carry_update(carries, p, choice, m_sp_all, m_ip_all, ip_aux, pt_cnt=pt_cnt)
 
         kind = torch.where(
@@ -593,12 +601,13 @@ def wave_admit_plain(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, ti
 
 def wave_schedule_plain(dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                         ip_cdv_tab, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, d2_cap=8,
-                        has_ports=False, tid_pt=None, port_conf=None):
+                        has_ports=False, tid_pt=None, port_conf=None, nom_node=None, nom_prio=None, nom_req=None):
     """Plain version of wave_schedule: K8's then K9's plain loop."""
-    c0 = wave_speculate_plain(dc, db, g, weights, check_fit, d_cap)
+    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
+    c0 = wave_speculate_plain(dc, db, g, weights, check_fit, d_cap, **nom)
     chosen, n_feas, rc, tallies, kinds, cterms = wave_admit_plain(
         dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
-        weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf)
+        weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf, **nom)
     return chosen, n_feas, rc, tallies, torch.stack([c0, kinds, cterms])
 
 
@@ -607,27 +616,30 @@ def wave_schedule_plain(dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp
 # ---------------------------------------------------------------------------
 
 
-def wave_speculate(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8):
+def wave_speculate(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, nom_node=None,
+                   nom_prio=None, nom_req=None):
     """The speculation pass: K8 on CUDA tensors, its plain version on CPU."""
+    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
     if dc.node_valid.device.type == "cpu":
-        return wave_speculate_plain(dc, db, g, weights, check_fit, d_cap)
-    return _wave_speculate_cuda(dc, db, g, weights, check_fit)
+        return wave_speculate_plain(dc, db, g, weights, check_fit, d_cap, **nom)
+    return _wave_speculate_cuda(dc, db, g, weights, check_fit, **nom)
 
 
 def wave_admit(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
                weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, d2_cap=8, has_ports=False, tid_pt=None,
-               port_conf=None):
+               port_conf=None, nom_node=None, nom_prio=None, nom_req=None):
     """The admission pass: K9 on CUDA tensors, its plain version on CPU."""
     args = (dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
             weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf)
+    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
     if dc.node_valid.device.type == "cpu":
-        return wave_admit_plain(*args)
-    return _wave_admit_cuda(*args)
+        return wave_admit_plain(*args, **nom)
+    return _wave_admit_cuda(*args, **nom)
 
 
 def wave_schedule(dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                   ip_cdv_tab, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, d2_cap=8, has_ports=False,
-                  tid_pt=None, port_conf=None):
+                  tid_pt=None, port_conf=None, nom_node=None, nom_prio=None, nom_req=None):
     """One wave dispatch: speculation, then the factored admission pass.
     ``has_ports`` engages the [Tpt, N] port-occupancy carry (tid_pt and
     port_conf from wave_tables).  The cluster's usage rows are read, not
@@ -636,11 +648,13 @@ def wave_schedule(dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp_c, ti
     Returns (chosen i32 [P], n_feas i64 [P], reason_counts i64 [P, N_DIAG],
     tallies, stats i32 [3, P]): stats rows are (speculative node, demote
     kind, conflicting term slot); ``chosen == stats[0]`` marks the pods
-    admitted as speculated."""
-    c0 = wave_speculate(dc, db, g, weights, check_fit, d_cap)
+    admitted as speculated.  ``nom_*`` are the open nominations (see
+    ops/gang.py), charged in both passes."""
+    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
+    c0 = wave_speculate(dc, db, g, weights, check_fit, d_cap, **nom)
     chosen, n_feas, rc, tallies, kinds, cterms = wave_admit(
         dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
-        weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf)
+        weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf, **nom)
     return chosen, n_feas, rc, tallies, torch.stack([c0, kinds, cterms])
 
 
@@ -648,7 +662,8 @@ def wave_run(dc, db, hostname_key: int, v_cap: int, tid_sp, rep_sp_p, rep_sp_c, 
              ip_cdv_tab, hard_pod_affinity_weight: int = 1, has_interpod: bool = True, has_spread: bool = True,
              has_images: bool = True, enabled: frozenset = gang.ALL_FILTER_KERNELS,
              weights: tuple = gang.DEFAULT_WEIGHTS, sp_keys=None, sp_cdv_tab=None, ip_keys=None, d_cap: int = 8,
-             d2_cap: int = 8, has_ports: bool = False, tid_pt=None, port_conf=None):
+             d2_cap: int = 8, has_ports: bool = False, tid_pt=None, port_conf=None, nom_node=None, nom_prio=None,
+             nom_req=None):
     """precompute + wave_schedule for one batch (the wave's gang_run).  The
     gang scan's pod×pod port matrix stays out (precompute with
     has_ports=False): in-batch host ports ride the [Tpt, N] occupancy
@@ -658,7 +673,8 @@ def wave_run(dc, db, hostname_key: int, v_cap: int, tid_sp, rep_sp_p, rep_sp_c, 
                         sp_keys=sp_keys, sp_cdv_tab=sp_cdv_tab, ip_keys=ip_keys)
     return wave_schedule(dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                          ip_cdv_tab, weights=weights, check_fit="NodeResourcesFit" in enabled, d_cap=d_cap,
-                         d2_cap=d2_cap, has_ports=has_ports, tid_pt=tid_pt, port_conf=port_conf)
+                         d2_cap=d2_cap, has_ports=has_ports, tid_pt=tid_pt, port_conf=port_conf, nom_node=nom_node,
+                         nom_prio=nom_prio, nom_req=nom_req)
 
 
 # ---------------------------------------------------------------------------
@@ -678,7 +694,7 @@ def _zeros(dev, n, dtype=I32):
     return torch.zeros((max(int(n), 1),), dtype=dtype, device=dev)
 
 
-def _wave_speculate_cuda(dc, db, g, weights, check_fit):
+def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=None, nom_req=None):
     """K8 launch: one block per pod against the cluster's own usage rows."""
     dev = dc.node_valid.device
     lib = _build.load()
@@ -693,7 +709,8 @@ def _wave_speculate_cuda(dc, db, g, weights, check_fit):
     scratch = dict(cnt=_zeros(dev, 1), cnt_h=_zeros(dev, 1), port_stamp=_zeros(dev, 1),
                    feas=_zeros(dev, P * N, BOOL), ip_raw=_zeros(dev, P * N, I64), sp_raw=_zeros(dev, P * N, I64),
                    sp_cnt=_zeros(dev, P * C * N))
-    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch)
+    nom = gang.nominations_csr(nom_node, nom_prio, nom_req, N, dev)
+    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom)
     w = _build.WaveArgs()
     gang._set_ptrs(w, dev, [("sums", _zeros(dev, P * C * Dsp), I32, None)])
     w.Dsp = Dsp
@@ -704,7 +721,8 @@ def _wave_speculate_cuda(dc, db, g, weights, check_fit):
 
 
 def _wave_admit_cuda(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
-                     ip_cdv_tab, weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf):
+                     ip_cdv_tab, weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf, nom_node=None,
+                     nom_prio=None, nom_req=None):
     """K9 launch: the admission recurrence in one persistent block.  The
     domain sums use DeviceCluster.dom_ids, which numbers a key's domains as
     ip_cdv_tab does, so the table itself is not read."""
@@ -731,7 +749,8 @@ def _wave_admit_cuda(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, ti
     scratch = dict(cnt=_zeros(dev, 1), cnt_h=_zeros(dev, 1), port_stamp=_zeros(dev, 1),
                    feas=_zeros(dev, N, BOOL), ip_raw=_zeros(dev, N, I64), sp_raw=_zeros(dev, N, I64),
                    sp_cnt=_zeros(dev, C * N))
-    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch)
+    nom = gang.nominations_csr(nom_node, nom_prio, nom_req, N, dev)
+    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom)
     sums_cells = 3 * C * Dsp + AT * D2 + Tip + Tpt + 3
     carry_cells = (Tsp + 2 * Tip + Tpt) * N
     smem_max = min(lib.ktpu_wave_admit_smem_max(), ADMIT_SMEM_CAP) - 16 * C

@@ -28,10 +28,24 @@ two nodes share a hostname label value or ``wave_dispatch=False``; both
 fallbacks are counted (``wave_fallback_dup_hostname`` /
 ``wave_fallback_kill_switch``).  Other gang-path batches take the scan.
 
-The drain is synchronous: each batch is harvested (placements assumed and
-bound, failures diagnosed) before the next dispatch; the reference keeps up
-to two chained batches in flight (ROADMAP A3).  Gang commits invalidate the
-fast lineage and the mirror's usage rows; fast batches end the chain.
+As in the reference's loop, a chained batch's harvest (placements assumed
+and bound, failures diagnosed and sent to PostFilter) trails its dispatch:
+up to two chained batches stay in flight, and a small fast batch waits for
+the next dispatch; the pipeline settles before anything that reads the
+committed state (a chain restart, a fast lineage rebuild, the direct path).
+The device work itself is synchronous (ROADMAP A3).  Gang commits
+invalidate the fast lineage and the mirror's usage rows; fast batches end
+the chain.
+
+Preemption (the default profile's PostFilter, DefaultPreemption): a
+harvest's failed pods are first narrowed by kernel K10
+(``_batched_preemption_narrow``), then each failure in queue order runs the
+evaluator's dry run on the host (framework/preemption.py).  Its victims are
+evicted through ``pod_deleter`` and the pod is nominated; while the
+nomination is open every gang-path batch charges it to its node for pods of
+lower or equal priority (K5, K8 and K9), pods of such priority stay off the
+fast path, and the preemptor itself, back from its backoff, takes the
+nominated-node path (``_schedule_one_nominated``).
 
 Pods outside the ported paths raise NotImplementedError naming the ROADMAP
 item that ports them; a kernel failure or a checksum mismatch raises too.
@@ -42,6 +56,8 @@ the queue unscheduled.
 from __future__ import annotations
 
 import hashlib
+import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
@@ -54,13 +70,19 @@ from kubernetes_tpu_torch.cache.cache import Cache
 from kubernetes_tpu_torch.cache.device_mirror import DeviceClusterCache
 from kubernetes_tpu_torch.cache.mirror import HOSTNAME_LABEL, SnapshotMirror
 from kubernetes_tpu_torch.framework.config import Profile, SchedulerConfiguration
+from kubernetes_tpu_torch.framework.interface import ActionType, ClusterEvent, CycleState, EventResource
+from kubernetes_tpu_torch.framework.plugins import QUEUEING_HINTS, DefaultPreemption
 from kubernetes_tpu_torch.ops import chain as ops_chain
 from kubernetes_tpu_torch.ops import fastpath as ops_fp
 from kubernetes_tpu_torch.ops import gang as ops_gang
+from kubernetes_tpu_torch.ops import preemption as ops_preemption
 from kubernetes_tpu_torch.ops import resident as ops_res
 from kubernetes_tpu_torch.ops import wave as ops_wave
 from kubernetes_tpu_torch.ops import wire
 from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster
+from kubernetes_tpu_torch.oracle.pipeline import feasible_nodes, prioritize, select_host
+from kubernetes_tpu_torch.oracle.state import NodeState, OracleState
+from kubernetes_tpu_torch.queue.nominator import Nominator
 from kubernetes_tpu_torch.queue.scheduling_queue import QueuedPodInfo, SchedulingQueue
 from kubernetes_tpu_torch.snapshot.interner import PAD, Vocab
 from kubernetes_tpu_torch.snapshot.schema import (
@@ -71,6 +93,7 @@ from kubernetes_tpu_torch.snapshot.schema import (
 )
 
 GROUP_LABEL = "pod-group.scheduling.sigs.k8s.io/name"
+INT32_MIN = -(2**31)
 # placed term pods beyond this make the fast gate's probes cost more than
 # the scan they would save (the reference's cut-off)
 MAX_PROBED_TERM_PODS = 64
@@ -149,12 +172,44 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class _Handle:
+    """What the preemption evaluator reads of the scheduler
+    (framework.Handle): the host view, the nominator, the eviction and PDB
+    hooks, queue activation and the preemption metrics."""
+
+    def __init__(self, sched: "Scheduler"):
+        self._s = sched
+
+    def oracle_state(self) -> OracleState:
+        return self._s.oracle_view()
+
+    @property
+    def nominator(self) -> Nominator:
+        return self._s.nominator
+
+    def delete_pod(self, pod: Pod) -> None:
+        """Victim eviction, the preemption API write (preemption.go:380)."""
+        self._s.pod_deleter(pod)
+
+    def list_pdbs(self):
+        return self._s.pdb_lister()
+
+    def activate(self, pods) -> None:
+        self._s.queue.activate(pods)
+
+    def note_preemption(self, n_victims: int) -> None:
+        m = self._s.metrics
+        m["preemption_attempts"] += 1
+        m["preemption_victims"] += n_victims
+
+
 class Scheduler:
     def __init__(
         self,
         configuration: Optional[SchedulerConfiguration] = None,
         binding_sink: Optional[Callable[[Pod, str], None]] = None,
         device=None,
+        clock: Callable[[], float] = time.monotonic,
     ):
         self.device = resolve_device(device)
         self.config = configuration or SchedulerConfiguration()
@@ -162,13 +217,28 @@ class Scheduler:
         self.profiles: Dict[str, Profile] = {
             p.scheduler_name: p for p in self.config.profiles
         }
+        self.clock = clock
         self.cache = Cache()
-        self.queue = SchedulingQueue()
+        self.queue = SchedulingQueue(QUEUEING_HINTS, clock)
+        self.nominator = Nominator()
         self.vocab = Vocab()
         # bind one pod (raises on failure), or, when set, bind a whole batch:
         # binding_sink_many(pairs) -> [None or error per pair]
         self.binding_sink = binding_sink
         self.binding_sink_many = None
+        # victim eviction (often on_pod_delete itself), the PDBs the dry run
+        # honours, and the pod-status write of a nomination
+        self.pod_deleter: Callable[[Pod], None] = lambda pod: None
+        self.pdb_lister: Callable[[], list] = lambda: []
+        self.status_patcher: Callable[[Pod], None] = lambda pod: None
+        handle = _Handle(self)
+        self._post_filters: Dict[str, DefaultPreemption] = {
+            p.scheduler_name: DefaultPreemption(
+                handle, p.min_candidate_nodes_percentage, p.min_candidate_nodes_absolute
+            )
+            for p in self.config.profiles
+            if p.post_filter
+        }
         self.metrics = {
             "schedule_attempts": 0,
             "fast_batches": 0,
@@ -190,6 +260,11 @@ class Scheduler:
             # wave-shaped batches the gang scan took, by reason
             "wave_fallback_dup_hostname": 0,
             "wave_fallback_kill_switch": 0,
+            "preemption_attempts": 0,  # PostFilters that chose a node
+            "preemption_victims": 0,  # pods those evicted
+            "narrow_batches": 0,  # harvests whose failures K10 narrowed
+            "nominated_binds": 0,  # preemptors bound on the nominated-node path
+            "host_cycles": 0,  # one-pod host scheduling cycles
         }
         # the packed host snapshot (nodes, placed pods, their terms) and its
         # device-resident image
@@ -210,6 +285,9 @@ class Scheduler:
         self._tables = None
         self._tables_key = None
         self._wave_tables_memo = None
+        self._oracle_cache: Optional[OracleState] = None
+        # (queued pod, node, outcome) assumed but not yet bound
+        self._bind_buffer: List[tuple] = []
 
     @property
     def nodes(self) -> Optional[NodeTensors]:
@@ -218,56 +296,155 @@ class Scheduler:
     # ----- informer events ---------------------------------------------------
 
     def on_node_add(self, node: Node) -> None:
-        self.cache.add_node(node)
+        self._invalidate_view()
         self._external_mutations += 1
-        self.queue.move_all_to_active()
+        self.cache.add_node(node)
+        self.queue.move_all_on_event(ClusterEvent(EventResource.NODE, ActionType.ADD), None, node)
 
     def on_pod_add(self, pod: Pod) -> None:
         if pod.node_name:
+            if pod.uid in self.cache.pod_states:
+                self._invalidate_view()
+            else:
+                self._view_pod_added(pod)
             self.cache.add_pod(pod)
             self._external_mutations += 1
+            self.queue.move_all_on_event(ClusterEvent(EventResource.ASSIGNED_POD, ActionType.ADD), None, pod)
         elif pod.scheduler_name in self.profiles:
             self.queue.add(pod)
+
+    def on_pod_delete(self, pod: Pod) -> None:
+        """Informer delete (and the usual ``pod_deleter`` of an eviction): a
+        placed pod leaves the cache, the host view, the mirror's usage and
+        placed-pod tensors at the next sync, and the chain (its epoch moves);
+        pods its rejecting plugins registered for requeue.  A pending pod
+        leaves the queue.  Either way its nomination ends."""
+        if pod.node_name:
+            self._external_mutations += 1
+            old = self.cache.pod_states.get(pod.uid)
+            self._view_pod_removed(old if old is not None else pod)
+            self.cache.remove_pod(pod)
+            self.queue.move_all_on_event(ClusterEvent(EventResource.ASSIGNED_POD, ActionType.DELETE), pod, None)
+        else:
+            self.queue.delete(pod)
+        self.nominator.delete(pod)
+
+    # ----- the host view -----------------------------------------------------
+
+    def _invalidate_view(self) -> None:
+        self._oracle_cache = None
+
+    def _view_pod_added(self, pod: Pod) -> None:
+        st = self._oracle_cache
+        if st is None:
+            return
+        ns = st.nodes.get(pod.node_name)
+        if ns is None:
+            self._oracle_cache = None
+        else:
+            ns.add_pod(pod)
+
+    def _view_pod_removed(self, pod: Pod) -> None:
+        st = self._oracle_cache
+        if st is None:
+            return
+        ns = st.nodes.get(pod.node_name)
+        if ns is None or not ns.remove_pod(pod):
+            self._oracle_cache = None
+
+    def oracle_view(self) -> OracleState:
+        """The cache as host objects (nodes and their placed pods, in cache
+        order) for the preemption dry run and the one-pod host cycle.  Built
+        on first use and patched in place by every assume, forget and pod
+        event; a node event drops it."""
+        if self._oracle_cache is None:
+            st = OracleState()
+            for cn in self.cache.real_nodes():
+                ns = NodeState(node=cn.node)
+                for p in cn.pods.values():
+                    ns.add_pod(p)
+                st.nodes[cn.node.name] = ns
+            self._oracle_cache = st
+        return self._oracle_cache
 
     # ----- the drain -----------------------------------------------------
 
     def schedule_pending(self) -> List[ScheduleOutcome]:
-        """Drain the active queue; returns all outcomes."""
+        """Drain the active queue (backoff expired by the clock included);
+        returns all outcomes."""
         # pre-size the placed-pod axes for the whole drain, so a growing
         # drain keeps one shape
         self.mirror.e_cap_hint = max(
             self.mirror.e_cap_hint, len(self.cache.pod_states) + len(self.queue) + self.config.batch_size
         )
         outcomes: List[ScheduleOutcome] = []
-        while True:
-            batch = self.queue.pop_batch(self.config.batch_size)
-            if not batch:
-                break
-            groups: Dict[str, List[QueuedPodInfo]] = {}
-            for qp in batch:
-                groups.setdefault(qp.pod.scheduler_name, []).append(qp)
-            for name, group in groups.items():
-                outcomes.extend(self._schedule_group(self.profiles[name], group))
+        pending: deque = deque()  # dispatched batches awaiting their harvest
+
+        def flush(keep: int = 0) -> None:
+            while len(pending) > keep:
+                rec = pending.popleft()
+                if rec["kind"] == "fast":
+                    outcomes.extend(self._finish_fast(rec))
+                else:
+                    outcomes.extend(self._finish_chained(rec))
+
+        try:
+            while True:
+                batch = self.queue.pop_batch(self.config.batch_size)
+                if not batch:
+                    break
+                groups: Dict[str, List[QueuedPodInfo]] = {}
+                for qp in batch:
+                    groups.setdefault(qp.pod.scheduler_name, []).append(qp)
+                for name, group in groups.items():
+                    self._schedule_group(self.profiles[name], group, pending, flush, outcomes)
+                self._flush_binds()
+            flush(0)
+        except BaseException:
+            # what was dispatched is still harvested (its decisions stand)
+            flush(0)
+            raise
         return outcomes
 
-    def _schedule_group(self, profile: Profile, batch: List[QueuedPodInfo]) -> List[ScheduleOutcome]:
+    def _schedule_group(self, profile: Profile, batch, pending, flush, outcomes) -> None:
+        """One profile's share of a popped batch, routed as the reference's
+        loop routes it: the chained dispatch, else the fast path, else (the
+        pipeline settled) the direct path."""
         for qp in batch:
             why = self._refusal(qp.pod)
             if why is not None:
+                flush(0)
                 self._refuse(batch, f"pod {qp.pod.key}: {why}")
         if self._chain_quickcheck(batch):
-            out = self._try_dispatch_chained(profile, batch)
-            if out is not None:
-                return out
-        out = self._try_fast(profile, batch)
-        if out is not None:
-            return out
-        return self._schedule_direct(profile, batch)
+            rec = self._try_dispatch_chained(profile, batch, can_restart=not pending)
+            if rec == "flush":
+                flush(0)
+                rec = self._try_dispatch_chained(profile, batch, can_restart=True)
+            if rec is not None:
+                pending.append(rec)
+                flush(2)
+                return
+        rec = self._try_fast(
+            profile,
+            batch,
+            chain_settled=not any(r["kind"] != "fast" for r in pending),
+            pipeline_empty=not pending,
+        )
+        if rec == "flush":
+            flush(0)
+            rec = self._try_fast(profile, batch, chain_settled=True, pipeline_empty=True)
+        if rec is not None:
+            pending.append(rec)
+            # a resident run may finish its tail on the host committer, after
+            # which the device state is stale: harvest it at once
+            flush(0 if rec["resident"] and not self.config.resident_serial_tail else 2)
+            return
+        flush(0)
+        self._chain = None
+        outcomes.extend(self._schedule_batch(profile, batch))
 
     def _refusal(self, pod: Pod) -> Optional[str]:
         """Why a pod is outside the ported paths (None when it is inside)."""
-        if pod.nominated_node_name:
-            return "nominated pods take the nominated-node path (ROADMAP A7)"
         if pod.pod_group or pod.labels.get(GROUP_LABEL):
             return "gang members take the workloads tier (ROADMAP A8)"
         if pod.resource_claims:
@@ -276,12 +453,6 @@ class Scheduler:
             return "volumes need the host Filter plugins (ROADMAP A6)"
         if pod.scheduling_gates:
             return "scheduling gates need the PreEnqueue queue tier (ROADMAP A5)"
-        if (
-            pod.preemption_policy != "Never"
-            and self.cache.priorities
-            and pod.priority > min(self.cache.priorities)
-        ):
-            return "a failure could preempt lower-priority pods (ROADMAP A7)"
         return None
 
     def _refuse(self, batch: List[QueuedPodInfo], why: str) -> None:
@@ -290,10 +461,22 @@ class Scheduler:
 
     # ----- the fast path -------------------------------------------------
 
+    def _max_nomination(self) -> Optional[int]:
+        """The highest priority among open nominations (None: none)."""
+        if not len(self.nominator):
+            return None
+        return max(p.priority for _, p in self.nominator.entries())
+
     def _fast_gate_ok(self, batch) -> bool:
-        """Per-batch fast-path eligibility: a placed pod's terms poison only
-        the newcomers its selectors could admit, checked per label group
-        against the cache's term-pod registry."""
+        """Per-batch fast-path eligibility.  Nominations count only for pods
+        of priority <= the nomination's (runtime:973), and the signature
+        committer does not charge them: a batch with such a pod takes the
+        gang path.  A placed pod's terms poison only the newcomers its
+        selectors could admit, checked per label group against the cache's
+        term-pod registry."""
+        max_nom = self._max_nomination()
+        if max_nom is not None and any(qp.pod.priority <= max_nom for qp in batch):
+            return False
         n_t = self.cache.n_term_pods
         if not n_t:
             return True
@@ -322,17 +505,30 @@ class Scheduler:
             self._term_probe_cache = (key, probes)
         return self._term_probe_cache[1]
 
-    def _try_fast(self, profile: Profile, batch: List[QueuedPodInfo]) -> Optional[List[ScheduleOutcome]]:
-        """The signature fast path; None when the batch is not eligible (a
-        placed term could admit a pod, a pod has no signature, or a
-        signature's static scores vary over its feasible nodes)."""
+    def _try_fast(self, profile: Profile, batch: List[QueuedPodInfo], chain_settled: bool = True,
+                  pipeline_empty: bool = True, extend: bool = True):
+        """The signature fast path's dispatch: its record (the choices are
+        made, the harvest is ``_finish_fast``), "flush" when the pipeline
+        must settle first (a chained batch is unharvested, or the lineage
+        must rebuild under unharvested fast batches), or None when the batch
+        is not eligible (a nominated pod, a pod a nomination or a placed
+        term could affect, a pod without a signature, or a signature whose
+        static scores vary over its feasible nodes)."""
         if self.mirror.nodes is None:
             self._repack_mirror()
+        if any(qp.pod.nominated_node_name for qp in batch):
+            return None
         if not self._fast_gate_ok(batch):
             return None
         keys = [self._sig_key(qp.pod) for qp in batch]
         if any(k is None for k in keys):
             return None
+        if not chain_settled:
+            return "flush"
+        if not pipeline_empty:
+            h = self._holder
+            if h is None or h["key"] != self._lineage_key(profile):
+                return "flush"
         self._sync_mirror_external()
         rows = self._fast_sig_rows(profile, batch, keys)
         if rows is None:
@@ -343,14 +539,17 @@ class Scheduler:
         # a resident run rides one dispatch, so it extends further
         cfg = self.config
         cap = cfg.resident_run_max if cfg.resident_drain else cfg.fast_batch_max
-        ext = cap - len(batch)
+        ext = cap - len(batch) if extend else 0
         if ext > 0:
             probes = self._term_probes() if self.cache.n_term_pods else ()
             group_hit: Dict[tuple, bool] = {}
+            max_nom = self._max_nomination()
 
             def known(qp: QueuedPodInfo) -> bool:
                 p = qp.pod
                 if p.scheduler_name != profile.scheduler_name or self._refusal(p) is not None:
+                    return False
+                if p.nominated_node_name or (max_nom is not None and p.priority <= max_nom):
                     return False
                 if probes and self._admitted(p, probes, group_hit):
                     return False
@@ -361,12 +560,17 @@ class Scheduler:
             batch = batch + extra
             keys = keys + [self._sig_key(qp.pod) for qp in extra]
 
+        # fast commits happen outside the chain's device state
+        self._chain = None
         weights = profile.weights()
         check_fit = "NodeResourcesFit" in profile.enabled
         holder = self._lineage(profile, weights, check_fit)
         pod_sigs = self._signatures(holder, keys, rows, weights)
-        choices = self._place(holder, batch, pod_sigs, weights, check_fit)
-        return self._commit(holder, batch, keys, pod_sigs, choices, rows)
+        choices, resident = self._place(holder, batch, pod_sigs, weights, check_fit)
+        return {
+            "kind": "fast", "profile": profile, "batch": batch, "keys": keys, "pod_sigs": pod_sigs,
+            "choices": choices, "rows": rows, "holder": holder, "resident": resident,
+        }
 
     # ----- snapshot ------------------------------------------------------
 
@@ -475,12 +679,15 @@ class Scheduler:
 
     # ----- the committer lineage ------------------------------------------
 
+    def _lineage_key(self, profile: Profile) -> tuple:
+        return (self._external_mutations, self._nonfast_commits, self.mirror._full_packs,
+                profile.scheduler_name, profile.weights(), "NodeResourcesFit" in profile.enabled)
+
     def _lineage(self, profile: Profile, weights, check_fit: bool) -> dict:
         """The host committer and its device twin.  Only an external cluster
         change, a gang commit, a full repack or another profile rebuilds it;
         fast commits keep it (the committer is the committed truth)."""
-        key = (self._external_mutations, self._nonfast_commits, self.mirror._full_packs,
-               profile.scheduler_name, weights, check_fit)
+        key = self._lineage_key(profile)
         h = self._holder
         if h is None or h["key"] != key:
             h = self._holder = {
@@ -560,7 +767,9 @@ class Scheduler:
 
     # ----- placement -----------------------------------------------------
 
-    def _place(self, holder: dict, batch, pod_sigs, weights, check_fit: bool) -> List[int]:
+    def _place(self, holder: dict, batch, pod_sigs, weights, check_fit: bool):
+        """(choices, resident): the committer's or the device's choices, and
+        whether a resident run made them."""
         fc = holder["fc"]
         self.metrics["fast_batches"] += 1
         if len(batch) < self.config.fast_device_min:
@@ -570,9 +779,9 @@ class Scheduler:
                 holder["heaps_dirty"] = False
             self.metrics["host_batches"] += 1
             holder["dev"] = None  # the device copy (if any) is now stale
-            return fc.run(pod_sigs)
+            return fc.run(pod_sigs), False
         try:
-            return self._place_device(holder, batch, pod_sigs, weights, check_fit)
+            return self._place_device(holder, batch, pod_sigs, weights, check_fit), self.config.resident_drain
         except BaseException:
             # the in-place usage tensors may be torn: drop the device
             # lineage, return the batch unscheduled, and re-raise
@@ -697,11 +906,14 @@ class Scheduler:
 
     def _chain_quickcheck(self, batch) -> bool:
         """Spec-only gate of the chained path: the mirror is packed, no pod
-        wants host ports (the append does not splice port rows), and the
-        batch is not a fast-path candidate."""
+        wants host ports (the append does not splice port rows) or carries a
+        nomination, and the batch is not a fast-path candidate."""
         if self.mirror.nodes is None:
             return False
         if any(qp.pod.host_ports() for qp in batch):
+            return False
+        # nominated pods take the direct path's nominated-node split
+        if any(qp.pod.nominated_node_name for qp in batch):
             return False
         if self._fast_gate_ok(batch) and all(self._sig_key(qp.pod) is not None for qp in batch):
             return False
@@ -817,16 +1029,27 @@ class Scheduler:
         m["wave_admitted"] += int(np.sum((chosen_n == spec) & (chosen_n >= 0)))
         m["wave_groups"] += ops_wave.interaction_groups([qp.pod for qp in batch])[1]
 
-    def _try_dispatch_chained(self, profile: Profile, batch) -> Optional[List[ScheduleOutcome]]:
-        """chain_dispatch on the resident cluster, restarting the chain from
-        the device mirror when its epoch moved; None when the batch's term
-        tables do not fit the chained cluster's widths or its cursors cannot
-        be grown (the direct path takes it)."""
-        self._repack_mirror()
-        pods, pb = self._gang_prep(batch)
+    def _try_dispatch_chained(self, profile: Profile, batch, can_restart: bool = True):
+        """chain_dispatch on the resident cluster.  Returns the pending
+        record (its harvest is ``_finish_chained``), "flush" when the chain
+        must restart from the committed state while batches are still
+        unharvested, or None when the batch's term tables do not fit the
+        chained cluster's widths or its cursors cannot be grown (the direct
+        path takes it)."""
+        for qp in batch:
+            for k, v in qp.pod.labels.items():
+                self.vocab.intern_label(k, v)
         epoch = self._chain_epoch()
         ch = self._chain
+        if (ch is None or ch["epoch"] != epoch) and not can_restart:
+            return "flush"
+        self._repack_mirror()
+        pods, pb = self._gang_prep(batch)
+        epoch = self._chain_epoch()  # packing may have grown the vocabulary
+        ch = self._chain
         if ch is None or ch["epoch"] != epoch:
+            if not can_restart:
+                return "flush"
             ch = self._restart_chain(epoch)
         cdc = ch["dc"]
         dc_shapes = (
@@ -844,6 +1067,8 @@ class Scheduler:
             # cursor overflow: grow the host axes, repack the placed pods,
             # and restart the chain once from that state
             self._chain = None
+            if not can_restart:
+                return "flush"
             m = self.mirror
             m._m_cap_max = max(m._m_cap_max, bucket_cap(max((ch["m"] + P * AT) * 2, 1), 1))
             m.e_cap_hint = max(m.e_cap_hint, ch["e"] + 2 * P)
@@ -860,6 +1085,7 @@ class Scheduler:
             wave_kw = dict(wave=True, **self._wave_kw(wt, ports=False))
         db = DeviceBatch.from_host(pb, self.device)
         tables = self._gang_tables(pb)
+        nom = self._nominated_arrays({qp.pod.uid for qp in batch})
         try:
             out = ops_chain.chain_dispatch(
                 cdc,
@@ -875,21 +1101,30 @@ class Scheduler:
                 **self._gang_flags(pb, ch["m"] > 0),
                 **tables,
                 **wave_kw,
+                **nom,
             )
-            dc2, results, reasons = out[:3]
-            results = results.cpu()
         except BaseException:
             # the chained cluster may be torn: drop it, return the batch
             self._chain = None
             self.queue.push_back(batch)
             raise
-        self._chain = {"dc": dc2, "e": ch["e"] + P, "m": ch["m"] + P * AT, "epoch": epoch}
-        if wt is not None:
-            self.metrics["wave_batches"] += 1
-            self._wave_resolve(batch, results[0], out[3])
-        else:
-            self.metrics["chain_batches"] += 1
-        return self._process_results(batch, results[0], results[1], reasons)
+        self._chain = {"dc": out[0], "e": ch["e"] + P, "m": ch["m"] + P * AT, "epoch": epoch}
+        self.metrics["wave_batches" if wt is not None else "chain_batches"] += 1
+        return {
+            "kind": "chain", "profile": profile, "batch": batch, "results": out[1], "reasons": out[2],
+            "wave_stats": out[3] if wt is not None else None,
+        }
+
+    def _finish_chained(self, rec) -> List[ScheduleOutcome]:
+        """Harvest one chained batch: fetch its results and walk them."""
+        results = rec["results"].cpu()
+        batch = rec["batch"]
+        if rec["wave_stats"] is not None:
+            self._wave_resolve(batch, results[0], rec["wave_stats"])
+        out = self._process_results(rec["profile"], batch, results[0], rec["reasons"],
+                                    wave=rec["wave_stats"] is not None)
+        self._flush_binds()
+        return out
 
     def _restart_chain(self, epoch) -> dict:
         dc = self._dc_cache.sync(self.mirror, self.vocab)
@@ -898,10 +1133,37 @@ class Scheduler:
         self._dc_cache.invalidate()
         return {"dc": dc, "e": self.mirror.e_used, "m": self.mirror.m_used, "epoch": epoch}
 
+    def _schedule_batch(self, profile: Profile, batch) -> List[ScheduleOutcome]:
+        """The direct path (schedule_one.go:65 granularity where it must):
+        nominated pods take the nominated-node path one by one, the runs of
+        other pods between them are scheduled as batches; a batch the fast
+        gate admits takes the signature fast path (no extension), the rest
+        ``wave_run`` or ``gang_run``."""
+        self._chain = None  # direct commits happen outside any chain
+        if len(batch) > 1 and any(qp.pod.nominated_node_name for qp in batch):
+            outcomes: List[ScheduleOutcome] = []
+            run: List[QueuedPodInfo] = []
+            for qp in batch:
+                if not qp.pod.nominated_node_name:
+                    run.append(qp)
+                    continue
+                if run:
+                    outcomes.extend(self._schedule_batch(profile, run))
+                    run = []
+                outcomes.extend(self._schedule_one_nominated(profile, qp))
+            if run:
+                outcomes.extend(self._schedule_batch(profile, run))
+            return outcomes
+        if len(batch) == 1 and batch[0].pod.nominated_node_name:
+            return self._schedule_one_nominated(profile, batch[0])
+        rec = self._try_fast(profile, batch, extend=False)
+        if rec is not None:
+            return self._finish_fast(rec, flush_binds=False)
+        return self._schedule_direct(profile, batch)
+
     def _schedule_direct(self, profile: Profile, batch) -> List[ScheduleOutcome]:
         """wave_run (a wave-shaped batch under waveDispatch) or gang_run on
         the snapshot the device mirror keeps current."""
-        self._chain = None  # direct commits happen outside any chain
         self._repack_mirror()
         pods, pb = self._gang_prep(batch)
         try:
@@ -912,108 +1174,359 @@ class Scheduler:
             any_terms = bool((self.mirror.existing.term_kind != PAD).any())
             flags = self._gang_flags(pb, any_terms)
             args = (dc, db, self._hostname_key(), bucket_cap(len(self.vocab.label_vals)))
-            kw = dict(enabled=profile.enabled, weights=profile.weights(), **tables)
+            kw = dict(enabled=profile.enabled, weights=profile.weights(), **tables,
+                      **self._nominated_arrays({qp.pod.uid for qp in batch}))
             stats = None
             if wt is not None:
                 self.metrics["wave_batches"] += 1
                 flags["has_ports"] = wt["has_ports"]  # the occupancy carry, not the pod×pod matrix
-                chosen, n_feas, reasons, _, stats = ops_wave.wave_run(*args, **self._wave_kw(wt), **kw, **flags)
+                chosen, _, reasons, _, stats = ops_wave.wave_run(*args, **self._wave_kw(wt), **kw, **flags)
             else:
                 self.metrics["scan_batches"] += 1
-                chosen, n_feas, reasons, _ = ops_gang.gang_run(*args, **kw, **flags)
-            chosen, n_feas = chosen.cpu(), n_feas.cpu()
+                chosen, _, reasons, _ = ops_gang.gang_run(*args, **kw, **flags)
+            chosen = chosen.cpu()
         except BaseException:
             self._dc_cache.invalidate()
             self.queue.push_back(batch)
             raise
         if stats is not None:
             self._wave_resolve(batch, chosen, stats)
-        return self._process_results(batch, chosen, n_feas, reasons)
+        return self._process_results(profile, batch, chosen, reasons, wave=stats is not None)
 
-    def _process_results(self, batch, chosen, n_feas, reasons) -> List[ScheduleOutcome]:
-        """The gang path's harvest: placements are assumed and bound in bulk
-        (the scan's decisions are final), every failure gets a FitError built
-        from the first-failure reason counts."""
+    def _process_results(self, profile: Profile, batch, chosen, reasons, wave: bool) -> List[ScheduleOutcome]:
+        """The gang path's harvest, in the reference's order: K10 narrows
+        the failures against the placed pods and this batch's committed
+        peers, then the walk in queue order assumes each placement and sends
+        each failure (a FitError from the first-failure reason counts) to
+        PostFilter.  A wave batch's placements are assumed after its
+        failures (the reference commits them in bulk after the walk)."""
         names = self.nodes.names
         chosen = chosen.numpy()[: len(batch)]
         if ((chosen < -1) | (chosen >= len(names))).any():
             raise RuntimeError("gang scan returned a node index out of range")
         n = len(batch)
         self.metrics["schedule_attempts"] += n
-        placed = [i for i in range(n) if chosen[i] >= 0]
-        pairs = [(batch[i].pod, names[chosen[i]]) for i in placed]
-        self.cache.assume_pods_bulk(pairs)
-        self._nonfast_commits += len(pairs)
-        errors = self._bind(pairs)
+        profile_pf = self._post_filters.get(profile.scheduler_name)
+        state = CycleState()
+        failed = [qp for i, qp in enumerate(batch) if chosen[i] < 0]
+        if failed and profile_pf is not None:
+            self._batched_preemption_narrow(state, failed, batch, chosen, names)
         out: List[Optional[ScheduleOutcome]] = [None] * n
-        for i, (pod, node), err in zip(placed, pairs, errors):
-            if err is None:
-                out[i] = ScheduleOutcome(pod, node)
-            else:
-                self.cache.forget_pod(pod)
-                self._external_mutations += 1
-                self.queue.mark_unschedulable(batch[i])
-                out[i] = ScheduleOutcome(pod, None, f"binding rejected: {err}")
-        if len(placed) < n:
-            counts = reasons.cpu().numpy()
-            n_nodes = len(self.cache.real_nodes())
-            for i in range(n):
-                if chosen[i] >= 0:
-                    continue
-                diag = {k: int(c) for k, c in zip(ops_gang.DIAG_KERNELS, counts[i]) if c > 0}
-                diag.pop("HostFilters", None)  # no host Filter plugins in the port
-                self.queue.mark_unschedulable(batch[i])
-                out[i] = ScheduleOutcome(batch[i].pod, None, fit_error_message(n_nodes, diag), diag)
+        counts = reasons.cpu().numpy() if failed else None
+        n_nodes = len(self.cache.real_nodes())
+        later = []
+        for i, qp in enumerate(batch):
+            if chosen[i] >= 0:
+                if wave:
+                    later.append(i)
+                else:
+                    out[i] = self._assume(qp, names[chosen[i]])
+                continue
+            diag = {k: int(c) for k, c in zip(ops_gang.DIAG_KERNELS, counts[i]) if c > 0}
+            diag.pop("HostFilters", None)  # no host Filter plugins in the port
+            out[i] = self._post_filter_or_fail(profile, state, qp, fit_error_message(n_nodes, diag), diag, set(diag))
+        for i in later:
+            out[i] = self._assume(batch[i], names[chosen[i]])
         return out
 
     # ----- commit --------------------------------------------------------
 
-    def _commit(self, holder: dict, batch, keys, pod_sigs, choices, rows) -> List[ScheduleOutcome]:
-        """Bulk assume + bind of the placed pods; FitError outcomes (with
-        per-plugin diagnosis at the committer's state) for the rest."""
+    def _finish_fast(self, rec, flush_binds: bool = True) -> List[ScheduleOutcome]:
+        """Harvest one fast batch in queue order: placements are assumed,
+        each failure gets a FitError with the per-plugin diagnosis at the
+        committer's state and goes to PostFilter (its failures narrowed by
+        K10 first, as the gang path's are).  A pipelined batch binds at its
+        harvest; the direct path's binds wait for the end of the popped
+        batch, as the reference's do."""
+        profile, batch, choices = rec["profile"], rec["batch"], rec["choices"]
+        holder, rows, keys, pod_sigs = rec["holder"], rec["rows"], rec["keys"], rec["pod_sigs"]
         names = self.nodes.names
         n = len(batch)
         self.metrics["schedule_attempts"] += n
-        placed = [i for i in range(n) if choices[i] >= 0]
-        pairs = [(batch[i].pod, names[choices[i]]) for i in placed]
-        self.cache.assume_pods_bulk(pairs)
-        errors = self._bind(pairs)
+        state = CycleState()
+        failed = [qp for i, qp in enumerate(batch) if choices[i] < 0]
+        if failed and profile.scheduler_name in self._post_filters:
+            self._batched_preemption_narrow(state, failed, batch, np.asarray(choices), names)
         out: List[Optional[ScheduleOutcome]] = [None] * n
-        for i, (pod, node), err in zip(placed, pairs, errors):
-            if err is None:
-                out[i] = ScheduleOutcome(pod, node)
-            else:
-                # the committer counted this pod: the forget is an external
-                # change, so the next batch rebuilds the lineage
-                self.cache.forget_pod(pod)
-                self._external_mutations += 1
-                self.queue.mark_unschedulable(batch[i])
-                out[i] = ScheduleOutcome(pod, None, f"binding rejected: {err}")
         diag_cache: Dict[int, Dict[str, int]] = {}
         node_valid = self.nodes.valid
         n_nodes = len(self.cache.real_nodes())
-        for i in range(n):
+        for i, qp in enumerate(batch):
             if choices[i] >= 0:
+                out[i] = self._assume(qp, names[choices[i]], fast=True)
                 continue
             sig = pod_sigs[i]
             diag = diag_cache.get(id(sig))
             if diag is None:
                 diag = diag_cache[id(sig)] = holder["fc"].diagnose(sig, rows[keys[i]], node_valid)
-            self.queue.mark_unschedulable(batch[i])
-            out[i] = ScheduleOutcome(batch[i].pod, None, fit_error_message(n_nodes, diag), diag)
+            out[i] = self._post_filter_or_fail(profile, state, qp, fit_error_message(n_nodes, diag), diag, set(diag))
+        if flush_binds:
+            self._flush_binds()
         return out
 
-    def _bind(self, pairs) -> List[Optional[str]]:
-        if not pairs:
-            return []
+    def _assume(self, qp: QueuedPodInfo, node: str, fast: bool = False) -> ScheduleOutcome:
+        """Assume one placement (the host view follows) and buffer its bind;
+        the outcome is final once ``_flush_binds`` ran (at a pipelined
+        harvest, else at the end of the popped batch: until then a bound
+        preemptor's nomination stays open, as in the reference, whose bind
+        workers start there).  A non-fast commit moves state the fast
+        lineage did not track."""
+        (assumed,) = self.cache.assume_pods_bulk([(qp.pod, node)])
+        self._view_pod_added(assumed)
+        if not fast:
+            self._nonfast_commits += 1
+        outcome = ScheduleOutcome(qp.pod, node)
+        self._bind_buffer.append((qp, node, outcome))
+        return outcome
+
+    def _flush_binds(self) -> None:
+        """Bind the buffered placements (binding_sink_many in one call when
+        set).  A bound pod's attempt ends and its nomination closes; a
+        rejected bind forgets the pod, which backs off."""
+        buf, self._bind_buffer = self._bind_buffer, []
+        if not buf:
+            return
+        pairs = [(qp.pod, node) for qp, node, _ in buf]
         if self.binding_sink_many is not None:
-            return list(self.binding_sink_many(pairs))
-        errors: List[Optional[str]] = []
-        for pod, node in pairs:
+            errors = list(self.binding_sink_many(pairs))
+        else:
+            errors = []
+            for pod, node in pairs:
+                try:
+                    if self.binding_sink is not None:
+                        self.binding_sink(pod, node)
+                    errors.append(None)
+                except Exception as e:  # a rejected bind is this pod's outcome
+                    errors.append(str(e))
+        for (qp, node, outcome), err in zip(buf, errors):
+            pod = qp.pod
+            if err is None:
+                self.queue.done(pod.uid)
+                if self.nominator.nominated_node(pod.uid) is not None:
+                    self.metrics["nominated_binds"] += 1
+                    self.nominator.delete(pod)
+                continue
+            # the forget is an external change: the next batch rebuilds the
+            # fast lineage and restarts the chain
+            self._view_pod_removed(self.cache.pod_states[pod.uid])
+            self.cache.forget_pod(pod)
+            self._external_mutations += 1
+            self._handle_failure(qp, set())
+            outcome.node = None
+            outcome.reason = f"binding rejected: {err}"
+
+    # ----- PostFilter: preemption -------------------------------------------
+
+    def _nominated_arrays(self, exclude_uids) -> dict:
+        """The open nominations (minus this batch's own pods) as the gang
+        path's nom_node / nom_prio / nom_req keyword arguments, {} when
+        there are none.  Node indices are the current mirror's."""
+        nt = self.mirror.nodes
+        lanes = ResourceLanes(self.vocab)
+        R = nt.allocatable.shape[1]
+        rows = []
+        for node, pod in self.nominator.entries():
+            if pod.uid in exclude_uids:
+                continue
+            idx = nt.name_to_idx.get(node)
+            if idx is None:
+                continue
+            rows.append((idx, pod.priority, lanes.request_row(pod.compute_requests(), R)))
+        if not rows:
+            return {}
+        G = len(rows)
+        return dict(
+            nom_node=torch.tensor([r[0] for r in rows], dtype=torch.int32, device=self.device),
+            nom_prio=torch.tensor([r[1] for r in rows], dtype=torch.int32, device=self.device),
+            nom_req=torch.from_numpy(np.stack([r[2] for r in rows]).astype(np.int32).reshape(G, R)).to(self.device),
+        )
+
+    def _batched_preemption_narrow(self, state: CycleState, failed, batch, chosen, node_names) -> None:
+        """ONE K10 launch shortlisting preemption candidates for every failed
+        pod of a harvest (the batched front of DryRunPreemption,
+        preemption.go:548); each shortlist lands in ``state`` under
+        ("preemption_potential", uid) for DefaultPreemption.
+
+        The victim rows are the cache's placed pods; the batch's own
+        placements (``chosen`` over ``node_names``, the dispatch-time name
+        list), not yet assumed, ride as the batch-peer rows.  The mirror
+        update below may repack and move node slots, so a peer is resolved
+        by node NAME to its current index.  A build or launch failure
+        raises: nothing falls back to the unnarrowed host walk."""
+        self.mirror.update(self.cache)
+        nt = self.mirror.nodes
+        pods = [qp.pod for qp in failed]
+        pb = pack_pod_batch(pods, self.vocab, k_cap=nt.k_cap, p_cap=bucket_cap(len(pods), 1))
+        dc = self._static_device_cluster()
+        lanes = ResourceLanes(self.vocab)
+        R = nt.allocatable.shape[1]
+        placed = self.cache.placed_pods()
+        E = max(len(placed), 1)
+        vnode = np.full(E, -1, np.int32)
+        vprio = np.zeros(E, np.int32)
+        vreq = np.zeros((E, R), np.int32)
+        for i, p in enumerate(placed):
+            idx = nt.name_to_idx.get(p.node_name)
+            if idx is None:
+                continue
+            vnode[i] = idx
+            vprio[i] = p.priority
+            vreq[i] = lanes.request_row(p.compute_requests(), R)
+        distinct = sorted({p.priority for p in pods})
+        groups = np.full(bucket_cap(len(distinct), 1), INT32_MIN, np.int32)
+        groups[: len(distinct)] = distinct
+        gidx = {pr: i for i, pr in enumerate(distinct)}
+        pod_group = np.zeros(pb.valid.shape[0], np.int32)
+        pod_group[: len(pods)] = [gidx[p.priority] for p in pods]
+        B2 = max(len(batch), 1)
+        bnode = np.full(B2, -1, np.int32)
+        bprio = np.zeros(B2, np.int32)
+        breq = np.zeros((B2, R), np.int32)
+        for i, qp in enumerate(batch):
+            c = int(chosen[i])
+            if c < 0 or c >= len(node_names):
+                continue
+            idx = nt.name_to_idx.get(node_names[c])  # dispatch index → name → current slot
+            if idx is None:
+                continue
+            bnode[i] = idx
+            bprio[i] = qp.pod.priority
+            breq[i] = lanes.request_row(qp.pod.compute_requests(), R)
+        t = {k: torch.from_numpy(v).to(self.device) for k, v in dict(
+            vnode=vnode, vprio=vprio, vreq=vreq, groups=groups, pg=pod_group, bnode=bnode, bprio=bprio, breq=breq,
+        ).items()}
+        masks = ops_preemption.narrow_candidates(
+            dc, DeviceBatch.from_host(pb, self.device), t["vnode"], t["vprio"], t["vreq"], t["groups"], t["pg"],
+            batch_node=t["bnode"], batch_prio=t["bprio"], batch_req=t["breq"],
+        ).cpu().numpy()
+        self.metrics["narrow_batches"] += 1
+        names = nt.names
+        for i, qp in enumerate(failed):
+            state.write(("preemption_potential", qp.pod.uid),
+                        {names[j] for j in np.nonzero(masks[i])[0] if j < len(names)})
+
+    def _post_filter_or_fail(self, profile: Profile, state: CycleState, qp: QueuedPodInfo, reason: str,
+                             diagnosis: Optional[Dict[str, int]], plugins: Optional[set]) -> ScheduleOutcome:
+        """A filter failure (a FitError, Unschedulable) goes to the profile's
+        PostFilter (schedule_one.go:135-180): a chosen node nominates the
+        pod (the victims are already evicted); "" clears a stale nomination.
+        Then the pod parks in the queue with the plugins that rejected it."""
+        pod = qp.pod
+        pf = self._post_filters.get(profile.scheduler_name)
+        if pf is not None:
+            nominated, _ = pf.post_filter(state, pod)
+            if nominated:
+                pod.nominated_node_name = nominated
+                self.nominator.add(pod, nominated)
+                self.status_patcher(pod)
+            elif nominated == "" and pod.nominated_node_name:
+                pod.nominated_node_name = ""
+                self.nominator.delete(pod)
+                self.status_patcher(pod)
+        self._handle_failure(qp, plugins)
+        return ScheduleOutcome(pod, None, reason, diagnosis)
+
+    def _handle_failure(self, qp: QueuedPodInfo, plugins: Optional[set]) -> None:
+        """handleSchedulingFailure (schedule_one.go:1020): the pod parks
+        with its rejecting plugins (none: it backs off)."""
+        self.queue.add_unschedulable(qp, plugins or set())
+
+    # ----- the nominated-node path and the one-pod host cycle --------------
+
+    @staticmethod
+    def _prefilter_allowed(pod: Pod) -> Optional[set]:
+        """NodeAffinity's PreFilterResult (node_affinity.go:140-171): the
+        node names a required metadata.name In term narrows to; None when
+        any node may pass."""
+        aff = pod.affinity
+        required = (
+            aff.node_affinity.required_during_scheduling_ignored_during_execution
+            if aff and aff.node_affinity
+            else None
+        )
+        if required is None or not required.node_selector_terms:
+            return None
+        node_names = None
+        for t in required.node_selector_terms:
+            term_names = None
+            for r in t.match_fields:
+                if r.key == "metadata.name" and r.operator == "In":
+                    vals = set(r.values)
+                    term_names = vals if term_names is None else (term_names & vals)
+            if term_names is None:
+                return None  # ORed terms: this one admits every node
+            node_names = term_names if node_names is None else (node_names | term_names)
+        return node_names
+
+    def _schedule_one_nominated(self, profile: Profile, qp: QueuedPodInfo) -> List[ScheduleOutcome]:
+        """The nominated-node path (schedule_one.go:490-499): a pod whose
+        preemption nominated a node checks THAT node only, with the other
+        nominations of >= priority counted there and then, when any were,
+        without them (a node feasible only through an unbound nomination may
+        never materialize), and binds there when it passes.  Otherwise the
+        full one-pod host cycle runs."""
+        pod = qp.pod
+        nom = pod.nominated_node_name
+        st = self.oracle_view()
+        ns = st.nodes.get(nom)
+        allowed = self._prefilter_allowed(pod)
+        ok = ns is not None and (allowed is None or nom in allowed)
+        if ok:
+            added = [
+                np_ for node, np_ in self.nominator.entries()
+                if node == nom and np_.uid != pod.uid and np_.priority >= pod.priority
+            ]
+            for np_ in added:
+                ns.add_pod(np_)
             try:
-                if self.binding_sink is not None:
-                    self.binding_sink(pod, node)
-                errors.append(None)
-            except Exception as e:  # a rejected bind is this pod's outcome
-                errors.append(str(e))
-        return errors
+                ok = bool(feasible_nodes(pod, st, enabled=profile.enabled, allowed=frozenset({nom})).feasible)
+            finally:
+                for np_ in added:
+                    ns.remove_pod(np_)
+            if ok and added:
+                ok = bool(feasible_nodes(pod, st, enabled=profile.enabled, allowed=frozenset({nom})).feasible)
+        if ok:
+            self.metrics["schedule_attempts"] += 1
+            return [self._assume(qp, nom)]
+        return self._schedule_one_host(profile, qp)
+
+    def _schedule_one_host(self, profile: Profile, qp: QueuedPodInfo) -> List[ScheduleOutcome]:
+        """One pod's full cycle on the host view (the reference's one-pod
+        cycle without extenders): every filter with the nominations of >=
+        priority counted on their nodes, the second pass without them on
+        those nodes, then the weighted scores and the first best node."""
+        pod = qp.pod
+        self.metrics["schedule_attempts"] += 1
+        self.metrics["host_cycles"] += 1
+        st = self.oracle_view()
+        allowed = self._prefilter_allowed(pod)
+        added = []
+        for node, np_ in self.nominator.entries():
+            if np_.uid != pod.uid and np_.priority >= pod.priority and node in st.nodes:
+                st.nodes[node].add_pod(np_)
+                added.append((node, np_))
+        try:
+            fit = feasible_nodes(pod, st, enabled=profile.enabled,
+                                 allowed=frozenset(allowed) if allowed is not None else None)
+        finally:
+            for node, np_ in added:
+                st.nodes[node].remove_pod(np_)
+        if added and fit.feasible:
+            nominated_nodes = {n for n, _ in added}
+            recheck = [n for n in fit.feasible if n in nominated_nodes]
+            if recheck:
+                ok2 = set(feasible_nodes(pod, st, enabled=profile.enabled, allowed=frozenset(recheck)).feasible)
+                dropped = [n for n in recheck if n not in ok2]
+                fit.feasible = [n for n in fit.feasible if n not in dropped]
+                for n in dropped:
+                    fit.reasons.setdefault(n, []).append("node(s) only feasible with unbound nominated pods")
+        diag: Dict[str, int] = {}
+        for rs in fit.reasons.values():
+            for r in rs:
+                diag[r] = diag.get(r, 0) + 1
+        if not fit.feasible:
+            return [self._post_filter_or_fail(profile, CycleState(), qp, fit_error_message(len(st.nodes), diag),
+                                              diag, None)]
+        totals = prioritize(pod, st, fit.feasible, weights=profile.score_weights)
+        node = select_host(totals) if totals else fit.feasible[0]
+        return [self._assume(qp, node)]

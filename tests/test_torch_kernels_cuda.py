@@ -10,8 +10,9 @@ none; run it there without the JAX suite's conftest:
 The plain versions are held against the JAX package on the CPU by
 tests/test_torch_static_eval.py, test_torch_sig_scan.py,
 test_torch_resident.py, test_torch_scheduler.py, test_torch_gang.py,
-test_torch_chain.py, test_torch_scheduler_gang.py, test_torch_wave.py and
-test_torch_scheduler_wave.py.
+test_torch_chain.py, test_torch_scheduler_gang.py, test_torch_wave.py,
+test_torch_scheduler_wave.py, test_torch_preemption.py and
+test_torch_scheduler_preempt.py.
 """
 
 import pytest
@@ -347,3 +348,65 @@ def test_wave_scheduler_on_cuda_matches_plain(cuda):
     waves, a direct wave with ports) on the card equals the same drain with
     device="cpu", outcome for outcome."""
     chip_smoke.phase_gang_parity(torch, cuda, n_nodes=120, n_pods=1100, n_placed=60, wave=True)
+
+
+# ---- preemption: K10, and K5 / K8 / K9 with open nominations ---------------
+
+
+@pytest.mark.parametrize("peers", [False, True], ids=["no-peers", "peers"])
+def test_narrow_candidates_kernel_matches_plain(cuda, peers):
+    """K10 against narrow_candidates_plain on chip_smoke's inputs at a
+    reduced size (mixed nodes, four priority groups, placed pods on every
+    few nodes, batch peers with pads), one launch per call."""
+    from kubernetes_tpu_torch.ops import preemption as pre
+
+    dc, db, rows, peer_rows = chip_smoke.k10_inputs(torch, cuda, n_nodes=700, E=1500, P=96, B2=64)
+    kw = peer_rows if peers else {}
+    n0 = _build.launches["narrow_candidates"]
+    got = pre.narrow_candidates(dc, db, *rows.values(), **kw)
+    _equal(got, pre.narrow_candidates_plain(dc, db, *rows.values(), **kw))
+    assert _build.launches["narrow_candidates"] == n0 + 1
+    assert got.any()
+
+
+def test_narrow_candidates_kernel_pads_change_nothing(cuda):
+    """Pad victims, a pad group and pad peers leave K10's mask as it was."""
+    from kubernetes_tpu_torch.ops import preemption as pre
+
+    dc, db, rows, peers = chip_smoke.k10_inputs(torch, cuda, n_nodes=300, E=600, P=32, B2=32)
+    base = pre.narrow_candidates(dc, db, *rows.values(), **peers)
+    pad = dict(rows)
+    pad["victim_node"] = torch.cat([rows["victim_node"], torch.full((7,), -1, dtype=torch.int32, device=cuda)])
+    pad["victim_prio"] = torch.cat([rows["victim_prio"], torch.zeros((7,), dtype=torch.int32, device=cuda)])
+    pad["victim_req"] = torch.cat([rows["victim_req"], torch.ones((7, rows["victim_req"].shape[1]),
+                                                                  dtype=torch.int32, device=cuda)])
+    pad["prio_groups"] = torch.cat([rows["prio_groups"], torch.tensor([-(2**31)], dtype=torch.int32, device=cuda)])
+    _equal(pre.narrow_candidates(dc, db, *pad.values(), **peers), base)
+
+
+@pytest.mark.parametrize("smem_cap", [1 << 30, 0], ids=["shared", "global"])
+@pytest.mark.parametrize("case", GANG_CASES[:2])
+def test_step_kernels_with_nominations_match_plain(cuda, case, smem_cap, monkeypatch):
+    """K5, K8 and K9 with 64 open nominations (chip_smoke.nominated_row)
+    against their plain versions, and K9 against K5, on one packed batch."""
+    from kubernetes_tpu_torch.ops import wave as ops_wave
+
+    monkeypatch.setattr(ops_gang, "SCAN_SMEM_CAP", smem_cap)
+    monkeypatch.setattr(ops_wave, "ADMIT_SMEM_CAP", smem_cap)
+    nodes, placed, pending = chip_smoke.gen_cluster(*case, ports_from=case[3])
+    dc, db, kw, d_cap, flags, wt = chip_smoke.wave_inputs(torch, cuda, nodes, placed, pending, P=64)
+    tab = {k: kw[k] for k in ("sp_keys", "sp_cdv_tab", "ip_keys")}
+    g = ops_gang.precompute_plain(dc, db, kw["hostname_key"], kw["v_cap"], hard_pod_affinity_weight=1,
+                                  enabled=ops_gang.ALL_FILTER_KERNELS, **dict(flags, has_ports=False), **tab)
+    row = chip_smoke.nominated_row(torch, "gen", dc, db, kw, d_cap, g, wt, reps=1)
+    assert row["k5_nom_err"] == row["k8_nom_err"] == row["k9_nom_err"] == row["k9_vs_k5_nom"] == 0
+
+
+def test_preemption_drains_on_cuda_match_cpu(cuda):
+    """bench_preemption's drain at 60 nodes on cuda and on the CPU: the same
+    bindings, evictions and nominations, every invariant, K10 launched; and
+    the gang-path drain with priorities, on the wave and on the scan."""
+    out = chip_smoke.phase_preempt_drains(torch, cuda, n_small=60, n_large=200, large_preemptors=40)
+    assert out["bench_preemption"]["launches"]["narrow_candidates"] > 0
+    for wave in (True, False):
+        chip_smoke.phase_preempt_parity(torch, cuda, n_nodes=60, n_placed=180, n_pods=240, wave=wave)

@@ -181,7 +181,9 @@ def test_no_nodes_leaves_every_pod_unschedulable():
     out = sched.schedule_pending()
     assert [o.node for o in out] == [None] * 20
     assert all(o.reason == "0/0 nodes are available" for o in out)
-    assert len(sched.queue.unschedulable) == 20
+    # no plugin rejected them (there is no node), so they back off instead
+    # of parking, as the reference's queue does (scheduling_queue.go:642)
+    assert len(sched.queue) == 20 and not sched.queue.unschedulable
 
 
 def _spread_pod(T, name="spread"):
