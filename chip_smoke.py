@@ -70,8 +70,24 @@ Phases, one output line each (several for 2 and 4):
      cuda; and a gang-path drain with priorities (500 nodes, 1,500 placed
      priority-0 pods, 2,000 spread and anti-affinity pods at priorities 0 /
      50 / 100, some too big to fit before a preemption) in two rounds on
-     cuda and on the CPU, identical;
-  8. the kernels line.
+     cuda and on the CPU, identical (K10 narrows this drain's gang-path
+     harvests; the fast harvests of bench_preemption reach PostFilter
+     unnarrowed, as in the reference, so K10 must not launch there);
+  8. gang coscheduling: K11 workloads_admit against its plain version,
+     exact on every output, and with the gang rows cleared against K9 on
+     the same statics, at config10's batch (N=1,000 in 8 zones, 64 gangs
+     of 8, C = AT = 0), config4's shape with gangs of 8 laid over the batch
+     (every fourth rolling back after placing members) and the mixed shape
+     (AT = 4, 64 open nominations), with K11's time, its plain version's,
+     K9's with the gangs cleared (the checkpoint's cost) and its bound;
+     bench.py bench_gang's drain (config10: 1,000 nodes, 20,000 pods in
+     2,500 PodGroups of 8, minMember 8) on cuda, every pod placed, every
+     gang whole, one K11 launch per workloads batch; and a contended gang
+     drain (500 nodes, 200 seeded gangs of 4-12 with spread or
+     anti-affinity among their members, 400 plain pods, about 125 % of the
+     cluster's cpu asked) on cuda and on the CPU, identical in outcomes and
+     in the gang metrics, with gangs rolled back;
+  9. the kernels line (K8 named as the workloads speculation too).
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Without
@@ -794,6 +810,35 @@ def max_abs_err(torch, a, b) -> int:
 # ---------------------------------------------------------------------------
 
 
+def static_bound(dc, db, out):
+    """K1's bound_ms for one launch with outputs `out`: the cluster's and the
+    batch's static tables read once, the outputs written once; operations, a
+    full walk per (signature or pod, node) pair: taint × toleration
+    compares for the filter and the score, each DNF requirement's value
+    scan, the image terms."""
+    S, N = out["mask"].shape
+    in_bytes = nbytes(dc.node_labels, dc.val_ints, dc.taint_key, dc.taint_val, dc.taint_effect,
+                      dc.unschedulable, dc.node_valid, dc.img_sizes, db.valid, db.pref_weight,
+                      db.tol_key, db.tol_op, db.tol_val, db.tol_effect, db.target_name_val,
+                      db.img_ids, db.n_containers,
+                      *(getattr(t, f) for t in (db.node_sel, db.pref_node)
+                        for f in ("req_key", "req_op", "req_vals", "req_rhs", "term_valid")))
+    T, TL = dc.taint_key.shape[1], db.tol_key.shape[1]
+    NT, NR, NV = db.node_sel.req_vals.shape[1:]
+    PT, PR, PV = db.pref_node.req_vals.shape[1:]
+    per_pair = 2 * T * TL * 8 + NT * NR * (NV + 8) + PT * PR * (PV + 8) + db.img_ids.shape[1] * 8 + 32
+    return bound_ms(in_bytes + nbytes(*out.values()), S * N * per_pair)
+
+
+def precompute_static_bound(dc, db, has_images):
+    """K1's bound_ms as the gang precompute launches it on a batch (every
+    static plugin on)."""
+    from kubernetes_tpu_torch.ops import fastpath as ops_fp
+
+    every = frozenset({"NodeName", "NodeUnschedulable", "TaintToleration", "NodeAffinity"})
+    return static_bound(dc, db, ops_fp.static_eval(dc, db, every, has_images))
+
+
 def phase_kernels(torch, device, n_nodes=10000, reps=20):
     from kubernetes_tpu_torch.ops import fastpath as ops_fp
     from kubernetes_tpu_torch.ops import resident as ops_res
@@ -811,20 +856,7 @@ def phase_kernels(torch, device, n_nodes=10000, reps=20):
     k1_ms = time_ms(torch, lambda: ops_fp.static_eval(dc, db, enabled, True), reps)
     k1_plain_ms = time_ms(torch, lambda: ops_fp.static_eval_plain(dc, db, enabled, True), 3)
     S, N = got["mask"].shape
-    in_bytes = nbytes(dc.node_labels, dc.val_ints, dc.taint_key, dc.taint_val, dc.taint_effect,
-                      dc.unschedulable, dc.node_valid, dc.img_sizes, db.valid, db.pref_weight,
-                      db.tol_key, db.tol_op, db.tol_val, db.tol_effect, db.target_name_val,
-                      db.img_ids, db.n_containers,
-                      *(getattr(t, f) for t in (db.node_sel, db.pref_node)
-                        for f in ("req_key", "req_op", "req_vals", "req_rhs", "term_valid")))
-    out_bytes = nbytes(*got.values())
-    T, TL = dc.taint_key.shape[1], db.tol_key.shape[1]
-    NT, NR, NV = db.node_sel.req_vals.shape[1:]
-    PT, PR, PV = db.pref_node.req_vals.shape[1:]
-    # a full walk per pair: taint × toleration compares for the filter and
-    # the score, each DNF requirement's value scan, the image terms
-    per_pair = 2 * T * TL * 8 + NT * NR * (NV + 8) + PT * PR * (PV + 8) + db.img_ids.shape[1] * 8 + 32
-    k1_bound, k1_by = bound_ms(in_bytes + out_bytes, S * N * per_pair)
+    k1_bound, k1_by = static_bound(dc, db, got)
     log(phase="kernel_check", kernel="static_eval", shape=[S, N], max_abs_err=k1_err,
         ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by)
 
@@ -1176,6 +1208,9 @@ def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "
                    k6_err=max(errs[f] for f in K6_FIELDS), k7_err=max(errs[f] for f in K7_FIELDS),
                    k5_err=k5_err, **flags)
         (b6, by6), (b7, by7), (b5, by5) = gang_bounds(torch, dc, db, want, cp, np_, gang.DEFAULT_WEIGHTS)
+        # the composites' parts: K1 and K7 as the precompute launches them
+        row["static_eval_bound_ms"] = precompute_static_bound(dc, db, flags["has_images"])[0]
+        row["k6_bound_ms"], row["k7_bound_ms"] = b6, b7
         row["gang_scan"] = dict(
             ms=time_ms(torch, lambda: gang.gang_schedule(dc, db, want, v_cap, d_cap=d_cap), reps),
             plain_ms=time_ms(torch, lambda: gang.gang_schedule_plain(dc, db, want, v_cap, d_cap=d_cap), 1),
@@ -1677,7 +1712,7 @@ def phase_gang_parity(torch, device, n_nodes=500, n_pods=2000, n_placed=200, wav
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: preemption
+# Phase 7: preemption
 # ---------------------------------------------------------------------------
 
 # the failed pods' four priority groups in K10's check, and the placed pods'
@@ -1979,8 +2014,9 @@ def phase_preempt_drains(torch, device, n_small=500, n_large=5000, large_preempt
     """bench_preemption's drain (preemption_world) at its own size on cuda
     and with device="cpu": bindings, evictions and nominations identical,
     every invariant of check_evictions, no node over its allocatable; then
-    at n_large nodes with large_preemptors preemptors on cuda alone.  K10
-    must launch in each cuda drain.  Returns (small launches, large row)."""
+    at n_large nodes with large_preemptors preemptors on cuda alone.  Every
+    preemptor fails in a fast harvest, which reaches PostFilter unnarrowed
+    as in the reference: K10 must not launch.  Returns the rows by name."""
     out = {}
     for name, n, k, devices in (("bench_preemption", n_small, n_small, (device, torch.device("cpu"))),
                                 ("bench_preemption_large", n_large, large_preemptors, (device,))):
@@ -1993,8 +2029,8 @@ def phase_preempt_drains(torch, device, n_small=500, n_large=5000, large_preempt
         rec, dt, sched, launches = runs[0]
         if len(runs) > 1 and runs[1][0] != rec:
             raise AssertionError(f"{name}: the cuda drain's bindings, evictions or nominations differ from cpu's")
-        if launches["narrow_candidates"] <= 0:
-            raise AssertionError(f"{name}: K10 never launched: {launches}")
+        if launches["narrow_candidates"] != 0:
+            raise AssertionError(f"{name}: K10 narrowed a fast harvest: {launches}")
         m = sched.metrics
         row = dict(name=name, nodes=n, preemptors=k, rounds=rec["rounds"], drain_s=dt,
                    cpu_drain_s=runs[1][1] if len(runs) > 1 else None, identical_to_cpu=len(runs) > 1 or None,
@@ -2058,6 +2094,323 @@ def phase_preempt_parity(torch, device, n_nodes=500, n_placed=1500, n_pods=2000,
         identical=True, cuda_drain_s=dt, cpu_drain_s=dt_cpu, launches=launches,
         **{k: m[k] for k in ("preemption_attempts", "narrow_batches", "nominated_binds", "host_cycles",
                              "wave_batches", "chain_batches", "scan_batches", "fast_batches")})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: gang coscheduling (the workloads dispatch: K8 + K11)
+# ---------------------------------------------------------------------------
+
+
+def gang_pods(n_pods, size=8, prefix="gang"):
+    """bench.py bench_gang's workload (config10): n_pods // size PodGroups
+    of `size` with minMember `size`, every member 100m cpu / 64Mi with label
+    app=gang-{g % 32}.  Returns (pods, groups)."""
+    from kubernetes_tpu_torch.api import Container, Pod
+    from kubernetes_tpu_torch.workloads.gang import PodGroup
+
+    pods, groups = [], []
+    for g in range(n_pods // size):
+        groups.append(PodGroup(name=f"{prefix}-{g}", min_member=size))
+        pods += [Pod(name=f"g{g}-m{m}", pod_group=f"{prefix}-{g}", labels={"app": f"gang-{g % 32}"},
+                     containers=[Container(name="c", requests={"cpu": "100m", "memory": "64Mi"})])
+                 for m in range(size)]
+    return pods, groups
+
+
+def gang_rows(torch, device, n_live, p_cap, need, size=8):
+    """Gang rows laid over the first n_live pods of a batch of p_cap slots:
+    consecutive gangs of `size`, gang g needing need(g) members (more than
+    `size`: it rolls back whatever it places).  Returns the workloads
+    dispatch's gang keyword arguments (workloads/gang.py gang_arrays)."""
+    from kubernetes_tpu_torch.workloads.gang import gang_arrays
+
+    positions = {f"g{g}": list(range(g * size, min((g + 1) * size, n_live))) for g in range(-(-n_live // size))}
+    needs = {k: need(i) for i, k in enumerate(positions)}
+    gid, first, last, gneed, g_cap, _ = gang_arrays(p_cap, positions, needs)
+    rows = dict(gang_id=gid, gang_first=first, gang_last=last, gang_need=gneed)
+    return dict({k: torch.from_numpy(v).to(device) for k, v in rows.items()}, g_cap=g_cap)
+
+
+def workloads_shapes(n_config10=1000, n_config4=5000, n_mixed=5000, P=512):
+    """K11's three check shapes: (name, nodes, placed pods, pending pods,
+    gang need per gang of 8, with nominations).  config10's batch (N =
+    1,000 in 8 zones, 64 whole gangs of bench_gang's pods, C = AT = 0);
+    config4's (N = 5,000, 45,000 placed spread pods, 512 spread pods) with
+    every fourth gang needing 9 of its 8 members, so it rolls back after
+    placing them; and the mixed batch without ports (AT = 4) with every
+    third gang rolling back and 64 open nominations."""
+    c4 = basic_nodes(n_config4, zones=8)
+    return [
+        ("config10", basic_nodes(n_config10, zones=8), [], gang_pods(P)[0], lambda g: 8, False),
+        ("config4", c4, place_round_robin(spread_pods(9 * n_config4, prefix="placed"), c4),
+         spread_pods(P, prefix="new"), lambda g: 9 if g % 4 == 0 else 8, False),
+        ("mixed", *gen_cluster(5, n_mixed, n_mixed // 10, P, ports_from=P), lambda g: 9 if g % 3 == 0 else 4, True),
+    ]
+
+
+def k11_bound(torch, dc, db, g, wt, rows, chosen, n_feas, gang_admit, weights):
+    """K11's bound_ms from this run's inputs: K9's bytes for the same
+    statics and placements (k5_bytes, the wave tables, one pass over the
+    live carry rows) without the demotion stats, plus the gang rows and the
+    outputs (the choices before and after rollback, the gang verdicts).
+    Operations: K9's.  The checkpoint's copies are the kernel's design, not
+    the function's work (a rollback needs only undo the members' commits),
+    so they stay out of the bound: the third value is their bytes, each copy
+    a read and a write of ((Rn + 3 + Tsp + 2 Tip) N + P) int32s, one at each
+    gang's first member and one at each rollback."""
+    from kubernetes_tpu_torch.ops import coscheduling as cos
+
+    P, N = g.static_mask.shape
+    C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
+    valid = db.valid
+    n_live = int(dc.node_valid.sum().item())
+    p_live = int(valid.sum().item())
+    slots = int(((db.tsc_topo[:, :C] >= 0) & valid[:, None]).sum().item())
+    terms = int(((db.aff_kind[:, :AT] >= 0) & valid[:, None]).sum().item())
+    t_live = _live(wt["rep_sp_p"]) + 2 * _live(wt["rep_ip_p"])
+    b = k5_bytes(torch, dc, db, g, chosen, n_feas, weights) + nbytes(*(wt[k] for k in WAVE_TABLES[:6]))
+    b += t_live * n_live * 4 + nbytes(*(rows[k] for k in ("gang_id", "gang_first", "gang_last", "gang_need")))
+    b += 2 * P * 4 + 2 * rows["g_cap"] * 4
+    ops = n_live * (p_live * (db.requests.shape[1] * 3 + 80) + (slots + terms) * 12) + t_live * n_live * 2
+    copies = int((rows["gang_first"] & (rows["gang_id"] >= 0)).sum().item()) + int((gang_admit == 0).sum().item())
+    cells = cos.ckpt_cells(n_live, dc.allocatable.shape[1], p_live, _live(wt["rep_sp_p"]), _live(wt["rep_ip_p"]))
+    return (*bound_ms(b, ops), copies * cells * 8)
+
+
+def workloads_row(torch, name, dc, db, kw, d_cap, flags, wt, rows, reps, nom=None, composite=False):
+    """K11 against workloads_admit_plain on one packed batch and its gang
+    rows, exact on every output (the choices after and before rollback,
+    n_feas, the reason counts, the tallies, gang_admit, gang_landed), and
+    K11 with the gang rows cleared against K9 on the same statics (the same
+    recurrence without the gangs); then K11's time, the plain version's
+    (one run), K9's with the gang rows cleared (the checkpoint's cost is the
+    difference) and the bound; with `composite`, also workloads_run's bound,
+    the sum of the bounds of the kernels it launches here (K1, K6 with
+    spread, K7, K8, K11).  Statics: precompute on the card without the
+    port axis, as workloads_run runs it (K1, K6 and K7 are held against
+    their plain versions by the gang phase).  Returns the row."""
+    from kubernetes_tpu_torch.ops import coscheduling as cos
+    from kubernetes_tpu_torch.ops import gang, wave
+
+    hk = kw["hostname_key"]
+    g = gang.precompute(dc, db, **kw, **dict(flags, has_ports=False))
+    targs = [wt[k] for k in WAVE_TABLES]
+    gk = [rows[k] for k in ("gang_id", "gang_first", "gang_last", "gang_need", "g_cap")]
+    tkw = dict(d_cap=d_cap, d2_cap=wt["d2_cap"], **(nom or {}))
+    got = cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw)
+    want, plain_ms = timed_once(torch, lambda: cos.workloads_admit_plain(dc, db, g, hk, *targs, *gk, **tkw))
+    P = db.valid.shape[0]
+    cleared = [torch.full((P,), -1, dtype=torch.int32, device=dc.node_valid.device),
+               torch.zeros((P,), dtype=torch.bool, device=dc.node_valid.device),
+               torch.zeros((P,), dtype=torch.bool, device=dc.node_valid.device),
+               torch.zeros((P,), dtype=torch.int32, device=dc.node_valid.device), rows["g_cap"]]
+    free = cos.workloads_admit(dc, db, g, hk, *targs, *cleared, **tkw)
+    c0 = wave.wave_speculate(dc, db, g, d_cap=d_cap, **(nom or {}))
+    k9 = wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw)
+    torch.cuda.synchronize()
+
+    def outs(o):
+        return list(o[:4]) + [o[4][k] for k in ("requested", "nonzero", "num_pods")] + list(o[5:])
+
+    errs = dict(k11_err=max(max_abs_err(torch, a, b) for a, b in zip(outs(got), outs(want))),
+                k11_vs_k9=max(max_abs_err(torch, free[0], k9[0]), max_abs_err(torch, free[1], k9[0]),
+                              max_abs_err(torch, free[2], k9[1]), max_abs_err(torch, free[3], k9[2])))
+    if any(errs.values()):
+        raise AssertionError(f"{name}: workloads_admit differs: {errs}")
+    chosen, raw, n_feas, _, _, gang_admit, gang_landed = want
+    b11, by11, ckpt_bytes = k11_bound(torch, dc, db, g, wt, rows, raw, n_feas, gang_admit, gang.DEFAULT_WEIGHTS)
+    row = dict(shape=name, ckpt_bytes=ckpt_bytes, N=int(dc.node_valid.sum().item()), P=int(db.valid.sum().item()),
+               placed=int(dc.epod_valid.sum().item()), C=g.sp_dv.shape[1], AT=g.ip_dv.shape[1],
+               Tsp=_live(wt["rep_sp_p"]), Tip=_live(wt["rep_ip_p"]), nominations=len(nom["nom_node"]) if nom else 0,
+               gangs=int((gang_admit >= 0).sum().item()), admitted=int((gang_admit == 1).sum().item()),
+               rolled_back=int((gang_admit == 0).sum().item()),
+               rolled_back_members=int(((chosen < 0) & (raw >= 0)).sum().item()),
+               scheduled=int((chosen >= 0).sum().item()), **errs)
+    if name != "config10" and not row["rolled_back_members"]:
+        raise AssertionError(f"{name}: no gang rolled back after placing members")
+    row["workloads_admit"] = dict(
+        ms=time_ms(torch, lambda: cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw), reps),
+        plain_ms=plain_ms, bound_ms=b11, bound_by=by11, library_ms=None)
+    row["wave_admit_ms_same_statics_no_gangs"] = time_ms(torch, lambda: wave.wave_admit(dc, db, g, hk, c0, *targs,
+                                                                                        **tkw), reps)
+    if composite:  # workloads_run's bound: its kernels' bounds at this shape
+        spec_feas = torch.zeros((P,), dtype=torch.int64, device=dc.node_valid.device)
+        c0p = wave.wave_speculate_plain(dc, db, g, d_cap=d_cap, n_feas=spec_feas, **(nom or {}))
+        b8 = wave_bounds(torch, dc, db, g, wt, c0p, spec_feas, raw, n_feas, gang.DEFAULT_WEIGHTS)[0][0]
+        b6, b7, _ = gang_bounds(torch, dc, db, g, raw, n_feas, gang.DEFAULT_WEIGHTS)
+        parts = dict(static_eval=precompute_static_bound(dc, db, flags["has_images"])[0],
+                     gang_interpod_statics=b7[0], wave_speculate=b8, workloads_admit=b11)
+        if flags["has_spread"]:
+            parts["gang_spread_statics"] = b6[0]
+        row["workloads_run_bound_ms"] = sum(parts.values())
+        row["workloads_run_bound_parts"] = parts
+    log(phase="workloads_kernel_check", **row)
+    return row
+
+
+def phase_workloads_kernels(torch, device, reps=5, shapes=None):
+    """workloads_row on workloads_shapes().  Returns the rows by name."""
+    rows = {}
+    for name, nodes, placed, pending, need, nominated in (shapes or workloads_shapes()):
+        dc, db, kw, d_cap, flags, wt = wave_inputs(torch, device, nodes, placed, pending)
+        P = db.valid.shape[0]
+        gr = gang_rows(torch, device, int(db.valid.sum().item()), P, need)
+        nom = nominations(torch, dc, db, 64) if nominated else None
+        rows[name] = workloads_row(torch, name, dc, db, kw, d_cap, flags, wt, gr, reps, nom,
+                                   composite=name == "config10")
+    return rows
+
+
+def gang_drain(device, nodes, groups, pods, warm=0, **cfg):
+    """A drain of PodGroup gangs through Scheduler(): the groups registered
+    through on_pod_group_add, then the first `warm` pods drained, then the
+    rest (bench_gang's warm-up, whole gangs only).  Returns (placements,
+    outcomes by pod name, seconds of the second drain, scheduler)."""
+    from kubernetes_tpu_torch.framework.config import SchedulerConfiguration
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    sched = Scheduler(SchedulerConfiguration(**cfg), device=device)
+    bound = {}
+
+    def sink_many(pairs):
+        for pod, node in pairs:
+            bound[pod.uid] = node
+        return [None] * len(pairs)
+
+    sched.binding_sink_many = sink_many
+    for n in nodes:
+        sched.on_node_add(n)
+    for pg in groups:
+        sched.on_pod_group_add(pg)
+    out = []
+    for part in (pods[:warm], pods[warm:]):
+        for p in part:
+            sched.on_pod_add(p)
+        if device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out += sched.schedule_pending()
+        dt = time.perf_counter() - t0
+    got = {o.pod.name: o for o in out}
+    if len(got) != len(pods):
+        raise AssertionError(f"{len(got)} outcomes for {len(pods)} pods")
+    for o in out:
+        if o.node is not None and bound.get(o.pod.uid) != o.node:
+            raise AssertionError(f"pod {o.pod.name} placed on {o.node} but not bound there")
+    return {k: o.node for k, o in got.items()}, got, dt, sched
+
+
+WORKLOAD_METRICS = ("workload_batches", "workload_spec_admitted", "gang_admitted", "gang_rolled_back")
+
+
+def phase_config10(torch, device, n_nodes=1000, n_pods=20000):
+    """bench.py bench_gang (config10) at full size on the card: 1,000 nodes
+    in 8 zones, 20,000 pods in 2,500 PodGroups of 8 (minMember 8), the
+    default batch of 512, a warm-up of 576 pods (whole gangs) drained
+    first.  Every pod placed, gang_admitted 20,000 and no rollback, every
+    gang whole, K11 launched once per workloads batch (>= 39 of them), K8
+    launched, no node over its allocatable.  Returns the launches."""
+    from kubernetes_tpu_torch.ops import _build
+
+    pods, groups = gang_pods(n_pods)
+    warm = min(512 + 64, len(pods) - 64)
+    warm -= warm % 8
+    _build.reset_launches()
+    got, _, dt, sched = gang_drain(device, basic_nodes(n_nodes, zones=8), groups, pods, warm=warm)
+    launches = dict(_build.launches)
+    check_capacity(sched)
+    m = sched.metrics
+    gangs = {}
+    for p in pods:
+        gangs.setdefault(p.pod_group, set()).add(got[p.name] is not None)
+    bad = [m["gang_admitted"] != n_pods, m["gang_rolled_back"] != 0, any(v is None for v in got.values()),
+           any(s != {True} for s in gangs.values()), launches["workloads_admit"] != m["workload_batches"],
+           m["workload_batches"] < 39, launches["wave_speculate"] <= 0]
+    if any(bad):
+        raise AssertionError(f"config10: {bad}: {launches} {({k: m[k] for k in WORKLOAD_METRICS})}")
+    timed = len(pods) - warm
+    log(phase="config10_drain", nodes=n_nodes, pods=n_pods, gangs=len(groups), warm_pods=warm, drain_s=dt,
+        pods_per_s=timed / dt, placed=n_pods, launches=launches, **{k: m[k] for k in WORKLOAD_METRICS},
+        fast_batches=m["fast_batches"], scan_batches=m["scan_batches"], wave_batches=m["wave_batches"],
+        whole_gangs=len(gangs), capacity_ok=True)
+    return launches
+
+
+def contended_gang_world(n_nodes=500, n_gangs=200, n_plain=400, seed=29):
+    """The contended gang parity workload: n_nodes nodes of 4 cpu / 16Gi in
+    4 zones; n_gangs seeded gangs of 4-12 members with minMember between
+    half and all of them and member requests of 300m-1500m cpu (weighted
+    to the top); a third of the gangs spread over the zones among their own
+    members (maxSkew 1, DoNotSchedule), a third with hostname anti-affinity
+    among their members; n_plain plain pods of 1-2.5 cpu, two after each
+    gang.  Total cpu demand about 125 % of the cluster's.  Returns (nodes,
+    groups, pending)."""
+    from kubernetes_tpu_torch.api import (
+        Affinity, Container, LabelSelector, Node, Pod, PodAffinityTerm, PodAntiAffinity, Resource,
+        TopologySpreadConstraint,
+    )
+    from kubernetes_tpu_torch.workloads.gang import PodGroup
+
+    rng = random.Random(seed)
+    nodes = [Node(name=f"node-{i}", labels={ZONE: f"zone-{i % 4}", HOSTNAME: f"node-{i}"},
+                  capacity=Resource.from_map({"cpu": "4", "memory": "16Gi", "pods": 110})) for i in range(n_nodes)]
+    groups, pending = [], []
+    plain = iter(Pod(name=f"plain-{i}", labels={"app": "plain"},
+                     containers=[Container(name="c", requests={"cpu": f"{rng.choice([1000, 1500, 2000, 2500])}m",
+                                                               "memory": "256Mi"})]) for i in range(n_plain))
+    for g in range(n_gangs):
+        size = rng.randint(4, 12)
+        name = f"cg-{g}"
+        groups.append(PodGroup(name=name, min_member=rng.randint((size + 1) // 2, size)))
+        sel = LabelSelector(match_labels={"gang": name})
+        kw = {}
+        if g % 3 == 0:
+            kw["topology_spread_constraints"] = (TopologySpreadConstraint(
+                max_skew=1, topology_key=ZONE, when_unsatisfiable="DoNotSchedule", label_selector=sel),)
+        elif g % 3 == 1:
+            kw["affinity"] = Affinity(pod_anti_affinity=PodAntiAffinity(
+                required_during_scheduling_ignored_during_execution=(
+                    PodAffinityTerm(topology_key=HOSTNAME, label_selector=sel),)))
+        for m in range(size):
+            cpu = rng.choice([300, 600, 900, 1200, 1500, 1500, 1500, 1500])
+            pending.append(Pod(name=f"{name}-{m}", labels={"gang": name}, pod_group=name,
+                               containers=[Container(name="c", requests={"cpu": f"{cpu}m", "memory": "256Mi"})],
+                               **kw))
+        pending += [next(plain, None), next(plain, None)]
+    return nodes, groups, [p for p in pending if p is not None]
+
+
+def phase_gang_parity_contended(torch, device, **world):
+    """contended_gang_world drained once on the card and once with
+    device="cpu" (the plain versions): placements, FitErrors and gang
+    messages, diagnoses, gang_admitted, gang_rolled_back and
+    workload_spec_admitted identical; some gangs rolled back; K8 and K11
+    launched on the card; no node over its allocatable.  The card's machine
+    has no JAX, so this is the workloads route's end-to-end check there."""
+    from kubernetes_tpu_torch.ops import _build
+
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        nodes, groups, pending = contended_gang_world(**world)
+        _build.reset_launches()
+        got, outs, dt, sched = gang_drain(dev, nodes, groups, pending)
+        check_capacity(sched)
+        runs.append(({k: (o.node, o.reason, o.diagnosis) for k, o in outs.items()},
+                     {k: sched.metrics[k] for k in WORKLOAD_METRICS}, dt, dict(_build.launches), sched))
+    (want, wm, dt, launches, sched), (cpu, cm, dt_cpu, _, _) = runs
+    diff = [k for k in want if want[k] != cpu.get(k)]
+    if diff or wm != cm:
+        raise AssertionError(f"contended gang parity: {len(diff)} outcomes differ (first {diff[:1]}), "
+                             f"metrics {wm} vs {cm}")
+    if not wm["gang_rolled_back"] or launches["workloads_admit"] <= 0 or launches["wave_speculate"] <= 0:
+        raise AssertionError(f"contended gang parity: no rollback, or K8/K11 never launched: {wm} {launches}")
+    placed = sum(v[0] is not None for v in want.values())
+    log(phase="gang_parity_contended", nodes=len(nodes), pods=len(want), placed=placed, unschedulable=len(want) - placed,
+        identical=True, cuda_drain_s=dt, cpu_drain_s=dt_cpu, launches=launches, **wm,
+        wave_batches=sched.metrics["wave_batches"], scan_batches=sched.metrics["scan_batches"])
     return launches
 
 
@@ -2162,8 +2515,26 @@ def main() -> int:
     # bench_preemption's drain on cuda and on the CPU, and at 5k nodes; the
     # gang-path drain with priorities on cuda and on the CPU
     checks["narrow_candidates"] = phase_preempt_kernels(torch, device)
-    preempt = phase_preempt_drains(torch, device)
-    phase_preempt_parity(torch, device)
+    phase_preempt_drains(torch, device)
+    preempt_l = phase_preempt_parity(torch, device)
+
+    # gang coscheduling: K11 against its plain version (and, gangs cleared,
+    # against K9) at config10's, config4's and the mixed shape; bench_gang's
+    # drain (config10) at full size; the contended gang drain on cuda and on
+    # the CPU
+    wl_rows = phase_workloads_kernels(torch, device)
+    # the composite roots' bounds: the sums of their kernels' bounds at
+    # config4's shape (the appends of chain_dispatch are copies, not counted)
+    # and, for workloads_run, config10's
+    g4, w4 = gang["config4"], wave["config4"]
+    pre4 = g4["static_eval_bound_ms"] + g4["k6_bound_ms"] + g4["k7_bound_ms"]
+    scan4 = pre4 + g4["gang_scan"]["bound_ms"]
+    wave4 = pre4 + w4["wave_speculate"]["bound_ms"] + w4["wave_admit"]["bound_ms"]
+    log(phase="composite_bounds", gang_run=scan4, wave_run=wave4, chain_dispatch_scan=scan4,
+        chain_dispatch_wave=wave4, workloads_run=wl_rows["config10"]["workloads_run_bound_ms"],
+        workloads_run_parts=wl_rows["config10"]["workloads_run_bound_parts"])
+    config10_l = phase_config10(torch, device)
+    phase_gang_parity_contended(torch, device)
     # each kernel's error: the largest over the shapes of this run
     for kernel, err in (("gang_scan", "k5_err"), ("gang_spread_statics", "k6_err"),
                         ("gang_interpod_statics", "k7_err")):
@@ -2171,6 +2542,8 @@ def main() -> int:
                               **gang["config3" if kernel == "gang_interpod_statics" else "config4"][kernel])
     for kernel, err in (("wave_speculate", "k8_err"), ("wave_admit", "k9_err")):
         checks[kernel] = dict(max_abs_err=max(row[err] for row in wave.values()), **wave["config4"][kernel])
+    checks["workloads_admit"] = dict(max_abs_err=max(r["k11_err"] for r in wl_rows.values()),
+                                     **wl_rows["config10"]["workloads_admit"])
     sources = {
         "static_eval": ("kubernetes_tpu_torch/csrc/static_eval.cu", "kubernetes_tpu/ops/fastpath.py:50",
                         "config0_default", default),
@@ -2188,16 +2561,21 @@ def main() -> int:
                       spread_l),
         "wave_speculate": ("kubernetes_tpu_torch/csrc/wave.cu", "kubernetes_tpu/ops/wave.py:666", "config4_wave",
                            wave4_l),
+        "workloads_admit": ("kubernetes_tpu_torch/csrc/workloads.cu", "kubernetes_tpu/ops/coscheduling.py:140",
+                            "config10", config10_l),
         "wave_admit": ("kubernetes_tpu_torch/csrc/wave.cu", "kubernetes_tpu/ops/wave.py:666", "config4_wave",
                        wave4_l),
         "narrow_candidates": ("kubernetes_tpu_torch/csrc/preemption.cu", "kubernetes_tpu/ops/preemption.py:63",
-                              "bench_preemption", preempt["bench_preemption"]["launches"]),
+                              "preempt_parity", preempt_l),
     }
     kernels = []
     for name, (src, replaces, path, launches) in sources.items():
         keep = {k: v for k, v in checks[name].items() if k != "library_call"}
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces, path=path,
                             launches=launches[name], check="equal", **keep))
+        if name == "wave_speculate":  # K8 is also the workloads dispatch's speculation
+            kernels[-1]["also"] = dict(replaces="kubernetes_tpu/ops/coscheduling.py:287", path="config10",
+                                       launches=config10_l[name])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

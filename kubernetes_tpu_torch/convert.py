@@ -71,3 +71,15 @@ def wave_tables_from_numpy(wt, device) -> dict:
     """A reference wave_tables dict (arrays and static ints) → the port's:
     arrays become tensors, dtype for dtype; the ints and flags stay."""
     return {k: torch.as_tensor(np.array(v), device=device) if np.ndim(v) else v for k, v in wt.items()}
+
+
+def gang_arrays_from_numpy(gang_arrays, device) -> dict:
+    """The reference's workloads/gang.py ``gang_arrays`` output (gang_id,
+    gang_first, gang_last, gang_need, g_cap, slot_keys) → the workloads
+    dispatch's keyword arguments: the four [P] rows as tensors, dtype for
+    dtype, and g_cap as it is."""
+    gid, first, last, need, g_cap = gang_arrays[:5]
+    rows = dict(gang_id=gid, gang_first=first, gang_last=last, gang_need=need)
+    out = {k: torch.as_tensor(np.array(v), device=device) for k, v in rows.items()}
+    out["g_cap"] = int(g_cap)
+    return out

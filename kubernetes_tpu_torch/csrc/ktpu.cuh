@@ -583,6 +583,22 @@ struct WaveArgs {
   int Tsp, Tip, Tpt, W, Dsp, D2, hostname_key, has_ports, sums_smem, carry_smem;
 };
 
+// The gang admission's rows and outputs (csrc/workloads.cu): K11 takes a
+// GangScanArgs (whose `chosen` receives each step's choice before any
+// rollback, the `raw` output), a WaveArgs without ports and this block.
+struct WorkloadsArgs {
+  const int* gang_id;               // [P]      gang slot per pod (-1: none)
+  const unsigned char* gang_first;  // [P]      the gang's first member
+  const unsigned char* gang_last;   // [P]      the gang's last member
+  const int* gang_need;             // [P]      members the gang must place
+  int* assigned;                    // [P]      out: the choices after rollback
+  int* gang_admit;                  // [g_cap]  out: -1 unjudged, 0 rolled back, 1 admitted
+  int* gang_landed;                 // [g_cap]  out: members placed in the batch
+  int* ckpt;                        // the checkpoint: requested [N, Rn], nonzero [N, 2],
+                                    // num_pods [N], assigned [P], carries [(Tsp + 2 Tip) N]
+  int g_cap;
+};
+
 namespace ktpu {
 namespace step {
 
@@ -1027,4 +1043,390 @@ __device__ __forceinline__ void write_step(const GangScanArgs& a, int p, const S
 }
 
 }  // namespace step
+}  // namespace ktpu
+
+namespace ktpu {
+namespace wave {
+
+// ---------------------------------------------------------------------------
+// The speculative wave's admission recurrence over term-factored carries,
+// shared by K9 (wave_admit, csrc/wave.cu) and K11 (workloads_admit,
+// csrc/workloads.cu), as the reference shares ops/wave.py's factored_*
+// algebra between wave_schedule and workloads_schedule: the carries and
+// the per-pod region, the peers' counts a step reads from them (WaveDyn),
+// the per-pod sums (pod_tables) and the commit (commit_carries).
+// ---------------------------------------------------------------------------
+
+using step::dom_at;
+
+// The regions.  Per pod (sums): g1 [C, Dsp], g2 [C, Dsp], seen [C, Dsp],
+// gf [AT, D2], the admitting-term list [Tip] and the conflicting-port-term
+// list [Tpt], then two list lengths and the any_dyn flag.  Carries:
+// cnt_sp [Tsp, N], cnt_ip [Tip, N], rev_cnt [Tip, N], occ_pt [Tpt, N].
+__host__ __device__ inline long long sums_cells(const GangScanArgs& a, const WaveArgs& w) {
+  return 3LL * a.C * w.Dsp + (long long)a.AT * w.D2 + w.Tip + w.Tpt + 3;
+}
+
+__host__ __device__ inline long long carry_cells(const GangScanArgs& a, const WaveArgs& w) {
+  return ((long long)w.Tsp + 2LL * w.Tip + w.Tpt) * a.N;
+}
+
+struct Region {
+  int *g1, *g2, *seen, *gf, *rev, *conf, *n_rev, *n_conf, *any_dyn;
+  int *cnt_sp, *cnt_ip, *rev_cnt, *occ_pt;
+};
+
+// The admitted batch peers' counts for pod p's step, from the carries and
+// the per-pod sums.
+struct WaveDyn {
+  const GangScanArgs& a;
+  const WaveArgs& w;
+  Region r;
+  int p;
+  __device__ int f(int c, long long pc, int n, int d) const {
+    const int t = w.tid_sp[pc];
+    if (t < 0 || d < 0) return 0;
+    if (a.sp_is_host[pc]) return a.sp_te[pc * a.N + n] ? r.cnt_sp[(long long)t * a.N + n] : 0;
+    return r.g1[(long long)c * w.Dsp + d];
+  }
+  __device__ int sc(int c, long long pc, int n, int d, bool host) const {
+    const int t = w.tid_sp[pc];
+    if (t < 0) return 0;
+    if (host) return r.cnt_sp[(long long)t * a.N + n];
+    return d >= 0 ? r.g2[(long long)c * w.Dsp + d] : 0;
+  }
+  __device__ int ip(int u, long long pu, int n, int d) const {
+    const int t = w.tid_ip[pu];
+    if (t < 0 || d < 0) return 0;
+    if (a.ip_key[pu] == w.hostname_key) return r.cnt_ip[(long long)t * a.N + n];
+    return r.gf[(long long)u * w.D2 + d];
+  }
+  __device__ bool viol(int n) const {
+    for (int i = 0; i < *r.n_rev; ++i) {
+      const int t = r.rev[i];
+      const long long ru = (long long)w.rep_ip_p[t] * a.AT + w.rep_ip_u[t];
+      if (a.ip_is_anti[ru] && r.rev_cnt[(long long)t * a.N + n] > 0) return true;
+    }
+    return false;
+  }
+  __device__ long long sym(int n) const {
+    long long s = 0;
+    for (int i = 0; i < *r.n_rev; ++i) {
+      const int t = r.rev[i];
+      const long long ru = (long long)w.rep_ip_p[t] * a.AT + w.rep_ip_u[t];
+      s += a.ip_sym_w[ru] * (long long)r.rev_cnt[(long long)t * a.N + n];
+    }
+    return s;
+  }
+  __device__ bool portb(int n) const {
+    for (int i = 0; i < *r.n_conf; ++i)
+      if (r.occ_pt[(long long)r.conf[i] * a.N + n] > 0) return false;
+    return true;
+  }
+};
+
+// Pod p's per-domain sums, admitting terms and conflicting port terms.
+__device__ inline void pod_tables(const GangScanArgs& a, const WaveArgs& w, const Region& r, int p) {
+  const int tid = threadIdx.x;
+  const int C = a.C, AT = a.AT, N = a.N, P = a.P;
+  for (long long i = tid; i < 2LL * C * w.Dsp; i += blockDim.x) r.g1[i] = 0;  // g1 and g2
+  for (long long i = tid; i < (long long)AT * w.D2; i += blockDim.x) r.gf[i] = 0;
+  if (tid == 0) {
+    *r.n_rev = 0;
+    *r.n_conf = 0;
+    *r.any_dyn = 0;
+  }
+  __syncthreads();
+  // the distinct inter-pod terms whose selector admits p (m_ip_all[:, p])
+  for (int t = tid; t < w.Tip; t += blockDim.x) {
+    const int rp = w.rep_ip_p[t];
+    if (rp >= 0 && a.ip_bmatch[((long long)rp * AT + w.rep_ip_u[t]) * P + p]) r.rev[atomicAdd(r.n_rev, 1)] = t;
+  }
+  // the port terms p's own ports conflict with
+  if (w.has_ports) {
+    for (int t = tid; t < w.Tpt; t += blockDim.x) {
+      bool conf = false;
+      for (int k = 0; k < w.W && !conf; ++k) {
+        const int tk = w.tid_pt[(long long)p * w.W + k];
+        conf = tk >= 0 && w.port_conf[(long long)tk * w.Tpt + t];
+      }
+      if (conf) r.conf[atomicAdd(r.n_conf, 1)] = t;
+    }
+  }
+  // the slots' carry rows per domain
+  for (int c = 0; c < C; ++c) {
+    const long long pc = (long long)p * C + c;
+    const int t = w.tid_sp[pc];
+    if (t < 0 || a.sp_is_host[pc]) continue;
+    const int key = a.sp_key[pc];
+    for (int n = tid; n < N; n += blockDim.x) {
+      const int v = r.cnt_sp[(long long)t * N + n];
+      if (!v) continue;
+      const int d = dom_at(a, key, n);
+      if (d < 0) continue;
+      if (a.sp_te[pc * N + n]) atomicAdd(r.g1 + (long long)c * w.Dsp + d, v);
+      if (a.sp_counting[pc * N + n]) atomicAdd(r.g2 + (long long)c * w.Dsp + d, v);
+    }
+  }
+  for (int u = 0; u < AT; ++u) {
+    const long long pu = (long long)p * AT + u;
+    const int t = w.tid_ip[pu];
+    if (t < 0) continue;
+    const int key = a.ip_key[pu];
+    const bool host = key == w.hostname_key;
+    const bool aff = a.ip_is_aff[pu];
+    for (int n = tid; n < N; n += blockDim.x) {
+      const int v = r.cnt_ip[(long long)t * N + n];
+      if (!v) continue;
+      if (aff) *r.any_dyn = 1;
+      if (host) continue;
+      const int d = dom_at(a, key, n);
+      if (d >= 0) atomicAdd(r.gf + (long long)u * w.D2 + d, v);
+    }
+  }
+  __syncthreads();
+}
+
+// Commit pod p's placement at `choice` into the carries.
+__device__ inline void commit_carries(const GangScanArgs& a, const WaveArgs& w, const Region& r, int p, int choice) {
+  const int tid = threadIdx.x;
+  const int C = a.C, AT = a.AT, N = a.N, P = a.P;
+  // one node column per term that p matches (distinct t: no two threads
+  // touch one cell)
+  for (int t = tid; t < w.Tsp; t += blockDim.x) {
+    const int rp = w.rep_sp_p[t];
+    if (rp >= 0 && C && a.sp_bmatch[((long long)rp * C + w.rep_sp_c[t]) * P + p])
+      r.cnt_sp[(long long)t * N + choice] += 1;
+  }
+  for (int t = tid; t < w.Tip; t += blockDim.x) {
+    const int rp = w.rep_ip_p[t];
+    if (rp >= 0 && AT && a.ip_bmatch[((long long)rp * AT + w.rep_ip_u[t]) * P + p])
+      r.cnt_ip[(long long)t * N + choice] += 1;
+  }
+  if (w.has_ports && tid == 0)
+    for (int k = 0; k < w.W; ++k) {
+      const int t = w.tid_pt[(long long)p * w.W + k];
+      if (t >= 0) r.occ_pt[(long long)t * N + choice] += 1;
+    }
+  // p's own terms over their topology domains (one thread per node)
+  for (int n = tid; n < N; n += blockDim.x)
+    for (int u = 0; u < AT; ++u) {
+      const long long pu = (long long)p * AT + u;
+      const int t = w.tid_ip[pu];
+      if (t < 0 || a.ip_key_idx[pu] < 0) continue;
+      const int key = a.ip_key[pu];
+      const int at_dom = dom_at(a, key, choice);
+      if (at_dom < 0) continue;
+      const bool in = key == w.hostname_key ? n == choice : dom_at(a, key, n) == at_dom;
+      if (in) r.rev_cnt[(long long)t * N + n] += 1;
+    }
+}
+
+// The carries' and the per-pod region's layout over `sums` and `carries`
+// (shared or global memory, as the kernel placed them).
+__device__ inline Region make_region(const GangScanArgs& a, const WaveArgs& w, int* sums, int* carries) {
+  Region r;
+  r.g1 = sums;
+  r.g2 = r.g1 + (long long)a.C * w.Dsp;
+  r.seen = r.g2 + (long long)a.C * w.Dsp;
+  r.gf = r.seen + (long long)a.C * w.Dsp;
+  r.rev = r.gf + (long long)a.AT * w.D2;
+  r.conf = r.rev + w.Tip;
+  r.n_rev = r.conf + w.Tpt;
+  r.n_conf = r.n_rev + 1;
+  r.any_dyn = r.n_conf + 1;
+  r.cnt_sp = carries;
+  r.cnt_ip = r.cnt_sp + (long long)w.Tsp * a.N;
+  r.rev_cnt = r.cnt_ip + (long long)w.Tip * a.N;
+  r.occ_pt = r.rev_cnt + (long long)w.Tip * a.N;
+  return r;
+}
+
+// The dynamic shared memory of an admission kernel (K9, K11): s_wfx [C]
+// (int64), s_min [C], s_ndom [C], then the per-pod region when sums_smem
+// and the carries when carry_smem.
+inline size_t admit_smem(const GangScanArgs& a, const WaveArgs& w) {
+  size_t bytes = (size_t)a.C * (sizeof(long long) + 2 * sizeof(int));
+  if (w.sums_smem) bytes += (size_t)sums_cells(a, w) * sizeof(int);
+  if (w.carry_smem) bytes += (size_t)carry_cells(a, w) * sizeof(int);
+  return bytes;
+}
+
+// ---------------------------------------------------------------------------
+// The admission kernel, one persistent block of ADMIT_THREADS that loops
+// over the pods.  admit_kernel<false> is K9 (wave.cu: the demotion stats
+// against the speculative node c0); admit_kernel<true> is K11
+// (workloads.cu: the gang checkpoint and rollback, no demotion stats).
+// Each source instantiates its own mode, so the two never share a symbol.
+// ---------------------------------------------------------------------------
+
+constexpr int ADMIT_THREADS = 1024;
+
+enum Demote { DEMOTE_NONE = 0, DEMOTE_SPREAD = 1, DEMOTE_AFFINITY = 2, DEMOTE_SCORE = 3, DEMOTE_FIT = 4,
+              DEMOTE_UPGRADE = 5, DEMOTE_PORTS = 6 };
+
+// K11: block-wide copy of the carried state into the checkpoint (save) or
+// back out of it.  The carries cnt_sp, cnt_ip and rev_cnt are contiguous
+// from r.cnt_sp (make_region), and occ_pt is empty (no ports).
+__device__ inline void checkpoint(const GangScanArgs& a, const WaveArgs& w, const WorkloadsArgs& k, const Region& r,
+                                  bool save) {
+  int* const seg[5] = {a.requested, a.nonzero, a.num_pods, k.assigned, r.cnt_sp};
+  const long long len[5] = {(long long)a.N * a.Rn, 2LL * a.N, (long long)a.N, (long long)a.P,
+                            ((long long)w.Tsp + 2LL * w.Tip) * a.N};
+  long long off = 0;
+  for (int s = 0; s < 5; ++s) {
+    int* const st = seg[s];
+    int* const ck = k.ckpt + off;
+    for (long long i = threadIdx.x; i < len[s]; i += blockDim.x) {
+      if (save) ck[i] = st[i];
+      else st[i] = ck[i];
+    }
+    off += len[s];
+  }
+}
+
+template <bool kGangs>
+__global__ void __launch_bounds__(ADMIT_THREADS)
+    admit_kernel(const GangScanArgs a, const WaveArgs w, const WorkloadsArgs k) {
+  using namespace step;
+  // dynamic: s_wfx [C] (int64), s_min [C], s_ndom [C], then the per-pod
+  // region when sums_smem and the carries when carry_smem
+  extern __shared__ long long s_dyn[];
+  __shared__ long long s_buf[32 * 16];
+  __shared__ long long s_best_v[32];
+  __shared__ int s_best_i[32];
+  __shared__ int s_at[6];
+  const int tid = threadIdx.x;
+  const int C = a.C;
+  const StepShared sh{s_buf, s_dyn, reinterpret_cast<int*>(s_dyn + C), reinterpret_cast<int*>(s_dyn + C) + C,
+                      s_best_v, s_best_i, s_at};
+  int* next = sh.s_ndom + C;
+  int* sums = w.sums;
+  if (w.sums_smem) {
+    sums = next;
+    next += sums_cells(a, w);
+  }
+  int* carries = w.carries;
+  if (w.carry_smem) {
+    carries = next;
+    for (long long i = tid; i < carry_cells(a, w); i += blockDim.x) carries[i] = 0;
+  }
+  if (w.sums_smem)  // the domain stamps start at 0 (global ones: the wrapper)
+    for (long long i = tid; i < (long long)C * w.Dsp; i += blockDim.x) sums[2LL * C * w.Dsp + i] = 0;
+  const Region r = make_region(a, w, sums, carries);
+  const StepScratch sc{a.feas, a.ip_raw, a.sp_raw, a.sp_cnt, r.seen, w.Dsp};
+  if constexpr (kGangs) {
+    // the first gang member that saves and the first that may restore: the
+    // checkpoint starts as the initial state (the reference's carry), which
+    // only a gang whose last member comes before any first member reads;
+    // plan_batch never lays one out, so the copy is normally skipped
+    __shared__ int s_order[2];
+    if (tid == 0) s_order[0] = s_order[1] = a.P;
+    for (int i = tid; i < a.P; i += blockDim.x) k.assigned[i] = ABSENT;
+    for (int i = tid; i < k.g_cap; i += blockDim.x) {
+      k.gang_admit[i] = -1;
+      k.gang_landed[i] = 0;
+    }
+    __syncthreads();
+    for (int i = tid; i < a.P; i += blockDim.x)
+      if (k.gang_id[i] >= 0) {
+        if (k.gang_first[i]) atomicMin(&s_order[0], i);
+        if (k.gang_last[i]) atomicMin(&s_order[1], i);
+      }
+    __syncthreads();
+    if (s_order[1] < s_order[0]) checkpoint(a, w, k, r, true);
+  }
+  __syncthreads();
+
+  int landed = 0;  // K11: the same in every thread, each reads the step's choice
+  for (int p = 0; p < a.P; ++p) {
+    int gid = -1;
+    bool is_first = false;
+    if constexpr (kGangs) {
+      gid = k.gang_id[p];
+      is_first = gid >= 0 && k.gang_first[p];
+      if (is_first) {  // the state before the first member's own step
+        checkpoint(a, w, k, r, true);
+        __syncthreads();
+      }
+    }
+    int choice = ABSENT;
+    if (!a.valid[p]) {  // a pad row: nothing feasible, nothing committed
+      if (tid == 0) {
+        write_step(a, p, StepOut{ABSENT, 0, {0, 0, 0, 0, 0, 0, 0, 0, 0}});
+        if constexpr (!kGangs) {
+          w.kinds[p] = DEMOTE_NONE;
+          w.cterms[p] = -1;
+        }
+      }
+    } else {
+      pod_tables(a, w, r, p);
+      const int spec = kGangs ? -1 : w.c0[p];
+      const StepOut out = pod_step_block(a, p, WaveDyn{a, w, r, p}, *r.any_dyn != 0, sc, sh, spec);
+      choice = out.choice;
+      if (choice >= 0) commit_carries(a, w, r, p, choice);
+      if (tid == 0) {
+        if constexpr (kGangs) {
+          k.assigned[p] = choice;
+        } else {  // the demotion, from the pre-commit verdict at the speculative node
+          int kind = DEMOTE_NONE, cterm = -1;
+          if (choice != spec) {
+            if (spec < 0) kind = DEMOTE_UPGRADE;
+            else if (!s_at[0]) kind = DEMOTE_PORTS;
+            else if (!s_at[1]) kind = DEMOTE_SPREAD;
+            else if (!s_at[2]) kind = DEMOTE_AFFINITY;
+            else if (a.check_fit && !s_at[3]) kind = DEMOTE_FIT;
+            else kind = DEMOTE_SCORE;
+            cterm = kind == DEMOTE_SPREAD ? s_at[4] : (kind == DEMOTE_AFFINITY ? s_at[5] : -1);
+          }
+          w.kinds[p] = kind;
+          w.cterms[p] = cterm;
+        }
+        write_step(a, p, out);
+        commit_usage(a, p, choice);
+      }
+    }
+    bool fail = false;
+    if constexpr (kGangs) {
+      landed = (is_first ? 0 : landed) + (gid >= 0 && choice >= 0 ? 1 : 0);
+      const bool is_last = gid >= 0 && k.gang_last[p];
+      fail = is_last && landed < k.gang_need[p];
+      if (is_last && tid == 0 && gid < k.g_cap) {
+        k.gang_admit[gid] = fail ? 0 : 1;
+        k.gang_landed[gid] = landed;
+      }
+    }
+    __syncthreads();  // the commits are visible to every thread of the block
+    if (fail) {  // K11: the gang rolls back whole
+      checkpoint(a, w, k, r, false);
+      __syncthreads();
+    }
+  }
+}
+
+// The dynamic shared memory one admission block may take on this device:
+// the opt-in per-block limit less the kernel's static shared memory.
+template <bool kGangs>
+int admit_smem_max() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess) return 0;
+  cudaFuncAttributes fa;
+  if (cudaFuncGetAttributes(&fa, admit_kernel<kGangs>) != cudaSuccess) return 0;
+  return optin - (int)fa.sharedSizeBytes;
+}
+
+// Enqueues the admission kernel on `stream` and returns the launch status
+// (cudaGetLastError).
+template <bool kGangs>
+int admit_launch(const GangScanArgs& a, const WaveArgs& w, const WorkloadsArgs& k, void* stream) {
+  if (!kGangs && a.P == 0) return 0;
+  const size_t smem = admit_smem(a, w);
+  cudaError_t e = cudaFuncSetAttribute(admit_kernel<kGangs>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  admit_kernel<kGangs><<<1, ADMIT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a, w, k);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wave
 }  // namespace ktpu

@@ -8,7 +8,9 @@ batches extend up to ``resident_run_max`` pods and are placed by
 with their own cross-pod constraints (spread, inter-pod terms, host ports)
 take the speculative wave (``wave_run`` / ``chain_dispatch(wave=True)``,
 kernels K8 and K9); ``wave_dispatch=False`` sends them to the gang scan
-(K5), with the same placements.  A profile's ``post_filter`` (on by
+(K5), with the same placements.  ``gang_dispatch`` defaults to True as
+there: PodGroup members are admitted all or nothing by ``workloads_run``
+(kernels K8 and K11).  A profile's ``post_filter`` (on by
 default, DefaultPreemption) preempts lower-priority pods for pods that fail
 to schedule.
 """
@@ -85,6 +87,10 @@ class SchedulerConfiguration:
     # take the speculative wave (K8 + K9); off = every such batch takes the
     # gang scan (K5), counted in wave_fallback_kill_switch
     wave_dispatch: bool = True
+    # the gangDispatch switch: batches with members of registered PodGroups
+    # take the workloads dispatch (K8 + K11, all-or-nothing gang admission);
+    # off = gang members schedule one by one like any pod
+    gang_dispatch: bool = True
 
     def validate(self) -> None:
         if self.batch_size < 1 or self.fast_batch_max < self.batch_size:

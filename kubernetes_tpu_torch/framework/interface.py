@@ -107,6 +107,7 @@ class EventResource(str, enum.Enum):
     ASSIGNED_POD = "AssignedPod"
     UNSCHEDULED_POD = "UnscheduledPod"
     NODE = "Node"
+    POD_GROUP = "PodGroup"
     WILDCARD = "*"
 
 

@@ -6,7 +6,9 @@ From the JAX package's framework/plugins.py, the parts the port runs:
     the evaluator.  It reads the K10 shortlist the scheduler's batched
     narrow wrote into the CycleState under ("preemption_potential", uid);
     an empty shortlist proves preemption cannot help.
-  * ``QUEUEING_HINTS``: each device-backed plugin's EventsToRegister, the
+  * ``QUEUEING_HINTS``: each device-backed plugin's EventsToRegister and
+    the Coscheduling gate's PodGroup events (the reference registers them
+    beside its profiles' hints), the
     event filter of the scheduling queue (an event requeues an
     unschedulable pod only when a plugin that rejected it registered a
     matching event whose hint says QUEUE).
@@ -75,6 +77,10 @@ QUEUEING_HINTS: Dict[str, List[ClusterEventWithHint]] = {
     ],
     # victim deletion is what unblocks a nominated preemptor
     "DefaultPreemption": [_assigned_pod_event(ActionType.DELETE)],
+    # a gang's rejections (waiting for members, rolled back, timed out)
+    # requeue on PodGroup events; the scheduler fires a synthetic UPDATE
+    # when a pending member arrives
+    "Coscheduling": [ClusterEventWithHint(ClusterEvent(EventResource.POD_GROUP, ActionType.ADD | ActionType.UPDATE))],
 }
 
 

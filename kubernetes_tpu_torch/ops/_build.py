@@ -35,6 +35,7 @@ SOURCES = (
     "gang_statics.cu",
     "gang_scan.cu",
     "wave.cu",
+    "workloads.cu",
     "preemption.cu",
     "runtime.cu",
 )
@@ -57,6 +58,7 @@ launches: Dict[str, int] = {
     "gang_scan": 0,
     "wave_speculate": 0,
     "wave_admit": 0,
+    "workloads_admit": 0,
     "narrow_candidates": 0,
 }
 
@@ -215,6 +217,14 @@ class WaveArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
+class WorkloadsArgs(ctypes.Structure):
+    """Mirror of csrc/ktpu.cuh WorkloadsArgs (pointers, then ints)."""
+
+    _PTRS = "gang_id gang_first gang_last gang_need assigned gang_admit gang_landed ckpt".split()
+    _INTS = "g_cap".split()
+    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
+
+
 class PreemptArgs(ctypes.Structure):
     """Mirror of csrc/ktpu.cuh PreemptArgs (pointers, then ints)."""
 
@@ -263,9 +273,12 @@ def load() -> ctypes.CDLL:
     for fn in ("ktpu_wave_speculate", "ktpu_wave_admit"):
         getattr(lib, fn).argtypes = [ctypes.POINTER(GangScanArgs), ctypes.POINTER(WaveArgs), vp]
         getattr(lib, fn).restype = ctypes.c_int
+    lib.ktpu_workloads_admit.argtypes = [ctypes.POINTER(GangScanArgs), ctypes.POINTER(WaveArgs),
+                                         ctypes.POINTER(WorkloadsArgs), vp]
+    lib.ktpu_workloads_admit.restype = ctypes.c_int
     lib.ktpu_preempt_narrow.argtypes = [ctypes.POINTER(StaticEvalArgs), ctypes.POINTER(PreemptArgs), vp]
     lib.ktpu_preempt_narrow.restype = ctypes.c_int
-    for fn in ("ktpu_gang_scan_smem_max", "ktpu_wave_admit_smem_max"):
+    for fn in ("ktpu_gang_scan_smem_max", "ktpu_wave_admit_smem_max", "ktpu_workloads_admit_smem_max"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
     lib.ktpu_error_string.argtypes = [ctypes.c_int]

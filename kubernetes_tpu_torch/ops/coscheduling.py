@@ -1,0 +1,259 @@
+"""Gang admission: the workloads dispatch for batches that carry PodGroups.
+
+Port of the JAX package's ops/coscheduling.py (its jit roots
+``workloads_run`` and ``workloads_schedule``) for batches without DRA claims
+and without volumes.  One dispatch schedules a batch in the wave's two
+passes (ops/wave.py):
+
+  1. **speculation**: every pod against the frozen snapshot, exactly the
+     wave's first pass (kernel K8, ``wave.wave_speculate``);
+  2. **admission**: the serial recurrence ``choice_i = F_i(S + sum_{j<i}
+     delta(choice_j))`` over the term-factored carries, as the wave's
+     second pass, with all-or-nothing gangs.  The planner
+     (workloads/gang.py ``plan_batch``) lays each gang's members out
+     contiguously; at a gang's first member the pass snapshots its whole
+     carried state (the usage rows, the assignment row and the factored
+     counts) and, at the gang's last member, admits the gang only when the
+     members placed in this batch cover its remaining minMember need.
+     Otherwise the snapshot is restored whole: later pods see a state in
+     which the gang never happened, and the members read -1 in ``chosen``
+     while ``raw`` keeps the choices the pass made for them.
+
+The verdict is gang.pod_step, the same step as the scan and the wave, and
+the factored carries are the wave's.  The admission pass has a plain
+PyTorch version (``workloads_admit_plain``, the reference's formulas, one
+pod at a time), which the wrapper takes for CPU tensors; for CUDA tensors it
+launches the hand-written kernel (csrc/workloads.cu) or raises:
+
+  K11 workloads_admit   the admission pass with the gang checkpoint, one
+                        persistent block
+
+Not ported: DRA claims (``dra.selector_match`` / ``node_feasible`` /
+``dra_commit``, ROADMAP A8's DRA half) and bound-volume topology
+(``volume_topology_mask``, ROADMAP A6); passing their arguments raises
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from kubernetes_tpu_torch.ops import _build
+from kubernetes_tpu_torch.ops import gang
+from kubernetes_tpu_torch.ops import wave
+from kubernetes_tpu_torch.ops.gang import N_DIAG
+from kubernetes_tpu_torch.snapshot.interner import ABSENT
+
+I32 = torch.int32
+I64 = torch.int64
+BOOL = torch.bool
+
+# the workloads arguments of the reference that belong to unported tiers
+_UNPORTED = {
+    "dev_key": "A8", "dev_val": "A8", "dev_valid": "A8", "free0": "A8", "sel_key": "A8", "sel_op": "A8",
+    "sel_vals": "A8", "req_count": "A8", "req_all": "A8", "req_cl": "A8", "req_bad": "A8", "q_valid": "A8",
+    "ref_cl": "A8", "claim_node0": "A8", "vol_table": "A6", "vol_valid": "A6", "vol_bad": "A6",
+}
+
+
+def _refuse_unported(kw) -> None:
+    """Raise for any DRA or volume argument that is set."""
+    for k, v in kw.items():
+        if k not in _UNPORTED:
+            raise TypeError(f"unexpected argument {k!r}")
+        if v is not None:
+            item = _UNPORTED[k]
+            what = "DRA claims (ROADMAP A8, DRA half)" if item == "A8" else "volumes (ROADMAP A6)"
+            raise NotImplementedError(f"workloads dispatch: {k} belongs to {what}, which the port has not ported")
+
+
+# the carried state snapshotted at a gang's first member (with the
+# assignment row)
+_CK_USAGE = ("requested", "nonzero", "num_pods")
+_CK_CARRIES = ("cnt_sp", "cnt_ip", "rev_cnt")
+
+
+def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
+                          ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, g_cap: int,
+                          weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, d2_cap=8, nom_node=None,
+                          nom_prio=None, nom_req=None):
+    """Plain version of K11: the admission recurrence of the reference's
+    workloads_schedule (ops/coscheduling.py:297-432) without DRA, one pod at
+    a time.  Returns (chosen i32 [P] after rollback, raw i32 [P] before it,
+    n_feas i64 [P], reason_counts i64 [P, N_DIAG], tallies, gang_admit i32
+    [g_cap] (-1 unjudged, 0 rolled back, 1 admitted), gang_landed i32
+    [g_cap])."""
+    P, N = g.static_mask.shape
+    nom = gang.nominations_onehot(nom_node, nom_prio, nom_req, N)
+    C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
+    dev = g.static_mask.device
+    true_n = torch.ones((N,), dtype=BOOL, device=dev)
+    m_sp_all, m_ip_all, t_anti, t_w = wave.term_match_rows(g, rep_sp_p, rep_sp_c, rep_ip_p, rep_ip_u)
+    state = wave._base_state(dc)  # pod_step commits the usage rows in place
+    assigned = torch.full((P,), ABSENT, dtype=I32, device=dev)
+    carries = wave.factored_carry_init(rep_sp_p.shape[0], rep_ip_p.shape[0], N, 0, dev)
+
+    def snapshot():
+        return {k: v.clone() for k, v in (*state.items(), ("assigned", assigned), *carries.items())}
+
+    ck = snapshot()  # the checkpoint starts as the initial state, as the reference's carry
+    raw = torch.full((P,), ABSENT, dtype=I32, device=dev)
+    n_feas = torch.zeros((P,), dtype=I64, device=dev)
+    reason_counts = torch.zeros((P, N_DIAG), dtype=I64, device=dev)
+    gang_admit = torch.full((g_cap,), -1, dtype=I32, device=dev)
+    gang_landed = torch.zeros((g_cap,), dtype=I32, device=dev)
+    landed = 0
+    gid_all, first_all, last_all, need_all = (t.tolist() for t in (gang_id, gang_first, gang_last, gang_need))
+    for p in range(P):
+        in_gang = gid_all[p] >= 0
+        is_first = bool(first_all[p]) and in_gang
+        if is_first:
+            ck = snapshot()
+        sdyn = wave.factored_spread_dyn(g, p, tid_sp, carries["cnt_sp"], d_cap) if C else wave._zero_sdyn(C, N, dev)
+        idyn, ip_aux = wave._zero_idyn(AT, N, dev), None
+        if AT:
+            idyn, ip_aux = wave.factored_interpod_dyn(g, db, p, tid_ip, ip_cdv_tab, d2_cap, hostname_key,
+                                                      carries["cnt_ip"], carries["rev_cnt"], m_ip_all, t_anti, t_w)
+        hv, _, _ = wave._build_hv(db, g, p, sdyn, idyn, true_n)
+        choice, nf, rc = gang.pod_step(dc, db, g, p, state, hv, check_fit=check_fit, weights=weights, d_cap=d_cap,
+                                       nom=nom)
+        assigned[p] = choice
+        carries = wave.factored_carry_update(carries, p, choice, m_sp_all, m_ip_all, ip_aux)
+        raw[p] = choice
+        n_feas[p] = nf
+        reason_counts[p] = rc
+        c = int(choice)
+        landed = (0 if is_first else landed) + int(c >= 0 and in_gang)
+        if bool(last_all[p]) and in_gang:
+            fail = landed < need_all[p]
+            if fail:
+                for k in _CK_USAGE:
+                    state[k] = ck[k].clone()
+                assigned = ck["assigned"].clone()
+                carries = {k: ck[k].clone() for k in _CK_CARRIES}
+            if gid_all[p] < g_cap:
+                gang_admit[gid_all[p]] = 0 if fail else 1
+                gang_landed[gid_all[p]] = landed
+    tallies = {k: state[k] for k in _CK_USAGE}
+    return assigned, raw, n_feas, reason_counts, tallies, gang_admit, gang_landed
+
+
+def workloads_admit(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
+                    gang_id, gang_first, gang_last, gang_need, g_cap: int, weights=gang.DEFAULT_WEIGHTS,
+                    check_fit=True, d_cap=8, d2_cap=8, nom_node=None, nom_prio=None, nom_req=None):
+    """The admission pass: K11 on CUDA tensors, its plain version on CPU."""
+    args = (dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab, gang_id,
+            gang_first, gang_last, gang_need, g_cap, weights, check_fit, d_cap, d2_cap)
+    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
+    if dc.node_valid.device.type == "cpu":
+        return workloads_admit_plain(*args, **nom)
+    return _workloads_admit_cuda(*args, **nom)
+
+
+def _schedule(admit, speculate, dc, db, g, hostname_key, g_cap, tables, gang_arrays, weights, check_fit, d_cap,
+              d2_cap, nom, unported):
+    _refuse_unported(unported)
+    c0 = speculate(dc, db, g, weights, check_fit, d_cap, **nom)
+    chosen, raw, n_feas, rc, tallies, gang_admit, gang_landed = admit(
+        dc, db, g, hostname_key, *tables, *gang_arrays, g_cap, weights, check_fit, d_cap, d2_cap, **nom)
+    wl = {"spec": c0, "raw": raw, "gang_admit": gang_admit, "gang_landed": gang_landed}
+    return chosen, n_feas, rc, tallies, wl
+
+
+def workloads_schedule_plain(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
+                             rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need,
+                             weights=gang.DEFAULT_WEIGHTS, check_fit=True, nom_node=None, nom_prio=None,
+                             nom_req=None, d_cap=8, d2_cap=8, **unported):
+    """Plain version of workloads_schedule: K8's then K11's plain loop."""
+    return _schedule(workloads_admit_plain, wave.wave_speculate_plain, dc, db, g, hostname_key, g_cap,
+                     (tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab),
+                     (gang_id, gang_first, gang_last, gang_need), weights, check_fit, d_cap, d2_cap,
+                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req), unported)
+
+
+def workloads_schedule(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
+                       rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, weights=gang.DEFAULT_WEIGHTS,
+                       check_fit=True, nom_node=None, nom_prio=None, nom_req=None, d_cap=8, d2_cap=8, **unported):
+    """One workloads dispatch: the speculation (K8), then the gang admission
+    (K11).  The cluster's usage rows are read, not written.  ``gang_*`` are
+    workloads/gang.py ``gang_arrays``' [P] rows (as tensors) and ``g_cap``
+    its slot count; ``nom_*`` the open nominations (ops/gang.py), charged
+    in both passes.
+
+    Returns (chosen i32 [P] after rollback (-1 for failed and rolled-back
+    pods), n_feas i64 [P], reason_counts i64 [P, N_DIAG], tallies, wl): wl
+    holds spec i32 [P] (the speculative choices), raw i32 [P] (the
+    admission's choices before rollback), gang_admit i32 [g_cap] (-1
+    unjudged, 0 rolled back, 1 admitted) and gang_landed i32 [g_cap] (the
+    members placed in this batch)."""
+    return _schedule(workloads_admit, wave.wave_speculate, dc, db, g, hostname_key, g_cap,
+                     (tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab),
+                     (gang_id, gang_first, gang_last, gang_need), weights, check_fit, d_cap, d2_cap,
+                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req), unported)
+
+
+def workloads_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
+                  rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, hard_pod_affinity_weight: int = 1,
+                  has_interpod: bool = True, has_spread: bool = True, has_images: bool = True,
+                  enabled: frozenset = gang.ALL_FILTER_KERNELS, weights: tuple = gang.DEFAULT_WEIGHTS,
+                  nom_node=None, nom_prio=None, nom_req=None, sp_keys=None, sp_cdv_tab=None, ip_keys=None,
+                  d_cap: int = 8, d2_cap: int = 8, **unported):
+    """precompute + workloads_schedule for one batch: K1 + K6 + K7 for the
+    statics, K8, K11.  The workloads gate admits no pod with host ports, so
+    the port axis is left out (precompute with has_ports=False)."""
+    _refuse_unported(unported)
+    g = gang.precompute(dc, db, hostname_key, v_cap, hard_pod_affinity_weight, has_interpod=has_interpod,
+                        has_spread=has_spread, has_ports=False, has_images=has_images, enabled=enabled,
+                        sp_keys=sp_keys, sp_cdv_tab=sp_cdv_tab, ip_keys=ip_keys)
+    return workloads_schedule(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
+                              rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, weights=weights,
+                              check_fit="NodeResourcesFit" in enabled, nom_node=nom_node, nom_prio=nom_prio,
+                              nom_req=nom_req, d_cap=d_cap, d2_cap=d2_cap)
+
+
+# ---------------------------------------------------------------------------
+# CUDA: K11
+# ---------------------------------------------------------------------------
+
+
+def ckpt_cells(N: int, Rn: int, P: int, Tsp: int, Tip: int) -> int:
+    """int32 cells of K11's checkpoint: requested [N, Rn], nonzero [N, 2],
+    num_pods [N], assigned [P] and the carries [(Tsp + 2 Tip), N]."""
+    return N * Rn + 2 * N + N + P + (Tsp + 2 * Tip) * N
+
+
+def _workloads_admit_cuda(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
+                          ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, g_cap, weights, check_fit, d_cap,
+                          d2_cap, nom_node=None, nom_prio=None, nom_req=None):
+    """K11 launch: K9's argument blocks with no port carry, plus the gang
+    rows, the assignment row, the outputs and the global checkpoint."""
+    dev = dc.node_valid.device
+    lib = _build.load()
+    P, N = g.static_mask.shape
+    Rn = dc.allocatable.shape[1]
+    unused = torch.empty((P,), dtype=I32, device=dev)  # K9's c0 / kinds / cterms: not read or written
+    nom = gang.nominations_csr(nom_node, nom_prio, nom_req, N, dev)
+    a, w, state, outs = wave.admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
+                                        rep_ip_u, weights, check_fit, False, None, None, nom, unused, unused, unused,
+                                        lib.ktpu_workloads_admit_smem_max())
+    raw, n_feas, reason_counts = outs  # K11 writes each step's choice through GangScanArgs.chosen
+    assigned = torch.empty((P,), dtype=I32, device=dev)
+    gang_admit = torch.empty((g_cap,), dtype=I32, device=dev)
+    gang_landed = torch.empty((g_cap,), dtype=I32, device=dev)
+    ckpt = torch.empty((ckpt_cells(N, Rn, P, w.Tsp, w.Tip),), dtype=I32, device=dev)
+    k = _build.WorkloadsArgs()
+    gang._set_ptrs(k, dev, [
+        ("gang_id", gang_id.to(I32).contiguous(), I32, (P,)),
+        ("gang_first", gang_first.to(BOOL).contiguous(), BOOL, (P,)),
+        ("gang_last", gang_last.to(BOOL).contiguous(), BOOL, (P,)),
+        ("gang_need", gang_need.to(I32).contiguous(), I32, (P,)),
+        ("assigned", assigned, I32, (P,)), ("gang_admit", gang_admit, I32, (g_cap,)),
+        ("gang_landed", gang_landed, I32, (g_cap,)), ("ckpt", ckpt, I32, None),
+    ])
+    k.g_cap = int(g_cap)
+    rc = lib.ktpu_workloads_admit(ctypes.byref(a), ctypes.byref(w), ctypes.byref(k), _build.stream_handle(dev))
+    _build.check_launch(lib, rc, "workloads_admit")
+    _build.launches["workloads_admit"] += 1
+    return assigned, raw, n_feas, reason_counts, state, gang_admit, gang_landed

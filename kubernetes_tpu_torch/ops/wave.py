@@ -720,14 +720,17 @@ def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=
     return c0
 
 
-def _wave_admit_cuda(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
-                     ip_cdv_tab, weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf, nom_node=None,
-                     nom_prio=None, nom_req=None):
-    """K9 launch: the admission recurrence in one persistent block.  The
-    domain sums use DeviceCluster.dom_ids, which numbers a key's domains as
-    ip_cdv_tab does, so the table itself is not read."""
+def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, weights, check_fit,
+               has_ports, tid_pt, port_conf, nom, c0, kinds, cterms, smem_max: int):
+    """The argument blocks of a kernel that runs K9's admission recurrence
+    (K9, and K11 in ops/coscheduling.py): (GangScanArgs, WaveArgs, usage
+    state, (chosen, n_feas, reason_counts)).  The usage state starts as
+    copies of the cluster's rows.  The domain sums use DeviceCluster.dom_ids,
+    which numbers a key's domains as ip_cdv_tab does, so the table itself is
+    not read.  ``smem_max`` is the kernel's dynamic shared memory limit: the
+    per-pod sums and then the carries go to shared memory where they fit,
+    else to global scratch rows."""
     dev = dc.node_valid.device
-    lib = _build.load()
     g = gang.GangStatics(*(t.contiguous() for t in g))
     P, N = g.static_mask.shape
     C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
@@ -744,16 +747,13 @@ def _wave_admit_cuda(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, ti
              "num_pods": dc.num_pods.clone()}
     outs = (torch.empty((P,), dtype=I32, device=dev), torch.empty((P,), dtype=I64, device=dev),
             torch.empty((P, N_DIAG), dtype=I64, device=dev))
-    kinds = torch.empty((P,), dtype=I32, device=dev)
-    cterms = torch.empty((P,), dtype=I32, device=dev)
     scratch = dict(cnt=_zeros(dev, 1), cnt_h=_zeros(dev, 1), port_stamp=_zeros(dev, 1),
                    feas=_zeros(dev, N, BOOL), ip_raw=_zeros(dev, N, I64), sp_raw=_zeros(dev, N, I64),
                    sp_cnt=_zeros(dev, C * N))
-    nom = gang.nominations_csr(nom_node, nom_prio, nom_req, N, dev)
     a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom)
     sums_cells = 3 * C * Dsp + AT * D2 + Tip + Tpt + 3
     carry_cells = (Tsp + 2 * Tip + Tpt) * N
-    smem_max = min(lib.ktpu_wave_admit_smem_max(), ADMIT_SMEM_CAP) - 16 * C
+    smem_max = min(smem_max, ADMIT_SMEM_CAP) - 16 * C
     sums_smem = 4 * sums_cells <= smem_max
     carry_smem = sums_smem and 4 * (sums_cells + carry_cells) <= smem_max
     sums = _zeros(dev, 1 if sums_smem else sums_cells)
@@ -768,11 +768,27 @@ def _wave_admit_cuda(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, ti
         ("sums", sums, I32, None), ("carries", carries, I32, None),
     ])
     if (C and tid_sp.shape[1] != C) or (AT and tid_ip.shape[1] != AT):
-        raise ValueError("wave_admit: the term tables' slot axes differ from the statics'")
+        raise ValueError("admission: the term tables' slot axes differ from the statics'")
     w.Tsp, w.Tip, w.Tpt, w.W, w.Dsp, w.D2 = Tsp, Tip, Tpt, W, Dsp, D2
     w.hostname_key = int(hostname_key)
     w.has_ports = int(bool(has_ports))
     w.sums_smem, w.carry_smem = int(sums_smem), int(carry_smem)
+    return a, w, state, outs
+
+
+def _wave_admit_cuda(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
+                     ip_cdv_tab, weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf, nom_node=None,
+                     nom_prio=None, nom_req=None):
+    """K9 launch: the admission recurrence in one persistent block."""
+    dev = dc.node_valid.device
+    lib = _build.load()
+    P = g.static_mask.shape[0]
+    kinds = torch.empty((P,), dtype=I32, device=dev)
+    cterms = torch.empty((P,), dtype=I32, device=dev)
+    nom = gang.nominations_csr(nom_node, nom_prio, nom_req, g.static_mask.shape[1], dev)
+    a, w, state, outs = admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
+                                   weights, check_fit, has_ports, tid_pt, port_conf, nom, c0, kinds, cterms,
+                                   lib.ktpu_wave_admit_smem_max())
     rc = lib.ktpu_wave_admit(ctypes.byref(a), ctypes.byref(w), _build.stream_handle(dev))
     _build.check_launch(lib, rc, "wave_admit")
     _build.launches["wave_admit"] += 1

@@ -18,7 +18,8 @@ Popped pods stay in flight until their attempt concludes (``done`` or
 fails, so a victim deleted during its preemptor's own attempt still
 requeues the preemptor (active_queue.go:74-126).  ``pop_batch`` returns up
 to k pods in queue order and ``pop_batch_while`` extends a batch from the
-queue head while a predicate holds.
+queue head while a predicate holds; ``pop_siblings`` pulls a gang's other
+active members out of the heap (the reference's :384).
 """
 
 from __future__ import annotations
@@ -175,6 +176,23 @@ class SchedulingQueue:
             if not predicate(qp):
                 break
             heapq.heappop(self._active)
+            self._take(qp)
+            out.append(qp)
+        return out
+
+    def pop_siblings(self, match: Callable[[QueuedPodInfo], bool]) -> List[QueuedPodInfo]:
+        """Pop every ACTIVE pod that ``match`` accepts, wherever it sits in
+        the heap: the gang sibling-pull, so a gang split across popped
+        batches is judged in one dispatch.  Pods in backoff or parked as
+        unschedulable stay where they are.  The matched pods come out in
+        queue order; every other entry keeps its place (stale heap entries
+        are dropped lazily, as pop_batch drops them)."""
+        picked = [e for e in self._active if self._entry_live(e[2], e[1], "active") and match(e[2])]
+        picked.sort(key=lambda e: (e[0], e[1]))
+        out: List[QueuedPodInfo] = []
+        for _, eid, qp in picked:
+            if not self._entry_live(qp, eid, "active"):
+                continue
             self._take(qp)
             out.append(qp)
         return out

@@ -1,5 +1,5 @@
-"""The port's Scheduler: the signature fast path, the speculative wave and
-the gang scan, synchronously.
+"""The port's Scheduler: the signature fast path, the speculative wave, the
+gang scan and the workloads dispatch for PodGroup gangs, synchronously.
 
 Routes each batch the way the JAX package's scheduler.py does:
 
@@ -14,9 +14,15 @@ Routes each batch the way the JAX package's scheduler.py does:
    sized batches extend from the queue head and are placed by K4
    (resident_run) or, with ``residentDrain: false``, K2 (sig_scan), small
    ones on the host FastCommitter; K3 checks the usage checksum;
-3. the DIRECT dispatch (``wave_run`` or ``gang_run``): everything else, on
-   the snapshot the device mirror keeps current (K1 + K6 + K7 for the
-   statics).
+3. the DIRECT dispatch: everything else, on the snapshot the device mirror
+   keeps current (K1 + K6 + K7 for the statics).  A batch with members of
+   registered PodGroups takes the WORKLOADS dispatch first under the
+   default ``gangDispatch: true`` (``_try_dispatch_workloads``: the quorum
+   and timeout barrier, plan_batch's canonical order, one
+   ``workloads_run``, K8 speculating and K11 admitting each gang all or
+   nothing); the rest takes ``wave_run`` or ``gang_run``.  Gang members,
+   registered or not, stay off the chained and the fast routes, and a
+   popped batch pulls in the active siblings of its gangs.
 
 On the chained and the direct route, a batch whose pods carry their own
 cross-pod constraints (spread, inter-pod terms, host ports) takes the
@@ -37,13 +43,15 @@ The device work itself is synchronous (ROADMAP A3).  Gang commits
 invalidate the fast lineage and the mirror's usage rows; fast batches end
 the chain.
 
-Preemption (the default profile's PostFilter, DefaultPreemption): a
-harvest's failed pods are first narrowed by kernel K10
-(``_batched_preemption_narrow``), then each failure in queue order runs the
+Preemption (the default profile's PostFilter, DefaultPreemption): a gang
+or wave harvest's failed pods are first narrowed by kernel K10
+(``_batched_preemption_narrow``), as in the reference (fast and workloads
+harvests are not: the dry run sizes its candidate window from the
+potential-node list), then each failure in queue order runs the
 evaluator's dry run on the host (framework/preemption.py).  Its victims are
 evicted through ``pod_deleter`` and the pod is nominated; while the
 nomination is open every gang-path batch charges it to its node for pods of
-lower or equal priority (K5, K8 and K9), pods of such priority stay off the
+lower or equal priority (K5, K8, K9 and K11), pods of such priority stay off the
 fast path, and the preemptor itself, back from its backoff, takes the
 nominated-node path (``_schedule_one_nominated``).
 
@@ -73,6 +81,7 @@ from kubernetes_tpu_torch.framework.config import Profile, SchedulerConfiguratio
 from kubernetes_tpu_torch.framework.interface import ActionType, ClusterEvent, CycleState, EventResource
 from kubernetes_tpu_torch.framework.plugins import QUEUEING_HINTS, DefaultPreemption
 from kubernetes_tpu_torch.ops import chain as ops_chain
+from kubernetes_tpu_torch.ops import coscheduling as ops_cos
 from kubernetes_tpu_torch.ops import fastpath as ops_fp
 from kubernetes_tpu_torch.ops import gang as ops_gang
 from kubernetes_tpu_torch.ops import preemption as ops_preemption
@@ -91,8 +100,8 @@ from kubernetes_tpu_torch.snapshot.schema import (
     bucket_cap,
     pack_pod_batch,
 )
+from kubernetes_tpu_torch.workloads import gang as wlg
 
-GROUP_LABEL = "pod-group.scheduling.sigs.k8s.io/name"
 INT32_MIN = -(2**31)
 # placed term pods beyond this make the fast gate's probes cost more than
 # the scan they would save (the reference's cut-off)
@@ -265,7 +274,13 @@ class Scheduler:
             "narrow_batches": 0,  # harvests whose failures K10 narrowed
             "nominated_binds": 0,  # preemptors bound on the nominated-node path
             "host_cycles": 0,  # one-pod host scheduling cycles
+            "workload_batches": 0,  # workloads_run dispatches
+            "workload_spec_admitted": 0,  # placed pods whose admitted node is the speculative one
+            "gang_admitted": 0,  # members placed by admitted gangs
+            "gang_rolled_back": 0,  # gangs rolled back whole
         }
+        # PodGroups and the members placed per gang
+        self.gangs = wlg.GangDirectory(clock)
         # the packed host snapshot (nodes, placed pods, their terms) and its
         # device-resident image
         self.mirror = SnapshotMirror(self.vocab)
@@ -303,6 +318,7 @@ class Scheduler:
 
     def on_pod_add(self, pod: Pod) -> None:
         if pod.node_name:
+            self.gangs.note_placed(pod)
             if pod.uid in self.cache.pod_states:
                 self._invalidate_view()
             else:
@@ -312,13 +328,21 @@ class Scheduler:
             self.queue.move_all_on_event(ClusterEvent(EventResource.ASSIGNED_POD, ActionType.ADD), None, pod)
         elif pod.scheduler_name in self.profiles:
             self.queue.add(pod)
+            # a new member can complete a waiting gang's quorum: its
+            # siblings leave the unschedulable pods on the group's event
+            key = wlg.group_key_of(pod)
+            pg = self.gangs.get(key) if key is not None else None
+            if pg is not None:
+                self.queue.move_all_on_event(ClusterEvent(EventResource.POD_GROUP, ActionType.UPDATE), pg, pg)
 
     def on_pod_delete(self, pod: Pod) -> None:
         """Informer delete (and the usual ``pod_deleter`` of an eviction): a
         placed pod leaves the cache, the host view, the mirror's usage and
         placed-pod tensors at the next sync, and the chain (its epoch moves);
         pods its rejecting plugins registered for requeue.  A pending pod
-        leaves the queue.  Either way its nomination ends."""
+        leaves the queue.  Either way its nomination ends and, for a gang
+        member, its gang's count of placed members forgets it."""
+        self.gangs.note_removed(pod)
         if pod.node_name:
             self._external_mutations += 1
             old = self.cache.pod_states.get(pod.uid)
@@ -328,6 +352,21 @@ class Scheduler:
         else:
             self.queue.delete(pod)
         self.nominator.delete(pod)
+
+    def on_pod_group_add(self, pg: wlg.PodGroup) -> None:
+        """PodGroup informer add: the group registers, and pods its gate
+        rejected requeue on the event (the Coscheduling hint)."""
+        self.gangs.upsert(pg)
+        self.queue.move_all_on_event(ClusterEvent(EventResource.POD_GROUP, ActionType.ADD), None, pg)
+
+    def on_pod_group_update(self, old: wlg.PodGroup, new: wlg.PodGroup) -> None:
+        self.gangs.upsert(new)
+        self.queue.move_all_on_event(ClusterEvent(EventResource.POD_GROUP, ActionType.UPDATE), old, new)
+
+    def on_pod_group_delete(self, pg: wlg.PodGroup) -> None:
+        """The group unregisters: its members schedule as ordinary pods."""
+        self.gangs.delete(pg.key)
+        self.queue.move_all_on_event(ClusterEvent(EventResource.POD_GROUP, ActionType.DELETE), pg, None)
 
     # ----- the host view -----------------------------------------------------
 
@@ -391,6 +430,9 @@ class Scheduler:
         try:
             while True:
                 batch = self.queue.pop_batch(self.config.batch_size)
+                if batch and self.config.gang_dispatch:
+                    # a gang split across popped batches is judged in one
+                    batch.extend(self._pull_gang_siblings(batch))
                 if not batch:
                     break
                 groups: Dict[str, List[QueuedPodInfo]] = {}
@@ -445,10 +487,8 @@ class Scheduler:
 
     def _refusal(self, pod: Pod) -> Optional[str]:
         """Why a pod is outside the ported paths (None when it is inside)."""
-        if pod.pod_group or pod.labels.get(GROUP_LABEL):
-            return "gang members take the workloads tier (ROADMAP A8)"
         if pod.resource_claims:
-            return "DRA claims take the workloads tier (ROADMAP A8)"
+            return "DRA claims need the workloads tier's allocator, ROADMAP A8 (DRA half)"
         if pod.volumes:
             return "volumes need the host Filter plugins (ROADMAP A6)"
         if pod.scheduling_gates:
@@ -473,7 +513,11 @@ class Scheduler:
         committer does not charge them: a batch with such a pod takes the
         gang path.  A placed pod's terms poison only the newcomers its
         selectors could admit, checked per label group against the cache's
-        term-pod registry."""
+        term-pod registry.  Gang members need the workloads dispatch's
+        all-or-nothing admission (the committer has no rollback), whether
+        their group is registered or not, as in the reference."""
+        if self.config.gang_dispatch and any(wlg.group_key_of(qp.pod) is not None for qp in batch):
+            return False
         max_nom = self._max_nomination()
         if max_nom is not None and any(qp.pod.priority <= max_nom for qp in batch):
             return False
@@ -544,11 +588,14 @@ class Scheduler:
             probes = self._term_probes() if self.cache.n_term_pods else ()
             group_hit: Dict[tuple, bool] = {}
             max_nom = self._max_nomination()
+            gang_on = self.config.gang_dispatch
 
             def known(qp: QueuedPodInfo) -> bool:
                 p = qp.pod
                 if p.scheduler_name != profile.scheduler_name or self._refusal(p) is not None:
                     return False
+                if gang_on and wlg.group_key_of(p) is not None:
+                    return False  # gang members need the workloads dispatch
                 if p.nominated_node_name or (max_nom is not None and p.priority <= max_nom):
                     return False
                 if probes and self._admitted(p, probes, group_hit):
@@ -907,8 +954,11 @@ class Scheduler:
     def _chain_quickcheck(self, batch) -> bool:
         """Spec-only gate of the chained path: the mirror is packed, no pod
         wants host ports (the append does not splice port rows) or carries a
-        nomination, and the batch is not a fast-path candidate."""
+        nomination, no pod is a gang member (those take the direct path's
+        workloads dispatch), and the batch is not a fast-path candidate."""
         if self.mirror.nodes is None:
+            return False
+        if self.config.gang_dispatch and any(wlg.group_key_of(qp.pod) is not None for qp in batch):
             return False
         if any(qp.pod.host_ports() for qp in batch):
             return False
@@ -1133,13 +1183,28 @@ class Scheduler:
         self._dc_cache.invalidate()
         return {"dc": dc, "e": self.mirror.e_used, "m": self.mirror.m_used, "epoch": epoch}
 
-    def _schedule_batch(self, profile: Profile, batch) -> List[ScheduleOutcome]:
-        """The direct path (schedule_one.go:65 granularity where it must):
+    def _schedule_batch(self, profile: Profile, batch, try_workloads: bool = True) -> List[ScheduleOutcome]:
+        """The direct path (schedule_one.go:65 granularity where it must): a
+        batch with members of registered PodGroups takes the workloads
+        dispatch first (a mixed batch that the workloads gate refuses is
+        peeled: its members alone take it, the rest the paths below);
         nominated pods take the nominated-node path one by one, the runs of
         other pods between them are scheduled as batches; a batch the fast
         gate admits takes the signature fast path (no extension), the rest
         ``wave_run`` or ``gang_run``."""
         self._chain = None  # direct commits happen outside any chain
+        if try_workloads and self.config.gang_dispatch:
+            out = self._try_dispatch_workloads(profile, batch)
+            if out is not None:
+                return out
+            # one disqualifying pod (a nomination, host ports) must not drop
+            # the quorum semantics of the members beside it
+            members = [qp for qp in batch if self._workloads_group_of(qp.pod) is not None]
+            if members and len(members) < len(batch):
+                out = self._try_dispatch_workloads(profile, members)
+                if out is not None:
+                    rest = [qp for qp in batch if self._workloads_group_of(qp.pod) is None]
+                    return out + self._schedule_batch(profile, rest)
         if len(batch) > 1 and any(qp.pod.nominated_node_name for qp in batch):
             outcomes: List[ScheduleOutcome] = []
             run: List[QueuedPodInfo] = []
@@ -1229,24 +1294,193 @@ class Scheduler:
             out[i] = self._assume(batch[i], names[chosen[i]])
         return out
 
+    # ----- the workloads dispatch: PodGroup gangs ---------------------------
+
+    def _workloads_group_of(self, pod: Pod) -> Optional[str]:
+        """A pod's gang key, or None when it names no REGISTERED PodGroup
+        (such a pod schedules as an ordinary pod)."""
+        key = wlg.group_key_of(pod)
+        if key is None or self.gangs.get(key) is None:
+            return None
+        return key
+
+    def _pull_gang_siblings(self, batch) -> List[QueuedPodInfo]:
+        """The gang sibling-pull: when a popped batch holds members of gangs
+        whose quorum it cannot cover, pop those gangs' other ACTIVE members
+        into it (in queue order).  Members backing off or parked stay where
+        they are, so a gang that cannot be covered still meets the waiting
+        and timeout barrier."""
+        present: Dict[str, int] = {}
+        for qp in batch:
+            key = self._workloads_group_of(qp.pod)
+            if key is not None:
+                present[key] = present.get(key, 0) + 1
+        wanted = set()
+        for key, n in present.items():
+            if n + self.gangs.bound_count(key) < self.gangs.get(key).min_member:
+                wanted.add(key)
+        if not wanted:
+            return []
+        return self.queue.pop_siblings(lambda qp: self._workloads_group_of(qp.pod) in wanted)
+
+    def _workloads_eligible(self, batch) -> bool:
+        """The workloads gate on the pods' specs: gangDispatch is on, some pod
+        is a member of a registered PodGroup, and no pod carries a
+        nomination or wants host ports (the dispatch has no port carry)."""
+        if not self.config.gang_dispatch:
+            return False
+        if not any(self._workloads_group_of(qp.pod) is not None for qp in batch):
+            return False
+        return not any(qp.pod.nominated_node_name or qp.pod.host_ports() for qp in batch)
+
+    def _try_dispatch_workloads(self, profile: Profile, batch) -> Optional[List[ScheduleOutcome]]:
+        """The workloads dispatch (the reference's _try_dispatch_workloads,
+        without DRA and volumes): the quorum and timeout barrier, the
+        canonical order (plan_batch), one ``workloads_run`` (K1 + K6 + K7,
+        K8, K11) and the result walk.  None when the batch is not eligible
+        or two nodes share a hostname (the factored hostname domains need
+        one node per hostname): the caller schedules it on the other paths,
+        member by member, with nothing committed or failed."""
+        if not self._workloads_eligible(batch):
+            return None
+        for qp in batch:
+            for k, v in qp.pod.labels.items():
+                self.vocab.intern_label(k, v)
+        self._sync_mirror_external()
+        if not self.mirror.hostnames_unique:
+            return None
+        outcomes: List[ScheduleOutcome] = []
+
+        # 1. the gang barrier: quorum and timeout verdicts before dispatch
+        keys = [self._workloads_group_of(qp.pod) for qp in batch]
+        present: Dict[str, int] = {}
+        for key in keys:
+            if key is not None:
+                present[key] = present.get(key, 0) + 1
+        needs: Dict[str, int] = {}
+        rejected: Dict[str, str] = {}
+        for key, n_present in present.items():
+            pg = self.gangs.get(key)
+            bound = self.gangs.bound_count(key)
+            if self.gangs.timed_out(key):
+                rejected[key] = f'pod group "{key}" scheduling timed out after {pg.schedule_timeout_s:.0f}s'
+                self.gangs.close_window(key)
+            elif n_present + bound < pg.min_member:
+                rejected[key] = (f'pod group "{key}" has {n_present + bound}/{pg.min_member} members; '
+                                 "waiting for the rest")
+                self.gangs.note_attempt(key)
+            else:
+                needs[key] = max(0, pg.min_member - bound)
+                self.gangs.note_attempt(key)
+        if rejected:
+            live = []
+            for qp, key in zip(batch, keys):
+                if key in rejected:
+                    self.metrics["schedule_attempts"] += 1
+                    self._handle_failure(qp, {"Coscheduling"})
+                    outcomes.append(ScheduleOutcome(qp.pod, None, rejected[key]))
+                else:
+                    live.append(qp)
+            batch = live
+            if not batch:
+                return outcomes
+
+        # 2. the canonical order: each gang's members contiguous
+        order, gang_positions = wlg.plan_batch([qp.pod for qp in batch], group_of=self._workloads_group_of)
+        ordered = [batch[i] for i in order]
+
+        # 3. pack and dispatch
+        self._repack_mirror()
+        _, pb = self._gang_prep(ordered)
+        wt = self._wave_tables(pb)
+        if wt is None:  # unreachable after the hostname check; finish the live pods elsewhere
+            return outcomes + self._schedule_batch(profile, ordered, try_workloads=False)
+        gid, gfirst, glast, gneed, g_cap, slot_keys = wlg.gang_arrays(pb.valid.shape[0], gang_positions, needs)
+        self.metrics["workload_batches"] += 1
+        try:
+            dc = self._dc_cache.sync(self.mirror, self.vocab)
+            db = DeviceBatch.from_host(pb, self.device)
+            flags = self._gang_flags(pb, bool((self.mirror.existing.term_kind != PAD).any()))
+            del flags["has_ports"]
+            rows = {k: torch.from_numpy(v).to(self.device) for k, v in dict(
+                gang_id=gid, gang_first=gfirst, gang_last=glast, gang_need=gneed).items()}
+            chosen, _, reasons, _, wl = ops_cos.workloads_run(
+                dc, db, self._hostname_key(), bucket_cap(len(self.vocab.label_vals)), g_cap,
+                **self._wave_kw(wt, ports=False), **rows, enabled=profile.enabled, weights=profile.weights(),
+                **self._gang_tables(pb), **self._nominated_arrays({qp.pod.uid for qp in ordered}), **flags)
+            fetched = [t.cpu().numpy() for t in (chosen, wl["raw"], wl["spec"], wl["gang_admit"], wl["gang_landed"])]
+        except BaseException:
+            self._dc_cache.invalidate()
+            self.queue.push_back(ordered)
+            raise
+        self._process_workloads_results(profile, ordered, *fetched, reasons, gang_positions, slot_keys, outcomes)
+        return outcomes
+
+    def _process_workloads_results(self, profile: Profile, ordered, chosen, raw, spec, gang_admit, gang_landed,
+                                   reasons, gang_positions, slot_keys, outcomes) -> None:
+        """The workloads result walk in the canonical order: the gang
+        verdicts (metrics, and an admitted gang's window closes); then per
+        pod, a member its gang rolled back fails without PostFilter (a dry
+        run for it would only churn victims), a genuine failure gets its
+        FitError and goes to PostFilter (unnarrowed, as in the reference),
+        and a placement is assumed and counted for its gang."""
+        names = self.nodes.names
+        n = len(ordered)
+        chosen = chosen[:n]
+        if ((chosen < -1) | (chosen >= len(names))).any():
+            raise RuntimeError("workloads dispatch returned a node index out of range")
+        m = self.metrics
+        m["schedule_attempts"] += n
+        m["workload_spec_admitted"] += int(np.sum((chosen == spec[:n]) & (chosen >= 0)))
+        pos_gang = {pos: key for key, positions in gang_positions.items() for pos in positions}
+        slot_of = {key: i for i, key in enumerate(slot_keys)}
+        for key in gang_positions:
+            admit, landed = int(gang_admit[slot_of[key]]), int(gang_landed[slot_of[key]])
+            if admit == 1:
+                self.gangs.close_window(key)
+                m["gang_admitted"] += landed
+            elif admit == 0:
+                m["gang_rolled_back"] += 1
+        state = CycleState()
+        counts = None
+        n_nodes = len(self.cache.real_nodes())
+        for i, qp in enumerate(ordered):
+            idx = int(chosen[i])
+            if idx >= 0:
+                outcomes.append(self._assume(qp, names[idx]))
+                self.gangs.note_placed(qp.pod)
+                continue
+            key = pos_gang.get(i)
+            if key is not None and int(raw[i]) >= 0:
+                pg = self.gangs.get(key)
+                self._handle_failure(qp, {"Coscheduling"})
+                outcomes.append(ScheduleOutcome(qp.pod, None, (
+                    f'pod group "{key}" admission rolled back: {int(gang_landed[slot_of[key]])}/'
+                    f"{pg.min_member if pg else 0} members schedulable")))
+                continue
+            if counts is None:
+                counts = reasons.cpu().numpy()
+            diag = {k: int(c) for k, c in zip(ops_gang.DIAG_KERNELS, counts[i]) if c > 0}
+            diag.pop("HostFilters", None)  # no host Filter plugins in the port
+            outcomes.append(self._post_filter_or_fail(profile, state, qp, fit_error_message(n_nodes, diag), diag,
+                                                      set(diag)))
+
     # ----- commit --------------------------------------------------------
 
     def _finish_fast(self, rec, flush_binds: bool = True) -> List[ScheduleOutcome]:
         """Harvest one fast batch in queue order: placements are assumed,
         each failure gets a FitError with the per-plugin diagnosis at the
-        committer's state and goes to PostFilter (its failures narrowed by
-        K10 first, as the gang path's are).  A pipelined batch binds at its
-        harvest; the direct path's binds wait for the end of the popped
-        batch, as the reference's do."""
+        committer's state and goes to PostFilter unnarrowed, as in the
+        reference (the dry run sizes its candidate count from the potential-
+        node list, so a K10 shortlist would change its window).  A pipelined
+        batch binds at its harvest; the direct path's binds wait for the end
+        of the popped batch, as the reference's do."""
         profile, batch, choices = rec["profile"], rec["batch"], rec["choices"]
         holder, rows, keys, pod_sigs = rec["holder"], rec["rows"], rec["keys"], rec["pod_sigs"]
         names = self.nodes.names
         n = len(batch)
         self.metrics["schedule_attempts"] += n
         state = CycleState()
-        failed = [qp for i, qp in enumerate(batch) if choices[i] < 0]
-        if failed and profile.scheduler_name in self._post_filters:
-            self._batched_preemption_narrow(state, failed, batch, np.asarray(choices), names)
         out: List[Optional[ScheduleOutcome]] = [None] * n
         diag_cache: Dict[int, Dict[str, int]] = {}
         node_valid = self.nodes.valid
@@ -1310,6 +1544,7 @@ class Scheduler:
             # fast lineage and restarts the chain
             self._view_pod_removed(self.cache.pod_states[pod.uid])
             self.cache.forget_pod(pod)
+            self.gangs.note_removed(pod)  # the gang's count of placed members unwinds too
             self._external_mutations += 1
             self._handle_failure(qp, set())
             outcome.node = None

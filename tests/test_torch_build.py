@@ -10,7 +10,7 @@ import pytest
 from kubernetes_tpu_torch.ops import _build
 
 STRUCTS = ["StaticEvalArgs", "SigScanArgs", "ResidentArgs", "GangSpreadArgs", "GangInterpodArgs", "GangScanArgs",
-           "WaveArgs"]
+           "WaveArgs", "PreemptArgs", "WorkloadsArgs"]
 
 
 def header_fields(struct: str):

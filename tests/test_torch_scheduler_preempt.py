@@ -13,10 +13,12 @@ scheduler runs with its dispatch ledger off.
 Scenarios: every one of tests/test_preemption.py (basic, Never, minimal
 victims, lowest-priority victims, fewest PDB violations, lowest highest
 victim priority, nominated resources blocking lower-priority pods, not
-helpful, batch-peer narrowing), bench_preemption's shape at 50 nodes, and
-gang-path and wave-path drains of spread and anti-affinity pods while
-nominations are open.  Also: an eviction between two chained batches ends
-the chain, and the next batch sees the freed capacity.
+helpful, batch peers), bench_preemption's shape at 50 nodes, gang-path and
+wave-path drains of spread and anti-affinity pods while nominations are
+open, and fast-path failures on more than 1,000 potential nodes (which
+only an unnarrowed dry run sizes as the reference does).  Also: an eviction
+between two chained batches ends the chain, and the next batch sees the
+freed capacity.
 """
 
 import pytest
@@ -236,7 +238,8 @@ def test_preemption_scenario_matches_reference(name):
         assert "lp" not in final["bindings"]
     if name == "batch-peers":
         assert "mid" in history[0]["failed"] and len(final["evictions"]) == 1
-        assert port.s.metrics["narrow_batches"] > 0  # K10's plain version ran
+        # a fast harvest reaches PostFilter unnarrowed, as in the reference
+        assert port.s.metrics["fast_batches"] > 0 and port.s.metrics["narrow_batches"] == 0
 
 
 # ---- bench.py bench_preemption's shape, at 50 nodes -----------------------
@@ -268,7 +271,8 @@ def test_bench_preemption_shape_matches_reference():
     final = history[-1]
     assert sorted(final["bindings"]) == sorted(f"hi-{i}" for i in range(50))
     assert len(final["evictions"]) == 100 and final["attempts"] == 50
-    assert port.s.metrics["nominated_binds"] == 50 and port.s.metrics["narrow_batches"] > 0
+    # every preemptor fails in a fast harvest, which K10 does not narrow
+    assert port.s.metrics["nominated_binds"] == 50 and port.s.metrics["narrow_batches"] == 0
 
 
 # ---- gang-path and wave-path drains while nominations are open -------------
@@ -340,6 +344,8 @@ def test_drain_with_open_nominations_matches_reference(wave, n_each, rounds):
             assert f"hi-{i}" in history[-1]["bindings"]
     elif not wave:
         assert m["preemption_attempts"] > 8  # the feed's own preemptions, inside chained batches
+    if m["chain_batches"] + m["wave_batches"] and m["preemption_attempts"] > 8:
+        assert m["narrow_batches"] > 0  # K10's plain version narrowed a gang-path harvest
 
 
 # ---- an eviction between two chained batches -------------------------------
@@ -408,3 +414,64 @@ def test_eviction_reaches_the_mirrors():
     assert victim.uid not in {p.uid for _, p in s.mirror._epod_slots.values()}
     assert int(ep.valid.sum()) == len(s.cache.pod_states)
     _assert_synced(s)
+
+
+# ---- fast-path failures on more than 1,000 potential nodes -----------------
+
+
+def skewed_fast_scenario(n_full=2000, n_small=150, n_blocked=150, n_preemptors=4):
+    """``n_full`` nodes of 4 cpu, each full with two 2-cpu victims whose
+    priority falls with the node's index (so the best candidate lies past
+    the dry run's 10 % window), and, interleaved among the first of them,
+    nodes that K10 drops although they hold a lower-priority pod: ``n_small``
+    nodes of 2 cpu (too small for the preemptor even when empty) and
+    ``n_blocked`` nodes whose other 2 cpu hold a pod of the preemptors' own
+    priority.  Preemptors of 3 cpu at priority 100 with resource requests
+    only take the fast path."""
+
+    def scenario(api, side):
+        T, R = api
+
+        def node(name, cpu):
+            return T.Node(name=name, labels={"kubernetes.io/hostname": name},
+                          capacity=R.Resource.from_map({"cpu": cpu, "memory": "16Gi", "pods": 50}))
+
+        def pod(name, node_name, cpu, priority, start):
+            return T.Pod(name=name, node_name=node_name, priority=priority, start_time=start,
+                         containers=[T.Container(name="c", requests={"cpu": cpu, "memory": "64Mi"})])
+
+        drops = ["small"] * n_small + ["blocked"] * n_blocked
+        order = []
+        for i in range(n_full):
+            order.append(("full", i))
+            if drops:
+                order.append((drops.pop(), i))
+        for kind, i in order:
+            name = f"{kind}-{i}"
+            side.s.on_node_add(node(name, "2" if kind == "small" else "4"))
+            if kind == "full":
+                for v in range(2):
+                    side.s.on_pod_add(pod(f"v-{i}-{v}", name, "2", -i, float(v)))
+            elif kind == "small":
+                side.s.on_pod_add(pod(f"s-{i}", name, "1", -5000, 0.0))
+            else:
+                side.s.on_pod_add(pod(f"peer-{i}", name, "2", 100, 0.0))
+                side.s.on_pod_add(pod(f"b-{i}", name, "2", -5000, 0.0))
+        for k in range(n_preemptors):
+            side.s.on_pod_add(pod(f"hp-{k}", "", "3", 100, None))
+
+    return scenario
+
+
+def test_fast_path_failures_on_many_nodes_match_reference():
+    """The dry run sizes itself from the potential-node list (10 % of it,
+    at least 100): a K10 shortlist shorter than the unnarrowed list collects
+    fewer candidates and can pick another node.  The reference narrows only
+    the gang and wave harvests, so a fast harvest's failures must reach
+    PostFilter unnarrowed: the same nominations, victims and, a round
+    later, placements as the JAX Scheduler."""
+    history, (_, port) = run_twins(skewed_fast_scenario(), (0.0, 30.0))
+    first, final = history
+    assert len(first["nominated"]) == 4 and len(first["evictions"]) == 8
+    assert sorted(final["bindings"]) == [f"hp-{k}" for k in range(4)]
+    assert port.s.metrics["fast_batches"] > 0 and port.s.metrics["narrow_batches"] == 0
