@@ -19,7 +19,9 @@ Phases, one output line each (several for 2 and 4):
      switched off in turn; with the kernel's, the plain version's and (K3)
      a torch.sum's time;
   3. the transport: ops/wire.py's single-buffer upload of config0's usage
-     state, timed;
+     state, and the device mirror's delta sync (the usage rows and the
+     appended placed pods at config4's shape, one copy per row range),
+     timed with and without the mirror's host append;
   4. drains through Scheduler() on cuda, each held pod for pod against the
      same workload on the port's host FastCommitter alone (device="cpu",
      every batch on the committer), with no node over its allocatable, and
@@ -42,7 +44,7 @@ Phases, one output line each (several for 2 and 4):
      pods) under waveDispatch: false, with their zone-skew and
      anti-affinity checks, and 20k preferred-affinity pods on config0's 10k
      tiered nodes under the default configuration; and a parity drain of
-     2,000 mixed gang-path pods on 500 nodes, on cuda and on the CPU, whose
+     1,536 mixed gang-path pods on 500 nodes, on cuda and on the CPU, whose
      placements and diagnoses must be identical;
   6. the wave: K8 wave_speculate and K9 wave_admit against their plain
      versions, exact on every output, and K9 against K5 on the same
@@ -87,7 +89,19 @@ Phases, one output line each (several for 2 and 4):
      anti-affinity among their members, 400 plain pods, about 125 % of the
      cluster's cpu asked) on cuda and on the CPU, identical in outcomes and
      in the gang metrics, with gangs rolled back;
-  9. the kernels line (K8 named as the workloads speculation too).
+  9. bound volumes: K12 volume_topology_mask against its plain version,
+     exact, at config4's node set (N=5,000 in 8 zones) and P=512 pods with
+     two PV slots (one- and two-term zone affinities, zone labels and zone
+     sets, nil affinities, pods whose PV is missing), and K1 with K12's
+     mask as its extra lane against K1's plain version, with times and
+     bounds; a StatefulSet drain (10,000 pods with one bound PVC each on
+     config4's 5,000 nodes: 60 % zone affinity, 20 % zone label, 15 % nil,
+     5 % pinned to a zone no node carries) on cuda, every placed pod in its
+     PV's zone, the 5 % unplaced with the volume node affinity conflict,
+     one K12 launch per workloads batch; and a parity drain (1,000 nodes,
+     2,000 volume, gang and spread pods in one batch) on cuda, on the CPU
+     and against the serial WorkloadOracle with volumes, identical;
+ 10. the kernels line (K8 named as the workloads speculation too).
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Without
@@ -810,9 +824,10 @@ def max_abs_err(torch, a, b) -> int:
 # ---------------------------------------------------------------------------
 
 
-def static_bound(dc, db, out):
+def static_bound(dc, db, out, extra_bytes=0):
     """K1's bound_ms for one launch with outputs `out`: the cluster's and the
-    batch's static tables read once, the outputs written once; operations, a
+    batch's static tables (and `extra_bytes`, an extra-mask lane) read once,
+    the outputs written once; operations, a
     full walk per (signature or pod, node) pair: taint × toleration
     compares for the filter and the score, each DNF requirement's value
     scan, the image terms."""
@@ -827,7 +842,7 @@ def static_bound(dc, db, out):
     NT, NR, NV = db.node_sel.req_vals.shape[1:]
     PT, PR, PV = db.pref_node.req_vals.shape[1:]
     per_pair = 2 * T * TL * 8 + NT * NR * (NV + 8) + PT * PR * (PV + 8) + db.img_ids.shape[1] * 8 + 32
-    return bound_ms(in_bytes + nbytes(*out.values()), S * N * per_pair)
+    return bound_ms(in_bytes + extra_bytes + nbytes(*out.values()), S * N * per_pair)
 
 
 def precompute_static_bound(dc, db, has_images):
@@ -1428,9 +1443,78 @@ def phase_transport(torch, device, reps=20, n_nodes=10000):
         raise AssertionError("device_put_packed changed the usage rows")
     ms = total / reps * 1e3
     bound, by = bound_ms(2 * buf.nbytes, 0)
+    delta = delta_sync_times(torch, device)
     log(phase="transport", root="ops/wire.py:77 _unpacker.run", bytes=int(buf.nbytes), ms=ms,
-        bound_ms=bound, bound_by=by)
+        bound_ms=bound, bound_by=by, device_mirror_delta=delta)
     return dict(ms=ms, bound_ms=bound, bound_by=by, bytes=int(buf.nbytes))
+
+
+def delta_sync_times(torch, device, n_nodes=5000, n_placed=4500, rounds=10, per_round=512):
+    """DeviceClusterCache.sync's delta path (the port of the transport root
+    cache/device_mirror.py:62 apply) at config4's shape: 5,000 nodes in 8
+    zones holding 4,500 placed spread pods, then `rounds` times 512 more
+    placed pods arrive (informer adds) and the mirror appends them on the
+    host (timed apart, `host_append_ms`); one sync then copies the usage
+    rows and the appended rows, one copy_ per changed row range (`ms`), and
+    `with_host_append_ms` is the two together, the whole cost of the sync a
+    workloads batch waits for.  Host clock between synchronizes."""
+    from kubernetes_tpu_torch.framework.config import SchedulerConfiguration
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    sched = Scheduler(SchedulerConfiguration(), device=device)
+    nodes = basic_nodes(n_nodes, zones=8)
+    for n in nodes:
+        sched.on_node_add(n)
+    pods = spread_pods(n_placed + rounds * per_round, prefix="placed")
+    for i, p in enumerate(pods):
+        p.node_name = nodes[i % n_nodes].name
+    sched.mirror.e_cap_hint = len(pods) + 64
+    for p in pods[:n_placed]:
+        sched.on_pod_add(p)
+    sched._repack_mirror()
+    cache, m = sched._dc_cache, sched.mirror
+    cache.sync(m, sched.vocab)
+    rows = {"ms": [], "host_append_ms": [], "with_host_append_ms": [], "bytes": []}
+    full0 = cache.full_uploads
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    for r in range(rounds):
+        for p in pods[n_placed + r * per_round: n_placed + (r + 1) * per_round]:
+            sched.on_pod_add(p)
+        sched._repack_mirror()
+        ms_host, _ = clock(lambda: m.existing)
+        e0, m0 = cache._e_done, cache._m_done
+        ms, dc = clock(lambda: cache.sync(m, sched.vocab))
+        ranges, moved = delta_ranges(dc, (e0, cache._e_done), (m0, cache._m_done))
+        for k, v in (("ms", ms), ("host_append_ms", ms_host), ("with_host_append_ms", ms + ms_host),
+                     ("bytes", moved)):
+            rows[k].append(v)
+    if cache.full_uploads != full0:
+        raise AssertionError("the delta-sync measurement forced a full upload")
+    out = {k: statistics.median(v) for k, v in rows.items()}
+    out.update(syncs=rounds, appended_pods_per_sync=per_round, ranges=ranges, mean_ms=statistics.mean(rows["ms"]),
+               max_ms=max(rows["ms"]), bound_ms=bound_ms(out["bytes"], 0)[0], bound_by="bytes")
+    return out
+
+
+def delta_ranges(dc, e, t):
+    """(row ranges, bytes) a delta sync copies: the usage rows whole, the
+    placed-pod rows [e0, e1) and the term rows [m0, m1) of every field
+    DeviceClusterCache syncs."""
+    from kubernetes_tpu_torch.cache import device_mirror as dm
+
+    parts = [getattr(dc, n) for n in dm._USAGE]
+    parts += [getattr(dc, n)[e[0]:e[1]] for n in dm._EPOD_FIELDS]
+    parts += [getattr(dc, n)[t[0]:t[1]] for n in dm._TERM_FIELDS]
+    parts += [getattr(dc.term_table, f)[t[0]:t[1]] for f in dm._TABLE_FIELDS]
+    parts = [x for x in parts if x.shape[0]]
+    return len(parts), sum(x.numel() * x.element_size() for x in parts)
 
 
 def drain(device, nodes, pods, host_only=False, **cfg_over):
@@ -1666,7 +1750,7 @@ def phase_gang_drain(torch, name, device, nodes, pods, kernels, check=None, want
     return launches, got
 
 
-def phase_gang_parity(torch, device, n_nodes=500, n_pods=2000, n_placed=200, wave=False):
+def phase_gang_parity(torch, device, n_nodes=500, n_pods=1536, n_placed=200, wave=False):
     """The same mixed gang-path drain on the card and with device="cpu" (the
     plain versions): placements, FitError messages and diagnoses must be
     identical.  Host ports only in the last batch, so the first batch takes
@@ -2262,9 +2346,10 @@ def phase_workloads_kernels(torch, device, reps=5, shapes=None):
     return rows
 
 
-def gang_drain(device, nodes, groups, pods, warm=0, **cfg):
+def gang_drain(device, nodes, groups, pods, warm=0, storage=((), ()), **cfg):
     """A drain of PodGroup gangs through Scheduler(): the groups registered
-    through on_pod_group_add, then the first `warm` pods drained, then the
+    through on_pod_group_add and the (PVs, PVCs) of `storage` through
+    on_pv_add / on_pvc_add, then the first `warm` pods drained, then the
     rest (bench_gang's warm-up, whole gangs only).  Returns (placements,
     outcomes by pod name, seconds of the second drain, scheduler)."""
     from kubernetes_tpu_torch.framework.config import SchedulerConfiguration
@@ -2283,6 +2368,10 @@ def gang_drain(device, nodes, groups, pods, warm=0, **cfg):
         sched.on_node_add(n)
     for pg in groups:
         sched.on_pod_group_add(pg)
+    for pv in storage[0]:
+        sched.on_pv_add(pv)
+    for pvc in storage[1]:
+        sched.on_pvc_add(pvc)
     out = []
     for part in (pods[:warm], pods[warm:]):
         for p in part:
@@ -2414,6 +2503,306 @@ def phase_gang_parity_contended(torch, device, **world):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: bound volumes (K12)
+# ---------------------------------------------------------------------------
+
+ABSENT_ZONE = "zone-absent"
+
+
+def zone_selector(*zones):
+    from kubernetes_tpu_torch.api import NodeSelector, NodeSelectorRequirement, NodeSelectorTerm
+
+    return NodeSelector(tuple(NodeSelectorTerm(match_expressions=(NodeSelectorRequirement(ZONE, "In", (z,)),))
+                              for z in zones))
+
+
+def bound_pv(name, affinity=None, labels=None):
+    """A PV and a PVC bound to it (the StatefulSet replica's data claim)."""
+    from kubernetes_tpu_torch.api import storage as st
+
+    pv = st.PersistentVolume(name=f"pv-{name}", capacity=10 << 30, storage_class_name="zonal", node_affinity=affinity,
+                             labels=dict(labels or {}), phase=st.PV_BOUND, claim_ref=st.ObjectRef("default", name))
+    pvc = st.PersistentVolumeClaim(name=name, request=10 << 30, storage_class_name="zonal", volume_name=pv.name,
+                                   phase=st.PVC_BOUND)
+    return pv, pvc
+
+
+def statefulset_world(n_pods=10000, zones=8, seed=31, prefix="ss"):
+    """StatefulSet replicas (50 sets, 500m cpu / 1Gi each) with one bound
+    PVC apiece, whose PV is, by seeded draw: 60 % node affinity
+    `topology.kubernetes.io/zone In [z]`, 20 % the zone label only
+    (VolumeZone's form), 15 % nil affinity, 5 % pinned to a zone no node
+    carries.  Returns (pvs, pvcs, pods, {pod name: the PV's zone or None})."""
+    from kubernetes_tpu_torch.api import Container, Pod, Volume
+
+    rng = random.Random(seed)
+    pvs, pvcs, pods, zone_of = [], [], [], {}
+    for i in range(n_pods):
+        name = f"{prefix}-{i}"
+        r, z = rng.random(), f"zone-{rng.randrange(zones)}"
+        if r < 0.60:
+            pv, pvc = bound_pv(f"data-{name}", affinity=zone_selector(z))
+        elif r < 0.80:
+            pv, pvc = bound_pv(f"data-{name}", labels={ZONE: z})
+        elif r < 0.95:
+            pv, pvc = bound_pv(f"data-{name}")
+            z = None
+        else:
+            z = ABSENT_ZONE
+            pv, pvc = bound_pv(f"data-{name}", affinity=zone_selector(z))
+        pvs.append(pv)
+        pvcs.append(pvc)
+        zone_of[name] = z
+        pods.append(Pod(name=name, labels={"app": f"db-{i % 50}"}, volumes=(Volume(name="data", pvc_name=pvc.name),),
+                        containers=[Container(name="c", requests={"cpu": "500m", "memory": "1Gi"})]))
+    return pvs, pvcs, pods, zone_of
+
+
+def k12_world(n_pods=512, zones=8, seed=37):
+    """The K12 check's batch, at most two PV2 slots per pod: one claim whose
+    PV carries a one- or two-term zone affinity, the zone label (a two-zone
+    set among them), both (two slots) or nil affinity; or two claims of one
+    slot each; now and then a claim whose PV is missing (a vol_bad pod).
+    Returns (pvs, pvcs, pods)."""
+    from kubernetes_tpu_torch.api import Container, Pod, Volume
+
+    rng = random.Random(seed)
+    pvs, pvcs, pods = [], [], []
+    for i in range(n_pods):
+        claims = []
+        two = rng.random() < 0.3  # two claims of one slot each, else one of up to two
+        for c in range(2 if two else 1):
+            name, r = f"k12-{i}-{c}", rng.random()
+            zs = [f"zone-{rng.randrange(zones)}" for _ in range(2)]
+            if r < 0.35:
+                pv, pvc = bound_pv(name, affinity=zone_selector(*zs[: rng.randint(1, 2)]))
+            elif r < 0.6:
+                pv, pvc = bound_pv(name, labels={ZONE: "__".join(zs) if rng.random() < 0.3 else zs[0]})
+            elif r < 0.8 and not two:
+                pv, pvc = bound_pv(name, affinity=zone_selector(zs[0]), labels={ZONE: zs[1]})
+            else:
+                pv, pvc = bound_pv(name)
+            if rng.random() < 0.04:
+                pv = None  # the claim's PV is missing
+            if pv is not None:
+                pvs.append(pv)
+            pvcs.append(pvc)
+            claims.append(pvc.name)
+        pods.append(Pod(name=f"k12-{i}", volumes=tuple(Volume(name=f"v{k}", pvc_name=c) for k, c in enumerate(claims)),
+                        containers=[Container(name="c", requests={"cpu": "100m"})]))
+    return pvs, pvcs, pods
+
+
+def k12_inputs(device, n_nodes=5000, P=512, world=None):
+    """k12_world's batch (or ``world``'s (pvs, pvcs, pods)) as the workloads
+    dispatch packs it, on config4's node set: (scheduler, PodBatch,
+    DeviceCluster, DeviceBatch, the _vol_tables keyword arguments)."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.framework.config import SchedulerConfiguration
+    from kubernetes_tpu_torch.ops.common import DeviceBatch
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    sched = Scheduler(SchedulerConfiguration(), device=device)
+    for n in basic_nodes(n_nodes, zones=8):
+        sched.on_node_add(n)
+    pvs, pvcs, pods = world if world is not None else k12_world(P)
+    for pv in pvs:
+        sched.on_pv_add(pv)
+    for pvc in pvcs:
+        sched.on_pvc_add(pvc)
+    sched._repack_mirror()
+    _, pb = sched._gang_prep([SimpleNamespace(pod=p) for p in pods])
+    dc = sched._dc_cache.sync(sched.mirror, sched.vocab)
+    volt = sched._vol_tables(pods, pb.valid.shape[0])
+    return sched, pb, dc, DeviceBatch.from_host(pb, device), volt
+
+
+def k12_check(torch, dc, volt):
+    """One K12 launch against volume_topology_mask_plain on the same
+    inputs, exactly; returns (K12's mask, differing pairs: 0)."""
+    from kubernetes_tpu_torch.ops import _build
+    from kubernetes_tpu_torch.ops import coscheduling as cos
+
+    n0 = _build.launches["volume_topology_mask"]
+    got = cos.volume_topology_mask(dc, **volt)
+    torch.cuda.synchronize()
+    if _build.launches["volume_topology_mask"] != n0 + 1:
+        raise AssertionError("volume_topology_mask did not count its launch")
+    want = cos.volume_topology_mask_plain(dc, **volt)
+    err = int((got != want).sum().item())
+    if err:
+        raise AssertionError(f"K12 differs from its plain version at {err} (pod, node) pairs")
+    return got, err
+
+
+def phase_volume_kernels(torch, device, reps=20, n_nodes=5000, P=512):
+    """K12 volume_topology_mask against its plain version on the card,
+    exactly, at config4's node set (N=5,000 in 8 zones) and P=512 pods of
+    k12_world packed by the scheduler's own _vol_tables (PV2 = 2, one to
+    two terms per PV, nil-affinity, zone-labelled and vol_bad rows); then K1
+    with K12's mask as its extra lane against K1's plain version.  Times
+    with CUDA events; bounds from this run's inputs: bytes read and written
+    once at 3.35 TB/s, and the requirement compares the table's valid slots
+    need at every node at the scalar rate.  Returns the K12 row."""
+    from kubernetes_tpu_torch.ops import _build
+    from kubernetes_tpu_torch.ops import coscheduling as cos
+    from kubernetes_tpu_torch.ops import fastpath as ops_fp
+    from kubernetes_tpu_torch.snapshot.interner import PAD
+
+    sched, pb, dc, db, volt = k12_inputs(device, n_nodes, P)
+    t = volt["vol_table"]
+    got, err = k12_check(torch, dc, volt)
+    k12_ms = time_ms(torch, lambda: cos.volume_topology_mask(dc, **volt), reps)
+    plain_ms = time_ms(torch, lambda: cos.volume_topology_mask_plain(dc, **volt), 3)
+    Pc, PV2, T, R = t.req_key.shape
+    V = t.req_vals.shape[-1]
+    N = dc.node_labels.shape[0]
+    moved = nbytes(t.req_key, t.req_op, t.req_vals, t.req_rhs, t.term_valid, volt["vol_valid"], volt["vol_bad"],
+                   dc.node_labels, dc.val_ints, got)
+    live = (t.req_op != PAD) & t.term_valid[..., None] & volt["vol_valid"][:, :, None, None]
+    ops = int(live.sum().item()) * (V + 1) * N
+    bound, by = bound_ms(moved, ops)
+    # K1 with the volume mask as its extra lane (the precompute's call)
+    every = frozenset({"NodeName", "NodeUnschedulable", "TaintToleration", "NodeAffinity"})
+    enabled = sched.profiles["default-scheduler"].enabled
+    kw = dict(extra_mask=got, mask_enabled=enabled)
+    k1 = ops_fp.static_eval(dc, db, every, False, **kw)
+    k1_plain = ops_fp.static_eval_plain(dc, db, every, False, **kw)
+    k1_err = sum(int((k1[k] != k1_plain[k]).sum().item()) for k in ops_fp.STATIC_KEYS)
+    if k1_err:
+        raise AssertionError(f"K1 with the extra mask differs from its plain version at {k1_err} entries")
+    k1_ms = time_ms(torch, lambda: ops_fp.static_eval(dc, db, every, False, **kw), reps)
+    k1_bound, k1_by = static_bound(dc, db, k1, extra_bytes=nbytes(got))
+    live_pn = torch.as_tensor(pb.valid, device=device)[:, None] & dc.node_valid[None, :]
+    masked = int(((~got) & live_pn).sum().item())
+    log(phase="volume_kernel_check", kernel="volume_topology_mask", replaces="kubernetes_tpu/ops/coscheduling.py:66",
+        P=Pc, N=N, PV2=PV2, T=T, R=R, V=V, bad_pods=int(volt["vol_bad"].sum().item()), pairs_masked=masked,
+        k12_err=err, ms=k12_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, bytes=moved, ops=ops,
+        library_ms=None, k1_extra_err=k1_err, k1_extra_ms=k1_ms, k1_extra_bound_ms=k1_bound, k1_extra_bound_by=k1_by)
+    return dict(max_abs_err=err, ms=k12_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def phase_statefulset(torch, device, n_nodes=5000, n_pods=10000):
+    """The StatefulSet drain on the card: statefulset_world's 10,000
+    replicas on config4's 5,000 nodes (8 zones) through Scheduler(), every
+    batch a workloads dispatch.  Every placed pod is in its PV's zone, every
+    pod whose PV is pinned to the absent zone is unplaced with "volume node
+    affinity conflict", every other pod is placed, no node is over its
+    allocatable, and K12 launched once per workloads batch (K1, K8 and K11
+    launched too).  Before the drain, K12 is held against its plain version
+    on the drain's first batch packed as the drain packs it (one PV2 slot).
+    Returns (the launches, that check's differing pairs)."""
+    from kubernetes_tpu_torch.ops import _build
+
+    nodes = basic_nodes(n_nodes, zones=8)
+    zone = {n.name: n.labels[ZONE] for n in nodes}
+    pvs, pvcs, pods, zone_of = statefulset_world(n_pods)
+    _, _, dc, _, volt = k12_inputs(device, n_nodes, 512, world=(pvs[:512], pvcs[:512], pods[:512]))
+    _, k12_err = k12_check(torch, dc, volt)
+    k12_shape = tuple(volt["vol_table"].req_key.shape)
+    del dc, volt
+    _build.reset_launches()
+    timer = SyncTimer(torch)
+    try:
+        got, outs, dt, sched = gang_drain(device, nodes, (), pods, storage=(pvs, pvcs))
+    finally:
+        syncs = timer.close()
+    launches = dict(_build.launches)
+    check_capacity(sched)
+    m = sched.metrics
+    wrong_zone = [k for k, node in got.items() if node is not None and zone_of[k] not in (None, zone[node])]
+    absent = [k for k, z in zone_of.items() if z == ABSENT_ZONE]
+    absent_ok = all(got[k] is None and "volume node affinity conflict" in outs[k].reason for k in absent)
+    others_placed = all(got[k] is not None for k, z in zone_of.items() if z != ABSENT_ZONE)
+    bad = [bool(wrong_zone), not absent_ok, not others_placed,
+           launches["volume_topology_mask"] != m["workload_batches"], m["workload_batches"] < n_pods // 512,
+           any(launches[k] <= 0 for k in ("static_eval", "wave_speculate", "workloads_admit"))]
+    if any(bad):
+        raise AssertionError(f"statefulset: {bad} wrong zone {wrong_zone[:3]}: {launches} "
+                             f"{({k: m[k] for k in WORKLOAD_METRICS})}")
+    placed = sum(v is not None for v in got.values())
+    log(phase="statefulset_drain", nodes=n_nodes, pods=n_pods, placed=placed, absent_zone_pods=len(absent),
+        drain_s=dt, pods_per_s=n_pods / dt, launches=launches, **{k: m[k] for k in WORKLOAD_METRICS},
+        fast_batches=m["fast_batches"], wave_batches=m["wave_batches"], scan_batches=m["scan_batches"],
+        preemption_attempts=m["preemption_attempts"], zones_ok=True, capacity_ok=True, device_mirror_syncs=syncs,
+        k12_err=k12_err, k12_P_PV2_T_R=k12_shape)
+    return launches, k12_err
+
+
+def volume_parity_world(n_nodes=1000, n_vol=1200, n_gangs=20, n_spread=640, seed=41):
+    """The volume parity workload, one queue: statefulset_world's volume
+    pods, 20 PodGroups of 8 (minMember 8) whose members each hold a PV
+    pinned to their gang's zone (one gang pinned to a zone it cannot fit),
+    and zone-spread pods (config4's), interleaved.  Returns (nodes, groups,
+    pvs, pvcs, pods)."""
+    from kubernetes_tpu_torch.api import Container, Pod, Volume
+    from kubernetes_tpu_torch.workloads.gang import PodGroup
+
+    rng = random.Random(seed)
+    nodes = basic_nodes(n_nodes, zones=8)
+    pvs, pvcs, vol, _ = statefulset_world(n_vol, seed=seed, prefix="pv")
+    spread = spread_pods(n_spread, prefix="sp")
+    groups, gang = [], []
+    for g in range(n_gangs):
+        name = f"vg-{g}"
+        groups.append(PodGroup(name=name, min_member=8))
+        z = ABSENT_ZONE if g == 7 else f"zone-{g % 8}"
+        for m in range(8):
+            pv, pvc = bound_pv(f"data-{name}-{m}", affinity=zone_selector(z))
+            pvs.append(pv)
+            pvcs.append(pvc)
+            gang.append(Pod(name=f"{name}-{m}", pod_group=name, volumes=(Volume(name="data", pvc_name=pvc.name),),
+                            containers=[Container(name="c", requests={"cpu": f"{rng.choice([1, 2, 4])}",
+                                                                      "memory": "2Gi"})]))
+    pods, streams = [], [vol, spread, gang]
+    while any(streams):
+        s = rng.choice([x for x in streams if x])
+        pods.append(s.pop(0))
+    return nodes, groups, pvs, pvcs, pods
+
+
+def phase_volume_parity(torch, device, **world):
+    """volume_parity_world drained in one batch on the card and with
+    device="cpu" (the plain versions): outcomes (node, FitError, diagnosis)
+    and the workloads metrics identical; and the placements equal the
+    port's serial WorkloadOracle with volumes replaying the same queue.  K12
+    launched on the card.  Returns the launches."""
+    import copy
+
+    from kubernetes_tpu_torch.ops import _build
+    from kubernetes_tpu_torch.oracle.state import OracleState
+    from kubernetes_tpu_torch.oracle.workloads import WorkloadOracle
+
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        nodes, groups, pvs, pvcs, pods = volume_parity_world(**world)
+        _build.reset_launches()
+        got, outs, dt, sched = gang_drain(dev, nodes, groups, pods, storage=(pvs, pvcs), batch_size=2048)
+        check_capacity(sched)
+        runs.append(({k: (o.node, o.reason, o.diagnosis) for k, o in outs.items()},
+                     {k: sched.metrics[k] for k in WORKLOAD_METRICS}, dt, dict(_build.launches)))
+    (want, wm, dt, launches), (cpu, cm, dt_cpu, _) = runs
+    diff = [k for k in want if want[k] != cpu.get(k)]
+    if diff or wm != cm:
+        raise AssertionError(f"volume parity: {len(diff)} outcomes differ (first {diff[:1]}), metrics {wm} vs {cm}")
+    nodes, groups, pvs, pvcs, pods = volume_parity_world(**world)
+    t0 = time.perf_counter()
+    oracle = WorkloadOracle(OracleState.build(nodes, []), groups={pg.key: pg for pg in groups},
+                            pvs={pv.name: pv for pv in pvs}, pvcs={pvc.key: pvc for pvc in pvcs})
+    serial = oracle.schedule([copy.deepcopy(p) for p in pods]).placements
+    dt_oracle = time.perf_counter() - t0
+    odiff = [k for k in serial if serial[k] != want[k][0]]
+    if odiff or wm["workload_batches"] != 1 or not wm["gang_rolled_back"] or launches["volume_topology_mask"] != 1:
+        raise AssertionError(f"volume parity: {len(odiff)} placements differ from the oracle (first {odiff[:1]}), "
+                             f"{wm} {launches}")
+    placed = sum(v[0] is not None for v in want.values())
+    log(phase="volume_parity", nodes=len(nodes), pods=len(want), placed=placed, identical=True,
+        equal_to_oracle=True, cuda_drain_s=dt, cpu_drain_s=dt_cpu, oracle_s=dt_oracle, launches=launches, **wm)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2535,6 +2924,15 @@ def main() -> int:
         workloads_run_parts=wl_rows["config10"]["workloads_run_bound_parts"])
     config10_l = phase_config10(torch, device)
     phase_gang_parity_contended(torch, device)
+
+    # bound volumes: K12 (and K1 with its mask as the extra lane) against
+    # the plain versions at config4's node set; the StatefulSet drain of
+    # 10,000 bound-volume pods on 5,000 nodes; the volume parity drain on
+    # cuda, on the CPU and against the serial WorkloadOracle
+    checks["volume_topology_mask"] = phase_volume_kernels(torch, device)
+    statefulset_l, k12_err = phase_statefulset(torch, device)
+    checks["volume_topology_mask"]["max_abs_err"] = max(checks["volume_topology_mask"]["max_abs_err"], k12_err)
+    phase_volume_parity(torch, device)
     # each kernel's error: the largest over the shapes of this run
     for kernel, err in (("gang_scan", "k5_err"), ("gang_spread_statics", "k6_err"),
                         ("gang_interpod_statics", "k7_err")):
@@ -2567,6 +2965,8 @@ def main() -> int:
                        wave4_l),
         "narrow_candidates": ("kubernetes_tpu_torch/csrc/preemption.cu", "kubernetes_tpu/ops/preemption.py:63",
                               "preempt_parity", preempt_l),
+        "volume_topology_mask": ("kubernetes_tpu_torch/csrc/volume.cu", "kubernetes_tpu/ops/coscheduling.py:66",
+                                 "statefulset", statefulset_l),
     }
     kernels = []
     for name, (src, replaces, path, launches) in sources.items():

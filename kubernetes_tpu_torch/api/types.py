@@ -341,6 +341,15 @@ class Pod:
         self.__dict__["_nzreq_memo"] = total
         return total
 
+    def pvc_names(self) -> List[str]:
+        """The claim names of the pod's PVC volumes, memoized (read-only,
+        like compute_requests): the volume plugins' relevance checks ask for
+        them once per plugin per pod."""
+        cached = self.__dict__.get("_pvc_memo")
+        if cached is None:
+            cached = self.__dict__["_pvc_memo"] = [v.pvc_name for v in self.volumes if v.pvc_name]
+        return cached
+
     def host_ports(self) -> List[ContainerPort]:
         out = []
         for c in self.containers:

@@ -2,9 +2,10 @@
 
 The tests feed the same packed inputs to the JAX root and to the port's
 counterpart: the reference's ``NodeTensors`` / ``ExistingPodTensors`` /
-``PodBatch`` (numpy arrays), its ``GangStatics``, its stacked signature rows
-and its ``FastCommitter`` usage rows become the port's containers here, dtype for dtype and shape for shape, with no
-reordering.  The arguments are duck-typed (any object with the reference's
+``PodBatch`` (numpy arrays), its ``GangStatics``, its stacked signature rows,
+its ``FastCommitter`` usage rows, its ``_vol_tables`` output and its storage
+objects (PV, PVC, StorageClass) become the port's containers here, dtype for
+dtype and shape for shape, with no reordering.  The arguments are duck-typed (any object with the reference's
 attribute names), so this module imports nothing of the JAX package; the
 port itself never calls it.
 """
@@ -16,8 +17,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from kubernetes_tpu_torch.api import storage as st
+from kubernetes_tpu_torch.api import types as T
 from kubernetes_tpu_torch.ops import wire
-from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster
+from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster, DTable
 from kubernetes_tpu_torch.ops.gang import GangStatics
 from kubernetes_tpu_torch.snapshot.interner import Vocab
 from kubernetes_tpu_torch.snapshot.schema import pack_existing_pods
@@ -83,3 +86,58 @@ def gang_arrays_from_numpy(gang_arrays, device) -> dict:
     out = {k: torch.as_tensor(np.array(v), device=device) for k, v in rows.items()}
     out["g_cap"] = int(g_cap)
     return out
+
+
+def vol_tables_from_numpy(volt, device) -> dict:
+    """The reference scheduler's ``_vol_tables`` output (vol_table, a DTable
+    of arrays [P, PV2, T, R(, V)], vol_valid [P, PV2], vol_bad [P]) → the
+    workloads dispatch's keyword arguments, dtype for dtype."""
+    t = volt["vol_table"]
+    table = DTable(*(torch.as_tensor(np.array(getattr(t, f)), device=device)
+                     for f in ("req_key", "req_op", "req_vals", "req_rhs", "term_valid")))
+    return dict(vol_table=table, vol_valid=torch.as_tensor(np.array(volt["vol_valid"]), device=device),
+                vol_bad=torch.as_tensor(np.array(volt["vol_bad"]), device=device))
+
+
+def _node_selector(sel):
+    if sel is None:
+        return None
+    return T.NodeSelector(tuple(
+        T.NodeSelectorTerm(
+            match_expressions=tuple(T.NodeSelectorRequirement(r.key, r.operator, tuple(r.values))
+                                    for r in term.match_expressions),
+            match_fields=tuple(T.NodeSelectorRequirement(r.key, r.operator, tuple(r.values))
+                               for r in term.match_fields))
+        for term in sel.node_selector_terms))
+
+
+def pv_from_reference(pv) -> st.PersistentVolume:
+    """A reference PersistentVolume → the port's (node affinity rebuilt in
+    the port's selector types)."""
+    ref = pv.claim_ref
+    return st.PersistentVolume(
+        name=pv.name, labels=dict(pv.labels), capacity=pv.capacity, access_modes=tuple(pv.access_modes),
+        storage_class_name=pv.storage_class_name, node_affinity=_node_selector(pv.node_affinity),
+        claim_ref=None if ref is None else st.ObjectRef(ref.namespace, ref.name, ref.uid), phase=pv.phase,
+        volume_mode=pv.volume_mode, source_kind=pv.source_kind, source_id=pv.source_id, csi_driver=pv.csi_driver,
+        read_only=pv.read_only, resource_version=pv.resource_version)
+
+
+def pvc_from_reference(pvc) -> st.PersistentVolumeClaim:
+    """A reference PersistentVolumeClaim → the port's (a label selector on
+    the claim is for binding, which the port does not port: it must be
+    None)."""
+    if pvc.selector is not None:
+        raise NotImplementedError("a claim's volume selector belongs to static binding (ROADMAP A6b)")
+    return st.PersistentVolumeClaim(
+        name=pvc.name, namespace=pvc.namespace, labels=dict(pvc.labels), annotations=dict(pvc.annotations),
+        storage_class_name=pvc.storage_class_name, access_modes=tuple(pvc.access_modes), request=pvc.request,
+        volume_mode=pvc.volume_mode, volume_name=pvc.volume_name, phase=pvc.phase,
+        deletion_timestamp=pvc.deletion_timestamp, resource_version=pvc.resource_version)
+
+
+def storage_class_from_reference(sc) -> st.StorageClass:
+    """A reference StorageClass → the port's (allowedTopologies only steer
+    dynamic provisioning, which the port does not port)."""
+    return st.StorageClass(name=sc.name, provisioner=sc.provisioner, volume_binding_mode=sc.volume_binding_mode,
+                           resource_version=sc.resource_version)

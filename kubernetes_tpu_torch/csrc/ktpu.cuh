@@ -227,11 +227,16 @@ struct StaticEvalArgs {
   long long* taint_raw;
   long long* naff_raw;
   long long* img;
+  // optional [S, N] lane ANDed into `mask` (the gang precompute's
+  // host-filter lane, K12's volume mask); null: every pair passes
+  const unsigned char* extra;
   // sizes and scalars
   int N, K, NVI, T, IMG;
   int S, NT, NR, NV, PT, PR, PV, TL, I;
   int name_key, unsched_key, empty_val, n_valid_nodes;
-  int enabled, has_images;
+  // `enabled`: the filters static_filters evaluates (the m_* outputs);
+  // `mask_enabled`: those of them `mask` ANDs (a subset)
+  int enabled, has_images, mask_enabled;
 };
 
 namespace ktpu {

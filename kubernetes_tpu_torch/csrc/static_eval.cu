@@ -18,6 +18,10 @@
 // signature tables are a few KB and stay in L1/L2.  The arithmetic is a few
 // hundred integer operations per pair.
 //
+// `mask` ANDs the filters of `mask_enabled` (the profile's, where the gang
+// precompute asks for every m_* verdict) and the optional `extra` lane (the
+// precompute's host-filter lane: K12's volume mask on the workloads route).
+//
 // Semantics are those of kubernetes_tpu_torch/ops/common.py eval_table
 // (ktpu.cuh eval_term, shared with K6 and K7; the four filter verdicts are
 // ktpu.cuh static_filters, shared with K10) and ops/filters.py /
@@ -100,7 +104,10 @@ __global__ void __launch_bounds__(EVAL_THREADS)
     }
   }
 
-  a.mask[idx] = a.node_valid[n] && a.valid[s] && v.name && v.unsched && v.taints && v.affinity;
+  const int me = a.mask_enabled;
+  a.mask[idx] = a.node_valid[n] && a.valid[s] && (v.name || !(me & EN_NODE_NAME)) &&
+                (v.unsched || !(me & EN_UNSCHEDULABLE)) && (v.taints || !(me & EN_TAINTS)) &&
+                (v.affinity || !(me & EN_NODE_AFFINITY)) && (a.extra == nullptr || a.extra[idx]);
   a.m_nodename[idx] = v.name;
   a.m_unsched[idx] = v.unsched;
   a.m_taints[idx] = v.taints;

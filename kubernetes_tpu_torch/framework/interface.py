@@ -1,12 +1,14 @@
-"""Status codes, per-cycle state and cluster events (the parts of
-pkg/scheduler/framework/interface.go the port's PostFilter and queue use).
+"""Status codes, per-cycle state, plugin bases and cluster events (the
+parts of pkg/scheduler/framework/interface.go the port runs).
 
 A copy of the subset of the JAX package's framework/interface.py that the
-preemption evaluator, the DefaultPreemption PostFilter and the scheduling
-queue's event filter read: ``Code`` and ``Status`` (interface.go:190-244),
-``CycleState`` (cycle_state.go:44, keyed by (key, pod uid) because one
-state serves a whole batch), and ``ClusterEvent`` with its queueing hints
-(types.go:145).
+host plugins (framework/runtime.py), the preemption evaluator, the
+DefaultPreemption PostFilter and the scheduling queue's event filter read:
+``Code`` and ``Status`` (interface.go:190-244), ``CycleState``
+(cycle_state.go:44, keyed by (key, pod uid) because one state serves a
+whole batch, with the per-pod filter-skip set PreFilter's Skip fills), the
+PreFilter / Filter / Reserve / PreBind plugin bases the volume plugins
+implement, and ``ClusterEvent`` with its queueing hints (types.go:145).
 """
 
 from __future__ import annotations
@@ -52,6 +54,10 @@ class Status:
     def error(cls, msg: str, plugin: str = "") -> "Status":
         return cls(Code.ERROR, (msg,), plugin)
 
+    @classmethod
+    def skip(cls) -> "Status":
+        return cls(Code.SKIP)
+
     @property
     def ok(self) -> bool:
         return self.code == Code.SUCCESS
@@ -62,10 +68,12 @@ class Status:
 
 class CycleState:
     """Per-scheduling-cycle scratch space; one serves a whole batch, so
-    per-pod entries are keyed by (key, pod uid)."""
+    per-pod entries are keyed by (key, pod uid), and so is the set of
+    Filter plugins whose PreFilter returned Skip for a pod."""
 
     def __init__(self) -> None:
         self._data: Dict[Any, Any] = {}
+        self.skip_filter_plugins: set = set()  # (pod uid, plugin name)
 
     def write(self, key: Any, value: Any) -> None:
         self._data[key] = value
@@ -75,6 +83,62 @@ class CycleState:
 
     def delete(self, key: Any) -> None:
         self._data.pop(key, None)
+
+    def mark_skip_filter(self, pod_uid: str, plugin: str) -> None:
+        self.skip_filter_plugins.add((pod_uid, plugin))
+
+    def is_filter_skipped(self, pod_uid: str, plugin: str) -> bool:
+        return (pod_uid, plugin) in self.skip_filter_plugins
+
+    def clone(self) -> "CycleState":
+        """cycle_state.go Clone: values with a clone() are cloned, the rest
+        shared (the preemption dry run takes one per node)."""
+        cs = CycleState()
+        cs._data = {k: (v.clone() if hasattr(v, "clone") else v) for k, v in self._data.items()}
+        cs.skip_filter_plugins = set(self.skip_filter_plugins)
+        return cs
+
+
+class Plugin:
+    """Base: every plugin has a name (interface.go:443) and reads the
+    scheduler through its ``handle``."""
+
+    name: str = ""
+
+    def __init__(self, handle=None):
+        self.handle = handle
+
+
+class PreFilterPlugin(Plugin):
+    def pre_filter(self, state: CycleState, pod: Pod) -> Status:
+        """Status.skip() turns the plugin's Filter off for this pod; a
+        rejection fails the pod for the whole cycle."""
+        return Status.success()
+
+
+class FilterPlugin(Plugin):
+    """A host-backed per-(pod, node) filter."""
+
+    def filter(self, state: CycleState, pod: Pod, node_state) -> Status:
+        raise NotImplementedError
+
+    def maybe_relevant(self, pod: Pod) -> bool:
+        """Spec-only: could the Filter act on the pod?  A superset of
+        "PreFilter would not Skip", asked before PreFilter runs."""
+        return True
+
+
+class ReservePlugin(Plugin):
+    def reserve(self, state: CycleState, pod: Pod, node_name: str) -> Status:
+        return Status.success()
+
+    def unreserve(self, state: CycleState, pod: Pod, node_name: str) -> None:
+        pass
+
+
+class PreBindPlugin(Plugin):
+    def pre_bind(self, state: CycleState, pod: Pod, node_name: str) -> Status:
+        return Status.success()
 
 
 class ActionType(enum.IntFlag):
@@ -107,6 +171,10 @@ class EventResource(str, enum.Enum):
     ASSIGNED_POD = "AssignedPod"
     UNSCHEDULED_POD = "UnscheduledPod"
     NODE = "Node"
+    PVC = "PersistentVolumeClaim"
+    PV = "PersistentVolume"
+    STORAGE_CLASS = "StorageClass"
+    CSI_NODE = "CSINode"
     POD_GROUP = "PodGroup"
     WILDCARD = "*"
 

@@ -6,7 +6,11 @@ From the JAX package's framework/plugins.py, the parts the port runs:
     the evaluator.  It reads the K10 shortlist the scheduler's batched
     narrow wrote into the CycleState under ("preemption_potential", uid);
     an empty shortlist proves preemption cannot help.
-  * ``QUEUEING_HINTS``: each device-backed plugin's EventsToRegister and
+  * ``DEFAULT_PLUGINS``: the default profile's host-backed plugins
+    (VolumeRestrictions, NodeVolumeLimits, VolumeBinding, VolumeZone, in
+    the reference's order), which framework/runtime.py runs; the device-
+    backed ones are kernel names in framework/config.py ``DEFAULT_ENABLED``.
+  * ``QUEUEING_HINTS``: each plugin's EventsToRegister and
     the Coscheduling gate's PodGroup events (the reference registers them
     beside its profiles' hints), the
     event filter of the scheduling queue (an event requeues an
@@ -28,6 +32,10 @@ from kubernetes_tpu_torch.framework.interface import (
     Status,
 )
 from kubernetes_tpu_torch.framework.preemption import Evaluator
+from kubernetes_tpu_torch.framework.volume_plugins import NodeVolumeLimits, VolumeRestrictions, VolumeZone
+from kubernetes_tpu_torch.framework.volumebinding import VolumeBinding
+
+DEFAULT_PLUGINS = (VolumeRestrictions, NodeVolumeLimits, VolumeBinding, VolumeZone)
 
 
 def _node_event(action: ActionType) -> ClusterEventWithHint:
@@ -81,6 +89,7 @@ QUEUEING_HINTS: Dict[str, List[ClusterEventWithHint]] = {
     # requeue on PodGroup events; the scheduler fires a synthetic UPDATE
     # when a pending member arrives
     "Coscheduling": [ClusterEventWithHint(ClusterEvent(EventResource.POD_GROUP, ActionType.ADD | ActionType.UPDATE))],
+    **{cls.name: cls().events_to_register() for cls in DEFAULT_PLUGINS},
 }
 
 

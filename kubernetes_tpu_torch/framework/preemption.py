@@ -20,10 +20,13 @@ PodEligibleToPreemptOthers):
 The dry run's re-filter runs on the host ``OracleState``; the scheduler's
 batched PostFilter narrows the nodes up front with K10
 (ops/preemption.narrow_candidates), so only plausible nodes reach the
-reprieve loop.
+reprieve loop.  The profile's host Filter plugins (the volume plugins,
+framework/runtime.py) judge the dry run too: PreFilter runs once per
+preemptor, an UnschedulableAndUnresolvable host verdict removes a node from
+the potential nodes, and every fit check runs the host Filters, on a
+CycleState cloned per node.
 
-Left out, because the port has no counterpart: host-backed Filter plugins
-(volume binding and DRA, ROADMAP A6/A8), PreFilter extensions' AddPod /
+Left out, because the port has no counterpart: PreFilter extensions' AddPod /
 RemovePod notifications, extenders' ProcessPreemption, and Permit's waiting
 pods (a victim is always deleted).  A pod that would need them is refused
 before it reaches the evaluator.
@@ -35,7 +38,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 from kubernetes_tpu_torch.api.types import Pod, PodDisruptionBudget
-from kubernetes_tpu_torch.framework.interface import Status
+from kubernetes_tpu_torch.framework.interface import Code, CycleState, Status
 from kubernetes_tpu_torch.oracle import filters as OF
 from kubernetes_tpu_torch.oracle.state import NodeState, OracleState, bump_pod_set_version
 
@@ -70,8 +73,9 @@ def _importance_key(p: Pod):
 
 class Evaluator:
     """framework/preemption.Evaluator.  ``handle`` provides oracle_state(),
-    nominator, delete_pod(pod), list_pdbs(), activate(pods) and
-    note_preemption(n_victims)."""
+    nominator, delete_pod(pod), list_pdbs(), activate(pods),
+    note_preemption(n_victims) and, optionally, framework_for(pod) (the
+    pod's profile's host plugins, framework/runtime.py, or None)."""
 
     def __init__(self, plugin_name: str, handle, percentage: int = 10, min_candidates: int = 100):
         self.plugin_name = plugin_name
@@ -79,6 +83,7 @@ class Evaluator:
         self.percentage = percentage
         self.min_candidates = min_candidates
         self._fast_fit = False
+        self._hf_fwk = self._hf_state = None
 
     # ----- entry point ------------------------------------------------------
 
@@ -114,6 +119,18 @@ class Evaluator:
                 for p in ns.pods
             )
         )
+
+        # the host Filter plugins (volume binding class) judge the dry run
+        # too, or preemption evicts victims on nodes the pod's volumes can
+        # never use (preemption.go:216); PreFilter runs once here
+        self._hf_fwk = self._hf_state = None
+        fwk = getattr(self.handle, "framework_for", lambda p: None)(pod)
+        if fwk is not None and fwk.has_host_filters():
+            cs = CycleState()
+            if fwk.run_pre_filter(cs, [pod]):
+                return "", Status.unschedulable("preemption is not helpful for scheduling", plugin=self.plugin_name)
+            if fwk.active_host_filters(cs, [pod]):
+                self._hf_fwk, self._hf_state = fwk, cs
 
         if potential_nodes is None:
             potential_nodes = self.potential_nodes(pod, state, shortlist)
@@ -177,6 +194,11 @@ class Evaluator:
                 continue
             if OF.filter_node_affinity(pod, ns):
                 continue
+            # only UnschedulableAndUnresolvable removes a node: victim
+            # removal may resolve a plain Unschedulable host verdict
+            if self._hf_fwk is not None and self._hf_fwk.run_host_filters(
+                    self._hf_state, pod, ns).code == Code.UNSCHEDULABLE_AND_UNRESOLVABLE:
+                continue
             out.append(name)
         return out
 
@@ -219,6 +241,11 @@ class Evaluator:
                 work.add_pod(p)
         if not potential:
             return None
+        # a CycleState per node: plugin state written while judging one node
+        # must not leak into the next
+        prev_hf = self._hf_state
+        if prev_hf is not None:
+            self._hf_state = prev_hf.clone()
         state.nodes[node_name] = work
         bump_pod_set_version()  # the dict swap bypasses NodeState's mutators
         try:
@@ -249,6 +276,7 @@ class Evaluator:
         finally:
             state.nodes[node_name] = orig
             bump_pod_set_version()
+            self._hf_state = prev_hf
 
     def _fits(self, pod: Pod, ns: NodeState, state: OracleState) -> bool:
         """RunFilterPluginsWithNominatedPods for one node: all default
@@ -259,7 +287,7 @@ class Evaluator:
             for np_ in self.handle.nominator.pods_for_node(ns.node.name)
             if np_.priority >= pod.priority and np_.uid != pod.uid
         ]
-        if self._fast_fit and not nominated:
+        if self._fast_fit and not nominated and self._hf_fwk is None:
             return not OF.filter_node_resources(pod, ns)
         for np_ in nominated:
             ns.add_pod(np_)
@@ -281,7 +309,7 @@ class Evaluator:
             counts = OF.spread_pair_counts(pod, state)
             if OF.filter_topology_spread(pod, ns, state, counts):
                 return False
-            return True
+            return self._hf_fwk is None or self._hf_fwk.run_host_filters(self._hf_state, pod, ns).ok
         finally:
             for np_ in nominated:
                 ns.remove_pod(np_)

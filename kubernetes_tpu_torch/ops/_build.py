@@ -37,6 +37,7 @@ SOURCES = (
     "wave.cu",
     "workloads.cu",
     "preemption.cu",
+    "volume.cu",
     "runtime.cu",
 )
 HEADERS = ("ktpu.cuh",)
@@ -60,6 +61,7 @@ launches: Dict[str, int] = {
     "wave_admit": 0,
     "workloads_admit": 0,
     "narrow_candidates": 0,
+    "volume_topology_mask": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -132,11 +134,11 @@ class StaticEvalArgs(ctypes.Structure):
         "node_labels val_ints taint_key taint_val taint_eff unsched node_valid img_sizes "
         "valid ns_key ns_op ns_vals ns_rhs ns_tv pf_key pf_op pf_vals pf_rhs pf_tv pf_weight "
         "tol_key tol_op tol_val tol_eff target_name img_ids n_containers spread "
-        "mask m_nodename m_unsched m_taints m_nodeaff taint_raw naff_raw img"
+        "mask m_nodename m_unsched m_taints m_nodeaff taint_raw naff_raw img extra"
     ).split()
     _INTS = (
         "N K NVI T IMG S NT NR NV PT PR PV TL I "
-        "name_key unsched_key empty_val n_valid_nodes enabled has_images"
+        "name_key unsched_key empty_val n_valid_nodes enabled has_images mask_enabled"
     ).split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
@@ -278,6 +280,8 @@ def load() -> ctypes.CDLL:
     lib.ktpu_workloads_admit.restype = ctypes.c_int
     lib.ktpu_preempt_narrow.argtypes = [ctypes.POINTER(StaticEvalArgs), ctypes.POINTER(PreemptArgs), vp]
     lib.ktpu_preempt_narrow.restype = ctypes.c_int
+    lib.ktpu_volume_topology_mask.argtypes = [vp] * 10 + [ctypes.c_int] * 8 + [vp]
+    lib.ktpu_volume_topology_mask.restype = ctypes.c_int
     for fn in ("ktpu_gang_scan_smem_max", "ktpu_wave_admit_smem_max", "ktpu_workloads_admit_smem_max"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int

@@ -1,9 +1,9 @@
-"""Gang admission: the workloads dispatch for batches that carry PodGroups.
+"""The workloads dispatch: gang admission and the bound-volume topology mask.
 
 Port of the JAX package's ops/coscheduling.py (its jit roots
-``workloads_run`` and ``workloads_schedule``) for batches without DRA claims
-and without volumes.  One dispatch schedules a batch in the wave's two
-passes (ops/wave.py):
+``workloads_run`` and ``workloads_schedule``, and ``volume_topology_mask``)
+for batches without DRA claims.  One dispatch schedules a batch in the
+wave's two passes (ops/wave.py):
 
   1. **speculation**: every pod against the frozen snapshot, exactly the
      wave's first pass (kernel K8, ``wave.wave_speculate``);
@@ -19,18 +19,25 @@ passes (ops/wave.py):
      which the gang never happened, and the members read -1 in ``chosen``
      while ``raw`` keeps the choices the pass made for them.
 
-The verdict is gang.pod_step, the same step as the scan and the wave, and
-the factored carries are the wave's.  The admission pass has a plain
-PyTorch version (``workloads_admit_plain``, the reference's formulas, one
-pod at a time), which the wrapper takes for CPU tensors; for CUDA tensors it
-launches the hand-written kernel (csrc/workloads.cu) or raises:
+Pods with bound PVCs ride the same dispatch: ``volume_topology_mask``
+evaluates each bound PV's node-affinity DNF (and a zone-labelled PV's
+``key In zone-set`` conjunctions) against the node rows into a [P, N] mask,
+which the precompute folds into its host-filter lane (``extra_mask``:
+static_mask and ``d_extra``), so a volume rejection carries that lane's
+diagnosis.
 
-  K11 workloads_admit   the admission pass with the gang checkpoint, one
-                        persistent block
+The verdict is gang.pod_step, the same step as the scan and the wave, and
+the factored carries are the wave's.  Each pass has a plain PyTorch version
+(the reference's formulas), which the wrapper takes for CPU tensors; for
+CUDA tensors it launches the hand-written kernel or raises:
+
+  K11 workloads_admit        the admission pass with the gang checkpoint,
+                             one persistent block (csrc/workloads.cu)
+  K12 volume_topology_mask   the bound-PV mask, a thread per (pod, node)
+                             (csrc/volume.cu)
 
 Not ported: DRA claims (``dra.selector_match`` / ``node_feasible`` /
-``dra_commit``, ROADMAP A8's DRA half) and bound-volume topology
-(``volume_topology_mask``, ROADMAP A6); passing their arguments raises
+``dra_commit``, ROADMAP A8's DRA half); passing their arguments raises
 NotImplementedError.
 """
 
@@ -43,6 +50,7 @@ import torch
 from kubernetes_tpu_torch.ops import _build
 from kubernetes_tpu_torch.ops import gang
 from kubernetes_tpu_torch.ops import wave
+from kubernetes_tpu_torch.ops.common import DTable, dnf_any, eval_table
 from kubernetes_tpu_torch.ops.gang import N_DIAG
 from kubernetes_tpu_torch.snapshot.interner import ABSENT
 
@@ -50,23 +58,69 @@ I32 = torch.int32
 I64 = torch.int64
 BOOL = torch.bool
 
-# the workloads arguments of the reference that belong to unported tiers
-_UNPORTED = {
-    "dev_key": "A8", "dev_val": "A8", "dev_valid": "A8", "free0": "A8", "sel_key": "A8", "sel_op": "A8",
-    "sel_vals": "A8", "req_count": "A8", "req_all": "A8", "req_cl": "A8", "req_bad": "A8", "q_valid": "A8",
-    "ref_cl": "A8", "claim_node0": "A8", "vol_table": "A6", "vol_valid": "A6", "vol_bad": "A6",
-}
+# the workloads arguments of the reference that belong to the unported DRA tier
+_UNPORTED = ("dev_key", "dev_val", "dev_valid", "free0", "sel_key", "sel_op", "sel_vals", "req_count", "req_all",
+             "req_cl", "req_bad", "q_valid", "ref_cl", "claim_node0")
 
 
 def _refuse_unported(kw) -> None:
-    """Raise for any DRA or volume argument that is set."""
+    """Raise for any DRA argument that is set."""
     for k, v in kw.items():
         if k not in _UNPORTED:
             raise TypeError(f"unexpected argument {k!r}")
         if v is not None:
-            item = _UNPORTED[k]
-            what = "DRA claims (ROADMAP A8, DRA half)" if item == "A8" else "volumes (ROADMAP A6)"
-            raise NotImplementedError(f"workloads dispatch: {k} belongs to {what}, which the port has not ported")
+            raise NotImplementedError(f"workloads dispatch: {k} belongs to DRA claims (ROADMAP A8, DRA half), "
+                                      "which the port has not ported")
+
+
+# ---------------------------------------------------------------------------
+# K12: volume_topology_mask
+# ---------------------------------------------------------------------------
+
+
+def volume_topology_mask(dc, vol_table: DTable, vol_valid, vol_bad):
+    """The bound-PV topology filter as a [P, N] bool mask: every PV slot
+    ``vol_valid`` marks (one PV's node-affinity DNF, or a zone-labelled PV's
+    ``key In zone-set`` conjunctions, ORed terms on the table's term axis)
+    must admit the node, and ``vol_bad`` pods (a bound claim whose PV is
+    missing) admit none.  ``vol_table``'s fields are [P, PV2, T, R(, V)].
+    K12 on CUDA tensors, its plain version on CPU."""
+    if dc.node_valid.device.type == "cpu":
+        return volume_topology_mask_plain(dc, vol_table, vol_valid, vol_bad)
+    return _volume_topology_mask_cuda(dc, vol_table, vol_valid, vol_bad)
+
+
+def volume_topology_mask_plain(dc, vol_table: DTable, vol_valid, vol_bad):
+    """Plain version of K12: the reference's formula (ops/coscheduling.py:66)
+    through eval_table and dnf_any."""
+    vm = eval_table(vol_table, dc.node_labels, dc.val_ints)  # [P, PV2, T, N]
+    per_pv = dnf_any(vm)  # [P, PV2, N]
+    vol_mask = torch.where(vol_valid[:, :, None], per_pv, True).all(dim=1)  # [P, N]
+    return vol_mask & ~vol_bad[:, None]
+
+
+def _volume_topology_mask_cuda(dc, vol_table: DTable, vol_valid, vol_bad):
+    dev = dc.node_valid.device
+    lib = _build.load()
+    P, PV2, T, R = vol_table.req_key.shape
+    V = vol_table.req_vals.shape[-1]
+    N, K = dc.node_labels.shape
+    c = _build.check_cuda
+    out = torch.empty((P, N), dtype=BOOL, device=dev)
+    rc = lib.ktpu_volume_topology_mask(
+        c("req_key", vol_table.req_key, dev, I32, (P, PV2, T, R)),
+        c("req_op", vol_table.req_op, dev, I32, (P, PV2, T, R)),
+        c("req_vals", vol_table.req_vals, dev, I32, (P, PV2, T, R, V)),
+        c("req_rhs", vol_table.req_rhs, dev, I32, (P, PV2, T, R)),
+        c("term_valid", vol_table.term_valid, dev, BOOL, (P, PV2, T)),
+        c("vol_valid", vol_valid, dev, BOOL, (P, PV2)),
+        c("vol_bad", vol_bad, dev, BOOL, (P,)),
+        c("node_labels", dc.node_labels, dev, I32, (N, K)),
+        c("val_ints", dc.val_ints, dev, I32),
+        out.data_ptr(), P, PV2, T, R, V, N, K, dc.val_ints.shape[0], _build.stream_handle(dev))
+    _build.check_launch(lib, rc, "volume_topology_mask")
+    _build.launches["volume_topology_mask"] += 1
+    return out
 
 
 # the carried state snapshotted at a gang's first member (with the
@@ -195,18 +249,23 @@ def workloads_schedule(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, 
 
 
 def workloads_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
-                  rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, hard_pod_affinity_weight: int = 1,
-                  has_interpod: bool = True, has_spread: bool = True, has_images: bool = True,
-                  enabled: frozenset = gang.ALL_FILTER_KERNELS, weights: tuple = gang.DEFAULT_WEIGHTS,
-                  nom_node=None, nom_prio=None, nom_req=None, sp_keys=None, sp_cdv_tab=None, ip_keys=None,
-                  d_cap: int = 8, d2_cap: int = 8, **unported):
-    """precompute + workloads_schedule for one batch: K1 + K6 + K7 for the
-    statics, K8, K11.  The workloads gate admits no pod with host ports, so
-    the port axis is left out (precompute with has_ports=False)."""
+                  rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, vol_table=None, vol_valid=None,
+                  vol_bad=None, hard_pod_affinity_weight: int = 1, has_interpod: bool = True,
+                  has_spread: bool = True, has_images: bool = True, enabled: frozenset = gang.ALL_FILTER_KERNELS,
+                  weights: tuple = gang.DEFAULT_WEIGHTS, extra_mask=None, nom_node=None, nom_prio=None,
+                  nom_req=None, sp_keys=None, sp_cdv_tab=None, ip_keys=None, d_cap: int = 8, d2_cap: int = 8,
+                  **unported):
+    """precompute + workloads_schedule for one batch: K12 for the volume
+    mask when ``vol_table`` is given (ANDed into ``extra_mask``), K1 + K6 +
+    K7 for the statics, K8, K11.  The workloads gate admits no pod with host
+    ports, so the port axis is left out (precompute with has_ports=False)."""
     _refuse_unported(unported)
+    if vol_table is not None:
+        vmask = volume_topology_mask(dc, vol_table, vol_valid, vol_bad)
+        extra_mask = vmask if extra_mask is None else (extra_mask & vmask)
     g = gang.precompute(dc, db, hostname_key, v_cap, hard_pod_affinity_weight, has_interpod=has_interpod,
                         has_spread=has_spread, has_ports=False, has_images=has_images, enabled=enabled,
-                        sp_keys=sp_keys, sp_cdv_tab=sp_cdv_tab, ip_keys=ip_keys)
+                        extra_mask=extra_mask, sp_keys=sp_keys, sp_cdv_tab=sp_cdv_tab, ip_keys=ip_keys)
     return workloads_schedule(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
                               rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, weights=weights,
                               check_fit="NodeResourcesFit" in enabled, nom_node=nom_node, nom_prio=nom_prio,

@@ -55,40 +55,48 @@ _ENABLED_BITS = {
 # ---------------------------------------------------------------------------
 
 
-def static_eval(dc: DeviceCluster, db: DeviceBatch, enabled: frozenset, has_images: bool):
+def static_eval(dc: DeviceCluster, db: DeviceBatch, enabled: frozenset, has_images: bool, extra_mask=None,
+                mask_enabled: frozenset = None):
     """Static filters + raw static scores for a representative batch.
 
     Returns a dict of [S, N] tensors:
-      mask        — statics-feasible (node valid, name, unschedulable,
-                    taints, node affinity)
+      mask        — statics-feasible (node valid, the filters of
+                    ``mask_enabled`` (default ``enabled``) among name,
+                    unschedulable, taints and node affinity, and
+                    ``extra_mask`` [S, N] where one is given: the gang
+                    precompute's host-filter lane, K12's volume mask)
       m_taints / m_nodeaff / m_nodename / m_unsched — per-plugin masks
       taint_raw / naff_raw — raw score inputs (the scheduler checks they are
                     CONSTANT over the feasible set, which makes their
                     normalized contribution argmax-neutral)
       img         — ImageLocality contribution
     """
+    if mask_enabled is None:
+        mask_enabled = enabled
     if dc.node_valid.device.type == "cpu":
-        return static_eval_plain(dc, db, enabled, has_images)
-    return _static_eval_cuda(dc, db, enabled, has_images)
+        return static_eval_plain(dc, db, enabled, has_images, extra_mask, mask_enabled)
+    return _static_eval_cuda(dc, db, enabled, has_images, extra_mask, mask_enabled)
 
 
-def static_eval_plain(dc: DeviceCluster, db: DeviceBatch, enabled: frozenset, has_images: bool):
+def static_eval_plain(dc: DeviceCluster, db: DeviceBatch, enabled: frozenset, has_images: bool, extra_mask=None,
+                      mask_enabled: frozenset = None):
     """Plain PyTorch version of K1 (the reference's formulas, vectorized)."""
     P = db.valid.shape[0]
     N = dc.node_valid.shape[0]
+    if mask_enabled is None:
+        mask_enabled = enabled
     true_pn = torch.ones((P, N), dtype=BOOL, device=dc.node_valid.device)
     m_nodename = F.mask_node_name(dc, db) if "NodeName" in enabled else true_pn
     m_unsched = F.mask_unschedulable(dc, db) if "NodeUnschedulable" in enabled else true_pn
     m_taints = F.mask_taints(dc, db) if "TaintToleration" in enabled else true_pn
     m_nodeaff = F.mask_node_affinity(dc, db) if "NodeAffinity" in enabled else true_pn
-    mask = (
-        dc.node_valid[None, :]
-        & db.valid[:, None]
-        & m_nodename
-        & m_unsched
-        & m_taints
-        & m_nodeaff
-    )
+    mask = dc.node_valid[None, :] & db.valid[:, None]
+    for name, m in (("NodeName", m_nodename), ("NodeUnschedulable", m_unsched), ("TaintToleration", m_taints),
+                    ("NodeAffinity", m_nodeaff)):
+        if name in mask_enabled:
+            mask = mask & m
+    if extra_mask is not None:
+        mask = mask & extra_mask
     img = (
         S.score_image_locality(dc, db)
         if has_images
@@ -157,14 +165,19 @@ def static_eval_args(dc: DeviceCluster, db: DeviceBatch, enabled: frozenset, has
     a.name_key, a.unsched_key = dc.name_key, dc.unsched_key
     a.empty_val, a.n_valid_nodes = dc.empty_val, dc.n_valid_nodes
     a.enabled = sum(bit for name, bit in _ENABLED_BITS.items() if name in enabled)
+    a.mask_enabled = a.enabled
     a.has_images = int(bool(has_images))
     return a, spread
 
 
-def _static_eval_cuda(dc: DeviceCluster, db: DeviceBatch, enabled: frozenset, has_images: bool):
+def _static_eval_cuda(dc: DeviceCluster, db: DeviceBatch, enabled: frozenset, has_images: bool, extra_mask,
+                      mask_enabled: frozenset):
     dev = dc.node_valid.device
     lib = _build.load()
     a, _spread = static_eval_args(dc, db, enabled, has_images)
+    a.mask_enabled = sum(bit for name, bit in _ENABLED_BITS.items() if name in enabled and name in mask_enabled)
+    if extra_mask is not None:  # null: every pair passes the host-filter lane
+        a.extra = _build.check_cuda("extra_mask", extra_mask, dev, BOOL, (db.valid.shape[0], dc.node_valid.shape[0]))
     out = {}
     for k in STATIC_KEYS:
         dt = I64 if k in ("taint_raw", "naff_raw", "img") else BOOL

@@ -28,9 +28,10 @@ pod_step's default branch is ported, with the nominated-pod charge:
 carry preemptors whose victims are still terminating, charged to their
 nominated node for every pod of lower or equal priority
 (RunFilterPluginsWithNominatedPods, runtime/framework.go:973).  The kernels
-read them as a per-node CSR built on the host (``nominations_csr``).  Not
-ported: fit strategies other than LeastAllocated, the sampling window, the
-seeded tie-break and host-plugin masks or scores (ROADMAP B6 and A6).
+read them as a per-node CSR built on the host (``nominations_csr``).  The
+host-filter lane ``extra_mask`` is ported (the workloads route's K12 volume
+mask).  Not ported: fit strategies other than LeastAllocated, the sampling
+window, the seeded tie-break and host-plugin scores (ROADMAP B6 and A6b).
 """
 
 from __future__ import annotations
@@ -160,7 +161,7 @@ class GangStatics(NamedTuple):
     d_taints: torch.Tensor  # bool [P, N]
     d_nodeaff: torch.Tensor  # bool [P, N]
     d_ports: torch.Tensor  # bool [P, N]
-    d_extra: torch.Tensor  # bool [P, N] (host-filter veto mask: all-True here)
+    d_extra: torch.Tensor  # bool [P, N] (host-filter lane: K12's volume mask, else all True)
 
 
 def batch_tables(tsc_topo, aff_topo, node_label_vals, hostname_id: int):
@@ -226,14 +227,18 @@ def precompute(
     has_ports: bool = True,
     has_images: bool = True,
     enabled: frozenset = ALL_FILTER_KERNELS,
+    extra_mask=None,
     sp_keys=None,
     sp_cdv_tab=None,
     ip_keys=None,
 ) -> GangStatics:
     """When a has_* flag is False the matching statics have a zero-width
     constraint axis (the PreFilter Skip of the gang path).  ``enabled`` is
-    the profile's Filter plugin set; sp_keys / sp_cdv_tab / ip_keys come
-    from batch_tables() and are required when the matching flag is set."""
+    the profile's Filter plugin set; ``extra_mask`` (bool [P, N], None for
+    all True) is the host-filter lane, ANDed into static_mask and kept as
+    ``d_extra`` for the diagnosis (the workloads route's K12 volume mask);
+    sp_keys / sp_cdv_tab / ip_keys come from batch_tables() and are required
+    when the matching flag is set."""
     kw = dict(
         hard_pod_affinity_weight=hard_pod_affinity_weight,
         has_interpod=has_interpod and "InterPodAffinity" in enabled,
@@ -241,6 +246,7 @@ def precompute(
         has_ports=has_ports,
         has_images=has_images,
         enabled=enabled,
+        extra_mask=extra_mask,
     )
     if kw["has_spread"] and sp_keys is None:
         # missing tables would silently zero n_dom for every non-host soft
@@ -378,7 +384,7 @@ def port_masks_plain(dc, db):
 
 
 def precompute_plain(dc, db, hostname_key, v_cap, *, hard_pod_affinity_weight, has_interpod, has_spread,
-                     has_ports, has_images, enabled, sp_keys, sp_cdv_tab, ip_keys) -> GangStatics:
+                     has_ports, has_images, enabled, sp_keys, sp_cdv_tab, ip_keys, extra_mask=None) -> GangStatics:
     """Plain PyTorch version of precompute: the reference's formulas."""
     P = db.valid.shape[0]
     N = dc.node_valid.shape[0]
@@ -396,7 +402,9 @@ def precompute_plain(dc, db, hostname_key, v_cap, *, hard_pod_affinity_weight, h
         d_ports = true_pn
     if not has_ports:
         port_b = torch.zeros((P, 0), dtype=BOOL, device=dev)
-    static_mask = dc.node_valid[None, :] & db.valid[:, None] & d_nodename & d_unsched & d_taints & d_nodeaff & d_ports
+    d_extra = extra_mask if extra_mask is not None else true_pn
+    static_mask = (dc.node_valid[None, :] & db.valid[:, None] & d_extra & d_nodename & d_unsched & d_taints
+                   & d_nodeaff & d_ports)
     if has_spread:
         sp = spread_statics_plain(dc, db, node_affinity, taints, hostname_key, v_cap, sp_keys, sp_cdv_tab)
     else:
@@ -419,7 +427,7 @@ def precompute_plain(dc, db, hostname_key, v_cap, *, hard_pod_affinity_weight, h
         d_taints=d_taints,
         d_nodeaff=d_nodeaff,
         d_ports=d_ports,
-        d_extra=true_pn,
+        d_extra=d_extra,
     )
 
 
@@ -1001,14 +1009,15 @@ def interpod_statics(dc: DeviceCluster, db: DeviceBatch, *, do_interpod: bool, d
 
 
 def _precompute_cuda(dc, db, hostname_key, *, hard_pod_affinity_weight, has_interpod, has_spread, has_ports,
-                     has_images, enabled, sp_keys, ip_keys) -> GangStatics:
-    """K1 for the static half (with every static plugin on, so the spread
+                     has_images, enabled, sp_keys, ip_keys, extra_mask=None) -> GangStatics:
+    """K1 for the static half (every static verdict evaluated, so the spread
     eligibility reads the real taint and node-affinity masks whatever the
-    profile enables), K6 for spread, K7 for inter-pod and ports."""
+    profile enables; its mask ANDs the profile's filters and the
+    ``extra_mask`` lane), K6 for spread, K7 for inter-pod and ports."""
     P = db.valid.shape[0]
     N = dc.node_valid.shape[0]
     dev = dc.node_valid.device
-    st = ops_fp.static_eval(dc, db, _STATIC_ALL, has_images)
+    st = ops_fp.static_eval(dc, db, _STATIC_ALL, has_images, extra_mask=extra_mask, mask_enabled=enabled)
     true_pn = torch.ones((P, N), dtype=BOOL, device=dev)
     d_nodename = st["m_nodename"] if "NodeName" in enabled else true_pn
     d_unsched = st["m_unsched"] if "NodeUnschedulable" in enabled else true_pn
@@ -1019,8 +1028,11 @@ def _precompute_cuda(dc, db, hostname_key, *, hard_pod_affinity_weight, has_inte
     if has_interpod or do_ports:
         ip7 = interpod_statics(dc, db, do_interpod=has_interpod, do_ports=do_ports,
                                hard_pod_affinity_weight=hard_pod_affinity_weight)
-    d_ports = ip7["d_ports"] if "NodePorts" in enabled else true_pn
-    static_mask = dc.node_valid[None, :] & db.valid[:, None] & d_nodename & d_unsched & d_taints & d_nodeaff & d_ports
+    static_mask = st["mask"]
+    d_ports = true_pn
+    if "NodePorts" in enabled:
+        d_ports = ip7["d_ports"]
+        static_mask = static_mask & d_ports
 
     if has_spread:
         sp = spread_statics(dc, db, st["m_nodeaff"], st["m_taints"], hostname_key)
@@ -1066,7 +1078,7 @@ def _precompute_cuda(dc, db, hostname_key, *, hard_pod_affinity_weight, has_inte
         d_taints=d_taints,
         d_nodeaff=d_nodeaff,
         d_ports=d_ports,
-        d_extra=true_pn,
+        d_extra=extra_mask if extra_mask is not None else true_pn,
     )
 
 

@@ -37,7 +37,7 @@ to one with the reference's functions of the same names.  Only the default
 branch is ported, with the nominated-pod charge of the shared step
 (``nom_node`` / ``nom_prio`` / ``nom_req``, ops/gang.py): no sampling
 window, no seeded tie-break, no host-plugin masks or scores (ROADMAP B6,
-A6).
+A6b).
 """
 
 from __future__ import annotations

@@ -24,6 +24,17 @@ Routes each batch the way the JAX package's scheduler.py does:
    registered or not, stay off the chained and the fast routes, and a
    popped batch pulls in the active siblings of its gangs.
 
+Pods with bound PVCs (StatefulSet replicas on zonal disks) ride the
+workloads dispatch too, beside gang members and plain pods: the profile's
+host Filter plugins (framework/runtime.py, the four volume plugins) run
+their PreFilter on the batch, K12 folds every bound PV's node-affinity DNF
+(and a zone-labelled PV's zone set) into the precompute's host-filter lane,
+a placed volume pod's PreFilter and host Filters are replayed on its chosen
+node before Reserve, and a rejected one's FitError names the volume node
+affinity conflict.  Pods a host Filter could act on stay off the chained and
+the fast routes, and a batch the workloads dispatch declines is split:
+such pods retry it one by one.
+
 On the chained and the direct route, a batch whose pods carry their own
 cross-pod constraints (spread, inter-pod terms, host ports) takes the
 speculative wave under the default ``waveDispatch: true`` (K8 speculates
@@ -56,7 +67,11 @@ fast path, and the preemptor itself, back from its backoff, takes the
 nominated-node path (``_schedule_one_nominated``).
 
 Pods outside the ported paths raise NotImplementedError naming the ROADMAP
-item that ports them; a kernel failure or a checksum mismatch raises too.
+item that ports them (an unbound, missing or WaitForFirstConsumer claim, a
+ReadWriteOncePod claim or an inline single-attach disk, a CSI volume beside
+a CSINode, a volume pod with host ports, under duplicate hostnames or with
+``gangDispatch`` off: A6b, the host-veto split path); a kernel failure or a
+checksum mismatch raises too.
 Nothing falls back to another path by itself, and the batch goes back to
 the queue unscheduled.
 """
@@ -73,13 +88,17 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch import fastpath as fp
+from kubernetes_tpu_torch.api import labels as k8slabels
+from kubernetes_tpu_torch.api import storage as storage_api
 from kubernetes_tpu_torch.api.types import Node, Pod
 from kubernetes_tpu_torch.cache.cache import Cache
 from kubernetes_tpu_torch.cache.device_mirror import DeviceClusterCache
 from kubernetes_tpu_torch.cache.mirror import HOSTNAME_LABEL, SnapshotMirror
 from kubernetes_tpu_torch.framework.config import Profile, SchedulerConfiguration
-from kubernetes_tpu_torch.framework.interface import ActionType, ClusterEvent, CycleState, EventResource
-from kubernetes_tpu_torch.framework.plugins import QUEUEING_HINTS, DefaultPreemption
+from kubernetes_tpu_torch.framework.interface import ActionType, ClusterEvent, Code, CycleState, EventResource, Status
+from kubernetes_tpu_torch.framework.plugins import DEFAULT_PLUGINS, QUEUEING_HINTS, DefaultPreemption
+from kubernetes_tpu_torch.framework.runtime import Framework
+from kubernetes_tpu_torch.framework.volume_plugins import SINGLE_ATTACH_KINDS, zone_value_set
 from kubernetes_tpu_torch.ops import chain as ops_chain
 from kubernetes_tpu_torch.ops import coscheduling as ops_cos
 from kubernetes_tpu_torch.ops import fastpath as ops_fp
@@ -88,7 +107,7 @@ from kubernetes_tpu_torch.ops import preemption as ops_preemption
 from kubernetes_tpu_torch.ops import resident as ops_res
 from kubernetes_tpu_torch.ops import wave as ops_wave
 from kubernetes_tpu_torch.ops import wire
-from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster
+from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster, DTable
 from kubernetes_tpu_torch.oracle.pipeline import feasible_nodes, prioritize, select_host
 from kubernetes_tpu_torch.oracle.state import NodeState, OracleState
 from kubernetes_tpu_torch.queue.nominator import Nominator
@@ -98,11 +117,16 @@ from kubernetes_tpu_torch.snapshot.schema import (
     NodeTensors,
     ResourceLanes,
     bucket_cap,
+    pack_conjunction_table,
     pack_pod_batch,
 )
+from kubernetes_tpu_torch.snapshot.selectors import CompiledRequirements, compile_node_selector_dnf
+from kubernetes_tpu_torch.util.assumecache import AssumeCache
 from kubernetes_tpu_torch.workloads import gang as wlg
 
 INT32_MIN = -(2**31)
+# the host-filter lane of a workloads batch is the volume-topology mask
+VOLUME_CONFLICT = "node(s) had volume node affinity conflict"
 # placed term pods beyond this make the fast gate's probes cost more than
 # the scan they would save (the reference's cut-off)
 MAX_PROBED_TERM_PODS = 64
@@ -182,12 +206,30 @@ def resolve_device(device=None) -> torch.device:
 
 
 class _Handle:
-    """What the preemption evaluator reads of the scheduler
-    (framework.Handle): the host view, the nominator, the eviction and PDB
-    hooks, queue activation and the preemption metrics."""
+    """What the preemption evaluator and the host plugins read of the
+    scheduler (framework.Handle): the host view, the nominator, the eviction
+    and PDB hooks, queue activation, the preemption metrics, the profile's
+    host plugins, and the storage caches and listers."""
 
     def __init__(self, sched: "Scheduler"):
         self._s = sched
+
+    @property
+    def pv_cache(self) -> AssumeCache:
+        return self._s.pv_cache
+
+    @property
+    def pvc_cache(self) -> AssumeCache:
+        return self._s.pvc_cache
+
+    def get_storage_class(self, name: str):
+        return self._s.storage_classes.get(name)
+
+    def get_csinode(self, name: str):
+        return self._s.csinodes.get(name)
+
+    def framework_for(self, pod: Pod) -> Optional[Framework]:
+        return self._s.frameworks.get(pod.scheduler_name)
 
     def oracle_state(self) -> OracleState:
         return self._s.oracle_view()
@@ -240,7 +282,16 @@ class Scheduler:
         self.pod_deleter: Callable[[Pod], None] = lambda pod: None
         self.pdb_lister: Callable[[], list] = lambda: []
         self.status_patcher: Callable[[Pod], None] = lambda pod: None
+        # PVs and PVCs (assume caches), StorageClasses and CSINodes by name
+        self.pv_cache: AssumeCache = AssumeCache("pv")
+        self.pvc_cache: AssumeCache = AssumeCache("pvc")
+        self.storage_classes: Dict[str, storage_api.StorageClass] = {}
+        self.csinodes: Dict[str, storage_api.CSINode] = {}
         handle = _Handle(self)
+        # each profile's host plugins (the volume plugins)
+        self.frameworks: Dict[str, Framework] = {
+            p.scheduler_name: Framework(DEFAULT_PLUGINS, handle) for p in self.config.profiles
+        }
         self._post_filters: Dict[str, DefaultPreemption] = {
             p.scheduler_name: DefaultPreemption(
                 handle, p.min_candidate_nodes_percentage, p.min_candidate_nodes_absolute
@@ -368,6 +419,60 @@ class Scheduler:
         self.gangs.delete(pg.key)
         self.queue.move_all_on_event(ClusterEvent(EventResource.POD_GROUP, ActionType.DELETE), pg, None)
 
+    # storage informers (eventhandlers.go:431-602): feed the cache or the
+    # lister, then requeue through the volume plugins' queueing hints
+
+    def _storage_event(self, resource: EventResource, action: ActionType, old, new) -> None:
+        self.queue.move_all_on_event(ClusterEvent(resource, action), old, new)
+
+    def on_pv_add(self, pv: storage_api.PersistentVolume) -> None:
+        self.pv_cache.on_add(pv)
+        self._storage_event(EventResource.PV, ActionType.ADD, None, pv)
+
+    def on_pv_update(self, old: storage_api.PersistentVolume, new: storage_api.PersistentVolume) -> None:
+        self.pv_cache.on_update(old, new)
+        self._storage_event(EventResource.PV, ActionType.UPDATE, old, new)
+
+    def on_pv_delete(self, pv: storage_api.PersistentVolume) -> None:
+        self.pv_cache.on_delete(pv)
+        self._storage_event(EventResource.PV, ActionType.DELETE, pv, None)
+
+    def on_pvc_add(self, pvc: storage_api.PersistentVolumeClaim) -> None:
+        self.pvc_cache.on_add(pvc)
+        self._storage_event(EventResource.PVC, ActionType.ADD, None, pvc)
+
+    def on_pvc_update(self, old: storage_api.PersistentVolumeClaim, new: storage_api.PersistentVolumeClaim) -> None:
+        self.pvc_cache.on_update(old, new)
+        self._storage_event(EventResource.PVC, ActionType.UPDATE, old, new)
+
+    def on_pvc_delete(self, pvc: storage_api.PersistentVolumeClaim) -> None:
+        self.pvc_cache.on_delete(pvc)
+        self._storage_event(EventResource.PVC, ActionType.DELETE, pvc, None)
+
+    def on_storage_class_add(self, sc: storage_api.StorageClass) -> None:
+        self.storage_classes[sc.key] = sc
+        self._storage_event(EventResource.STORAGE_CLASS, ActionType.ADD, None, sc)
+
+    def on_storage_class_update(self, old: storage_api.StorageClass, new: storage_api.StorageClass) -> None:
+        self.storage_classes[new.key] = new
+        self._storage_event(EventResource.STORAGE_CLASS, ActionType.UPDATE, old, new)
+
+    def on_storage_class_delete(self, sc: storage_api.StorageClass) -> None:
+        self.storage_classes.pop(sc.key, None)
+        self._storage_event(EventResource.STORAGE_CLASS, ActionType.DELETE, sc, None)
+
+    def on_csinode_add(self, cn: storage_api.CSINode) -> None:
+        self.csinodes[cn.key] = cn
+        self._storage_event(EventResource.CSI_NODE, ActionType.ADD, None, cn)
+
+    def on_csinode_update(self, old: storage_api.CSINode, new: storage_api.CSINode) -> None:
+        self.csinodes[new.key] = new
+        self._storage_event(EventResource.CSI_NODE, ActionType.UPDATE, old, new)
+
+    def on_csinode_delete(self, cn: storage_api.CSINode) -> None:
+        self.csinodes.pop(cn.key, None)
+        self._storage_event(EventResource.CSI_NODE, ActionType.DELETE, cn, None)
+
     # ----- the host view -----------------------------------------------------
 
     def _invalidate_view(self) -> None:
@@ -443,8 +548,10 @@ class Scheduler:
                 self._flush_binds()
             flush(0)
         except BaseException:
-            # what was dispatched is still harvested (its decisions stand)
+            # what was dispatched is still harvested, and what was committed
+            # is bound (their decisions stand)
             flush(0)
+            self._flush_binds()
             raise
         return outcomes
 
@@ -457,7 +564,17 @@ class Scheduler:
             if why is not None:
                 flush(0)
                 self._refuse(batch, f"pod {qp.pod.key}: {why}")
-        if self._chain_quickcheck(batch):
+        fwk = self.frameworks[profile.scheduler_name]
+        if any(fwk.maybe_relevant(qp.pod) for qp in batch):
+            # such a batch takes the direct path (the pipelined gates exclude
+            # it): settle the pipeline, then read the workloads dispatch's
+            # precondition from the mirror it dispatches on
+            flush(0)
+            self._sync_mirror_external()
+            if not self.mirror.hostnames_unique:
+                self._refuse(batch, "volume pods under duplicate hostname labels need the host-veto split path "
+                                    "(ROADMAP A6b)")
+        if self._chain_quickcheck(profile, batch):
             rec = self._try_dispatch_chained(profile, batch, can_restart=not pending)
             if rec == "flush":
                 flush(0)
@@ -486,13 +603,44 @@ class Scheduler:
         outcomes.extend(self._schedule_batch(profile, batch))
 
     def _refusal(self, pod: Pod) -> Optional[str]:
-        """Why a pod is outside the ported paths (None when it is inside)."""
+        """Why a pod is outside the ported paths (None when it is inside).
+        A pod no host Filter could act on (no volumes, or only emptyDir /
+        configMap ones) is inside; a volume pod is inside when its claims
+        take the workloads route's K12 mask (all bound, their PVs present)
+        and nothing else keeps it on the reference's host-veto split path."""
         if pod.resource_claims:
             return "DRA claims need the workloads tier's allocator, ROADMAP A8 (DRA half)"
-        if pod.volumes:
-            return "volumes need the host Filter plugins (ROADMAP A6)"
         if pod.scheduling_gates:
             return "scheduling gates need the PreEnqueue queue tier (ROADMAP A5)"
+        fwk = self.frameworks.get(pod.scheduler_name)
+        if fwk is None or not fwk.maybe_relevant(pod):
+            return None
+        why = self._volume_refusal(pod)
+        return None if why is None else f"{why} (ROADMAP A6b: the host-veto split path)"
+
+    def _volume_refusal(self, pod: Pod) -> Optional[str]:
+        if not self.config.gang_dispatch:
+            return "volume pods need the workloads dispatch, and gangDispatch is off"
+        if any(v.source_kind in SINGLE_ATTACH_KINDS for v in pod.volumes):
+            return "an inline single-attach disk needs VolumeRestrictions' host Filter"
+        if not pod.pvc_names():
+            return "an inline CSI volume needs NodeVolumeLimits' host Filter"
+        if self.csinodes:
+            return "a CSI volume beside a registered CSINode needs NodeVolumeLimits' host Filter"
+        if pod.host_ports():
+            return "a volume pod with host ports needs the host Filter plugins beside the port carry"
+        for name in pod.pvc_names():
+            pvc = self.pvc_cache.get(f"{pod.namespace}/{name}")
+            if pvc is None:
+                return f"claim {name} is missing"
+            if not pvc.is_fully_bound():
+                sc = self.storage_classes.get(pvc.storage_class_name or "")
+                mode = "WaitForFirstConsumer" if sc is not None and sc.is_wait_for_first_consumer() else "unbound"
+                return f"claim {name} is {mode}"
+            if storage_api.RWOP in pvc.access_modes:
+                return f"claim {name} is ReadWriteOncePod, which needs VolumeRestrictions' host Filter"
+            if self.pv_cache.get(pvc.volume_name) is None:
+                return f"claim {name}'s PV {pvc.volume_name} is missing"
         return None
 
     def _refuse(self, batch: List[QueuedPodInfo], why: str) -> None:
@@ -560,7 +708,8 @@ class Scheduler:
         static scores vary over its feasible nodes)."""
         if self.mirror.nodes is None:
             self._repack_mirror()
-        if any(qp.pod.nominated_node_name for qp in batch):
+        fwk = self.frameworks[profile.scheduler_name]
+        if any(qp.pod.nominated_node_name or fwk.maybe_relevant(qp.pod) for qp in batch):
             return None
         if not self._fast_gate_ok(batch):
             return None
@@ -594,6 +743,8 @@ class Scheduler:
                 p = qp.pod
                 if p.scheduler_name != profile.scheduler_name or self._refusal(p) is not None:
                     return False
+                if fwk.maybe_relevant(p):
+                    return False  # host Filters need the per-pod commit walk
                 if gang_on and wlg.group_key_of(p) is not None:
                     return False  # gang members need the workloads dispatch
                 if p.nominated_node_name or (max_nom is not None and p.priority <= max_nom):
@@ -951,16 +1102,20 @@ class Scheduler:
             len(self.vocab.label_keys),
         )
 
-    def _chain_quickcheck(self, batch) -> bool:
+    def _chain_quickcheck(self, profile: Profile, batch) -> bool:
         """Spec-only gate of the chained path: the mirror is packed, no pod
         wants host ports (the append does not splice port rows) or carries a
-        nomination, no pod is a gang member (those take the direct path's
-        workloads dispatch), and the batch is not a fast-path candidate."""
+        nomination, no pod is a gang member or one a host Filter could act
+        on (those take the direct path's workloads dispatch), and the batch
+        is not a fast-path candidate."""
         if self.mirror.nodes is None:
             return False
         if self.config.gang_dispatch and any(wlg.group_key_of(qp.pod) is not None for qp in batch):
             return False
         if any(qp.pod.host_ports() for qp in batch):
+            return False
+        fwk = self.frameworks[profile.scheduler_name]
+        if any(fwk.maybe_relevant(qp.pod) for qp in batch):
             return False
         # nominated pods take the direct path's nominated-node split
         if any(qp.pod.nominated_node_name for qp in batch):
@@ -1061,9 +1216,11 @@ class Scheduler:
         """Harvest one wave's stats: the pods admitted at their speculative
         node, the demotions by kind (an upgrade, a pod placed although
         speculation found no node, is not a conflict), and the batch's
-        interaction groups.  The port has no host Filter plugins, no
-        Reserve/Permit and no extenders, so the groups are always formed,
-        as the reference forms them under its default profile."""
+        interaction groups.  No pod a host Filter could act on reaches the
+        wave (it takes the workloads dispatch or is refused), and the port
+        has no extenders, so the groups are always formed, as the reference
+        forms them for host-filter-clean batches under its default
+        profile."""
         n = len(batch)
         stats = stats.cpu().numpy()
         spec, kinds = stats[0][:n], stats[1][:n]
@@ -1187,11 +1344,12 @@ class Scheduler:
         """The direct path (schedule_one.go:65 granularity where it must): a
         batch with members of registered PodGroups takes the workloads
         dispatch first (a mixed batch that the workloads gate refuses is
-        peeled: its members alone take it, the rest the paths below);
-        nominated pods take the nominated-node path one by one, the runs of
-        other pods between them are scheduled as batches; a batch the fast
-        gate admits takes the signature fast path (no extension), the rest
-        ``wave_run`` or ``gang_run``."""
+        peeled: its members alone take it, the rest the paths below).  Then
+        the split: nominated pods take the nominated-node path one by one, a
+        pod a host Filter could act on retries the workloads dispatch alone,
+        and the runs of other pods between them are scheduled as batches; a
+        batch the fast gate admits takes the signature fast path (no
+        extension), the rest ``wave_run`` or ``gang_run``."""
         self._chain = None  # direct commits happen outside any chain
         if try_workloads and self.config.gang_dispatch:
             out = self._try_dispatch_workloads(profile, batch)
@@ -1205,17 +1363,31 @@ class Scheduler:
                 if out is not None:
                     rest = [qp for qp in batch if self._workloads_group_of(qp.pod) is None]
                     return out + self._schedule_batch(profile, rest)
-        if len(batch) > 1 and any(qp.pod.nominated_node_name for qp in batch):
+        fwk = self.frameworks[profile.scheduler_name]
+        if len(batch) > 1 and any(qp.pod.nominated_node_name or fwk.maybe_relevant(qp.pod) for qp in batch):
+            # host-stateful Filters judge against state that earlier commits
+            # of the same batch move: such pods take one-pod cycles, in queue
+            # order (schedule_one.go:65)
+            # (a sub-run that raises has pushed its own pods back; the pods
+            # after it go back too, and the placements committed before it
+            # are bound where schedule_pending unwinds)
             outcomes: List[ScheduleOutcome] = []
             run: List[QueuedPodInfo] = []
-            for qp in batch:
-                if not qp.pod.nominated_node_name:
+            for i, qp in enumerate(batch):
+                if not qp.pod.nominated_node_name and not fwk.maybe_relevant(qp.pod):
                     run.append(qp)
                     continue
-                if run:
-                    outcomes.extend(self._schedule_batch(profile, run))
-                    run = []
-                outcomes.extend(self._schedule_one_nominated(profile, qp))
+                try:
+                    if run:
+                        outcomes.extend(self._schedule_batch(profile, run))
+                        run = []
+                    if qp.pod.nominated_node_name:
+                        outcomes.extend(self._schedule_one_nominated(profile, qp))
+                    else:
+                        outcomes.extend(self._schedule_batch(profile, [qp]))
+                except BaseException:
+                    self.queue.push_back(batch[i + 1:] if not run else batch[i:])
+                    raise
             if run:
                 outcomes.extend(self._schedule_batch(profile, run))
             return outcomes
@@ -1229,6 +1401,14 @@ class Scheduler:
     def _schedule_direct(self, profile: Profile, batch) -> List[ScheduleOutcome]:
         """wave_run (a wave-shaped batch under waveDispatch) or gang_run on
         the snapshot the device mirror keeps current."""
+        fwk = self.frameworks[profile.scheduler_name]
+        for qp in batch:
+            if fwk.maybe_relevant(qp.pod):
+                # a guard: _schedule_group's checks hold every precondition
+                # of the workloads dispatch, so it takes such a pod first;
+                # the reference would veto nodes on the host into K5/K8/K9
+                self._refuse(batch, f"pod {qp.pod.key}: a volume pod the workloads dispatch declined needs the "
+                                    "host-veto split path (ROADMAP A6b)")
         self._repack_mirror()
         pods, pb = self._gang_prep(batch)
         try:
@@ -1288,7 +1468,7 @@ class Scheduler:
                     out[i] = self._assume(qp, names[chosen[i]])
                 continue
             diag = {k: int(c) for k, c in zip(ops_gang.DIAG_KERNELS, counts[i]) if c > 0}
-            diag.pop("HostFilters", None)  # no host Filter plugins in the port
+            diag.pop("HostFilters", None)  # the gang and wave paths carry no host-filter lane
             out[i] = self._post_filter_or_fail(profile, state, qp, fit_error_message(n_nodes, diag), diag, set(diag))
         for i in later:
             out[i] = self._assume(batch[i], names[chosen[i]])
@@ -1325,22 +1505,90 @@ class Scheduler:
 
     def _workloads_eligible(self, batch) -> bool:
         """The workloads gate on the pods' specs: gangDispatch is on, some pod
-        is a member of a registered PodGroup, and no pod carries a
-        nomination or wants host ports (the dispatch has no port carry)."""
+        is a member of a registered PodGroup or has claims, and no pod
+        carries a nomination or wants host ports (the dispatch has no port
+        carry).  ``_refusal`` already holds every claim to what K12 covers
+        (bound, its PV present: the reference's ``_vol_kernel_ok``); whether
+        a host Filter is still active is asked after PreFilter
+        (``_workloads_covered``)."""
         if not self.config.gang_dispatch:
             return False
-        if not any(self._workloads_group_of(qp.pod) is not None for qp in batch):
+        if not any(self._workloads_group_of(qp.pod) is not None or qp.pod.pvc_names() for qp in batch):
             return False
         return not any(qp.pod.nominated_node_name or qp.pod.host_ports() for qp in batch)
 
+    def _workloads_covered(self, fwk: Framework, state: CycleState, pods) -> bool:
+        """After PreFilter: every host Filter still active for some pod is
+        one the dispatch replaces: VolumeBinding and VolumeZone (K12's mask),
+        NodeVolumeLimits while no CSINode advertises limits (its Filter is
+        then a constant success)."""
+        for p in fwk.host_filter_plugins():
+            if p.name in ("VolumeBinding", "VolumeZone"):
+                continue
+            if p.name == "NodeVolumeLimits" and not self.csinodes:
+                continue
+            if any(not state.is_filter_skipped(pod.uid, p.name) for pod in pods):
+                return False
+        return True
+
+    def _vol_tables(self, pods, p_cap: int) -> Optional[dict]:
+        """The K12 tables: each bound PV's node-affinity DNF in its own PV2
+        slot (ORed terms on the term axis), and, for a PV carrying zone or
+        region labels (VolumeZone's form), one more slot whose conjunction
+        requires ``key In zone-set`` for each such label, so the AND over
+        slots is volume_zone.go's every-label-must-match.  A nil affinity
+        adds no slot (it matches everywhere); a claim whose PV is missing
+        marks the pod ``vol_bad``.  None when no pod has such a row."""
+        per_pod: List[list] = []
+        bad = np.zeros((p_cap,), bool)
+        for i, pod in enumerate(pods):
+            rows = []
+            for name in pod.pvc_names():
+                pvc = self.pvc_cache.get(f"{pod.namespace}/{name}")
+                pv = self.pv_cache.get(pvc.volume_name) if pvc is not None and pvc.is_fully_bound() else None
+                if pv is None:
+                    bad[i] = True
+                    continue
+                zone_c = CompiledRequirements()
+                for key in storage_api.VOLUME_TOPOLOGY_LABELS:
+                    if key in pv.labels:
+                        zone_c.add(key, k8slabels.IN, sorted(zone_value_set(pv.labels[key])), self.vocab)
+                if zone_c.n_reqs:
+                    rows.append([zone_c])
+                if pv.node_affinity is not None:
+                    rows.append(compile_node_selector_dnf(pv.node_affinity, self.vocab))
+            per_pod.append(rows)
+        if not any(per_pod) and not bad.any():
+            return None
+        pv_cap = bucket_cap(max((len(r) for r in per_pod), default=1) or 1, 1)
+        flat: List[list] = []
+        valid = np.zeros((p_cap, pv_cap), bool)
+        for i in range(p_cap):
+            rows = per_pod[i] if i < len(per_pod) else []
+            for j in range(pv_cap):
+                flat.append(rows[j] if j < len(rows) else [])
+                valid[i, j] = j < len(rows)
+        ct = pack_conjunction_table(flat)
+        T, R, V = ct.req_key.shape[1], ct.req_key.shape[2], ct.req_vals.shape[3]
+
+        def dev(a, tail):
+            return torch.from_numpy(np.ascontiguousarray(a).reshape((p_cap, pv_cap) + tail)).to(self.device)
+
+        table = DTable(req_key=dev(ct.req_key, (T, R)), req_op=dev(ct.req_op, (T, R)),
+                       req_vals=dev(ct.req_vals, (T, R, V)), req_rhs=dev(ct.req_rhs, (T, R)),
+                       term_valid=dev(ct.term_valid, (T,)))
+        return dict(vol_table=table, vol_valid=torch.from_numpy(valid).to(self.device),
+                    vol_bad=torch.from_numpy(bad).to(self.device))
+
     def _try_dispatch_workloads(self, profile: Profile, batch) -> Optional[List[ScheduleOutcome]]:
         """The workloads dispatch (the reference's _try_dispatch_workloads,
-        without DRA and volumes): the quorum and timeout barrier, the
-        canonical order (plan_batch), one ``workloads_run`` (K1 + K6 + K7,
-        K8, K11) and the result walk.  None when the batch is not eligible
-        or two nodes share a hostname (the factored hostname domains need
-        one node per hostname): the caller schedules it on the other paths,
-        member by member, with nothing committed or failed."""
+        without DRA): the host plugins' PreFilter, the quorum and timeout
+        barrier, the canonical order (plan_batch), one ``workloads_run``
+        (K12 for the volume mask, K1 + K6 + K7, K8, K11) and the result
+        walk.  None when the batch is not eligible, two nodes share a
+        hostname (the factored hostname domains need one node per hostname)
+        or a host Filter the dispatch does not replace is active: the caller
+        schedules it on the other paths, with nothing committed or failed."""
         if not self._workloads_eligible(batch):
             return None
         for qp in batch:
@@ -1349,7 +1597,28 @@ class Scheduler:
         self._sync_mirror_external()
         if not self.mirror.hostnames_unique:
             return None
+
+        # 0. PreFilter (a claim being deleted rejects here); its failures are
+        # emitted only once the coverage check commits to this path
+        fwk = self.frameworks[profile.scheduler_name]
+        state = CycleState()
+        pf_failures = fwk.run_pre_filter(state, [qp.pod for qp in batch])
+        if not self._workloads_covered(fwk, state, [qp.pod for qp in batch if qp.pod.uid not in pf_failures]):
+            return None
         outcomes: List[ScheduleOutcome] = []
+        if pf_failures:
+            live = []
+            for qp in batch:
+                st = pf_failures.get(qp.pod.uid)
+                if st is None:
+                    live.append(qp)
+                    continue
+                self.metrics["schedule_attempts"] += 1
+                outcomes.append(self._post_filter_or_fail(profile, state, qp, st.merge_reason(), None,
+                                                          {st.plugin} if st.plugin else set(), code=st.code))
+            batch = live
+            if not batch:
+                return outcomes
 
         # 1. the gang barrier: quorum and timeout verdicts before dispatch
         keys = [self._workloads_group_of(qp.pod) for qp in batch]
@@ -1400,30 +1669,38 @@ class Scheduler:
         try:
             dc = self._dc_cache.sync(self.mirror, self.vocab)
             db = DeviceBatch.from_host(pb, self.device)
+            v_cap = bucket_cap(len(self.vocab.label_vals))  # before the volume rows intern their values
+            tables = self._gang_tables(pb)
             flags = self._gang_flags(pb, bool((self.mirror.existing.term_kind != PAD).any()))
             del flags["has_ports"]
             rows = {k: torch.from_numpy(v).to(self.device) for k, v in dict(
                 gang_id=gid, gang_first=gfirst, gang_last=glast, gang_need=gneed).items()}
+            volt = self._vol_tables([qp.pod for qp in ordered], pb.valid.shape[0]) or {}
             chosen, _, reasons, _, wl = ops_cos.workloads_run(
-                dc, db, self._hostname_key(), bucket_cap(len(self.vocab.label_vals)), g_cap,
-                **self._wave_kw(wt, ports=False), **rows, enabled=profile.enabled, weights=profile.weights(),
-                **self._gang_tables(pb), **self._nominated_arrays({qp.pod.uid for qp in ordered}), **flags)
+                dc, db, self._hostname_key(), v_cap, g_cap, **self._wave_kw(wt, ports=False), **rows, **volt,
+                enabled=profile.enabled, weights=profile.weights(), **tables,
+                **self._nominated_arrays({qp.pod.uid for qp in ordered}), **flags)
             fetched = [t.cpu().numpy() for t in (chosen, wl["raw"], wl["spec"], wl["gang_admit"], wl["gang_landed"])]
         except BaseException:
             self._dc_cache.invalidate()
             self.queue.push_back(ordered)
             raise
-        self._process_workloads_results(profile, ordered, *fetched, reasons, gang_positions, slot_keys, outcomes)
+        self._process_workloads_results(profile, state, ordered, *fetched, reasons, gang_positions, slot_keys,
+                                        outcomes)
         return outcomes
 
-    def _process_workloads_results(self, profile: Profile, ordered, chosen, raw, spec, gang_admit, gang_landed,
-                                   reasons, gang_positions, slot_keys, outcomes) -> None:
+    def _process_workloads_results(self, profile: Profile, state: CycleState, ordered, chosen, raw, spec,
+                                   gang_admit, gang_landed, reasons, gang_positions, slot_keys, outcomes) -> None:
         """The workloads result walk in the canonical order: the gang
         verdicts (metrics, and an admitted gang's window closes); then per
         pod, a member its gang rolled back fails without PostFilter (a dry
         run for it would only churn victims), a genuine failure gets its
-        FitError and goes to PostFilter (unnarrowed, as in the reference),
-        and a placement is assumed and counted for its gang."""
+        FitError (the host-filter lane named as the volume node affinity
+        conflict, VolumeBinding's) and goes to PostFilter (unnarrowed, as in
+        the reference), and a placement is assumed and counted for its gang;
+        a volume pod's placement is replayed through PreFilter and the host
+        Filters on its node first, so Reserve reads decisions made on the
+        live cache (``_wl_host_replay``)."""
         names = self.nodes.names
         n = len(ordered)
         chosen = chosen[:n]
@@ -1441,14 +1718,23 @@ class Scheduler:
                 m["gang_admitted"] += landed
             elif admit == 0:
                 m["gang_rolled_back"] += 1
-        state = CycleState()
+        fwk = self.frameworks[profile.scheduler_name]
         counts = None
         n_nodes = len(self.cache.real_nodes())
         for i, qp in enumerate(ordered):
             idx = int(chosen[i])
             if idx >= 0:
-                outcomes.append(self._assume(qp, names[idx]))
-                self.gangs.note_placed(qp.pod)
+                if qp.pod.pvc_names():
+                    st = self._wl_host_replay(fwk, state, qp.pod, names[idx])
+                    if not st.ok:
+                        # the ground truth moved between dispatch and commit
+                        outcomes.append(self._post_filter_or_fail(profile, state, qp, st.merge_reason(), None,
+                                                                  {st.plugin} if st.plugin else set(), code=st.code))
+                        continue
+                out = self._assume(qp, names[idx], state=state)
+                outcomes.append(out)
+                if out.node is not None:
+                    self.gangs.note_placed(qp.pod)
                 continue
             key = pos_gang.get(i)
             if key is not None and int(raw[i]) >= 0:
@@ -1461,9 +1747,26 @@ class Scheduler:
             if counts is None:
                 counts = reasons.cpu().numpy()
             diag = {k: int(c) for k, c in zip(ops_gang.DIAG_KERNELS, counts[i]) if c > 0}
-            diag.pop("HostFilters", None)  # no host Filter plugins in the port
+            plugins = set(diag)
+            if "HostFilters" in diag:  # the host-filter lane is K12's volume mask
+                diag[VOLUME_CONFLICT] = diag.pop("HostFilters")
+                plugins.discard("HostFilters")
+                plugins.add("VolumeBinding")
             outcomes.append(self._post_filter_or_fail(profile, state, qp, fit_error_message(n_nodes, diag), diag,
-                                                      set(diag)))
+                                                      plugins))
+
+    def _wl_host_replay(self, fwk: Framework, state: CycleState, pod: Pod, node_name: str) -> Status:
+        """PreFilter again (fresh claim ledgers) and the chosen node's host
+        Filter walk for a volume pod the dispatch placed: the kernel proved
+        feasibility; this records the plugins' per-node decisions in the
+        CycleState that Reserve and PreBind read."""
+        pf = fwk.run_pre_filter(state, [pod])
+        if pod.uid in pf:
+            return pf[pod.uid]
+        ns = self.oracle_view().nodes.get(node_name)
+        if ns is None:
+            return Status.error(f"node {node_name} vanished", plugin="Workloads")
+        return fwk.run_host_filters(state, pod, ns)
 
     # ----- commit --------------------------------------------------------
 
@@ -1498,19 +1801,32 @@ class Scheduler:
             self._flush_binds()
         return out
 
-    def _assume(self, qp: QueuedPodInfo, node: str, fast: bool = False) -> ScheduleOutcome:
+    def _assume(self, qp: QueuedPodInfo, node: str, fast: bool = False,
+                state: Optional[CycleState] = None) -> ScheduleOutcome:
         """Assume one placement (the host view follows) and buffer its bind;
         the outcome is final once ``_flush_binds`` ran (at a pipelined
         harvest, else at the end of the popped batch: until then a bound
         preemptor's nomination stays open, as in the reference, whose bind
         workers start there).  A non-fast commit moves state the fast
-        lineage did not track."""
+        lineage did not track.  A pod with claims runs the host plugins'
+        Reserve against ``state`` (the CycleState its host Filters wrote),
+        and its bind waits for their PreBind."""
         (assumed,) = self.cache.assume_pods_bulk([(qp.pod, node)])
         self._view_pod_added(assumed)
         if not fast:
             self._nonfast_commits += 1
+        fwk = None
+        if state is not None and qp.pod.pvc_names():
+            fwk = self.frameworks[qp.pod.scheduler_name]
+            st = fwk.run_reserve(state, qp.pod, node)
+            if not st.ok:
+                self._external_mutations += 1  # the committers' state diverges
+                self._view_pod_removed(assumed)
+                self.cache.forget_pod(qp.pod)
+                self._handle_failure(qp, set() if st.code == Code.ERROR else {st.plugin})
+                return ScheduleOutcome(qp.pod, None, st.merge_reason())
         outcome = ScheduleOutcome(qp.pod, node)
-        self._bind_buffer.append((qp, node, outcome))
+        self._bind_buffer.append((qp, node, outcome, fwk, state))
         return outcome
 
     def _flush_binds(self) -> None:
@@ -1520,19 +1836,32 @@ class Scheduler:
         buf, self._bind_buffer = self._bind_buffer, []
         if not buf:
             return
-        pairs = [(qp.pod, node) for qp, node, _ in buf]
+        # PreBind (the host plugins' volume binding) before the bind; a
+        # failure unreserves and takes the bind's failure path
+        pre = [None] * len(buf)
+        for i, (qp, node, _, fwk, state) in enumerate(buf):
+            if fwk is not None:
+                st = fwk.run_pre_bind(state, qp.pod, node)
+                if not st.ok:
+                    fwk.run_unreserve(state, qp.pod, node)
+                    pre[i] = st.merge_reason()
+        todo = [i for i in range(len(buf)) if pre[i] is None]
+        pairs = [(buf[i][0].pod, buf[i][1]) for i in todo]
         if self.binding_sink_many is not None:
-            errors = list(self.binding_sink_many(pairs))
+            got = list(self.binding_sink_many(pairs)) if pairs else []
         else:
-            errors = []
+            got = []
             for pod, node in pairs:
                 try:
                     if self.binding_sink is not None:
                         self.binding_sink(pod, node)
-                    errors.append(None)
+                    got.append(None)
                 except Exception as e:  # a rejected bind is this pod's outcome
-                    errors.append(str(e))
-        for (qp, node, outcome), err in zip(buf, errors):
+                    got.append(str(e))
+        errors = list(pre)
+        for i, err in zip(todo, got):
+            errors[i] = err
+        for (qp, node, outcome, _, _), err in zip(buf, errors):
             pod = qp.pod
             if err is None:
                 self.queue.done(pod.uid)
@@ -1641,14 +1970,25 @@ class Scheduler:
                         {names[j] for j in np.nonzero(masks[i])[0] if j < len(names)})
 
     def _post_filter_or_fail(self, profile: Profile, state: CycleState, qp: QueuedPodInfo, reason: str,
-                             diagnosis: Optional[Dict[str, int]], plugins: Optional[set]) -> ScheduleOutcome:
+                             diagnosis: Optional[Dict[str, int]], plugins: Optional[set],
+                             code: Code = Code.UNSCHEDULABLE) -> ScheduleOutcome:
         """A filter failure (a FitError, Unschedulable) goes to the profile's
         PostFilter (schedule_one.go:135-180): a chosen node nominates the
         pod (the victims are already evicted); "" clears a stale nomination.
-        Then the pod parks in the queue with the plugins that rejected it."""
+        An UnschedulableAndUnresolvable failure (a PreFilter rejection)
+        skips PostFilter and clears a stale nomination; an error parks the
+        pod with no rejecting plugin (plain backoff).  Then the pod parks in
+        the queue with the plugins that rejected it."""
         pod = qp.pod
         pf = self._post_filters.get(profile.scheduler_name)
-        if pf is not None:
+        if code == Code.ERROR:
+            plugins = set()
+        if code != Code.UNSCHEDULABLE:
+            if code == Code.UNSCHEDULABLE_AND_UNRESOLVABLE and pod.nominated_node_name:
+                pod.nominated_node_name = ""
+                self.nominator.delete(pod)
+                self.status_patcher(pod)
+        elif pf is not None:
             nominated, _ = pf.post_filter(state, pod)
             if nominated:
                 pod.nominated_node_name = nominated
@@ -1698,14 +2038,32 @@ class Scheduler:
         preemption nominated a node checks THAT node only, with the other
         nominations of >= priority counted there and then, when any were,
         without them (a node feasible only through an unbound nomination may
-        never materialize), and binds there when it passes.  Otherwise the
-        full one-pod host cycle runs."""
+        never materialize), and binds there when it passes.  A pod a host
+        Filter could act on runs the host plugins' PreFilter first (a
+        rejection fails it unresolvably) and their Filters on the node in
+        both passes.  Otherwise the full one-pod host cycle runs."""
         pod = qp.pod
         nom = pod.nominated_node_name
+        fwk = self.frameworks[profile.scheduler_name]
+        state = None
+        if fwk.maybe_relevant(pod):
+            state = CycleState()
+            pf = fwk.run_pre_filter(state, [pod])
+            if pod.uid in pf:
+                s_ = pf[pod.uid]
+                self.metrics["schedule_attempts"] += 1
+                return [self._post_filter_or_fail(profile, state, qp, s_.merge_reason(), None,
+                                                  {s_.plugin} if s_.plugin else set(), code=s_.code)]
         st = self.oracle_view()
         ns = st.nodes.get(nom)
         allowed = self._prefilter_allowed(pod)
         ok = ns is not None and (allowed is None or nom in allowed)
+
+        def fits() -> bool:
+            if not feasible_nodes(pod, st, enabled=profile.enabled, allowed=frozenset({nom})).feasible:
+                return False
+            return state is None or fwk.run_host_filters(state, pod, ns).ok
+
         if ok:
             added = [
                 np_ for node, np_ in self.nominator.entries()
@@ -1714,25 +2072,38 @@ class Scheduler:
             for np_ in added:
                 ns.add_pod(np_)
             try:
-                ok = bool(feasible_nodes(pod, st, enabled=profile.enabled, allowed=frozenset({nom})).feasible)
+                ok = fits()
             finally:
                 for np_ in added:
                     ns.remove_pod(np_)
             if ok and added:
-                ok = bool(feasible_nodes(pod, st, enabled=profile.enabled, allowed=frozenset({nom})).feasible)
+                ok = fits()
         if ok:
             self.metrics["schedule_attempts"] += 1
-            return [self._assume(qp, nom)]
+            return [self._assume(qp, nom, state=state)]
         return self._schedule_one_host(profile, qp)
 
     def _schedule_one_host(self, profile: Profile, qp: QueuedPodInfo) -> List[ScheduleOutcome]:
         """One pod's full cycle on the host view (the reference's one-pod
-        cycle without extenders): every filter with the nominations of >=
+        cycle without extenders): the host plugins' PreFilter (a rejection
+        fails the pod unresolvably), every filter with the nominations of >=
         priority counted on their nodes, the second pass without them on
-        those nodes, then the weighted scores and the first best node."""
+        those nodes, the host Filters on the nodes left, then the weighted
+        scores and the first best node.  No host Score plugin is active for
+        the claims this path admits (all bound: VolumeBinding's capacity
+        score is off and has no binding to weigh)."""
         pod = qp.pod
         self.metrics["schedule_attempts"] += 1
         self.metrics["host_cycles"] += 1
+        fwk = self.frameworks[profile.scheduler_name]
+        state = CycleState()
+        relevant = fwk.maybe_relevant(pod)
+        if relevant:
+            pf = fwk.run_pre_filter(state, [pod])
+            if pod.uid in pf:
+                s_ = pf[pod.uid]
+                return [self._post_filter_or_fail(profile, state, qp, s_.merge_reason(), None,
+                                                  {s_.plugin} if s_.plugin else set(), code=s_.code)]
         st = self.oracle_view()
         allowed = self._prefilter_allowed(pod)
         added = []
@@ -1759,9 +2130,21 @@ class Scheduler:
         for rs in fit.reasons.values():
             for r in rs:
                 diag[r] = diag.get(r, 0) + 1
-        if not fit.feasible:
-            return [self._post_filter_or_fail(profile, CycleState(), qp, fit_error_message(len(st.nodes), diag),
-                                              diag, None)]
-        totals = prioritize(pod, st, fit.feasible, weights=profile.score_weights)
-        node = select_host(totals) if totals else fit.feasible[0]
-        return [self._assume(qp, node)]
+        feasible, plugins = fit.feasible, set()
+        if relevant:
+            kept = []
+            for n in feasible:
+                s_ = fwk.run_host_filters(state, pod, st.nodes[n])
+                if s_.ok:
+                    kept.append(n)
+                    continue
+                reason = s_.merge_reason() or s_.plugin
+                diag[reason] = diag.get(reason, 0) + 1
+                plugins.add(s_.plugin)
+            feasible = kept
+        if not feasible:
+            return [self._post_filter_or_fail(profile, state, qp, fit_error_message(len(st.nodes), diag),
+                                              diag, plugins or None)]
+        totals = prioritize(pod, st, feasible, weights=profile.score_weights)
+        node = select_host(totals) if totals else feasible[0]
+        return [self._assume(qp, node, state=state if relevant else None)]

@@ -12,8 +12,9 @@ tests/test_torch_static_eval.py, test_torch_sig_scan.py,
 test_torch_resident.py, test_torch_scheduler.py, test_torch_gang.py,
 test_torch_chain.py, test_torch_scheduler_gang.py, test_torch_wave.py,
 test_torch_scheduler_wave.py, test_torch_preemption.py,
-test_torch_scheduler_preempt.py, test_torch_workloads.py and
-test_torch_scheduler_workloads.py.
+test_torch_scheduler_preempt.py, test_torch_workloads.py,
+test_torch_scheduler_workloads.py, test_torch_volume.py and
+test_torch_scheduler_volumes.py.
 """
 
 import pytest
@@ -21,6 +22,7 @@ import torch
 
 import chip_smoke
 from kubernetes_tpu_torch.ops import _build
+from kubernetes_tpu_torch.ops import coscheduling as ops_cos
 from kubernetes_tpu_torch.ops import fastpath as ops_fp
 from kubernetes_tpu_torch.ops import gang as ops_gang
 from kubernetes_tpu_torch.ops import resident as ops_res
@@ -471,3 +473,40 @@ def test_workloads_scheduler_on_cuda_matches_cpu(cuda):
     """The contended gang drain at a reduced size on the card equals the same
     drain with device="cpu", outcome for outcome and in the gang metrics."""
     chip_smoke.phase_gang_parity_contended(torch, cuda, n_nodes=60, n_gangs=24, n_plain=48)
+
+
+@pytest.mark.parametrize("n_nodes,P", [(700, 64), (5000, 512)], ids=["small", "config4"])
+def test_volume_topology_mask_kernel_matches_plain(cuda, n_nodes, P):
+    """K12 against its plain version on chip_smoke's k12_world batch (PV2 =
+    2, nil-affinity, zone-labelled, zone-set and vol_bad rows), and K1 with
+    K12's mask as the extra lane against K1's plain version."""
+    sched, pb, dc, db, volt = chip_smoke.k12_inputs(cuda, n_nodes, P)
+    n0 = _build.launches["volume_topology_mask"]
+    got = ops_cos.volume_topology_mask(dc, **volt)
+    assert _build.launches["volume_topology_mask"] == n0 + 1
+    want = ops_cos.volume_topology_mask_plain(dc, **volt)
+    _equal(got, want)
+    assert bool(volt["vol_bad"].any()) and bool(got.any()) and not bool(got[: len(pb.valid)].all())
+    enabled = sched.profiles["default-scheduler"].enabled
+    for extra in (got, None):
+        k1 = ops_fp.static_eval(dc, db, ALL, False, extra_mask=extra, mask_enabled=enabled)
+        plain = ops_fp.static_eval_plain(dc, db, ALL, False, extra_mask=extra, mask_enabled=enabled)
+        for k in ops_fp.STATIC_KEYS:
+            _equal(k1[k], plain[k])
+
+
+def test_volume_scheduler_on_cuda_matches_cpu(cuda):
+    """A small StatefulSet drain through Scheduler() on cuda equals the same
+    drain with device="cpu", outcome for outcome; K12 launched once per
+    workloads batch."""
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        pvs, pvcs, pods, _ = chip_smoke.statefulset_world(1200)
+        _build.reset_launches()
+        got, outs, _, sched = chip_smoke.gang_drain(dev, chip_smoke.basic_nodes(300, zones=8), (), pods,
+                                                    storage=(pvs, pvcs))
+        runs.append(({k: (o.node, o.reason) for k, o in outs.items()}, dict(_build.launches),
+                     sched.metrics["workload_batches"]))
+    (want, launches, batches), (cpu, _, _) = runs
+    assert want == cpu
+    assert launches["volume_topology_mask"] == batches >= 3

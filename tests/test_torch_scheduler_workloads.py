@@ -18,7 +18,8 @@ oracle; gangDispatch off; a gang incomplete, then admitted; the timeout; a
 mixed batch with a host-port pod; the sibling pull, alone and in a mixed
 batch; the metrics), a pod naming an unregistered group, duplicate
 hostnames, and a gang beside spread and anti-affinity pods.  Also: pods with
-claims, volumes or scheduling gates beside a gang are still refused.
+claims, uncovered volumes or scheduling gates beside a gang are still
+refused.
 """
 
 import copy
@@ -326,16 +327,17 @@ def test_gang_scenario_matches_reference(name):
 @pytest.mark.parametrize("field,item", [("resource_claims", "A8 (DRA half)"), ("volumes", "A6"),
                                         ("scheduling_gates", "A5")])
 def test_unported_pods_are_refused_and_requeued(field, item):
-    """Gang members schedule now; a pod beside them with claims, volumes or
-    scheduling gates still raises NotImplementedError naming the ROADMAP
-    item, and the popped batch goes back to the queue unscheduled."""
+    """Gang members schedule now; a pod beside them with claims, a volume
+    the workloads route does not cover (a claim that does not exist, ROADMAP
+    A6b) or scheduling gates still raises NotImplementedError naming the
+    ROADMAP item, and the popped batch goes back to the queue unscheduled."""
     T, _ = PORT_API
     side = Side(PORT_API)
     side.s.on_node_add(make_node(PORT_API, "node-0"))
     side.pg_add(side.group("duo", 2))
     for m in range(2):
         side.s.on_pod_add(mkpod(PORT_API, f"m-{m}", group="duo"))
-    value = {"resource_claims": ("claim",), "volumes": (T.Volume(name="v"),), "scheduling_gates": ("gate",)}[field]
+    value = {"resource_claims": ("claim",), "volumes": (T.Volume(name="v", pvc_name="missing"),), "scheduling_gates": ("gate",)}[field]
     side.s.on_pod_add(mkpod(PORT_API, "odd", **{field: value}))
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
         side.s.schedule_pending()

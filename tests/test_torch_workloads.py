@@ -156,8 +156,8 @@ def test_plan_batch_and_gang_arrays_match_reference():
             assert conv["gang_first"].dtype == torch.bool
 
 
-@pytest.mark.parametrize("arg,item", [("dev_key", "A8"), ("claim_node0", "A8"), ("vol_table", "A6"),
-                                      ("vol_bad", "A6")])
+@pytest.mark.parametrize("arg,item", [("dev_key", "A8"), ("claim_node0", "A8"), ("sel_key", "A8"),
+                                      ("req_count", "A8")])
 def test_unported_arguments_raise(arg, item):
     pk = packed(GEN[0][0])
     kw = convert.gang_arrays_from_numpy(lay_gangs(1, len(pk.pending), pk.pb.valid.shape[0]), "cpu")
