@@ -101,7 +101,25 @@ Phases, one output line each (several for 2 and 4):
      one K12 launch per workloads batch; and a parity drain (1,000 nodes,
      2,000 volume, gang and spread pods in one batch) on cuda, on the CPU
      and against the serial WorkloadOracle with volumes, identical;
- 10. the kernels line (K8 named as the workloads speculation too).
+ 10. DRA claims: K13 dra_selector_match and K14 dra_spec_mask against their
+     plain versions, exact, K8 with K14's mask as its port lane against
+     wave_speculate_plain with the same lane, exact, and K11's DRA mode
+     (the allocation carries in
+     the admission and the gang checkpoint) against workloads_admit_plain,
+     exact on every output with claim_node, at config4's node set (N=5,000
+     in 8 zones, 8 devices of 4 attributes per node, P=512, DQ=2, DS=3 in a
+     bucket of 4, DV=2, All mode, shared, pre-allocated and held claims,
+     gangs of 8 of which every fourth rolls back), with each kernel's time,
+     its plain version's and its bound, and K11 with the claims cleared;
+     bench.py bench_dra's drain (config11: 500 nodes of 4 devices, 2,000
+     pods with one ExactCount claim each) on cuda with the
+     DynamicResourceAllocation gate on: every pod placed, no device granted
+     twice, every claim on its pod's node, K13, K14 and K11 launched, and
+     the host seconds of its parts; and a parity drain
+     (tools/paritycheck.py's _dra_workload, 200 nodes, 600 pods, one batch)
+     on cuda, on the CPU and against the serial WorkloadOracle, identical
+     in placements and claim pins;
+ 11. the kernels line (K8 named as the workloads speculation too).
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Without
@@ -129,8 +147,13 @@ PEAK_SCALAR_OPS_S = 67e12
 DRAIN_REPEATS = 2
 
 
+_START = time.perf_counter()
+
+
 def log(**kw) -> None:
-    print(json.dumps(kw, sort_keys=True), flush=True)
+    """One JSON line; ``at_s`` is the seconds since the script started, so
+    consecutive lines give each phase's wall time."""
+    print(json.dumps(dict(kw, at_s=time.perf_counter() - _START), sort_keys=True), flush=True)
 
 
 def card_line() -> str:
@@ -2233,16 +2256,19 @@ def workloads_shapes(n_config10=1000, n_config4=5000, n_mixed=5000, P=512):
     ]
 
 
-def k11_bound(torch, dc, db, g, wt, rows, chosen, n_feas, gang_admit, weights):
+def k11_bound(torch, dc, db, g, wt, rows, chosen, n_feas, gang_admit, weights, dra=None):
     """K11's bound_ms from this run's inputs: K9's bytes for the same
     statics and placements (k5_bytes, the wave tables, one pass over the
     live carry rows) without the demotion stats, plus the gang rows and the
     outputs (the choices before and after rollback, the gang verdicts).
-    Operations: K9's.  The checkpoint's copies are the kernel's design, not
-    the function's work (a rollback needs only undo the members' commits),
-    so they stay out of the bound: the third value is their bytes, each copy
-    a read and a write of ((Rn + 3 + Tsp + 2 Tip) N + P) int32s, one at each
-    gang's first member and one at each rollback."""
+    Operations: K9's.  With ``dra`` (the DRA mode's inputs) also the match
+    tensor read once, the request rows, and the two carries read and
+    written once; and a verdict step per (pod, node, slot, device).  The
+    checkpoint's copies are the kernel's design, not the function's work (a
+    rollback needs only undo the members' commits), so they stay out of the
+    bound: the third value is their bytes, each copy a read and a write of
+    ((Rn + 3 + Tsp + 2 Tip) N + P) int32s (and with DRA CL int32s and N DD
+    bytes), one at each gang's first member and one at each rollback."""
     from kubernetes_tpu_torch.ops import coscheduling as cos
 
     P, N = g.static_mask.shape
@@ -2257,8 +2283,16 @@ def k11_bound(torch, dc, db, g, wt, rows, chosen, n_feas, gang_admit, weights):
     b += t_live * n_live * 4 + nbytes(*(rows[k] for k in ("gang_id", "gang_first", "gang_last", "gang_need")))
     b += 2 * P * 4 + 2 * rows["g_cap"] * 4
     ops = n_live * (p_live * (db.requests.shape[1] * 3 + 80) + (slots + terms) * 12) + t_live * n_live * 2
+    DD = CL = 0
+    if dra is not None:
+        _, DQ, _, DD = dra["match"].shape
+        CL = dra["claim_node0"].shape[0]
+        b += nbytes(dra["match"], *(dra[k] for k in ("req_count", "req_all", "req_cl", "q_valid", "req_bad", "ref_cl")))
+        b += 2 * nbytes(dra["free0"], dra["claim_node0"])
+        ops += p_live * n_live * DQ * DD * 2
     copies = int((rows["gang_first"] & (rows["gang_id"] >= 0)).sum().item()) + int((gang_admit == 0).sum().item())
-    cells = cos.ckpt_cells(n_live, dc.allocatable.shape[1], p_live, _live(wt["rep_sp_p"]), _live(wt["rep_ip_p"]))
+    cells = cos.ckpt_cells(n_live, dc.allocatable.shape[1], p_live, _live(wt["rep_sp_p"]), _live(wt["rep_ip_p"]),
+                           DD, CL)
     return (*bound_ms(b, ops), copies * cells * 8)
 
 
@@ -2294,15 +2328,16 @@ def workloads_row(torch, name, dc, db, kw, d_cap, flags, wt, rows, reps, nom=Non
     k9 = wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw)
     torch.cuda.synchronize()
 
-    def outs(o):
-        return list(o[:4]) + [o[4][k] for k in ("requested", "nonzero", "num_pods")] + list(o[5:])
+    def outs(o):  # the claim_node output is None without claims
+        return list(o[:4]) + [o[4][k] for k in ("requested", "nonzero", "num_pods")] + [
+            x for x in o[5:] if x is not None]
 
     errs = dict(k11_err=max(max_abs_err(torch, a, b) for a, b in zip(outs(got), outs(want))),
                 k11_vs_k9=max(max_abs_err(torch, free[0], k9[0]), max_abs_err(torch, free[1], k9[0]),
                               max_abs_err(torch, free[2], k9[1]), max_abs_err(torch, free[3], k9[2])))
     if any(errs.values()):
         raise AssertionError(f"{name}: workloads_admit differs: {errs}")
-    chosen, raw, n_feas, _, _, gang_admit, gang_landed = want
+    chosen, raw, n_feas, _, _, gang_admit, gang_landed, _ = want
     b11, by11, ckpt_bytes = k11_bound(torch, dc, db, g, wt, rows, raw, n_feas, gang_admit, gang.DEFAULT_WEIGHTS)
     row = dict(shape=name, ckpt_bytes=ckpt_bytes, N=int(dc.node_valid.sum().item()), P=int(db.valid.sum().item()),
                placed=int(dc.epod_valid.sum().item()), C=g.sp_dv.shape[1], AT=g.ip_dv.shape[1],
@@ -2346,16 +2381,20 @@ def phase_workloads_kernels(torch, device, reps=5, shapes=None):
     return rows
 
 
-def gang_drain(device, nodes, groups, pods, warm=0, storage=((), ()), **cfg):
+def gang_drain(device, nodes, groups, pods, warm=0, storage=((), ()), dra=None, **cfg):
     """A drain of PodGroup gangs through Scheduler(): the groups registered
-    through on_pod_group_add and the (PVs, PVCs) of `storage` through
-    on_pv_add / on_pvc_add, then the first `warm` pods drained, then the
-    rest (bench_gang's warm-up, whole gangs only).  Returns (placements,
-    outcomes by pod name, seconds of the second drain, scheduler)."""
+    through on_pod_group_add, the (PVs, PVCs) of `storage` through
+    on_pv_add / on_pvc_add and, with `dra` (slices, classes, claims), the
+    DynamicResourceAllocation gate on and the DRA objects through their
+    handlers; then the first `warm` pods drained, then the rest (bench_gang's
+    and bench_dra's warm-up).  Returns (placements, outcomes by pod name,
+    seconds of the second drain, scheduler)."""
     from kubernetes_tpu_torch.framework.config import SchedulerConfiguration
     from kubernetes_tpu_torch.scheduler import Scheduler
 
-    sched = Scheduler(SchedulerConfiguration(**cfg), device=device)
+    config = SchedulerConfiguration(**cfg)
+    config.feature_gates["DynamicResourceAllocation"] = dra is not None
+    sched = Scheduler(config, device=device)
     bound = {}
 
     def sink_many(pairs):
@@ -2372,6 +2411,14 @@ def gang_drain(device, nodes, groups, pods, warm=0, storage=((), ()), **cfg):
         sched.on_pv_add(pv)
     for pvc in storage[1]:
         sched.on_pvc_add(pvc)
+    if dra is not None:
+        slices, classes, claims = dra
+        for cls in classes.values():
+            sched.on_device_class_add(cls)
+        for sl in slices:
+            sched.on_resource_slice_add(sl)
+        for c in claims.values():
+            sched.on_resource_claim_add(c)
     out = []
     for part in (pods[:warm], pods[warm:]):
         for p in part:
@@ -2803,6 +2850,410 @@ def phase_volume_parity(torch, device, **world):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 10: DRA claims (K13 dra_selector_match, K14 dra_spec_mask, K11's DRA
+# mode)
+# ---------------------------------------------------------------------------
+
+DRA_VALUES = {"vendor": ("x", "y"), "mem": ("16", "32", "80"), "model": ("a", "b", "c"), "numa": ("0", "1")}
+
+
+def dra_check_world(n_nodes=5000, P=512, devices=8, seed=43):
+    """The K13 / K14 / K11 check's DRA surface on config4's node set: one
+    ResourceSlice of `devices` devices per node, each device with the four
+    DRA_VALUES attributes; DeviceClasses with one selector each ("gpu":
+    vendor In x, "big": mem In 32 80, "fresh": model NotIn c) and "any";
+    P pods (100m cpu) of one or two claims, each claim one request of class
+    gpu / big / fresh / any with zero to two selectors of its own (DQ = 2,
+    DS = 3 (bucket 4), DV = 2 once packed): ExactCount of 1 to 4, or All (1
+    in 10); one pod in 8 shares the claim of the pod before it; one claim in
+    20 is pre-allocated on the last device of a random node (its pod pinned
+    there), and 2,000 claims no pod references (fewer on a small node set)
+    hold one other device each,
+    no device held twice.  Returns (slices, classes, claims, pods)."""
+    from kubernetes_tpu_torch.api import Container, Pod
+    from kubernetes_tpu_torch.api import dra
+
+    rng = random.Random(seed)
+    slices = []
+    for i in range(n_nodes):
+        devs = tuple(dra.Device(name=f"dev-{j}", attributes=tuple((k, rng.choice(v)) for k, v in DRA_VALUES.items()))
+                     for j in range(devices))
+        slices.append(dra.ResourceSlice(name=f"sl-{i}", node_name=f"node-{i}", driver="gpu.example.com",
+                                        pool=f"pool-{i}", devices=devs))
+    classes = {"gpu": dra.DeviceClass("gpu", (dra.DeviceSelector("vendor", "In", ("x",)),)),
+               "big": dra.DeviceClass("big", (dra.DeviceSelector("mem", "In", ("32", "80")),)),
+               "fresh": dra.DeviceClass("fresh", (dra.DeviceSelector("model", "NotIn", ("c",)),)),
+               "any": dra.DeviceClass("any")}
+    claims, pods = {}, []
+    held = set()  # (node, device slot) an allocated claim holds
+
+    def new_claim(name):
+        sels = []
+        for _ in range(rng.choice([0, 1, 1, 2])):
+            key = rng.choice(sorted(DRA_VALUES))
+            op = rng.choice(["In", "In", "NotIn", "Exists"])
+            vals = tuple(rng.sample(DRA_VALUES[key], 2 if len(DRA_VALUES[key]) > 2 else 1)) if op != "Exists" else ()
+            sels.append(dra.DeviceSelector(key, op, vals))
+        mode = dra.ALLOCATION_MODE_ALL if rng.random() < 0.1 else dra.ALLOCATION_MODE_EXACT
+        req = dra.DeviceRequest("r", rng.choice(sorted(classes)), count=rng.randint(1, 4), allocation_mode=mode,
+                                selectors=tuple(sels))
+        alloc = None
+        n = rng.randrange(n_nodes)
+        if rng.random() < 0.05 and (n, devices - 1) not in held:
+            held.add((n, devices - 1))
+            alloc = dra.AllocationResult((dra.DeviceRequestAllocationResult("r", "gpu.example.com", f"pool-{n}",
+                                                                            f"dev-{devices - 1}"),), f"node-{n}")
+        claims[f"default/{name}"] = dra.ResourceClaim(name=name, requests=(req,), allocation=alloc)
+        return name
+
+    for i in range(P):
+        refs = [new_claim(f"c{i}-{k}") for k in range(rng.choice([1, 1, 2]))]
+        if i and rng.random() < 0.125:
+            refs = [pods[-1].resource_claims[0]]  # shared with the pod before
+        pods.append(Pod(name=f"dra-{i}", resource_claims=tuple(refs),
+                        containers=[Container(name="c", requests={"cpu": "100m"})]))
+    want = min(2000, n_nodes * (devices - 1) // 4) + len(held)
+    while len(held) < want:  # claims no pod references
+        n, d = rng.randrange(n_nodes), rng.randrange(devices - 1)
+        if (n, d) in held:
+            continue
+        held.add((n, d))
+        u = len(held)
+        claims[f"default/held-{u}"] = dra.ResourceClaim(
+            name=f"held-{u}", requests=(dra.DeviceRequest("r", "any"),),
+            allocation=dra.AllocationResult((dra.DeviceRequestAllocationResult(
+                "r", "gpu.example.com", f"pool-{n}", f"dev-{d}"),), f"node-{n}"))
+    return slices, classes, claims, pods
+
+
+def dra_inputs(torch, device, n_nodes=5000, P=512, world=None, seed=43):
+    """dra_check_world's batch packed as the workloads dispatch packs it, on
+    config4's node set (8 zones): (dc, db, precompute kwargs, d_cap, flags,
+    wave tables, dra_tables' tensors, the world)."""
+    from kubernetes_tpu_torch.ops import dra as ops_dra
+    from kubernetes_tpu_torch.ops import wave
+
+    world = world or dra_check_world(n_nodes, P, seed=seed)
+    slices, classes, claims, pods = world
+    nodes = basic_nodes(n_nodes, zones=8)
+    dc, db, kw, d_cap, flags, pb, nt = _gang_pack(torch, device, nodes, [], pods, P)
+    wt = wave.wave_tables(pb, nt.label_vals, kw["hostname_key"], device=device)
+    dt = ops_dra.dra_tables(pods, nt.name_to_idx, nt.n_cap, P, slices, classes, claims, device=device)
+    return dc, db, kw, d_cap, flags, wt, dt, world
+
+
+def dra_kernel_row(torch, name, dc, db, kw, d_cap, flags, wt, dt, rows, reps):
+    """K13, K14, K8 with K14's lane and K11 in DRA mode against their plain
+    versions on one packed batch, exactly (the match tensor, the lane, the
+    speculation's c0, and every admission output with claim_node); then
+    each kernel's time, its plain version's (one run) and its bound from
+    this run's inputs, and K11 on the same statics and gang rows with the
+    claims cleared (no DRA rows: the DRA mode's cost is the difference).
+    Returns the row."""
+    from kubernetes_tpu_torch.ops import _build
+    from kubernetes_tpu_torch.ops import coscheduling as cos
+    from kubernetes_tpu_torch.ops import dra as ops_dra
+    from kubernetes_tpu_torch.ops import gang, wave
+
+    sel = [dt[k] for k in ("dev_key", "dev_val", "dev_valid", "sel_key", "sel_op", "sel_vals")]
+    req = [dt[k] for k in ("req_count", "req_all", "req_cl", "q_valid", "req_bad", "ref_cl")]
+    n13, n14 = _build.launches["dra_selector_match"], _build.launches["dra_spec_mask"]
+    match = ops_dra.selector_match(*sel)
+    lane = ops_dra.dra_spec_mask(match, dt["free0"], dt["claim_node0"], *req)
+    torch.cuda.synchronize()
+    if (_build.launches["dra_selector_match"], _build.launches["dra_spec_mask"]) != (n13 + 1, n14 + 1):
+        raise AssertionError("the DRA kernels did not count their launches")
+    match_p, k13_plain_ms = timed_once(torch, lambda: ops_dra.selector_match_plain(*sel))
+    lane_p, k14_plain_ms = timed_once(torch, lambda: ops_dra.dra_spec_mask_plain(match, dt["free0"],
+                                                                                  dt["claim_node0"], *req))
+    k13_err, k14_err = max_abs_err(torch, match, match_p), max_abs_err(torch, lane, lane_p)
+    g = gang.precompute(dc, db, **kw, **dict(flags, has_ports=False))
+    # K8 with K14's lane as its port lane: the workloads dispatch's
+    # speculation on a batch with claims; without the lane, for the count
+    # of pods whose speculative node the lane moved
+    c0_k = wave.wave_speculate(dc, db, g, d_cap=d_cap, lane=lane)
+    c0_p, k8_lane_plain_ms = timed_once(torch, lambda: wave.wave_speculate_plain(dc, db, g, d_cap=d_cap, lane=lane_p))
+    c0_nolane = wave.wave_speculate(dc, db, g, d_cap=d_cap)
+    k8_lane_err = max_abs_err(torch, c0_k, c0_p)
+    hk = kw["hostname_key"]
+    targs = [wt[k] for k in WAVE_TABLES]
+    gk = [rows[k] for k in ("gang_id", "gang_first", "gang_last", "gang_need", "g_cap")]
+    tkw = dict(d_cap=d_cap, d2_cap=wt["d2_cap"])
+    dra = dict(match=match, free0=dt["free0"], claim_node0=dt["claim_node0"],
+               **{k: dt[k] for k in ("req_count", "req_all", "req_cl", "q_valid", "req_bad", "ref_cl")})
+    got = cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw, dra=dra)
+    want, k11_plain_ms = timed_once(torch, lambda: cos.workloads_admit_plain(dc, db, g, hk, *targs, *gk, **tkw,
+                                                                              dra=dra))
+    torch.cuda.synchronize()
+
+    def outs(o):
+        return list(o[:4]) + [o[4][k] for k in ("requested", "nonzero", "num_pods")] + list(o[5:])
+
+    k11_err = max(max_abs_err(torch, a, b) for a, b in zip(outs(got), outs(want)))
+    if k13_err or k14_err or k8_lane_err or k11_err:
+        raise AssertionError(f"{name}: DRA kernels differ: K13 {k13_err}, K14 {k14_err}, K8 with the lane "
+                             f"{k8_lane_err}, K11 {k11_err}")
+    chosen, raw, n_feas, rc, _, gang_admit, _, claim_node = want
+    P, DQ, N, DD = match.shape
+    live = db.valid
+    cover = dict(all_mode=int((dt["req_all"] & dt["q_valid"]).sum().item()),
+                 shared=int((torch.bincount(dt["ref_cl"][dt["ref_cl"] >= 0].long()) > 1).sum().item()),
+                 preallocated=int((dt["claim_node0"] >= 0).sum().item()),
+                 held_devices=int((dt["dev_valid"] & ~dt["free0"]).sum().item()),
+                 dra_rejected_pods=int(((rc[:, 4] > 0) & live).sum().item()),
+                 spec_lane_false=int(((~lane) & live[:, None] & dc.node_valid[None, :]).sum().item()),
+                 spec_moved_by_lane=int(((c0_p != c0_nolane) & live).sum().item()),
+                 claims_allocated=int(((claim_node >= 0) & (dt["claim_node0"] < 0)).sum().item()),
+                 rolled_back_members=int(((chosen < 0) & (raw >= 0)).sum().item()),
+                 rolled_back=int((gang_admit == 0).sum().item()), scheduled=int((chosen >= 0).sum().item()))
+    if not all(cover[k] for k in ("all_mode", "shared", "preallocated", "held_devices", "dra_rejected_pods",
+                                  "spec_moved_by_lane", "claims_allocated", "rolled_back_members")):
+        raise AssertionError(f"{name}: the DRA check batch misses a case: {cover}")
+    k13_ms = time_ms(torch, lambda: ops_dra.selector_match(*sel), reps)
+    k14_ms = time_ms(torch, lambda: ops_dra.dra_spec_mask(match, dt["free0"], dt["claim_node0"], *req), reps)
+    k8_lane_ms = time_ms(torch, lambda: wave.wave_speculate(dc, db, g, d_cap=d_cap, lane=lane), reps)
+    k11_ms = time_ms(torch, lambda: cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw, dra=dra), reps)
+    k11_nodra_ms = time_ms(torch, lambda: cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw), reps)
+    b11, by11, ckpt11 = k11_bound(torch, dc, db, g, wt, rows, raw, n_feas, gang_admit, gang.DEFAULT_WEIGHTS, dra=dra)
+    # bounds: bytes each input read once and each output written once; the
+    # operations (a few integer compares per selector slot and device
+    # attribute; a popcount walk per request slot) are far below them
+    DS, DV, DA = dt["sel_key"].shape[2], dt["sel_vals"].shape[3], dt["dev_key"].shape[2]
+    b13 = nbytes(*sel, match)
+    ops13 = P * DQ * N * DD * DS * (DA + DV)
+    b14 = nbytes(match, dt["free0"], dt["claim_node0"], *req, lane)
+    ops14 = P * N * DQ * DD * 4
+    k13_bound, k13_by = bound_ms(b13, ops13)
+    k14_bound, k14_by = bound_ms(b14, ops14)
+    row = dict(shape=name, P=P, DQ=DQ, N=N, DD=DD, DS=DS, DV=DV, DA=DA, CL=dt["claim_node0"].shape[0],
+               CQ=dt["ref_cl"].shape[1], k13_err=k13_err, k14_err=k14_err, k8_lane_err=k8_lane_err,
+               k11_err=k11_err, **cover, k8_lane_ms=k8_lane_ms, k8_lane_plain_ms=k8_lane_plain_ms,
+               k11_dra_ms=k11_ms, k11_dra_plain_ms=k11_plain_ms, k11_claims_cleared_ms=k11_nodra_ms,
+               k11_dra_bound_ms=b11, k11_dra_bound_by=by11, k11_dra_ckpt_bytes=ckpt11,
+               k13_bytes=b13, k14_bytes=b14)
+    row["dra_selector_match"] = dict(max_abs_err=k13_err, ms=k13_ms, plain_ms=k13_plain_ms, bound_ms=k13_bound,
+                                     bound_by=k13_by, library_ms=None)
+    row["dra_spec_mask"] = dict(max_abs_err=k14_err, ms=k14_ms, plain_ms=k14_plain_ms, bound_ms=k14_bound,
+                                bound_by=k14_by, library_ms=None)
+    log(phase="dra_kernel_check", **row)
+    return row
+
+
+def phase_dra_kernels(torch, device, reps=10, n_nodes=5000, P=512):
+    """dra_kernel_row at config4's node set (N = 5,000 in 8 zones, bucket
+    5,120) with dra_check_world's surface (8 devices per node, 4 attributes
+    each, P = 512 pods, DQ = 2, DS = 3, DV = 2) and gangs of 8 laid over the
+    batch, every fourth needing 9 of its 8 members (it rolls back whatever
+    it places).  Returns the row."""
+    dc, db, kw, d_cap, flags, wt, dt, _ = dra_inputs(torch, device, n_nodes, P)
+    rows = gang_rows(torch, device, int(db.valid.sum().item()), db.valid.shape[0], lambda g: 9 if g % 4 == 0 else 8)
+    return dra_kernel_row(torch, "config4_dra", dc, db, kw, d_cap, flags, wt, dt, rows, reps)
+
+
+def dra_bench_world(n_nodes=500, n_pods=2000, devices_per_node=4):
+    """bench.py bench_dra's workload (config11): the DeviceClass "gpu"
+    (vendor In bench), one slice of `devices_per_node` devices per node
+    (vendor bench, slot j), and n_pods pods of 50m cpu / 32Mi, each with
+    its own ExactCount=1 claim of class gpu.  Returns (nodes, slices,
+    classes, claims, pods)."""
+    from kubernetes_tpu_torch.api import Container, Pod
+    from kubernetes_tpu_torch.api import dra
+
+    classes = {"gpu": dra.DeviceClass("gpu", (dra.DeviceSelector("vendor", "In", ("bench",)),))}
+    slices = [dra.ResourceSlice(name=f"sl-{i}", node_name=f"node-{i}", driver="drv", pool=f"pool-{i}",
+                                devices=tuple(dra.Device(f"dev-{i}-{j}", (("vendor", "bench"), ("slot", str(j))))
+                                              for j in range(devices_per_node)))
+              for i in range(n_nodes)]
+    claims = {f"default/claim-{i}": dra.ResourceClaim(name=f"claim-{i}",
+                                                      requests=(dra.DeviceRequest("g", "gpu", count=1),))
+              for i in range(n_pods)}
+    pods = [Pod(name=f"dra-{i}", resource_claims=(f"claim-{i}",),
+                containers=[Container(name="c", requests={"cpu": "50m", "memory": "32Mi"})])
+            for i in range(n_pods)]
+    return basic_nodes(n_nodes, zones=8), slices, classes, claims, pods
+
+
+class HostTimer:
+    """Host seconds spent in the named methods while installed (each call
+    wrapped, the original restored by close): where a drain's host time
+    goes."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.seconds, self.calls = torch, targets, {}, {}
+        self._orig = []
+        for label, (obj, attr, sync) in targets.items():
+            fn = getattr(obj, attr)
+            self._orig.append((obj, attr, fn))
+            setattr(obj, attr, self._wrap(label, fn, sync))
+
+    def _wrap(self, label, fn, sync):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **k)
+                if sync:
+                    self.torch.cuda.synchronize()
+                return out
+            finally:
+                self.seconds[label] = self.seconds.get(label, 0.0) + time.perf_counter() - t0
+                self.calls[label] = self.calls.get(label, 0) + 1
+        return timed
+
+    def close(self) -> dict:
+        for obj, attr, fn in self._orig:
+            setattr(obj, attr, fn)
+        return {k: dict(s=self.seconds[k], calls=self.calls[k]) for k in self.seconds}
+
+
+def dra_drain_checks(sched, got, claims, pods):
+    """Every claim allocated by the drain sits on its pod's node; no device
+    is granted twice.  Returns (claims allocated, devices granted)."""
+    granted = set()
+    allocated = 0
+    for c in sched.claim_cache.list():
+        if c.allocation is None:
+            continue
+        for r in c.allocation.results:
+            dev = (r.driver, r.pool, r.device)
+            if dev in granted:
+                raise AssertionError(f"device {dev} granted twice")
+            granted.add(dev)
+        if claims[c.key].allocation is None:
+            allocated += 1
+    for p in pods:
+        node = got[p.name]
+        for name in p.resource_claims:
+            c = sched.claim_cache.get(f"{p.namespace}/{name}")
+            if node is not None and (c.allocation is None or c.allocation.node_name != node):
+                raise AssertionError(f"pod {p.name} on {node}, its claim {name} on "
+                                     f"{None if c.allocation is None else c.allocation.node_name}")
+    return allocated, len(granted)
+
+
+def phase_dra_drain(torch, device, n_nodes=500, n_pods=2000, devices_per_node=4):
+    """bench.py bench_dra (config11) on the card: 500 nodes of 4 devices,
+    2,000 pods with one ExactCount claim each, which fills every device;
+    a warm drain of batch_size + 64 pods, then the rest, through Scheduler()
+    with the DynamicResourceAllocation gate on.  Every pod placed, no device
+    granted twice, every claim on its pod's node, and K13, K14 and K11
+    launched (each > 0); the host time of the dispatch's parts (the DRA
+    pack, workloads_run with its synchronize, the replay's PreFilter and
+    Filter, Reserve, and the binds with PreBind) beside the drain's.
+    Returns the launches."""
+    from kubernetes_tpu_torch import scheduler as sched_mod
+    from kubernetes_tpu_torch.framework.runtime import Framework
+    from kubernetes_tpu_torch.ops import _build
+    from kubernetes_tpu_torch.ops import coscheduling as cos
+
+    nodes, slices, classes, claims, pods = dra_bench_world(n_nodes, n_pods, devices_per_node)
+    _build.reset_launches()
+    timer = HostTimer(torch, {
+        "dra_tables": (sched_mod.Scheduler, "_dra_tables", False),
+        "workloads_run": (cos, "workloads_run", True),
+        "replay": (sched_mod.Scheduler, "_wl_host_replay", False),
+        "reserve": (Framework, "run_reserve", False),
+        "binds": (sched_mod.Scheduler, "_flush_binds", False),
+    })
+    try:
+        warm = max(0, min(512 + 64, n_pods - 64))  # bench_dra's warm drain
+        got, outs, dt, sched = gang_drain(device, nodes, (), pods, warm=warm, dra=(slices, classes, claims))
+    finally:
+        host = timer.close()
+    launches = dict(_build.launches)
+    check_capacity(sched)
+    allocated, granted = dra_drain_checks(sched, got, claims, pods)
+    m = sched.metrics
+    unplaced = [k for k, v in got.items() if v is None]
+    bad = [bool(unplaced), allocated != n_pods, granted != n_pods, m["dra_pods"] != n_pods,
+           m["dra_claims_allocated"] != n_pods,
+           any(launches[k] <= 0 for k in ("dra_selector_match", "dra_spec_mask", "workloads_admit"))]
+    if any(bad):
+        raise AssertionError(f"dra drain: {bad} unplaced {unplaced[:3]} {launches} {m}")
+    log(phase="dra_drain", nodes=n_nodes, pods=n_pods, devices=n_nodes * devices_per_node, placed=n_pods - len(
+        unplaced), claims_allocated=allocated, devices_granted=granted, drain_s=dt, pods_per_s=(n_pods - warm) / dt,
+        launches=launches, host_both_drains=host, dra_pods=m["dra_pods"],
+        dra_claims_allocated=m["dra_claims_allocated"],
+        **{k: m[k] for k in WORKLOAD_METRICS}, capacity_ok=True, no_double_grant=True, claims_on_pod_node=True)
+    return launches
+
+
+def dra_parity_world(n_nodes=200, n_pods=600, seed=9):
+    """tools/paritycheck.py _dra_workload in the port's types: basic nodes,
+    a slice of one to four devices (vendor x / y, mem 16 / 32) on every
+    other node, classes gpu (vendor In x) and any, and n_pods pods of one
+    claim each (class gpu or any, count 1-2, All 1 in 5, a mem In 32
+    selector 3 in 10).  Returns (nodes, slices, classes, claims, pods)."""
+    from kubernetes_tpu_torch.api import Container, Pod
+    from kubernetes_tpu_torch.api import dra
+
+    rng = random.Random(seed)
+    nodes = basic_nodes(n_nodes)
+    slices = []
+    for i in range(0, n_nodes, 2):
+        slices.append(dra.ResourceSlice(name=f"sl-{i}", node_name=f"node-{i}", driver="drv", pool=f"pool-{i}",
+                                        devices=tuple(dra.Device(name=f"dev-{i}-{j}", attributes=(
+                                            ("vendor", "x" if j % 2 else "y"), ("mem", rng.choice(["16", "32"]))))
+                                            for j in range(rng.randrange(1, 5)))))
+    classes = {"gpu": dra.DeviceClass("gpu", (dra.DeviceSelector("vendor", "In", ("x",)),)),
+               "any": dra.DeviceClass("any")}
+    claims, pods = {}, []
+    for i in range(n_pods):
+        mode_all = rng.random() < 0.2
+        c = dra.ResourceClaim(name=f"claim-{i}", requests=(dra.DeviceRequest(
+            "r", rng.choice(["gpu", "any"]), count=rng.randrange(1, 3),
+            allocation_mode=dra.ALLOCATION_MODE_ALL if mode_all else dra.ALLOCATION_MODE_EXACT,
+            selectors=(dra.DeviceSelector("mem", "In", ("32",)),) if rng.random() < 0.3 else ()),))
+        claims[c.key] = c
+        pods.append(Pod(name=f"dp-{i}", resource_claims=(c.name,),
+                        containers=[Container(name="c", requests={"cpu": "100m"})]))
+    return nodes, slices, classes, claims, pods
+
+
+def phase_dra_parity(torch, device, **world):
+    """dra_parity_world drained in one batch on the card and with
+    device="cpu" (the plain versions): outcomes and the DRA metrics
+    identical, and the placements and claim pins equal to the port's serial
+    WorkloadOracle replaying the same queue.  Returns the launches."""
+    import copy
+
+    from kubernetes_tpu_torch.ops import _build
+    from kubernetes_tpu_torch.oracle.state import OracleState
+    from kubernetes_tpu_torch.oracle.workloads import WorkloadOracle
+
+    metrics = WORKLOAD_METRICS + ("dra_pods", "dra_claims_allocated")
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        nodes, slices, classes, claims, pods = dra_parity_world(**world)
+        _build.reset_launches()
+        got, outs, dt, sched = gang_drain(dev, nodes, (), pods, dra=(slices, classes, claims), batch_size=4096)
+        check_capacity(sched)
+        dra_drain_checks(sched, got, claims, pods)
+        pins = {c.key: c.allocation.node_name for c in sched.claim_cache.list() if c.allocation is not None}
+        runs.append(({k: (o.node, o.reason, o.diagnosis) for k, o in outs.items()},
+                     {k: sched.metrics[k] for k in metrics}, pins, dt, dict(_build.launches)))
+    (want, wm, wpins, dt, launches), (cpu, cm, cpins, dt_cpu, _) = runs
+    diff = [k for k in want if want[k] != cpu.get(k)]
+    if diff or wm != cm or wpins != cpins:
+        raise AssertionError(f"dra parity: {len(diff)} outcomes differ (first {diff[:1]}), metrics {wm} vs {cm}")
+    nodes, slices, classes, claims, pods = dra_parity_world(**world)
+    t0 = time.perf_counter()
+    oracle = WorkloadOracle(OracleState.build(nodes, []), slices=slices, device_classes=classes, claims=claims)
+    res = oracle.schedule([copy.deepcopy(p) for p in pods])
+    dt_oracle = time.perf_counter() - t0
+    odiff = [k for k in res.placements if res.placements[k] != want[k][0]]
+    if odiff or res.claim_nodes != wpins or wm["workload_batches"] != 1 or any(
+            launches[k] != 1 for k in ("dra_selector_match", "dra_spec_mask", "workloads_admit")):
+        raise AssertionError(f"dra parity: {len(odiff)} placements differ from the oracle (first {odiff[:1]}), "
+                             f"pins equal {res.claim_nodes == wpins}, {wm} {launches}")
+    placed = sum(v[0] is not None for v in want.values())
+    log(phase="dra_parity", nodes=len(nodes), pods=len(want), placed=placed, claims_allocated=len(wpins),
+        identical=True, equal_to_oracle=True, pins_equal=True, cuda_drain_s=dt, cpu_drain_s=dt_cpu,
+        oracle_s=dt_oracle, launches=launches, **wm)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2933,6 +3384,19 @@ def main() -> int:
     statefulset_l, k12_err = phase_statefulset(torch, device)
     checks["volume_topology_mask"]["max_abs_err"] = max(checks["volume_topology_mask"]["max_abs_err"], k12_err)
     phase_volume_parity(torch, device)
+
+    # DRA claims: K13, K14 and K11's DRA mode against their plain versions
+    # at config4's node set; bench_dra's drain (config11) at full size; the
+    # DRA parity drain on cuda, on the CPU and against the serial oracle
+    dra_row = phase_dra_kernels(torch, device)
+    checks["dra_selector_match"] = dra_row["dra_selector_match"]
+    checks["dra_spec_mask"] = dra_row["dra_spec_mask"]
+    dra_l = phase_dra_drain(torch, device)
+    dra_parity_l = phase_dra_parity(torch, device)
+    k11_dra = dict(max_abs_err=dra_row["k11_err"], ms=dra_row["k11_dra_ms"], plain_ms=dra_row["k11_dra_plain_ms"],
+                   bound_ms=dra_row["k11_dra_bound_ms"], bound_by=dra_row["k11_dra_bound_by"], library_ms=None,
+                   claims_cleared_ms=dra_row["k11_claims_cleared_ms"], launches_dra_drain=dra_l["workloads_admit"],
+                   launches_dra_parity=dra_parity_l["workloads_admit"])
     # each kernel's error: the largest over the shapes of this run
     for kernel, err in (("gang_scan", "k5_err"), ("gang_spread_statics", "k6_err"),
                         ("gang_interpod_statics", "k7_err")):
@@ -2940,8 +3404,12 @@ def main() -> int:
                               **gang["config3" if kernel == "gang_interpod_statics" else "config4"][kernel])
     for kernel, err in (("wave_speculate", "k8_err"), ("wave_admit", "k9_err")):
         checks[kernel] = dict(max_abs_err=max(row[err] for row in wave.values()), **wave["config4"][kernel])
-    checks["workloads_admit"] = dict(max_abs_err=max(r["k11_err"] for r in wl_rows.values()),
-                                     **wl_rows["config10"]["workloads_admit"])
+    # K8 with K14's lane, the DRA batch's speculation
+    checks["wave_speculate"]["max_abs_err"] = max(checks["wave_speculate"]["max_abs_err"], dra_row["k8_lane_err"])
+    checks["wave_speculate"]["dra_lane"] = dict(shape="config4_dra", max_abs_err=dra_row["k8_lane_err"],
+                                                ms=dra_row["k8_lane_ms"], plain_ms=dra_row["k8_lane_plain_ms"])
+    checks["workloads_admit"] = dict(max_abs_err=max([r["k11_err"] for r in wl_rows.values()] + [dra_row["k11_err"]]),
+                                     dra=k11_dra, **wl_rows["config10"]["workloads_admit"])
     sources = {
         "static_eval": ("kubernetes_tpu_torch/csrc/static_eval.cu", "kubernetes_tpu/ops/fastpath.py:50",
                         "config0_default", default),
@@ -2967,6 +3435,9 @@ def main() -> int:
                               "preempt_parity", preempt_l),
         "volume_topology_mask": ("kubernetes_tpu_torch/csrc/volume.cu", "kubernetes_tpu/ops/coscheduling.py:66",
                                  "statefulset", statefulset_l),
+        "dra_selector_match": ("kubernetes_tpu_torch/csrc/dra.cu", "kubernetes_tpu/ops/dra.py:275", "dra_drain",
+                               dra_l),
+        "dra_spec_mask": ("kubernetes_tpu_torch/csrc/dra.cu", "kubernetes_tpu/ops/dra.py:319", "dra_drain", dra_l),
     }
     kernels = []
     for name, (src, replaces, path, launches) in sources.items():

@@ -3,8 +3,9 @@
 The tests feed the same packed inputs to the JAX root and to the port's
 counterpart: the reference's ``NodeTensors`` / ``ExistingPodTensors`` /
 ``PodBatch`` (numpy arrays), its ``GangStatics``, its stacked signature rows,
-its ``FastCommitter`` usage rows, its ``_vol_tables`` output and its storage
-objects (PV, PVC, StorageClass) become the port's containers here, dtype for
+its ``FastCommitter`` usage rows, its ``_vol_tables`` output, its ``dra_tables`` output,
+its storage objects (PV, PVC, StorageClass) and its DRA objects
+(DeviceClass, ResourceSlice, ResourceClaim) become the port's containers here, dtype for
 dtype and shape for shape, with no reordering.  The arguments are duck-typed (any object with the reference's
 attribute names), so this module imports nothing of the JAX package; the
 port itself never calls it.
@@ -17,6 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from kubernetes_tpu_torch.api import dra
 from kubernetes_tpu_torch.api import storage as st
 from kubernetes_tpu_torch.api import types as T
 from kubernetes_tpu_torch.ops import wire
@@ -141,3 +143,44 @@ def storage_class_from_reference(sc) -> st.StorageClass:
     dynamic provisioning, which the port does not port)."""
     return st.StorageClass(name=sc.name, provisioner=sc.provisioner, volume_binding_mode=sc.volume_binding_mode,
                            resource_version=sc.resource_version)
+
+
+def dra_tables_from_numpy(dt, device) -> dict:
+    """The reference's ops/dra.py ``dra_tables`` output → the port's: the
+    arrays become tensors, dtype for dtype; claim_keys and the host-side
+    has_claims row stay as they are."""
+    return {k: v if k in ("claim_keys", "has_claims") else torch.as_tensor(np.array(v), device=device)
+            for k, v in dt.items()}
+
+
+def _selectors(sels):
+    return tuple(dra.DeviceSelector(s.attribute, s.operator, tuple(s.values)) for s in sels)
+
+
+def device_class_from_reference(cls) -> dra.DeviceClass:
+    return dra.DeviceClass(name=cls.name, selectors=_selectors(cls.selectors),
+                           resource_version=cls.resource_version)
+
+
+def resource_slice_from_reference(sl) -> dra.ResourceSlice:
+    return dra.ResourceSlice(name=sl.name, node_name=sl.node_name, driver=sl.driver, pool=sl.pool,
+                             devices=tuple(dra.Device(d.name, tuple((k, v) for k, v in d.attributes))
+                                           for d in sl.devices),
+                             resource_version=sl.resource_version)
+
+
+def resource_claim_from_reference(c) -> dra.ResourceClaim:
+    """A reference ResourceClaim, its allocation and reservedFor included."""
+    alloc = None
+    if c.allocation is not None:
+        alloc = dra.AllocationResult(
+            results=tuple(dra.DeviceRequestAllocationResult(r.request, r.driver, r.pool, r.device)
+                          for r in c.allocation.results),
+            node_name=c.allocation.node_name)
+    return dra.ResourceClaim(
+        name=c.name, namespace=c.namespace,
+        requests=tuple(dra.DeviceRequest(name=r.name, device_class_name=r.device_class_name, count=r.count,
+                                         allocation_mode=r.allocation_mode, selectors=_selectors(r.selectors))
+                       for r in c.requests),
+        allocation=alloc, reserved_for=tuple(c.reserved_for), deallocation_requested=c.deallocation_requested,
+        deletion_timestamp=c.deletion_timestamp, resource_version=c.resource_version)

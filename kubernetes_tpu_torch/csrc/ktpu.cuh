@@ -585,12 +585,17 @@ struct WaveArgs {
   int* sums;                        // K8: [P, C, Dsp] domain stamps; K9: the per-pod
                                     // region unless sums_smem (see wave.cu)
   int* carries;                     // K9: [(Tsp + 2 Tip + Tpt) * N] unless carry_smem
+  const unsigned char* lane;        // K8: [P, N] the port lane (null: every port free); the
+                                    // workloads dispatch's DRA verdict against free0
   int Tsp, Tip, Tpt, W, Dsp, D2, hostname_key, has_ports, sums_smem, carry_smem;
 };
 
 // The gang admission's rows and outputs (csrc/workloads.cu): K11 takes a
 // GangScanArgs (whose `chosen` receives each step's choice before any
-// rollback, the `raw` output), a WaveArgs without ports and this block.
+// rollback, the `raw` output), a WaveArgs without ports and this block.  In
+// a batch with DRA claims (dra_match not null) it also takes K13's match
+// tensor, the request rows of ops/dra.py dra_tables and the two allocation
+// carries, updated in place.
 struct WorkloadsArgs {
   const int* gang_id;               // [P]      gang slot per pod (-1: none)
   const unsigned char* gang_first;  // [P]      the gang's first member
@@ -600,9 +605,129 @@ struct WorkloadsArgs {
   int* gang_admit;                  // [g_cap]  out: -1 unjudged, 0 rolled back, 1 admitted
   int* gang_landed;                 // [g_cap]  out: members placed in the batch
   int* ckpt;                        // the checkpoint: requested [N, Rn], nonzero [N, 2],
-                                    // num_pods [N], assigned [P], carries [(Tsp + 2 Tip) N]
-  int g_cap;
+                                    // num_pods [N], assigned [P], carries [(Tsp + 2 Tip) N],
+                                    // then with DRA claim_node [CL] and free's N DD bytes
+  const unsigned char* dra_match;   // [P, DQ, N, DD] K13's match (null: no DRA)
+  const int* req_count;             // [P, DQ]  ExactCount count
+  const unsigned char* req_all;     // [P, DQ]  AllocationMode=All
+  const int* req_cl;                // [P, DQ]  owning claim slot (-1 pad)
+  const unsigned char* q_valid;     // [P, DQ]
+  const unsigned char* req_bad;     // [P, DQ]  device class missing
+  const int* ref_cl;                // [P, CQ]  claim slots the pod references
+  unsigned char* free;              // [N, DD]  carry: no allocated claim holds the device
+  int* claim_node;                  // [CL]     carry: node of a referenced claim (-1 none)
+  unsigned char* dra_row;           // [N]      scratch: the step's DRA verdict per node
+  int g_cap, DQ, DD, CQ, CL;
 };
+
+namespace ktpu {
+namespace dra {
+
+// ---------------------------------------------------------------------------
+// One pod's DRA verdict at one node, shared by K14 (dra_spec_mask,
+// csrc/dra.cu: against free0 and claim_node0) and K11's DRA mode (against
+// the carries), as the reference shares ops/dra.py node_feasible between
+// the speculation and the admission: every referenced claim already
+// allocated pins to the node, then each active request slot (its claim
+// unallocated) in slot order is met from the node's free devices, a
+// slot's take gone for the later slots: ExactCount needs `count` matching
+// free devices and takes the lowest slots, All needs every matching device
+// free (counted over all matching devices, free or not) and at least one,
+// and takes them all.  A node's free set sits in registers as 64-bit words.
+// ---------------------------------------------------------------------------
+
+constexpr int MAX_DD = 256;  // device slots per node (ops/dra.py MAX_DD)
+constexpr int WORDS = MAX_DD / 64;
+
+// Pod p's rows: its [DQ, N, DD] match plane, its [DQ] request rows and its
+// [CQ] referenced claim slots.
+struct PodRows {
+  const unsigned char* match;
+  const int* count;
+  const unsigned char* all;
+  const int* cl;
+  const unsigned char* qv;
+  const unsigned char* bad;
+  const int* ref_cl;
+  int DQ, CQ, N, DD, CL;
+};
+
+__device__ __forceinline__ PodRows pod_rows(const unsigned char* match, const int* count, const unsigned char* all,
+                                            const int* cl, const unsigned char* qv, const unsigned char* bad,
+                                            const int* ref_cl, int p, int DQ, int CQ, int N, int DD, int CL) {
+  const long long q0 = (long long)p * DQ;
+  return PodRows{match + q0 * N * DD, count + q0, all + q0, cl + q0, qv + q0, bad + q0, ref_cl + (long long)p * CQ,
+                 DQ, CQ, N, DD, CL};
+}
+
+// node_feasible's ok[n] against `free` [N, DD] and `claim_node` [CL].  With
+// `take` (DD bytes) it also writes the node's take row (take_acc[n]) and
+// walks every slot; without, it stops at the first failure.
+__device__ inline bool node_verdict(const PodRows& r, const unsigned char* free, const int* claim_node, int n,
+                                    unsigned char* take) {
+  bool ok = true;
+  for (int c = 0; c < r.CQ; ++c) {
+    const int cl = r.ref_cl[c];
+    if (cl < 0) continue;
+    const int pin = claim_node[min(cl, r.CL - 1)];
+    if (pin >= 0 && pin != n) {
+      ok = false;
+      if (take == nullptr) return false;
+    }
+  }
+  const int DD = r.DD;
+  const int nw = (DD + 63) >> 6;
+  unsigned long long fs[WORDS];
+  for (int w = 0; w < nw; ++w) fs[w] = 0;
+  const unsigned char* fr = free + (long long)n * DD;
+  for (int d = 0; d < DD; ++d)
+    if (fr[d]) fs[d >> 6] |= 1ULL << (d & 63);
+  if (take != nullptr)
+    for (int d = 0; d < DD; ++d) take[d] = 0;
+  for (int q = 0; q < r.DQ; ++q) {
+    const int cl = r.cl[q];
+    if (!r.qv[q] || cl < 0 || claim_node[min(cl, r.CL - 1)] >= 0) continue;  // not active: no verdict, no take
+    const unsigned char* mrow = r.match + ((long long)q * r.N + n) * DD;
+    unsigned long long m[WORDS];
+    for (int w = 0; w < nw; ++w) m[w] = 0;
+    for (int d = 0; d < DD; ++d)
+      if (mrow[d]) m[d >> 6] |= 1ULL << (d & 63);
+    int total = 0, cnt = 0;
+    for (int w = 0; w < nw; ++w) {
+      total += __popcll(m[w]);
+      m[w] &= fs[w];
+      cnt += __popcll(m[w]);
+    }
+    const bool all = r.all[q] != 0;
+    const bool ok_q = !r.bad[q] && (all ? (total > 0 && cnt == total) : cnt >= r.count[q]);
+    if (!ok_q) {
+      ok = false;
+      if (take == nullptr) return false;
+    }
+    int budget = r.count[q];
+    for (int w = 0; w < nw; ++w) {
+      unsigned long long t = m[w];
+      if (!all) {  // the lowest `budget` free matches
+        unsigned long long kept = 0;
+        while (t != 0 && budget > 0) {
+          const unsigned long long low = t & (~t + 1);
+          kept |= low;
+          t ^= low;
+          --budget;
+        }
+        t = kept;
+      }
+      fs[w] &= ~t;
+      if (take != nullptr)
+        for (int b = 0; b < 64; ++b)
+          if ((t >> b) & 1ULL) take[(w << 6) + b] = 1;
+    }
+  }
+  return ok;
+}
+
+}  // namespace dra
+}  // namespace ktpu
 
 namespace ktpu {
 namespace step {
@@ -1088,6 +1213,7 @@ struct WaveDyn {
   const WaveArgs& w;
   Region r;
   int p;
+  const unsigned char* dra_row;  // K11 with claims: pod p's DRA verdict per node (null: none)
   __device__ int f(int c, long long pc, int n, int d) const {
     const int t = w.tid_sp[pc];
     if (t < 0 || d < 0) return 0;
@@ -1124,6 +1250,7 @@ struct WaveDyn {
     return s;
   }
   __device__ bool portb(int n) const {
+    if (dra_row != nullptr && !dra_row[n]) return false;
     for (int i = 0; i < *r.n_conf; ++i)
       if (r.occ_pt[(long long)r.conf[i] * a.N + n] > 0) return false;
     return true;
@@ -1272,7 +1399,8 @@ enum Demote { DEMOTE_NONE = 0, DEMOTE_SPREAD = 1, DEMOTE_AFFINITY = 2, DEMOTE_SC
 
 // K11: block-wide copy of the carried state into the checkpoint (save) or
 // back out of it.  The carries cnt_sp, cnt_ip and rev_cnt are contiguous
-// from r.cnt_sp (make_region), and occ_pt is empty (no ports).
+// from r.cnt_sp (make_region), and occ_pt is empty (no ports).  With DRA
+// the allocation carries follow: claim_node's CL ints, then free's bytes.
 __device__ inline void checkpoint(const GangScanArgs& a, const WaveArgs& w, const WorkloadsArgs& k, const Region& r,
                                   bool save) {
   int* const seg[5] = {a.requested, a.nonzero, a.num_pods, k.assigned, r.cnt_sp};
@@ -1287,6 +1415,40 @@ __device__ inline void checkpoint(const GangScanArgs& a, const WaveArgs& w, cons
       else st[i] = ck[i];
     }
     off += len[s];
+  }
+  if (k.dra_match != nullptr) {
+    int* const ck = k.ckpt + off;
+    for (int i = threadIdx.x; i < k.CL; i += blockDim.x) {
+      if (save) ck[i] = k.claim_node[i];
+      else k.claim_node[i] = ck[i];
+    }
+    unsigned char* const ckb = reinterpret_cast<unsigned char*>(ck + k.CL);
+    for (long long i = threadIdx.x; i < (long long)a.N * k.DD; i += blockDim.x) {
+      if (save) ckb[i] = k.free[i];
+      else k.free[i] = ckb[i];
+    }
+  }
+}
+
+// K11 with claims: pod p's rows of WorkloadsArgs.
+__device__ __forceinline__ dra::PodRows dra_rows(const WorkloadsArgs& k, int N, int p) {
+  return dra::pod_rows(k.dra_match, k.req_count, k.req_all, k.req_cl, k.q_valid, k.req_bad, k.ref_cl, p, k.DQ, k.CQ,
+                       N, k.DD, k.CL);
+}
+
+// K11 with claims: commit pod p's placement at `choice` into the allocation
+// carries (ops/dra.py dra_commit): its take row at the chosen node leaves
+// `free`, and every claim it references that is still unallocated pins to
+// the node.  One thread.
+__device__ inline void dra_commit(const WorkloadsArgs& k, int N, int p, int choice) {
+  unsigned char take[dra::MAX_DD];
+  dra::node_verdict(dra_rows(k, N, p), k.free, k.claim_node, choice, take);
+  unsigned char* const fr = k.free + (long long)choice * k.DD;
+  for (int d = 0; d < k.DD; ++d)
+    if (take[d]) fr[d] = 0;
+  for (int c = 0; c < k.CQ; ++c) {
+    const int cl = k.ref_cl[(long long)p * k.CQ + c];
+    if (cl >= 0 && cl < k.CL && k.claim_node[cl] < 0) k.claim_node[cl] = choice;
   }
 }
 
@@ -1365,14 +1527,25 @@ __global__ void __launch_bounds__(ADMIT_THREADS)
         }
       }
     } else {
+      const unsigned char* dra_row = nullptr;
+      if constexpr (kGangs) {
+        if (k.dra_match != nullptr) {  // the pod's DRA verdict per node, its port lane
+          const dra::PodRows dr = dra_rows(k, a.N, p);
+          for (int n = tid; n < a.N; n += blockDim.x) k.dra_row[n] = dra::node_verdict(dr, k.free, k.claim_node, n,
+                                                                                      nullptr);
+          dra_row = k.dra_row;
+          __syncthreads();
+        }
+      }
       pod_tables(a, w, r, p);
       const int spec = kGangs ? -1 : w.c0[p];
-      const StepOut out = pod_step_block(a, p, WaveDyn{a, w, r, p}, *r.any_dyn != 0, sc, sh, spec);
+      const StepOut out = pod_step_block(a, p, WaveDyn{a, w, r, p, dra_row}, *r.any_dyn != 0, sc, sh, spec);
       choice = out.choice;
       if (choice >= 0) commit_carries(a, w, r, p, choice);
       if (tid == 0) {
         if constexpr (kGangs) {
           k.assigned[p] = choice;
+          if (k.dra_match != nullptr && choice >= 0) dra_commit(k, a.N, p, choice);
         } else {  // the demotion, from the pre-commit verdict at the speculative node
           int kind = DEMOTE_NONE, cterm = -1;
           if (choice != spec) {

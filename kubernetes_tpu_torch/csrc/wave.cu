@@ -13,7 +13,10 @@
 // The peers' counts are zero and every port is free; the usage state is the
 // cluster's own, read only.  Each block has its own per-node scratch rows.
 // Output: c0, the speculative node per pod (no reason counts, so the
-// diagnosis masks are not read).
+// diagnosis masks are not read).  An optional [P, N] lane (WaveArgs::lane)
+// is read as the port verdict: the workloads dispatch passes its DRA
+// verdict against the pre-batch allocation state there (K14, csrc/dra.cu),
+// as the reference puts it in spec_one's m_portb.
 //
 // K9: the serial recurrence choice_i = F_i(S + sum_{j<i} delta(choice_j)),
 // in ONE persistent block of 1024 threads that loops over the pods, as K5
@@ -58,14 +61,17 @@ namespace {
 
 constexpr int SPEC_THREADS = 256;
 
-// No committed peer: speculation against the frozen snapshot.
+// No committed peer: speculation against the frozen snapshot, every port
+// free unless the caller's lane row says otherwise (the workloads
+// dispatch's DRA verdict).
 struct ZeroDyn {
+  const unsigned char* lane;  // pod p's [N] row of WaveArgs::lane, or null
   __device__ int f(int, long long, int, int) const { return 0; }
   __device__ int sc(int, long long, int, int, bool) const { return 0; }
   __device__ int ip(int, long long, int, int) const { return 0; }
   __device__ bool viol(int) const { return false; }
   __device__ long long sym(int) const { return 0; }
-  __device__ bool portb(int) const { return true; }
+  __device__ bool portb(int n) const { return lane == nullptr || lane[n]; }
 };
 
 __global__ void __launch_bounds__(SPEC_THREADS) wave_speculate_kernel(const GangScanArgs a, const WaveArgs w) {
@@ -84,7 +90,7 @@ __global__ void __launch_bounds__(SPEC_THREADS) wave_speculate_kernel(const Gang
                       s_best_v, s_best_i, nullptr};
   const StepScratch sc{a.feas + p * N, a.ip_raw + p * N, a.sp_raw + p * N, a.sp_cnt + p * C * N,
                        w.sums + (long long)p * C * w.Dsp, w.Dsp};
-  const StepOut out = pod_step_block(a, p, ZeroDyn{}, false, sc, sh, -1, false);
+  const StepOut out = pod_step_block(a, p, ZeroDyn{w.lane ? w.lane + p * N : nullptr}, false, sc, sh, -1, false);
   if (threadIdx.x == 0) a.chosen[p] = out.choice;
 }
 

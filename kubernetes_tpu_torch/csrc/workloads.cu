@@ -3,9 +3,9 @@
 //
 // Replaces the JAX root kubernetes_tpu/ops/coscheduling.py:140
 // workloads_schedule, its admission pass (a lax.scan over the term-factored
-// carries with the gang checkpoint, :297-432) for batches without DRA
-// claims; the speculation pass (:287-295) is exactly the wave's, so it is
-// K8 (csrc/wave.cu).  The recurrence is K9's: K11 is
+// carries with the gang checkpoint and, for a batch with DRA claims, the
+// allocation carries, :297-432); the speculation pass (:287-295) is the
+// wave's, so it is K8 (csrc/wave.cu) with K14's DRA lane (csrc/dra.cu).  The recurrence is K9's: K11 is
 // ktpu::wave::admit_kernel<true> (csrc/ktpu.cuh), one persistent block of
 // 1024 threads that loops over the pods in plan_batch order, each step
 // ktpu::step::pod_step_block with the peers' counts read from the carries.
@@ -27,6 +27,17 @@
 // any rollback goes to GangScanArgs.chosen (the `raw` output); `assigned`
 // is the choice after rollback.  Every copy sits between two barriers: the
 // usage rows are committed by thread 0, the carries by many threads.
+//
+// DRA mode (WorkloadsArgs.dra_match not null; ops/dra.py): per pod the block
+// first computes the pod's verdict at every node against the carries
+// free [N, DD] and claim_node [CL] into the dra_row scratch
+// (ktpu::dra::node_verdict, K14's device code), which the step reads as its
+// port lane (WaveDyn::portb), so a DRA rejection lands in the NodePorts
+// diagnosis lane as in the reference.  After the step, thread 0 computes
+// the pod's take row at the chosen node only, clears it from `free`, and
+// pins every claim the pod references that is still unallocated to the
+// node.  The checkpoint then also covers claim_node's CL ints and free's
+// N DD bytes.
 //
 // Bound on the H100: the recurrence, as K9 (one SM of 132; ~6 block
 // reductions and their barriers per pod); the checkpoint adds one

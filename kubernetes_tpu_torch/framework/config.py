@@ -12,17 +12,27 @@ kernels K8 and K9); ``wave_dispatch=False`` sends them to the gang scan
 there: PodGroup members are admitted all or nothing by ``workloads_run``
 (kernels K8 and K11).  A profile's ``post_filter`` (on by
 default, DefaultPreemption) preempts lower-priority pods for pods that fail
-to schedule.
+to schedule.  ``feature_gates`` holds the gates this scheduler reads, with
+the reference's names and defaults: ``DynamicResourceAllocation`` (off by
+default) adds the DynamicResources plugin to every profile, after
+VolumeZone, so pods with ResourceClaims take the workloads dispatch; with
+it off their claims are ignored.  ``validate`` rejects any other gate name.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 from kubernetes_tpu_torch.ops.scores import DEFAULT_SCORE_WEIGHTS, WEIGHT_ORDER
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"
+
+# the feature gates this scheduler reads and their reference defaults
+# (pkg/features/kube_features.go @ v1.31)
+DEFAULT_FEATURE_GATES: List[Tuple[str, bool]] = [
+    ("DynamicResourceAllocation", False),  # alpha
+]
 
 # device-backed Filter/Score plugins of the default profile
 DEFAULT_ENABLED = frozenset(
@@ -91,6 +101,13 @@ class SchedulerConfiguration:
     # take the workloads dispatch (K8 + K11, all-or-nothing gang admission);
     # off = gang members schedule one by one like any pod
     gang_dispatch: bool = True
+    # component-base/featuregate: only the gates this scheduler reads exist
+    feature_gates: Dict[str, bool] = field(default_factory=lambda: dict(DEFAULT_FEATURE_GATES))
+
+    def dra_enabled(self) -> bool:
+        """The DynamicResourceAllocation gate: the DynamicResources plugin
+        joins every profile and claims are allocated."""
+        return bool(self.feature_gates.get("DynamicResourceAllocation"))
 
     def validate(self) -> None:
         if self.batch_size < 1 or self.fast_batch_max < self.batch_size:
@@ -107,3 +124,6 @@ class SchedulerConfiguration:
                 raise ValueError("score weights must be non-negative")
             if not 0 <= p.min_candidate_nodes_percentage <= 100 or p.min_candidate_nodes_absolute < 0:
                 raise ValueError("min candidate nodes: percentage in [0, 100], absolute >= 0")
+        unknown = sorted(set(self.feature_gates) - {name for name, _ in DEFAULT_FEATURE_GATES})
+        if unknown:
+            raise ValueError(f"feature gates this scheduler does not read: {', '.join(unknown)}")

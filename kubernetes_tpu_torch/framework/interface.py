@@ -176,6 +176,9 @@ class EventResource(str, enum.Enum):
     STORAGE_CLASS = "StorageClass"
     CSI_NODE = "CSINode"
     POD_GROUP = "PodGroup"
+    RESOURCE_CLAIM = "ResourceClaim"
+    RESOURCE_SLICE = "ResourceSlice"
+    DEVICE_CLASS = "DeviceClass"
     WILDCARD = "*"
 
 

@@ -8,8 +8,10 @@ From the JAX package's framework/plugins.py, the parts the port runs:
     an empty shortlist proves preemption cannot help.
   * ``DEFAULT_PLUGINS``: the default profile's host-backed plugins
     (VolumeRestrictions, NodeVolumeLimits, VolumeBinding, VolumeZone, in
-    the reference's order), which framework/runtime.py runs; the device-
-    backed ones are kernel names in framework/config.py ``DEFAULT_ENABLED``.
+    the reference's order), which framework/runtime.py runs, and
+    ``default_plugins``, which adds DynamicResources after them under the
+    DynamicResourceAllocation gate; the device-backed ones are kernel names
+    in framework/config.py ``DEFAULT_ENABLED``.
   * ``QUEUEING_HINTS``: each plugin's EventsToRegister and
     the Coscheduling gate's PodGroup events (the reference registers them
     beside its profiles' hints), the
@@ -23,6 +25,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 from kubernetes_tpu_torch.api.types import Pod
+from kubernetes_tpu_torch.framework.dynamicresources import DynamicResources
 from kubernetes_tpu_torch.framework.interface import (
     ActionType,
     ClusterEvent,
@@ -36,6 +39,15 @@ from kubernetes_tpu_torch.framework.volume_plugins import NodeVolumeLimits, Volu
 from kubernetes_tpu_torch.framework.volumebinding import VolumeBinding
 
 DEFAULT_PLUGINS = (VolumeRestrictions, NodeVolumeLimits, VolumeBinding, VolumeZone)
+
+
+def default_plugins(feature_gates) -> tuple:
+    """A profile's host plugins under the feature gates (the reference's
+    default_plugins): DynamicResources joins after VolumeZone, before where
+    DefaultBinder stands, when DynamicResourceAllocation is on."""
+    if feature_gates.get("DynamicResourceAllocation"):
+        return DEFAULT_PLUGINS + (DynamicResources,)
+    return DEFAULT_PLUGINS
 
 
 def _node_event(action: ActionType) -> ClusterEventWithHint:
@@ -89,7 +101,7 @@ QUEUEING_HINTS: Dict[str, List[ClusterEventWithHint]] = {
     # requeue on PodGroup events; the scheduler fires a synthetic UPDATE
     # when a pending member arrives
     "Coscheduling": [ClusterEventWithHint(ClusterEvent(EventResource.POD_GROUP, ActionType.ADD | ActionType.UPDATE))],
-    **{cls.name: cls().events_to_register() for cls in DEFAULT_PLUGINS},
+    **{cls.name: cls().events_to_register() for cls in DEFAULT_PLUGINS + (DynamicResources,)},
 }
 
 

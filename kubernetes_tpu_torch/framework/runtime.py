@@ -2,8 +2,8 @@
 
 A copy of the host-plugin surface of the JAX package's framework/runtime.py
 (pkg/scheduler/framework/runtime/framework.go): the plugins whose Filter
-runs on the host (the volume plugins, framework/plugins.py
-``DEFAULT_PLUGINS``) and the Run* methods of their extension points.  The
+runs on the host (the volume plugins and DynamicResources,
+framework/plugins.py ``default_plugins``) and the Run* methods of their extension points.  The
 device-backed Filter and Score plugins stay where the port has them: kernel
 names in the profile's ``enabled`` set, evaluated by the kernels.
 
@@ -30,7 +30,8 @@ from kubernetes_tpu_torch.framework.interface import (
 class Framework:
     """One profile's host plugins, in the profile's order (the reference's
     default multi-point order: VolumeRestrictions, NodeVolumeLimits,
-    VolumeBinding, VolumeZone)."""
+    VolumeBinding, VolumeZone, then DynamicResources under the
+    DynamicResourceAllocation gate)."""
 
     def __init__(self, plugin_classes: Sequence[type], handle=None):
         self.plugins = [cls(handle) for cls in plugin_classes]

@@ -38,6 +38,7 @@ SOURCES = (
     "workloads.cu",
     "preemption.cu",
     "volume.cu",
+    "dra.cu",
     "runtime.cu",
 )
 HEADERS = ("ktpu.cuh",)
@@ -62,6 +63,8 @@ launches: Dict[str, int] = {
     "workloads_admit": 0,
     "narrow_candidates": 0,
     "volume_topology_mask": 0,
+    "dra_selector_match": 0,
+    "dra_spec_mask": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -214,7 +217,7 @@ class GangScanArgs(ctypes.Structure):
 class WaveArgs(ctypes.Structure):
     """Mirror of csrc/ktpu.cuh WaveArgs (pointers, then ints)."""
 
-    _PTRS = "tid_sp rep_sp_p rep_sp_c tid_ip rep_ip_p rep_ip_u tid_pt port_conf c0 kinds cterms sums carries".split()
+    _PTRS = "tid_sp rep_sp_p rep_sp_c tid_ip rep_ip_p rep_ip_u tid_pt port_conf c0 kinds cterms sums carries lane".split()
     _INTS = "Tsp Tip Tpt W Dsp D2 hostname_key has_ports sums_smem carry_smem".split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
@@ -222,8 +225,11 @@ class WaveArgs(ctypes.Structure):
 class WorkloadsArgs(ctypes.Structure):
     """Mirror of csrc/ktpu.cuh WorkloadsArgs (pointers, then ints)."""
 
-    _PTRS = "gang_id gang_first gang_last gang_need assigned gang_admit gang_landed ckpt".split()
-    _INTS = "g_cap".split()
+    _PTRS = (
+        "gang_id gang_first gang_last gang_need assigned gang_admit gang_landed ckpt "
+        "dra_match req_count req_all req_cl q_valid req_bad ref_cl free claim_node dra_row"
+    ).split()
+    _INTS = "g_cap DQ DD CQ CL".split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
@@ -282,6 +288,10 @@ def load() -> ctypes.CDLL:
     lib.ktpu_preempt_narrow.restype = ctypes.c_int
     lib.ktpu_volume_topology_mask.argtypes = [vp] * 10 + [ctypes.c_int] * 8 + [vp]
     lib.ktpu_volume_topology_mask.restype = ctypes.c_int
+    lib.ktpu_dra_selector_match.argtypes = [vp] * 7 + [ctypes.c_int] * 7 + [vp]
+    lib.ktpu_dra_selector_match.restype = ctypes.c_int
+    lib.ktpu_dra_spec_mask.argtypes = [vp] * 10 + [ctypes.c_int] * 6 + [vp]
+    lib.ktpu_dra_spec_mask.restype = ctypes.c_int
     for fn in ("ktpu_gang_scan_smem_max", "ktpu_wave_admit_smem_max", "ktpu_workloads_admit_smem_max"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int

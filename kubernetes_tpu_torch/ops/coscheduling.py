@@ -1,23 +1,32 @@
-"""The workloads dispatch: gang admission and the bound-volume topology mask.
+"""The workloads dispatch: gang admission, DRA claim allocation and the
+bound-volume topology mask.
 
 Port of the JAX package's ops/coscheduling.py (its jit roots
-``workloads_run`` and ``workloads_schedule``, and ``volume_topology_mask``)
-for batches without DRA claims.  One dispatch schedules a batch in the
-wave's two passes (ops/wave.py):
+``workloads_run`` and ``workloads_schedule``, and ``volume_topology_mask``).
+One dispatch schedules a batch in the wave's two passes (ops/wave.py):
 
   1. **speculation**: every pod against the frozen snapshot, exactly the
-     wave's first pass (kernel K8, ``wave.wave_speculate``);
+     wave's first pass (kernel K8, ``wave.wave_speculate``), with the
+     batch's DRA verdict against the pre-batch allocation state (K14,
+     ops/dra.py) as its port lane;
   2. **admission**: the serial recurrence ``choice_i = F_i(S + sum_{j<i}
      delta(choice_j))`` over the term-factored carries, as the wave's
-     second pass, with all-or-nothing gangs.  The planner
-     (workloads/gang.py ``plan_batch``) lays each gang's members out
-     contiguously; at a gang's first member the pass snapshots its whole
-     carried state (the usage rows, the assignment row and the factored
-     counts) and, at the gang's last member, admits the gang only when the
-     members placed in this batch cover its remaining minMember need.
-     Otherwise the snapshot is restored whole: later pods see a state in
-     which the gang never happened, and the members read -1 in ``chosen``
-     while ``raw`` keeps the choices the pass made for them.
+     second pass, extended by the two allocation carries of ops/dra.py
+     (``free [N, DD]``, ``claim_node [CL]``), with all-or-nothing gangs.
+     Each pod's DRA verdict against the carries is its port lane (a DRA
+     rejection lands in the NodePorts diagnosis lane, as in the
+     reference), and a placement takes its devices at the chosen node and
+     pins its claims there, so in-batch contention resolves in queue
+     order.  The planner (workloads/gang.py ``plan_batch``) lays each
+     gang's members out contiguously; at a gang's first member the pass
+     snapshots its whole carried state (the usage rows, the assignment row,
+     the factored counts and the allocation carries) and, at the gang's
+     last member, admits the gang only when the members placed in this
+     batch cover its remaining minMember need.  Otherwise the snapshot is
+     restored whole: later pods see a state in which the gang never
+     happened (its devices free, its claims unpinned), and the members read
+     -1 in ``chosen`` while ``raw`` keeps the choices the pass made for
+     them.
 
 Pods with bound PVCs ride the same dispatch: ``volume_topology_mask``
 evaluates each bound PV's node-affinity DNF (and a zone-labelled PV's
@@ -31,14 +40,14 @@ the factored carries are the wave's.  Each pass has a plain PyTorch version
 (the reference's formulas), which the wrapper takes for CPU tensors; for
 CUDA tensors it launches the hand-written kernel or raises:
 
-  K11 workloads_admit        the admission pass with the gang checkpoint,
-                             one persistent block (csrc/workloads.cu)
+  K11 workloads_admit        the admission pass with the gang checkpoint
+                             and, for a batch with claims, the allocation
+                             carries, one persistent block
+                             (csrc/workloads.cu)
   K12 volume_topology_mask   the bound-PV mask, a thread per (pod, node)
                              (csrc/volume.cu)
 
-Not ported: DRA claims (``dra.selector_match`` / ``node_feasible`` /
-``dra_commit``, ROADMAP A8's DRA half); passing their arguments raises
-NotImplementedError.
+and the DRA match and speculation lane are K13 and K14 (ops/dra.py).
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ import ctypes
 import torch
 
 from kubernetes_tpu_torch.ops import _build
+from kubernetes_tpu_torch.ops import dra as dra_ops
 from kubernetes_tpu_torch.ops import gang
 from kubernetes_tpu_torch.ops import wave
 from kubernetes_tpu_torch.ops.common import DTable, dnf_any, eval_table
@@ -58,19 +68,18 @@ I32 = torch.int32
 I64 = torch.int64
 BOOL = torch.bool
 
-# the workloads arguments of the reference that belong to the unported DRA tier
-_UNPORTED = ("dev_key", "dev_val", "dev_valid", "free0", "sel_key", "sel_op", "sel_vals", "req_count", "req_all",
-             "req_cl", "req_bad", "q_valid", "ref_cl", "claim_node0")
 
-
-def _refuse_unported(kw) -> None:
-    """Raise for any DRA argument that is set."""
-    for k, v in kw.items():
-        if k not in _UNPORTED:
-            raise TypeError(f"unexpected argument {k!r}")
-        if v is not None:
-            raise NotImplementedError(f"workloads dispatch: {k} belongs to DRA claims (ROADMAP A8, DRA half), "
-                                      "which the port has not ported")
+def _dra_group(kw) -> dict:
+    """The DRA arguments of a workloads call: all of ops/dra.py DRA_ARGS or
+    none of them (an empty dict)."""
+    unknown = set(kw) - set(dra_ops.DRA_ARGS)
+    if unknown:
+        raise TypeError(f"unexpected arguments {sorted(unknown)}")
+    given = {k: v for k, v in kw.items() if v is not None}
+    if given and len(given) != len(dra_ops.DRA_ARGS):
+        missing = [k for k in dra_ops.DRA_ARGS if k not in given]
+        raise ValueError(f"workloads dispatch: the DRA arguments come together; missing {missing}")
+    return given
 
 
 # ---------------------------------------------------------------------------
@@ -124,21 +133,26 @@ def _volume_topology_mask_cuda(dc, vol_table: DTable, vol_valid, vol_bad):
 
 
 # the carried state snapshotted at a gang's first member (with the
-# assignment row)
+# assignment row, and the allocation carries in a batch with claims)
 _CK_USAGE = ("requested", "nonzero", "num_pods")
 _CK_CARRIES = ("cnt_sp", "cnt_ip", "rev_cnt")
+# a pod's request rows of ops/dra.py, in node_feasible_plain's order
+_DRA_ROWS = ("req_count", "req_all", "req_cl", "q_valid", "req_bad", "ref_cl")
 
 
 def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                           ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, g_cap: int,
                           weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, d2_cap=8, nom_node=None,
-                          nom_prio=None, nom_req=None):
+                          nom_prio=None, nom_req=None, dra=None):
     """Plain version of K11: the admission recurrence of the reference's
-    workloads_schedule (ops/coscheduling.py:297-432) without DRA, one pod at
-    a time.  Returns (chosen i32 [P] after rollback, raw i32 [P] before it,
-    n_feas i64 [P], reason_counts i64 [P, N_DIAG], tallies, gang_admit i32
-    [g_cap] (-1 unjudged, 0 rolled back, 1 admitted), gang_landed i32
-    [g_cap])."""
+    workloads_schedule (ops/coscheduling.py:297-432), one pod at a time.
+    ``dra`` (None: no claims in the batch) holds the match tensor ``match``
+    [P, DQ, N, DD], ``free0``, ``claim_node0`` and the request rows of
+    ops/dra.py; the allocation carries start from free0 and claim_node0.
+    Returns (chosen i32 [P] after rollback, raw i32 [P] before it, n_feas
+    i64 [P], reason_counts i64 [P, N_DIAG], tallies, gang_admit i32 [g_cap]
+    (-1 unjudged, 0 rolled back, 1 admitted), gang_landed i32 [g_cap],
+    claim_node i32 [CL] after the batch, or None without ``dra``)."""
     P, N = g.static_mask.shape
     nom = gang.nominations_onehot(nom_node, nom_prio, nom_req, N)
     C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
@@ -148,9 +162,10 @@ def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
     state = wave._base_state(dc)  # pod_step commits the usage rows in place
     assigned = torch.full((P,), ABSENT, dtype=I32, device=dev)
     carries = wave.factored_carry_init(rep_sp_p.shape[0], rep_ip_p.shape[0], N, 0, dev)
+    alloc = {} if dra is None else {"free": dra["free0"].clone(), "claim_node": dra["claim_node0"].clone()}
 
     def snapshot():
-        return {k: v.clone() for k, v in (*state.items(), ("assigned", assigned), *carries.items())}
+        return {k: v.clone() for k, v in (*state.items(), ("assigned", assigned), *carries.items(), *alloc.items())}
 
     ck = snapshot()  # the checkpoint starts as the initial state, as the reference's carry
     raw = torch.full((P,), ABSENT, dtype=I32, device=dev)
@@ -170,11 +185,18 @@ def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
         if AT:
             idyn, ip_aux = wave.factored_interpod_dyn(g, db, p, tid_ip, ip_cdv_tab, d2_cap, hostname_key,
                                                       carries["cnt_ip"], carries["rev_cnt"], m_ip_all, t_anti, t_w)
-        hv, _, _ = wave._build_hv(db, g, p, sdyn, idyn, true_n)
+        m_dra, take = true_n, None
+        if dra is not None:
+            m_dra, take = dra_ops.node_feasible_plain(dra["match"][p], alloc["free"], alloc["claim_node"],
+                                                      *(dra[k][p] for k in _DRA_ROWS))
+        hv, _, _ = wave._build_hv(db, g, p, sdyn, idyn, m_dra)
         choice, nf, rc = gang.pod_step(dc, db, g, p, state, hv, check_fit=check_fit, weights=weights, d_cap=d_cap,
                                        nom=nom)
         assigned[p] = choice
         carries = wave.factored_carry_update(carries, p, choice, m_sp_all, m_ip_all, ip_aux)
+        if dra is not None:
+            alloc["free"], alloc["claim_node"] = dra_ops.dra_commit_plain(alloc["free"], alloc["claim_node"], choice,
+                                                                          take, dra["ref_cl"][p])
         raw[p] = choice
         n_feas[p] = nf
         reason_counts[p] = rc
@@ -187,65 +209,77 @@ def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
                     state[k] = ck[k].clone()
                 assigned = ck["assigned"].clone()
                 carries = {k: ck[k].clone() for k in _CK_CARRIES}
+                alloc = {k: ck[k].clone() for k in alloc}
             if gid_all[p] < g_cap:
                 gang_admit[gid_all[p]] = 0 if fail else 1
                 gang_landed[gid_all[p]] = landed
     tallies = {k: state[k] for k in _CK_USAGE}
-    return assigned, raw, n_feas, reason_counts, tallies, gang_admit, gang_landed
+    return assigned, raw, n_feas, reason_counts, tallies, gang_admit, gang_landed, alloc.get("claim_node")
 
 
 def workloads_admit(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
                     gang_id, gang_first, gang_last, gang_need, g_cap: int, weights=gang.DEFAULT_WEIGHTS,
-                    check_fit=True, d_cap=8, d2_cap=8, nom_node=None, nom_prio=None, nom_req=None):
+                    check_fit=True, d_cap=8, d2_cap=8, nom_node=None, nom_prio=None, nom_req=None, dra=None):
     """The admission pass: K11 on CUDA tensors, its plain version on CPU."""
     args = (dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab, gang_id,
             gang_first, gang_last, gang_need, g_cap, weights, check_fit, d_cap, d2_cap)
-    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
+    kw = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, dra=dra)
     if dc.node_valid.device.type == "cpu":
-        return workloads_admit_plain(*args, **nom)
-    return _workloads_admit_cuda(*args, **nom)
+        return workloads_admit_plain(*args, **kw)
+    return _workloads_admit_cuda(*args, **kw)
 
 
-def _schedule(admit, speculate, dc, db, g, hostname_key, g_cap, tables, gang_arrays, weights, check_fit, d_cap,
-              d2_cap, nom, unported):
-    _refuse_unported(unported)
-    c0 = speculate(dc, db, g, weights, check_fit, d_cap, **nom)
-    chosen, raw, n_feas, rc, tallies, gang_admit, gang_landed = admit(
-        dc, db, g, hostname_key, *tables, *gang_arrays, g_cap, weights, check_fit, d_cap, d2_cap, **nom)
-    wl = {"spec": c0, "raw": raw, "gang_admit": gang_admit, "gang_landed": gang_landed}
+def _schedule(admit, speculate, match_fn, lane_fn, dc, db, g, hostname_key, g_cap, tables, gang_arrays, weights,
+              check_fit, d_cap, d2_cap, nom, dra_kw):
+    dra_kw = _dra_group(dra_kw)
+    dra = lane = None
+    if dra_kw:
+        match = match_fn(*(dra_kw[k] for k in ("dev_key", "dev_val", "dev_valid", "sel_key", "sel_op", "sel_vals")))
+        dra = dict(match=match, free0=dra_kw["free0"], claim_node0=dra_kw["claim_node0"],
+                   **{k: dra_kw[k] for k in _DRA_ROWS})
+        lane = lane_fn(match, dra["free0"], dra["claim_node0"], *(dra[k] for k in _DRA_ROWS))
+    c0 = speculate(dc, db, g, weights, check_fit, d_cap, **nom, lane=lane)
+    chosen, raw, n_feas, rc, tallies, gang_admit, gang_landed, claim_node = admit(
+        dc, db, g, hostname_key, *tables, *gang_arrays, g_cap, weights, check_fit, d_cap, d2_cap, **nom, dra=dra)
+    wl = {"spec": c0, "raw": raw, "gang_admit": gang_admit, "gang_landed": gang_landed, "claim_node": claim_node}
     return chosen, n_feas, rc, tallies, wl
 
 
 def workloads_schedule_plain(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
                              rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need,
                              weights=gang.DEFAULT_WEIGHTS, check_fit=True, nom_node=None, nom_prio=None,
-                             nom_req=None, d_cap=8, d2_cap=8, **unported):
-    """Plain version of workloads_schedule: K8's then K11's plain loop."""
-    return _schedule(workloads_admit_plain, wave.wave_speculate_plain, dc, db, g, hostname_key, g_cap,
+                             nom_req=None, d_cap=8, d2_cap=8, **dra_kw):
+    """Plain version of workloads_schedule: K13's, K14's, K8's and K11's
+    plain versions."""
+    return _schedule(workloads_admit_plain, wave.wave_speculate_plain, dra_ops.selector_match_plain,
+                     dra_ops.dra_spec_mask_plain, dc, db, g, hostname_key, g_cap,
                      (tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab),
                      (gang_id, gang_first, gang_last, gang_need), weights, check_fit, d_cap, d2_cap,
-                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req), unported)
+                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req), dra_kw)
 
 
 def workloads_schedule(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
                        rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, weights=gang.DEFAULT_WEIGHTS,
-                       check_fit=True, nom_node=None, nom_prio=None, nom_req=None, d_cap=8, d2_cap=8, **unported):
-    """One workloads dispatch: the speculation (K8), then the gang admission
-    (K11).  The cluster's usage rows are read, not written.  ``gang_*`` are
-    workloads/gang.py ``gang_arrays``' [P] rows (as tensors) and ``g_cap``
-    its slot count; ``nom_*`` the open nominations (ops/gang.py), charged
-    in both passes.
+                       check_fit=True, nom_node=None, nom_prio=None, nom_req=None, d_cap=8, d2_cap=8, **dra_kw):
+    """One workloads dispatch: for a batch with claims the match (K13) and
+    the speculation's DRA lane (K14), then the speculation (K8) and the
+    admission (K11).  The cluster's usage rows are read, not written.
+    ``gang_*`` are workloads/gang.py ``gang_arrays``' [P] rows (as tensors)
+    and ``g_cap`` its slot count; ``nom_*`` the open nominations
+    (ops/gang.py), charged in both passes; ``dra_kw`` is ops/dra.py
+    ``dra_tables``' tensors (ops/dra.py DRA_ARGS), all or none.
 
     Returns (chosen i32 [P] after rollback (-1 for failed and rolled-back
     pods), n_feas i64 [P], reason_counts i64 [P, N_DIAG], tallies, wl): wl
     holds spec i32 [P] (the speculative choices), raw i32 [P] (the
     admission's choices before rollback), gang_admit i32 [g_cap] (-1
-    unjudged, 0 rolled back, 1 admitted) and gang_landed i32 [g_cap] (the
-    members placed in this batch)."""
-    return _schedule(workloads_admit, wave.wave_speculate, dc, db, g, hostname_key, g_cap,
-                     (tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab),
+    unjudged, 0 rolled back, 1 admitted), gang_landed i32 [g_cap] (the
+    members placed in this batch) and claim_node i32 [CL] (each referenced
+    claim's node after the batch, -1 unallocated; None without claims)."""
+    return _schedule(workloads_admit, wave.wave_speculate, dra_ops.selector_match, dra_ops.dra_spec_mask, dc, db, g,
+                     hostname_key, g_cap, (tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab),
                      (gang_id, gang_first, gang_last, gang_need), weights, check_fit, d_cap, d2_cap,
-                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req), unported)
+                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req), dra_kw)
 
 
 def workloads_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
@@ -254,12 +288,13 @@ def workloads_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp, rep
                   has_spread: bool = True, has_images: bool = True, enabled: frozenset = gang.ALL_FILTER_KERNELS,
                   weights: tuple = gang.DEFAULT_WEIGHTS, extra_mask=None, nom_node=None, nom_prio=None,
                   nom_req=None, sp_keys=None, sp_cdv_tab=None, ip_keys=None, d_cap: int = 8, d2_cap: int = 8,
-                  **unported):
+                  **dra_kw):
     """precompute + workloads_schedule for one batch: K12 for the volume
     mask when ``vol_table`` is given (ANDed into ``extra_mask``), K1 + K6 +
-    K7 for the statics, K8, K11.  The workloads gate admits no pod with host
-    ports, so the port axis is left out (precompute with has_ports=False)."""
-    _refuse_unported(unported)
+    K7 for the statics, then K13, K14, K8 and K11 (``dra_kw``: ops/dra.py
+    DRA_ARGS, all or none).  The workloads gate admits no pod with host
+    ports, so the port axis is left out (precompute with has_ports=False)
+    and the port lane carries the DRA verdict."""
     if vol_table is not None:
         vmask = volume_topology_mask(dc, vol_table, vol_valid, vol_bad)
         extra_mask = vmask if extra_mask is None else (extra_mask & vmask)
@@ -269,7 +304,7 @@ def workloads_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp, rep
     return workloads_schedule(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
                               rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, weights=weights,
                               check_fit="NodeResourcesFit" in enabled, nom_node=nom_node, nom_prio=nom_prio,
-                              nom_req=nom_req, d_cap=d_cap, d2_cap=d2_cap)
+                              nom_req=nom_req, d_cap=d_cap, d2_cap=d2_cap, **dra_kw)
 
 
 # ---------------------------------------------------------------------------
@@ -277,17 +312,20 @@ def workloads_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp, rep
 # ---------------------------------------------------------------------------
 
 
-def ckpt_cells(N: int, Rn: int, P: int, Tsp: int, Tip: int) -> int:
+def ckpt_cells(N: int, Rn: int, P: int, Tsp: int, Tip: int, DD: int = 0, CL: int = 0) -> int:
     """int32 cells of K11's checkpoint: requested [N, Rn], nonzero [N, 2],
-    num_pods [N], assigned [P] and the carries [(Tsp + 2 Tip), N]."""
-    return N * Rn + 2 * N + N + P + (Tsp + 2 * Tip) * N
+    num_pods [N], assigned [P], the carries [(Tsp + 2 Tip), N] and, in a
+    batch with claims, claim_node [CL] and free's N·DD bytes."""
+    return N * Rn + 2 * N + N + P + (Tsp + 2 * Tip) * N + CL + (N * DD + 3) // 4
 
 
 def _workloads_admit_cuda(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                           ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, g_cap, weights, check_fit, d_cap,
-                          d2_cap, nom_node=None, nom_prio=None, nom_req=None):
+                          d2_cap, nom_node=None, nom_prio=None, nom_req=None, dra=None):
     """K11 launch: K9's argument blocks with no port carry, plus the gang
-    rows, the assignment row, the outputs and the global checkpoint."""
+    rows, the assignment row, the outputs, the global checkpoint and, with
+    ``dra``, the match tensor, the request rows and the allocation carries
+    (copies of free0 and claim_node0, updated in place)."""
     dev = dc.node_valid.device
     lib = _build.load()
     P, N = g.static_mask.shape
@@ -301,18 +339,42 @@ def _workloads_admit_cuda(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
     assigned = torch.empty((P,), dtype=I32, device=dev)
     gang_admit = torch.empty((g_cap,), dtype=I32, device=dev)
     gang_landed = torch.empty((g_cap,), dtype=I32, device=dev)
-    ckpt = torch.empty((ckpt_cells(N, Rn, P, w.Tsp, w.Tip),), dtype=I32, device=dev)
-    k = _build.WorkloadsArgs()
-    gang._set_ptrs(k, dev, [
+    DQ = DD = CQ = CL = 0
+    claim_node = None
+    ptrs = [
         ("gang_id", gang_id.to(I32).contiguous(), I32, (P,)),
         ("gang_first", gang_first.to(BOOL).contiguous(), BOOL, (P,)),
         ("gang_last", gang_last.to(BOOL).contiguous(), BOOL, (P,)),
         ("gang_need", gang_need.to(I32).contiguous(), I32, (P,)),
         ("assigned", assigned, I32, (P,)), ("gang_admit", gang_admit, I32, (g_cap,)),
-        ("gang_landed", gang_landed, I32, (g_cap,)), ("ckpt", ckpt, I32, None),
-    ])
+        ("gang_landed", gang_landed, I32, (g_cap,)),
+    ]
+    if dra is not None:
+        _, DQ, _, DD = dra["match"].shape
+        CL, CQ = dra["claim_node0"].shape[0], dra["ref_cl"].shape[1]
+        if DD > dra_ops.MAX_DD:
+            raise ValueError(f"workloads_admit: {DD} device slots per node; the kernel holds at most "
+                             f"{dra_ops.MAX_DD}")
+        claim_node = dra["claim_node0"].clone()
+        ptrs += [
+            ("dra_match", dra["match"].contiguous(), BOOL, (P, DQ, N, DD)),
+            ("req_count", dra["req_count"].contiguous(), I32, (P, DQ)),
+            ("req_all", dra["req_all"].contiguous(), BOOL, (P, DQ)),
+            ("req_cl", dra["req_cl"].contiguous(), I32, (P, DQ)),
+            ("q_valid", dra["q_valid"].contiguous(), BOOL, (P, DQ)),
+            ("req_bad", dra["req_bad"].contiguous(), BOOL, (P, DQ)),
+            ("ref_cl", dra["ref_cl"].contiguous(), I32, (P, CQ)),
+            ("free", dra["free0"].clone().contiguous(), BOOL, (N, DD)),
+            ("claim_node", claim_node, I32, (CL,)),
+            ("dra_row", torch.empty((N,), dtype=BOOL, device=dev), BOOL, (N,)),
+        ]
+    ckpt = torch.empty((ckpt_cells(N, Rn, P, w.Tsp, w.Tip, DD, CL),), dtype=I32, device=dev)
+    ptrs.append(("ckpt", ckpt, I32, None))
+    k = _build.WorkloadsArgs()
+    gang._set_ptrs(k, dev, ptrs)
     k.g_cap = int(g_cap)
+    k.DQ, k.DD, k.CQ, k.CL = DQ, DD, CQ, CL
     rc = lib.ktpu_workloads_admit(ctypes.byref(a), ctypes.byref(w), ctypes.byref(k), _build.stream_handle(dev))
     _build.check_launch(lib, rc, "workloads_admit")
     _build.launches["workloads_admit"] += 1
-    return assigned, raw, n_feas, reason_counts, state, gang_admit, gang_landed
+    return assigned, raw, n_feas, reason_counts, state, gang_admit, gang_landed, claim_node

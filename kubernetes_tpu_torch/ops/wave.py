@@ -496,10 +496,12 @@ def _base_state(dc):
 
 
 def wave_speculate_plain(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, n_feas=None,
-                         nom_node=None, nom_prio=None, nom_req=None):
+                         nom_node=None, nom_prio=None, nom_req=None, lane=None):
     """Plain version of K8: every pod's step against the frozen snapshot,
-    with zero batch-peer counts and every port free.  Returns c0 i32 [P];
-    fills ``n_feas`` [P], when given, with each pod's feasible-node count."""
+    with zero batch-peer counts and every port free, or, with ``lane`` (bool
+    [P, N]), the port lane read from it (the workloads dispatch puts its DRA
+    verdict there).  Returns c0 i32 [P]; fills ``n_feas`` [P], when given,
+    with each pod's feasible-node count."""
     P, N = g.static_mask.shape
     nom = gang.nominations_onehot(nom_node, nom_prio, nom_req, N)
     C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
@@ -508,7 +510,8 @@ def wave_speculate_plain(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True
     true_n = torch.ones((N,), dtype=BOOL, device=dev)
     c0 = torch.full((P,), ABSENT, dtype=I32, device=dev)
     for p in range(P):
-        hv, _, _ = _build_hv(db, g, p, _zero_sdyn(C, N, dev), _zero_idyn(AT, N, dev), true_n)
+        hv, _, _ = _build_hv(db, g, p, _zero_sdyn(C, N, dev), _zero_idyn(AT, N, dev),
+                             true_n if lane is None else lane[p])
         c0[p], nf, _ = gang.pod_step(dc, db, g, p, base, hv, check_fit=check_fit, weights=weights, d_cap=d_cap,
                                      commit=False, nom=nom)
         if n_feas is not None:
@@ -617,9 +620,10 @@ def wave_schedule_plain(dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp
 
 
 def wave_speculate(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, nom_node=None,
-                   nom_prio=None, nom_req=None):
-    """The speculation pass: K8 on CUDA tensors, its plain version on CPU."""
-    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
+                   nom_prio=None, nom_req=None, lane=None):
+    """The speculation pass: K8 on CUDA tensors, its plain version on CPU.
+    ``lane`` (bool [P, N], None: all True) is read as the port lane."""
+    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, lane=lane)
     if dc.node_valid.device.type == "cpu":
         return wave_speculate_plain(dc, db, g, weights, check_fit, d_cap, **nom)
     return _wave_speculate_cuda(dc, db, g, weights, check_fit, **nom)
@@ -694,8 +698,9 @@ def _zeros(dev, n, dtype=I32):
     return torch.zeros((max(int(n), 1),), dtype=dtype, device=dev)
 
 
-def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=None, nom_req=None):
-    """K8 launch: one block per pod against the cluster's own usage rows."""
+def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=None, nom_req=None, lane=None):
+    """K8 launch: one block per pod against the cluster's own usage rows
+    (``lane``: the port lane, a null pointer when None)."""
     dev = dc.node_valid.device
     lib = _build.load()
     g = gang.GangStatics(*(t.contiguous() for t in g))
@@ -712,7 +717,10 @@ def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=
     nom = gang.nominations_csr(nom_node, nom_prio, nom_req, N, dev)
     a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom)
     w = _build.WaveArgs()
-    gang._set_ptrs(w, dev, [("sums", _zeros(dev, P * C * Dsp), I32, None)])
+    ptrs = [("sums", _zeros(dev, P * C * Dsp), I32, None)]
+    if lane is not None:
+        ptrs.append(("lane", lane.contiguous(), BOOL, (P, N)))
+    gang._set_ptrs(w, dev, ptrs)
     w.Dsp = Dsp
     rc = lib.ktpu_wave_speculate(ctypes.byref(a), ctypes.byref(w), _build.stream_handle(dev))
     _build.check_launch(lib, rc, "wave_speculate")

@@ -31,9 +31,18 @@ their PreFilter on the batch, K12 folds every bound PV's node-affinity DNF
 (and a zone-labelled PV's zone set) into the precompute's host-filter lane,
 a placed volume pod's PreFilter and host Filters are replayed on its chosen
 node before Reserve, and a rejected one's FitError names the volume node
-affinity conflict.  Pods a host Filter could act on stay off the chained and
-the fast routes, and a batch the workloads dispatch declines is split:
-such pods retry it one by one.
+affinity conflict.  Under the DynamicResourceAllocation gate, pods with
+ResourceClaims ride it as well: the DynamicResources host plugin runs its
+PreFilter on the batch, ``_dra_tables`` packs the batch's claims over the
+whole claim cache, K13 matches every request slot against every device,
+K14 gives the speculation its DRA lane and K11 allocates in the admission
+(the ``free`` and ``claim_node`` carries, in the gang checkpoint too); a
+placed claims pod is replayed through PreFilter and Filter on its node
+before Reserve and PreBind (the claim write, ``claim_writer``), and a
+rejected one's FitError says "cannot allocate all devices".  With the gate
+off, claims are ignored.  Pods a host Filter could act on stay off the
+chained and the fast routes, and a batch the workloads dispatch declines is
+split: such pods retry it one by one.
 
 On the chained and the direct route, a batch whose pods carry their own
 cross-pod constraints (spread, inter-pod terms, host ports) takes the
@@ -67,11 +76,14 @@ fast path, and the preemptor itself, back from its backoff, takes the
 nominated-node path (``_schedule_one_nominated``).
 
 Pods outside the ported paths raise NotImplementedError naming the ROADMAP
-item that ports them (an unbound, missing or WaitForFirstConsumer claim, a
-ReadWriteOncePod claim or an inline single-attach disk, a CSI volume beside
-a CSINode, a volume pod with host ports, under duplicate hostnames or with
-``gangDispatch`` off: A6b, the host-veto split path); a kernel failure or a
-checksum mismatch raises too.
+item that ports them (scheduling gates, or a ResourceClaim that does not
+exist yet: A5, the PreEnqueue tier; an unbound, missing or
+WaitForFirstConsumer PVC, a ReadWriteOncePod claim or an inline
+single-attach disk, a CSI volume beside a CSINode, a volume or claims pod
+with host ports, under duplicate hostnames or with ``gangDispatch`` off:
+A6b, the host-veto split path; on CUDA, claims pods while a node has more
+devices than the DRA kernels' slots: C4); a kernel failure or a checksum
+mismatch raises too.
 Nothing falls back to another path by itself, and the batch goes back to
 the queue unscheduled.
 """
@@ -89,6 +101,7 @@ import torch
 
 from kubernetes_tpu_torch import fastpath as fp
 from kubernetes_tpu_torch.api import labels as k8slabels
+from kubernetes_tpu_torch.api import dra as dra_api
 from kubernetes_tpu_torch.api import storage as storage_api
 from kubernetes_tpu_torch.api.types import Node, Pod
 from kubernetes_tpu_torch.cache.cache import Cache
@@ -96,11 +109,13 @@ from kubernetes_tpu_torch.cache.device_mirror import DeviceClusterCache
 from kubernetes_tpu_torch.cache.mirror import HOSTNAME_LABEL, SnapshotMirror
 from kubernetes_tpu_torch.framework.config import Profile, SchedulerConfiguration
 from kubernetes_tpu_torch.framework.interface import ActionType, ClusterEvent, Code, CycleState, EventResource, Status
-from kubernetes_tpu_torch.framework.plugins import DEFAULT_PLUGINS, QUEUEING_HINTS, DefaultPreemption
+from kubernetes_tpu_torch.framework.dynamicresources import REASON_CANNOT_ALLOCATE
+from kubernetes_tpu_torch.framework.plugins import QUEUEING_HINTS, DefaultPreemption, default_plugins
 from kubernetes_tpu_torch.framework.runtime import Framework
 from kubernetes_tpu_torch.framework.volume_plugins import SINGLE_ATTACH_KINDS, zone_value_set
 from kubernetes_tpu_torch.ops import chain as ops_chain
 from kubernetes_tpu_torch.ops import coscheduling as ops_cos
+from kubernetes_tpu_torch.ops import dra as ops_dra
 from kubernetes_tpu_torch.ops import fastpath as ops_fp
 from kubernetes_tpu_torch.ops import gang as ops_gang
 from kubernetes_tpu_torch.ops import preemption as ops_preemption
@@ -209,10 +224,25 @@ class _Handle:
     """What the preemption evaluator and the host plugins read of the
     scheduler (framework.Handle): the host view, the nominator, the eviction
     and PDB hooks, queue activation, the preemption metrics, the profile's
-    host plugins, and the storage caches and listers."""
+    host plugins, and the storage and DRA caches and listers."""
 
     def __init__(self, sched: "Scheduler"):
         self._s = sched
+
+    @property
+    def claim_cache(self) -> AssumeCache:
+        return self._s.claim_cache
+
+    def list_resource_slices(self):
+        return list(self._s.resource_slices.values())
+
+    def get_device_class(self, name: str):
+        return self._s.device_classes.get(name)
+
+    def write_claim(self, claim) -> None:
+        """The claim's status write (PreBind's allocation and reservation,
+        Unreserve's rollback)."""
+        self._s.claim_writer(claim)
 
     @property
     def pv_cache(self) -> AssumeCache:
@@ -287,10 +317,20 @@ class Scheduler:
         self.pvc_cache: AssumeCache = AssumeCache("pvc")
         self.storage_classes: Dict[str, storage_api.StorageClass] = {}
         self.csinodes: Dict[str, storage_api.CSINode] = {}
+        # ResourceClaims (an assume cache), ResourceSlices and DeviceClasses
+        # by name, in informer order (the slices' order is the allocator's
+        # enumeration order), and the claim status write
+        self.claim_cache: AssumeCache = AssumeCache("resource claims")
+        self.resource_slices: Dict[str, dra_api.ResourceSlice] = {}
+        self.device_classes: Dict[str, dra_api.DeviceClass] = {}
+        self._slice_devices: Optional[Dict[str, int]] = None  # devices per node name, built on demand
+        self.claim_writer: Callable[[dra_api.ResourceClaim], None] = lambda claim: None
         handle = _Handle(self)
-        # each profile's host plugins (the volume plugins)
+        # each profile's host plugins (the volume plugins, and DynamicResources
+        # under the DynamicResourceAllocation gate)
         self.frameworks: Dict[str, Framework] = {
-            p.scheduler_name: Framework(DEFAULT_PLUGINS, handle) for p in self.config.profiles
+            p.scheduler_name: Framework(default_plugins(self.config.feature_gates), handle)
+            for p in self.config.profiles
         }
         self._post_filters: Dict[str, DefaultPreemption] = {
             p.scheduler_name: DefaultPreemption(
@@ -329,6 +369,8 @@ class Scheduler:
             "workload_spec_admitted": 0,  # placed pods whose admitted node is the speculative one
             "gang_admitted": 0,  # members placed by admitted gangs
             "gang_rolled_back": 0,  # gangs rolled back whole
+            "dra_pods": 0,  # claims pods the workloads dispatch placed
+            "dra_claims_allocated": 0,  # claims it allocated (a shared claim once)
         }
         # PodGroups and the members placed per gang
         self.gangs = wlg.GangDirectory(clock)
@@ -473,6 +515,48 @@ class Scheduler:
         self.csinodes.pop(cn.key, None)
         self._storage_event(EventResource.CSI_NODE, ActionType.DELETE, cn, None)
 
+    # DRA informers: claims feed the assume cache, slices and classes their
+    # listers; then the DynamicResources hints requeue
+
+    def on_resource_claim_add(self, claim: dra_api.ResourceClaim) -> None:
+        self.claim_cache.on_add(claim)
+        self._storage_event(EventResource.RESOURCE_CLAIM, ActionType.ADD, None, claim)
+
+    def on_resource_claim_update(self, old: dra_api.ResourceClaim, new: dra_api.ResourceClaim) -> None:
+        self.claim_cache.on_update(old, new)
+        self._storage_event(EventResource.RESOURCE_CLAIM, ActionType.UPDATE, old, new)
+
+    def on_resource_claim_delete(self, claim: dra_api.ResourceClaim) -> None:
+        self.claim_cache.on_delete(claim)
+        self._storage_event(EventResource.RESOURCE_CLAIM, ActionType.DELETE, claim, None)
+
+    def on_resource_slice_add(self, sl: dra_api.ResourceSlice) -> None:
+        self.resource_slices[sl.key] = sl
+        self._slice_devices = None
+        self._storage_event(EventResource.RESOURCE_SLICE, ActionType.ADD, None, sl)
+
+    def on_resource_slice_update(self, old: dra_api.ResourceSlice, new: dra_api.ResourceSlice) -> None:
+        self.resource_slices[new.key] = new
+        self._slice_devices = None
+        self._storage_event(EventResource.RESOURCE_SLICE, ActionType.UPDATE, old, new)
+
+    def on_resource_slice_delete(self, sl: dra_api.ResourceSlice) -> None:
+        self.resource_slices.pop(sl.key, None)
+        self._slice_devices = None
+        self._storage_event(EventResource.RESOURCE_SLICE, ActionType.DELETE, sl, None)
+
+    def on_device_class_add(self, cls: dra_api.DeviceClass) -> None:
+        self.device_classes[cls.key] = cls
+        self._storage_event(EventResource.DEVICE_CLASS, ActionType.ADD, None, cls)
+
+    def on_device_class_update(self, old: dra_api.DeviceClass, new: dra_api.DeviceClass) -> None:
+        self.device_classes[new.key] = new
+        self._storage_event(EventResource.DEVICE_CLASS, ActionType.UPDATE, old, new)
+
+    def on_device_class_delete(self, cls: dra_api.DeviceClass) -> None:
+        self.device_classes.pop(cls.key, None)
+        self._storage_event(EventResource.DEVICE_CLASS, ActionType.DELETE, cls, None)
+
     # ----- the host view -----------------------------------------------------
 
     def _invalidate_view(self) -> None:
@@ -572,8 +656,12 @@ class Scheduler:
             flush(0)
             self._sync_mirror_external()
             if not self.mirror.hostnames_unique:
-                self._refuse(batch, "volume pods under duplicate hostname labels need the host-veto split path "
-                                    "(ROADMAP A6b)")
+                self._refuse(batch, "volume and claims pods under duplicate hostname labels need the host-veto "
+                                    "split path (ROADMAP A6b)")
+            if self.config.dra_enabled() and any(qp.pod.resource_claims for qp in batch):
+                why = self._dra_device_limit_refusal()
+                if why is not None:
+                    self._refuse(batch, why)
         if self._chain_quickcheck(profile, batch):
             rec = self._try_dispatch_chained(profile, batch, can_restart=not pending)
             if rec == "flush":
@@ -605,18 +693,54 @@ class Scheduler:
     def _refusal(self, pod: Pod) -> Optional[str]:
         """Why a pod is outside the ported paths (None when it is inside).
         A pod no host Filter could act on (no volumes, or only emptyDir /
-        configMap ones) is inside; a volume pod is inside when its claims
-        take the workloads route's K12 mask (all bound, their PVs present)
-        and nothing else keeps it on the reference's host-veto split path."""
-        if pod.resource_claims:
-            return "DRA claims need the workloads tier's allocator, ROADMAP A8 (DRA half)"
+        configMap ones, and claims only with the DynamicResourceAllocation
+        gate off, which ignores them) is inside; a volume pod is inside when
+        its claims take the workloads route's K12 mask (all bound, their PVs
+        present), a claims pod when all its ResourceClaims exist, and
+        nothing else keeps either on the reference's host-veto split path."""
         if pod.scheduling_gates:
             return "scheduling gates need the PreEnqueue queue tier (ROADMAP A5)"
         fwk = self.frameworks.get(pod.scheduler_name)
         if fwk is None or not fwk.maybe_relevant(pod):
             return None
+        if pod.resource_claims and self.config.dra_enabled():
+            for name in pod.resource_claims:
+                if self.claim_cache.get(f"{pod.namespace}/{name}") is None:
+                    return (f'resourceclaim "{name}" does not exist: the pod waits for it in the '
+                            "PreEnqueue queue tier (ROADMAP A5)")
+            why = self._claims_refusal(pod)
+            if why is not None:
+                return f"{why} (ROADMAP A6b: the host-veto split path)"
+        if not any(p.maybe_relevant(pod) for p in fwk.host_filter_plugins() if p.name != "DynamicResources"):
+            return None
         why = self._volume_refusal(pod)
         return None if why is None else f"{why} (ROADMAP A6b: the host-veto split path)"
+
+    def _dra_device_limit_refusal(self) -> Optional[str]:
+        """On CUDA, K14 and K11 hold a node's free devices in registers, at
+        most ops/dra.py MAX_DD slots: a batch with claims is refused, before
+        any side effect, while a node of the snapshot has more devices than
+        that in its ResourceSlices.  The plain versions take any number."""
+        if self.device.type != "cuda":
+            return None
+        if self._slice_devices is None:
+            counts: Dict[str, int] = {}
+            for sl in self.resource_slices.values():
+                counts[sl.node_name] = counts.get(sl.node_name, 0) + len(sl.devices)
+            self._slice_devices = counts
+        idx = self.nodes.name_to_idx if self.nodes is not None else {}
+        for name, n in self._slice_devices.items():
+            if n > ops_dra.MAX_DD and name in idx:
+                return (f"node {name} has {n} devices in its ResourceSlices; the DRA kernels hold at most "
+                        f"{ops_dra.MAX_DD} per node (ROADMAP C4)")
+        return None
+
+    def _claims_refusal(self, pod: Pod) -> Optional[str]:
+        if not self.config.gang_dispatch:
+            return "claims pods need the workloads dispatch, and gangDispatch is off"
+        if pod.host_ports():
+            return "a claims pod with host ports needs the host Filter plugins beside the port carry"
+        return None
 
     def _volume_refusal(self, pod: Pod) -> Optional[str]:
         if not self.config.gang_dispatch:
@@ -1407,8 +1531,8 @@ class Scheduler:
                 # a guard: _schedule_group's checks hold every precondition
                 # of the workloads dispatch, so it takes such a pod first;
                 # the reference would veto nodes on the host into K5/K8/K9
-                self._refuse(batch, f"pod {qp.pod.key}: a volume pod the workloads dispatch declined needs the "
-                                    "host-veto split path (ROADMAP A6b)")
+                self._refuse(batch, f"pod {qp.pod.key}: a volume or claims pod the workloads dispatch declined "
+                                    "needs the host-veto split path (ROADMAP A6b)")
         self._repack_mirror()
         pods, pb = self._gang_prep(batch)
         try:
@@ -1505,25 +1629,29 @@ class Scheduler:
 
     def _workloads_eligible(self, batch) -> bool:
         """The workloads gate on the pods' specs: gangDispatch is on, some pod
-        is a member of a registered PodGroup or has claims, and no pod
-        carries a nomination or wants host ports (the dispatch has no port
-        carry).  ``_refusal`` already holds every claim to what K12 covers
-        (bound, its PV present: the reference's ``_vol_kernel_ok``); whether
-        a host Filter is still active is asked after PreFilter
-        (``_workloads_covered``)."""
+        is a member of a registered PodGroup, has PVCs or (under the
+        DynamicResourceAllocation gate) ResourceClaims, and no pod carries a
+        nomination or wants host ports (the dispatch has no port carry).
+        ``_refusal`` already holds every PVC to what K12 covers (bound, its
+        PV present: the reference's ``_vol_kernel_ok``) and every claim to
+        existing; whether a host Filter is still active is asked after
+        PreFilter (``_workloads_covered``)."""
         if not self.config.gang_dispatch:
             return False
-        if not any(self._workloads_group_of(qp.pod) is not None or qp.pod.pvc_names() for qp in batch):
+        dra_on = self.config.dra_enabled()
+        if not any(self._workloads_group_of(qp.pod) is not None or qp.pod.pvc_names()
+                   or (dra_on and qp.pod.resource_claims) for qp in batch):
             return False
         return not any(qp.pod.nominated_node_name or qp.pod.host_ports() for qp in batch)
 
     def _workloads_covered(self, fwk: Framework, state: CycleState, pods) -> bool:
         """After PreFilter: every host Filter still active for some pod is
-        one the dispatch replaces: VolumeBinding and VolumeZone (K12's mask),
+        one the dispatch replaces: DynamicResources (K13, K14 and K11's
+        allocation carries), VolumeBinding and VolumeZone (K12's mask),
         NodeVolumeLimits while no CSINode advertises limits (its Filter is
         then a constant success)."""
         for p in fwk.host_filter_plugins():
-            if p.name in ("VolumeBinding", "VolumeZone"):
+            if p.name in ("DynamicResources", "VolumeBinding", "VolumeZone"):
                 continue
             if p.name == "NodeVolumeLimits" and not self.csinodes:
                 continue
@@ -1581,14 +1709,15 @@ class Scheduler:
                     vol_bad=torch.from_numpy(bad).to(self.device))
 
     def _try_dispatch_workloads(self, profile: Profile, batch) -> Optional[List[ScheduleOutcome]]:
-        """The workloads dispatch (the reference's _try_dispatch_workloads,
-        without DRA): the host plugins' PreFilter, the quorum and timeout
-        barrier, the canonical order (plan_batch), one ``workloads_run``
-        (K12 for the volume mask, K1 + K6 + K7, K8, K11) and the result
-        walk.  None when the batch is not eligible, two nodes share a
-        hostname (the factored hostname domains need one node per hostname)
-        or a host Filter the dispatch does not replace is active: the caller
-        schedules it on the other paths, with nothing committed or failed."""
+        """The workloads dispatch (the reference's _try_dispatch_workloads):
+        the host plugins' PreFilter, the quorum and timeout barrier, the
+        canonical order (plan_batch), the DRA tables over the whole claim
+        cache, one ``workloads_run`` (K12 for the volume mask, K1 + K6 + K7,
+        K13 + K14 for the claims, K8, K11) and the result walk.  None when
+        the batch is not eligible, two nodes share a hostname (the factored
+        hostname domains need one node per hostname) or a host Filter the
+        dispatch does not replace is active: the caller schedules it on the
+        other paths, with nothing committed or failed."""
         if not self._workloads_eligible(batch):
             return None
         for qp in batch:
@@ -1676,18 +1805,52 @@ class Scheduler:
             rows = {k: torch.from_numpy(v).to(self.device) for k, v in dict(
                 gang_id=gid, gang_first=gfirst, gang_last=glast, gang_need=gneed).items()}
             volt = self._vol_tables([qp.pod for qp in ordered], pb.valid.shape[0]) or {}
+            dra = self._dra_tables(fwk, [qp.pod for qp in ordered], pb.valid.shape[0])
+            claims = dra.pop("claims", None)
             chosen, _, reasons, _, wl = ops_cos.workloads_run(
-                dc, db, self._hostname_key(), v_cap, g_cap, **self._wave_kw(wt, ports=False), **rows, **volt,
+                dc, db, self._hostname_key(), v_cap, g_cap, **self._wave_kw(wt, ports=False), **rows, **volt, **dra,
                 enabled=profile.enabled, weights=profile.weights(), **tables,
                 **self._nominated_arrays({qp.pod.uid for qp in ordered}), **flags)
             fetched = [t.cpu().numpy() for t in (chosen, wl["raw"], wl["spec"], wl["gang_admit"], wl["gang_landed"])]
+            claim_node = None if claims is None else wl["claim_node"].cpu().numpy()
         except BaseException:
             self._dc_cache.invalidate()
             self.queue.push_back(ordered)
             raise
+        if claims is not None:
+            self._count_allocations(claims, claim_node)
         self._process_workloads_results(profile, state, ordered, *fetched, reasons, gang_positions, slot_keys,
                                         outcomes)
         return outcomes
+
+    def _dra_tables(self, fwk: Framework, pods, p_cap: int) -> dict:
+        """ops/dra.py dra_tables over the WHOLE claim cache (free0 excludes
+        the devices any allocated claim holds, as the plugin's
+        _allocated_devices does, not only the batch's claims) when
+        DynamicResources is active and a pod has claims: its tensors, and
+        under ``claims`` (claim keys by slot, the claims by key) what the
+        allocation count reads.  Empty otherwise."""
+        if not any(p.name == "DynamicResources" for p in fwk.host_filter_plugins()):
+            return {}
+        if not any(p.resource_claims for p in pods):
+            return {}
+        claims_by_key = {c.key: c for c in self.claim_cache.list()}
+        dt = ops_dra.dra_tables(pods, self.nodes.name_to_idx, self.nodes.n_cap, p_cap,
+                                list(self.resource_slices.values()), self.device_classes, claims_by_key,
+                                device=self.device)
+        if dt is None:
+            return {}
+        dt.pop("has_claims")
+        dt["claims"] = (dt.pop("claim_keys"), claims_by_key)
+        return dt
+
+    def _count_allocations(self, claims, claim_node) -> None:
+        """dra_claims_allocated: each claim the batch allocated, once (a
+        shared claim is one allocation however many pods reference it; a
+        claim allocated before the batch does not count)."""
+        keys, by_key = claims
+        self.metrics["dra_claims_allocated"] += sum(
+            1 for i, key in enumerate(keys) if int(claim_node[i]) >= 0 and by_key[key].allocation is None)
 
     def _process_workloads_results(self, profile: Profile, state: CycleState, ordered, chosen, raw, spec,
                                    gang_admit, gang_landed, reasons, gang_positions, slot_keys, outcomes) -> None:
@@ -1696,11 +1859,13 @@ class Scheduler:
         pod, a member its gang rolled back fails without PostFilter (a dry
         run for it would only churn victims), a genuine failure gets its
         FitError (the host-filter lane named as the volume node affinity
-        conflict, VolumeBinding's) and goes to PostFilter (unnarrowed, as in
-        the reference), and a placement is assumed and counted for its gang;
-        a volume pod's placement is replayed through PreFilter and the host
-        Filters on its node first, so Reserve reads decisions made on the
-        live cache (``_wl_host_replay``)."""
+        conflict, VolumeBinding's; for a claims pod the port lane, which
+        carries the DRA verdict in a workloads batch, named "cannot allocate
+        all devices", DynamicResources') and goes to PostFilter (unnarrowed,
+        as in the reference), and a placement is assumed and counted for its
+        gang; a volume or claims pod's placement is replayed through
+        PreFilter and the host Filters on its node first, so Reserve reads
+        decisions made on the live cache (``_wl_host_replay``)."""
         names = self.nodes.names
         n = len(ordered)
         chosen = chosen[:n]
@@ -1724,7 +1889,7 @@ class Scheduler:
         for i, qp in enumerate(ordered):
             idx = int(chosen[i])
             if idx >= 0:
-                if qp.pod.pvc_names():
+                if qp.pod.pvc_names() or qp.pod.resource_claims:
                     st = self._wl_host_replay(fwk, state, qp.pod, names[idx])
                     if not st.ok:
                         # the ground truth moved between dispatch and commit
@@ -1735,6 +1900,8 @@ class Scheduler:
                 outcomes.append(out)
                 if out.node is not None:
                     self.gangs.note_placed(qp.pod)
+                    if qp.pod.resource_claims:
+                        m["dra_pods"] += 1
                 continue
             key = pos_gang.get(i)
             if key is not None and int(raw[i]) >= 0:
@@ -1748,6 +1915,11 @@ class Scheduler:
                 counts = reasons.cpu().numpy()
             diag = {k: int(c) for k, c in zip(ops_gang.DIAG_KERNELS, counts[i]) if c > 0}
             plugins = set(diag)
+            if "NodePorts" in diag and qp.pod.resource_claims:
+                # no workloads pod wants host ports: the port lane is the DRA verdict
+                diag[REASON_CANNOT_ALLOCATE] = diag.pop("NodePorts")
+                plugins.discard("NodePorts")
+                plugins.add("DynamicResources")
             if "HostFilters" in diag:  # the host-filter lane is K12's volume mask
                 diag[VOLUME_CONFLICT] = diag.pop("HostFilters")
                 plugins.discard("HostFilters")
@@ -1757,9 +1929,11 @@ class Scheduler:
 
     def _wl_host_replay(self, fwk: Framework, state: CycleState, pod: Pod, node_name: str) -> Status:
         """PreFilter again (fresh claim ledgers) and the chosen node's host
-        Filter walk for a volume pod the dispatch placed: the kernel proved
-        feasibility; this records the plugins' per-node decisions in the
-        CycleState that Reserve and PreBind read."""
+        Filter walk for a volume or claims pod the dispatch placed: the
+        kernel proved feasibility; this records the plugins' per-node
+        decisions (the claims' device picks) in the CycleState that Reserve
+        and PreBind read, claim contention resolving in the batch order the
+        kernel replayed."""
         pf = fwk.run_pre_filter(state, [pod])
         if pod.uid in pf:
             return pf[pod.uid]
@@ -1808,15 +1982,16 @@ class Scheduler:
         harvest, else at the end of the popped batch: until then a bound
         preemptor's nomination stays open, as in the reference, whose bind
         workers start there).  A non-fast commit moves state the fast
-        lineage did not track.  A pod with claims runs the host plugins'
-        Reserve against ``state`` (the CycleState its host Filters wrote),
-        and its bind waits for their PreBind."""
+        lineage did not track.  A pod with PVCs or ResourceClaims runs the
+        host plugins' Reserve against ``state`` (the CycleState its host
+        Filters wrote), and its bind waits for their PreBind; a bind that
+        fails runs their Unreserve."""
         (assumed,) = self.cache.assume_pods_bulk([(qp.pod, node)])
         self._view_pod_added(assumed)
         if not fast:
             self._nonfast_commits += 1
         fwk = None
-        if state is not None and qp.pod.pvc_names():
+        if state is not None and (qp.pod.pvc_names() or qp.pod.resource_claims):
             fwk = self.frameworks[qp.pod.scheduler_name]
             st = fwk.run_reserve(state, qp.pod, node)
             if not st.ok:
@@ -1861,7 +2036,7 @@ class Scheduler:
         errors = list(pre)
         for i, err in zip(todo, got):
             errors[i] = err
-        for (qp, node, outcome, _, _), err in zip(buf, errors):
+        for i, ((qp, node, outcome, fwk, state), err) in enumerate(zip(buf, errors)):
             pod = qp.pod
             if err is None:
                 self.queue.done(pod.uid)
@@ -1869,6 +2044,8 @@ class Scheduler:
                     self.metrics["nominated_binds"] += 1
                     self.nominator.delete(pod)
                 continue
+            if fwk is not None and pre[i] is None:
+                fwk.run_unreserve(state, pod, node)  # a failed bind unreserves (schedule_one.go:342)
             # the forget is an external change: the next batch rebuilds the
             # fast lineage and restarts the chain
             self._view_pod_removed(self.cache.pod_states[pod.uid])
@@ -1877,7 +2054,7 @@ class Scheduler:
             self._external_mutations += 1
             self._handle_failure(qp, set())
             outcome.node = None
-            outcome.reason = f"binding rejected: {err}"
+            outcome.reason = err  # bare, as the reference's DefaultBinder and PreBind statuses report it
 
     # ----- PostFilter: preemption -------------------------------------------
 

@@ -13,8 +13,9 @@ test_torch_resident.py, test_torch_scheduler.py, test_torch_gang.py,
 test_torch_chain.py, test_torch_scheduler_gang.py, test_torch_wave.py,
 test_torch_scheduler_wave.py, test_torch_preemption.py,
 test_torch_scheduler_preempt.py, test_torch_workloads.py,
-test_torch_scheduler_workloads.py, test_torch_volume.py and
-test_torch_scheduler_volumes.py.
+test_torch_scheduler_workloads.py, test_torch_volume.py,
+test_torch_scheduler_volumes.py, test_torch_dra.py and
+test_torch_scheduler_dra.py.
 """
 
 import pytest
@@ -510,3 +511,50 @@ def test_volume_scheduler_on_cuda_matches_cpu(cuda):
     (want, launches, batches), (cpu, _, _) = runs
     assert want == cpu
     assert launches["volume_topology_mask"] == batches >= 3
+
+
+@pytest.mark.parametrize("smem_cap", [1 << 30, 0], ids=["shared", "global"])
+@pytest.mark.parametrize("n_nodes,P", [(300, 64), (5000, 512)], ids=["small", "config4"])
+def test_dra_kernels_match_plain(cuda, n_nodes, P, smem_cap, monkeypatch):
+    """K13 and K14 against their plain versions, and K11's DRA mode against
+    workloads_admit_plain with the allocation carries (claim_node included),
+    on chip_smoke's DRA check batch (8 devices of 4 attributes per node, DQ =
+    2, All mode, shared, pre-allocated and held claims, gangs of 8 of which
+    every fourth rolls back), K11's carries in shared and in global memory."""
+    from kubernetes_tpu_torch.ops import wave as ops_wave
+
+    monkeypatch.setattr(ops_wave, "ADMIT_SMEM_CAP", smem_cap)
+    n13, n14 = _build.launches["dra_selector_match"], _build.launches["dra_spec_mask"]
+    row = chip_smoke.phase_dra_kernels(torch, cuda, reps=1, n_nodes=n_nodes, P=P)
+    assert row["k13_err"] == 0 and row["k14_err"] == 0 and row["k11_err"] == 0
+    assert _build.launches["dra_selector_match"] > n13 and _build.launches["dra_spec_mask"] > n14
+
+
+def test_dra_wave_lane_matches_plain(cuda):
+    """K8 with K14's lane as its port lane against wave_speculate_plain with
+    the same lane."""
+    from kubernetes_tpu_torch.ops import dra as ops_dra
+    from kubernetes_tpu_torch.ops import wave as ops_wave
+
+    dc, db, kw, d_cap, flags, wt, dt, _ = chip_smoke.dra_inputs(torch, cuda, 300, 64)
+    g = ops_gang.precompute(dc, db, **kw, **dict(flags, has_ports=False))
+    match = ops_dra.selector_match(*(dt[k] for k in ("dev_key", "dev_val", "dev_valid", "sel_key", "sel_op",
+                                                     "sel_vals")))
+    lane = ops_dra.dra_spec_mask(match, dt["free0"], dt["claim_node0"],
+                                 *(dt[k] for k in ("req_count", "req_all", "req_cl", "q_valid", "req_bad", "ref_cl")))
+    _equal(ops_wave.wave_speculate(dc, db, g, d_cap=d_cap, lane=lane),
+           ops_wave.wave_speculate_plain(dc, db, g, d_cap=d_cap, lane=lane))
+    assert not bool(lane.all())
+
+
+def test_dra_scheduler_on_cuda_matches_cpu(cuda):
+    """The DRA parity drain at a reduced size on the card equals the same
+    drain with device="cpu" and the serial oracle, claim pins included."""
+    chip_smoke.phase_dra_parity(torch, cuda, n_nodes=60, n_pods=180)
+
+
+def test_dra_drain_on_cuda(cuda):
+    """bench_dra's drain at a reduced size: every pod placed, no device
+    granted twice, every claim on its pod's node, K13, K14 and K11
+    launched."""
+    chip_smoke.phase_dra_drain(torch, cuda, n_nodes=60, n_pods=240)

@@ -18,8 +18,8 @@ oracle; gangDispatch off; a gang incomplete, then admitted; the timeout; a
 mixed batch with a host-port pod; the sibling pull, alone and in a mixed
 batch; the metrics), a pod naming an unregistered group, duplicate
 hostnames, and a gang beside spread and anti-affinity pods.  Also: pods with
-claims, uncovered volumes or scheduling gates beside a gang are still
-refused.
+a missing ResourceClaim, uncovered volumes or scheduling gates beside a
+gang are still refused.
 """
 
 import copy
@@ -324,15 +324,21 @@ def test_gang_scenario_matches_reference(name):
         assert m["workload_batches"] == 1 and m["gang_rolled_back"] == 1 and m["gang_admitted"] == 4
 
 
-@pytest.mark.parametrize("field,item", [("resource_claims", "A8 (DRA half)"), ("volumes", "A6"),
-                                        ("scheduling_gates", "A5")])
+@pytest.mark.parametrize("field,item", [
+    pytest.param("resource_claims", "A5", id="resource_claims-A8 (DRA half)"),  # its id from before A8 was ported
+    ("volumes", "A6"), ("scheduling_gates", "A5")])
 def test_unported_pods_are_refused_and_requeued(field, item):
-    """Gang members schedule now; a pod beside them with claims, a volume
-    the workloads route does not cover (a claim that does not exist, ROADMAP
-    A6b) or scheduling gates still raises NotImplementedError naming the
-    ROADMAP item, and the popped batch goes back to the queue unscheduled."""
+    """Gang members schedule now; a pod beside them with a ResourceClaim that
+    does not exist (under the DynamicResourceAllocation gate: the reference
+    holds it in PreEnqueue, ROADMAP A5), a volume the workloads route does
+    not cover (a PVC that does not exist, ROADMAP A6b) or scheduling gates
+    still raises NotImplementedError naming the ROADMAP item, and the
+    popped batch goes back to the queue unscheduled."""
+    from kubernetes_tpu_torch.framework.config import DEFAULT_FEATURE_GATES
+
     T, _ = PORT_API
-    side = Side(PORT_API)
+    side = Side(PORT_API, feature_gates=dict(DEFAULT_FEATURE_GATES,
+                                             DynamicResourceAllocation=field == "resource_claims"))
     side.s.on_node_add(make_node(PORT_API, "node-0"))
     side.pg_add(side.group("duo", 2))
     for m in range(2):

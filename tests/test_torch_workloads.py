@@ -159,9 +159,12 @@ def test_plan_batch_and_gang_arrays_match_reference():
 @pytest.mark.parametrize("arg,item", [("dev_key", "A8"), ("claim_node0", "A8"), ("sel_key", "A8"),
                                       ("req_count", "A8")])
 def test_unported_arguments_raise(arg, item):
+    """The DRA arguments (ROADMAP ``item``, ported since) come as one group
+    (ops/dra.py DRA_ARGS): one of them alone raises ValueError naming the
+    rest."""
     pk = packed(GEN[0][0])
     kw = convert.gang_arrays_from_numpy(lay_gangs(1, len(pk.pending), pk.pb.valid.shape[0]), "cpu")
     g_cap = kw.pop("g_cap")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match="the DRA arguments come together"):
         p_cos.workloads_run(pk.pdc, pk.pdb, pk.hk, pk.v_cap, g_cap, *[pk.pwt[k] for k in WT], **kw, **pk.tables,
                             **{arg: torch.zeros(1)})
