@@ -119,7 +119,25 @@ Phases, one output line each (several for 2 and 4):
      (tools/paritycheck.py's _dra_workload, 200 nodes, 600 pods, one batch)
      on cuda, on the CPU and against the serial WorkloadOracle, identical
      in placements and claim pins;
- 11. the kernels line (K8 named as the workloads speculation too).
+ 11. the counterfactual planner: K15 fork_view and K16 fork_summary
+     against their plain versions, exact, at 64 forks over config4's node
+     set (N=5,120) with P=256, with each kernel's time, its plain
+     version's, its bound and (K15) one torch.where over the stacked node
+     planes; K8 and K11 with a target extra_score against their plain
+     versions with it, exact, and K11's time with and without it; bench.py
+     bench_plan (config14: 300 nodes in 4 zones, 1,500 placed pods, 96
+     backlog pods, 64 mixed forks of clone adds, cordons, evictions and
+     scales) on the kernel engine (K15, K1, K7, K8, K11 per fork, K16),
+     every fork equal to the serial engine's (plannerKernel off), to the
+     kernel engine of a device="cpu" scheduler (the plain versions) and to
+     the same fork run alone, with the wall times and launches of the
+     batched run and of the 64 one-fork runs; and, at full width (5,000
+     nodes in 8 zones and four shapes, 9,936 placed pods, 256
+     unschedulable pods of 10 cpu: plain, zone-spread and a gang of 32),
+     plan_autoscale (K=29), plan_deschedule (K=9) and plan_preempt_cost
+     (K=4) on the kernel engine with their wall times and launches, and a
+     64-fork run whose 8 sampled forks equal the same forks alone;
+ 12. the kernels line (K8 named as the workloads speculation too).
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Without
@@ -3254,6 +3272,345 @@ def phase_dra_parity(torch, device, **world):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the counterfactual planner (K15, K16; K8 and K11 with a score)
+# ---------------------------------------------------------------------------
+
+
+def k15_k16_inputs(torch, device, n_nodes=5000, KF=64, P=256, seed=47):
+    """K15's and K16's inputs at config4's node set (5,000 nodes in 8 zones,
+    bucket 5,120) with P=256: fork alive rows with about 5 % of the nodes
+    removed per fork and some bucket padding slots alive (clones), a visit
+    rank; and, for K16, seeded placements (a tenth unplaced), reason counts,
+    post-admission usage at up to the capacity, capacities with a few zeroed
+    memory lanes, live masks, and eight padding forks with no live pods.
+    Returns (dc, fk_alive, visit_rank, K16's argument tuple)."""
+    dc = _gang_pack(torch, device, basic_nodes(n_nodes, zones=8), [], spread_pods(P, prefix="cf"), P)[0]
+    g = torch.Generator().manual_seed(seed)
+    N, Rn = dc.allocatable.shape
+    alive = dc.node_valid.cpu()[None].repeat(KF, 1) & (torch.rand((KF, N), generator=g) > 0.05)
+    alive[:, n_nodes:] = torch.rand((KF, N - n_nodes), generator=g) < 0.3
+    vr = torch.randperm(N, generator=g).to(torch.int32)
+    chosen = torch.randint(0, n_nodes, (KF, P), generator=g, dtype=torch.int32)
+    chosen[torch.rand((KF, P), generator=g) < 0.1] = -1
+    rc = torch.randint(0, 50, (KF, P, 9), generator=g, dtype=torch.int64)
+    alloc = dc.allocatable.cpu()[None].repeat(KF, 1, 1)
+    alloc[:, :, 1][torch.rand((KF, N), generator=g) < 0.02] = 0
+    req = (alloc.double() * torch.rand((KF, N, Rn), generator=g, dtype=torch.float64)).to(torch.int32)
+    live = torch.rand((KF, P), generator=g) < 0.8
+    live[KF - 8:] = False
+    k16 = tuple(t.to(device) for t in (chosen, rc, req, alloc, alive, torch.ones(P, dtype=torch.bool), live))
+    return dc, alive.to(device), vr.to(device), k16
+
+
+def phase_planner_kernels(torch, device, reps=10, n_nodes=5000, KF=64, P=256):
+    """K15 fork_view and K16 fork_summary against their plain versions,
+    exact, at KF=64 over config4's node set with P=256, with each kernel's
+    time, its plain version's, the bound in bytes and, for K15, one
+    torch.where over the node planes stacked side by side (the same values,
+    dom_ids transposed); then K8 and K11 with a target extra_score against
+    their plain versions with it, exact, and K11's time with and without
+    it on the same statics (config4's node set, 256 spread pods in gangs of
+    8).  Returns (K15 row, K16 row, extra_score row)."""
+    from kubernetes_tpu_torch.ops import coscheduling as cos
+    from kubernetes_tpu_torch.ops import counterfactual as cf
+    from kubernetes_tpu_torch.ops import gang, wave
+
+    dc, alive, vr, k16 = k15_k16_inputs(torch, device, n_nodes, KF, P)
+    N, L = dc.node_labels.shape
+    T = dc.taint_key.shape[1]
+    got = cf.fork_cluster_view(dc, alive, vr)
+    want = cf.fork_cluster_view_plain(dc, alive, vr)
+    err15 = max(max_abs_err(torch, got[k], want[k]) for k in want)
+    sums = cf.fork_summary(*k16)
+    sums_plain = cf.fork_summary_plain(*k16)
+    err16 = max(max_abs_err(torch, a, b) for a, b in zip(sums, sums_plain))
+    if err15 or err16:
+        raise AssertionError(f"fork_view err {err15}, fork_summary err {err16}")
+    stacked = torch.cat([dc.node_labels, dc.taint_key, dc.taint_val, dc.taint_effect, dc.dom_ids.T, vr[:, None]], 1)
+    fill = torch.tensor([-1] * L + [-2] * (3 * T) + [-1] * (L + 1), dtype=torch.int32, device=device)
+    gone = ~alive
+    b15 = nbytes(dc.node_labels, dc.taint_key, dc.taint_val, dc.taint_effect, dc.dom_ids, vr, alive, *got.values())
+    chosen, rc, req, alloc, f_alive, valid, live = k16
+    b16 = nbytes(chosen, rc, f_alive, valid, live, *sums) + 2 * 2 * 4 * KF * N  # cpu and mem lanes of two planes
+    ops16 = KF * (P * 9 + N * 8)
+    row15 = dict(ms=time_ms(torch, lambda: cf.fork_cluster_view(dc, alive, vr), reps),
+                 plain_ms=time_ms(torch, lambda: cf.fork_cluster_view_plain(dc, alive, vr), reps),
+                 library_ms=time_ms(torch, lambda: torch.where(gone[:, :, None], fill, stacked[None]), reps),
+                 library_call="torch.where over the stacked node planes", max_abs_err=err15,
+                 **dict(zip(("bound_ms", "bound_by"), bound_ms(b15, 0))))
+    row16 = dict(ms=time_ms(torch, lambda: cf.fork_summary(*k16), reps),
+                 plain_ms=time_ms(torch, lambda: cf.fork_summary_plain(*k16), 3), library_ms=None,
+                 max_abs_err=err16, **dict(zip(("bound_ms", "bound_by"), bound_ms(b16, ops16))))
+    log(phase="planner_kernel_check", KF=KF, N=N, P=P, L=L, T=T, fork_view=row15, fork_summary=row16,
+        alive_cells=int(alive.sum().item()))
+
+    # K8 and K11 with a target score: seeded scores and a dominating bonus at
+    # one node for every other pod
+    nodes = basic_nodes(n_nodes, zones=8)
+    dc, db, kw, d_cap, flags, wt = wave_inputs(torch, device, nodes, [], spread_pods(P, prefix="es"), P)
+    hk = kw["hostname_key"]
+    g = gang.precompute(dc, db, **kw, **dict(flags, has_ports=False))
+    rows = gang_rows(torch, device, int(db.valid.sum().item()), P, lambda i: 9 if i % 4 == 0 else 8)
+    gen = torch.Generator().manual_seed(5)
+    es = torch.randint(0, 300, (P, dc.node_valid.shape[0]), generator=gen, dtype=torch.int64)
+    target = n_nodes // 2
+    es[::2, target] += 1 << 40
+    es = es.to(device)
+    targs = [wt[k] for k in WAVE_TABLES]
+    gk = [rows[k] for k in ("gang_id", "gang_first", "gang_last", "gang_need", "g_cap")]
+    tkw = dict(d_cap=d_cap, d2_cap=wt["d2_cap"])
+    c0 = wave.wave_speculate(dc, db, g, d_cap=d_cap, extra_score=es)
+    c0_plain = wave.wave_speculate_plain(dc, db, g, d_cap=d_cap, extra_score=es)
+    got = cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw, extra_score=es)
+    want, plain_ms = timed_once(torch, lambda: cos.workloads_admit_plain(dc, db, g, hk, *targs, *gk, **tkw,
+                                                                         extra_score=es))
+
+    def outs(o):
+        return list(o[:4]) + [o[4][k] for k in ("requested", "nonzero", "num_pods")] + list(o[5:7])
+
+    err8 = max_abs_err(torch, c0, c0_plain)
+    err11 = max(max_abs_err(torch, a, b) for a, b in zip(outs(got), outs(want)))
+    at_target = int((want[0] == target).sum().item())
+    if err8 or err11 or not at_target:
+        raise AssertionError(f"extra_score: K8 err {err8}, K11 err {err11}, {at_target} pods at the target")
+    row_es = dict(k8_err=err8, k11_err=err11, pods_at_target=at_target,
+                  k11_ms=time_ms(torch, lambda: cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw,
+                                                                    extra_score=es), reps),
+                  k11_no_score_ms=time_ms(torch, lambda: cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw), reps),
+                  k11_plain_ms=plain_ms,
+                  k8_ms=time_ms(torch, lambda: wave.wave_speculate(dc, db, g, d_cap=d_cap, extra_score=es), reps),
+                  k8_no_score_ms=time_ms(torch, lambda: wave.wave_speculate(dc, db, g, d_cap=d_cap), reps))
+    log(phase="extra_score_kernel_check", N=int(dc.node_valid.sum().item()), P=P, **row_es)
+    return row15, row16, row_es
+
+
+def config14_world(n_nodes=300, n_fill=1500, n_backlog=96):
+    """bench.py bench_plan (config14): 300 basic nodes in 4 zones, 1,500
+    placed pods of 900m / 512Mi at priority 2 (drained first), and a
+    backlog of 96 pods of 1200m / 1Gi.  Returns (nodes, fill, backlog)."""
+    from kubernetes_tpu_torch.api import Container, Pod
+
+    fill = [Pod(name=f"fill-{i}", priority=2, labels={"app": f"a{i % 16}"},
+                containers=[Container(name="c", requests={"cpu": "900m", "memory": "512Mi"})])
+            for i in range(n_fill)]
+    backlog = [Pod(name=f"want-{i}", labels={"app": "want"},
+                   containers=[Container(name="c", requests={"cpu": "1200m", "memory": "1Gi"})])
+               for i in range(n_backlog)]
+    return basic_nodes(n_nodes, zones=4), fill, backlog
+
+
+def mixed_forks(sched, k=64, seed=14):
+    """bench_plan's K mixed forks over a scheduler's nodes and placed pods:
+    clone adds (1-3 clones), cordons, 4-pod evictions and 3/2 scales, in
+    turn after a baseline.  The evictions sample the placed pods by name,
+    so two schedulers with the same placements get the same forks."""
+    from kubernetes_tpu_torch.planner import Fork
+
+    names = sorted((cn.node.name for cn in sched.cache.real_nodes()), key=lambda n: int(n.rsplit("-", 1)[1]))
+    by_name = {p.name: p.uid for p in sched.cache.placed_pods()}
+    placed = sorted(by_name)
+    forks = [Fork(label="baseline")]
+    rng = random.Random(seed)
+    while len(forks) < k:
+        i = len(forks)
+        t = names[i % len(names)]
+        kind = i % 4
+        if kind == 0:
+            forks.append(Fork(label=f"add{i}", add=tuple((t, f"{t}~cf{i}-{j}") for j in range(1 + i % 3))))
+        elif kind == 1:
+            forks.append(Fork(label=f"cordon{i}", cordon=(t,)))
+        elif kind == 2:
+            forks.append(Fork(label=f"evict{i}", evict=tuple(by_name[n] for n in rng.sample(placed, 4))))
+        else:
+            forks.append(Fork(label=f"scale{i}", scale=((t, 3, 2),)))
+    return forks
+
+
+def planner_sched(device, nodes, placed, groups=(), **cfg):
+    """A Scheduler on `device` with `nodes`, its PodGroups and `placed`:
+    pods with node_name set are bound as they are, the rest are drained."""
+    from kubernetes_tpu_torch.framework.config import SchedulerConfiguration
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    sched = Scheduler(SchedulerConfiguration(**cfg), device=device)
+    sched.binding_sink_many = lambda pairs: [None] * len(pairs)
+    for n in nodes:
+        sched.on_node_add(n)
+    for pg in groups:
+        sched.on_pod_group_add(pg)
+    for p in placed:
+        sched.on_pod_add(p)
+    sched.schedule_pending()
+    return sched
+
+
+FORK_KEYS = ("label", "placements", "admitted", "unschedulable", "density_ppm", "gang_admitted")
+# the kernels every kernel-engine planner run launches (K15, K1, K8, K11,
+# K16; K6 with spread pods, K7 for the port masks)
+PLANNER_KERNELS = ("fork_view", "static_eval", "wave_speculate", "workloads_admit", "fork_summary")
+
+
+def fork_key(f):
+    return tuple(sorted(f[k].items()) if isinstance(f[k], dict) else f[k] for k in FORK_KEYS)
+
+
+def same_forks(a, b, what):
+    if [fork_key(f) for f in a] != [fork_key(f) for f in b]:
+        bad = next(i for i, (x, y) in enumerate(zip(a, b)) if fork_key(x) != fork_key(y)) if len(a) == len(b) else -1
+        raise AssertionError(f"{what}: fork {bad} differs: {a[bad] if bad >= 0 else len(a)} != "
+                             f"{b[bad] if bad >= 0 else len(b)}")
+
+
+def timed_sim(torch, device, fn):
+    """(fn's SimResult, wall seconds, the kernels' launches during it)."""
+    from kubernetes_tpu_torch.ops import _build
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    sim = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return sim, time.perf_counter() - t0, {k: v for k, v in _build.launches.items() if v}
+
+
+def phase_config14(torch, device, k=64, cpu_forks=None, **world):
+    """bench_plan (config14) on the card: one K=64 simulate_forks on the
+    kernel engine (after a warm-up run), every fork equal to the serial
+    engine's (plannerKernel off) and to the kernel engine of a
+    device="cpu" scheduler (counterfactual_run_plain; ``cpu_forks`` limits
+    it to the first forks); then the 64 forks one at a time (K=1), each
+    equal to its batched row.  ``world``: config14_world's sizes.  Returns
+    the batched run's launches."""
+    from kubernetes_tpu_torch.planner import simulate_forks
+
+    nodes, fill, backlog = config14_world(**world)
+    sched = planner_sched(device, nodes, fill)
+    forks = mixed_forks(sched, k)
+    simulate_forks(sched, forks, backlog, planner="warm")
+    batched, batched_s, launches = timed_sim(torch, device, lambda: simulate_forks(sched, forks, backlog))
+    if batched.engine != "kernel":
+        raise AssertionError(f"config14 took the {batched.engine} engine")
+    if device.type == "cuda":
+        missing = [k for k in PLANNER_KERNELS + ("gang_interpod_statics",) if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"config14: {missing} not launched ({launches})")
+    serial, serial_s, _ = timed_sim(torch, device, lambda: simulate_forks(sched, forks, backlog, use_kernel=False))
+    same_forks(batched.forks, serial.forks, "config14 kernel vs serial engine")
+    cpu = torch.device("cpu")
+    nodes_c, fill_c, backlog_c = config14_world(**world)
+    sched_c = planner_sched(cpu, nodes_c, fill_c)
+    forks_c = mixed_forks(sched_c, k)[:cpu_forks]
+    plain, plain_s, _ = timed_sim(torch, cpu, lambda: simulate_forks(sched_c, forks_c, backlog_c))
+    same_forks(batched.forks[:len(forks_c)], plain.forks, "config14 cuda vs counterfactual_run_plain on the CPU")
+    seq_launches = {}
+    t0 = time.perf_counter()
+    for i, f in enumerate(forks):
+        one, _, ln = timed_sim(torch, device, lambda: simulate_forks(sched, [f], backlog))
+        same_forks(batched.forks[i:i + 1], one.forks, f"config14 fork {f.label} alone")
+        for k, v in ln.items():
+            seq_launches[k] = seq_launches.get(k, 0) + v
+    seq_s = time.perf_counter() - t0
+    log(phase="config14_plan", k=batched.k, pods=len(backlog), nodes=len(nodes), batched_s=batched_s,
+        launches=launches, launches_total=sum(launches.values()), serial_s=serial_s, cpu_plain_s=plain_s,
+        cpu_forks_compared=len(forks_c), seq_k1_s=seq_s, seq_k1_launches=seq_launches,
+        seq_k1_launches_total=sum(seq_launches.values()),
+        admitted=[f["admitted"] for f in batched.forks], density_ppm=batched.forks[0]["density_ppm"],
+        compared="kernel == serial == cpu plain == 64 x K=1")
+    return launches
+
+
+def planner_world(n_nodes=5000, zones=8, n_empty=32, seed=53):
+    """The full-width planner cell: config4's 5,000 nodes in 8 zones, in
+    four shapes (4 / 8 / 16 / 32 cpu, 4 GiB per cpu) so that autoscale has
+    four candidates, every node but the last `n_empty` (4-cpu nodes, left
+    empty) holding two placed pods of 35 % of its cpu and memory each
+    (70 % full; priorities 0 and 50); and a backlog of 256 pods of 10 cpu /
+    16 GiB, larger than any node's free room: 128 plain (priority 0), 96
+    zone-spread (maxSkew 1, priority 100) and one PodGroup gang of 32
+    (minMember 32).  Returns (nodes, placed, backlog, groups)."""
+    from kubernetes_tpu_torch.api import Container, LabelSelector, Node, Pod, Resource, TopologySpreadConstraint
+    from kubernetes_tpu_torch.workloads.gang import PodGroup
+
+    shapes = (4, 8, 16, 32)
+    nodes, placed = [], []
+    for i in range(n_nodes):
+        cpu = 4 if i >= n_nodes - n_empty else shapes[i % 4]
+        name = f"node-{i}"
+        nodes.append(Node(name=name, labels={ZONE: f"zone-{i % zones}", HOSTNAME: name},
+                          capacity=Resource.from_map({"cpu": str(cpu), "memory": f"{4 * cpu}Gi", "pods": 110})))
+        if i >= n_nodes - n_empty:
+            continue
+        for j in range(2):
+            placed.append(Pod(name=f"placed-{i}-{j}", node_name=name, priority=50 * j, labels={"app": f"p{i % 20}"},
+                              containers=[Container(name="c", requests={"cpu": f"{350 * cpu}m",
+                                                                        "memory": f"{1434 * cpu}Mi"})]))
+    big = {"cpu": "10", "memory": "16Gi"}
+    backlog = [Pod(name=f"plain-{i}", labels={"app": "big"}, containers=[Container(name="c", requests=big)])
+               for i in range(128)]
+    backlog += [Pod(name=f"spread-{i}", priority=100, labels={"app": "big-spread"},
+                    topology_spread_constraints=(TopologySpreadConstraint(
+                        max_skew=1, topology_key=ZONE, when_unsatisfiable="DoNotSchedule",
+                        label_selector=LabelSelector(match_labels={"app": "big-spread"})),),
+                    containers=[Container(name="c", requests=big)]) for i in range(96)]
+    backlog += [Pod(name=f"gang-{m}", pod_group="big-gang", labels={"app": "big-gang"},
+                    containers=[Container(name="c", requests=big)]) for m in range(32)]
+    return nodes, placed, backlog, [PodGroup(name="big-gang", min_member=32)]
+
+
+def phase_planner_full(torch, device, n_nodes=5000, sampled=8, k=64):
+    """The three planners at full width on the card (planner_world, the
+    backlog left unschedulable by one drain with preemption off), each on
+    the kernel engine with its K, wall time and launches; then one K=64
+    simulate_forks of bench_plan's mixed forks over the backlog, whose
+    `sampled` seeded forks each equal the same fork run alone."""
+    from kubernetes_tpu_torch.framework.config import Profile
+    from kubernetes_tpu_torch.planner import (backlog_pods, plan_autoscale, plan_deschedule, plan_preempt_cost,
+                                              simulate_forks)
+
+    nodes, placed, backlog, groups = planner_world(n_nodes)
+    t0 = time.perf_counter()
+    sched = planner_sched(device, nodes, placed + backlog, groups, profiles=[Profile(post_filter=False)])
+    pending = sched.queue.pending_pods()
+    stuck = sum(len(v) for v in pending.values())
+    if stuck != len(backlog) or len(sched.cache.placed_pods()) != len(placed):
+        raise AssertionError(f"{stuck} of {len(backlog)} backlog pods pending")
+    setup_s = time.perf_counter() - t0
+    rows = {}
+    for name, fn in (("autoscale", plan_autoscale), ("deschedule", plan_deschedule),
+                     ("preempt_cost", plan_preempt_cost)):
+        out, wall, ln = timed_sim(torch, device, lambda: fn(sched))
+        res = out.get("result", {})
+        if res.get("engine") != "kernel":
+            raise AssertionError(f"{name}: engine {res.get('engine')} ({out.get('error')})")
+        if device.type == "cuda" and not all(ln.get(k) for k in PLANNER_KERNELS):
+            raise AssertionError(f"{name}: a planner kernel was not launched ({ln})")
+        rows[name] = dict(k=res["k"], wall_s=wall, launches=ln, launches_total=sum(ln.values()),
+                          pods=len(res["batch"]), recommendation=out.get("recommendation"))
+        if name == "preempt_cost":
+            rows[name]["classes"] = out["classes"]
+        if name == "autoscale":
+            rows[name]["scale_down"] = len(out["scale_down"])
+    if rows["autoscale"]["recommendation"]["action"] != "scale_up":
+        raise AssertionError(f"autoscale: {rows['autoscale']['recommendation']}")
+    backlog_now, _ = backlog_pods(sched)
+    forks = mixed_forks(sched, k)
+    batched, batched_s, ln = timed_sim(torch, device, lambda: simulate_forks(sched, forks, backlog_now))
+    if batched.engine != "kernel":
+        raise AssertionError(f"full width K={k} took the {batched.engine} engine")
+    rng = random.Random(61)
+    picks = sorted(rng.sample(range(len(forks)), sampled))
+    for i in picks:
+        one = simulate_forks(sched, [forks[i]], backlog_now)
+        same_forks(batched.forks[i:i + 1], one.forks, f"full width fork {forks[i].label} alone")
+    log(phase="planner_full_width", nodes=n_nodes, placed=len(placed), backlog=len(backlog_now), setup_s=setup_s,
+        planners=rows, k64=dict(k=batched.k, wall_s=batched_s, launches=ln, launches_total=sum(ln.values()),
+                                sampled_equal_alone=picks, admitted=[f["admitted"] for f in batched.forks[:8]]))
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -3397,6 +3754,15 @@ def main() -> int:
                    bound_ms=dra_row["k11_dra_bound_ms"], bound_by=dra_row["k11_dra_bound_by"], library_ms=None,
                    claims_cleared_ms=dra_row["k11_claims_cleared_ms"], launches_dra_drain=dra_l["workloads_admit"],
                    launches_dra_parity=dra_parity_l["workloads_admit"])
+    # the counterfactual planner: K15 and K16 against their plain versions
+    # at 64 forks over config4's node set, K8 and K11 with a target score;
+    # config14 (bench_plan) on the kernel engine against the serial engine,
+    # the CPU's plain run and the 64 forks one at a time; the three planners
+    # at full width
+    k15, k16, es_row = phase_planner_kernels(torch, device)
+    checks["fork_view"], checks["fork_summary"] = k15, k16
+    config14_l = phase_config14(torch, device)
+    phase_planner_full(torch, device)
     # each kernel's error: the largest over the shapes of this run
     for kernel, err in (("gang_scan", "k5_err"), ("gang_spread_statics", "k6_err"),
                         ("gang_interpod_statics", "k7_err")):
@@ -3410,6 +3776,15 @@ def main() -> int:
                                                 ms=dra_row["k8_lane_ms"], plain_ms=dra_row["k8_lane_plain_ms"])
     checks["workloads_admit"] = dict(max_abs_err=max([r["k11_err"] for r in wl_rows.values()] + [dra_row["k11_err"]]),
                                      dra=k11_dra, **wl_rows["config10"]["workloads_admit"])
+    # K8 and K11 with the planner's extra_score (a target bonus)
+    checks["wave_speculate"]["max_abs_err"] = max(checks["wave_speculate"]["max_abs_err"], es_row["k8_err"])
+    checks["wave_speculate"]["extra_score"] = dict(shape="config4_extra_score", max_abs_err=es_row["k8_err"],
+                                                   ms=es_row["k8_ms"], no_score_ms=es_row["k8_no_score_ms"])
+    checks["workloads_admit"]["max_abs_err"] = max(checks["workloads_admit"]["max_abs_err"], es_row["k11_err"])
+    checks["workloads_admit"]["extra_score"] = dict(
+        shape="config4_extra_score", max_abs_err=es_row["k11_err"], ms=es_row["k11_ms"],
+        no_score_ms=es_row["k11_no_score_ms"], plain_ms=es_row["k11_plain_ms"],
+        launches_config14=config14_l["workloads_admit"])
     sources = {
         "static_eval": ("kubernetes_tpu_torch/csrc/static_eval.cu", "kubernetes_tpu/ops/fastpath.py:50",
                         "config0_default", default),
@@ -3438,6 +3813,10 @@ def main() -> int:
         "dra_selector_match": ("kubernetes_tpu_torch/csrc/dra.cu", "kubernetes_tpu/ops/dra.py:275", "dra_drain",
                                dra_l),
         "dra_spec_mask": ("kubernetes_tpu_torch/csrc/dra.cu", "kubernetes_tpu/ops/dra.py:319", "dra_drain", dra_l),
+        "fork_view": ("kubernetes_tpu_torch/csrc/counterfactual.cu", "kubernetes_tpu/ops/counterfactual.py:148",
+                      "config14", config14_l),
+        "fork_summary": ("kubernetes_tpu_torch/csrc/counterfactual.cu",
+                         "kubernetes_tpu/ops/counterfactual.py:148", "config14", config14_l),
     }
     kernels = []
     for name, (src, replaces, path, launches) in sources.items():

@@ -4,7 +4,7 @@ The tests feed the same packed inputs to the JAX root and to the port's
 counterpart: the reference's ``NodeTensors`` / ``ExistingPodTensors`` /
 ``PodBatch`` (numpy arrays), its ``GangStatics``, its stacked signature rows,
 its ``FastCommitter`` usage rows, its ``_vol_tables`` output, its ``dra_tables`` output,
-its storage objects (PV, PVC, StorageClass) and its DRA objects
+its ``pack_forks`` planes, its storage objects (PV, PVC, StorageClass) and its DRA objects
 (DeviceClass, ResourceSlice, ResourceClaim) become the port's containers here, dtype for
 dtype and shape for shape, with no reordering.  The arguments are duck-typed (any object with the reference's
 attribute names), so this module imports nothing of the JAX package; the
@@ -23,6 +23,7 @@ from kubernetes_tpu_torch.api import storage as st
 from kubernetes_tpu_torch.api import types as T
 from kubernetes_tpu_torch.ops import wire
 from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster, DTable
+from kubernetes_tpu_torch.ops.counterfactual import ForkPlanes
 from kubernetes_tpu_torch.ops.gang import GangStatics
 from kubernetes_tpu_torch.snapshot.interner import Vocab
 from kubernetes_tpu_torch.snapshot.schema import pack_existing_pods
@@ -99,6 +100,12 @@ def vol_tables_from_numpy(volt, device) -> dict:
                      for f in ("req_key", "req_op", "req_vals", "req_rhs", "term_valid")))
     return dict(vol_table=table, vol_valid=torch.as_tensor(np.array(volt["vol_valid"]), device=device),
                 vol_bad=torch.as_tensor(np.array(volt["vol_bad"]), device=device))
+
+
+def fork_planes_from_numpy(planes, device):
+    """The reference's planner/forks.py ``pack_forks`` planes (a dict of
+    fk_* numpy arrays) → the port's ForkPlanes, dtype for dtype."""
+    return ForkPlanes.from_host({k: np.array(v) for k, v in planes.items()}, device)
 
 
 def _node_selector(sel):

@@ -541,6 +541,9 @@ struct GangScanArgs {
   const int* nom_off;               // [N + 1]
   const int* nom_prio;              // [G]
   const int* nom_req;               // [G, Rn]
+  // a score added to every node's total (the planner's target bonus), or
+  // null: nothing.  The wave's K8 and the workloads' K11 take it.
+  const long long* extra_score;     // [P, N]
   int N, K, Rn, Rp, L, P, C, AT, KD2, D, JP, use_smem;
   int w_taint, w_naff, w_spread, w_ip, w_fit, w_bal, w_img, check_fit;
 };
@@ -1120,6 +1123,7 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
                            a.w_bal, 0);
     }
     if (a.w_img) total += a.w_img * a.sc_image[pn];
+    if (a.extra_score) total += a.extra_score[pn];
     if (total > best) {  // ascending n: strict > keeps the first max
       best = total;
       best_n = n;

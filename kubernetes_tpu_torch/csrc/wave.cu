@@ -16,7 +16,10 @@
 // diagnosis masks are not read).  An optional [P, N] lane (WaveArgs::lane)
 // is read as the port verdict: the workloads dispatch passes its DRA
 // verdict against the pre-batch allocation state there (K14, csrc/dra.cu),
-// as the reference puts it in spec_one's m_portb.
+// as the reference puts it in spec_one's m_portb.  An optional [P, N]
+// int64 GangScanArgs::extra_score adds to every node's total in the shared
+// step (the planner's target bonus, reference ops/gang.py:901-902); K8 and
+// K11 take it, K5 and K9 get a null pointer.
 //
 // K9: the serial recurrence choice_i = F_i(S + sum_{j<i} delta(choice_j)),
 // in ONE persistent block of 1024 threads that loops over the pods, as K5

@@ -10,7 +10,9 @@ take the speculative wave (``wave_run`` / ``chain_dispatch(wave=True)``,
 kernels K8 and K9); ``wave_dispatch=False`` sends them to the gang scan
 (K5), with the same placements.  ``gang_dispatch`` defaults to True as
 there: PodGroup members are admitted all or nothing by ``workloads_run``
-(kernels K8 and K11).  A profile's ``post_filter`` (on by
+(kernels K8 and K11).  ``planner_kernel`` (the reference's
+``plannerKernel``) defaults to True as there: the what-if planners run on
+``counterfactual_run``.  A profile's ``post_filter`` (on by
 default, DefaultPreemption) preempts lower-priority pods for pods that fail
 to schedule.  ``feature_gates`` holds the gates this scheduler reads, with
 the reference's names and defaults: ``DynamicResourceAllocation`` (off by
@@ -101,6 +103,11 @@ class SchedulerConfiguration:
     # take the workloads dispatch (K8 + K11, all-or-nothing gang admission);
     # off = gang members schedule one by one like any pod
     gang_dispatch: bool = True
+    # the plannerKernel switch: the counterfactual planners run their forks
+    # through counterfactual_run (K15, the workloads engine per fork, K16);
+    # off = the same fork specs replay through the serial forked-snapshot
+    # oracle (oracle/planner.py)
+    planner_kernel: bool = True
     # component-base/featuregate: only the gates this scheduler reads exist
     feature_gates: Dict[str, bool] = field(default_factory=lambda: dict(DEFAULT_FEATURE_GATES))
 

@@ -39,6 +39,7 @@ SOURCES = (
     "preemption.cu",
     "volume.cu",
     "dra.cu",
+    "counterfactual.cu",
     "runtime.cu",
 )
 HEADERS = ("ktpu.cuh",)
@@ -65,6 +66,8 @@ launches: Dict[str, int] = {
     "volume_topology_mask": 0,
     "dra_selector_match": 0,
     "dra_spec_mask": 0,
+    "fork_view": 0,
+    "fork_summary": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -206,7 +209,7 @@ class GangScanArgs(ctypes.Structure):
         "ip_viol_existing ip_sym ip_any_static ip_self_all ip_bmatch ip_is_aff ip_is_anti ip_pref_w ip_sym_w "
         "ip_key_idx sc_taint sc_nodeaff sc_image port_b d_nodename d_unsched d_taints d_nodeaff "
         "d_ports d_extra chosen n_feas reason_counts dom_ids sp_key ip_key kd2_key cnt cnt_h port_stamp "
-        "feas ip_raw sp_raw sp_cnt priority nom_off nom_prio nom_req"
+        "feas ip_raw sp_raw sp_cnt priority nom_off nom_prio nom_req extra_score"
     ).split()
     _INTS = (
         "N K Rn Rp L P C AT KD2 D JP use_smem w_taint w_naff w_spread w_ip w_fit w_bal w_img check_fit"
@@ -292,6 +295,10 @@ def load() -> ctypes.CDLL:
     lib.ktpu_dra_selector_match.restype = ctypes.c_int
     lib.ktpu_dra_spec_mask.argtypes = [vp] * 10 + [ctypes.c_int] * 6 + [vp]
     lib.ktpu_dra_spec_mask.restype = ctypes.c_int
+    lib.ktpu_fork_view.argtypes = [vp] * 13 + [ctypes.c_int] * 4 + [vp]
+    lib.ktpu_fork_view.restype = ctypes.c_int
+    lib.ktpu_fork_summary.argtypes = [vp] * 11 + [ctypes.c_int] * 5 + [vp]
+    lib.ktpu_fork_summary.restype = ctypes.c_int
     for fn in ("ktpu_gang_scan_smem_max", "ktpu_wave_admit_smem_max", "ktpu_workloads_admit_smem_max"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int

@@ -143,12 +143,13 @@ _DRA_ROWS = ("req_count", "req_all", "req_cl", "q_valid", "req_bad", "ref_cl")
 def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                           ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, g_cap: int,
                           weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, d2_cap=8, nom_node=None,
-                          nom_prio=None, nom_req=None, dra=None):
+                          nom_prio=None, nom_req=None, dra=None, extra_score=None):
     """Plain version of K11: the admission recurrence of the reference's
     workloads_schedule (ops/coscheduling.py:297-432), one pod at a time.
     ``dra`` (None: no claims in the batch) holds the match tensor ``match``
     [P, DQ, N, DD], ``free0``, ``claim_node0`` and the request rows of
     ops/dra.py; the allocation carries start from free0 and claim_node0.
+    ``extra_score`` (i64 [P, N], or None) adds to every node's total.
     Returns (chosen i32 [P] after rollback, raw i32 [P] before it, n_feas
     i64 [P], reason_counts i64 [P, N_DIAG], tallies, gang_admit i32 [g_cap]
     (-1 unjudged, 0 rolled back, 1 admitted), gang_landed i32 [g_cap],
@@ -191,7 +192,7 @@ def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
                                                       *(dra[k][p] for k in _DRA_ROWS))
         hv, _, _ = wave._build_hv(db, g, p, sdyn, idyn, m_dra)
         choice, nf, rc = gang.pod_step(dc, db, g, p, state, hv, check_fit=check_fit, weights=weights, d_cap=d_cap,
-                                       nom=nom)
+                                       nom=nom, extra_score=extra_score)
         assigned[p] = choice
         carries = wave.factored_carry_update(carries, p, choice, m_sp_all, m_ip_all, ip_aux)
         if dra is not None:
@@ -219,18 +220,19 @@ def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
 
 def workloads_admit(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
                     gang_id, gang_first, gang_last, gang_need, g_cap: int, weights=gang.DEFAULT_WEIGHTS,
-                    check_fit=True, d_cap=8, d2_cap=8, nom_node=None, nom_prio=None, nom_req=None, dra=None):
+                    check_fit=True, d_cap=8, d2_cap=8, nom_node=None, nom_prio=None, nom_req=None, dra=None,
+                    extra_score=None):
     """The admission pass: K11 on CUDA tensors, its plain version on CPU."""
     args = (dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab, gang_id,
             gang_first, gang_last, gang_need, g_cap, weights, check_fit, d_cap, d2_cap)
-    kw = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, dra=dra)
+    kw = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, dra=dra, extra_score=extra_score)
     if dc.node_valid.device.type == "cpu":
         return workloads_admit_plain(*args, **kw)
     return _workloads_admit_cuda(*args, **kw)
 
 
 def _schedule(admit, speculate, match_fn, lane_fn, dc, db, g, hostname_key, g_cap, tables, gang_arrays, weights,
-              check_fit, d_cap, d2_cap, nom, dra_kw):
+              check_fit, d_cap, d2_cap, nom, extra_score, dra_kw):
     dra_kw = _dra_group(dra_kw)
     dra = lane = None
     if dra_kw:
@@ -238,9 +240,10 @@ def _schedule(admit, speculate, match_fn, lane_fn, dc, db, g, hostname_key, g_ca
         dra = dict(match=match, free0=dra_kw["free0"], claim_node0=dra_kw["claim_node0"],
                    **{k: dra_kw[k] for k in _DRA_ROWS})
         lane = lane_fn(match, dra["free0"], dra["claim_node0"], *(dra[k] for k in _DRA_ROWS))
-    c0 = speculate(dc, db, g, weights, check_fit, d_cap, **nom, lane=lane)
+    c0 = speculate(dc, db, g, weights, check_fit, d_cap, **nom, lane=lane, extra_score=extra_score)
     chosen, raw, n_feas, rc, tallies, gang_admit, gang_landed, claim_node = admit(
-        dc, db, g, hostname_key, *tables, *gang_arrays, g_cap, weights, check_fit, d_cap, d2_cap, **nom, dra=dra)
+        dc, db, g, hostname_key, *tables, *gang_arrays, g_cap, weights, check_fit, d_cap, d2_cap, **nom, dra=dra,
+        extra_score=extra_score)
     wl = {"spec": c0, "raw": raw, "gang_admit": gang_admit, "gang_landed": gang_landed, "claim_node": claim_node}
     return chosen, n_feas, rc, tallies, wl
 
@@ -248,26 +251,29 @@ def _schedule(admit, speculate, match_fn, lane_fn, dc, db, g, hostname_key, g_ca
 def workloads_schedule_plain(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
                              rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need,
                              weights=gang.DEFAULT_WEIGHTS, check_fit=True, nom_node=None, nom_prio=None,
-                             nom_req=None, d_cap=8, d2_cap=8, **dra_kw):
+                             nom_req=None, d_cap=8, d2_cap=8, extra_score=None, **dra_kw):
     """Plain version of workloads_schedule: K13's, K14's, K8's and K11's
     plain versions."""
     return _schedule(workloads_admit_plain, wave.wave_speculate_plain, dra_ops.selector_match_plain,
                      dra_ops.dra_spec_mask_plain, dc, db, g, hostname_key, g_cap,
                      (tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab),
                      (gang_id, gang_first, gang_last, gang_need), weights, check_fit, d_cap, d2_cap,
-                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req), dra_kw)
+                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req), extra_score, dra_kw)
 
 
 def workloads_schedule(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
                        rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, weights=gang.DEFAULT_WEIGHTS,
-                       check_fit=True, nom_node=None, nom_prio=None, nom_req=None, d_cap=8, d2_cap=8, **dra_kw):
+                       check_fit=True, nom_node=None, nom_prio=None, nom_req=None, d_cap=8, d2_cap=8,
+                       extra_score=None, **dra_kw):
     """One workloads dispatch: for a batch with claims the match (K13) and
     the speculation's DRA lane (K14), then the speculation (K8) and the
     admission (K11).  The cluster's usage rows are read, not written.
     ``gang_*`` are workloads/gang.py ``gang_arrays``' [P] rows (as tensors)
     and ``g_cap`` its slot count; ``nom_*`` the open nominations
-    (ops/gang.py), charged in both passes; ``dra_kw`` is ops/dra.py
-    ``dra_tables``' tensors (ops/dra.py DRA_ARGS), all or none.
+    (ops/gang.py), charged in both passes; ``extra_score`` (i64 [P, N], or
+    None) adds to every node's total in both passes (the planner's target
+    bonus); ``dra_kw`` is ops/dra.py ``dra_tables``' tensors (ops/dra.py
+    DRA_ARGS), all or none.
 
     Returns (chosen i32 [P] after rollback (-1 for failed and rolled-back
     pods), n_feas i64 [P], reason_counts i64 [P, N_DIAG], tallies, wl): wl
@@ -279,7 +285,7 @@ def workloads_schedule(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, 
     return _schedule(workloads_admit, wave.wave_speculate, dra_ops.selector_match, dra_ops.dra_spec_mask, dc, db, g,
                      hostname_key, g_cap, (tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab),
                      (gang_id, gang_first, gang_last, gang_need), weights, check_fit, d_cap, d2_cap,
-                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req), dra_kw)
+                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req), extra_score, dra_kw)
 
 
 def workloads_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
@@ -288,13 +294,14 @@ def workloads_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp, rep
                   has_spread: bool = True, has_images: bool = True, enabled: frozenset = gang.ALL_FILTER_KERNELS,
                   weights: tuple = gang.DEFAULT_WEIGHTS, extra_mask=None, nom_node=None, nom_prio=None,
                   nom_req=None, sp_keys=None, sp_cdv_tab=None, ip_keys=None, d_cap: int = 8, d2_cap: int = 8,
-                  **dra_kw):
+                  extra_score=None, **dra_kw):
     """precompute + workloads_schedule for one batch: K12 for the volume
     mask when ``vol_table`` is given (ANDed into ``extra_mask``), K1 + K6 +
     K7 for the statics, then K13, K14, K8 and K11 (``dra_kw``: ops/dra.py
     DRA_ARGS, all or none).  The workloads gate admits no pod with host
     ports, so the port axis is left out (precompute with has_ports=False)
-    and the port lane carries the DRA verdict."""
+    and the port lane carries the DRA verdict.  ``extra_score`` (i64
+    [P, N], or None) adds to every node's total in K8 and K11."""
     if vol_table is not None:
         vmask = volume_topology_mask(dc, vol_table, vol_valid, vol_bad)
         extra_mask = vmask if extra_mask is None else (extra_mask & vmask)
@@ -304,7 +311,7 @@ def workloads_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp, rep
     return workloads_schedule(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
                               rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, weights=weights,
                               check_fit="NodeResourcesFit" in enabled, nom_node=nom_node, nom_prio=nom_prio,
-                              nom_req=nom_req, d_cap=d_cap, d2_cap=d2_cap, **dra_kw)
+                              nom_req=nom_req, d_cap=d_cap, d2_cap=d2_cap, extra_score=extra_score, **dra_kw)
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +328,7 @@ def ckpt_cells(N: int, Rn: int, P: int, Tsp: int, Tip: int, DD: int = 0, CL: int
 
 def _workloads_admit_cuda(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                           ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, g_cap, weights, check_fit, d_cap,
-                          d2_cap, nom_node=None, nom_prio=None, nom_req=None, dra=None):
+                          d2_cap, nom_node=None, nom_prio=None, nom_req=None, dra=None, extra_score=None):
     """K11 launch: K9's argument blocks with no port carry, plus the gang
     rows, the assignment row, the outputs, the global checkpoint and, with
     ``dra``, the match tensor, the request rows and the allocation carries
@@ -334,7 +341,7 @@ def _workloads_admit_cuda(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
     nom = gang.nominations_csr(nom_node, nom_prio, nom_req, N, dev)
     a, w, state, outs = wave.admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
                                         rep_ip_u, weights, check_fit, False, None, None, nom, unused, unused, unused,
-                                        lib.ktpu_workloads_admit_smem_max())
+                                        lib.ktpu_workloads_admit_smem_max(), extra_score)
     raw, n_feas, reason_counts = outs  # K11 writes each step's choice through GangScanArgs.chosen
     assigned = torch.empty((P,), dtype=I32, device=dev)
     gang_admit = torch.empty((g_cap,), dtype=I32, device=dev)

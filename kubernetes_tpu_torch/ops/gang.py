@@ -588,14 +588,15 @@ def nominations_csr(nom_node, nom_prio, nom_req, N: int, dev):
 
 
 def pod_step(dc, db, g: GangStatics, p: int, state, hv, *, check_fit: bool, weights: tuple, d_cap: int,
-             commit: bool = True, nom=None):
+             commit: bool = True, nom=None, extra_score=None):
     """One pod's Filter → Score → Select → commit against ``state``
     (requested [N, Rn] / nonzero [N, 2] / num_pods [N], updated in place),
     pod_step's default branch.  ``nom`` (``nominations_onehot``) charges
     the open nominations of priority >= the pod's to their nodes in the
-    resource fit.  With ``commit=False`` the state is left untouched (the
-    wave's speculation evaluates without placing).  Returns
-    (choice, n_feas, reason_counts)."""
+    resource fit.  ``extra_score`` (i64 [P, N], or None) adds its row to
+    every node's total (the planner's target bonus).  With ``commit=False``
+    the state is left untouched (the wave's speculation evaluates without
+    placing).  Returns (choice, n_feas, reason_counts)."""
     N = g.static_mask.shape[1]
     Rn = dc.allocatable.shape[1]
     Rp = db.requests.shape[1]
@@ -672,6 +673,8 @@ def pod_step(dc, db, g: GangStatics, p: int, state, hv, *, check_fit: bool, weig
         total += w_bal * balanced
     if w_img:
         total += w_img * g.sc_image[p]
+    if extra_score is not None:
+        total += extra_score[p]
 
     # first-max argmax over the feasible nodes (ties go to the lower index)
     ranked = torch.where(feas, total, -INT64_MAX - 1)
@@ -1100,13 +1103,15 @@ def _scan_domains(dc, db, g: GangStatics, C: int, AT: int):
     return sp_key, ip_key, kd2_key, max(D, 1)
 
 
-def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch, nom=None) -> "_build.GangScanArgs":
+def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch, nom=None,
+              extra_score=None) -> "_build.GangScanArgs":
     """The GangScanArgs of a kernel that runs the shared per-pod step (K5,
     and the wave's K8 and K9): the statics, the usage ``state``
     (requested / nonzero / num_pods), ``outs`` (chosen, n_feas,
-    reason_counts), the ``scratch`` tensors and the nominations' CSR
-    (``nominations_csr``, or None), after the wrapper checks.  K5's counter
-    layout (``use_smem``) is left at 0 for the caller."""
+    reason_counts), the ``scratch`` tensors, the nominations' CSR
+    (``nominations_csr``, or None) and ``extra_score`` (i64 [P, N], or
+    None: a null pointer), after the wrapper checks.  K5's counter layout
+    (``use_smem``) is left at 0 for the caller."""
     dev = dc.node_valid.device
     P, N = g.static_mask.shape
     K = dc.node_labels.shape[1]
@@ -1142,6 +1147,8 @@ def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch, 
         G = prio.shape[0]
         _set_ptrs(a, dev, [("nom_off", off, I32, (N + 1,)), ("nom_prio", prio, I32, (G,)),
                            ("nom_req", req, I32, (G, Rn))])
+    if extra_score is not None:
+        _set_ptrs(a, dev, [("extra_score", extra_score.contiguous(), I64, (P, N))])
     a.N, a.K, a.Rn, a.Rp, a.L, a.P, a.C, a.AT, a.KD2, a.D, a.JP = N, K, Rn, Rp, L, P, C, AT, KD2, D, JP
     a.use_smem = 0
     (a.w_taint, a.w_naff, a.w_spread, a.w_ip, a.w_fit, a.w_bal, a.w_img) = (int(w) for w in weights)

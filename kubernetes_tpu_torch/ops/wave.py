@@ -496,11 +496,12 @@ def _base_state(dc):
 
 
 def wave_speculate_plain(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, n_feas=None,
-                         nom_node=None, nom_prio=None, nom_req=None, lane=None):
+                         nom_node=None, nom_prio=None, nom_req=None, lane=None, extra_score=None):
     """Plain version of K8: every pod's step against the frozen snapshot,
     with zero batch-peer counts and every port free, or, with ``lane`` (bool
     [P, N]), the port lane read from it (the workloads dispatch puts its DRA
-    verdict there).  Returns c0 i32 [P]; fills ``n_feas`` [P], when given,
+    verdict there).  ``extra_score`` (i64 [P, N], or None) adds to every
+    node's total.  Returns c0 i32 [P]; fills ``n_feas`` [P], when given,
     with each pod's feasible-node count."""
     P, N = g.static_mask.shape
     nom = gang.nominations_onehot(nom_node, nom_prio, nom_req, N)
@@ -513,7 +514,7 @@ def wave_speculate_plain(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True
         hv, _, _ = _build_hv(db, g, p, _zero_sdyn(C, N, dev), _zero_idyn(AT, N, dev),
                              true_n if lane is None else lane[p])
         c0[p], nf, _ = gang.pod_step(dc, db, g, p, base, hv, check_fit=check_fit, weights=weights, d_cap=d_cap,
-                                     commit=False, nom=nom)
+                                     commit=False, nom=nom, extra_score=extra_score)
         if n_feas is not None:
             n_feas[p] = nf
     return c0
@@ -620,10 +621,11 @@ def wave_schedule_plain(dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp
 
 
 def wave_speculate(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, nom_node=None,
-                   nom_prio=None, nom_req=None, lane=None):
+                   nom_prio=None, nom_req=None, lane=None, extra_score=None):
     """The speculation pass: K8 on CUDA tensors, its plain version on CPU.
-    ``lane`` (bool [P, N], None: all True) is read as the port lane."""
-    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, lane=lane)
+    ``lane`` (bool [P, N], None: all True) is read as the port lane;
+    ``extra_score`` (i64 [P, N], None: nothing) adds to every total."""
+    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, lane=lane, extra_score=extra_score)
     if dc.node_valid.device.type == "cpu":
         return wave_speculate_plain(dc, db, g, weights, check_fit, d_cap, **nom)
     return _wave_speculate_cuda(dc, db, g, weights, check_fit, **nom)
@@ -698,9 +700,11 @@ def _zeros(dev, n, dtype=I32):
     return torch.zeros((max(int(n), 1),), dtype=dtype, device=dev)
 
 
-def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=None, nom_req=None, lane=None):
+def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=None, nom_req=None, lane=None,
+                         extra_score=None):
     """K8 launch: one block per pod against the cluster's own usage rows
-    (``lane``: the port lane, a null pointer when None)."""
+    (``lane``: the port lane, and ``extra_score``, null pointers when
+    None)."""
     dev = dc.node_valid.device
     lib = _build.load()
     g = gang.GangStatics(*(t.contiguous() for t in g))
@@ -715,7 +719,7 @@ def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=
                    feas=_zeros(dev, P * N, BOOL), ip_raw=_zeros(dev, P * N, I64), sp_raw=_zeros(dev, P * N, I64),
                    sp_cnt=_zeros(dev, P * C * N))
     nom = gang.nominations_csr(nom_node, nom_prio, nom_req, N, dev)
-    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom)
+    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom, extra_score)
     w = _build.WaveArgs()
     ptrs = [("sums", _zeros(dev, P * C * Dsp), I32, None)]
     if lane is not None:
@@ -729,7 +733,7 @@ def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=
 
 
 def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, weights, check_fit,
-               has_ports, tid_pt, port_conf, nom, c0, kinds, cterms, smem_max: int):
+               has_ports, tid_pt, port_conf, nom, c0, kinds, cterms, smem_max: int, extra_score=None):
     """The argument blocks of a kernel that runs K9's admission recurrence
     (K9, and K11 in ops/coscheduling.py): (GangScanArgs, WaveArgs, usage
     state, (chosen, n_feas, reason_counts)).  The usage state starts as
@@ -737,7 +741,8 @@ def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_
     which numbers a key's domains as ip_cdv_tab does, so the table itself is
     not read.  ``smem_max`` is the kernel's dynamic shared memory limit: the
     per-pod sums and then the carries go to shared memory where they fit,
-    else to global scratch rows."""
+    else to global scratch rows.  ``extra_score`` (i64 [P, N], or None)
+    adds to every node's total."""
     dev = dc.node_valid.device
     g = gang.GangStatics(*(t.contiguous() for t in g))
     P, N = g.static_mask.shape
@@ -758,7 +763,7 @@ def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_
     scratch = dict(cnt=_zeros(dev, 1), cnt_h=_zeros(dev, 1), port_stamp=_zeros(dev, 1),
                    feas=_zeros(dev, N, BOOL), ip_raw=_zeros(dev, N, I64), sp_raw=_zeros(dev, N, I64),
                    sp_cnt=_zeros(dev, C * N))
-    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom)
+    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom, extra_score)
     sums_cells = 3 * C * Dsp + AT * D2 + Tip + Tpt + 3
     carry_cells = (Tsp + 2 * Tip + Tpt) * N
     smem_max = min(smem_max, ADMIT_SMEM_CAP) - 16 * C

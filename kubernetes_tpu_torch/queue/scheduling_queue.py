@@ -108,6 +108,15 @@ class SchedulingQueue:
         qp.attempts += 1
         self._in_flight[uid] = []
 
+    def pending_pods(self) -> Dict[str, List[Pod]]:
+        """PendingPods introspection (scheduling_queue.go:1146): the pods of
+        each pool, the heaps in their array order."""
+        return {
+            "active": [qp.pod for _, eid, qp in self._active if self._entry_live(qp, eid, "active")],
+            "backoff": [qp.pod for _, eid, qp in self._backoff if self._entry_live(qp, eid, "backoff")],
+            "unschedulable": [qp.pod for qp in self.unschedulable.values()],
+        }
+
     # ----- add / delete -----------------------------------------------------
 
     def add(self, pod: Pod) -> None:

@@ -135,7 +135,7 @@ from kubernetes_tpu_torch.snapshot.schema import (
     pack_conjunction_table,
     pack_pod_batch,
 )
-from kubernetes_tpu_torch.snapshot.selectors import CompiledRequirements, compile_node_selector_dnf
+from kubernetes_tpu_torch.snapshot.selectors import METADATA_NAME_KEY, CompiledRequirements, compile_node_selector_dnf
 from kubernetes_tpu_torch.util.assumecache import AssumeCache
 from kubernetes_tpu_torch.workloads import gang as wlg
 
@@ -371,6 +371,12 @@ class Scheduler:
             "gang_rolled_back": 0,  # gangs rolled back whole
             "dra_pods": 0,  # claims pods the workloads dispatch placed
             "dra_claims_allocated": 0,  # claims it allocated (a shared claim once)
+            "plan_runs": 0,  # simulate_forks calls (planner/plan.py)
+            "plan_forks": 0,  # forks they simulated
+            "plan_seconds": 0.0,  # their wall time
+            # kernel-engine planner runs the serial engine took, by reason
+            "plan_serial_dup_hostname": 0,
+            "plan_serial_wave_tables": 0,
         }
         # PodGroups and the members placed per gang
         self.gangs = wlg.GangDirectory(clock)
@@ -913,6 +919,15 @@ class Scheduler:
             self.mirror._force_full = True
             self.mirror.update(self.cache)
         self._mirror_sync = (self._external_mutations, self._nonfast_commits)
+
+    def _intern_node_labels(self, nodes) -> None:
+        """Intern nodes' labels and metadata.name values that the snapshot
+        does not hold yet (the planner's clones), before a repack, so a
+        grown value bucket takes the mirror's full pack."""
+        for node in nodes:
+            for k, v in node.labels.items():
+                self.vocab.intern_label(k, v)
+            self.vocab.intern_label(METADATA_NAME_KEY, node.name)
 
     def _sync_mirror_external(self) -> None:
         """Repack only when state the fast path reads could have moved:
@@ -1656,6 +1671,15 @@ class Scheduler:
             if p.name == "NodeVolumeLimits" and not self.csinodes:
                 continue
             if any(not state.is_filter_skipped(pod.uid, p.name) for pod in pods):
+                return False
+        return True
+
+    def _vol_kernel_ok(self, pod: Pod) -> bool:
+        """True when every PVC of the pod exists, is fully bound and its PV
+        is present: the volume shape K12's mask covers."""
+        for name in pod.pvc_names():
+            pvc = self.pvc_cache.get(f"{pod.namespace}/{name}")
+            if pvc is None or not pvc.is_fully_bound() or self.pv_cache.get(pvc.volume_name) is None:
                 return False
         return True
 

@@ -14,8 +14,9 @@ test_torch_chain.py, test_torch_scheduler_gang.py, test_torch_wave.py,
 test_torch_scheduler_wave.py, test_torch_preemption.py,
 test_torch_scheduler_preempt.py, test_torch_workloads.py,
 test_torch_scheduler_workloads.py, test_torch_volume.py,
-test_torch_scheduler_volumes.py, test_torch_dra.py and
-test_torch_scheduler_dra.py.
+test_torch_scheduler_volumes.py, test_torch_dra.py,
+test_torch_scheduler_dra.py, test_torch_counterfactual.py and
+test_torch_planner.py.
 """
 
 import pytest
@@ -558,3 +559,32 @@ def test_dra_drain_on_cuda(cuda):
     granted twice, every claim on its pod's node, K13, K14 and K11
     launched."""
     chip_smoke.phase_dra_drain(torch, cuda, n_nodes=60, n_pods=240)
+
+
+# ---- the counterfactual planner: K15, K16; K8 and K11 with a score ---------
+
+
+@pytest.mark.parametrize("KF,P", [(4, 16), (16, 64)], ids=["small", "wider"])
+def test_fork_kernels_match_plain(cuda, KF, P):
+    """K15 fork_view and K16 fork_summary against their plain versions, and
+    K8 and K11 with a target extra_score against theirs (chip_smoke's
+    phase 11 at a reduced size; it raises on any difference)."""
+    n0 = dict(_build.launches)
+    chip_smoke.phase_planner_kernels(torch, cuda, reps=1, n_nodes=300, KF=KF, P=P)
+    for k in ("fork_view", "fork_summary", "wave_speculate", "workloads_admit"):
+        assert _build.launches[k] > n0[k]
+
+
+def test_planner_on_cuda_matches_serial_and_cpu(cuda):
+    """bench_plan's forks at a reduced size: the batched kernel engine on
+    the card equals the serial engine, the CPU's counterfactual_run_plain
+    and each fork alone."""
+    launches = chip_smoke.phase_config14(torch, cuda, k=12, n_nodes=60, n_fill=300, n_backlog=24)
+    assert launches["fork_view"] == 1 and launches["fork_summary"] == 1 and launches["workloads_admit"] == 16
+
+
+def test_planners_on_cuda_take_the_kernel_engine(cuda):
+    """The three planners at a reduced size on the card, each on the kernel
+    engine, and sampled forks of a batched run equal to the forks alone."""
+    rows = chip_smoke.phase_planner_full(torch, cuda, n_nodes=200, sampled=3, k=10)
+    assert rows["autoscale"]["recommendation"]["action"] == "scale_up"
