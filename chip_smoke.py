@@ -44,7 +44,7 @@ Phases, one output line each (several for 2 and 4):
      pods) under waveDispatch: false, with their zone-skew and
      anti-affinity checks, and 20k preferred-affinity pods on config0's 10k
      tiered nodes under the default configuration; and a parity drain of
-     1,536 mixed gang-path pods on 500 nodes, on cuda and on the CPU, whose
+     1,536 mixed gang-path pods on 250 nodes, on cuda and on the CPU, whose
      placements and diagnoses must be identical;
   6. the wave: K8 wave_speculate and K9 wave_admit against their plain
      versions, exact on every output, and K9 against K5 on the same
@@ -68,7 +68,7 @@ Phases, one output line each (several for 2 and 4):
      rounds, victims evicted through on_pod_delete) on cuda and on the CPU
      with identical bindings, evictions and nominations, every preemptor
      bound, each node emptied of exactly its two victims, no node over its
-     allocatable; the same drain at 5,000 nodes with 1,000 preemptors on
+     allocatable; the same drain at 5,000 nodes with 250 preemptors on
      cuda; and a gang-path drain with priorities (500 nodes, 1,500 placed
      priority-0 pods, 2,000 spread and anti-affinity pods at priorities 0 /
      50 / 100, some too big to fit before a preemption) in two rounds on
@@ -85,8 +85,8 @@ Phases, one output line each (several for 2 and 4):
      bench.py bench_gang's drain (config10: 1,000 nodes, 20,000 pods in
      2,500 PodGroups of 8, minMember 8) on cuda, every pod placed, every
      gang whole, one K11 launch per workloads batch; and a contended gang
-     drain (500 nodes, 200 seeded gangs of 4-12 with spread or
-     anti-affinity among their members, 400 plain pods, about 125 % of the
+     drain (250 nodes, 100 seeded gangs of 4-12 with spread or
+     anti-affinity among their members, 200 plain pods, about 125 % of the
      cluster's cpu asked) on cuda and on the CPU, identical in outcomes and
      in the gang metrics, with gangs rolled back;
   9. bound volumes: K12 volume_topology_mask against its plain version,
@@ -99,7 +99,7 @@ Phases, one output line each (several for 2 and 4):
      5 % pinned to a zone no node carries) on cuda, every placed pod in its
      PV's zone, the 5 % unplaced with the volume node affinity conflict,
      one K12 launch per workloads batch; and a parity drain (1,000 nodes,
-     2,000 volume, gang and spread pods in one batch) on cuda, on the CPU
+     1,080 volume, gang and spread pods in one batch) on cuda, on the CPU
      and against the serial WorkloadOracle with volumes, identical;
  10. DRA claims: K13 dra_selector_match and K14 dra_spec_mask against their
      plain versions, exact, K8 with K14's mask as its port lane against
@@ -128,16 +128,36 @@ Phases, one output line each (several for 2 and 4):
      bench_plan (config14: 300 nodes in 4 zones, 1,500 placed pods, 96
      backlog pods, 64 mixed forks of clone adds, cordons, evictions and
      scales) on the kernel engine (K15, K1, K7, K8, K11 per fork, K16),
-     every fork equal to the serial engine's (plannerKernel off), to the
-     kernel engine of a device="cpu" scheduler (the plain versions) and to
-     the same fork run alone, with the wall times and launches of the
+     the first 16 forks equal to the serial engine's (plannerKernel off)
+     and to the kernel engine of a device="cpu" scheduler (the plain
+     versions) on those forks, and every fork equal to the same fork run
+     alone, with the wall times and launches of the
      batched run and of the 64 one-fork runs; and, at full width (5,000
      nodes in 8 zones and four shapes, 9,936 placed pods, 256
      unschedulable pods of 10 cpu: plain, zone-spread and a gang of 32),
      plan_autoscale (K=29), plan_deschedule (K=9) and plan_preempt_cost
      (K=4) on the kernel engine with their wall times and launches, and a
      64-fork run whose 8 sampled forks equal the same forks alone;
- 12. the kernels line (K8 named as the workloads speculation too).
+ 12. explain and the independent pipeline: K17 explain_stack against its
+     plain version, exact on the [10, P, N] stack and combined mask, at
+     config4's shape (N=5,000 in 8 zones, P=512, 45,000 placed spread pods)
+     and at the mixed shape with a host-filter lane (all nine rows failing
+     somewhere); K18 pipeline_score against its plain version, exact on
+     chosen, feasible, totals and n_feasible, at 10,240 tests/gen.py-style
+     nodes with images, 102 placed pods and 512 mixed pods, and the CUDA
+     pipeline route (K1, K6, K7, K17, K18) against pipeline_plain (the
+     reference's all_masks and all_scores) on the card; K14 and K11's DRA
+     mode at 320 device slots per node (the scratch-row path) beside 8,
+     exact, at N=1,000, P=128, DQ=2, with times; the main path, its launch
+     counts reset before it: explain_pod for four pods (spread,
+     hostname anti-affinity, larger than every node, nodeName) on config4's
+     cluster, explain_whatif for a bench_preemption preemptor and
+     schedule_independent at the K18 shape on cuda, the first two equal to
+     a device="cpu" Scheduler's dicts (the what-if's parity True), the last
+     equal to the plain pipeline; a DRA drain of 1,500 pods with one
+     ExactCount=10 claim each on 50 nodes of 300 devices, on cuda and on
+     the CPU, identical in bindings and claim pins, no device granted twice;
+ 13. the kernels line (K8 named as the workloads speculation too).
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Without
@@ -599,20 +619,12 @@ def gen_cluster(seed, n_nodes, n_placed, n_pending, ports_from=0):
 def _gang_pack(torch, device, nodes, placed, pending, P):
     """Pack a cluster with its placed pods and one pending batch through the
     port's packers, as the scheduler's mirror does, onto `device`."""
-    from kubernetes_tpu_torch.cache.mirror import accumulate_node_usage
     from kubernetes_tpu_torch.ops import gang
     from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster
-    from kubernetes_tpu_torch.snapshot.interner import Vocab
-    from kubernetes_tpu_torch.snapshot.schema import bucket_cap, pack_existing_pods, pack_nodes, pack_pod_batch
+    from kubernetes_tpu_torch.snapshot.schema import bucket_cap
 
-    vocab = Vocab()
-    for p in list(placed) + list(pending):
-        for k, v in p.labels.items():
-            vocab.intern_label(k, v)
-    nt = pack_nodes(nodes, vocab)
-    accumulate_node_usage(nt, placed, vocab)
-    ep = pack_existing_pods(placed, nt.name_to_idx, vocab, k_cap=nt.k_cap)
-    pb = pack_pod_batch(pending[:P], vocab, k_cap=nt.k_cap, p_cap=P)
+    pc, pb = packed_snapshot(nodes, placed, pending, P)
+    nt, ep, vocab = pc.nodes, pc.existing, pc.vocab
     hk = vocab.label_keys.lookup(HOSTNAME)
     tables = gang.batch_tables(pb.tsc_topo_key, pb.aff_topo_key, nt.label_vals, hk)
     d_cap = tables.pop("d_cap")
@@ -1791,7 +1803,7 @@ def phase_gang_drain(torch, name, device, nodes, pods, kernels, check=None, want
     return launches, got
 
 
-def phase_gang_parity(torch, device, n_nodes=500, n_pods=1536, n_placed=200, wave=False):
+def phase_gang_parity(torch, device, n_nodes=250, n_pods=1536, n_placed=200, wave=False):
     """The same mixed gang-path drain on the card and with device="cpu" (the
     plain versions): placements, FitError messages and diagnoses must be
     identical.  Host ports only in the last batch, so the first batch takes
@@ -2135,7 +2147,7 @@ def check_evictions(rec, n_nodes, n_preemptors):
     return len(emptied)
 
 
-def phase_preempt_drains(torch, device, n_small=500, n_large=5000, large_preemptors=1000):
+def phase_preempt_drains(torch, device, n_small=500, n_large=5000, large_preemptors=250):
     """bench_preemption's drain (preemption_world) at its own size on cuda
     and with device="cpu": bindings, evictions and nominations identical,
     every invariant of check_evictions, no node over its allocatable; then
@@ -2493,7 +2505,7 @@ def phase_config10(torch, device, n_nodes=1000, n_pods=20000):
     return launches
 
 
-def contended_gang_world(n_nodes=500, n_gangs=200, n_plain=400, seed=29):
+def contended_gang_world(n_nodes=250, n_gangs=100, n_plain=200, seed=29):
     """The contended gang parity workload: n_nodes nodes of 4 cpu / 16Gi in
     4 zones; n_gangs seeded gangs of 4-12 members with minMember between
     half and all of them and member requests of 300m-1500m cpu (weighted
@@ -2796,7 +2808,7 @@ def phase_statefulset(torch, device, n_nodes=5000, n_pods=10000):
     return launches, k12_err
 
 
-def volume_parity_world(n_nodes=1000, n_vol=1200, n_gangs=20, n_spread=640, seed=41):
+def volume_parity_world(n_nodes=1000, n_vol=600, n_gangs=20, n_spread=320, seed=41):
     """The volume parity workload, one queue: statefulset_world's volume
     pods, 20 PodGroups of 8 (minMember 8) whose members each hold a PV
     pinned to their gang's zone (one gang pinned to a zone it cannot fit),
@@ -3070,12 +3082,12 @@ def phase_dra_kernels(torch, device, reps=10, n_nodes=5000, P=512):
     return dra_kernel_row(torch, "config4_dra", dc, db, kw, d_cap, flags, wt, dt, rows, reps)
 
 
-def dra_bench_world(n_nodes=500, n_pods=2000, devices_per_node=4):
+def dra_bench_world(n_nodes=500, n_pods=2000, devices_per_node=4, count=1):
     """bench.py bench_dra's workload (config11): the DeviceClass "gpu"
     (vendor In bench), one slice of `devices_per_node` devices per node
     (vendor bench, slot j), and n_pods pods of 50m cpu / 32Mi, each with
-    its own ExactCount=1 claim of class gpu.  Returns (nodes, slices,
-    classes, claims, pods)."""
+    its own ExactCount=`count` claim of class gpu.  Returns (nodes,
+    slices, classes, claims, pods)."""
     from kubernetes_tpu_torch.api import Container, Pod
     from kubernetes_tpu_torch.api import dra
 
@@ -3085,7 +3097,7 @@ def dra_bench_world(n_nodes=500, n_pods=2000, devices_per_node=4):
                                               for j in range(devices_per_node)))
               for i in range(n_nodes)]
     claims = {f"default/claim-{i}": dra.ResourceClaim(name=f"claim-{i}",
-                                                      requests=(dra.DeviceRequest("g", "gpu", count=1),))
+                                                      requests=(dra.DeviceRequest("g", "gpu", count=count),))
               for i in range(n_pods)}
     pods = [Pod(name=f"dra-{i}", resource_claims=(f"claim-{i}",),
                 containers=[Container(name="c", requests={"cpu": "50m", "memory": "32Mi"})])
@@ -3476,13 +3488,78 @@ def timed_sim(torch, device, fn):
     return sim, time.perf_counter() - t0, {k: v for k, v in _build.launches.items() if v}
 
 
-def phase_config14(torch, device, k=64, cpu_forks=None, **world):
+def config14_bound(torch, sched, forks, backlog):
+    """counterfactual_run's bound for one simulate_forks run, from the run's
+    own inputs: K15's and K16's bounds (bytes, as phase_planner_kernels
+    computes them), plus the fork count times the first fork's K1, K7, K8
+    and K11 bounds (precompute_static_bound, gang_bounds, wave_bounds and
+    k11_bound on that fork's inputs and outputs; every fork has the same
+    shapes).
+    The inputs are captured by wrapping the wrappers (and, for a device="cpu"
+    scheduler, K15's and K16's plain versions, which the CPU run calls
+    directly) for one extra run.  Returns (bound_ms, parts)."""
+    import inspect
+
+    from kubernetes_tpu_torch.ops import coscheduling as cos
+    from kubernetes_tpu_torch.ops import counterfactual as cf
+    from kubernetes_tpu_torch.ops import gang, wave
+    from kubernetes_tpu_torch.planner import simulate_forks
+
+    seen, orig = {}, []
+    for mod, attr, key in ((cf, "fork_cluster_view", "k15"), (cf, "fork_summary", "k16"),
+                           (cf, "fork_cluster_view_plain", "k15"), (cf, "fork_summary_plain", "k16"),
+                           (wave, "wave_speculate", "k8"),
+                           (cos, "workloads_admit", "k11")):
+        fn = getattr(mod, attr)
+        orig.append((mod, attr, fn))
+
+        def grab(*a, _fn=fn, _key=key, **k):
+            out = _fn(*a, **k)
+            if _key not in seen:
+                seen[_key] = (inspect.signature(_fn).bind(*a, **k).arguments, out)
+            return out
+        setattr(mod, attr, grab)
+    try:
+        simulate_forks(sched, forks, backlog)
+    finally:
+        for mod, attr, fn in orig:
+            setattr(mod, attr, fn)
+    kf = len(forks)
+    a15, v15 = seen["k15"]
+    dc15 = a15["dc"]
+    b15 = bound_ms(nbytes(dc15.node_labels, dc15.taint_key, dc15.taint_val, dc15.taint_effect, dc15.dom_ids,
+                          a15["fk_alive"], *(t for t in (a15.get("visit_rank"),) if t is not None), *v15.values()), 0)
+    a16, v16 = seen["k16"]
+    KF, P = a16["chosen"].shape
+    N = a16["fk_alive"].shape[1]
+    b16 = bound_ms(nbytes(a16["chosen"], a16["reason_counts"], a16["fk_alive"], a16["valid"], a16["fk_pod_live"],
+                          *v16) + 2 * 2 * 4 * KF * N, KF * (P * 9 + N * 8))
+    a11, v11 = seen["k11"]
+    dc, db, g = a11["dc"], a11["db"], a11["g"]
+    b1 = precompute_static_bound(dc, db, bool((db.img_ids >= 0).any()))
+    _, raw, n_feas, _, _, gang_admit = v11[:6]
+    weights = a11.get("weights", gang.DEFAULT_WEIGHTS)
+    wt = {k: a11[k] for k in WAVE_TABLES}
+    wt.update(has_ports=False, tid_pt=torch.zeros((0,), dtype=torch.int32), port_conf=torch.zeros((0,), dtype=torch.bool))
+    rows = {k: a11[k] for k in ("gang_id", "gang_first", "gang_last", "gang_need", "g_cap")}
+    b7 = gang_bounds(torch, dc, db, g, raw, n_feas, weights)[1]
+    a8, c0 = seen["k8"]
+    spec_feas = torch.zeros((db.valid.shape[0],), dtype=torch.int64, device=dc.node_valid.device)
+    wave.wave_speculate_plain(**dict(a8, n_feas=spec_feas))
+    b8 = wave_bounds(torch, dc, db, g, wt, c0, spec_feas, raw, n_feas, weights)[0]
+    b11 = k11_bound(torch, dc, db, g, wt, rows, raw, n_feas, gang_admit, weights)
+    parts = dict(fork_view=b15[0], fork_summary=b16[0], static_eval=b1[0], gang_interpod_statics=b7[0],
+                 wave_speculate=b8[0], workloads_admit=b11[0], forks=kf, per_fork=b1[0] + b7[0] + b8[0] + b11[0])
+    return b15[0] + b16[0] + kf * parts["per_fork"], parts
+
+
+def phase_config14(torch, device, k=64, ref_forks=16, **world):
     """bench_plan (config14) on the card: one K=64 simulate_forks on the
-    kernel engine (after a warm-up run), every fork equal to the serial
-    engine's (plannerKernel off) and to the kernel engine of a
-    device="cpu" scheduler (counterfactual_run_plain; ``cpu_forks`` limits
-    it to the first forks); then the 64 forks one at a time (K=1), each
-    equal to its batched row.  ``world``: config14_world's sizes.  Returns
+    kernel engine (after a warm-up run), its first ``ref_forks`` forks
+    equal to the serial engine's (plannerKernel off) and to the kernel
+    engine of a device="cpu" scheduler (counterfactual_run_plain), each run
+    on those forks alone; then the 64 forks one at a time (K=1), each equal
+    to its batched row.  ``world``: config14_world's sizes.  Returns
     the batched run's launches."""
     from kubernetes_tpu_torch.planner import simulate_forks
 
@@ -3497,12 +3574,13 @@ def phase_config14(torch, device, k=64, cpu_forks=None, **world):
         missing = [k for k in PLANNER_KERNELS + ("gang_interpod_statics",) if not launches.get(k)]
         if missing:
             raise AssertionError(f"config14: {missing} not launched ({launches})")
-    serial, serial_s, _ = timed_sim(torch, device, lambda: simulate_forks(sched, forks, backlog, use_kernel=False))
-    same_forks(batched.forks, serial.forks, "config14 kernel vs serial engine")
+    serial, serial_s, _ = timed_sim(torch, device, lambda: simulate_forks(sched, forks[:ref_forks], backlog,
+                                                                          use_kernel=False))
+    same_forks(batched.forks[:ref_forks], serial.forks, "config14 kernel vs serial engine")
     cpu = torch.device("cpu")
     nodes_c, fill_c, backlog_c = config14_world(**world)
     sched_c = planner_sched(cpu, nodes_c, fill_c)
-    forks_c = mixed_forks(sched_c, k)[:cpu_forks]
+    forks_c = mixed_forks(sched_c, k)[:ref_forks]
     plain, plain_s, _ = timed_sim(torch, cpu, lambda: simulate_forks(sched_c, forks_c, backlog_c))
     same_forks(batched.forks[:len(forks_c)], plain.forks, "config14 cuda vs counterfactual_run_plain on the CPU")
     seq_launches = {}
@@ -3513,12 +3591,14 @@ def phase_config14(torch, device, k=64, cpu_forks=None, **world):
         for k, v in ln.items():
             seq_launches[k] = seq_launches.get(k, 0) + v
     seq_s = time.perf_counter() - t0
+    cf_bound, cf_parts = config14_bound(torch, sched, forks, backlog)
     log(phase="config14_plan", k=batched.k, pods=len(backlog), nodes=len(nodes), batched_s=batched_s,
+        counterfactual_run_bound_ms=cf_bound, counterfactual_run_bound_parts=cf_parts,
         launches=launches, launches_total=sum(launches.values()), serial_s=serial_s, cpu_plain_s=plain_s,
-        cpu_forks_compared=len(forks_c), seq_k1_s=seq_s, seq_k1_launches=seq_launches,
+        ref_forks_compared=len(forks_c), seq_k1_s=seq_s, seq_k1_launches=seq_launches,
         seq_k1_launches_total=sum(seq_launches.values()),
         admitted=[f["admitted"] for f in batched.forks], density_ppm=batched.forks[0]["density_ppm"],
-        compared="kernel == serial == cpu plain == 64 x K=1")
+        compared=f"kernel == serial == cpu plain on the first {len(forks_c)} forks; kernel == {len(forks)} x K=1")
     return launches
 
 
@@ -3609,6 +3689,336 @@ def phase_planner_full(torch, device, n_nodes=5000, sampled=8, k=64):
         planners=rows, k64=dict(k=batched.k, wall_s=batched_s, launches=ln, launches_total=sum(ln.values()),
                                 sampled_equal_alone=picks, admitted=[f["admitted"] for f in batched.forks[:8]]))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: explain and the independent pipeline (K17, K18); the DRA kernels
+# past 256 device slots
+# ---------------------------------------------------------------------------
+
+
+def packed_snapshot(nodes, placed, pending, P):
+    """The snapshot (an object with the packed ``nodes``, ``existing`` and
+    their ``vocab``, as a Scheduler's mirror has them) and one packed batch
+    of the first P pending pods, through the port's packers."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.cache.mirror import accumulate_node_usage
+    from kubernetes_tpu_torch.snapshot.interner import Vocab
+    from kubernetes_tpu_torch.snapshot.schema import pack_existing_pods, pack_nodes, pack_pod_batch
+
+    vocab = Vocab()
+    for p in list(placed) + list(pending):
+        for k, v in p.labels.items():
+            vocab.intern_label(k, v)
+    nt = pack_nodes(nodes, vocab)
+    accumulate_node_usage(nt, placed, vocab)
+    ep = pack_existing_pods(placed, nt.name_to_idx, vocab, k_cap=nt.k_cap)
+    pb = pack_pod_batch(pending[:P], vocab, k_cap=nt.k_cap, p_cap=P)
+    return SimpleNamespace(nodes=nt, existing=ep, vocab=vocab), pb
+
+
+def explain_shapes(n_config4=5000, n_mixed=5000, P=512):
+    """K17's shapes: config4's (5,000 nodes in 8 zones, 45,000 placed spread
+    pods, 512 spread pods) and the mixed one (tests/gen.py-style: 5,000
+    nodes, 500 placed pods, 512 pods, one in 16 naming a node and one in 16
+    asking 64 cpu), as (name, nodes, placed, pending)."""
+    import dataclasses
+
+    from kubernetes_tpu_torch.api import Container
+
+    c4 = basic_nodes(n_config4, zones=8)
+    nodes, placed, pending = gen_cluster(5, n_mixed, n_mixed // 10, P)
+    for i, p in enumerate(pending):  # nodeName targets and pods too big to fit, for rows 1 and 6
+        if i % 16 == 3:
+            pending[i] = dataclasses.replace(p, node_name=f"node-{(7 * i) % n_mixed}")
+        elif i % 16 == 7:
+            pending[i] = dataclasses.replace(p, containers=[Container(name="c0", requests={"cpu": "64",
+                                                                                            "memory": "1Gi"})])
+    return [("config4", c4, place_round_robin(spread_pods(9 * n_config4, prefix="placed"), c4),
+             spread_pods(P, prefix="new")),
+            ("mixed", nodes, placed, pending)]
+
+
+def k17_row(torch, name, dc, db, kw, flags, reps, extra=None):
+    """K17 (explain_stack) against its plain version on the statics of the
+    precompute (K1, K6, K7) of one packed batch, exact on the [10, P, N]
+    buffer, with `extra` as the host-filter lane; the rows' failing pairs,
+    the kernel's time, the plain version's and the bound.  Returns the
+    row."""
+    from kubernetes_tpu_torch.ops import explain as ops_explain
+    from kubernetes_tpu_torch.ops import gang
+
+    g = gang.precompute(dc, db, **kw, **dict(flags, has_images=False), extra_mask=extra)
+    got = ops_explain.explain_stack(dc, db, g)
+    want = ops_explain.explain_stack_plain(dc, db, g)
+    err = max_abs_err(torch, got, want)
+    if err:
+        rows = [r for r in range(got.shape[0]) if not torch.equal(got[r], want[r])]
+        raise AssertionError(f"{name}: explain_stack kernel != plain on rows {rows}")
+    live = db.valid[:, None] & dc.node_valid[None, :]
+    failing = {p: int((~got[r] & live).sum().item()) for r, p in enumerate(gang.DIAG_KERNELS)}
+    P, N = live.shape
+    C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
+    read = nbytes(dc.node_valid, dc.num_pods, dc.allowed_pods, dc.allocatable, dc.requested, db.valid, db.requests,
+                  g.d_unsched, g.d_nodename, g.d_taints, g.d_nodeaff, g.d_ports, g.d_extra, g.sp_hard, g.sp_dv,
+                  g.sp_te, g.sp_dom_cnt, g.sp_dom_pres, g.sp_ndom, g.sp_self, db.tsc_min_domains[:, :C],
+                  db.tsc_max_skew[:, :C], g.ip_viol_existing, g.ip_dv, g.ip_dom_cnt, g.ip_is_aff, g.ip_is_anti,
+                  g.ip_any_static, g.ip_self_all)
+    ops = P * N * (db.requests.shape[1] + 4 * C + 4 * AT + 2 * (gang.N_DIAG + 1))
+    b, by = bound_ms(read + nbytes(got), ops)
+    ms = time_ms(torch, lambda: ops_explain.explain_stack(dc, db, g), reps)
+    plain_ms = time_ms(torch, lambda: ops_explain.explain_stack_plain(dc, db, g), 3)
+    row = dict(shape=name, P=int(db.valid.sum().item()), N=int(dc.node_valid.sum().item()), C=C, AT=AT, k17_err=err,
+               failing_pairs=failing, feasible_pairs=int(got[gang.N_DIAG].sum().item()), out_bytes=nbytes(got),
+               explain_stack=dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                                  library_ms=None))
+    log(phase="explain_kernel_check", **row)
+    return row
+
+
+def k18_row(torch, device, pc, pb, reps):
+    """K18 (pipeline_score) against its plain version on the statics and
+    K17's feasible mask of one packed batch, exact on chosen, feasible,
+    totals and n_feasible, with the kernel's time, the plain version's and
+    the bound; then the whole CUDA route (``pipeline``: K1, K6, K7, K17,
+    K18) against ``pipeline_plain`` (the reference's all_masks and
+    all_scores) on the card.  Returns the row."""
+    from kubernetes_tpu_torch.ops import explain as ops_explain
+    from kubernetes_tpu_torch.ops import gang
+    from kubernetes_tpu_torch.ops import pipeline as ops_pipe
+    from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster
+    from kubernetes_tpu_torch.snapshot.schema import bucket_cap
+
+    vocab = pc.vocab
+    dc = DeviceCluster.from_host(pc.nodes, vocab, device, ep=pc.existing)
+    db = DeviceBatch.from_host(pb, device)
+    v_cap = bucket_cap(len(vocab.label_vals))
+    hk = vocab.label_keys.lookup(HOSTNAME)
+    has_interpod, has_spread, has_images, _ = ops_pipe.batch_feature_flags(pc, pb)
+    tables = gang.batch_tables(pb.tsc_topo_key, pb.aff_topo_key, pc.nodes.label_vals, hk)
+    d_cap = tables["d_cap"]
+    tab = {k: torch.as_tensor(tables[k], device=device) for k in ("sp_keys", "sp_cdv_tab", "ip_keys")}
+    g = gang.precompute(dc, db, hk, v_cap, has_interpod=has_interpod, has_spread=has_spread, has_ports=False,
+                        has_images=has_images, **tab)
+    feasible = ops_explain.explain_stack(dc, db, g)[gang.N_DIAG]
+    got = ops_pipe.pipeline_score(dc, db, g, feasible, gang.DEFAULT_WEIGHTS, d_cap)
+    want = ops_pipe.pipeline_score_plain(dc, db, g, feasible, gang.DEFAULT_WEIGHTS, d_cap)
+    err = max(max_abs_err(torch, a, b) for a, b in zip(got, want))
+    route = ops_pipe.pipeline(dc, db, hk, v_cap, has_interpod, has_spread, has_images, **tables)
+    ref = ops_pipe.pipeline_plain(dc, db, hk, v_cap, has_interpod, has_spread, has_images)
+    ref_ms = time_ms(torch, lambda: ops_pipe.pipeline_plain(dc, db, hk, v_cap, has_interpod, has_spread,
+                                                            has_images), 3)
+    route_err = max(max_abs_err(torch, a, b) for a, b in zip(route, ref))
+    if err or route_err:
+        raise AssertionError(f"pipeline: K18 != plain by {err}, the CUDA route != pipeline_plain by {route_err}")
+    P, N = feasible.shape
+    C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
+    # bytes this run's data needs: the feasible mask everywhere; at each
+    # feasible pair the three static score planes, the symmetric score, the
+    # inter-pod rows, sp_all_keys and one count row per soft slot; at each
+    # counted pair one compact-domain row per non-hostname slot; the usage
+    # rows once; the totals, counts and choices written once
+    f_p = feasible.sum(1)
+    k_p = (feasible & g.sp_all_keys).sum(1)
+    soft_p = g.sp_soft.sum(1)
+    nonhost_p = (g.sp_soft & ~g.sp_is_host).sum(1)
+    per_feas = 8 * 4 + 8 * AT + (1 if C else 0)
+    need = int((f_p * (per_feas + 4 * soft_p) + k_p * 4 * nonhost_p).sum().item())
+    need += nbytes(feasible, dc.nonzero_req, db.requests, db.nonzero_req, db.tsc_max_skew[:, :C], g.sp_soft,
+                   g.sp_is_host, g.ip_pref_w) + N * 4 * 4 + C * 8  # allocatable / requested cpu and memory
+    ops = int((f_p * (40 + 8 * C + 4 * AT)).sum().item()) + P * N * 2
+    b, by = bound_ms(need + nbytes(got.chosen, got.totals, got.n_feasible), ops)
+    plain_ms = time_ms(torch, lambda: ops_pipe.pipeline_score_plain(dc, db, g, feasible, gang.DEFAULT_WEIGHTS,
+                                                                     d_cap), 3)
+    ms = time_ms(torch, lambda: ops_pipe.pipeline_score(dc, db, g, feasible, gang.DEFAULT_WEIGHTS, d_cap), reps)
+    row = dict(shape="k18_mixed_images", P=int(db.valid.sum().item()), N=int(dc.node_valid.sum().item()), C=C, AT=AT,
+               placed=int(dc.epod_valid.sum().item()), has_images=has_images, has_interpod=has_interpod,
+               has_spread=has_spread, k18_err=err, route_err=route_err,
+               scheduled=int((route.chosen >= 0).sum().item()),
+               one_feasible=int((route.n_feasible == 1).sum().item()), totals_bytes=nbytes(got.totals),
+               pipeline_plain_ms=ref_ms,
+               pipeline_score=dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                                   library_ms=None))
+    log(phase="pipeline_kernel_check", **row)
+    return row, ref
+
+
+def phase_explain_kernels(torch, device, reps=10, n_config4=5000, n_mixed=5000, n_k18=10240, P=512):
+    """K17 at config4's shape and at the mixed shape (with a seeded
+    host-filter lane, so that all nine rows fail somewhere), K18 at the
+    K18 shape (10,240 tests/gen.py-style nodes with images, 102 placed
+    pods, 512 mixed pods), each exact against its plain version, and the
+    CUDA pipeline route against pipeline_plain.  Returns (K17 rows by
+    shape, the K18 row, the K18 shape's snapshot, batch and the plain
+    pipeline's result)."""
+    rows = {}
+    for name, nodes, placed, pending in explain_shapes(n_config4, n_mixed, P):
+        dc, db, kw, d_cap, flags, pb, nt = _gang_pack(torch, device, nodes, placed, pending, P)
+        extra = None
+        if name == "mixed":
+            gen = torch.Generator().manual_seed(59)
+            extra = (torch.rand(db.valid.shape[0], dc.node_valid.shape[0], generator=gen) < 0.9).to(device)
+        rows[name] = k17_row(torch, name, dc, db, kw, flags, reps, extra=extra)
+    if n_mixed >= 1000 and not all(rows["mixed"]["failing_pairs"].values()):
+        raise AssertionError(f"the mixed shape leaves a row unexercised: {rows['mixed']['failing_pairs']}")
+    pc, pb = packed_snapshot(*gen_cluster(61, n_k18, n_k18 // 100, P)[:3], P)
+    k18, ref = k18_row(torch, device, pc, pb, reps)
+    return rows, k18, (pc, pb, ref)
+
+
+def phase_dra_slots(torch, device, reps=10, n_nodes=1000, P=128):
+    """K14 and K11's DRA mode past the register words: dra_kernel_row (every
+    output exact against the plain versions) at N=1,000, P=128, DQ=2 with
+    320 device slots per node (five 64-bit words, the scratch-row path)
+    and with today's 8 (the register path), each with its times.  Returns
+    {devices: row}."""
+    rows = {}
+    for devices in (8, 320):
+        world = dra_check_world(n_nodes, P, devices=devices, seed=43)
+        dc, db, kw, d_cap, flags, wt, dt, _ = dra_inputs(torch, device, n_nodes, P, world=world)
+        grows = gang_rows(torch, device, int(db.valid.sum().item()), db.valid.shape[0],
+                          lambda g: 9 if g % 4 == 0 else 8)
+        rows[devices] = dra_kernel_row(torch, f"dd{devices}_n{n_nodes}", dc, db, kw, d_cap, flags, wt, dt, grows,
+                                       reps)
+    log(phase="dra_slots", dd8_k14_ms=rows[8]["dra_spec_mask"]["ms"], dd320_k14_ms=rows[320]["dra_spec_mask"]["ms"],
+        dd8_k11_ms=rows[8]["k11_dra_ms"], dd320_k11_ms=rows[320]["k11_dra_ms"])
+    return rows
+
+
+def _uid_names(sched, pods=()):
+    out = {p.uid: p.name for p in pods}
+    for q in sched.queue.pending_pods().values():
+        out.update({p.uid: p.name for p in q})
+    out.update({uid: p.name for uid, p in sched.cache.pod_states.items()})
+    return out
+
+
+def _by_name(d, names):
+    """The dict with every pod uid replaced by its pod's name (two
+    schedulers built apart give the same pods different uids)."""
+    if isinstance(d, dict):
+        return {k: (names.get(v, v) if k == "uid" else _by_name(v, names)) for k, v in d.items()}
+    if isinstance(d, list):
+        return [_by_name(v, names) for v in d]
+    return d
+
+
+def explain_probes():
+    """explain_pod's four pods on config4's cluster: a spread pod, a
+    hostname anti-affinity pod, a pod larger than every node and a pod
+    with nodeName."""
+    from kubernetes_tpu_torch.api import Container, Pod
+
+    spread = spread_pods(1, prefix="probe-spread")[0]
+    anti = interpod_pods(1, prefix="probe-anti")[0]
+    big = Pod(name="probe-big", containers=[Container(name="c", requests={"cpu": "64", "memory": "1Ti"})])
+    named = Pod(name="probe-named", node_name="node-17", containers=[Container(name="c", requests={"cpu": "1"})])
+    return [spread, anti, big, named]
+
+
+def phase_explain(torch, device, n_nodes=5000, n_placed=45000, n_preempt=500, k18=None):
+    """The slice's main path through the entry points a user calls, the
+    launch counts reset just before and read just after: explain_pod for
+    explain_probes' four pods on config4's cluster (5,000 nodes in 8 zones,
+    45,000 placed spread pods) on a Scheduler on cuda; explain_whatif for
+    one preemptor of bench_preemption's world (500 nodes) at node-0; and
+    schedule_independent at the K18 shape.  Each is held against the same
+    call on a device="cpu" Scheduler built the same way (the explain and
+    what-if dicts equal, pod uids by name; the what-if's parity True) or,
+    for schedule_independent, against the plain pipeline's result from
+    phase_explain_kernels.  Returns the launches."""
+    from kubernetes_tpu_torch import observability as obs
+    from kubernetes_tpu_torch.ops import _build
+    from kubernetes_tpu_torch.ops import pipeline as ops_pipe
+
+    def config4_sched(dev):
+        nodes = basic_nodes(n_nodes, zones=8)
+        sched = planner_sched(dev, nodes, place_round_robin(spread_pods(n_placed, prefix="placed"), nodes))
+        sched._repack_mirror()  # set-up: the host snapshot's first full pack, as a drain would have made it
+        return sched
+
+    def preempt_sched(dev):
+        nodes, victims, preemptors = preemption_world(n_preempt, 1)
+        return planner_sched(dev, nodes, victims), preemptors[0]
+
+    devices = (device, torch.device("cpu"))
+    scheds = [(config4_sched(dev), *preempt_sched(dev)) for dev in devices]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    _build.reset_launches()
+    t_path = time.perf_counter()
+    runs = []
+    for i, dev in enumerate(devices):
+        s4, sp, preemptor = scheds[i]
+        out = {"explain": {}, "wall_ms": {}}
+        for pod in explain_probes():
+            t0 = time.perf_counter()
+            ex = obs.explain_pod(s4, pod)
+            out["wall_ms"][pod.name] = (time.perf_counter() - t0) * 1e3
+            out["explain"][pod.name] = _by_name(ex, _uid_names(s4, [pod]))
+        t0 = time.perf_counter()
+        wi = obs.explain_whatif(sp, preemptor, "node-0")
+        out["wall_ms"]["whatif"] = (time.perf_counter() - t0) * 1e3
+        out["whatif"] = _by_name(wi, _uid_names(sp, [preemptor]))
+        if i == 0:  # the path on the card ends with the pipeline
+            pc, pb, ref = k18
+            t0 = time.perf_counter()
+            res = ops_pipe.schedule_independent(pc, pb, device=dev)
+            out["wall_ms"]["schedule_independent"] = (time.perf_counter() - t0) * 1e3
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = dict(_build.launches)
+            path_s = time.perf_counter() - t_path
+            si_err = max(max_abs_err(torch, a, b.cpu()) for a, b in zip(res, ref))
+        runs.append(out)
+    cuda, cpu = runs
+    diff = [k for k in cuda["explain"] if cuda["explain"][k] != cpu["explain"][k]]
+    wi = cuda["whatif"]
+    bad = [bool(diff), wi != cpu["whatif"], wi.get("parity") is not True, si_err != 0,
+           launches.get("explain_stack", 0) < len(cuda["explain"]) + 1, launches.get("pipeline_score", 0) < 1]
+    if any(bad):
+        raise AssertionError(f"explain path: {bad}: explain differs on {diff}, whatif {wi} vs {cpu['whatif']}, "
+                             f"schedule_independent err {si_err}, launches {launches}")
+    ex = cuda["explain"]
+    log(phase="explain_path", nodes=n_nodes, placed=n_placed, equal_to_cpu=True,
+        n_feasible={k: v.get("n_feasible") for k, v in ex.items()},
+        summary={k: v.get("summary") for k, v in ex.items()},
+        whatif=dict(victims=[v["name"] for v in wi.get("victims", [])], parity=wi["parity"],
+                    engine=wi["kernel"]["engine"], feasible=wi["feasible_after_preemption"]),
+        schedule_independent_equal_plain=True, cuda_wall_ms=cuda["wall_ms"], cpu_wall_ms=cpu["wall_ms"],
+        path_s=path_s, launches={k: v for k, v in launches.items() if v})
+    return launches
+
+
+def phase_dra_large(torch, device, n_nodes=50, devices=300, n_pods=1500, count=10):
+    """A DRA drain past the register words: 50 nodes of 300 devices each
+    and 1,500 pods with one ExactCount=10 claim each (every device taken),
+    on cuda and with device="cpu": bindings and claim pins identical, no
+    device granted twice, every claim on its pod's node.  Returns the cuda
+    drain's launches."""
+    from kubernetes_tpu_torch.ops import _build
+
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        nodes, slices, classes, claims, pods = dra_bench_world(n_nodes, n_pods, devices, count=count)
+        _build.reset_launches()
+        got, outs, dt, sched = gang_drain(dev, nodes, (), pods, dra=(slices, classes, claims))
+        check_capacity(sched)
+        allocated, granted = dra_drain_checks(sched, got, claims, pods)
+        pins = {c.key: (c.allocation.node_name, tuple(r.device for r in c.allocation.results))
+                for c in sched.claim_cache.list() if c.allocation is not None}
+        runs.append((got, pins, allocated, granted, dt, dict(_build.launches)))
+    (got, pins, allocated, granted, dt, launches), (cgot, cpins, _, _, cdt, _) = runs
+    unplaced = [k for k, v in got.items() if v is None]
+    bad = [got != cgot, pins != cpins, bool(unplaced), allocated != n_pods, granted != n_pods * count,
+           any(launches[k] <= 0 for k in ("dra_spec_mask", "workloads_admit"))]
+    if any(bad):
+        raise AssertionError(f"dra large drain: {bad} unplaced {unplaced[:3]} {launches}")
+    log(phase="dra_large_drain", nodes=n_nodes, devices_per_node=devices, pods=n_pods, count=count,
+        claims_allocated=allocated, devices_granted=granted, equal_to_cpu=True, no_double_grant=True,
+        cuda_drain_s=dt, cpu_drain_s=cdt, launches={k: v for k, v in launches.items() if v})
+    return launches
 
 
 def main() -> int:
@@ -3756,13 +4166,31 @@ def main() -> int:
                    launches_dra_parity=dra_parity_l["workloads_admit"])
     # the counterfactual planner: K15 and K16 against their plain versions
     # at 64 forks over config4's node set, K8 and K11 with a target score;
-    # config14 (bench_plan) on the kernel engine against the serial engine,
-    # the CPU's plain run and the 64 forks one at a time; the three planners
+    # config14 (bench_plan) on the kernel engine against the serial engine
+    # and the CPU's plain run on its first 16 forks, and the 64 forks one
+    # at a time; the three planners
     # at full width
     k15, k16, es_row = phase_planner_kernels(torch, device)
     checks["fork_view"], checks["fork_summary"] = k15, k16
     config14_l = phase_config14(torch, device)
     phase_planner_full(torch, device)
+    # explain and the independent pipeline: K17 at config4's and the mixed
+    # shape, K18 at the K18 shape, each against its plain version, and the
+    # CUDA pipeline route against pipeline_plain; K14 and K11's DRA mode
+    # at 320 device slots beside 8; the main path (explain_pod,
+    # explain_whatif, schedule_independent) on cuda against the CPU; the
+    # DRA drain with 300 devices per node on cuda and on the CPU
+    k17_rows, k18_row_, k18_shape = phase_explain_kernels(torch, device)
+    dd_rows = phase_dra_slots(torch, device)
+    explain_l = phase_explain(torch, device, k18=k18_shape)
+    dra_large_l = phase_dra_large(torch, device)
+    checks["explain_stack"] = dict(k17_rows["config4"]["explain_stack"], mixed=k17_rows["mixed"]["explain_stack"],
+                                   max_abs_err=max(r["k17_err"] for r in k17_rows.values()))
+    checks["pipeline_score"] = dict(route_err=k18_row_["route_err"], **k18_row_["pipeline_score"])
+    checks["dra_spec_mask"]["max_abs_err"] = max(checks["dra_spec_mask"]["max_abs_err"],
+                                                 *(r["k14_err"] for r in dd_rows.values()))
+    checks["dra_spec_mask"]["dd320"] = dict(dd_rows[320]["dra_spec_mask"], dd8_ms=dd_rows[8]["dra_spec_mask"]["ms"],
+                                            launches_dra_large_drain=dra_large_l["dra_spec_mask"])
     # each kernel's error: the largest over the shapes of this run
     for kernel, err in (("gang_scan", "k5_err"), ("gang_spread_statics", "k6_err"),
                         ("gang_interpod_statics", "k7_err")):
@@ -3774,8 +4202,12 @@ def main() -> int:
     checks["wave_speculate"]["max_abs_err"] = max(checks["wave_speculate"]["max_abs_err"], dra_row["k8_lane_err"])
     checks["wave_speculate"]["dra_lane"] = dict(shape="config4_dra", max_abs_err=dra_row["k8_lane_err"],
                                                 ms=dra_row["k8_lane_ms"], plain_ms=dra_row["k8_lane_plain_ms"])
-    checks["workloads_admit"] = dict(max_abs_err=max([r["k11_err"] for r in wl_rows.values()] + [dra_row["k11_err"]]),
+    checks["workloads_admit"] = dict(max_abs_err=max([r["k11_err"] for r in wl_rows.values()] + [dra_row["k11_err"]]
+                                                     + [r["k11_err"] for r in dd_rows.values()]),
                                      dra=k11_dra, **wl_rows["config10"]["workloads_admit"])
+    checks["workloads_admit"]["dra"]["dd320"] = dict(
+        max_abs_err=dd_rows[320]["k11_err"], ms=dd_rows[320]["k11_dra_ms"], plain_ms=dd_rows[320]["k11_dra_plain_ms"],
+        dd8_ms=dd_rows[8]["k11_dra_ms"], launches_dra_large_drain=dra_large_l["workloads_admit"])
     # K8 and K11 with the planner's extra_score (a target bonus)
     checks["wave_speculate"]["max_abs_err"] = max(checks["wave_speculate"]["max_abs_err"], es_row["k8_err"])
     checks["wave_speculate"]["extra_score"] = dict(shape="config4_extra_score", max_abs_err=es_row["k8_err"],
@@ -3817,6 +4249,10 @@ def main() -> int:
                       "config14", config14_l),
         "fork_summary": ("kubernetes_tpu_torch/csrc/counterfactual.cu",
                          "kubernetes_tpu/ops/counterfactual.py:148", "config14", config14_l),
+        "explain_stack": ("kubernetes_tpu_torch/csrc/explain.cu", "kubernetes_tpu/ops/explain.py:67",
+                          "explain_path", explain_l),
+        "pipeline_score": ("kubernetes_tpu_torch/csrc/pipeline.cu", "kubernetes_tpu/ops/pipeline.py:52",
+                           "explain_path", explain_l),
     }
     kernels = []
     for name, (src, replaces, path, launches) in sources.items():

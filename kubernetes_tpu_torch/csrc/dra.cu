@@ -27,10 +27,13 @@
 // verdict at node n against free0 and claim_node0, which K8 reads as its
 // port lane.  Design: one thread per (p, n), a block per (256 nodes, p),
 // each thread walking the pod's DQ request slots over its node's DD device
-// slots with the pod's greedy free set in registers; the verdict is
+// slots with the pod's greedy free set as bit words; the verdict is
 // ktpu::dra::node_verdict (csrc/ktpu.cuh), which K11 runs against its
-// carries.  Bound on the H100: bytes (the P DQ N DD match bytes are read
-// once; the arithmetic is a few popcounts per slot).
+// carries.  The words sit in registers, the kernel instantiated for 1, 2 or
+// 4 of them, while DD <= 256; past that each thread keeps them in its own
+// scratch row in global memory (the grid's p stride capped at the rows the
+// wrapper allocated).  Bound on the H100: bytes (the P DQ N DD match bytes
+// are read once; the arithmetic is a few popcounts per slot).
 #include "ktpu.cuh"
 
 using namespace ktpu;
@@ -89,17 +92,20 @@ __global__ void __launch_bounds__(DRA_THREADS)
                                                                      sel_vals, out, pq, nd, DS, DV, ND, DA);
 }
 
+template <int W>
 __global__ void __launch_bounds__(DRA_THREADS)
     spec_mask_kernel(const unsigned char* match, const unsigned char* free0, const int* claim_node0,
                      const int* req_count, const unsigned char* req_all, const int* req_cl,
                      const unsigned char* q_valid, const unsigned char* req_bad, const int* ref_cl,
-                     unsigned char* out, int P, int DQ, int N, int DD, int CL, int CQ) {
+                     unsigned char* out, unsigned long long* scratch, int P, int DQ, int N, int DD, int CL, int CQ) {
   const int n = blockIdx.x * DRA_THREADS + threadIdx.x;
   if (n >= N) return;
+  unsigned long long* const words =
+      W > 0 ? nullptr : scratch + ((long long)blockIdx.y * N + n) * dra::scratch_words(DD);
   for (int p = blockIdx.y; p < P; p += gridDim.y) {
     const dra::PodRows r = dra::pod_rows(match, req_count, req_all, req_cl, q_valid, req_bad, ref_cl, p, DQ, CQ, N,
                                          DD, CL);
-    out[(long long)p * N + n] = dra::node_verdict(r, free0, claim_node0, n, nullptr);
+    out[(long long)p * N + n] = dra::node_verdict<W>(r, free0, claim_node0, n, words);
   }
 }
 
@@ -120,14 +126,26 @@ extern "C" int ktpu_dra_selector_match(const int* dev_key, const int* dev_val, c
 }
 
 // Enqueues K14 on `stream` and returns the launch status (cudaGetLastError).
+// Past dra::REG_DD slots `scratch` holds scratch_rows * N rows of
+// dra::scratch_words(DD) words, one per thread of a grid scratch_rows high.
 extern "C" int ktpu_dra_spec_mask(const unsigned char* match, const unsigned char* free0, const int* claim_node0,
                                   const int* req_count, const unsigned char* req_all, const int* req_cl,
                                   const unsigned char* q_valid, const unsigned char* req_bad, const int* ref_cl,
-                                  unsigned char* out, int P, int DQ, int N, int DD, int CL, int CQ, void* stream) {
+                                  unsigned char* out, unsigned long long* scratch, int P, int DQ, int N, int DD, int CL,
+                                  int CQ, int scratch_rows, void* stream) {
   if (P == 0 || N == 0) return 0;
-  if (DD > dra::MAX_DD) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((N + DRA_THREADS - 1) / DRA_THREADS), (unsigned)(P < 65535 ? P : 65535));
-  spec_mask_kernel<<<grid, DRA_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      match, free0, claim_node0, req_count, req_all, req_cl, q_valid, req_bad, ref_cl, out, P, DQ, N, DD, CL, CQ);
+  const bool regs = DD <= dra::REG_DD;
+  if (!regs && (scratch == nullptr || scratch_rows < 1)) return (int)cudaErrorInvalidValue;
+  const int gy = regs ? (P < 65535 ? P : 65535) : (P < scratch_rows ? P : scratch_rows);
+  const dim3 grid((unsigned)((N + DRA_THREADS - 1) / DRA_THREADS), (unsigned)gy);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define KTPU_SPEC_MASK(W)                                                                                      \
+  spec_mask_kernel<W><<<grid, DRA_THREADS, 0, st>>>(match, free0, claim_node0, req_count, req_all, req_cl, q_valid, \
+                                                    req_bad, ref_cl, out, scratch, P, DQ, N, DD, CL, CQ)
+  if (DD <= 64) KTPU_SPEC_MASK(1);
+  else if (DD <= 128) KTPU_SPEC_MASK(2);
+  else if (regs) KTPU_SPEC_MASK(4);
+  else KTPU_SPEC_MASK(0);
+#undef KTPU_SPEC_MASK
   return (int)cudaGetLastError();
 }

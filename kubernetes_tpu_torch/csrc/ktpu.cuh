@@ -620,6 +620,8 @@ struct WorkloadsArgs {
   unsigned char* free;              // [N, DD]  carry: no allocated claim holds the device
   int* claim_node;                  // [CL]     carry: node of a referenced claim (-1 none)
   unsigned char* dra_row;           // [N]      scratch: the step's DRA verdict per node
+  unsigned long long* dra_scratch;  // [ADMIT_THREADS, 2 ceil(DD/64)] per-thread verdict words
+                                    // past dra::REG_DD slots (null below)
   int g_cap, DQ, DD, CQ, CL;
 };
 
@@ -636,11 +638,13 @@ namespace dra {
 // slot's take gone for the later slots: ExactCount needs `count` matching
 // free devices and takes the lowest slots, All needs every matching device
 // free (counted over all matching devices, free or not) and at least one,
-// and takes them all.  A node's free set sits in registers as 64-bit words.
+// and takes them all.  A node's free set and a slot's match are bit words:
+// in registers, W 64-bit words each, while DD <= 64 W <= REG_DD; beyond
+// that (W = 0) in the thread's scratch row of 2 ceil(DD / 64) words in
+// global memory, which the wrapper allocates.
 // ---------------------------------------------------------------------------
 
-constexpr int MAX_DD = 256;  // device slots per node (ops/dra.py MAX_DD)
-constexpr int WORDS = MAX_DD / 64;
+constexpr int REG_DD = 256;  // device slots the register words hold
 
 // Pod p's rows: its [DQ, N, DD] match plane, its [DQ] request rows and its
 // [CQ] referenced claim slots.
@@ -663,11 +667,33 @@ __device__ __forceinline__ PodRows pod_rows(const unsigned char* match, const in
                  DQ, CQ, N, DD, CL};
 }
 
-// node_feasible's ok[n] against `free` [N, DD] and `claim_node` [CL].  With
-// `take` (DD bytes) it also writes the node's take row (take_acc[n]) and
-// walks every slot; without, it stops at the first failure.
-__device__ inline bool node_verdict(const PodRows& r, const unsigned char* free, const int* claim_node, int n,
-                                    unsigned char* take) {
+// Scratch words one thread needs at DD device slots (0 on the register path).
+__host__ __device__ __forceinline__ int scratch_words(int DD) { return DD > REG_DD ? 2 * ((DD + 63) >> 6) : 0; }
+
+// Word w of a row of DD bool bytes (0 / 1) as bits: byte d is bit d - 64 w.
+// Eight bytes at a time where the row is 8-byte aligned (each 0 / 1 byte
+// gathered into its bit by one multiply), the rest byte by byte, so the
+// words are built in a register and stored once.
+__device__ __forceinline__ unsigned long long row_word(const unsigned char* row, int w, int DD) {
+  const int lo = w << 6, hi = min(DD, lo + 64);
+  unsigned long long x = 0;
+  int d = lo;
+  if ((reinterpret_cast<unsigned long long>(row + lo) & 7ULL) == 0)
+    for (; d + 8 <= hi; d += 8) {
+      const unsigned long long v = *reinterpret_cast<const unsigned long long*>(row + d) & 0x0101010101010101ULL;
+      x |= ((v * 0x0102040810204080ULL) >> 56) << (d - lo);
+    }
+  for (; d < hi; ++d)
+    if (row[d]) x |= 1ULL << (d - lo);
+  return x;
+}
+
+// node_feasible's ok[n] against `free` [N, DD] and `claim_node` [CL] over
+// the words fs (the free set) and m (a slot's match), nw each.  With
+// `walk_all` it walks every slot and leaves in fs the node's free set less
+// every slot's take; without, it stops at the first failure.
+__device__ __forceinline__ bool verdict_words(const PodRows& r, const unsigned char* free, const int* claim_node,
+                                              int n, bool walk_all, unsigned long long* fs, unsigned long long* m) {
   bool ok = true;
   for (int c = 0; c < r.CQ; ++c) {
     const int cl = r.ref_cl[c];
@@ -675,37 +701,29 @@ __device__ inline bool node_verdict(const PodRows& r, const unsigned char* free,
     const int pin = claim_node[min(cl, r.CL - 1)];
     if (pin >= 0 && pin != n) {
       ok = false;
-      if (take == nullptr) return false;
+      if (!walk_all) return false;
     }
   }
   const int DD = r.DD;
   const int nw = (DD + 63) >> 6;
-  unsigned long long fs[WORDS];
-  for (int w = 0; w < nw; ++w) fs[w] = 0;
   const unsigned char* fr = free + (long long)n * DD;
-  for (int d = 0; d < DD; ++d)
-    if (fr[d]) fs[d >> 6] |= 1ULL << (d & 63);
-  if (take != nullptr)
-    for (int d = 0; d < DD; ++d) take[d] = 0;
+  for (int w = 0; w < nw; ++w) fs[w] = row_word(fr, w, DD);
   for (int q = 0; q < r.DQ; ++q) {
     const int cl = r.cl[q];
     if (!r.qv[q] || cl < 0 || claim_node[min(cl, r.CL - 1)] >= 0) continue;  // not active: no verdict, no take
     const unsigned char* mrow = r.match + ((long long)q * r.N + n) * DD;
-    unsigned long long m[WORDS];
-    for (int w = 0; w < nw; ++w) m[w] = 0;
-    for (int d = 0; d < DD; ++d)
-      if (mrow[d]) m[d >> 6] |= 1ULL << (d & 63);
     int total = 0, cnt = 0;
     for (int w = 0; w < nw; ++w) {
-      total += __popcll(m[w]);
-      m[w] &= fs[w];
+      const unsigned long long mw = row_word(mrow, w, DD);
+      total += __popcll(mw);
+      m[w] = mw & fs[w];
       cnt += __popcll(m[w]);
     }
     const bool all = r.all[q] != 0;
     const bool ok_q = !r.bad[q] && (all ? (total > 0 && cnt == total) : cnt >= r.count[q]);
     if (!ok_q) {
       ok = false;
-      if (take == nullptr) return false;
+      if (!walk_all) return false;
     }
     int budget = r.count[q];
     for (int w = 0; w < nw; ++w) {
@@ -721,12 +739,53 @@ __device__ inline bool node_verdict(const PodRows& r, const unsigned char* free,
         t = kept;
       }
       fs[w] &= ~t;
-      if (take != nullptr)
-        for (int b = 0; b < 64; ++b)
-          if ((t >> b) & 1ULL) take[(w << 6) + b] = 1;
     }
   }
   return ok;
+}
+
+// The verdict alone, with W register words (W = 0: the scratch row).
+template <int W>
+__device__ __forceinline__ bool node_verdict(const PodRows& r, const unsigned char* free, const int* claim_node, int n,
+                                             unsigned long long* scratch) {
+  if constexpr (W > 0) {
+    unsigned long long fs[W], m[W];
+    return verdict_words(r, free, claim_node, n, false, fs, m);
+  } else {
+    return verdict_words(r, free, claim_node, n, false, scratch, scratch + ((r.DD + 63) >> 6));
+  }
+}
+
+// The verdict with the fewest register words DD allows, else the scratch row.
+__device__ __forceinline__ bool node_verdict_any(const PodRows& r, const unsigned char* free, const int* claim_node,
+                                                 int n, unsigned long long* scratch) {
+  if (r.DD <= 64) return node_verdict<1>(r, free, claim_node, n, scratch);
+  if (r.DD <= 128) return node_verdict<2>(r, free, claim_node, n, scratch);
+  if (r.DD <= REG_DD) return node_verdict<4>(r, free, claim_node, n, scratch);
+  return node_verdict<0>(r, free, claim_node, n, scratch);
+}
+
+// dra_commit's take at node n: `free` row n loses every device the pod's
+// active slots take (the walk of node_feasible with take_acc).
+template <int W>
+__device__ __forceinline__ void take_words(const PodRows& r, unsigned char* free, const int* claim_node, int n,
+                                           unsigned long long* scratch) {
+  const int nw = (r.DD + 63) >> 6;
+  unsigned long long fs_r[W > 0 ? W : 1], m_r[W > 0 ? W : 1];
+  unsigned long long* fs = W > 0 ? fs_r : scratch;
+  unsigned long long* m = W > 0 ? m_r : scratch + nw;
+  verdict_words(r, free, claim_node, n, true, fs, m);
+  unsigned char* const fr = free + (long long)n * r.DD;
+  for (int d = 0; d < r.DD; ++d)
+    if (fr[d] && !((fs[d >> 6] >> (d & 63)) & 1ULL)) fr[d] = 0;
+}
+
+__device__ __forceinline__ void node_take(const PodRows& r, unsigned char* free, const int* claim_node, int n,
+                                          unsigned long long* scratch) {
+  if (r.DD <= 64) take_words<1>(r, free, claim_node, n, scratch);
+  else if (r.DD <= 128) take_words<2>(r, free, claim_node, n, scratch);
+  else if (r.DD <= REG_DD) take_words<4>(r, free, claim_node, n, scratch);
+  else take_words<0>(r, free, claim_node, n, scratch);
 }
 
 }  // namespace dra
@@ -1445,11 +1504,8 @@ __device__ __forceinline__ dra::PodRows dra_rows(const WorkloadsArgs& k, int N, 
 // `free`, and every claim it references that is still unallocated pins to
 // the node.  One thread.
 __device__ inline void dra_commit(const WorkloadsArgs& k, int N, int p, int choice) {
-  unsigned char take[dra::MAX_DD];
-  dra::node_verdict(dra_rows(k, N, p), k.free, k.claim_node, choice, take);
-  unsigned char* const fr = k.free + (long long)choice * k.DD;
-  for (int d = 0; d < k.DD; ++d)
-    if (take[d]) fr[d] = 0;
+  dra::node_take(dra_rows(k, N, p), k.free, k.claim_node, choice,
+                 k.dra_scratch == nullptr ? nullptr : k.dra_scratch + (long long)threadIdx.x * dra::scratch_words(k.DD));
   for (int c = 0; c < k.CQ; ++c) {
     const int cl = k.ref_cl[(long long)p * k.CQ + c];
     if (cl >= 0 && cl < k.CL && k.claim_node[cl] < 0) k.claim_node[cl] = choice;
@@ -1535,8 +1591,10 @@ __global__ void __launch_bounds__(ADMIT_THREADS)
       if constexpr (kGangs) {
         if (k.dra_match != nullptr) {  // the pod's DRA verdict per node, its port lane
           const dra::PodRows dr = dra_rows(k, a.N, p);
-          for (int n = tid; n < a.N; n += blockDim.x) k.dra_row[n] = dra::node_verdict(dr, k.free, k.claim_node, n,
-                                                                                      nullptr);
+          unsigned long long* const words =
+              k.dra_scratch == nullptr ? nullptr : k.dra_scratch + (long long)tid * dra::scratch_words(k.DD);
+          for (int n = tid; n < a.N; n += blockDim.x)
+            k.dra_row[n] = dra::node_verdict_any(dr, k.free, k.claim_node, n, words);
           dra_row = k.dra_row;
           __syncthreads();
         }

@@ -51,6 +51,9 @@ using namespace ktpu::wave;
 // The dynamic shared memory one K11 block may take on this device.
 extern "C" int ktpu_workloads_admit_smem_max() { return admit_smem_max<true>(); }
 
+// The threads of one K11 (and K9) block: the rows of WorkloadsArgs.dra_scratch.
+extern "C" int ktpu_admit_threads() { return ADMIT_THREADS; }
+
 // Enqueues K11 on `stream` and returns the launch status (cudaGetLastError).
 extern "C" int ktpu_workloads_admit(const GangScanArgs* args, const WaveArgs* wave, const WorkloadsArgs* gangs,
                                     void* stream) {

@@ -40,6 +40,8 @@ SOURCES = (
     "volume.cu",
     "dra.cu",
     "counterfactual.cu",
+    "explain.cu",
+    "pipeline.cu",
     "runtime.cu",
 )
 HEADERS = ("ktpu.cuh",)
@@ -68,6 +70,8 @@ launches: Dict[str, int] = {
     "dra_spec_mask": 0,
     "fork_view": 0,
     "fork_summary": 0,
+    "explain_stack": 0,
+    "pipeline_score": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -230,7 +234,7 @@ class WorkloadsArgs(ctypes.Structure):
 
     _PTRS = (
         "gang_id gang_first gang_last gang_need assigned gang_admit gang_landed ckpt "
-        "dra_match req_count req_all req_cl q_valid req_bad ref_cl free claim_node dra_row"
+        "dra_match req_count req_all req_cl q_valid req_bad ref_cl free claim_node dra_row dra_scratch"
     ).split()
     _INTS = "g_cap DQ DD CQ CL".split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
@@ -244,6 +248,30 @@ class PreemptArgs(ctypes.Structure):
         "allowed_pods requests kept_req kept_cnt victims mask"
     ).split()
     _INTS = "N R Rp E B2 G P".split()
+    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
+
+
+class ExplainArgs(ctypes.Structure):
+    """Mirror of csrc/explain.cu ExplainArgs (pointers, then ints)."""
+
+    _PTRS = (
+        "node_valid num_pods allowed_pods allocatable requested valid requests d_unsched d_nodename d_taints "
+        "d_nodeaff d_ports d_extra sp_hard sp_dv sp_te sp_dom_cnt sp_dom_pres sp_ndom sp_self min_domains max_skew "
+        "ip_viol_existing ip_dv ip_dom_cnt ip_is_aff ip_is_anti ip_any_static ip_self_all out"
+    ).split()
+    _INTS = "N P Rn Rp C AT check_fit".split()
+    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
+
+
+class PipelineArgs(ctypes.Structure):
+    """Mirror of csrc/pipeline.cu PipelineArgs (pointers, then ints)."""
+
+    _PTRS = (
+        "feasible allocatable requested nonzero log_tab requests nonzero_req max_skew sc_taint sc_nodeaff sc_image "
+        "sp_soft sp_is_host sp_all_keys sp_cdv sp_node_cnt sp_sc_dom ip_sym ip_dv ip_dom_cnt ip_pref_w seen totals "
+        "n_feasible chosen"
+    ).split()
+    _INTS = "N P Rn Rp C AT L D w_taint w_naff w_spread w_ip w_fit w_bal w_img".split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
@@ -293,13 +321,18 @@ def load() -> ctypes.CDLL:
     lib.ktpu_volume_topology_mask.restype = ctypes.c_int
     lib.ktpu_dra_selector_match.argtypes = [vp] * 7 + [ctypes.c_int] * 7 + [vp]
     lib.ktpu_dra_selector_match.restype = ctypes.c_int
-    lib.ktpu_dra_spec_mask.argtypes = [vp] * 10 + [ctypes.c_int] * 6 + [vp]
+    lib.ktpu_dra_spec_mask.argtypes = [vp] * 11 + [ctypes.c_int] * 7 + [vp]
     lib.ktpu_dra_spec_mask.restype = ctypes.c_int
     lib.ktpu_fork_view.argtypes = [vp] * 13 + [ctypes.c_int] * 4 + [vp]
     lib.ktpu_fork_view.restype = ctypes.c_int
     lib.ktpu_fork_summary.argtypes = [vp] * 11 + [ctypes.c_int] * 5 + [vp]
     lib.ktpu_fork_summary.restype = ctypes.c_int
-    for fn in ("ktpu_gang_scan_smem_max", "ktpu_wave_admit_smem_max", "ktpu_workloads_admit_smem_max"):
+    lib.ktpu_explain_stack.argtypes = [ctypes.POINTER(ExplainArgs), vp]
+    lib.ktpu_explain_stack.restype = ctypes.c_int
+    lib.ktpu_pipeline_score.argtypes = [ctypes.POINTER(PipelineArgs), vp]
+    lib.ktpu_pipeline_score.restype = ctypes.c_int
+    for fn in ("ktpu_gang_scan_smem_max", "ktpu_wave_admit_smem_max", "ktpu_workloads_admit_smem_max",
+               "ktpu_admit_threads"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
     lib.ktpu_error_string.argtypes = [ctypes.c_int]

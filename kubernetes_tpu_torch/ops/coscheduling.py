@@ -359,9 +359,6 @@ def _workloads_admit_cuda(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
     if dra is not None:
         _, DQ, _, DD = dra["match"].shape
         CL, CQ = dra["claim_node0"].shape[0], dra["ref_cl"].shape[1]
-        if DD > dra_ops.MAX_DD:
-            raise ValueError(f"workloads_admit: {DD} device slots per node; the kernel holds at most "
-                             f"{dra_ops.MAX_DD}")
         claim_node = dra["claim_node0"].clone()
         ptrs += [
             ("dra_match", dra["match"].contiguous(), BOOL, (P, DQ, N, DD)),
@@ -375,6 +372,10 @@ def _workloads_admit_cuda(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
             ("claim_node", claim_node, I32, (CL,)),
             ("dra_row", torch.empty((N,), dtype=BOOL, device=dev), BOOL, (N,)),
         ]
+        if DD > dra_ops.REG_DD:  # the verdict words past the registers, a row per thread
+            rows = lib.ktpu_admit_threads()
+            words = torch.empty((rows * dra_ops.scratch_words(DD),), dtype=torch.int64, device=dev)
+            ptrs.append(("dra_scratch", words, torch.int64, None))
     ckpt = torch.empty((ckpt_cells(N, Rn, P, w.Tsp, w.Tip, DD, CL),), dtype=I32, device=dev)
     ptrs.append(("ckpt", ckpt, I32, None))
     k = _build.WorkloadsArgs()

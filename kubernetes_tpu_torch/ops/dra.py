@@ -65,8 +65,17 @@ _SEL_OPS = {
 # the workloads dispatch's DRA arguments (ops/coscheduling.py), all or none
 DRA_ARGS = ("dev_key", "dev_val", "dev_valid", "free0", "sel_key", "sel_op", "sel_vals", "req_count", "req_all",
             "req_cl", "req_bad", "q_valid", "ref_cl", "claim_node0")
-# K13 and K14 keep a node's free set in registers: this many device slots
-MAX_DD = 256
+# K14 and K11 keep a node's free set in registers up to this many device
+# slots (csrc/ktpu.cuh ktpu::dra::REG_DD); past it each thread's words go to a
+# scratch row in global memory, and K14's grid is at most this many pods high
+REG_DD = 256
+SPEC_SCRATCH_ROWS = 64
+
+
+def scratch_words(DD: int) -> int:
+    """uint64 words of one thread's scratch row at DD device slots (the free
+    set and a slot's match), 0 on the register path."""
+    return 2 * ((DD + 63) // 64) if DD > REG_DD else 0
 
 
 # ---------------------------------------------------------------------------
@@ -401,16 +410,17 @@ def _dra_spec_mask_cuda(match, free0, claim_node0, req_count, req_all, req_cl, q
     lib = _build.load()
     P, DQ, N, DD = match.shape
     CL, CQ = claim_node0.shape[0], ref_cl.shape[1]
-    if DD > MAX_DD:
-        raise ValueError(f"dra_spec_mask: {DD} device slots per node; the kernel holds at most {MAX_DD}")
     c = _build.check_cuda
     out = torch.empty((P, N), dtype=BOOL, device=dev)
+    rows = min(P, SPEC_SCRATCH_ROWS) if DD > REG_DD else 0
+    scratch = torch.empty((max(rows * N * scratch_words(DD), 1),), dtype=torch.int64, device=dev)
     rc = lib.ktpu_dra_spec_mask(
         c("match", match, dev, BOOL, (P, DQ, N, DD)), c("free0", free0, dev, BOOL, (N, DD)),
         c("claim_node0", claim_node0, dev, I32, (CL,)), c("req_count", req_count, dev, I32, (P, DQ)),
         c("req_all", req_all, dev, BOOL, (P, DQ)), c("req_cl", req_cl, dev, I32, (P, DQ)),
         c("q_valid", q_valid, dev, BOOL, (P, DQ)), c("req_bad", req_bad, dev, BOOL, (P, DQ)),
-        c("ref_cl", ref_cl, dev, I32, (P, CQ)), out.data_ptr(), P, DQ, N, DD, CL, CQ, _build.stream_handle(dev))
+        c("ref_cl", ref_cl, dev, I32, (P, CQ)), out.data_ptr(), scratch.data_ptr(), P, DQ, N, DD, CL, CQ, rows,
+        _build.stream_handle(dev))
     _build.check_launch(lib, rc, "dra_spec_mask")
     _build.launches["dra_spec_mask"] += 1
     return out

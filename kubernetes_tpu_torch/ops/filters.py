@@ -1,12 +1,14 @@
-"""Batched static Filter plugins → ``[P, N]`` feasibility masks (plain
-PyTorch).
+"""Batched Filter plugins → ``[P, N]`` feasibility masks (plain PyTorch).
 
 Each function reproduces one in-tree Filter plugin for every (pending pod,
 node) pair at once; the reference citations point at the Go plugins.  The
 static ones are the plain versions of the filter half of kernel K1
 (ops/fastpath.py static_eval); the port, spread and inter-pod ones are the
-plain halves of K6 and K7 (ops/gang.py precompute).  They run on the CPU path
-and in the kernel checks.
+plain halves of K6 and K7 (ops/gang.py precompute).  ``mask_resources``,
+``mask_interpod``, ``mask_spread`` and ``all_masks`` judge every pod alone
+against the snapshot: the filter half of the independent pipeline
+(ops/pipeline.py pipeline_plain).  They run on the CPU path and in the
+kernel checks.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from kubernetes_tpu_torch.ops.common import (
     DeviceBatch,
     DeviceCluster,
     dnf_any,
+    domain_stats,
     eval_table,
     eval_table_self,
     gather_at,
@@ -30,6 +33,8 @@ from kubernetes_tpu_torch.snapshot.schema import (
     EFFECT_ALL,
     EFFECT_NO_EXECUTE,
     EFFECT_NO_SCHEDULE,
+    N_FIXED_LANES,
+    TERM_REQUIRED_AFFINITY,
     TERM_REQUIRED_ANTI,
     TOL_OP_EXISTS,
 )
@@ -110,6 +115,40 @@ def mask_unschedulable(dc: DeviceCluster, db: DeviceBatch):
     synth_eff = torch.full((1, 1), EFFECT_NO_SCHEDULE, dtype=torch.int32, device=dev)
     tol = any_tolerates(db, synth_key, synth_val, synth_eff)[:, 0, 0]  # [P]
     return (~dc.unschedulable)[None, :] | tol[:, None]
+
+
+# ---------------------------------------------------------------------------
+# NodeResourcesFit (plugins/noderesources/fit.go:423-503)
+# ---------------------------------------------------------------------------
+
+
+def mask_resources(dc: DeviceCluster, db: DeviceBatch, requested=None, num_pods=None):
+    """requested / num_pods default to the snapshot's.  fit.go:460
+    fitsRequest: an all-zero request always fits; cpu / memory / ephemeral
+    are compared unconditionally after that; an extended lane only when the
+    pod requests it.  Lanes the batch has beyond the snapshot's have zero
+    allocatable everywhere."""
+    requested = dc.requested if requested is None else requested
+    num_pods = dc.num_pods if num_pods is None else num_pods
+    Rn = dc.allocatable.shape[1]
+    Rp = db.requests.shape[1]
+    N = dc.allocatable.shape[0]
+    fits = (num_pods + 1 <= dc.allowed_pods)[None, :]
+    all_zero = (db.requests == 0).all(dim=1)  # [P]
+    lane_ok = None
+    for r in range(Rp):
+        req = db.requests[:, r][:, None]  # [P, 1]
+        if r < Rn:
+            avail = (dc.allocatable[:, r] - requested[:, r])[None, :]  # [1, N]
+        else:
+            avail = torch.zeros((1, N), dtype=I32, device=req.device)
+        conflict = req > avail
+        if r >= N_FIXED_LANES:
+            conflict = conflict & (req > 0)  # unrequested scalars are skipped
+        lane_ok = ~conflict if lane_ok is None else (lane_ok & ~conflict)
+    if lane_ok is None:
+        lane_ok = torch.ones((db.requests.shape[0], N), dtype=torch.bool, device=db.requests.device)
+    return fits & (all_zero[:, None] | lane_ok)
 
 
 # ---------------------------------------------------------------------------
@@ -194,11 +233,13 @@ def interpod_weighted_ext(dc: DeviceCluster, pre: InterPodPre, row_weight):
     shares the term's topology value]: the shared core of the existing-anti-
     affinity filter and the symmetric score.  row_weight: i32 [M]; returns
     i32 [P, N].  The reference takes an int32 [P, M] × [M, N] product; here
-    the same sum is taken in int64, over row chunks of at most 2**26
-    products (PyTorch has no integer matmul on CUDA), and wrapped to int32,
-    which equals int32 accumulation."""
+    the same sum is taken in int64 (one integer matmul on the CPU; on CUDA,
+    which has no integer matmul, over row chunks of at most 2**26 products)
+    and wrapped to int32, which equals int32 accumulation."""
     m = pre.ext_match.to(torch.int64) * row_weight.to(torch.int64)[:, None]  # [M, P]
     eq = pre.ext_topo_eq.to(torch.int64)  # [M, N]
+    if m.device.type == "cpu":
+        return m.t().matmul(eq).to(I32)
     M, P = m.shape
     N = eq.shape[1]
     out = torch.zeros((P, N), dtype=torch.int64, device=m.device)
@@ -212,6 +253,41 @@ def interpod_existing_violation(dc: DeviceCluster, pre: InterPodPre):
     """[P, N]: forbidden by some existing pod's required anti-affinity."""
     anti_row = (dc.term_kind == TERM_REQUIRED_ANTI).to(I32)
     return interpod_weighted_ext(dc, pre, anti_row) > 0
+
+
+def mask_interpod(dc: DeviceCluster, db: DeviceBatch, pre: InterPodPre, v_cap: int):
+    # 1. Existing pods' required anti-affinity forbids same-domain nodes.
+    viol1 = interpod_existing_violation(dc, pre)  # [P, N]
+
+    # Domain totals of matching placed pods per incoming term.
+    dom_tot, _, _, _ = domain_stats(pre.inc_cnt, torch.zeros_like(pre.inc_cnt, dtype=torch.bool), pre.inc_dv, v_cap)
+    topo_present = pre.inc_dv >= 0  # [P, AT, N]
+
+    # 2. Incoming required anti-affinity: any matching placed pod in the
+    #    node's domain rejects (a missing topology label passes).
+    is_anti = db.aff_kind == TERM_REQUIRED_ANTI  # [P, AT]
+    viol2 = (is_anti[:, :, None] & topo_present & (dom_tot > 0)).any(dim=1)
+
+    # 3. Incoming required affinity: every term satisfied in-domain, with the
+    #    first-pod-in-series escape hatch (filtering.go:336-363).
+    is_aff = db.aff_kind == TERM_REQUIRED_AFFINITY
+    term_ok = topo_present & (dom_tot > 0)
+    aff_ok = (~is_aff[:, :, None] | term_ok).all(dim=1)  # [P, N]
+    any_match_anywhere = (is_aff[:, :, None] & pre.inc_match).any(dim=2).any(dim=1)  # [P]
+    # Self-match: the term's selector against the pod's own labels and namespace.
+    P = db.valid.shape[0]
+    self_sel = eval_table_self(db.aff_table, db.labels, dc.val_ints)  # [P, AT]
+    self_ns = ns_member(db.aff_ns_all, db.aff_ns_ids, db.ns_id)  # [P, AT, P]
+    self_ns = torch.diagonal(self_ns, dim1=0, dim2=2).T if P else self_ns[..., 0]
+    self_all = (~is_aff | (self_sel & self_ns)).all(dim=1)
+    has_aff = is_aff.any(dim=1)
+    escape = has_aff & ~any_match_anywhere & self_all  # [P]
+
+    # A node missing any required-affinity topology label is rejected before
+    # the escape hatch is consulted (filtering.go: early return).
+    topo_all = (~is_aff[:, :, None] | topo_present).all(dim=1)  # [P, N]
+    ok3 = aff_ok | (escape[:, None] & topo_all)
+    return ~viol1 & ~viol2 & ok3
 
 
 # ---------------------------------------------------------------------------
@@ -248,3 +324,78 @@ def spread_precompute(dc: DeviceCluster, db: DeviceBatch, node_affinity_mask, ta
     sel_match = sel & same_ns[:, None, :] & dc.epod_valid[None, None, :] & ~dc.epod_deleting[None, None, :]
     self_match = eval_table_self(db.tsc_table, db.labels, dc.val_ints)  # [P, C]
     return SpreadPre(exists, sel_match, self_match, dv, eligible, tracked)
+
+
+def mask_spread(dc: DeviceCluster, db: DeviceBatch, pre: SpreadPre, v_cap: int):
+    """DoNotSchedule constraints: matchNum + selfMatch − minMatch > maxSkew
+    rejects (filtering.go:313-362)."""
+    hard = pre.exists & db.tsc_hard  # [P, C]
+    N = pre.dv.shape[2]
+    cnt_n = per_node_counts(pre.sel_match.to(I32), dc.epod_node, N)
+    counted = pre.tracked[:, None, :] & pre.eligible
+    cnt_n = torch.where(counted, cnt_n, 0)
+    dom_tot, dom_pres, dom_min, n_dom = domain_stats(cnt_n, counted, pre.dv, v_cap)
+    min_match = torch.where((db.tsc_min_domains > 0) & (n_dom < db.tsc_min_domains), 0, dom_min)  # [P, C]
+    topo_present = pre.dv >= 0
+    selfm = pre.self_match.to(I32)[:, :, None]
+    skew = dom_tot + selfm - min_match[:, :, None]
+    c_ok = topo_present & (~dom_pres | (skew <= db.tsc_max_skew[:, :, None]))
+    return (~hard[:, :, None] | c_ok).all(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Combined
+# ---------------------------------------------------------------------------
+
+
+ALL_FILTER_KERNELS = frozenset(
+    {
+        "NodeName",
+        "NodeUnschedulable",
+        "TaintToleration",
+        "NodeAffinity",
+        "NodePorts",
+        "NodeResourcesFit",
+        "InterPodAffinity",
+        "PodTopologySpread",
+    }
+)
+
+
+def all_masks(dc: DeviceCluster, db: DeviceBatch, v_cap: int, has_interpod: bool = True, has_spread: bool = True,
+              enabled: frozenset = ALL_FILTER_KERNELS) -> dict:
+    """Every Filter plugin's mask for the batch against the snapshot, plus
+    their AND (``_combined``, which also drops invalid node slots and pad
+    pod rows) and the shared inter-pod / spread state (``_interpod_pre`` /
+    ``_spread_pre``, None where the has_* flag or the profile drops the
+    plugin: the reference's PreFilter Skip)."""
+    tolerated = _tolerated(dc, db)
+    node_affinity = mask_node_affinity(dc, db)
+    taints = mask_taints(dc, db, tolerated)
+    masks = {}
+    if "NodeName" in enabled:
+        masks["NodeName"] = mask_node_name(dc, db)
+    if "NodeUnschedulable" in enabled:
+        masks["NodeUnschedulable"] = mask_unschedulable(dc, db)
+    if "TaintToleration" in enabled:
+        masks["TaintToleration"] = taints
+    if "NodeAffinity" in enabled:
+        masks["NodeAffinity"] = node_affinity
+    if "NodePorts" in enabled:
+        masks["NodePorts"] = mask_ports(dc, db)
+    if "NodeResourcesFit" in enabled:
+        masks["NodeResourcesFit"] = mask_resources(dc, db)
+    ipre = spre = None
+    if has_interpod and "InterPodAffinity" in enabled:
+        ipre = interpod_precompute(dc, db)
+        masks["InterPodAffinity"] = mask_interpod(dc, db, ipre, v_cap)
+    if has_spread and "PodTopologySpread" in enabled:
+        spre = spread_precompute(dc, db, node_affinity, taints)
+        masks["PodTopologySpread"] = mask_spread(dc, db, spre, v_cap)
+    combined = dc.node_valid[None, :] & db.valid[:, None]
+    for m in masks.values():
+        combined = combined & m
+    masks["_combined"] = combined
+    masks["_interpod_pre"] = ipre
+    masks["_spread_pre"] = spre
+    return masks

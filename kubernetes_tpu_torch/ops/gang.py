@@ -77,18 +77,7 @@ BOOL = torch.bool
 INT32_MAX = 2**31 - 1
 INT64_MAX = 2**63 - 1
 
-ALL_FILTER_KERNELS = frozenset(
-    {
-        "NodeName",
-        "NodeUnschedulable",
-        "TaintToleration",
-        "NodeAffinity",
-        "NodePorts",
-        "NodeResourcesFit",
-        "InterPodAffinity",
-        "PodTopologySpread",
-    }
-)
+ALL_FILTER_KERNELS = F.ALL_FILTER_KERNELS
 
 # Diagnosis rows of the [P, N_DIAG] reason-count output, in chain order.
 DIAG_KERNELS = (
@@ -535,11 +524,7 @@ def _spread_raw(dc, db, g, p, feas, cnt, d_cap):
 
     contrib_fx = cnt.to(I64) * w_fx[:, None] + ((db.tsc_max_skew[p].to(I64) - 1)[:, None] << _FX)
     total_fx = torch.where(soft[:, None], contrib_fx, 0).sum(dim=0)  # [N]
-    k = total_fx >> _FX
-    frac = total_fx & ((1 << _FX) - 1)
-    half = 1 << (_FX - 1)
-    up = (frac > half) | ((frac == half) & ((k & 1) == 1))
-    raw = torch.where(has_soft, k + up.to(I64), 0)
+    raw = torch.where(has_soft, S.round_fx(total_fx), 0)
     valid = torch.where(has_soft, ~ignored, feas)
     return raw, valid
 

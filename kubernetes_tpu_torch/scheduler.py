@@ -81,9 +81,8 @@ exist yet: A5, the PreEnqueue tier; an unbound, missing or
 WaitForFirstConsumer PVC, a ReadWriteOncePod claim or an inline
 single-attach disk, a CSI volume beside a CSINode, a volume or claims pod
 with host ports, under duplicate hostnames or with ``gangDispatch`` off:
-A6b, the host-veto split path; on CUDA, claims pods while a node has more
-devices than the DRA kernels' slots: C4); a kernel failure or a checksum
-mismatch raises too.
+A6b, the host-veto split path); a kernel failure or a checksum mismatch
+raises too.
 Nothing falls back to another path by itself, and the batch goes back to
 the queue unscheduled.
 """
@@ -113,6 +112,7 @@ from kubernetes_tpu_torch.framework.dynamicresources import REASON_CANNOT_ALLOCA
 from kubernetes_tpu_torch.framework.plugins import QUEUEING_HINTS, DefaultPreemption, default_plugins
 from kubernetes_tpu_torch.framework.runtime import Framework
 from kubernetes_tpu_torch.framework.volume_plugins import SINGLE_ATTACH_KINDS, zone_value_set
+from kubernetes_tpu_torch.observability.flightrecorder import FlightRecorder
 from kubernetes_tpu_torch.ops import chain as ops_chain
 from kubernetes_tpu_torch.ops import coscheduling as ops_cos
 from kubernetes_tpu_torch.ops import dra as ops_dra
@@ -323,7 +323,6 @@ class Scheduler:
         self.claim_cache: AssumeCache = AssumeCache("resource claims")
         self.resource_slices: Dict[str, dra_api.ResourceSlice] = {}
         self.device_classes: Dict[str, dra_api.DeviceClass] = {}
-        self._slice_devices: Optional[Dict[str, int]] = None  # devices per node name, built on demand
         self.claim_writer: Callable[[dra_api.ResourceClaim], None] = lambda claim: None
         handle = _Handle(self)
         # each profile's host plugins (the volume plugins, and DynamicResources
@@ -380,6 +379,8 @@ class Scheduler:
         }
         # PodGroups and the members placed per gang
         self.gangs = wlg.GangDirectory(clock)
+        # the per-pod flight recorder (the wave's demotions and upgrades)
+        self.flight = FlightRecorder()
         # the packed host snapshot (nodes, placed pods, their terms) and its
         # device-resident image
         self.mirror = SnapshotMirror(self.vocab)
@@ -538,17 +539,14 @@ class Scheduler:
 
     def on_resource_slice_add(self, sl: dra_api.ResourceSlice) -> None:
         self.resource_slices[sl.key] = sl
-        self._slice_devices = None
         self._storage_event(EventResource.RESOURCE_SLICE, ActionType.ADD, None, sl)
 
     def on_resource_slice_update(self, old: dra_api.ResourceSlice, new: dra_api.ResourceSlice) -> None:
         self.resource_slices[new.key] = new
-        self._slice_devices = None
         self._storage_event(EventResource.RESOURCE_SLICE, ActionType.UPDATE, old, new)
 
     def on_resource_slice_delete(self, sl: dra_api.ResourceSlice) -> None:
         self.resource_slices.pop(sl.key, None)
-        self._slice_devices = None
         self._storage_event(EventResource.RESOURCE_SLICE, ActionType.DELETE, sl, None)
 
     def on_device_class_add(self, cls: dra_api.DeviceClass) -> None:
@@ -600,6 +598,45 @@ class Scheduler:
                 st.nodes[cn.node.name] = ns
             self._oracle_cache = st
         return self._oracle_cache
+
+    # ----- the explain surface (observability/explain.py) -------------------
+
+    def post_filter(self, profile: Profile) -> Optional[DefaultPreemption]:
+        """The profile's PostFilter plugin (its preemption ``evaluator``), or
+        None when the profile has none."""
+        return self._post_filters.get(profile.scheduler_name)
+
+    def run_pre_filter(self, profile: Profile, state: CycleState, pods) -> Dict[str, Status]:
+        """The profile's PreFilter point in the reference's plugin order
+        (runtime/framework.go:698): NodeAffinity first, a Skip for a pod
+        with neither required node affinity nor a nodeSelector, else its
+        metadata.name narrowing (node_affinity.go:140-171), an empty one
+        rejecting the pod as unresolvable; then the host plugins'
+        PreFilters.  uid → the rejecting Status; a pod that passes with a
+        narrowing gets it in ``state`` as ("pre_filter_result", uid)."""
+        fwk = self.frameworks[profile.scheduler_name]
+        failures: Dict[str, Status] = {}
+        for pod in pods:
+            allowed = None
+            if "NodeAffinity" in profile.enabled:
+                aff = pod.affinity
+                required = aff.node_affinity.required_during_scheduling_ignored_during_execution if (
+                    aff and aff.node_affinity) else None
+                if required is None and not pod.node_selector:
+                    state.mark_skip_filter(pod.uid, "NodeAffinity")
+                else:
+                    allowed = self._prefilter_allowed(pod)
+                    if allowed is not None and not allowed:
+                        failures[pod.uid] = Status.unresolvable(
+                            "node(s) didn't satisfy plugin NodeAffinity's node-name narrowing", plugin="NodeAffinity")
+                        continue
+            host = fwk.run_pre_filter(state, [pod])
+            if host:
+                failures.update(host)
+                continue
+            if allowed is not None:
+                state.write(("pre_filter_result", pod.uid), allowed)
+        return failures
 
     # ----- the drain -----------------------------------------------------
 
@@ -664,10 +701,6 @@ class Scheduler:
             if not self.mirror.hostnames_unique:
                 self._refuse(batch, "volume and claims pods under duplicate hostname labels need the host-veto "
                                     "split path (ROADMAP A6b)")
-            if self.config.dra_enabled() and any(qp.pod.resource_claims for qp in batch):
-                why = self._dra_device_limit_refusal()
-                if why is not None:
-                    self._refuse(batch, why)
         if self._chain_quickcheck(profile, batch):
             rec = self._try_dispatch_chained(profile, batch, can_restart=not pending)
             if rec == "flush":
@@ -721,25 +754,6 @@ class Scheduler:
             return None
         why = self._volume_refusal(pod)
         return None if why is None else f"{why} (ROADMAP A6b: the host-veto split path)"
-
-    def _dra_device_limit_refusal(self) -> Optional[str]:
-        """On CUDA, K14 and K11 hold a node's free devices in registers, at
-        most ops/dra.py MAX_DD slots: a batch with claims is refused, before
-        any side effect, while a node of the snapshot has more devices than
-        that in its ResourceSlices.  The plain versions take any number."""
-        if self.device.type != "cuda":
-            return None
-        if self._slice_devices is None:
-            counts: Dict[str, int] = {}
-            for sl in self.resource_slices.values():
-                counts[sl.node_name] = counts.get(sl.node_name, 0) + len(sl.devices)
-            self._slice_devices = counts
-        idx = self.nodes.name_to_idx if self.nodes is not None else {}
-        for name, n in self._slice_devices.items():
-            if n > ops_dra.MAX_DD and name in idx:
-                return (f"node {name} has {n} devices in its ResourceSlices; the DRA kernels hold at most "
-                        f"{ops_dra.MAX_DD} per node (ROADMAP C4)")
-        return None
 
     def _claims_refusal(self, pod: Pod) -> Optional[str]:
         if not self.config.gang_dispatch:
@@ -1354,23 +1368,41 @@ class Scheduler:
     def _wave_resolve(self, batch, chosen, stats) -> None:
         """Harvest one wave's stats: the pods admitted at their speculative
         node, the demotions by kind (an upgrade, a pod placed although
-        speculation found no node, is not a conflict), and the batch's
-        interaction groups.  No pod a host Filter could act on reaches the
-        wave (it takes the workloads dispatch or is refused), and the port
-        has no extenders, so the groups are always formed, as the reference
-        forms them for host-filter-clean batches under its default
-        profile."""
+        speculation found no node, is not a conflict), a ``wave_demoted``
+        flight-recorder event per demoted pod (the conflict's kind and term,
+        the speculative and the final node) and a ``wave_upgraded`` one per
+        upgraded pod, and the batch's interaction groups.  No pod a host
+        Filter could act on reaches the wave (it takes the workloads
+        dispatch or is refused), and the port has no extenders, so the
+        groups are always formed, as the reference forms them for
+        host-filter-clean batches under its default profile."""
         n = len(batch)
         stats = stats.cpu().numpy()
-        spec, kinds = stats[0][:n], stats[1][:n]
+        spec, kinds, cterms = stats[0][:n], stats[1][:n], stats[2][:n]
         chosen_n = np.asarray(chosen)[:n]
         m = self.metrics
         conflicts = m["wave_conflicts"]
+        fr = self.flight
+        names = self.mirror.nodes.names
         for i in np.nonzero(chosen_n != spec)[0].tolist():
             code = int(kinds[i])
-            if code != ops_wave.DEMOTE_UPGRADE:
+            upgraded = code == ops_wave.DEMOTE_UPGRADE
+            if not upgraded:
                 kind = ops_wave.DEMOTE_KINDS.get(code, "score")
                 conflicts[kind] = conflicts.get(kind, 0) + 1
+            c = int(chosen_n[i])
+            if upgraded:
+                # infeasible alone, placed once a batch peer committed
+                # (required affinity met): not a conflict
+                fr.record(batch[i].pod.uid, "wave_upgraded", {"node": names[c]} if 0 <= c < len(names) else {})
+                continue
+            detail = {"kind": kind, "term": int(cterms[i])}
+            s = int(spec[i])
+            if 0 <= s < len(names):
+                detail["spec_node"] = names[s]
+            if 0 <= c < len(names):
+                detail["node"] = names[c]
+            fr.record(batch[i].pod.uid, "wave_demoted", detail)
         m["wave_pods"] += n
         m["wave_admitted"] += int(np.sum((chosen_n == spec) & (chosen_n >= 0)))
         m["wave_groups"] += ops_wave.interaction_groups([qp.pod for qp in batch])[1]

@@ -15,8 +15,8 @@ test_torch_scheduler_wave.py, test_torch_preemption.py,
 test_torch_scheduler_preempt.py, test_torch_workloads.py,
 test_torch_scheduler_workloads.py, test_torch_volume.py,
 test_torch_scheduler_volumes.py, test_torch_dra.py,
-test_torch_scheduler_dra.py, test_torch_counterfactual.py and
-test_torch_planner.py.
+test_torch_scheduler_dra.py, test_torch_counterfactual.py,
+test_torch_planner.py, test_torch_pipeline.py and test_torch_explain.py.
 """
 
 import pytest
@@ -588,3 +588,46 @@ def test_planners_on_cuda_take_the_kernel_engine(cuda):
     engine, and sampled forks of a batched run equal to the forks alone."""
     rows = chip_smoke.phase_planner_full(torch, cuda, n_nodes=200, sampled=3, k=10)
     assert rows["autoscale"]["recommendation"]["action"] == "scale_up"
+
+
+# ---- explain and the independent pipeline: K17, K18; the DRA kernels past
+# ---- the register words ----------------------------------------------------
+
+
+def test_explain_and_pipeline_kernels_match_plain(cuda):
+    """K17 against its plain version at config4's shape and the mixed shape
+    (with a host-filter lane), K18 against its plain version, and the CUDA
+    pipeline route (K1, K6, K7, K17, K18) against pipeline_plain, at
+    reduced sizes (chip_smoke's phase 12; it raises on any difference)."""
+    n0 = dict(_build.launches)
+    rows, k18, _ = chip_smoke.phase_explain_kernels(torch, cuda, reps=1, n_config4=500, n_mixed=1000, n_k18=1000,
+                                                    P=128)
+    assert all(r["k17_err"] == 0 for r in rows.values()) and k18["k18_err"] == 0 and k18["route_err"] == 0
+    assert all(rows["mixed"]["failing_pairs"].values())
+    for k in ("explain_stack", "pipeline_score"):
+        assert _build.launches[k] > n0[k]
+
+
+def test_dra_kernels_past_the_register_words_match_plain(cuda):
+    """K13, K14, K8 with the lane and K11's DRA mode at 320 device slots
+    per node (K14's and K11's verdict words in their scratch rows) and at 8
+    (registers), exact against the plain versions."""
+    rows = chip_smoke.phase_dra_slots(torch, cuda, reps=1, n_nodes=1000, P=128)
+    assert rows[320]["DD"] > 256 and rows[8]["DD"] <= 64
+    assert all(r["k14_err"] == 0 and r["k11_err"] == 0 for r in rows.values())
+
+
+def test_explain_path_on_cuda_matches_cpu(cuda):
+    """explain_pod, explain_whatif and schedule_independent on cuda, the
+    first two against a device="cpu" Scheduler's dicts, the last against
+    the plain pipeline (chip_smoke's phase 12 at a reduced size)."""
+    _, _, shape = chip_smoke.phase_explain_kernels(torch, cuda, reps=1, n_config4=200, n_mixed=400, n_k18=600, P=64)
+    launches = chip_smoke.phase_explain(torch, cuda, n_nodes=500, n_placed=3000, n_preempt=60, k18=shape)
+    assert launches["explain_stack"] == 5 and launches["pipeline_score"] == 1
+
+
+def test_dra_drain_past_the_register_words_on_cuda_matches_cpu(cuda):
+    """Nodes of 300 devices, pods of one ExactCount=10 claim: the drain on
+    cuda equals the drain on the CPU, bindings and claim pins."""
+    launches = chip_smoke.phase_dra_large(torch, cuda, n_nodes=10, devices=300, n_pods=300, count=10)
+    assert launches["dra_spec_mask"] > 0 and launches["workloads_admit"] > 0
