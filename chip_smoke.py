@@ -157,7 +157,30 @@ Phases, one output line each (several for 2 and 4):
      equal to the plain pipeline; a DRA drain of 1,500 pods with one
      ExactCount=10 claim each on 50 nodes of 300 devices, on cuda and on
      the CPU, identical in bindings and claim pins, no device granted twice;
- 13. the kernels line (K8 named as the workloads speculation too).
+ 13. the sampling window, the seeded tie-break and the fit strategies: K5,
+     K8 and K9 against their plain versions, exact on every output (the
+     advanced cursor in the tallies too), at config4's node set
+     (basic_nodes(5000, zones=3), N bucket 5,120, P=512 spread pods over
+     4,500 placed ones) in five modes (compat sampling with the adaptive
+     window, 500 of 5,000, and tie_break_seed 7; the same window with no
+     seed; the window over all 5,000 nodes with no seed; MostAllocated;
+     RequestedToCapacityRatio with a three-point shape), each timed beside
+     the default branch; K11 under MostAllocated at config10's shape; K19
+     tie_bits for 512 attempts over N=10,240 and for one over the host
+     cycle's 500 nodes; then drains on those 5,000 nodes: 10,240 spread
+     pods under reference_sampling_compat with the tie seed (every batch a
+     direct wave), 10,240 plain pods under MostAllocated (the chained scan;
+     the first batch's placements equal to the CPU's), 128 GPU pods on 500
+     nodes whose strategy weighs the GPU (the one-pod host cycle, K19 once
+     per pod, equal to the CPU's drain), and reference_sampling_compat with
+     no seed on 1,000 and on 90 nodes added zone by zone (a wave and a scan
+     batch of 256 each, equal to the CPU's drains); and port
+     copies of tools/paritycheck.py check_compat_vs_oracle (600 nodes, 900
+     pods; cut from 2,000 / 3,000) and check_compat_wave_vs_oracle (200 /
+     400; cut from 800 / 1,600) against the port's serial oracle loop with
+     K19's bits, 0 diffs;
+ 14. the kernels line (K8 named as the workloads speculation too, K19 as
+     the parity copies' draw).
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Without
@@ -178,9 +201,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the scalar (non
-# tensor-core) 32-bit rate, used as the rate of the kernels' integer work
+# tensor-core) float32 rate, 67 TFLOP/s = 132 SMs x 128 lanes x 2 (an FMA
+# is two flops) x 1.98 GHz.  The kernels' work is integer, one lane
+# operation each: at most 128 a clock per SM, half the flop rate
 PEAK_BYTES_S = 3.35e12
-PEAK_SCALAR_OPS_S = 67e12
+PEAK_FP32_FLOP_S = 67e12
+PEAK_ISSUE_OPS_S = PEAK_FP32_FLOP_S / 2
 # config0 drains per route, taken in turns, to show the host clock's spread
 DRAIN_REPEATS = 2
 
@@ -208,7 +234,7 @@ def card_line() -> str:
 
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_SCALAR_OPS_S * 1e3
+    t_ops = ops / PEAK_ISSUE_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -263,11 +289,12 @@ def basic_nodes(n, zones=3):
     ]
 
 
-def north_star_pods(n_pods, prefix="ns"):
-    """bench.py _north_star_pods: app-sharded labels, 3 × 3 cpu/mem requests."""
+def north_star_pods(n_pods, prefix="ns", seed=4242):
+    """bench.py _north_star_pods: app-sharded labels, 3 × 3 cpu/mem requests
+    (the reference's tools/paritycheck.py _basic_pods with prefix "pp")."""
     from kubernetes_tpu_torch.api import Container, Pod
 
-    rng = random.Random(4242)
+    rng = random.Random(seed)
     return [
         Pod(
             name=f"{prefix}-{i}",
@@ -1194,7 +1221,7 @@ def k5_bytes(torch, dc, db, g, chosen, n_feas, weights) -> int:
 def gang_bounds(torch, dc, db, g, chosen, n_feas, weights):
     """(K6, K7, K5) bound_ms from this run's inputs: each input read once,
     each output written once, over the card's memory rate, against the
-    integer operations these inputs need over its scalar rate.  Operation
+    integer operations these inputs need over its integer issue rate.  Operation
     counts: a selector evaluation costs R * (V + 4) compares per live
     requirement table; only valid placed pods, live terms and live
     constraint slots are counted."""
@@ -2722,7 +2749,7 @@ def phase_volume_kernels(torch, device, reps=20, n_nodes=5000, P=512):
     with K12's mask as its extra lane against K1's plain version.  Times
     with CUDA events; bounds from this run's inputs: bytes read and written
     once at 3.35 TB/s, and the requirement compares the table's valid slots
-    need at every node at the scalar rate.  Returns the K12 row."""
+    need at every node at the integer issue rate.  Returns the K12 row."""
     from kubernetes_tpu_torch.ops import _build
     from kubernetes_tpu_torch.ops import coscheduling as cos
     from kubernetes_tpu_torch.ops import fastpath as ops_fp
@@ -3516,7 +3543,12 @@ def config14_bound(torch, sched, forks, backlog):
         def grab(*a, _fn=fn, _key=key, **k):
             out = _fn(*a, **k)
             if _key not in seen:
-                seen[_key] = (inspect.signature(_fn).bind(*a, **k).arguments, out)
+                sig = inspect.signature(_fn)
+                args = dict(sig.bind(*a, **k).arguments)
+                for name, prm in sig.parameters.items():  # a **kwargs parameter's entries, by name
+                    if prm.kind is prm.VAR_KEYWORD:
+                        args.update(args.pop(name, {}))
+                seen[_key] = (args, out)
             return out
         setattr(mod, attr, grab)
     try:
@@ -4021,6 +4053,457 @@ def phase_dra_large(torch, device, n_nodes=50, devices=300, n_pods=1500, count=1
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the sampling window, the seeded tie-break and the fit strategies
+# ---------------------------------------------------------------------------
+
+SHAPE_RTCR = ((0, 0), (50, 70), (100, 20))  # a three-point RequestedToCapacityRatio shape
+TIE_SEED = 7
+
+
+def step_modes(n_nodes):
+    """The step modes of phase 13's kernel rows, as gang_schedule's keyword
+    arguments: the default branch; compat sampling with the adaptive window
+    (k = numFeasibleNodesToFind(0, n)) and a tie seed; the same window with
+    no seed (ties to the first node in visit order from the cursor, what
+    percentage_of_nodes_to_score or reference_sampling_compat alone give);
+    the window over every node (k = n, the compat first-max with nothing
+    cut); MostAllocated; RequestedToCapacityRatio with a three-point
+    shape."""
+    from kubernetes_tpu_torch.ops import rng
+    from kubernetes_tpu_torch.oracle.pipeline import num_feasible_nodes_to_find
+
+    return {
+        "default": {},
+        "compat_tie": dict(sample_k=num_feasible_nodes_to_find(0, n_nodes), sample_start=1234,
+                           tie_key=rng.prng_key(TIE_SEED), attempt_base=100000),
+        "compat": dict(sample_k=num_feasible_nodes_to_find(0, n_nodes), sample_start=1234),
+        # the cursor among the last tenth of the nodes, which sampling_rows
+        # leaves empty: the tied best nodes, where a first-max from the
+        # cursor parts from the first-max by slot
+        "compat_all": dict(sample_k=n_nodes, sample_start=n_nodes * 19 // 20),
+        "most_allocated": dict(fit_strategy=(1, (), (1, 1))),
+        "rtcr": dict(fit_strategy=(2, SHAPE_RTCR, (1, 1))),
+    }
+
+
+def sampling_rows(torch, device, reps=3, n_nodes=5000, P=512, modes=None):
+    """K5, K8 and K9 in each step mode against their plain versions on the
+    card, exact on every output (the scan's chosen, n_feas, reason counts
+    and tallies with the advanced cursor; c0; the admission's outputs and
+    tallies), and K9's placements equal K5's, at config4's node set
+    (basic_nodes(5000, zones=3), N bucket 5,120) with P=512 spread pods over
+    4,500 placed ones; each kernel's time in the mode beside the default
+    branch's, its plain version's (one run) and its bound.  Returns the rows
+    by mode (``modes``: a subset of step_modes' names besides the default
+    branch, whose row has the times only)."""
+    from kubernetes_tpu_torch.ops import gang, wave
+
+    nodes = basic_nodes(n_nodes, zones=3)
+    placed = place_round_robin(spread_pods(n_nodes * 9 // 10, prefix="placed"), nodes)
+    dc, db, kw, d_cap, flags, wt = wave_inputs(torch, device, nodes, placed, spread_pods(P, prefix="new"), P)
+    hk, v_cap = kw["hostname_key"], kw["v_cap"]
+    g = gang.precompute(dc, db, **kw, **dict(flags, has_ports=False))
+    targs = [wt[k] for k in WAVE_TABLES]
+    tkw = dict(d_cap=d_cap, d2_cap=wt["d2_cap"], has_ports=False, tid_pt=wt["tid_pt"], port_conf=wt["port_conf"])
+    # the default branch: its kernels' times only (phases 5 and 6 hold it
+    # against the plain versions)
+    base = gang.gang_schedule(dc, db, g, v_cap, d_cap=d_cap)[0]
+    c0_base = wave.wave_speculate(dc, db, g, d_cap=d_cap)
+    rows = {"default": dict(shape="config4_nodes", mode="default", **{
+        k: dict(ms=time_ms(torch, fn, reps)) for k, fn in (
+            ("gang_scan", lambda: gang.gang_schedule(dc, db, g, v_cap, d_cap=d_cap)),
+            ("wave_speculate", lambda: wave.wave_speculate(dc, db, g, d_cap=d_cap)),
+            ("wave_admit", lambda: wave.wave_admit(dc, db, g, hk, c0_base, *targs, **tkw)))})}
+    log(phase="sampling_kernel_check", **rows["default"])
+    for mode, m in step_modes(n_nodes).items():
+        if mode == "default" or (modes is not None and mode not in modes):
+            continue
+        ck, nk, rk, tk = gang.gang_schedule(dc, db, g, v_cap, d_cap=d_cap, **m)
+        (cp, np_, rp, tp), k5_plain = timed_once(torch, lambda: gang.gang_schedule_plain(dc, db, g, v_cap,
+                                                                                        d_cap=d_cap, **m))
+        spec_feas = torch.zeros((P,), dtype=torch.int64, device=device)
+        c0, k8_plain = timed_once(torch, lambda: wave.wave_speculate_plain(dc, db, g, d_cap=d_cap, n_feas=spec_feas,
+                                                                           **m))
+        c0_k = wave.wave_speculate(dc, db, g, d_cap=d_cap, **m)
+        adm, k9_plain = timed_once(torch, lambda: wave.wave_admit_plain(dc, db, g, hk, c0, *targs, **tkw, **m))
+        adm_k = wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw, **m)
+        torch.cuda.synchronize()
+        errs = dict(
+            k5_err=max([max_abs_err(torch, a, b) for a, b in ((ck, cp), (nk, np_), (rk, rp))]
+                       + [max_abs_err(torch, tk[k], tp[k]) for k in tp]),
+            k8_err=max_abs_err(torch, c0_k, c0),
+            k9_err=max([max_abs_err(torch, a, b) for a, b in zip(adm_k[:3] + adm_k[4:], adm[:3] + adm[4:])]
+                       + [max_abs_err(torch, adm_k[3][k], adm[3][k]) for k in adm[3]]),
+            k9_vs_k5=max(max_abs_err(torch, adm[0], cp), max_abs_err(torch, adm[1], np_)))
+        if set(tk) != set(tp) or set(adm_k[3]) != set(adm[3]):
+            raise AssertionError(f"sampling {mode}: the tallies' keys differ")
+        if any(errs.values()):
+            raise AssertionError(f"sampling {mode}: kernels differ from their plain versions: {errs}")
+        (_, _, (b5, by5)) = gang_bounds(torch, dc, db, g, cp, np_, gang.DEFAULT_WEIGHTS)
+        (b8, by8), (b9, by9) = wave_bounds(torch, dc, db, g, wt, c0, spec_feas, adm[0], adm[1],
+                                           gang.DEFAULT_WEIGHTS)
+        row = dict(shape="config4_nodes", mode=mode, N=int(dc.node_valid.sum().item()), P=int(db.valid.sum().item()),
+                   placed=int(dc.epod_valid.sum().item()), scheduled=int((cp >= 0).sum().item()),
+                   sample_k=m.get("sample_k"), cursor_in=m.get("sample_start"),
+                   cursor_out=int(tp["sample_start"]) if "sample_start" in tp else None,
+                   mean_feasible=float(np_.double().mean().item()),
+                   moved_from_default=int((cp != base).sum().item()), **errs)
+        if not row["moved_from_default"]:
+            raise AssertionError(f"sampling {mode}: no placement moved off the default branch's")
+        row["gang_scan"] = dict(ms=time_ms(torch, lambda: gang.gang_schedule(dc, db, g, v_cap, d_cap=d_cap, **m),
+                                           reps), plain_ms=k5_plain, bound_ms=b5, bound_by=by5, library_ms=None)
+        row["wave_speculate"] = dict(ms=time_ms(torch, lambda: wave.wave_speculate(dc, db, g, d_cap=d_cap, **m),
+                                                reps), plain_ms=k8_plain, bound_ms=b8, bound_by=by8, library_ms=None)
+        row["wave_admit"] = dict(ms=time_ms(torch, lambda: wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw, **m),
+                                            reps), plain_ms=k9_plain, bound_ms=b9, bound_by=by9, library_ms=None)
+        for k in ("gang_scan", "wave_speculate", "wave_admit"):
+            row[k]["default_ms"] = rows["default"][k]["ms"]
+        log(phase="sampling_kernel_check", **row)
+        rows[mode] = row
+    return rows
+
+
+def k11_strategy_row(torch, device, reps=3, n_nodes=1000, P=512):
+    """K11 under MostAllocated against its plain version at config10's
+    shape (N=1,000 in 8 zones, 64 gangs of 8), exact on every output,
+    with its time beside the default branch's and its bound."""
+    from kubernetes_tpu_torch.ops import coscheduling as cos
+    from kubernetes_tpu_torch.ops import gang
+
+    name, nodes, placed, pending, need, _ = workloads_shapes(n_config10=n_nodes, P=P)[0]
+    dc, db, kw, d_cap, flags, wt = wave_inputs(torch, device, nodes, placed, pending)
+    P = db.valid.shape[0]
+    rows = gang_rows(torch, device, int(db.valid.sum().item()), P, need)
+    g = gang.precompute(dc, db, **kw, **dict(flags, has_ports=False))
+    hk = kw["hostname_key"]
+    targs = [wt[k] for k in WAVE_TABLES]
+    gk = [rows[k] for k in ("gang_id", "gang_first", "gang_last", "gang_need", "g_cap")]
+    tkw = dict(d_cap=d_cap, d2_cap=wt["d2_cap"])
+    most = dict(fit_strategy=(1, (), (1, 1)))
+    got = cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw, **most)
+    want, plain_ms = timed_once(torch, lambda: cos.workloads_admit_plain(dc, db, g, hk, *targs, *gk, **tkw, **most))
+    default = cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw)
+    torch.cuda.synchronize()
+
+    def outs(o):
+        return list(o[:4]) + [o[4][k] for k in ("requested", "nonzero", "num_pods")] + list(o[5:7])
+
+    err = max(max_abs_err(torch, a, b) for a, b in zip(outs(got), outs(want)))
+    if err:
+        raise AssertionError(f"K11 MostAllocated differs from its plain version ({err})")
+    moved = int((default[1] != got[1]).sum().item())
+    if not moved:
+        raise AssertionError("K11: MostAllocated moved no placement off the default branch's")
+    b11, by11, _ = k11_bound(torch, dc, db, g, wt, rows, want[1], want[2], want[5], gang.DEFAULT_WEIGHTS)
+    row = dict(shape=name, mode="most_allocated", N=int(dc.node_valid.sum().item()), P=int(db.valid.sum().item()),
+               k11_err=err, moved_from_default=moved, gangs_admitted=int((want[5] == 1).sum().item()),
+               workloads_admit=dict(
+                   ms=time_ms(torch, lambda: cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw, **most), reps),
+                   default_ms=time_ms(torch, lambda: cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw), reps),
+                   plain_ms=plain_ms, bound_ms=b11, bound_by=by11, library_ms=None))
+    log(phase="sampling_kernel_check", **row)
+    return row
+
+
+# H100 SXM (the same 132 SMs at 1.98 GHz as the float32 peak above): every
+# SM issues at most 128 lane operations a clock (four warp instructions);
+# integer adds issue on the 64 INT32 lanes or, as IMAD, on the FMA pipe, but
+# shifts and logic only on the 64 INT32 lanes
+PEAK_INT32_LOGIC_S = PEAK_ISSUE_OPS_S / 2
+# threefry2x32 of ktpu::rng, from its round structure: 20 rounds of an add,
+# a rotate (one funnel shift) and an xor, and six key injections of two adds
+# (the second add's round constant folds into a three-input add); so 40
+# shifts and logic operations and 32 adds a call
+THREEFRY_LOGIC, THREEFRY_ADDS = 40, 32
+
+
+def tie_bits_bound(A, N):
+    """K19's least time on the H100: the larger of its int64 writes over the
+    memory rate and the integer work the function needs, one threefry and
+    an xor per (attempt, node) and one fold_in and the key's two xors per
+    attempt, with the shifts and logic on the INT32 lanes and the whole
+    issued at the SMs' issue rate.  (The kernel folds the attempt in per
+    thread, A N fold_ins where A are needed: a cost of its design, not of
+    the function.)"""
+    logic = A * N * (THREEFRY_LOGIC + 1) + A * (THREEFRY_LOGIC + 2)
+    ops = logic + (A * N + A) * THREEFRY_ADDS
+    t_bytes = A * N * 8 / PEAK_BYTES_S * 1e3
+    t_ops = max(logic / PEAK_INT32_LOGIC_S, ops / PEAK_ISSUE_OPS_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k19_row(torch, device, reps=10, A=512, N=10240, host_N=500):
+    """K19 tie_bits against its plain version, exact, for A attempts over
+    an N-node bucket, and at the one-pod host cycle's shape (one attempt
+    over host_N nodes, what the cycle launches per pod), each with its
+    time, the plain version's and its bound (tie_bits_bound)."""
+    from kubernetes_tpu_torch.ops import rng
+
+    key, base = rng.prng_key(TIE_SEED), 100000
+    row = {}
+    for name, a, n in (("tie_bits", A, N), ("host_cycle", 1, host_N)):
+        got = rng.tie_bits(key, base, a, n, device)
+        want, plain_ms = timed_once(torch, lambda: rng.tie_bits_plain(key, base, a, n, device))
+        err = max_abs_err(torch, got, want)
+        if err:
+            raise AssertionError(f"K19 tie_bits differs from its plain version at A={a} N={n} ({err})")
+        b, by = tie_bits_bound(a, n)
+        row[name] = dict(shape=f"A={a} N={n}", max_abs_err=err,
+                         ms=time_ms(torch, lambda: rng.tie_bits(key, base, a, n, device), reps),
+                         plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None)
+    row["k19_err"] = max(r["max_abs_err"] for r in row.values())
+    log(phase="sampling_kernel_check", **row)
+    return row
+
+
+def phase_sampling_drains(torch, device, n_nodes=5000, n_pods=10240, n_host_nodes=500, n_host_pods=128,
+                          n_seedless_nodes=1000, n_seedless_pods=256, n_small_nodes=90):
+    """Full-width drains through Scheduler() on the card, on config4's node
+    set (basic_nodes(5000, zones=3)): 10,240 spread pods under
+    reference_sampling_compat with tie_break_seed 7, every batch on the
+    direct wave (no fast, chained or scan batch), the zone skew within
+    maxSkew, the attempt counter at the pod count and the cursor read back
+    from K9; and 10,240 plain pods (bench.py's north-star mix) under
+    MostAllocated, off the fast path on the chained scan as the reference
+    routes them, its first batch's 512 placements equal to a device="cpu"
+    drain of those pods; then the one-pod host cycle: 128 pods asking for an
+    extended GPU resource on 500 nodes under a MostAllocated strategy that
+    weighs it (scored on the host), compat sampling and the tie seed, one
+    K19 launch per pod, equal to the same drain on the CPU in placements
+    and cursor; then reference_sampling_compat with no seed, where ties go
+    to the first node in visit order from the cursor, on 1,000 nodes (the
+    adaptive window, 420 of 1,000) and on 90 (under 100 nodes the window is
+    every node, k = n), added zone by zone (the visit order, zone
+    round-robin, is not the slots'), in batches of 256: 256 spread pods (a batch on the
+    wave) then 256 plain pods (a batch on the direct scan), each drain equal
+    to the same drain on the CPU in placements, cursor and attempts.
+    Returns the drains' launches."""
+    from kubernetes_tpu_torch.framework.config import Profile
+    from kubernetes_tpu_torch.ops import _build
+
+    out = {}
+    nodes = basic_nodes(n_nodes, zones=3)
+    _build.reset_launches()
+    got, dt, sched = drain(device, nodes, spread_pods(n_pods), reference_sampling_compat=True,
+                           tie_break_seed=TIE_SEED)
+    launches = out["compat"] = dict(_build.launches)
+    check_capacity(sched)
+    m = sched.metrics
+    batches = -(-n_pods // sched.config.batch_size)
+    if (m["wave_batches"], m["scan_batches"], m["chain_batches"], m["fast_batches"]) != (batches, 0, 0, 0):
+        raise AssertionError(f"compat drain: routes {m}")
+    if sched._attempt_counter != n_pods or not 0 <= sched._next_start_node_index < n_nodes:
+        raise AssertionError("compat drain: the counters did not advance as the reference's")
+    missing = [k for k in ("static_eval", "gang_spread_statics", "wave_speculate", "wave_admit") if not launches[k]]
+    if missing:
+        raise AssertionError(f"compat drain never launched {missing}")
+    log(phase="sampling_drain", name="compat_spread", nodes=n_nodes, pods=len(got),
+        placed=sum(v is not None for v in got.values()), drain_s=dt, pods_per_s=len(got) / dt,
+        zone_skew=zone_skew_ok(sched, got), cursor=sched._next_start_node_index,
+        attempts=sched._attempt_counter, launches=launches, wave_batches=m["wave_batches"],
+        scan_batches=m["scan_batches"], chain_batches=m["chain_batches"], fast_batches=m["fast_batches"])
+
+    most = [Profile(plugin_config={"NodeResourcesFit": {"scoringStrategy": {"type": "MostAllocated"}}})]
+    _build.reset_launches()
+    got, dt, sched = drain(device, nodes, north_star_pods(n_pods), profiles=most)
+    launches = out["most_allocated"] = dict(_build.launches)
+    check_capacity(sched)
+    m = sched.metrics
+    if m["fast_batches"] or m["resident_batches"] or m["scan_batches"] + m["chain_batches"] != batches:
+        raise AssertionError(f"MostAllocated drain: routes {m}")
+    if not launches["gang_scan"] or not launches["static_eval"]:
+        raise AssertionError(f"MostAllocated drain never launched K1 and K5: {launches}")
+    first = north_star_pods(512)
+    want, cpu_s, _ = drain(torch.device("cpu"), basic_nodes(n_nodes, zones=3), first,
+                           profiles=[Profile(plugin_config=most[0].plugin_config)])
+    diff = [k for k in want if want[k] != got.get(k)]
+    if diff:
+        raise AssertionError(f"MostAllocated drain: {len(diff)} of the first 512 placements differ from the CPU's")
+    used = len({v for v in got.values() if v is not None})
+    log(phase="sampling_drain", name="most_allocated", nodes=n_nodes, pods=len(got),
+        placed=sum(v is not None for v in got.values()), drain_s=dt, pods_per_s=len(got) / dt, nodes_used=used,
+        compared_with_cpu=len(want), cpu_drain_s=cpu_s, launches=launches, scan_batches=m["scan_batches"],
+        chain_batches=m["chain_batches"], fast_batches=m["fast_batches"])
+
+    # the one-pod host cycle: a strategy weighing an extended resource scores
+    # on the host, every pod alone, with the window and K19's bits
+    host_nodes, host_pods = gpu_world(n_host_nodes, n_host_pods)
+    host_cfg = dict(profiles=[Profile(plugin_config={"NodeResourcesFit": {"scoringStrategy": {
+        "type": "MostAllocated", "resources": [{"name": "cpu", "weight": 1}, {"name": "memory", "weight": 1},
+                                               {"name": GPU, "weight": 5}]}}})],
+        reference_sampling_compat=True, tie_break_seed=TIE_SEED)
+    _build.reset_launches()
+    got, dt, sched = drain(device, host_nodes, host_pods, **host_cfg)
+    launches = out["host_fit_tie"] = dict(_build.launches)
+    check_capacity(sched)
+    if sched.metrics["host_cycles"] != n_host_pods or launches["tie_bits"] != n_host_pods:
+        raise AssertionError(f"host-scored drain: {sched.metrics['host_cycles']} host cycles, "
+                             f"{launches['tie_bits']} K19 launches for {n_host_pods} pods")
+    want, cpu_s, cpu_sched = drain(torch.device("cpu"), *gpu_world(n_host_nodes, n_host_pods), **host_cfg)
+    if want != got or cpu_sched._next_start_node_index != sched._next_start_node_index:
+        raise AssertionError("host-scored drain: the placements or the cursor differ from the CPU's")
+    log(phase="sampling_drain", name="host_fit_tie", nodes=n_host_nodes, pods=len(got),
+        placed=sum(v is not None for v in got.values()), drain_s=dt, pods_per_s=len(got) / dt, cpu_drain_s=cpu_s,
+        cursor=sched._next_start_node_index, attempts=sched._attempt_counter, launches=launches,
+        host_cycles=sched.metrics["host_cycles"], equal_to_cpu=True)
+
+    # no seed: the compat first-max in visit order, cut and uncut, the
+    # nodes added zone by zone so that the visit order is not the slots'
+    for name, n in (("compat_seedless", n_seedless_nodes), ("compat_seedless_all", n_small_nodes)):
+        def world():
+            nodes = sorted(basic_nodes(n, zones=3), key=lambda nd: nd.labels[ZONE])
+            return nodes, spread_pods(n_seedless_pods) + north_star_pods(n_seedless_pods)
+
+        _build.reset_launches()
+        seedless = dict(reference_sampling_compat=True, batch_size=n_seedless_pods)
+        got, dt, sched = drain(device, *world(), **seedless)
+        launches = out[name] = dict(_build.launches)
+        check_capacity(sched)
+        m = sched.metrics
+        if (m["wave_batches"], m["scan_batches"], m["chain_batches"], m["fast_batches"]) != (1, 1, 0, 0):
+            raise AssertionError(f"{name}: routes {m}")
+        missing = [k for k in ("gang_scan", "wave_speculate", "wave_admit") if not launches[k]]
+        if missing:
+            raise AssertionError(f"{name} never launched {missing}")
+        want, cpu_s, cpu_sched = drain(torch.device("cpu"), *world(), **seedless)
+        if (want != got or cpu_sched._next_start_node_index != sched._next_start_node_index
+                or cpu_sched._attempt_counter != sched._attempt_counter):
+            raise AssertionError(f"{name}: the placements, the cursor or the attempts differ from the CPU's")
+        sample_k = sched._sampling_args(next(iter(sched.profiles.values())))["sample_k"]
+        log(phase="sampling_drain", name=name, nodes=n, pods=len(got), placed=sum(v is not None for v in got.values()),
+            sample_k=sample_k, drain_s=dt, pods_per_s=len(got) / dt, cpu_drain_s=cpu_s,
+            cursor=sched._next_start_node_index, attempts=sched._attempt_counter,
+            launches=launches, wave_batches=m["wave_batches"], scan_batches=m["scan_batches"], equal_to_cpu=True)
+    return out
+
+
+GPU = "example.com/gpu"
+
+
+def gpu_world(n_nodes, n_pods, seed=61):
+    """Nodes with 8 cpu, 32Gi and 8 of an extended GPU resource in three
+    zones, and pods asking for 1-2 GPUs with 100-500m cpu."""
+    from kubernetes_tpu_torch.api import Container, Node, Pod, Resource
+
+    rng = random.Random(seed)
+    nodes = [Node(name=f"node-{i}", labels={ZONE: f"zone-{i % 3}", HOSTNAME: f"node-{i}"},
+                  capacity=Resource.from_map({"cpu": "8", "memory": "32Gi", "pods": 110, GPU: 8}))
+             for i in range(n_nodes)]
+    pods = [Pod(name=f"gpu-{i}", containers=[Container(name="c", requests={
+        "cpu": f"{rng.choice([100, 250, 500])}m", "memory": "256Mi", GPU: rng.choice([1, 2])})])
+        for i in range(n_pods)]
+    return nodes, pods
+
+
+def phase_sampling_parity(torch, device, compat=(600, 900, 77), wave=(200, 400, 47)):
+    """Port copies of the reference's tools/paritycheck.py
+    check_compat_vs_oracle and check_compat_wave_vs_oracle: a compat drain
+    with tie_break_seed = seed on the card (plain pods; then mixed spread /
+    anti-affinity / plain pods, which must ride the wave) against the port
+    oracle's serial loop in nodeTree order (feasible_nodes with the adaptive
+    window from the cursor, prioritize, the (score, bits) maximum), the bits
+    of every attempt drawn by K19 in one launch.  Sizes cut from the
+    reference's (2,000 / 3,000 and 800 / 1,600: the serial oracle walks
+    every placed anti-affinity pod per candidate node, minutes at that
+    size) to 600 / 900 and 200 / 400.  Returns the launches."""
+    from kubernetes_tpu_torch.ops import _build, rng
+    from kubernetes_tpu_torch.oracle.pipeline import feasible_nodes, prioritize
+    from kubernetes_tpu_torch.oracle.state import OracleState
+
+    def serial(nodes, pods, seed, count_all):
+        state = OracleState.build(nodes)
+        n = len(nodes)
+        bits = rng.tie_bits(rng.prng_key(seed), 0, len(pods), n, device).cpu().tolist()
+        idx_of = {name: i for i, name in enumerate(state.nodes)}
+        start = attempt = 0
+        want = {}
+        for pod in pods:
+            fit = feasible_nodes(pod, state, sample_pct=0, start_index=start)
+            start = (start + fit.processed) % n
+            totals = prioritize(pod, state, fit.feasible)
+            if count_all:
+                attempt += 1
+            if not totals:
+                want[pod.name] = None
+                continue
+            if not count_all:
+                attempt += 1
+            h = bits[attempt - 1]
+            node = max(totals, key=lambda m: (totals[m], h[idx_of[m]]))
+            want[pod.name] = node
+            pod.node_name = node
+            state.place(pod)
+        return want
+
+    launches = {}
+    for name, (n_nodes, n_pods, seed), make, count_all in (
+            ("compat_vs_oracle", compat, lambda n, s: north_star_pods(n, prefix="pp", seed=s), False),
+            ("compat_wave_vs_oracle", wave, cross_pod_pods, True)):
+        t0 = time.perf_counter()
+        _build.reset_launches()
+        got, dt, sched = drain(device, basic_nodes(n_nodes, zones=3), make(n_pods, seed),
+                               reference_sampling_compat=True, tie_break_seed=seed)
+        t1 = time.perf_counter()
+        want = serial(basic_nodes(n_nodes, zones=3), make(n_pods, seed), seed, count_all)
+        launches[name] = dict(_build.launches)
+        diffs = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+        wave_batches = sched.metrics["wave_batches"]
+        log(phase="sampling_parity", name=name, nodes=n_nodes, pods=n_pods, seed=seed,
+            bound_device=sum(v is not None for v in got.values()),
+            bound_oracle=sum(v is not None for v in want.values()),
+            diffs=len(diffs), first_diffs=[(k, got.get(k), want.get(k)) for k in diffs[:5]], wave_batches=wave_batches,
+            drain_s=dt, oracle_s=time.perf_counter() - t1, wall_s=time.perf_counter() - t0, launches=launches[name])
+        if diffs:
+            raise AssertionError(f"{name}: {len(diffs)} placements differ from the serial oracle")
+        if name == "compat_wave_vs_oracle" and not wave_batches:
+            raise AssertionError("compat_wave_vs_oracle: the wave never engaged")
+    return launches
+
+
+def cross_pod_pods(n, seed=99):
+    """The reference's tools/paritycheck.py _cross_pod_pods: mixed
+    zone-spread (maxSkew 3), hostname anti-affinity and plain pods, the
+    wave's diet."""
+    from kubernetes_tpu_torch.api import (Affinity, Container, LabelSelector, Pod, PodAffinityTerm, PodAntiAffinity,
+                                          TopologySpreadConstraint)
+
+    rng = random.Random(seed)
+    pods = []
+    for i in range(n):
+        kw = {}
+        if i % 2 == 0:
+            app = f"sp-{i % 12}"
+            kw["labels"] = {"app": app}
+            kw["topology_spread_constraints"] = (TopologySpreadConstraint(
+                max_skew=3, topology_key=ZONE, when_unsatisfiable="DoNotSchedule",
+                label_selector=LabelSelector(match_labels={"app": app})),)
+        elif i % 4 == 1:
+            grp = f"g{i % 20}"
+            kw["labels"] = {"group": grp}
+            kw["affinity"] = Affinity(pod_anti_affinity=PodAntiAffinity(
+                required_during_scheduling_ignored_during_execution=(PodAffinityTerm(
+                    topology_key=HOSTNAME, label_selector=LabelSelector(match_labels={"group": grp})),)))
+        else:
+            kw["labels"] = {"app": f"plain-{i % 8}"}
+        pods.append(Pod(name=f"wp-{i}", containers=[Container(name="c", requests={
+            "cpu": f"{rng.choice([100, 250])}m", "memory": "128Mi"})], **kw))
+    return pods
+
+
+def phase_sampling(torch, device):
+    """Phase 13: the kernel rows (sampling_rows, k11_strategy_row,
+    k19_row), the full-width drains and the two parity copies.  Returns
+    (rows by mode, K11's row, K19's row, the drains' launches, the parity
+    runs' launches)."""
+    rows = sampling_rows(torch, device)
+    k11 = k11_strategy_row(torch, device)
+    k19 = k19_row(torch, device)
+    drains = phase_sampling_drains(torch, device)
+    parity = phase_sampling_parity(torch, device)
+    return rows, k11, k19, drains, parity
+
+
 def main() -> int:
     try:
         import torch
@@ -4187,6 +4670,12 @@ def main() -> int:
     checks["explain_stack"] = dict(k17_rows["config4"]["explain_stack"], mixed=k17_rows["mixed"]["explain_stack"],
                                    max_abs_err=max(r["k17_err"] for r in k17_rows.values()))
     checks["pipeline_score"] = dict(route_err=k18_row_["route_err"], **k18_row_["pipeline_score"])
+    # the sampling window, the seeded tie-break (K19) and the fit strategies:
+    # K5, K8 and K9 in each mode, K11 under MostAllocated, K19, against their
+    # plain versions; the compat and MostAllocated drains at full width and
+    # the one-pod host cycle's drain; the two compat parity copies
+    modes, k11_most, k19, sampling_l, sampling_parity_l = phase_sampling(torch, device)
+    checks["tie_bits"] = dict(k19["tie_bits"], max_abs_err=k19["k19_err"], host_cycle=k19["host_cycle"])
     checks["dra_spec_mask"]["max_abs_err"] = max(checks["dra_spec_mask"]["max_abs_err"],
                                                  *(r["k14_err"] for r in dd_rows.values()))
     checks["dra_spec_mask"]["dd320"] = dict(dd_rows[320]["dra_spec_mask"], dd8_ms=dd_rows[8]["dra_spec_mask"]["ms"],
@@ -4198,6 +4687,13 @@ def main() -> int:
                               **gang["config3" if kernel == "gang_interpod_statics" else "config4"][kernel])
     for kernel, err in (("wave_speculate", "k8_err"), ("wave_admit", "k9_err")):
         checks[kernel] = dict(max_abs_err=max(row[err] for row in wave.values()), **wave["config4"][kernel])
+    # each of K5, K8 and K9 in the step modes of phase 13, and the launches of
+    # the sampling and strategy drains
+    for kernel, err in (("gang_scan", "k5_err"), ("wave_speculate", "k8_err"), ("wave_admit", "k9_err")):
+        checks[kernel]["max_abs_err"] = max(checks[kernel]["max_abs_err"],
+                                            *(r[err] for r in modes.values() if err in r))
+        checks[kernel]["modes"] = {mode: dict(r[kernel], max_abs_err=r.get(err)) for mode, r in modes.items()}
+        checks[kernel]["launches_sampling_drains"] = {k: v[kernel] for k, v in sampling_l.items()}
     # K8 with K14's lane, the DRA batch's speculation
     checks["wave_speculate"]["max_abs_err"] = max(checks["wave_speculate"]["max_abs_err"], dra_row["k8_lane_err"])
     checks["wave_speculate"]["dra_lane"] = dict(shape="config4_dra", max_abs_err=dra_row["k8_lane_err"],
@@ -4213,6 +4709,9 @@ def main() -> int:
     checks["wave_speculate"]["extra_score"] = dict(shape="config4_extra_score", max_abs_err=es_row["k8_err"],
                                                    ms=es_row["k8_ms"], no_score_ms=es_row["k8_no_score_ms"])
     checks["workloads_admit"]["max_abs_err"] = max(checks["workloads_admit"]["max_abs_err"], es_row["k11_err"])
+    checks["workloads_admit"]["max_abs_err"] = max(checks["workloads_admit"]["max_abs_err"], k11_most["k11_err"])
+    checks["workloads_admit"]["most_allocated"] = dict(shape=k11_most["shape"], max_abs_err=k11_most["k11_err"],
+                                                       **k11_most["workloads_admit"])
     checks["workloads_admit"]["extra_score"] = dict(
         shape="config4_extra_score", max_abs_err=es_row["k11_err"], ms=es_row["k11_ms"],
         no_score_ms=es_row["k11_no_score_ms"], plain_ms=es_row["k11_plain_ms"],
@@ -4253,6 +4752,8 @@ def main() -> int:
                           "explain_path", explain_l),
         "pipeline_score": ("kubernetes_tpu_torch/csrc/pipeline.cu", "kubernetes_tpu/ops/pipeline.py:52",
                            "explain_path", explain_l),
+        "tie_bits": ("kubernetes_tpu_torch/csrc/rng.cu", "kubernetes_tpu/ops/gang.py:910", "host_fit_tie",
+                     sampling_l["host_fit_tie"]),
     }
     kernels = []
     for name, (src, replaces, path, launches) in sources.items():
@@ -4262,6 +4763,9 @@ def main() -> int:
         if name == "wave_speculate":  # K8 is also the workloads dispatch's speculation
             kernels[-1]["also"] = dict(replaces="kubernetes_tpu/ops/coscheduling.py:287", path="config10",
                                        launches=config10_l[name])
+        if name == "tie_bits":  # K19 also draws the parity copies' bits
+            kernels[-1]["also"] = dict(replaces="kubernetes_tpu/scheduler.py:4990", path="sampling_parity",
+                                       launches=sum(v[name] for v in sampling_parity_l.values()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

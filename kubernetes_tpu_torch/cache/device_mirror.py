@@ -6,7 +6,8 @@ cache keeps one DeviceCluster alive across batches and ships only what
 changed:
 
   * the node usage rows (requested / nonzero / num_pods / host ports),
-    rewritten in place on every sync (they change with every commit);
+    rewritten in place on every sync (they change with every commit), and
+    the visit ranks, whose refresh rewrites the whole row;
   * the placed-pod and term rows appended since the last sync (the
     mirror's append cursors), ``copy_``-ed into the preallocated rows;
   * everything else only when the mirror's static key moves (static
@@ -31,6 +32,8 @@ _USAGE = {
     "used_ppk": ("used_ppk", np.int32),
     "used_ip": ("used_ip", np.int32),
     "used_wild": ("used_wild", bool),
+    # a rank refresh rewrites the whole row (a node added or moved zone)
+    "visit_rank": ("visit_rank", np.int32),
 }
 
 _EPOD_FIELDS = {

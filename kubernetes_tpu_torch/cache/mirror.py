@@ -33,6 +33,7 @@ from kubernetes_tpu_torch.snapshot.schema import (
     encode_port,
     pack_existing_pods,
     pack_nodes,
+    refresh_visit_rank,
     write_node_row,
 )
 
@@ -252,6 +253,7 @@ class SnapshotMirror:
             # new label VALUES outran the packed parsed-int table
             or len(self.vocab.label_vals) > self.nodes.val_ints.shape[0]
         )
+        order_dirty = False  # membership or zone changes move visit ranks
         if not need_full:
             known = set(self.nodes.name_to_idx)
             if known - set(names):
@@ -263,6 +265,7 @@ class SnapshotMirror:
                     if not write_node_row(self.nodes, len(self.nodes.name_to_idx), cn.node, self.vocab):
                         need_full = True
                         break
+                    order_dirty = True
         if need_full:
             self._force_full = False
             self._full_pack(cache, namespace_labels)
@@ -274,8 +277,10 @@ class SnapshotMirror:
                 continue
             i = self.nodes.name_to_idx[cn.node.name]
             if cn.static_generation > self.static_generation:
+                # a zone label may have moved: the visit order refreshes
                 if not write_node_row(self.nodes, i, cn.node, self.vocab):
                     self._force_full = True  # a slot axis truncated
+                order_dirty = True
             self._write_usage_row(cn, i, lanes)
             if self._force_full:
                 break
@@ -285,6 +290,8 @@ class SnapshotMirror:
             self._force_full = False
             self._full_pack(cache, namespace_labels)
             return
+        if order_dirty:
+            refresh_visit_rank(self.nodes, [cn.node for cn in real], [self.nodes.name_to_idx[n] for n in names])
         self.generation = max((cn.generation for cn in real), default=self.generation)
         self.static_generation = max((cn.static_generation for cn in real), default=self.static_generation)
 

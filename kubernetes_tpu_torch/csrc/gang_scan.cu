@@ -1,7 +1,8 @@
 // K5: the gang scan, one launch per batch.
 //
 // Replaces the JAX root kubernetes_tpu/ops/gang.py:975 gang_schedule (a
-// lax.scan of pod_step's default branch, :680): for each pod of the batch
+// lax.scan of pod_step, :680, with its fit strategies :804-846, sampling
+// window :751-780 and seeded tie-break :905-915): for each pod of the batch
 // in order, the dynamic resource fit, the spread and inter-pod verdicts
 // against the batch peers already committed, the first-failure reason
 // counts in DIAG_KERNELS order, the seven weighted scores with their
@@ -39,7 +40,9 @@
 //
 // The per-pod verdict, scores and argmax are ktpu::step::pod_step_block
 // (csrc/ktpu.cuh), shared with K8 and K9 (csrc/wave.cu); this file supplies
-// the peers' counts from the counters above and commits.
+// the peers' counts from the counters above and commits, advancing the
+// window's rotation cursor (GangScanArgs::sample_start, the reference's
+// :953-961 carry) after each real pod.
 //
 // Bound on the H100: the recurrence.  Per step the block reads the pod's
 // [C, N] and [AT, N] static rows once and runs ~6 block-wide reductions and
@@ -187,6 +190,7 @@ __global__ void __launch_bounds__(SCAN_THREADS) gang_scan_kernel(const GangScanA
     if (tid == 0) {
       write_step(a, p, out);
       commit_usage(a, p, out.choice);
+      advance_cursor(a, out);
     }
     __syncthreads();  // the commit is visible to every thread of the block
     peer_pass(a, k, p, false, &s_any_dyn);  // clear the cells this step touched

@@ -184,6 +184,49 @@ __device__ __forceinline__ long long score_total(long long a0, long long a1,
   return total;
 }
 
+// The seeded tie-break's bits (ops/rng.py): JAX's threefry2x32, 20 rounds
+// with rotations (13, 15, 26, 6) / (17, 29, 16, 24) and a key injection
+// every 4 rounds.  Under the reference's settings fold_in(k, d) is
+// threefry2x32(k, (0, d)) and bits(k, N)[n] is x0 ^ x1 of
+// threefry2x32(k, (0, n)).  Used by the shared step and by K19.
+namespace rng {
+
+__host__ __device__ __forceinline__ unsigned rotl(unsigned x, int r) { return (x << r) | (x >> (32 - r)); }
+
+__host__ __device__ inline void threefry2x32(unsigned k0, unsigned k1, unsigned& x0, unsigned& x1) {
+  const unsigned ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl(x1, rot[i & 1][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (unsigned)(i + 1);
+  }
+}
+
+// bits(k, .)[n] as a non-negative int64
+__host__ __device__ __forceinline__ long long bits_at(unsigned k0, unsigned k1, unsigned n) {
+  unsigned x0 = 0, x1 = n;
+  threefry2x32(k0, k1, x0, x1);
+  return (long long)(x0 ^ x1);
+}
+
+// fold_in(k, d)
+__host__ __device__ __forceinline__ void fold_in(unsigned& k0, unsigned& k1, unsigned d) {
+  unsigned x0 = 0, x1 = d;
+  threefry2x32(k0, k1, x0, x1);
+  k0 = x0;
+  k1 = x1;
+}
+
+}  // namespace rng
+
 }  // namespace ktpu
 
 // Pointers first, then ints: the layout ctypes reproduces.
@@ -544,8 +587,25 @@ struct GangScanArgs {
   // a score added to every node's total (the planner's target bonus), or
   // null: nothing.  The wave's K8 and the workloads' K11 take it.
   const long long* extra_score;     // [P, N]
+  // NodeResourcesFit's RequestedToCapacityRatio shape: n_shape (utilization,
+  // score) pairs (null unless strat_id is 2)
+  const int* fit_shape;             // [n_shape, 2]
+  // the sampling window (sample_k > 0): each node's visit rank (-1: pad),
+  // the node at each rank, and the rotation cursor, read at each step and,
+  // by K5 and K9, advanced after each real pod
+  const int* visit_rank;            // [N]
+  const int* visit_order;           // [n_valid]
+  int* sample_start;                // [1]
   int N, K, Rn, Rp, L, P, C, AT, KD2, D, JP, use_smem;
   int w_taint, w_naff, w_spread, w_ip, w_fit, w_bal, w_img, check_fit;
+  // strat_id: 0 LeastAllocated, 1 MostAllocated, 2 RequestedToCapacityRatio,
+  // over the cpu and memory lanes with weights w_cpu / w_mem
+  int strat_id, n_shape, w_cpu, w_mem;
+  // sample_k: the window's size (0: off); n_valid: the real nodes
+  int sample_k, n_valid;
+  // the seeded tie-break (tie_on): the key's two words (uint32 bit
+  // patterns) and the batch's first attempt; pod p draws attempt_base + p
+  int tie_on, tie_k0, tie_k1, attempt_base;
 };
 
 // K10's inputs beyond the static tables (csrc/preemption.cu): the placed
@@ -802,7 +862,14 @@ namespace step {
 // inter-pod verdicts from the batch peers' counts, the first-failure reason
 // counts in DIAG_KERNELS order, the seven weighted scores with their
 // normalizations over the live feasible set, and the first-max argmax (ties
-// to the lower node index).  Only where the peers' counts come from differs:
+// to the lower node index).  It carries the reference's optional branches
+// too: the NodeResourcesFit strategy (strat_id, fit_score), the sampling
+// window (sample_k: the feasible set cut to the first sample_k feasible
+// nodes in visit order from the cursor, one block-wide prefix count walking
+// visit_order[] in chunks of blockDim; without a tie key, ties go to the
+// first node in that order) and the seeded tie-break (tie_on: the argmax of
+// total * 2^33 + bits, the bits of fold_in(key, attempt_base + p) at the
+// node's slot, ktpu::rng).  Only where the peers' counts come from differs:
 // the caller passes a Dyn with
 //   f(c, pc, n, d)        filter-side peer count of spread slot c at node n
 //   sc(c, pc, n, d, host) score-side peer count (per node for a hostname
@@ -868,6 +935,16 @@ __device__ __forceinline__ void better(long long& v, int& i, long long ov, int o
   }
 }
 
+// (v, t, i) beats the incumbent on a larger v, then a smaller tie key t
+// (the slot, or the visit position in the window's compat first-max)
+__device__ __forceinline__ void better(long long& v, int& t, int& i, long long ov, int ot, int oi) {
+  if (ov > v || (ov == v && ot < t)) {
+    v = ov;
+    t = ot;
+    i = oi;
+  }
+}
+
 // Node n's compact domain id under topology key `key` (-1: absent).
 __device__ __forceinline__ int dom_at(const GangScanArgs& a, int key, int n) {
   return key >= 0 && key < a.K ? a.dom_ids[(long long)key * a.N + n] : -1;
@@ -901,7 +978,96 @@ struct StepOut {
   int choice;
   long long n_feas;
   long long rc[N_DIAG];
+  int processed;  // the nodes the sampling window visited (0 without it)
 };
+
+// RequestedToCapacityRatio's BuildBrokenLinearFunction (helper/
+// shape_score.go:40) over the shape's (utilization, score) pairs; C's
+// truncating division is Go's.
+__device__ __forceinline__ long long broken_linear(const int* shape, int S, long long x) {
+  long long out = shape[1];
+  for (int i = 0; i + 1 < S; ++i) {
+    const long long x0 = shape[2 * i], y0 = shape[2 * i + 1], x1 = shape[2 * i + 2], y1 = shape[2 * i + 3];
+    if (x > x0 && x <= x1) out = y0 + (y1 - y0) * (x - x0) / (x1 - x0);
+  }
+  if (x > shape[2 * (S - 1)]) out = shape[2 * (S - 1) + 1];
+  return out;
+}
+
+// NodeResourcesFit's score under the strategy (resource_allocation.go:
+// 37-115) from the cpu / memory allocatable a0 / a1 and the non-zero-
+// defaulted request sums c0 / c1: the weighted mean of the lanes with
+// allocatable (RequestedToCapacityRatio: of those whose score is positive,
+// rounded).
+__device__ inline long long fit_score(const GangScanArgs& a, long long a0, long long a1, long long c0, long long c1) {
+  const long long alloc[2] = {a0, a1}, nz[2] = {c0, c1}, w[2] = {a.w_cpu, a.w_mem};
+  long long total = 0, wsum = 0;
+  for (int l = 0; l < 2; ++l) {
+    const bool has = alloc[l] > 0;
+    const long long den = has ? alloc[l] : 1;
+    long long frac;
+    if (a.strat_id == 1)
+      frac = nz[l] > alloc[l] ? 0 : nz[l] * MAX_NODE_SCORE / den;
+    else if (a.strat_id == 2)
+      frac = broken_linear(a.fit_shape, a.n_shape, (!has || nz[l] > alloc[l]) ? MAX_NODE_SCORE
+                                                                             : nz[l] * MAX_NODE_SCORE / den);
+    else
+      frac = nz[l] > alloc[l] ? 0 : (alloc[l] - nz[l]) * MAX_NODE_SCORE / den;
+    if (has && (a.strat_id != 2 || frac > 0)) {
+      total += frac * w[l];
+      wsum += w[l];
+    }
+  }
+  if (wsum <= 0) return 0;
+  return a.strat_id == 2 ? fdiv(2 * total + wsum, 2 * wsum) : fdiv(total, wsum);
+}
+
+// Node n's place in the rotation from the cursor (the walk's position).
+__device__ __forceinline__ int visit_pos(const GangScanArgs& a, int n, int start, int nv) {
+  int r = (a.visit_rank[n] - start) % nv;
+  return r < 0 ? r + nv : r;
+}
+
+// The sampling window's walk: the position, in visit order from `start`, of
+// the sample_k-th feasible node (sc_feas), or -1 when fewer are feasible.
+// Chunks of blockDim positions, one ballot and a per-warp prefix each; it
+// stops at the chunk that reaches sample_k.  Every thread gets the result.
+__device__ inline int window_stop(const GangScanArgs& a, const unsigned char* sc_feas, int start, int nv) {
+  __shared__ int s_cnt[32];
+  __shared__ int s_win[2];  // running count, stop position
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
+  if (tid == 0) {
+    s_win[0] = 0;
+    s_win[1] = -1;
+  }
+  __syncthreads();
+  for (int base = 0; base < nv; base += blockDim.x) {
+    const int i = base + tid;
+    bool f = false;
+    if (i < nv) {
+      int r = start + i;
+      if (r >= nv) r -= nv;
+      const int n = a.visit_order[r];
+      f = n >= 0 && sc_feas[n];
+    }
+    const unsigned bal = __ballot_sync(FULL_MASK, f);
+    if (lane == 0) s_cnt[warp] = __popc(bal);
+    __syncthreads();
+    int off = s_win[0], total = 0;
+    for (int w2 = 0; w2 < n_warps; ++w2) {
+      if (w2 < warp) off += s_cnt[w2];
+      total += s_cnt[w2];
+    }
+    if (f && off + __popc(bal & (FULL_MASK >> (31 - lane))) == a.sample_k) s_win[1] = i;
+    __syncthreads();
+    if (tid == 0) s_win[0] += total;
+    __syncthreads();
+    if (s_win[1] >= 0) break;
+  }
+  const int stop = s_win[1];
+  __syncthreads();  // s_win is written again by the next step
+  return stop;
+}
 
 // NodeResourcesFit at node n for the pod with requests `req` and priority
 // `prio`: pod count and every requested lane (a scalar lane only when
@@ -985,6 +1151,13 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
   for (int r = 0; r < a.Rp; ++r) all_zero = all_zero && req[r] == 0;
   const int prio = a.priority[p];
   const int stamp = p + 1;
+  const bool sampling = a.sample_k > 0;
+  const int nv = a.n_valid > 1 ? a.n_valid : 1;
+  int start = 0;  // the cursor, in [0, nv) like the reference's (vr - start) % nv
+  if (sampling) {
+    start = *a.sample_start % nv;
+    if (start < 0) start += nv;
+  }
 
   // 0 n_feas, 1..9 reason counts, 10 taint max, 11 naff max, 12 ip min,
   // 13 ip max, 14 counted nodes
@@ -993,6 +1166,26 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
                           RED_SUM, RED_SUM, RED_MAX, RED_MAX, RED_MIN, RED_MAX, RED_SUM};
   for (int i = 0; i < 15; ++i) red[i] = identity(red_op[i]);
   red[10] = red[11] = 0;  // max(where(feas, raw, 0))
+  // a feasible node's share of the normalizers
+  auto count_feasible = [&](int n, long long pn, long long ip_raw) {
+    red[0] += 1;
+    if (a.sc_taint[pn] > red[10]) red[10] = a.sc_taint[pn];
+    if (a.sc_nodeaff[pn] > red[11]) red[11] = a.sc_nodeaff[pn];
+    if (ip_raw < red[12]) red[12] = ip_raw;
+    if (ip_raw > red[13]) red[13] = ip_raw;
+    if (a.sp_all_keys[pn]) {
+      red[14] += 1;
+      // distinct domains among the counted nodes, per non-hostname
+      // constraint (the hostname's topology size is red[14])
+      for (int c = 0; c < C; ++c) {
+        const long long pc = (long long)p * C + c;
+        if (a.sp_is_host[pc]) continue;
+        const int d = dom_at(a, a.sp_key[pc], n);
+        if (d < 0) continue;
+        if (atomicExch(sc.seen + (long long)c * sc.seen_stride + d, stamp) != stamp) atomicAdd(sh.s_ndom + c, 1);
+      }
+    }
+  };
   for (int n = tid; n < N; n += blockDim.x) {
     const long long pn = (long long)p * N + n;
     const bool m_portb = dyn.portb(n);
@@ -1073,28 +1266,24 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
           break;
         }
     }
-    if (feas) {
-      red[0] += 1;
-      if (a.sc_taint[pn] > red[10]) red[10] = a.sc_taint[pn];
-      if (a.sc_nodeaff[pn] > red[11]) red[11] = a.sc_nodeaff[pn];
-      if (ip_raw < red[12]) red[12] = ip_raw;
-      if (ip_raw > red[13]) red[13] = ip_raw;
-      if (a.sp_all_keys[pn]) {
-        red[14] += 1;
-        // distinct domains among the counted nodes, per non-hostname
-        // constraint (the hostname's topology size is red[14])
-        for (int c = 0; c < C; ++c) {
-          const long long pc = (long long)p * C + c;
-          if (a.sp_is_host[pc]) continue;
-          const int d = dom_at(a, a.sp_key[pc], n);
-          if (d < 0) continue;
-          if (atomicExch(sc.seen + (long long)c * sc.seen_stride + d, stamp) != stamp) atomicAdd(sh.s_ndom + c, 1);
-        }
-      }
+    if (feas && !sampling) count_feasible(n, pn, ip_raw);
+  }
+  int processed = 0;
+  if (sampling) {
+    // the window: keep the feasible nodes up to the sample_k-th in visit
+    // order (all of them when fewer are feasible)
+    __syncthreads();  // every node's verdict is in sc.feas
+    const int stop = window_stop(a, sc.feas, start, nv);
+    processed = stop >= 0 ? stop + 1 : nv;
+    for (int n = tid; n < N; n += blockDim.x) {
+      const bool keep = sc.feas[n] && a.visit_rank[n] >= 0 && (stop < 0 || visit_pos(a, n, start, nv) <= stop);
+      sc.feas[n] = keep;
+      if (keep) count_feasible(n, (long long)p * N + n, sc.ip_raw[n]);
     }
   }
   block_reduce(red, red_op, 15, sh.s_buf);
   StepOut out;
+  out.processed = processed;
   out.n_feas = red[0];
   for (int r = 0; r < N_DIAG; ++r) out.rc[r] = red[1 + r];
 
@@ -1141,10 +1330,14 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
     n_use = v[2];
   }
 
-  // ---- weighted total and the first-max argmax over the feasible nodes
+  // ---- weighted total and the argmax over the feasible nodes: first max by
+  // slot; with a tie key the (total, bits) maximum; in the window without
+  // one, the first max in visit order
   long long best = -I64_MAX - 1;
-  int best_n = I32_MAX;
+  int best_t = I32_MAX, best_n = I32_MAX;
   const long long taint_mx = red[10], naff_mx = red[11], ip_mn = red[12], ip_mx = red[13];
+  unsigned tk0 = (unsigned)a.tie_k0, tk1 = (unsigned)a.tie_k1;
+  if (a.tie_on) rng::fold_in(tk0, tk1, (unsigned)a.attempt_base + (unsigned)p);
   for (int n = tid; n < N; n += blockDim.x) {
     if (!sc.feas[n]) continue;
     const long long pn = (long long)p * N + n;
@@ -1175,38 +1368,47 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
     if (a.w_fit || a.w_bal) {
       const long long a0 = a.allocatable[(long long)n * a.Rn + LANE_CPU];
       const long long a1 = a.allocatable[(long long)n * a.Rn + LANE_MEM];
-      total += score_total(a0, a1, (long long)a.nonzero[2 * n] + a.nonzero_req[2 * p],
-                           (long long)a.nonzero[2 * n + 1] + a.nonzero_req[2 * p + 1],
-                           (long long)a.requested[(long long)n * a.Rn + LANE_CPU] + req[LANE_CPU],
-                           (long long)a.requested[(long long)n * a.Rn + LANE_MEM] + req[LANE_MEM], 0, a.w_fit,
-                           a.w_bal, 0);
+      const long long c0 = (long long)a.nonzero[2 * n] + a.nonzero_req[2 * p];
+      const long long c1 = (long long)a.nonzero[2 * n + 1] + a.nonzero_req[2 * p + 1];
+      if (a.w_fit) total += a.w_fit * fit_score(a, a0, a1, c0, c1);
+      total += score_total(a0, a1, c0, c1, (long long)a.requested[(long long)n * a.Rn + LANE_CPU] + req[LANE_CPU],
+                           (long long)a.requested[(long long)n * a.Rn + LANE_MEM] + req[LANE_MEM], 0, 0, a.w_bal,
+                           0);
     }
     if (a.w_img) total += a.w_img * a.sc_image[pn];
     if (a.extra_score) total += a.extra_score[pn];
-    if (total > best) {  // ascending n: strict > keeps the first max
-      best = total;
-      best_n = n;
-    }
+    long long key = total;
+    int tie = n;
+    if (a.tie_on)
+      key = total * (1LL << 33) + rng::bits_at(tk0, tk1, (unsigned)n);
+    else if (sampling)
+      tie = visit_pos(a, n, start, nv);
+    better(best, best_t, best_n, key, tie, n);
   }
+  __shared__ int s_best_t[32];
   const int lane = tid & 31, warp = tid >> 5;
   for (int off = 16; off > 0; off >>= 1) {
     const long long ov = __shfl_down_sync(FULL_MASK, best, off);
+    const int ot = __shfl_down_sync(FULL_MASK, best_t, off);
     const int oi = __shfl_down_sync(FULL_MASK, best_n, off);
-    better(best, best_n, ov, oi);
+    better(best, best_t, best_n, ov, ot, oi);
   }
   if (lane == 0) {
     sh.s_best_v[warp] = best;
+    s_best_t[warp] = best_t;
     sh.s_best_i[warp] = best_n;
   }
   __syncthreads();
   if (warp == 0) {
     const int n_warps = blockDim.x >> 5;
     best = lane < n_warps ? sh.s_best_v[lane] : -I64_MAX - 1;
+    best_t = lane < n_warps ? s_best_t[lane] : I32_MAX;
     best_n = lane < n_warps ? sh.s_best_i[lane] : I32_MAX;
     for (int off = 16; off > 0; off >>= 1) {
       const long long ov = __shfl_down_sync(FULL_MASK, best, off);
+      const int ot = __shfl_down_sync(FULL_MASK, best_t, off);
       const int oi = __shfl_down_sync(FULL_MASK, best_n, off);
-      better(best, best_n, ov, oi);
+      better(best, best_t, best_n, ov, ot, oi);
     }
     __syncwarp();
     if (lane == 0) sh.s_best_i[0] = out.n_feas > 0 ? best_n : ABSENT;
@@ -1226,6 +1428,14 @@ __device__ __forceinline__ void commit_usage(const GangScanArgs& a, int p, int c
   a.nonzero[2 * choice] += a.nonzero_req[2 * p];
   a.nonzero[2 * choice + 1] += a.nonzero_req[2 * p + 1];
   a.num_pods[choice] += 1;
+}
+
+// nextStartNodeIndex (schedule_one.go:625): the window's cursor advances by
+// the nodes the step visited, for a real pod; one thread, after the step.
+__device__ __forceinline__ void advance_cursor(const GangScanArgs& a, const StepOut& out) {
+  if (a.sample_k <= 0) return;
+  const int nv = a.n_valid > 1 ? a.n_valid : 1;
+  *a.sample_start = (int)(((long long)*a.sample_start + out.processed) % nv);
 }
 
 // The step's outputs for pod p; one thread.
@@ -1624,6 +1834,7 @@ __global__ void __launch_bounds__(ADMIT_THREADS)
         }
         write_step(a, p, out);
         commit_usage(a, p, choice);
+        advance_cursor(a, out);
       }
     }
     bool fail = false;

@@ -13,7 +13,8 @@
 // The peers' counts are zero and every port is free; the usage state is the
 // cluster's own, read only.  Each block has its own per-node scratch rows.
 // Output: c0, the speculative node per pod (no reason counts, so the
-// diagnosis masks are not read).  An optional [P, N] lane (WaveArgs::lane)
+// diagnosis masks are not read).  In sampling mode every block reads the
+// batch's initial cursor and none advances it (reference :794-805).  An optional [P, N] lane (WaveArgs::lane)
 // is read as the port verdict: the workloads dispatch passes its DRA
 // verdict against the pre-batch allocation state there (K14, csrc/dra.cu),
 // as the reference puts it in spec_one's m_portb.  An optional [P, N]
@@ -43,7 +44,8 @@
 //     port term (factored_carry_update's rank-1 update as O(T) stores), and
 //     its own inter-pod terms over their domains into rev_cnt;
 //   * attributes a demotion (kind, first violating slot) from the pre-commit
-//     verdict at the speculative node.
+//     verdict at the speculative node;
+//   * advances the sampling window's cursor (reference :974).
 // The carries sit in dynamic shared memory when they fit (the card's opt-in
 // limit, capped by ops/wave.py ADMIT_SMEM_CAP), else in a global scratch
 // row; the per-pod sums and lists likewise.

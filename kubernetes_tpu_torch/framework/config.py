@@ -19,13 +19,24 @@ the reference's names and defaults: ``DynamicResourceAllocation`` (off by
 default) adds the DynamicResources plugin to every profile, after
 VolumeZone, so pods with ResourceClaims take the workloads dispatch; with
 it off their claims are ignored.  ``validate`` rejects any other gate name.
+
+The reference's sampling and tie-break knobs: ``percentage_of_nodes_to_score``
+(0, the default, is adaptive; a profile's own value, None by default,
+overrides it) and ``reference_sampling_compat`` cut each pod's Filter pass
+to numFeasibleNodesToFind nodes in nodeTree order from a rotating cursor,
+as upstream does; ``tie_break_seed`` breaks max-score ties with seeded bits
+(ops/rng.py).  Any of them keeps batches off the fast path and the chained
+and workloads dispatches, as in the reference.  A profile's
+``plugin_config`` carries NodeResourcesFit's args (its scoring strategy,
+framework/plugins.py); ``validate`` rejects args of other plugins.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
+from kubernetes_tpu_torch.framework.plugins import NodeResourcesFit
 from kubernetes_tpu_torch.ops.scores import DEFAULT_SCORE_WEIGHTS, WEIGHT_ORDER
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"
@@ -63,11 +74,23 @@ class Profile:
     post_filter: bool = True
     min_candidate_nodes_percentage: int = 10
     min_candidate_nodes_absolute: int = 100
+    # plugin name → args (only NodeResourcesFit's are read)
+    plugin_config: Dict[str, dict] = field(default_factory=dict)
+    # overrides the configuration's own value when set
+    percentage_of_nodes_to_score: Optional[int] = None
 
     def weights(self) -> tuple:
         """Score weights in WEIGHT_ORDER: [0] taint, [1] naff, [4] fit,
         [5] bal, [6] img."""
         return tuple(self.score_weights.get(n, 0) for n in WEIGHT_ORDER)
+
+    def fit_plugin(self) -> NodeResourcesFit:
+        """NodeResourcesFit under this profile's args."""
+        return NodeResourcesFit(self.plugin_config.get(NodeResourcesFit.name))
+
+    def fit_strategy(self) -> tuple:
+        """The kernels' (strategy id, shape, (w_cpu, w_mem))."""
+        return self.fit_plugin().fit_strategy()
 
 
 @dataclass
@@ -110,6 +133,15 @@ class SchedulerConfiguration:
     planner_kernel: bool = True
     # component-base/featuregate: only the gates this scheduler reads exist
     feature_gates: Dict[str, bool] = field(default_factory=lambda: dict(DEFAULT_FEATURE_GATES))
+    # the reference's percentageOfNodesToScore: 0 = adaptive (50 - nodes /
+    # 125, floor 5 %); a profile's own value overrides it
+    percentage_of_nodes_to_score: int = 0
+    # sample with the adaptive formula even at 0 (upstream always samples;
+    # the default here is full width)
+    reference_sampling_compat: bool = False
+    # seeded uniform tie-break among max-score nodes (the deterministic
+    # analogue of selectHost's reservoir sampling); None: first max
+    tie_break_seed: Optional[int] = None
 
     def dra_enabled(self) -> bool:
         """The DynamicResourceAllocation gate: the DynamicResources plugin
@@ -123,6 +155,8 @@ class SchedulerConfiguration:
             raise ValueError("need batch_size <= resident_run_max")
         if self.resident_window < 1:
             raise ValueError("resident_window must be >= 1")
+        if not 0 <= self.percentage_of_nodes_to_score <= 100:
+            raise ValueError("percentageOfNodesToScore must be in [0, 100]")
         names = [p.scheduler_name for p in self.profiles]
         if not names or len(set(names)) != len(names):
             raise ValueError("profiles need distinct scheduler names")
@@ -131,6 +165,12 @@ class SchedulerConfiguration:
                 raise ValueError("score weights must be non-negative")
             if not 0 <= p.min_candidate_nodes_percentage <= 100 or p.min_candidate_nodes_absolute < 0:
                 raise ValueError("min candidate nodes: percentage in [0, 100], absolute >= 0")
+            if p.percentage_of_nodes_to_score is not None and not 0 <= p.percentage_of_nodes_to_score <= 100:
+                raise ValueError("profile percentageOfNodesToScore must be in [0, 100]")
+            other = sorted(set(p.plugin_config) - {NodeResourcesFit.name})
+            if other:
+                raise ValueError(f"plugin args this scheduler does not read: {', '.join(other)}")
+            p.fit_plugin()  # the args' own validation
         unknown = sorted(set(self.feature_gates) - {name for name, _ in DEFAULT_FEATURE_GATES})
         if unknown:
             raise ValueError(f"feature gates this scheduler does not read: {', '.join(unknown)}")

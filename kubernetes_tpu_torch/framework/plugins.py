@@ -12,6 +12,12 @@ From the JAX package's framework/plugins.py, the parts the port runs:
     ``default_plugins``, which adds DynamicResources after them under the
     DynamicResourceAllocation gate; the device-backed ones are kernel names
     in framework/config.py ``DEFAULT_ENABLED``.
+  * ``NodeResourcesFit``'s scoring-strategy args (noderesources/fit.go):
+    LeastAllocated, MostAllocated or RequestedToCapacityRatio with its
+    shape, the resource weights, and the host ``score`` the one-pod cycle
+    uses.  A strategy that weighs resources beyond cpu and memory scores on
+    the host only (``device_score`` False): the kernels' fit score reads the
+    cpu and memory lanes.
   * ``QUEUEING_HINTS``: each plugin's EventsToRegister and
     the Coscheduling gate's PodGroup events (the reference registers them
     beside its profiles' hints), the
@@ -35,6 +41,7 @@ from kubernetes_tpu_torch.framework.interface import (
     Status,
 )
 from kubernetes_tpu_torch.framework.preemption import Evaluator
+from kubernetes_tpu_torch.oracle import scores as OS
 from kubernetes_tpu_torch.framework.volume_plugins import NodeVolumeLimits, VolumeRestrictions, VolumeZone
 from kubernetes_tpu_torch.framework.volumebinding import VolumeBinding
 
@@ -119,3 +126,60 @@ class DefaultPreemption:
             # lower-priority victim
             return "", Status.unschedulable("preemption is not helpful for scheduling", plugin=self.name)
         return self.evaluator.preempt(pod, shortlist=potential)
+
+
+class NodeResourcesFit:
+    """NodeResourcesFit's Score half with its args (noderesources/fit.go):
+    the three scoring strategies (LeastAllocated by default, MostAllocated,
+    RequestedToCapacityRatio, requested_to_capacity_ratio.go:32).  The
+    strategy reaches the kernels as ``fit_strategy()`` = (id, shape,
+    (w_cpu, w_mem)); a resource spec beyond cpu and memory sets
+    ``device_score`` False, and the scheduler scores such pods on the host
+    (``score``) instead of diverging on the device."""
+
+    name = "NodeResourcesFit"
+    STRATEGY_IDS = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
+    # config.MaxCustomPriorityScore: shape scores are 0-10, scaled to 0-100
+    MAX_CUSTOM_PRIORITY_SCORE = 10
+
+    def __init__(self, args=None):
+        ss = (args or {}).get("scoringStrategy", {}) or {}
+        self.strategy = ss.get("type", "LeastAllocated")
+        if self.strategy not in self.STRATEGY_IDS:
+            raise ValueError(f"unknown scoringStrategy {self.strategy!r}")
+        res = ss.get("resources") or [{"name": "cpu", "weight": 1}, {"name": "memory", "weight": 1}]
+        w = {r["name"]: int(r.get("weight", 1)) for r in res}
+        self.fit_res_weights = (w.get("cpu", 0), w.get("memory", 0))
+        self.device_score = all(name in ("cpu", "memory") for name in w)
+        scale = 100 // self.MAX_CUSTOM_PRIORITY_SCORE
+        raw_shape = ss.get("requestedToCapacityRatio", {}).get(
+            "shape", [{"utilization": 0, "score": 0}, {"utilization": 100, "score": 10}]
+        )
+        # apis/config/validation: utilization strictly increasing in
+        # [0, 100], score in [0, MaxCustomPriorityScore]
+        prev = -1
+        for pt in raw_shape:
+            u, sc = int(pt["utilization"]), int(pt["score"])
+            if not 0 <= u <= 100:
+                raise ValueError(f"shape utilization {u} outside [0, 100]")
+            if u <= prev:
+                raise ValueError("shape utilization must be strictly increasing")
+            if not 0 <= sc <= self.MAX_CUSTOM_PRIORITY_SCORE:
+                raise ValueError(f"shape score {sc} outside [0, {self.MAX_CUSTOM_PRIORITY_SCORE}]")
+            prev = u
+        self.fit_shape = tuple((int(pt["utilization"]), int(pt["score"]) * scale) for pt in raw_shape)
+        self.fit_resources = tuple((name, weight) for name, weight in w.items() if weight)
+
+    def fit_strategy(self) -> tuple:
+        """(strategy id, shape, (w_cpu, w_mem)): the kernels' form
+        (ops/gang.py DEFAULT_FIT_STRATEGY)."""
+        shape = self.fit_shape if self.strategy == "RequestedToCapacityRatio" else ()
+        return (self.STRATEGY_IDS[self.strategy], shape, self.fit_res_weights)
+
+    def score(self, pod: Pod, ns) -> int:
+        """The strategy's score of ``pod`` on the host node ``ns``."""
+        if self.strategy == "MostAllocated":
+            return OS.score_most_allocated(pod, ns, self.fit_resources)
+        if self.strategy == "RequestedToCapacityRatio":
+            return OS.score_requested_to_capacity_ratio(pod, ns, self.fit_shape, self.fit_resources)
+        return OS.score_least_allocated(pod, ns, self.fit_resources)

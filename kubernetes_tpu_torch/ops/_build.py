@@ -42,6 +42,7 @@ SOURCES = (
     "counterfactual.cu",
     "explain.cu",
     "pipeline.cu",
+    "rng.cu",
     "runtime.cu",
 )
 HEADERS = ("ktpu.cuh",)
@@ -72,6 +73,7 @@ launches: Dict[str, int] = {
     "fork_summary": 0,
     "explain_stack": 0,
     "pipeline_score": 0,
+    "tie_bits": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -213,10 +215,12 @@ class GangScanArgs(ctypes.Structure):
         "ip_viol_existing ip_sym ip_any_static ip_self_all ip_bmatch ip_is_aff ip_is_anti ip_pref_w ip_sym_w "
         "ip_key_idx sc_taint sc_nodeaff sc_image port_b d_nodename d_unsched d_taints d_nodeaff "
         "d_ports d_extra chosen n_feas reason_counts dom_ids sp_key ip_key kd2_key cnt cnt_h port_stamp "
-        "feas ip_raw sp_raw sp_cnt priority nom_off nom_prio nom_req extra_score"
+        "feas ip_raw sp_raw sp_cnt priority nom_off nom_prio nom_req extra_score fit_shape visit_rank "
+        "visit_order sample_start"
     ).split()
     _INTS = (
-        "N K Rn Rp L P C AT KD2 D JP use_smem w_taint w_naff w_spread w_ip w_fit w_bal w_img check_fit"
+        "N K Rn Rp L P C AT KD2 D JP use_smem w_taint w_naff w_spread w_ip w_fit w_bal w_img check_fit "
+        "strat_id n_shape w_cpu w_mem sample_k n_valid tie_on tie_k0 tie_k1 attempt_base"
     ).split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
@@ -331,6 +335,9 @@ def load() -> ctypes.CDLL:
     lib.ktpu_explain_stack.restype = ctypes.c_int
     lib.ktpu_pipeline_score.argtypes = [ctypes.POINTER(PipelineArgs), vp]
     lib.ktpu_pipeline_score.restype = ctypes.c_int
+    u32 = ctypes.c_uint32
+    lib.ktpu_tie_bits.argtypes = [u32, u32, u32, ctypes.c_int, ctypes.c_int, vp, vp]
+    lib.ktpu_tie_bits.restype = ctypes.c_int
     for fn in ("ktpu_gang_scan_smem_max", "ktpu_wave_admit_smem_max", "ktpu_workloads_admit_smem_max",
                "ktpu_admit_threads"):
         getattr(lib, fn).argtypes = []

@@ -91,6 +91,7 @@ def chain_dispatch(
     nom_node=None,
     nom_prio=None,
     nom_req=None,
+    fit_strategy: tuple = gang.DEFAULT_FIT_STRATEGY,
 ):
     """Schedule the batch, then append its committed pods into ``dc`` at the
     given cursors (host ints the caller checked against the cluster's
@@ -103,7 +104,10 @@ def chain_dispatch(
     wave stats.  The wave runs without its port-occupancy carry: the chained
     route refuses batches with host ports (the append does not splice port
     rows).  ``nom_*`` are the open nominations (ops/gang.py), charged on
-    either branch.
+    either branch, and ``fit_strategy`` the NodeResourcesFit strategy
+    (ops/gang.py); the sampling window and the seeded tie-break never reach
+    the chain (their cursor and attempt counter belong to the direct
+    route).
 
     Returns (dc, stacked [2, P] i64 (chosen, n_feas), reason_counts
     [, wave_stats])."""
@@ -119,7 +123,7 @@ def chain_dispatch(
                         has_spread=has_spread, has_ports=has_ports and not wave, has_images=has_images,
                         enabled=enabled, sp_keys=sp_keys, sp_cdv_tab=sp_cdv_tab, ip_keys=ip_keys)
     check_fit = "NodeResourcesFit" in enabled
-    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
+    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, fit_strategy=fit_strategy)
     wave_stats = None
     if wave:
         chosen, n_feas, reason_counts, tallies, wave_stats = ops_wave.wave_schedule(

@@ -126,6 +126,7 @@ class DeviceCluster:
     term_ns_ids: Any  # i32 [M, NS]
     log_tab: Any  # i64 [N+2]  fixed-point round(log(i+2)·2^32)
     dom_ids: Any  # i32 [K, N]  compact per-key domain ids (domain_ids)
+    visit_rank: Any  # i32 [N]  zone-round-robin visit rank (-1: pad row)
     # scalar ids resolved from the vocab
     name_key: int  # label-key id of metadata.name
     unsched_key: int  # label-key id of node.kubernetes.io/unschedulable
@@ -188,6 +189,7 @@ class DeviceCluster:
             term_ns_ids=np.asarray(ep.term_ns_ids, np.int32),
             log_tab=log_table(np.asarray(nt.valid).shape[0]),
             dom_ids=ids,
+            visit_rank=np.asarray(nt.visit_rank, np.int32),
             name_key=int(name_key),
             unsched_key=int(unsched_key),
             empty_val=int(empty_val),

@@ -143,9 +143,11 @@ _DRA_ROWS = ("req_count", "req_all", "req_cl", "q_valid", "req_bad", "ref_cl")
 def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                           ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, g_cap: int,
                           weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, d2_cap=8, nom_node=None,
-                          nom_prio=None, nom_req=None, dra=None, extra_score=None):
+                          nom_prio=None, nom_req=None, dra=None, extra_score=None,
+                          fit_strategy=gang.DEFAULT_FIT_STRATEGY):
     """Plain version of K11: the admission recurrence of the reference's
-    workloads_schedule (ops/coscheduling.py:297-432), one pod at a time.
+    workloads_schedule (ops/coscheduling.py:297-432), one pod at a time,
+    under the NodeResourcesFit strategy ``fit_strategy``.
     ``dra`` (None: no claims in the batch) holds the match tensor ``match``
     [P, DQ, N, DD], ``free0``, ``claim_node0`` and the request rows of
     ops/dra.py; the allocation carries start from free0 and claim_node0.
@@ -160,7 +162,7 @@ def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
     dev = g.static_mask.device
     true_n = torch.ones((N,), dtype=BOOL, device=dev)
     m_sp_all, m_ip_all, t_anti, t_w = wave.term_match_rows(g, rep_sp_p, rep_sp_c, rep_ip_p, rep_ip_u)
-    state = wave._base_state(dc)  # pod_step commits the usage rows in place
+    state = gang._state0(dc)  # pod_step commits the usage rows in place
     assigned = torch.full((P,), ABSENT, dtype=I32, device=dev)
     carries = wave.factored_carry_init(rep_sp_p.shape[0], rep_ip_p.shape[0], N, 0, dev)
     alloc = {} if dra is None else {"free": dra["free0"].clone(), "claim_node": dra["claim_node0"].clone()}
@@ -192,7 +194,7 @@ def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
                                                       *(dra[k][p] for k in _DRA_ROWS))
         hv, _, _ = wave._build_hv(db, g, p, sdyn, idyn, m_dra)
         choice, nf, rc = gang.pod_step(dc, db, g, p, state, hv, check_fit=check_fit, weights=weights, d_cap=d_cap,
-                                       nom=nom, extra_score=extra_score)
+                                       nom=nom, extra_score=extra_score, fit_strategy=fit_strategy)
         assigned[p] = choice
         carries = wave.factored_carry_update(carries, p, choice, m_sp_all, m_ip_all, ip_aux)
         if dra is not None:
@@ -221,11 +223,12 @@ def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
 def workloads_admit(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
                     gang_id, gang_first, gang_last, gang_need, g_cap: int, weights=gang.DEFAULT_WEIGHTS,
                     check_fit=True, d_cap=8, d2_cap=8, nom_node=None, nom_prio=None, nom_req=None, dra=None,
-                    extra_score=None):
+                    extra_score=None, fit_strategy=gang.DEFAULT_FIT_STRATEGY):
     """The admission pass: K11 on CUDA tensors, its plain version on CPU."""
     args = (dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab, gang_id,
             gang_first, gang_last, gang_need, g_cap, weights, check_fit, d_cap, d2_cap)
-    kw = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, dra=dra, extra_score=extra_score)
+    kw = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, dra=dra, extra_score=extra_score,
+              fit_strategy=gang.step_mode(fit_strategy)["fit_strategy"])
     if dc.node_valid.device.type == "cpu":
         return workloads_admit_plain(*args, **kw)
     return _workloads_admit_cuda(*args, **kw)
@@ -251,20 +254,22 @@ def _schedule(admit, speculate, match_fn, lane_fn, dc, db, g, hostname_key, g_ca
 def workloads_schedule_plain(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
                              rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need,
                              weights=gang.DEFAULT_WEIGHTS, check_fit=True, nom_node=None, nom_prio=None,
-                             nom_req=None, d_cap=8, d2_cap=8, extra_score=None, **dra_kw):
+                             nom_req=None, d_cap=8, d2_cap=8, extra_score=None, fit_strategy=gang.DEFAULT_FIT_STRATEGY,
+                             **dra_kw):
     """Plain version of workloads_schedule: K13's, K14's, K8's and K11's
     plain versions."""
     return _schedule(workloads_admit_plain, wave.wave_speculate_plain, dra_ops.selector_match_plain,
                      dra_ops.dra_spec_mask_plain, dc, db, g, hostname_key, g_cap,
                      (tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab),
                      (gang_id, gang_first, gang_last, gang_need), weights, check_fit, d_cap, d2_cap,
-                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req), extra_score, dra_kw)
+                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, fit_strategy=fit_strategy),
+                     extra_score, dra_kw)
 
 
 def workloads_schedule(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
                        rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, weights=gang.DEFAULT_WEIGHTS,
                        check_fit=True, nom_node=None, nom_prio=None, nom_req=None, d_cap=8, d2_cap=8,
-                       extra_score=None, **dra_kw):
+                       extra_score=None, fit_strategy=gang.DEFAULT_FIT_STRATEGY, **dra_kw):
     """One workloads dispatch: for a batch with claims the match (K13) and
     the speculation's DRA lane (K14), then the speculation (K8) and the
     admission (K11).  The cluster's usage rows are read, not written.
@@ -272,8 +277,9 @@ def workloads_schedule(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, 
     and ``g_cap`` its slot count; ``nom_*`` the open nominations
     (ops/gang.py), charged in both passes; ``extra_score`` (i64 [P, N], or
     None) adds to every node's total in both passes (the planner's target
-    bonus); ``dra_kw`` is ops/dra.py ``dra_tables``' tensors (ops/dra.py
-    DRA_ARGS), all or none.
+    bonus); ``fit_strategy`` is the NodeResourcesFit strategy (ops/gang.py)
+    of both passes; ``dra_kw`` is ops/dra.py ``dra_tables``' tensors
+    (ops/dra.py DRA_ARGS), all or none.
 
     Returns (chosen i32 [P] after rollback (-1 for failed and rolled-back
     pods), n_feas i64 [P], reason_counts i64 [P, N_DIAG], tallies, wl): wl
@@ -285,7 +291,8 @@ def workloads_schedule(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, 
     return _schedule(workloads_admit, wave.wave_speculate, dra_ops.selector_match, dra_ops.dra_spec_mask, dc, db, g,
                      hostname_key, g_cap, (tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab),
                      (gang_id, gang_first, gang_last, gang_need), weights, check_fit, d_cap, d2_cap,
-                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req), extra_score, dra_kw)
+                     dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, fit_strategy=fit_strategy),
+                     extra_score, dra_kw)
 
 
 def workloads_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
@@ -294,7 +301,7 @@ def workloads_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp, rep
                   has_spread: bool = True, has_images: bool = True, enabled: frozenset = gang.ALL_FILTER_KERNELS,
                   weights: tuple = gang.DEFAULT_WEIGHTS, extra_mask=None, nom_node=None, nom_prio=None,
                   nom_req=None, sp_keys=None, sp_cdv_tab=None, ip_keys=None, d_cap: int = 8, d2_cap: int = 8,
-                  extra_score=None, **dra_kw):
+                  extra_score=None, fit_strategy: tuple = gang.DEFAULT_FIT_STRATEGY, **dra_kw):
     """precompute + workloads_schedule for one batch: K12 for the volume
     mask when ``vol_table`` is given (ANDed into ``extra_mask``), K1 + K6 +
     K7 for the statics, then K13, K14, K8 and K11 (``dra_kw``: ops/dra.py
@@ -311,7 +318,8 @@ def workloads_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp, rep
     return workloads_schedule(dc, db, g, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
                               rep_ip_u, ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, weights=weights,
                               check_fit="NodeResourcesFit" in enabled, nom_node=nom_node, nom_prio=nom_prio,
-                              nom_req=nom_req, d_cap=d_cap, d2_cap=d2_cap, extra_score=extra_score, **dra_kw)
+                              nom_req=nom_req, d_cap=d_cap, d2_cap=d2_cap, extra_score=extra_score,
+                              fit_strategy=fit_strategy, **dra_kw)
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +336,8 @@ def ckpt_cells(N: int, Rn: int, P: int, Tsp: int, Tip: int, DD: int = 0, CL: int
 
 def _workloads_admit_cuda(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                           ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, g_cap, weights, check_fit, d_cap,
-                          d2_cap, nom_node=None, nom_prio=None, nom_req=None, dra=None, extra_score=None):
+                          d2_cap, nom_node=None, nom_prio=None, nom_req=None, dra=None, extra_score=None,
+                          fit_strategy=gang.DEFAULT_FIT_STRATEGY):
     """K11 launch: K9's argument blocks with no port carry, plus the gang
     rows, the assignment row, the outputs, the global checkpoint and, with
     ``dra``, the match tensor, the request rows and the allocation carries
@@ -341,7 +350,8 @@ def _workloads_admit_cuda(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
     nom = gang.nominations_csr(nom_node, nom_prio, nom_req, N, dev)
     a, w, state, outs = wave.admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
                                         rep_ip_u, weights, check_fit, False, None, None, nom, unused, unused, unused,
-                                        lib.ktpu_workloads_admit_smem_max(), extra_score)
+                                        lib.ktpu_workloads_admit_smem_max(), extra_score,
+                                        gang.step_mode(fit_strategy))
     raw, n_feas, reason_counts = outs  # K11 writes each step's choice through GangScanArgs.chosen
     assigned = torch.empty((P,), dtype=I32, device=dev)
     gang_admit = torch.empty((g_cap,), dtype=I32, device=dev)

@@ -289,6 +289,7 @@ def _fork_cluster(dc, view, planes, k: int, n_valid: int):
         taint_val=view["taint_val"][k],
         taint_effect=view["taint_effect"][k],
         dom_ids=view["dom_ids"][k],
+        visit_rank=view["visit_rank"][k],
         epod_valid=planes["fk_epod_valid"][k],
         n_valid_nodes=n_valid,
     )
@@ -301,7 +302,7 @@ def _run(view_fn, summary_fn, dc, db, hostname_key, v_cap, g_cap, wave_rows, gan
     Rn = dc.allocatable.shape[1]
     nvalid = torch.as_tensor(planes["fk_nvalid"]).cpu().tolist()  # host ints (one copy from a device tensor)
     fk = {k: v for k, v in planes.items() if k != "fk_nvalid"}
-    view = view_fn(dc, fk["fk_alive"])
+    view = view_fn(dc, fk["fk_alive"], dc.visit_rank)
     layout = _layout(KF, P, g_cap)
     buf = torch.empty((_nbytes(layout),), dtype=torch.uint8, device=dev)
     out = _carve(buf, layout)
@@ -345,12 +346,13 @@ def counterfactual_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp
                        has_interpod: bool = True, has_spread: bool = True, has_images: bool = True,
                        enabled: frozenset = gang.ALL_FILTER_KERNELS, weights: tuple = gang.DEFAULT_WEIGHTS,
                        extra_score=None, sp_keys=None, sp_cdv_tab=None, ip_keys=None, d_cap: int = 8,
-                       d2_cap: int = 8):
+                       d2_cap: int = 8, fit_strategy: tuple = gang.DEFAULT_FIT_STRATEGY):
     """KF forked snapshots × one batch.  ``dc`` is the shared snapshot over
     the extended node tensors (clone slots appended), ``db`` the batch in
     plan_batch order, the wave and gang rows and tables as for
     workloads_run, the fk_* planes pack_forks' (``fk_nvalid`` may be host
-    ints).  ``extra_score`` (i64 [P, N]) adds to every fork's totals.
+    ints).  ``extra_score`` (i64 [P, N]) adds to every fork's totals;
+    ``fit_strategy`` is the NodeResourcesFit strategy (ops/gang.py).
 
     Returns the reference's dict, every entry leading with KF, plus
     ``packed`` (the one buffer they are views of; ``readback`` copies it):
@@ -368,7 +370,7 @@ def counterfactual_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp
     kw = dict(vol_table=vol_table, vol_valid=vol_valid, vol_bad=vol_bad,
               hard_pod_affinity_weight=hard_pod_affinity_weight, has_interpod=has_interpod, has_spread=has_spread,
               has_images=has_images, enabled=enabled, weights=weights, extra_score=extra_score, sp_keys=sp_keys,
-              sp_cdv_tab=sp_cdv_tab, ip_keys=ip_keys, d_cap=d_cap, d2_cap=d2_cap)
+              sp_cdv_tab=sp_cdv_tab, ip_keys=ip_keys, d_cap=d_cap, d2_cap=d2_cap, fit_strategy=fit_strategy)
     args = (dc, db, hostname_key, v_cap, g_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
             gang_id, gang_first, gang_last, gang_need)
     if dc.node_valid.device.type == "cpu":

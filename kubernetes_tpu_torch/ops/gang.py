@@ -23,15 +23,28 @@ launches the hand-written kernels (csrc/) or raises:
   K7 gang_interpod_statics the inter-pod half and the host-port masks
   K5 gang_scan            gang_schedule's serial scan
 
-pod_step's default branch is ported, with the nominated-pod charge:
-``nom_node`` / ``nom_prio`` / ``nom_req`` (optional [G] / [G] / [G, Rn])
-carry preemptors whose victims are still terminating, charged to their
-nominated node for every pod of lower or equal priority
-(RunFilterPluginsWithNominatedPods, runtime/framework.go:973).  The kernels
-read them as a per-node CSR built on the host (``nominations_csr``).  The
-host-filter lane ``extra_mask`` is ported (the workloads route's K12 volume
-mask).  Not ported: fit strategies other than LeastAllocated, the sampling
-window, the seeded tie-break and host-plugin scores (ROADMAP B6 and A6b).
+pod_step carries every branch of the reference's:
+
+  * the nominated-pod charge: ``nom_node`` / ``nom_prio`` / ``nom_req``
+    (optional [G] / [G] / [G, Rn]) carry preemptors whose victims are still
+    terminating, charged to their nominated node for every pod of lower or
+    equal priority (RunFilterPluginsWithNominatedPods,
+    runtime/framework.go:973); the kernels read them as a per-node CSR
+    built on the host (``nominations_csr``);
+  * the host-filter lane ``extra_mask`` (the workloads route's K12 volume
+    mask) and ``extra_score`` (the planner's target bonus);
+  * the NodeResourcesFit strategy ``fit_strategy`` = (id, shape, (w_cpu,
+    w_mem)): 0 LeastAllocated, 1 MostAllocated, 2 RequestedToCapacityRatio
+    over the broken-linear ``shape`` ((utilization, score), ...);
+  * the sampling window (``sample_k``, schedule_one.go:588-699): each pod's
+    feasible set is cut to the first ``sample_k`` feasible nodes in visit
+    order (DeviceCluster.visit_rank, util/nodetree.py) rotated by the
+    carried cursor ``sample_start``, which advances by the nodes visited
+    for every real pod and comes back in ``tallies["sample_start"]``;
+    without a tie key, max-score ties go to the first node in that order;
+  * the seeded tie-break (``tie_key`` from ops/rng.py ``prng_key``, with
+    ``attempt_base``): ties among max-score nodes break by the bits of
+    ``fold_in(tie_key, attempt_base + p)`` at each node's packed slot.
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ import torch
 from kubernetes_tpu_torch.ops import _build
 from kubernetes_tpu_torch.ops import fastpath as ops_fp
 from kubernetes_tpu_torch.ops import filters as F
+from kubernetes_tpu_torch.ops import rng
 from kubernetes_tpu_torch.ops import scores as S
 from kubernetes_tpu_torch.ops.common import (
     DeviceBatch,
@@ -99,8 +113,10 @@ WEIGHT_ORDER = S.WEIGHT_ORDER
 DEFAULT_WEIGHTS = tuple(S.DEFAULT_SCORE_WEIGHTS[n] for n in WEIGHT_ORDER)
 
 # (strategy id, shape, per-lane weights): LeastAllocated with cpu/memory
-# weight 1, the only strategy this slice ports
+# weight 1, as resource_allocation.go defaults
 DEFAULT_FIT_STRATEGY = (0, (), (1, 1))
+STRAT_MOST_ALLOCATED = 1
+STRAT_RTCR = 2
 
 
 class GangStatics(NamedTuple):
@@ -572,16 +588,74 @@ def nominations_csr(nom_node, nom_prio, nom_req, N: int, dev):
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (off, prio, req))
 
 
+def broken_linear_dev(points: tuple, x):
+    """BuildBrokenLinearFunction (helper/shape_score.go:40) over an integer
+    tensor; ``points`` is ((utilization, score), ...), divisions truncating
+    as Go's."""
+    out = torch.full_like(x, points[0][1])
+    for (x0, y0), (x1, y1) in zip(points, points[1:]):
+        seg = y0 + torch.div((y1 - y0) * (x - x0), x1 - x0, rounding_mode="trunc")
+        out = torch.where((x > x0) & (x <= x1), seg, out)
+    return torch.where(x > points[-1][0], points[-1][1], out)
+
+
+def fit_score(fit_strategy: tuple, nz, alloc2):
+    """NodeResourcesFit's score under ``fit_strategy`` on the non-zero-
+    defaulted requests ``nz`` [N, 2] against allocatable ``alloc2`` [N, 2]
+    (resource_allocation.go:37-115): LeastAllocated, MostAllocated, or
+    RequestedToCapacityRatio, whose weighted mean counts only the lanes with
+    a positive score and rounds (requested_to_capacity_ratio.go:46-52)."""
+    strat_id, shape, w = fit_strategy
+    lane_has = alloc2 > 0
+    den = alloc2.clamp(min=1)
+    if strat_id == STRAT_MOST_ALLOCATED:
+        frac = torch.where(nz > alloc2, 0, _fdiv(nz * MAX, den))
+    elif strat_id == STRAT_RTCR:
+        util = torch.where(~lane_has | (nz > alloc2), MAX, _fdiv(nz * MAX, den))
+        frac = broken_linear_dev(shape, util)
+    else:
+        frac = torch.where(nz > alloc2, 0, _fdiv((alloc2 - nz) * MAX, den))
+    w2 = torch.tensor(w, dtype=I64, device=nz.device)[None, :]
+    use = lane_has & (frac > 0) if strat_id == STRAT_RTCR else lane_has
+    wsum = torch.where(use, w2, 0).sum(dim=1)
+    total = torch.where(use, frac * w2, 0).sum(dim=1)
+    if strat_id == STRAT_RTCR:  # math.Round of the weighted mean
+        return torch.where(wsum > 0, _fdiv(2 * total + wsum, (2 * wsum).clamp(min=1)), 0)
+    return torch.where(wsum > 0, _fdiv(total, wsum.clamp(min=1)), 0)
+
+
+def sampling_window(dc, feas, start, sample_k: int):
+    """The sampling cut of one pod's feasible set: keep the first
+    ``sample_k`` feasible nodes in visit order from the cursor ``start``.
+    Returns (feas cut, rank [N] each node's place in that rotation (N for
+    rows without a visit rank), processed: the nodes visited)."""
+    N = feas.shape[0]
+    nv = max(int(dc.n_valid_nodes), 1)
+    vr = dc.visit_rank.long()
+    valid_vr = vr >= 0
+    rank = torch.where(valid_vr, torch.remainder(vr - start, nv), N)
+    rot = torch.zeros((N + 1,), dtype=BOOL, device=feas.device)
+    rot[rank[valid_vr]] = feas[valid_vr]
+    cum = rot[:N].to(I64).cumsum(0)
+    keep = torch.cat([rot[:N] & (cum <= sample_k), torch.zeros((1,), dtype=BOOL, device=feas.device)])
+    total = cum[N - 1] if N else torch.zeros((), dtype=I64)
+    processed = torch.where(total >= sample_k, (cum < sample_k).sum() + 1, nv)
+    return keep[rank] & feas, rank, processed
+
+
 def pod_step(dc, db, g: GangStatics, p: int, state, hv, *, check_fit: bool, weights: tuple, d_cap: int,
-             commit: bool = True, nom=None, extra_score=None):
+             commit: bool = True, nom=None, extra_score=None, fit_strategy: tuple = DEFAULT_FIT_STRATEGY,
+             sample_k=None, tie_key=None, attempt_base: int = 0):
     """One pod's Filter → Score → Select → commit against ``state``
-    (requested [N, Rn] / nonzero [N, 2] / num_pods [N], updated in place),
-    pod_step's default branch.  ``nom`` (``nominations_onehot``) charges
-    the open nominations of priority >= the pod's to their nodes in the
-    resource fit.  ``extra_score`` (i64 [P, N], or None) adds its row to
-    every node's total (the planner's target bonus).  With ``commit=False``
-    the state is left untouched (the wave's speculation evaluates without
-    placing).  Returns (choice, n_feas, reason_counts)."""
+    (requested [N, Rn] / nonzero [N, 2] / num_pods [N], plus sample_start
+    [] with ``sample_k``; updated in place), as the reference's pod_step.
+    ``nom`` (``nominations_onehot``) charges the open nominations of
+    priority >= the pod's to their nodes in the resource fit.
+    ``extra_score`` (i64 [P, N], or None) adds its row to every node's
+    total.  ``fit_strategy``, ``sample_k`` and ``tie_key`` /
+    ``attempt_base`` select the branches of the module docstring.  With
+    ``commit=False`` the state is left untouched (the wave's speculation
+    evaluates without placing).  Returns (choice, n_feas, reason_counts)."""
     N = g.static_mask.shape[1]
     Rn = dc.allocatable.shape[1]
     Rp = db.requests.shape[1]
@@ -606,6 +680,8 @@ def pod_step(dc, db, g: GangStatics, p: int, state, hv, *, check_fit: bool, weig
         mask = mask & m_fit
     m_portb, m_spread, m_interpod = hv["m_portb"], hv["m_spread"], hv["m_interpod"]
     feas = mask & m_spread & m_interpod
+    if sample_k is not None:
+        feas, rank, processed = sampling_window(dc, feas, state["sample_start"], int(sample_k))
     n_feas = feas.to(I32).sum()
 
     # first-failure reason counts in the filter chain's order
@@ -617,16 +693,11 @@ def pod_step(dc, db, g: GangStatics, p: int, state, hv, *, check_fit: bool, weig
         remaining = remaining & comp
     reason_counts = torch.stack(rc)
 
-    # LeastAllocated on the non-zero-defaulted requests, BalancedAllocation
+    # NodeResourcesFit on the non-zero-defaulted requests, BalancedAllocation
     # on the real requests (resource_allocation.go, balanced_allocation.go)
     nz = state["nonzero"].to(I64) + db.nonzero_req[p][None, :].to(I64)  # [N, 2]
     alloc2 = torch.stack([dc.allocatable[:, LANE_CPU], dc.allocatable[:, LANE_MEM]], dim=1).to(I64)
-    lane_has = alloc2 > 0
-    frac = torch.where(nz > alloc2, 0, _fdiv((alloc2 - nz) * MAX, alloc2.clamp(min=1)))
-    w2 = torch.tensor(DEFAULT_FIT_STRATEGY[2], dtype=I64, device=dev)[None, :]
-    wsum = torch.where(lane_has, w2, 0).sum(dim=1)
-    total_fit = torch.where(lane_has, frac * w2, 0).sum(dim=1)
-    least = torch.where(wsum > 0, _fdiv(total_fit, wsum.clamp(min=1)), 0)
+    least = fit_score(fit_strategy, nz, alloc2)
     a0 = dc.allocatable[:, LANE_CPU].to(I64)
     a1 = dc.allocatable[:, LANE_MEM].to(I64)
     r0 = torch.minimum(state["requested"][:, LANE_CPU].to(I64) + db.requests[p, LANE_CPU].to(I64), a0)
@@ -661,17 +732,33 @@ def pod_step(dc, db, g: GangStatics, p: int, state, hv, *, check_fit: bool, weig
     if extra_score is not None:
         total += extra_score[p]
 
-    # first-max argmax over the feasible nodes (ties go to the lower index)
-    ranked = torch.where(feas, total, -INT64_MAX - 1)
-    choice = torch.where(n_feas > 0, torch.argmax(ranked).to(I32), ABSENT)
+    neg = -INT64_MAX - 1
+    if tie_key is not None:
+        # seeded uniform tie-break: the (score, bits) lexicographic argmax
+        h = rng.bits(rng.fold_in(tie_key, int(attempt_base) + p), N, dev)
+        choice = torch.argmax(torch.where(feas, total * (1 << 33) + h, neg))
+    elif sample_k is not None:
+        # compat first-max: the first max-score node in visit order
+        ranked = torch.where(feas, total, neg)
+        choice = torch.argmin(torch.where(feas & (ranked == ranked.max()), rank, N + 1))
+    else:
+        # first-max argmax over the feasible nodes (ties to the lower index)
+        choice = torch.argmax(torch.where(feas, total, neg))
+    choice = torch.where(n_feas > 0, choice.to(I32), ABSENT)
     if not commit:
         return choice, n_feas, reason_counts
     usage_carry_update(
-        state,
+        {k: state[k] for k in ("requested", "nonzero", "num_pods")},
         {"requested": db.requests[p][:Rn], "nonzero": db.nonzero_req[p], "num_pods": 1},
         choice,
         choice >= 0,
     )
+    if sample_k is not None:
+        # nextStartNodeIndex advances by the nodes visited, for real pods
+        # only (schedule_one.go:625)
+        nv = max(int(dc.n_valid_nodes), 1)
+        state["sample_start"] = torch.where(db.valid[p], torch.remainder(state["sample_start"] + processed, nv),
+                                            state["sample_start"]).to(I32)
     return choice, n_feas, reason_counts
 
 
@@ -758,31 +845,64 @@ def gang_schedule(
     nom_node=None,
     nom_prio=None,
     nom_req=None,
+    fit_strategy: tuple = DEFAULT_FIT_STRATEGY,
+    sample_k=None,
+    sample_start=None,
+    tie_key=None,
+    attempt_base=None,
 ):
     """Scan the batch in order; each pod sees every earlier in-batch
     placement and the open nominations of priority >= its own (``nom_*``,
-    see the module docstring).  The cluster's usage rows are read, not
+    see the module docstring).  ``fit_strategy``, ``sample_k`` /
+    ``sample_start`` and ``tie_key`` / ``attempt_base`` select the step's
+    branches (module docstring).  The cluster's usage rows are read, not
     written: the carried usage starts as copies and comes back in the
     tallies.
 
     Returns (chosen i32 [P] node index or -1, n_feas i64 [P], reason_counts
-    i64 [P, N_DIAG], tallies {requested, nonzero, num_pods})."""
+    i64 [P, N_DIAG], tallies {requested, nonzero, num_pods, and
+    sample_start with sample_k})."""
+    mode = step_mode(fit_strategy, sample_k, sample_start, tie_key, attempt_base)
     if dc.node_valid.device.type == "cpu":
-        return gang_schedule_plain(dc, db, g, v_cap, weights, check_fit, d_cap, nom_node, nom_prio, nom_req)
-    return _gang_scan_cuda(dc, db, g, weights, check_fit, nom_node, nom_prio, nom_req)
+        return gang_schedule_plain(dc, db, g, v_cap, weights, check_fit, d_cap, nom_node, nom_prio, nom_req, **mode)
+    return _gang_scan_cuda(dc, db, g, weights, check_fit, nom_node, nom_prio, nom_req, **mode)
+
+
+def step_mode(fit_strategy=DEFAULT_FIT_STRATEGY, sample_k=None, sample_start=None, tie_key=None,
+              attempt_base=None) -> dict:
+    """The step's branch arguments in one normalized dict: host ints for
+    ``sample_k`` / ``sample_start`` / ``attempt_base`` (0-dim tensors are
+    read once), ``tie_key`` a (high, low) word pair."""
+    if sample_k is not None and int(sample_k) < 1:
+        raise ValueError(f"sample_k must be >= 1, got {int(sample_k)}")
+    return dict(
+        fit_strategy=(int(fit_strategy[0]), tuple((int(u), int(s)) for u, s in fit_strategy[1]),
+                      tuple(int(w) for w in fit_strategy[2])),
+        sample_k=None if sample_k is None else int(sample_k),
+        sample_start=int(sample_start or 0) if sample_k is not None else None,
+        tie_key=None if tie_key is None else (int(tie_key[0]), int(tie_key[1])),
+        attempt_base=int(attempt_base or 0),
+    )
+
+
+def _state0(dc, sample_start=None) -> dict:
+    """The carried state at the batch's start: copies of the usage rows,
+    and the rotation cursor in sampling mode."""
+    state = {"requested": dc.requested.clone(), "nonzero": dc.nonzero_req.clone(), "num_pods": dc.num_pods.clone()}
+    if sample_start is not None:
+        state["sample_start"] = torch.tensor(sample_start, dtype=I32, device=dc.node_valid.device)
+    return state
 
 
 def gang_schedule_plain(dc, db, g, v_cap, weights=DEFAULT_WEIGHTS, check_fit=True, d_cap=8, nom_node=None,
-                        nom_prio=None, nom_req=None):
+                        nom_prio=None, nom_req=None, fit_strategy=DEFAULT_FIT_STRATEGY, sample_k=None,
+                        sample_start=None, tie_key=None, attempt_base=0):
     """Plain PyTorch version of K5: a Python loop of the reference's step."""
     P, N = g.static_mask.shape
     dev = g.static_mask.device
     nom = nominations_onehot(nom_node, nom_prio, nom_req, N)
-    state = {
-        "requested": dc.requested.clone(),
-        "nonzero": dc.nonzero_req.clone(),
-        "num_pods": dc.num_pods.clone(),
-    }
+    state = _state0(dc, sample_start if sample_k is not None else None)
+    mode = dict(fit_strategy=fit_strategy, sample_k=sample_k, tie_key=tie_key, attempt_base=attempt_base)
     assigned = torch.full((P,), ABSENT, dtype=I32, device=dev)
     chosen = torch.full((P,), ABSENT, dtype=I32, device=dev)
     n_feas = torch.zeros((P,), dtype=I64, device=dev)
@@ -790,7 +910,7 @@ def gang_schedule_plain(dc, db, g, v_cap, weights=DEFAULT_WEIGHTS, check_fit=Tru
     for p in range(P):
         hv = _heavy_parts(db, g, p, assigned)
         choice, nf, rc = pod_step(dc, db, g, p, state, hv, check_fit=check_fit, weights=weights, d_cap=d_cap,
-                                  nom=nom)
+                                  nom=nom, **mode)
         assigned[p] = choice
         chosen[p] = choice
         n_feas[p] = nf
@@ -817,13 +937,19 @@ def gang_run(
     nom_node=None,
     nom_prio=None,
     nom_req=None,
+    fit_strategy: tuple = DEFAULT_FIT_STRATEGY,
+    sample_k=None,
+    sample_start=None,
+    tie_key=None,
+    attempt_base=None,
 ):
     """precompute + gang_schedule for one batch."""
     g = precompute(dc, db, hostname_key, v_cap, hard_pod_affinity_weight, has_interpod=has_interpod,
                    has_spread=has_spread, has_ports=has_ports, has_images=has_images, enabled=enabled,
                    sp_keys=sp_keys, sp_cdv_tab=sp_cdv_tab, ip_keys=ip_keys)
     return gang_schedule(dc, db, g, v_cap, weights=weights, check_fit="NodeResourcesFit" in enabled, d_cap=d_cap,
-                         nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
+                         nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, fit_strategy=fit_strategy,
+                         sample_k=sample_k, sample_start=sample_start, tie_key=tie_key, attempt_base=attempt_base)
 
 
 # ---------------------------------------------------------------------------
@@ -1088,15 +1214,44 @@ def _scan_domains(dc, db, g: GangStatics, C: int, AT: int):
     return sp_key, ip_key, kd2_key, max(D, 1)
 
 
+def visit_order(dc) -> torch.Tensor:
+    """order[r] = the node whose visit rank is r, i32 [max(n_valid, 1)]:
+    the sampling window's walk, built on the host once per snapshot (kept
+    on ``dc`` until its visit_rank row changes)."""
+    vr_t = dc.visit_rank
+    key = (vr_t.data_ptr(), vr_t._version, int(dc.n_valid_nodes))
+    memo = getattr(dc, "_visit_order", None)
+    if memo is not None and memo[0] == key:
+        return memo[1]
+    vr = vr_t.cpu().numpy()
+    nv = max(int(dc.n_valid_nodes), 1)
+    live = np.nonzero(vr >= 0)[0]
+    if len(live) > nv or (vr[live] >= nv).any():
+        raise ValueError("visit ranks outrun the real node count")
+    order = np.full(nv, -1, np.int32)
+    order[vr[live]] = live
+    t = torch.from_numpy(order).to(vr_t.device)
+    dc._visit_order = (key, t)
+    return t
+
+
+def _word(x: int) -> int:
+    """A uint32 as the int32 of the same bits (a ctypes int field)."""
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
 def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch, nom=None,
-              extra_score=None) -> "_build.GangScanArgs":
+              extra_score=None, mode=None) -> "_build.GangScanArgs":
     """The GangScanArgs of a kernel that runs the shared per-pod step (K5,
     and the wave's K8 and K9): the statics, the usage ``state``
-    (requested / nonzero / num_pods), ``outs`` (chosen, n_feas,
-    reason_counts), the ``scratch`` tensors, the nominations' CSR
-    (``nominations_csr``, or None) and ``extra_score`` (i64 [P, N], or
-    None: a null pointer), after the wrapper checks.  K5's counter layout
+    (requested / nonzero / num_pods, and sample_start [] in sampling mode),
+    ``outs`` (chosen, n_feas, reason_counts), the ``scratch`` tensors, the
+    nominations' CSR (``nominations_csr``, or None), ``extra_score`` (i64
+    [P, N], or None: a null pointer) and ``mode`` (``step_mode``; None: the
+    default branch), after the wrapper checks.  K5's counter layout
     (``use_smem``) is left at 0 for the caller."""
+    mode = step_mode() if mode is None else mode
     dev = dc.node_valid.device
     P, N = g.static_mask.shape
     K = dc.node_labels.shape[1]
@@ -1138,11 +1293,30 @@ def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch, 
     a.use_smem = 0
     (a.w_taint, a.w_naff, a.w_spread, a.w_ip, a.w_fit, a.w_bal, a.w_img) = (int(w) for w in weights)
     a.check_fit = int(bool(check_fit))
+    strat_id, shape, (a.w_cpu, a.w_mem) = mode["fit_strategy"]
+    a.strat_id = strat_id
+    if strat_id == STRAT_RTCR:
+        if not shape:
+            raise ValueError("RequestedToCapacityRatio needs a shape")
+        _set_ptrs(a, dev, [("fit_shape", torch.tensor(shape, dtype=I32, device=dev), I32, (len(shape), 2))])
+        a.n_shape = len(shape)
+    a.n_valid = int(dc.n_valid_nodes)
+    if mode["sample_k"] is not None:
+        order = visit_order(dc)
+        _set_ptrs(a, dev, [("visit_rank", dc.visit_rank, I32, (N,)), ("visit_order", order, I32, tuple(order.shape)),
+                           ("sample_start", state["sample_start"], I32, ())])
+        a.sample_k = mode["sample_k"]
+    if mode["tie_key"] is not None:
+        a.tie_on = 1
+        a.tie_k0, a.tie_k1 = (_word(k) for k in mode["tie_key"])
+        a.attempt_base = _word(mode["attempt_base"])
     return a
 
 
-def _gang_scan_cuda(dc, db, g: GangStatics, weights, check_fit, nom_node=None, nom_prio=None, nom_req=None):
-    """K5 launch: the whole batch's scan in one persistent block."""
+def _gang_scan_cuda(dc, db, g: GangStatics, weights, check_fit, nom_node=None, nom_prio=None, nom_req=None,
+                    **mode):
+    """K5 launch: the whole batch's scan in one persistent block; ``mode``
+    is step_mode's dict (the cursor rides the state)."""
     dev = dc.node_valid.device
     lib = _build.load()
     g = GangStatics(*(t.contiguous() for t in g))
@@ -1150,11 +1324,8 @@ def _gang_scan_cuda(dc, db, g: GangStatics, weights, check_fit, nom_node=None, n
     C = g.sp_dv.shape[1]
     AT = g.ip_dv.shape[1]
     KD2 = g.ip_key_cols.shape[0]
-    state = {
-        "requested": dc.requested.clone(),
-        "nonzero": dc.nonzero_req.clone(),
-        "num_pods": dc.num_pods.clone(),
-    }
+    mode = step_mode(**mode)
+    state = _state0(dc, mode["sample_start"])
     chosen = torch.empty((P,), dtype=I32, device=dev)
     n_feas = torch.empty((P,), dtype=I64, device=dev)
     reason_counts = torch.empty((P, N_DIAG), dtype=I64, device=dev)
@@ -1167,7 +1338,7 @@ def _gang_scan_cuda(dc, db, g: GangStatics, weights, check_fit, nom_node=None, n
         feas=zeros(N, dtype=BOOL), ip_raw=zeros(N, dtype=I64), sp_raw=zeros(N, dtype=I64), sp_cnt=zeros(C, N),
     )
     nom = nominations_csr(nom_node, nom_prio, nom_req, N, dev)
-    a = step_args(dc, db, g, weights, check_fit, state, (chosen, n_feas, reason_counts), scratch, nom)
+    a = step_args(dc, db, g, weights, check_fit, state, (chosen, n_feas, reason_counts), scratch, nom, mode=mode)
     cells = (3 * C + AT + 2 * KD2) * a.D
     smem_max = min(lib.ktpu_gang_scan_smem_max(), SCAN_SMEM_CAP) - 16 * C
     use_smem = 4 * cells <= smem_max

@@ -33,11 +33,14 @@ hand-written kernels (csrc/wave.cu) or raises:
   K9 wave_admit       the admission pass, one persistent block
 
 The factored algebra below (``term_match_rows``, ``factored_*``) is kept one
-to one with the reference's functions of the same names.  Only the default
-branch is ported, with the nominated-pod charge of the shared step
-(``nom_node`` / ``nom_prio`` / ``nom_req``, ops/gang.py): no sampling
-window, no seeded tie-break, no host-plugin masks or scores (ROADMAP B6,
-A6b).
+to one with the reference's functions of the same names.  Both passes take
+every branch of the shared step (ops/gang.py): the nominated-pod charge
+(``nom_node`` / ``nom_prio`` / ``nom_req``), the fit strategy, the sampling
+window and the seeded tie-break (``fit_strategy``, ``sample_k`` /
+``sample_start``, ``tie_key`` / ``attempt_base``).  In sampling mode every
+pod speculates from the INITIAL rotation cursor; the admission pass alone
+carries the advancing cursor and returns it in ``tallies["sample_start"]``.
+Host-plugin masks and scores are not ported (ROADMAP A6b).
 """
 
 from __future__ import annotations
@@ -491,30 +494,33 @@ def _build_hv(db, g, p, sdyn, idyn, m_portb):
     return hv, c_ok, anti_viol
 
 
-def _base_state(dc):
-    return {"requested": dc.requested.clone(), "nonzero": dc.nonzero_req.clone(), "num_pods": dc.num_pods.clone()}
+def _mode_kw(sample_start=None, **mode) -> dict:
+    """pod_step's keywords of a step_mode dict (the cursor rides the state)."""
+    return mode
 
 
 def wave_speculate_plain(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, n_feas=None,
-                         nom_node=None, nom_prio=None, nom_req=None, lane=None, extra_score=None):
+                         nom_node=None, nom_prio=None, nom_req=None, lane=None, extra_score=None, **mode):
     """Plain version of K8: every pod's step against the frozen snapshot,
     with zero batch-peer counts and every port free, or, with ``lane`` (bool
     [P, N]), the port lane read from it (the workloads dispatch puts its DRA
     verdict there).  ``extra_score`` (i64 [P, N], or None) adds to every
-    node's total.  Returns c0 i32 [P]; fills ``n_feas`` [P], when given,
-    with each pod's feasible-node count."""
+    node's total; ``mode`` (gang.step_mode) selects the step's branches,
+    every pod from the initial cursor.  Returns c0 i32 [P]; fills
+    ``n_feas`` [P], when given, with each pod's feasible-node count."""
     P, N = g.static_mask.shape
     nom = gang.nominations_onehot(nom_node, nom_prio, nom_req, N)
     C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
     dev = g.static_mask.device
-    base = _base_state(dc)
+    mode = gang.step_mode(**mode)
+    base = gang._state0(dc, mode["sample_start"])
     true_n = torch.ones((N,), dtype=BOOL, device=dev)
     c0 = torch.full((P,), ABSENT, dtype=I32, device=dev)
     for p in range(P):
         hv, _, _ = _build_hv(db, g, p, _zero_sdyn(C, N, dev), _zero_idyn(AT, N, dev),
                              true_n if lane is None else lane[p])
         c0[p], nf, _ = gang.pod_step(dc, db, g, p, base, hv, check_fit=check_fit, weights=weights, d_cap=d_cap,
-                                     commit=False, nom=nom, extra_score=extra_score)
+                                     commit=False, nom=nom, extra_score=extra_score, **_mode_kw(**mode))
         if n_feas is not None:
             n_feas[p] = nf
     return c0
@@ -522,21 +528,24 @@ def wave_speculate_plain(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True
 
 def wave_admit_plain(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                      ip_cdv_tab, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, d2_cap=8,
-                     has_ports=False, tid_pt=None, port_conf=None, nom_node=None, nom_prio=None, nom_req=None):
+                     has_ports=False, tid_pt=None, port_conf=None, nom_node=None, nom_prio=None, nom_req=None,
+                     **mode):
     """Plain version of K9: the admission recurrence over the factored
     carries, with each pod's demotion attribution against the state its own
     step saw (the usage alone: a fit lost to a nomination reports as a
-    score demotion, as in the reference).  Returns (chosen i32 [P], n_feas
-    i64 [P], reason_counts i64 [P, N_DIAG], tallies, kinds i32 [P], cterms
-    i32 [P])."""
+    score demotion, as in the reference).  ``mode`` (gang.step_mode)
+    selects the step's branches; the cursor rides the state.  Returns
+    (chosen i32 [P], n_feas i64 [P], reason_counts i64 [P, N_DIAG],
+    tallies, kinds i32 [P], cterms i32 [P])."""
     P, N = g.static_mask.shape
     nom = gang.nominations_onehot(nom_node, nom_prio, nom_req, N)
+    mode = gang.step_mode(**mode)
     C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
     dev = g.static_mask.device
     Tpt = port_conf.shape[0] if has_ports else 0
     true_n = torch.ones((N,), dtype=BOOL, device=dev)
     m_sp_all, m_ip_all, t_anti, t_w = term_match_rows(g, rep_sp_p, rep_sp_c, rep_ip_p, rep_ip_u)
-    state = _base_state(dc)
+    state = gang._state0(dc, mode["sample_start"])
     carries = factored_carry_init(rep_sp_p.shape[0], rep_ip_p.shape[0], N, Tpt, dev)
     chosen = torch.full((P,), ABSENT, dtype=I32, device=dev)
     n_feas = torch.zeros((P,), dtype=I64, device=dev)
@@ -577,7 +586,7 @@ def wave_admit_plain(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, ti
             fit_bad = spec_live & (lane_bad | pods_bad)
 
         choice, nf, rc = gang.pod_step(dc, db, g, p, state, hv, check_fit=check_fit, weights=weights, d_cap=d_cap,
-                                       nom=nom)
+                                       nom=nom, **_mode_kw(**mode))
         carries = factored_carry_update(carries, p, choice, m_sp_all, m_ip_all, ip_aux, pt_cnt=pt_cnt)
 
         kind = torch.where(
@@ -605,13 +614,14 @@ def wave_admit_plain(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, ti
 
 def wave_schedule_plain(dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                         ip_cdv_tab, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, d2_cap=8,
-                        has_ports=False, tid_pt=None, port_conf=None, nom_node=None, nom_prio=None, nom_req=None):
+                        has_ports=False, tid_pt=None, port_conf=None, nom_node=None, nom_prio=None, nom_req=None,
+                        **mode):
     """Plain version of wave_schedule: K8's then K9's plain loop."""
     nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
-    c0 = wave_speculate_plain(dc, db, g, weights, check_fit, d_cap, **nom)
+    c0 = wave_speculate_plain(dc, db, g, weights, check_fit, d_cap, **nom, **mode)
     chosen, n_feas, rc, tallies, kinds, cterms = wave_admit_plain(
         dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
-        weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf, **nom)
+        weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf, **nom, **mode)
     return chosen, n_feas, rc, tallies, torch.stack([c0, kinds, cterms])
 
 
@@ -621,11 +631,12 @@ def wave_schedule_plain(dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp
 
 
 def wave_speculate(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, nom_node=None,
-                   nom_prio=None, nom_req=None, lane=None, extra_score=None):
+                   nom_prio=None, nom_req=None, lane=None, extra_score=None, **mode):
     """The speculation pass: K8 on CUDA tensors, its plain version on CPU.
     ``lane`` (bool [P, N], None: all True) is read as the port lane;
-    ``extra_score`` (i64 [P, N], None: nothing) adds to every total."""
-    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, lane=lane, extra_score=extra_score)
+    ``extra_score`` (i64 [P, N], None: nothing) adds to every total;
+    ``mode`` is gang.step_mode's keywords."""
+    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, lane=lane, extra_score=extra_score, **mode)
     if dc.node_valid.device.type == "cpu":
         return wave_speculate_plain(dc, db, g, weights, check_fit, d_cap, **nom)
     return _wave_speculate_cuda(dc, db, g, weights, check_fit, **nom)
@@ -633,11 +644,11 @@ def wave_speculate(dc, db, g, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_ca
 
 def wave_admit(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
                weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, d2_cap=8, has_ports=False, tid_pt=None,
-               port_conf=None, nom_node=None, nom_prio=None, nom_req=None):
+               port_conf=None, nom_node=None, nom_prio=None, nom_req=None, **mode):
     """The admission pass: K9 on CUDA tensors, its plain version on CPU."""
     args = (dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
             weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf)
-    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
+    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req, **mode)
     if dc.node_valid.device.type == "cpu":
         return wave_admit_plain(*args, **nom)
     return _wave_admit_cuda(*args, **nom)
@@ -645,7 +656,9 @@ def wave_admit(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, 
 
 def wave_schedule(dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                   ip_cdv_tab, weights=gang.DEFAULT_WEIGHTS, check_fit=True, d_cap=8, d2_cap=8, has_ports=False,
-                  tid_pt=None, port_conf=None, nom_node=None, nom_prio=None, nom_req=None):
+                  tid_pt=None, port_conf=None, nom_node=None, nom_prio=None, nom_req=None,
+                  fit_strategy: tuple = gang.DEFAULT_FIT_STRATEGY, sample_k=None, sample_start=None, tie_key=None,
+                  attempt_base=None):
     """One wave dispatch: speculation, then the factored admission pass.
     ``has_ports`` engages the [Tpt, N] port-occupancy carry (tid_pt and
     port_conf from wave_tables).  The cluster's usage rows are read, not
@@ -655,8 +668,11 @@ def wave_schedule(dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp_c, ti
     tallies, stats i32 [3, P]): stats rows are (speculative node, demote
     kind, conflicting term slot); ``chosen == stats[0]`` marks the pods
     admitted as speculated.  ``nom_*`` are the open nominations (see
-    ops/gang.py), charged in both passes."""
-    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req)
+    ops/gang.py), charged in both passes; ``fit_strategy``, ``sample_*``,
+    ``tie_key`` and ``attempt_base`` select the step's branches (with
+    ``sample_k`` the tallies carry the advanced ``sample_start``)."""
+    nom = dict(nom_node=nom_node, nom_prio=nom_prio, nom_req=nom_req,
+               **gang.step_mode(fit_strategy, sample_k, sample_start, tie_key, attempt_base))
     c0 = wave_speculate(dc, db, g, weights, check_fit, d_cap, **nom)
     chosen, n_feas, rc, tallies, kinds, cterms = wave_admit(
         dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, ip_cdv_tab,
@@ -669,7 +685,8 @@ def wave_run(dc, db, hostname_key: int, v_cap: int, tid_sp, rep_sp_p, rep_sp_c, 
              has_images: bool = True, enabled: frozenset = gang.ALL_FILTER_KERNELS,
              weights: tuple = gang.DEFAULT_WEIGHTS, sp_keys=None, sp_cdv_tab=None, ip_keys=None, d_cap: int = 8,
              d2_cap: int = 8, has_ports: bool = False, tid_pt=None, port_conf=None, nom_node=None, nom_prio=None,
-             nom_req=None):
+             nom_req=None, fit_strategy: tuple = gang.DEFAULT_FIT_STRATEGY, sample_k=None, sample_start=None,
+             tie_key=None, attempt_base=None):
     """precompute + wave_schedule for one batch (the wave's gang_run).  The
     gang scan's pod×pod port matrix stays out (precompute with
     has_ports=False): in-batch host ports ride the [Tpt, N] occupancy
@@ -680,7 +697,8 @@ def wave_run(dc, db, hostname_key: int, v_cap: int, tid_sp, rep_sp_p, rep_sp_c, 
     return wave_schedule(dc, db, g, hostname_key, v_cap, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                          ip_cdv_tab, weights=weights, check_fit="NodeResourcesFit" in enabled, d_cap=d_cap,
                          d2_cap=d2_cap, has_ports=has_ports, tid_pt=tid_pt, port_conf=port_conf, nom_node=nom_node,
-                         nom_prio=nom_prio, nom_req=nom_req)
+                         nom_prio=nom_prio, nom_req=nom_req, fit_strategy=fit_strategy, sample_k=sample_k,
+                         sample_start=sample_start, tie_key=tie_key, attempt_base=attempt_base)
 
 
 # ---------------------------------------------------------------------------
@@ -701,17 +719,20 @@ def _zeros(dev, n, dtype=I32):
 
 
 def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=None, nom_req=None, lane=None,
-                         extra_score=None):
+                         extra_score=None, **mode):
     """K8 launch: one block per pod against the cluster's own usage rows
     (``lane``: the port lane, and ``extra_score``, null pointers when
-    None)."""
+    None); in sampling mode every block reads the initial cursor."""
     dev = dc.node_valid.device
     lib = _build.load()
     g = gang.GangStatics(*(t.contiguous() for t in g))
     P, N = g.static_mask.shape
     C = g.sp_dv.shape[1]
     Dsp = _max_domains(dc, db.tsc_topo[:, :C], db.valid[:, None] & ~g.sp_is_host)
+    mode = gang.step_mode(**mode)
     state = {"requested": dc.requested, "nonzero": dc.nonzero_req, "num_pods": dc.num_pods}  # read only
+    if mode["sample_k"] is not None:
+        state["sample_start"] = torch.tensor(mode["sample_start"], dtype=I32, device=dev)
     c0 = torch.empty((P,), dtype=I32, device=dev)
     outs = (c0, torch.empty((P,), dtype=I64, device=dev), torch.empty((P, N_DIAG), dtype=I64, device=dev))
     # per-block scratch rows: each block holds one pod's step
@@ -719,7 +740,7 @@ def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=
                    feas=_zeros(dev, P * N, BOOL), ip_raw=_zeros(dev, P * N, I64), sp_raw=_zeros(dev, P * N, I64),
                    sp_cnt=_zeros(dev, P * C * N))
     nom = gang.nominations_csr(nom_node, nom_prio, nom_req, N, dev)
-    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom, extra_score)
+    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom, extra_score, mode)
     w = _build.WaveArgs()
     ptrs = [("sums", _zeros(dev, P * C * Dsp), I32, None)]
     if lane is not None:
@@ -733,7 +754,7 @@ def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=
 
 
 def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, weights, check_fit,
-               has_ports, tid_pt, port_conf, nom, c0, kinds, cterms, smem_max: int, extra_score=None):
+               has_ports, tid_pt, port_conf, nom, c0, kinds, cterms, smem_max: int, extra_score=None, mode=None):
     """The argument blocks of a kernel that runs K9's admission recurrence
     (K9, and K11 in ops/coscheduling.py): (GangScanArgs, WaveArgs, usage
     state, (chosen, n_feas, reason_counts)).  The usage state starts as
@@ -742,7 +763,9 @@ def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_
     not read.  ``smem_max`` is the kernel's dynamic shared memory limit: the
     per-pod sums and then the carries go to shared memory where they fit,
     else to global scratch rows.  ``extra_score`` (i64 [P, N], or None)
-    adds to every node's total."""
+    adds to every node's total; ``mode`` (gang.step_mode, None: the default
+    branch) selects the step's branches, with the cursor in the usage
+    state."""
     dev = dc.node_valid.device
     g = gang.GangStatics(*(t.contiguous() for t in g))
     P, N = g.static_mask.shape
@@ -756,14 +779,14 @@ def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_
     W = tid_pt.shape[1]
     Dsp = _max_domains(dc, db.tsc_topo[:, :C], db.valid[:, None] & ~g.sp_is_host)
     D2 = _max_domains(dc, db.aff_topo[:, :AT], db.valid[:, None] & (db.aff_topo[:, :AT] != hostname_key))
-    state = {"requested": dc.requested.clone(), "nonzero": dc.nonzero_req.clone(),
-             "num_pods": dc.num_pods.clone()}
+    mode = gang.step_mode() if mode is None else mode
+    state = gang._state0(dc, mode["sample_start"])
     outs = (torch.empty((P,), dtype=I32, device=dev), torch.empty((P,), dtype=I64, device=dev),
             torch.empty((P, N_DIAG), dtype=I64, device=dev))
     scratch = dict(cnt=_zeros(dev, 1), cnt_h=_zeros(dev, 1), port_stamp=_zeros(dev, 1),
                    feas=_zeros(dev, N, BOOL), ip_raw=_zeros(dev, N, I64), sp_raw=_zeros(dev, N, I64),
                    sp_cnt=_zeros(dev, C * N))
-    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom, extra_score)
+    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom, extra_score, mode)
     sums_cells = 3 * C * Dsp + AT * D2 + Tip + Tpt + 3
     carry_cells = (Tsp + 2 * Tip + Tpt) * N
     smem_max = min(smem_max, ADMIT_SMEM_CAP) - 16 * C
@@ -791,8 +814,9 @@ def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_
 
 def _wave_admit_cuda(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                      ip_cdv_tab, weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf, nom_node=None,
-                     nom_prio=None, nom_req=None):
-    """K9 launch: the admission recurrence in one persistent block."""
+                     nom_prio=None, nom_req=None, **mode):
+    """K9 launch: the admission recurrence in one persistent block; the
+    cursor comes back in the tallies."""
     dev = dc.node_valid.device
     lib = _build.load()
     P = g.static_mask.shape[0]
@@ -801,7 +825,7 @@ def _wave_admit_cuda(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, ti
     nom = gang.nominations_csr(nom_node, nom_prio, nom_req, g.static_mask.shape[1], dev)
     a, w, state, outs = admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                                    weights, check_fit, has_ports, tid_pt, port_conf, nom, c0, kinds, cterms,
-                                   lib.ktpu_wave_admit_smem_max())
+                                   lib.ktpu_wave_admit_smem_max(), mode=gang.step_mode(**mode))
     rc = lib.ktpu_wave_admit(ctypes.byref(a), ctypes.byref(w), _build.stream_handle(dev))
     _build.check_launch(lib, rc, "wave_admit")
     _build.launches["wave_admit"] += 1

@@ -183,14 +183,38 @@ def _term_namespaces(term: PodAffinityTerm, pod: Pod, state: OracleState) -> Opt
     return names
 
 
+# the compiled selectors by selector object: id -> (the object, compiled);
+# holding the object keeps its id from being reused while it is cached
+_COMPILED: Dict[int, tuple] = {}
+_COMPILED_MAX = 8192
+
+
+def compiled_selector(ls) -> k8slabels.Selector:
+    """selector_from_label_selector, memoized on the selector object: the
+    filters and scores below match the same few pod-template selectors
+    against every placed pod, once per candidate node.  A LabelSelector is
+    a frozen dataclass, never changed once made, so its compiled form
+    stays right; a key on its content would cost what compiling it costs
+    (sorting match_labels, building the tuples)."""
+    if ls is None:
+        return k8slabels.NOTHING
+    hit = _COMPILED.get(id(ls))
+    if hit is not None and hit[0] is ls:
+        return hit[1]
+    sel = k8slabels.selector_from_label_selector(ls)
+    if len(_COMPILED) >= _COMPILED_MAX:
+        _COMPILED.clear()
+    _COMPILED[id(ls)] = (ls, sel)
+    return sel
+
+
 def _term_matches_pod(
     term: PodAffinityTerm, candidate: Pod, incoming: Pod, state: OracleState
 ) -> bool:
     nss = _term_namespaces(term, incoming, state)
     if nss is not None and candidate.namespace not in nss:
         return False
-    sel = k8slabels.selector_from_label_selector(term.label_selector)
-    return sel.matches(candidate.labels)
+    return compiled_selector(term.label_selector).matches(candidate.labels)
 
 
 def _required_terms(pod: Pod, anti: bool) -> Tuple[PodAffinityTerm, ...]:
@@ -272,8 +296,7 @@ def filter_interpod_affinity(
 
 
 def _spread_selector_matches(tsc, target: Pod, incoming: Pod) -> bool:
-    sel = k8slabels.selector_from_label_selector(tsc.label_selector)
-    if not sel.matches(target.labels):
+    if not compiled_selector(tsc.label_selector).matches(target.labels):
         return False
     for key in tsc.match_label_keys or ():
         if key in incoming.labels and target.labels.get(key) != incoming.labels[key]:

@@ -2,11 +2,12 @@
 
 A copy of the JAX package's oracle/pipeline.py (findNodesThatFitPod /
 prioritizeNodes / selectHost, schedule_one.go:408-917) with the default
-plugin set and weights.  The port schedules a single pod on the host only
-on the nominated-node path and its one-pod fall-through, which run with
-neither adaptive sampling nor a seeded tie-break, so the sampling walk of
-the reference copy is left out: every node is visited in snapshot order and
-ties go to the first maximum.
+plugin set and weights.  ``feasible_nodes`` takes the reference's adaptive
+sampling walk (``sample_k`` / ``sample_pct`` / ``start_index``: nodes in
+nodeTree order, util/nodetree.py, rotated from the cursor, cut at the k-th
+feasible one); ``prioritize`` takes a NodeResourcesFit scorer for the
+strategies other than LeastAllocated.  ``select_host`` takes the first
+maximum; the seeded tie-break is the scheduler's (ops/rng.py).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from kubernetes_tpu_torch.api.types import Pod
 from kubernetes_tpu_torch.oracle import filters as F
 from kubernetes_tpu_torch.oracle import scores as S
 from kubernetes_tpu_torch.oracle.state import OracleState
+from kubernetes_tpu_torch.util.nodetree import ZONE_LABEL, node_tree_order
 
 DEFAULT_SCORE_WEIGHTS = {
     "TaintToleration": 3,
@@ -48,6 +50,30 @@ class FitResult:
     feasible: List[str]
     # node name → list of reasons (Diagnosis.NodeToStatusMap analogue)
     reasons: Dict[str, List[str]] = field(default_factory=dict)
+    # nodes visited before the sampling cutoff (drives nextStartNodeIndex,
+    # schedule_one.go:625)
+    processed: int = 0
+    # size of the node list actually walked (PreFilterResult-narrowed) —
+    # the modulus for nextStartNodeIndex advancement
+    n_considered: int = 0
+
+
+MIN_FEASIBLE_NODES_TO_FIND = 100  # schedule_one.go minFeasibleNodesToFind
+
+
+def num_feasible_nodes_to_find(percentage: int, num_all: int) -> int:
+    """numFeasibleNodesToFind (schedule_one.go:673-699): adaptive percentage
+    `50 - nodes/125` (floor 5%) when the configured percentage is 0."""
+    if num_all < MIN_FEASIBLE_NODES_TO_FIND:
+        return num_all
+    if percentage == 0:
+        percentage = 50 - num_all // 125
+        if percentage < 5:
+            percentage = 5
+    if percentage >= 100:
+        return num_all
+    num = num_all * percentage // 100
+    return max(num, MIN_FEASIBLE_NODES_TO_FIND)
 
 
 def feasible_nodes(
@@ -55,11 +81,28 @@ def feasible_nodes(
     state: OracleState,
     enabled: frozenset = ALL_FILTERS,
     allowed: Optional[frozenset] = None,
+    sample_k: Optional[int] = None,
+    start_index: int = 0,
+    sample_pct: Optional[int] = None,
 ) -> FitResult:
     """Filter plugins in the reference's iteration shape (every node, all
     reasons collected).  ``enabled`` limits evaluation to a profile's
-    enabled plugin set; ``allowed`` narrows the node list by name first."""
-    spread_counts = F.spread_pair_counts(pod, state) if "PodTopologySpread" in enabled else None
+    enabled plugin set (kernel names); ``allowed`` is the PreFilterResult
+    node-name narrowing — applied BEFORE sampling, like the reference
+    (findNodesThatFitPod narrows the node list first, then
+    findNodesThatPassFilters sizes numFeasibleNodesToFind and the
+    nextStartNodeIndex rotation over the narrowed list,
+    schedule_one.go:478-486,588-669).
+
+    ``sample_k``/``start_index`` reproduce the adaptive sampling: nodes
+    are visited in rotation order from start_index and the walk stops once
+    sample_k feasible nodes are found; FitResult.processed reports how
+    many nodes were visited.  ``sample_pct`` instead derives sample_k from
+    the NARROWED list length (the correct sizing when combined with
+    ``allowed``); it overrides sample_k."""
+    spread_counts = (
+        F.spread_pair_counts(pod, state) if "PodTopologySpread" in enabled else None
+    )
     checks = [
         ("NodeName", lambda ns: F.filter_node_name(pod, ns)),
         ("NodeUnschedulable", lambda ns: F.filter_node_unschedulable(pod, ns)),
@@ -67,17 +110,37 @@ def feasible_nodes(
         ("NodeAffinity", lambda ns: F.filter_node_affinity(pod, ns)),
         ("NodePorts", lambda ns: F.filter_node_ports(pod, ns)),
         ("InterPodAffinity", lambda ns: F.filter_interpod_affinity(pod, ns, state)),
-        ("PodTopologySpread", lambda ns: F.filter_topology_spread(pod, ns, state, spread_counts)),
+        (
+            "PodTopologySpread",
+            lambda ns: F.filter_topology_spread(pod, ns, state, spread_counts),
+        ),
     ]
     checks = [c for c in checks if c[0] in enabled]
     check_resources = "NodeResourcesFit" in enabled
     feasible: List[str] = []
     reasons: Dict[str, List[str]] = {}
     names = list(state.nodes)
+    if sample_k is not None or sample_pct is not None:
+        # sampling-compat mode walks nodes in the reference's nodeTree
+        # order — zone round-robin (node_tree.go:119-143); the rotation
+        # below and first-max selection both ride this order
+        order = node_tree_order(
+            [state.nodes[n].node.labels.get(ZONE_LABEL) for n in names]
+        )
+        names = [names[i] for i in order]
     if allowed is not None:
         names = [n for n in names if n in allowed]
+    n_considered = len(names)
+    if sample_pct is not None:
+        k = num_feasible_nodes_to_find(sample_pct, n_considered)
+        sample_k = k if k < n_considered else None
+    if sample_k is not None and names:
+        start = start_index % len(names)
+        names = names[start:] + names[:start]
+    processed = 0
     for name in names:
         ns = state.nodes[name]
+        processed += 1
         rs: List[str] = []
         for _, fn in checks:
             r = fn(ns)
@@ -89,7 +152,14 @@ def feasible_nodes(
             reasons[name] = rs
         else:
             feasible.append(name)
-    return FitResult(feasible=feasible, reasons=reasons)
+            if sample_k is not None and len(feasible) >= sample_k:
+                break
+    return FitResult(
+        feasible=feasible,
+        reasons=reasons,
+        processed=processed,
+        n_considered=n_considered,
+    )
 
 
 def prioritize(
@@ -97,10 +167,11 @@ def prioritize(
     state: OracleState,
     feasible: Sequence[str],
     weights: Optional[Dict[str, int]] = None,
+    fit_scorer=None,
 ) -> Dict[str, int]:
     """Weighted sum of normalized plugin scores per feasible node
-    (prioritizeNodes, schedule_one.go:752), NodeResourcesFit scoring with
-    LeastAllocated (the port's only fit strategy)."""
+    (prioritizeNodes, schedule_one.go:752).  ``fit_scorer(pod, ns)``
+    overrides the NodeResourcesFit strategy (default LeastAllocated)."""
     w = dict(DEFAULT_SCORE_WEIGHTS if weights is None else weights)
     nodes = [state.nodes[n] for n in feasible]
     totals = {n: 0 for n in feasible}
@@ -123,7 +194,8 @@ def prioritize(
         raw = S.score_interpod_affinity_all(pod, state, list(feasible))
         accumulate("InterPodAffinity", S.normalize_interpod_affinity(raw))
     if w.get("NodeResourcesFit"):
-        accumulate("NodeResourcesFit", [S.score_least_allocated(pod, ns) for ns in nodes])
+        scorer = fit_scorer or S.score_least_allocated
+        accumulate("NodeResourcesFit", [scorer(pod, ns) for ns in nodes])
     if w.get("NodeResourcesBalancedAllocation"):
         accumulate("NodeResourcesBalancedAllocation", [S.score_balanced_allocation(pod, ns) for ns in nodes])
     if w.get("ImageLocality"):

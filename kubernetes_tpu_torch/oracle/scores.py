@@ -1,6 +1,6 @@
 """Scalar Score semantics (golden model), a copy of the JAX package's
-oracle/scores.py without the fit strategies the port does not run
-(MostAllocated, RequestedToCapacityRatio).
+oracle/scores.py, with NodeResourcesFit's three scoring strategies
+(LeastAllocated, MostAllocated, RequestedToCapacityRatio).
 
 Every function returns raw per-node int64 scores plus (where the reference
 has one) a normalize step, reproducing the exact integer/float arithmetic so
@@ -95,6 +95,70 @@ def score_least_allocated(
     if weight_sum == 0:
         return 0
     return node_score // weight_sum
+
+
+def score_most_allocated(
+    pod: Pod,
+    ns: NodeState,
+    resources: Sequence[Tuple[str, int]] = (("cpu", 1), ("memory", 1)),
+) -> int:
+    """noderesources/most_allocated.go: requested*100/capacity, 0 if over."""
+    node_score = 0
+    weight_sum = 0
+    for name, weight in resources:
+        alloc, requested = _alloc_and_requested(pod, ns, name, use_requested=False)
+        if alloc == 0:
+            continue
+        r = 0 if requested > alloc else requested * MAX_NODE_SCORE // alloc
+        node_score += r * weight
+        weight_sum += weight
+    if weight_sum == 0:
+        return 0
+    return node_score // weight_sum
+
+
+def broken_linear(points: Sequence[Tuple[int, int]], p: int) -> int:
+    """helper.BuildBrokenLinearFunction (plugins/helper/shape_score.go:40)
+    with Go's truncating integer division."""
+    for i, (x1, y1) in enumerate(points):
+        if p <= x1:
+            if i == 0:
+                return points[0][1]
+            x0, y0 = points[i - 1]
+            num = (y1 - y0) * (p - x0)
+            den = x1 - x0
+            q = num // den if num >= 0 else -((-num) // den)
+            return y0 + q
+    return points[-1][1]
+
+
+def score_requested_to_capacity_ratio(
+    pod: Pod,
+    ns: NodeState,
+    shape: Sequence[Tuple[int, int]],
+    resources: Sequence[Tuple[str, int]] = (("cpu", 1), ("memory", 1)),
+) -> int:
+    """noderesources/requested_to_capacity_ratio.go:32-58: per-resource
+    broken-linear score over utilization (shape scores pre-scaled to the
+    0-100 range), weight-averaged over resources with a positive score;
+    math.Round on the final mean."""
+    node_score = 0
+    weight_sum = 0
+    for name, weight in resources:
+        alloc, requested = _alloc_and_requested(pod, ns, name, use_requested=False)
+        if alloc == 0:
+            continue
+        if requested > alloc:
+            util = MAX_NODE_SCORE
+        else:
+            util = requested * MAX_NODE_SCORE // alloc
+        r = broken_linear(shape, util)
+        if r > 0:
+            node_score += r * weight
+            weight_sum += weight
+    if weight_sum == 0:
+        return 0
+    return (2 * node_score + weight_sum) // (2 * weight_sum)
 
 
 def score_balanced_allocation(

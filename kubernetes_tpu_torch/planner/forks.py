@@ -43,7 +43,7 @@ _ROW_PLANES = (
     ("allocatable", 0), ("requested", 0), ("nonzero_req", 0), ("num_pods", 0), ("allowed_pods", 0),
     ("label_vals", ABSENT), ("taint_key", PAD), ("taint_val", PAD), ("taint_effect", PAD),
     ("unschedulable", False), ("valid", False), ("used_ppk", PAD), ("used_ip", PAD), ("used_wild", False),
-    ("img_sizes", 0),
+    ("img_sizes", 0), ("visit_rank", -1),
 )
 
 
@@ -134,6 +134,7 @@ def _extend_node_tensors(nt, clones: Dict[str, Node], vocab):
     for name, node in clones.items():
         write_node_row(ext, cursor, node, vocab)
         ext.valid[cursor] = False  # alive only in the forks that add it
+        ext.visit_rank[cursor] = -1  # and never visited by a sampling walk
         slots[name] = cursor
         cursor += 1
     return ext, slots

@@ -235,7 +235,8 @@ def simulate_forks(
     planes = cf_ops.ForkPlanes.from_host(pf.planes, dev)
     out = cf_ops.counterfactual_run(
         dc, db, hk, v_cap, g_cap, *(wt[k] for k in _WAVE_ROWS), **rows, **planes.kwargs(), **volt,
-        enabled=profile.enabled, weights=profile.weights(), extra_score=extra_score, d_cap=d_cap,
+        enabled=profile.enabled, weights=profile.weights(), fit_strategy=profile.fit_strategy(),
+        extra_score=extra_score, d_cap=d_cap,
         d2_cap=wt["d2_cap"], **flags, **tables)
     fetched = cf_ops.readback(out)
 

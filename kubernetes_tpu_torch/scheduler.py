@@ -75,6 +75,21 @@ lower or equal priority (K5, K8, K9 and K11), pods of such priority stay off the
 fast path, and the preemptor itself, back from its backoff, takes the
 nominated-node path (``_schedule_one_nominated``).
 
+The reference's bit-compat knobs route as there.  With the sampling window
+or a tie-break seed active (``percentage_of_nodes_to_score`` > 0,
+``reference_sampling_compat`` or ``tie_break_seed``) a batch stays off the
+fast path, the chained and the workloads dispatch (gang members schedule
+one by one) and takes the direct ``gang_run`` or ``wave_run`` with the
+window's size ``sample_k``, the rotation cursor and the attempt counter;
+after the batch the cursor comes back from the kernel's tallies and the
+counter advances by the batch's length.  A profile's NodeResourcesFit
+strategy other than LeastAllocated keeps batches off the fast path and
+reaches every other route's kernels as ``fit_strategy``; one that weighs
+resources beyond cpu and memory sends every pod to the one-pod host cycle,
+which scores with the strategy on the host.  The one-pod host cycle
+(``_schedule_one_host``) takes the window and the tie-break too, drawing
+the tie bits with kernel K19.
+
 Pods outside the ported paths raise NotImplementedError naming the ROADMAP
 item that ports them (scheduling gates, or a ResourceClaim that does not
 exist yet: A5, the PreEnqueue tier; an unbound, missing or
@@ -120,10 +135,11 @@ from kubernetes_tpu_torch.ops import fastpath as ops_fp
 from kubernetes_tpu_torch.ops import gang as ops_gang
 from kubernetes_tpu_torch.ops import preemption as ops_preemption
 from kubernetes_tpu_torch.ops import resident as ops_res
+from kubernetes_tpu_torch.ops import rng as ops_rng
 from kubernetes_tpu_torch.ops import wave as ops_wave
 from kubernetes_tpu_torch.ops import wire
 from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster, DTable
-from kubernetes_tpu_torch.oracle.pipeline import feasible_nodes, prioritize, select_host
+from kubernetes_tpu_torch.oracle.pipeline import feasible_nodes, num_feasible_nodes_to_find, prioritize, select_host
 from kubernetes_tpu_torch.oracle.state import NodeState, OracleState
 from kubernetes_tpu_torch.queue.nominator import Nominator
 from kubernetes_tpu_torch.queue.scheduling_queue import QueuedPodInfo, SchedulingQueue
@@ -403,6 +419,11 @@ class Scheduler:
         self._oracle_cache: Optional[OracleState] = None
         # (queued pod, node, outcome) assumed but not yet bound
         self._bind_buffer: List[tuple] = []
+        # the sampling window's rotation cursor (nextStartNodeIndex), the
+        # tie-break's attempt counter and its key, built once from the seed
+        self._next_start_node_index = 0
+        self._attempt_counter = 0
+        self._tie_key = None if self.config.tie_break_seed is None else ops_rng.prng_key(self.config.tie_break_seed)
 
     @property
     def nodes(self) -> Optional[NodeTensors]:
@@ -742,6 +763,12 @@ class Scheduler:
         fwk = self.frameworks.get(pod.scheduler_name)
         if fwk is None or not fwk.maybe_relevant(pod):
             return None
+        profile = self.profiles[pod.scheduler_name]
+        if self._sampling_active(profile) and not self._host_fit(profile):
+            # the reference vetoes such a pod's nodes on the host into the
+            # direct dispatch (the workloads dispatch is off under sampling)
+            return ("a volume or claims pod under the sampling window or a tie-break seed needs the host-veto "
+                    "split path (ROADMAP A6b)")
         if pod.resource_claims and self.config.dra_enabled():
             for name in pod.resource_claims:
                 if self.claim_cache.get(f"{pod.namespace}/{name}") is None:
@@ -786,6 +813,43 @@ class Scheduler:
             if self.pv_cache.get(pvc.volume_name) is None:
                 return f"claim {name}'s PV {pvc.volume_name} is missing"
         return None
+
+    # ----- sampling, tie-break and fit strategy --------------------------
+
+    def _window_pct(self, profile: Profile) -> Optional[int]:
+        """The percentage the sampling window is sized with (the profile's,
+        else the configuration's; 0 is adaptive), or None when it is off."""
+        pct = profile.percentage_of_nodes_to_score
+        if pct is None:
+            pct = self.config.percentage_of_nodes_to_score
+        return pct if pct > 0 or self.config.reference_sampling_compat else None
+
+    def _sampling_active(self, profile: Profile) -> bool:
+        """The sampling window or the seeded tie-break is on."""
+        return self._window_pct(profile) is not None or self.config.tie_break_seed is not None
+
+    def _sampling_args(self, profile: Profile) -> dict:
+        """gang_run's / wave_run's sampling keywords ({} when neither the
+        window nor the tie-break is on): the window's size over the real
+        nodes (k = n still takes the visit-order branch: the reference walks
+        and breaks ties in nodeTree order even when nothing is cut), the
+        cursor, the tie key and the attempt counter."""
+        if not self._sampling_active(profile):
+            return {}
+        out = dict(tie_key=self._tie_key, attempt_base=self._attempt_counter)
+        pct = self._window_pct(profile)
+        n_valid = len(self.cache.real_nodes())
+        if pct is not None and n_valid:
+            out.update(sample_k=min(num_feasible_nodes_to_find(pct, n_valid), n_valid),
+                       sample_start=self._next_start_node_index)
+        return out
+
+    def _host_fit(self, profile: Profile) -> bool:
+        """NodeResourcesFit scores on the host: its strategy weighs
+        resources beyond the kernels' cpu and memory lanes (the reference's
+        normalizing-score split)."""
+        return ("NodeResourcesFit" in profile.enabled and profile.score_weights.get("NodeResourcesFit", 0) > 0
+                and not profile.fit_plugin().device_score)
 
     def _refuse(self, batch: List[QueuedPodInfo], why: str) -> None:
         self.queue.push_back(batch)
@@ -852,6 +916,11 @@ class Scheduler:
         static scores vary over its feasible nodes)."""
         if self.mirror.nodes is None:
             self._repack_mirror()
+        # the signature committer scores with LeastAllocated on the device,
+        # full width and first max
+        if (self._sampling_active(profile) or self._host_fit(profile)
+                or profile.fit_strategy() != ops_gang.DEFAULT_FIT_STRATEGY):
+            return None
         fwk = self.frameworks[profile.scheduler_name]
         if any(qp.pod.nominated_node_name or fwk.maybe_relevant(qp.pod) for qp in batch):
             return None
@@ -1263,6 +1332,10 @@ class Scheduler:
         is not a fast-path candidate."""
         if self.mirror.nodes is None:
             return False
+        # the sampling cursor threads every attempt: the direct path owns it;
+        # a host-scored fit strategy takes the one-pod cycle
+        if self._sampling_active(profile) or self._host_fit(profile):
+            return False
         if self.config.gang_dispatch and any(wlg.group_key_of(qp.pod) is not None for qp in batch):
             return False
         if any(qp.pod.host_ports() for qp in batch):
@@ -1273,7 +1346,8 @@ class Scheduler:
         # nominated pods take the direct path's nominated-node split
         if any(qp.pod.nominated_node_name for qp in batch):
             return False
-        if self._fast_gate_ok(batch) and all(self._sig_key(qp.pod) is not None for qp in batch):
+        if (self._fast_gate_ok(batch) and profile.fit_strategy() == ops_gang.DEFAULT_FIT_STRATEGY
+                and all(self._sig_key(qp.pod) is not None for qp in batch)):
             return False
         return True
 
@@ -1474,6 +1548,7 @@ class Scheduler:
                 bucket_cap(len(self.vocab.label_vals)),
                 enabled=profile.enabled,
                 weights=profile.weights(),
+                fit_strategy=profile.fit_strategy(),
                 append_terms=append_terms,
                 # any term row in the chained cluster keeps inter-pod on
                 **self._gang_flags(pb, ch["m"] > 0),
@@ -1522,6 +1597,20 @@ class Scheduler:
         batch the fast gate admits takes the signature fast path (no
         extension), the rest ``wave_run`` or ``gang_run``."""
         self._chain = None  # direct commits happen outside any chain
+        if self._host_fit(profile):
+            # every pod is score-relevant to a host-scored fit strategy: the
+            # one-pod cycle, in queue order
+            outcomes: List[ScheduleOutcome] = []
+            for i, qp in enumerate(batch):
+                try:
+                    if qp.pod.nominated_node_name:
+                        outcomes.extend(self._schedule_one_nominated(profile, qp))
+                    else:
+                        outcomes.extend(self._schedule_one_host(profile, qp))
+                except BaseException:
+                    self.queue.push_back(batch[i:])
+                    raise
+            return outcomes
         if try_workloads and self.config.gang_dispatch:
             out = self._try_dispatch_workloads(profile, batch)
             if out is not None:
@@ -1590,17 +1679,23 @@ class Scheduler:
             any_terms = bool((self.mirror.existing.term_kind != PAD).any())
             flags = self._gang_flags(pb, any_terms)
             args = (dc, db, self._hostname_key(), bucket_cap(len(self.vocab.label_vals)))
-            kw = dict(enabled=profile.enabled, weights=profile.weights(), **tables,
-                      **self._nominated_arrays({qp.pod.uid for qp in batch}))
+            sampling = self._sampling_args(profile)
+            kw = dict(enabled=profile.enabled, weights=profile.weights(), fit_strategy=profile.fit_strategy(),
+                      **tables, **self._nominated_arrays({qp.pod.uid for qp in batch}), **sampling)
             stats = None
             if wt is not None:
                 self.metrics["wave_batches"] += 1
                 flags["has_ports"] = wt["has_ports"]  # the occupancy carry, not the pod×pod matrix
-                chosen, _, reasons, _, stats = ops_wave.wave_run(*args, **self._wave_kw(wt), **kw, **flags)
+                chosen, _, reasons, tallies, stats = ops_wave.wave_run(*args, **self._wave_kw(wt), **kw, **flags)
             else:
                 self.metrics["scan_batches"] += 1
-                chosen, _, reasons, _ = ops_gang.gang_run(*args, **kw, **flags)
+                chosen, _, reasons, tallies = ops_gang.gang_run(*args, **kw, **flags)
             chosen = chosen.cpu()
+            if sampling.get("sample_k") is not None:
+                # the cursor is the kernel's cross-launch carry: one readback
+                self._next_start_node_index = int(tallies["sample_start"])
+            if sampling:
+                self._attempt_counter += len(batch)
         except BaseException:
             self._dc_cache.invalidate()
             self.queue.push_back(batch)
@@ -1774,7 +1869,7 @@ class Scheduler:
         hostname domains need one node per hostname) or a host Filter the
         dispatch does not replace is active: the caller schedules it on the
         other paths, with nothing committed or failed."""
-        if not self._workloads_eligible(batch):
+        if self._sampling_active(profile) or not self._workloads_eligible(batch):
             return None
         for qp in batch:
             for k, v in qp.pod.labels.items():
@@ -1865,7 +1960,7 @@ class Scheduler:
             claims = dra.pop("claims", None)
             chosen, _, reasons, _, wl = ops_cos.workloads_run(
                 dc, db, self._hostname_key(), v_cap, g_cap, **self._wave_kw(wt, ports=False), **rows, **volt, **dra,
-                enabled=profile.enabled, weights=profile.weights(), **tables,
+                enabled=profile.enabled, weights=profile.weights(), fit_strategy=profile.fit_strategy(), **tables,
                 **self._nominated_arrays({qp.pod.uid for qp in ordered}), **flags)
             fetched = [t.cpu().numpy() for t in (chosen, wl["raw"], wl["spec"], wl["gang_admit"], wl["gang_landed"])]
             claim_node = None if claims is None else wl["claim_node"].cpu().numpy()
@@ -2322,12 +2417,21 @@ class Scheduler:
         fails the pod unresolvably), every filter with the nominations of >=
         priority counted on their nodes, the second pass without them on
         those nodes, the host Filters on the nodes left, then the weighted
-        scores and the first best node.  No host Score plugin is active for
-        the claims this path admits (all bound: VolumeBinding's capacity
-        score is off and has no binding to weigh)."""
+        scores (NodeResourcesFit under the profile's strategy) and the first
+        best node, or, with a tie-break seed, the best by (score, bits).
+        Under the sampling window the walk visits nodes in nodeTree order
+        from the rotation cursor and stops at the window's size.  No host
+        Score plugin is active for the claims this path admits (all bound:
+        VolumeBinding's capacity score is off and has no binding to
+        weigh)."""
         pod = qp.pod
         self.metrics["schedule_attempts"] += 1
         self.metrics["host_cycles"] += 1
+        # one tie-break attempt per pod, consumed up front so an early
+        # failure keeps the sequence aligned with the batched routes
+        attempt = self._attempt_counter
+        if self._tie_key is not None:
+            self._attempt_counter = attempt + 1
         fwk = self.frameworks[profile.scheduler_name]
         state = CycleState()
         relevant = fwk.maybe_relevant(pod)
@@ -2339,6 +2443,8 @@ class Scheduler:
                                                   {s_.plugin} if s_.plugin else set(), code=s_.code)]
         st = self.oracle_view()
         allowed = self._prefilter_allowed(pod)
+        # the window is sized over the PreFilterResult-narrowed node list
+        sample_pct = self._window_pct(profile)
         added = []
         for node, np_ in self.nominator.entries():
             if np_.uid != pod.uid and np_.priority >= pod.priority and node in st.nodes:
@@ -2346,7 +2452,8 @@ class Scheduler:
                 added.append((node, np_))
         try:
             fit = feasible_nodes(pod, st, enabled=profile.enabled,
-                                 allowed=frozenset(allowed) if allowed is not None else None)
+                                 allowed=frozenset(allowed) if allowed is not None else None,
+                                 sample_pct=sample_pct, start_index=self._next_start_node_index)
         finally:
             for node, np_ in added:
                 st.nodes[node].remove_pod(np_)
@@ -2359,6 +2466,10 @@ class Scheduler:
                 fit.feasible = [n for n in fit.feasible if n not in dropped]
                 for n in dropped:
                     fit.reasons.setdefault(n, []).append("node(s) only feasible with unbound nominated pods")
+        if sample_pct is not None:
+            # the rotation advances modulo the narrowed list's length
+            # (findNodesThatPassFilters, schedule_one.go:625)
+            self._next_start_node_index = (self._next_start_node_index + fit.processed) % max(fit.n_considered, 1)
         diag: Dict[str, int] = {}
         for rs in fit.reasons.values():
             for r in rs:
@@ -2378,6 +2489,13 @@ class Scheduler:
         if not feasible:
             return [self._post_filter_or_fail(profile, state, qp, fit_error_message(len(st.nodes), diag),
                                               diag, plugins or None)]
-        totals = prioritize(pod, st, feasible, weights=profile.score_weights)
-        node = select_host(totals) if totals else feasible[0]
+        totals = prioritize(pod, st, feasible, weights=profile.score_weights, fit_scorer=profile.fit_plugin().score)
+        if self._tie_key is not None and totals:
+            # the batched routes' rule: the (score, bits) maximum, the bits
+            # indexed by the node's place in the host view (K19 draws them)
+            bits = ops_rng.tie_bits(self._tie_key, attempt, 1, len(st.nodes), self.device)[0].cpu().tolist()
+            idx_of = {n: i for i, n in enumerate(st.nodes)}
+            node = max(totals, key=lambda n: (totals[n], bits[idx_of[n]]))
+        else:
+            node = select_host(totals) if totals else feasible[0]
         return [self._assume(qp, node, state=state if relevant else None)]

@@ -40,6 +40,7 @@ from kubernetes_tpu_torch.api.types import (
     TOLERATION_OP_EXISTS,
 )
 from kubernetes_tpu_torch.snapshot.interner import ABSENT, INT_INVALID, PAD, Vocab
+from kubernetes_tpu_torch.util.nodetree import ZONE_LABEL, node_tree_order
 from kubernetes_tpu_torch.snapshot.selectors import (
     METADATA_NAME_KEY,
     CompiledRequirements,
@@ -218,6 +219,10 @@ class NodeTensors:
     used_wild: np.ndarray = None  # bool [N, U]
     # image id → size bytes present on node (NodeInfo.ImageStates)
     img_sizes: np.ndarray = None  # i64 [N, IMG]
+    # zone-round-robin visit rank (node_tree.go order; -1 for pad rows):
+    # packed slots stay stable for delta uploads, and the sampling window,
+    # its rotation and the compat first-max read this instead
+    visit_rank: np.ndarray = None  # i32 [N]
     names: List[str] = field(default_factory=list)
     name_to_idx: Dict[str, int] = field(default_factory=dict)
 
@@ -294,10 +299,22 @@ def pack_nodes(
         used_ip=np.full((N, 1), PAD, dtype=np.int32),
         used_wild=np.zeros((N, 1), dtype=bool),
         img_sizes=np.zeros((N, bucket_cap(len(vocab.images), 1)), dtype=np.int64),
+        visit_rank=np.full(N, -1, dtype=np.int32),
     )
     for i, node in enumerate(nodes[:N]):
         write_node_row(nt, i, node, vocab)
+    refresh_visit_rank(nt, nodes[:N])
     return nt
+
+
+def refresh_visit_rank(nt: NodeTensors, nodes: Sequence[Node], slots: Optional[Sequence[int]] = None) -> None:
+    """Recompute the zone-round-robin visit ranks (util/nodetree.py).
+    ``slots[i]`` is node i's packed row (0..n-1 by default, the fresh-pack
+    layout); a delta update passes the rows name_to_idx resolves."""
+    nt.visit_rank[:] = -1
+    order = node_tree_order([n.labels.get(ZONE_LABEL) for n in nodes])
+    for rank, i in enumerate(order):
+        nt.visit_rank[i if slots is None else slots[i]] = rank
 
 
 def write_node_row(nt: NodeTensors, i: int, node: Node, vocab: Vocab) -> bool:

@@ -631,3 +631,42 @@ def test_dra_drain_past_the_register_words_on_cuda_matches_cpu(cuda):
     cuda equals the drain on the CPU, bindings and claim pins."""
     launches = chip_smoke.phase_dra_large(torch, cuda, n_nodes=10, devices=300, n_pods=300, count=10)
     assert launches["dra_spec_mask"] > 0 and launches["workloads_admit"] > 0
+
+
+@pytest.mark.parametrize("smem_cap", [1 << 30, 0], ids=["shared", "global"])
+@pytest.mark.parametrize("mode", ["compat_tie", "compat", "compat_all", "most_allocated", "rtcr"])
+def test_step_modes_match_plain(cuda, mode, smem_cap, monkeypatch):
+    """K5, K8 and K9 with the sampling window and the tie key, the window
+    with no tie key (cut, and over every node), MostAllocated and
+    RequestedToCapacityRatio against their plain versions (chip_smoke's
+    phase 13 rows raise on any difference, the cursor included), with the
+    counters and carries in shared and in global memory."""
+    from kubernetes_tpu_torch.ops import wave as ops_wave
+
+    monkeypatch.setattr(ops_gang, "SCAN_SMEM_CAP", smem_cap)
+    monkeypatch.setattr(ops_wave, "ADMIT_SMEM_CAP", smem_cap)
+    rows = chip_smoke.sampling_rows(torch, cuda, reps=1, n_nodes=700, P=64, modes=(mode,))
+    assert rows[mode]["moved_from_default"] > 0
+
+
+def test_strategy_workloads_and_tie_bits_match_plain(cuda):
+    """K11 under MostAllocated and K19 against their plain versions, K19 at
+    a block of attempts and at the one-pod cycle's shape."""
+    assert chip_smoke.k11_strategy_row(torch, cuda, reps=1, n_nodes=200, P=64)["k11_err"] == 0
+    assert chip_smoke.k19_row(torch, cuda, reps=1, A=33, N=1000, host_N=77)["k19_err"] == 0
+
+
+def test_sampling_scheduler_on_cuda_matches_cpu(cuda):
+    """Drains under reference_sampling_compat with a tie seed (the wave, the
+    cursor read back from K9), under MostAllocated (the chained scan), with
+    a host-scored strategy (the one-pod cycle, K19 per pod) and with no
+    seed (the window cut and over every node; the wave and the direct
+    scan), on the card and on the CPU, placed alike."""
+    cfg = dict(reference_sampling_compat=True, tie_break_seed=chip_smoke.TIE_SEED)
+    nodes = lambda: chip_smoke.basic_nodes(300, zones=3)  # noqa: E731
+    got, _, s_cuda = chip_smoke.drain(cuda, nodes(), chip_smoke.spread_pods(700), **cfg)
+    want, _, s_cpu = chip_smoke.drain(torch.device("cpu"), nodes(), chip_smoke.spread_pods(700), **cfg)
+    assert got == want and s_cuda._next_start_node_index == s_cpu._next_start_node_index
+    assert s_cuda.metrics["wave_batches"] == 2
+    chip_smoke.phase_sampling_drains(torch, cuda, n_nodes=300, n_pods=700, n_host_nodes=60, n_host_pods=16,
+                                     n_seedless_nodes=300, n_seedless_pods=64, n_small_nodes=40)
