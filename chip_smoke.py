@@ -28,8 +28,9 @@ Phases, one output line each (several for 2 and 4):
      the launches of each kernel in that drain, each of which must be > 0
      for the kernels of its route: config0 (10k nodes, 100k pending pods)
      with residentDrain false (K1, K2, K3) and under the default
-     configuration (K1, K4 with its host tail, K3), in turns, twice each,
-     with their spread; config0 once with residentSerialTail (K1, K4,
+     configuration (K1, K4 with its host tail, K3), DRAIN_REPEATS times
+     each in turns (once: cut from twice for time), with their spread;
+     config0 once with residentSerialTail (K1, K4,
      K2 for its tail, K3); a mixed drain (1k nodes, 10k pods: NoSchedule
      taints, tolerations, nodeSelector, required node affinity, images) on
      the first two routes and with residentSerialTail;
@@ -50,7 +51,9 @@ Phases, one output line each (several for 2 and 4):
      versions, exact on every output, and K9 against K5 on the same
      statics, at config4's and config3's shapes, a port-contended batch and
      a mixed batch without ports, with each kernel's, its plain version's
-     and K5's time; then config4 and config3 under the default
+     and K5's time; K9's cluster size, exchanges and microseconds a pod,
+     K9 / K5, its leader's cycles a phase, and K9 at 8 CTAs and with its
+     planes unstaged, exact, with their times; then config4 and config3 under the default
      configuration (every batch on the wave), placed pod for pod as their
      waveDispatch: false drains above; a port-contended drain (1k nodes,
      4,096 pods, every batch a direct wave with the port carry) against the
@@ -69,8 +72,9 @@ Phases, one output line each (several for 2 and 4):
      with identical bindings, evictions and nominations, every preemptor
      bound, each node emptied of exactly its two victims, no node over its
      allocatable; the same drain at 5,000 nodes with 250 preemptors on
-     cuda; and a gang-path drain with priorities (500 nodes, 1,500 placed
-     priority-0 pods, 2,000 spread and anti-affinity pods at priorities 0 /
+     cuda; and a gang-path drain with priorities (300 nodes, 900 placed
+     priority-0 pods, 1,200 spread and anti-affinity pods (cut from 500 /
+     1,500 / 2,000 for time) at priorities 0 /
      50 / 100, some too big to fit before a preemption) in two rounds on
      cuda and on the CPU, identical (K10 narrows this drain's gang-path
      harvests; the fast harvests of bench_preemption reach PostFilter
@@ -98,8 +102,9 @@ Phases, one output line each (several for 2 and 4):
      config4's 5,000 nodes: 60 % zone affinity, 20 % zone label, 15 % nil,
      5 % pinned to a zone no node carries) on cuda, every placed pod in its
      PV's zone, the 5 % unplaced with the volume node affinity conflict,
-     one K12 launch per workloads batch; and a parity drain (1,000 nodes,
-     1,080 volume, gang and spread pods in one batch) on cuda, on the CPU
+     one K12 launch per workloads batch; and a parity drain (600 nodes,
+     648 volume, gang and spread pods in one batch; cut from 1,000 /
+     1,080 for time) on cuda, on the CPU
      and against the serial WorkloadOracle with volumes, identical;
  10. DRA claims: K13 dra_selector_match and K14 dra_spec_mask against their
      plain versions, exact, K8 with K14's mask as its port lane against
@@ -154,8 +159,9 @@ Phases, one output line each (several for 2 and 4):
      cluster, explain_whatif for a bench_preemption preemptor and
      schedule_independent at the K18 shape on cuda, the first two equal to
      a device="cpu" Scheduler's dicts (the what-if's parity True), the last
-     equal to the plain pipeline; a DRA drain of 1,500 pods with one
-     ExactCount=10 claim each on 50 nodes of 300 devices, on cuda and on
+     equal to the plain pipeline; a DRA drain of 900 pods with one
+     ExactCount=10 claim each on 30 nodes of 300 devices (cut from 1,500 /
+     50 for time), on cuda and on
      the CPU, identical in bindings and claim pins, no device granted twice;
  13. the sampling window, the seeded tie-break and the fit strategies: K5,
      K8 and K9 against their plain versions, exact on every output (the
@@ -180,7 +186,7 @@ Phases, one output line each (several for 2 and 4):
      400; cut from 800 / 1,600) against the port's serial oracle loop with
      K19's bits, 0 diffs;
  14. the kernels line (K8 named as the workloads speculation too, K19 as
-     the parity copies' draw).
+     the parity copies' draw, K9's and K15's redesigns under "design").
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Without
@@ -207,8 +213,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
 PEAK_ISSUE_OPS_S = PEAK_FP32_FLOP_S / 2
-# config0 drains per route, taken in turns, to show the host clock's spread
-DRAIN_REPEATS = 2
+# config0 drains per route (taken in turns when more than one, to show the
+# host clock's spread; one keeps the script within its time)
+DRAIN_REPEATS = 1
 
 
 _START = time.perf_counter()
@@ -1436,11 +1443,59 @@ def wave_check(torch, dc, db, kw, d_cap, flags, wt, g=None, k5=None):
     return g, g5, c0, spec_feas, adm, errs
 
 
+# the phases of K9's leader clocks (admit_stats["info"][2:]): for each of
+# a pod's exchanges (pod_tables' sums with the min-match, the filter's
+# counts, the spread score's normalizers, the argmax), the work before it,
+# the CTA-local combine and the pushes, the wait for every CTA's part and
+# the combine; then the commit
+K9_PHASES = tuple(f"{name}{part}" for name in ("tables", "filter", "spread", "argmax")
+                  for part in ("", "_push", "_exchange"))
+
+
+def k9_cluster(torch, db, ms, k5_ms):
+    """K9's cluster beside its time `ms` (its last launch was the timed
+    one): the CTAs, the cluster barriers it counted per valid pod, the
+    microseconds per valid pod, K9 / K5 on the same statics, whether the
+    pods' planes were staged in shared memory, and the rank-0 leader's
+    cycles per pod in each phase (the exchanges include the wait for the
+    slowest CTA; in sampling mode the window's exchange comes after the
+    tables' and shifts the later names by one).  "barriers_per_pod" counts
+    the cluster-wide synchronizations: mbarrier exchanges, or cluster
+    barriers where the exchange slab lies in global memory."""
+    from kubernetes_tpu_torch.ops import wave
+
+    torch.cuda.synchronize()
+    pods = max(int(db.valid.sum().item()), 1)
+    info = wave.admit_stats["info"].tolist()
+    cycles = [16 * c / pods for c in info[2:]]
+    phases = dict(zip(K9_PHASES, (round(c) for c in cycles)), commit=round(cycles[-1]))
+    return dict(cluster=info[0], barriers_per_pod=info[1] / pods, us_per_pod=ms * 1e3 / pods, k9_over_k5=ms / k5_ms,
+                staged=wave.admit_stats["staged"], leader_cycles_per_pod=phases)
+
+
+def k9_variant(torch, fn, cap=16, stage=True):
+    """fn() with K9's cluster capped at `cap` CTAs and its planes staged or
+    not; (its result, the CTAs its last K9 launch took)."""
+    from kubernetes_tpu_torch.ops import wave
+
+    old = wave.ADMIT_CLUSTER_CAP, wave.ADMIT_STAGE
+    wave.ADMIT_CLUSTER_CAP, wave.ADMIT_STAGE = cap, stage
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out, wave.admit_stats["cluster"]
+    finally:
+        wave.ADMIT_CLUSTER_CAP, wave.ADMIT_STAGE = old
+
+
 def wave_row(torch, name, dc, db, kw, d_cap, flags, wt, reps, g=None, k5=None):
     """wave_check, exact on every output (c0; chosen, n_feas, the reason
     counts, the tallies, kinds, conflicting terms), then each kernel's time,
     its plain version's, K5's on the same statics (the fourth entry of `k5`
-    when the caller timed it), and the bounds.  Returns the row."""
+    when the caller timed it), and the bounds; K9 with its cluster (k9_cluster)
+    and, capped at 8 CTAs and with its planes read from global memory,
+    exact against the plain version too, with their times.  Returns the
+    row."""
     from kubernetes_tpu_torch.ops import gang, wave
 
     g, g5, c0, spec_feas, adm, errs = wave_check(torch, dc, db, kw, d_cap, flags, wt, g=g,
@@ -1471,6 +1526,18 @@ def wave_row(torch, name, dc, db, kw, d_cap, flags, wt, reps, g=None, k5=None):
     row["gang_scan_ms_same_statics"] = (k5[3] if k5 is not None else
                                         time_ms(torch, lambda: gang.gang_schedule(dc, db, g5, v_cap, d_cap=d_cap),
                                                 reps))
+    row["wave_admit"].update(k9_cluster(torch, db, row["wave_admit"]["ms"], row["gang_scan_ms_same_statics"]))
+    k9 = lambda: wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw)  # noqa: E731
+    for key, cap, stage in (("cluster8", 8, True), ("unstaged", 16, False)):
+        out, ctas = k9_variant(torch, k9, cap, stage)
+        err = max([max_abs_err(torch, u, v) for u, v in zip(out[:3] + out[4:], adm[:3] + adm[4:])]
+                  + [max_abs_err(torch, out[3][k], adm[3][k]) for k in adm[3]])
+        ms, _ = k9_variant(torch, lambda: time_ms(torch, k9, reps), cap, stage)
+        if err or ctas != cap:
+            raise AssertionError(f"{name}: K9 ({key}, {ctas} CTAs) differs from its plain version by {err}")
+        row["k9_err"] = max(row["k9_err"], err)
+        row["wave_admit"][key] = dict(k9_cluster(torch, db, ms, row["gang_scan_ms_same_statics"]), ms=ms,
+                                      max_abs_err=err)
     log(phase="wave_kernel_check", **row)
     return row
 
@@ -2092,6 +2159,7 @@ def nominated_row(torch, name, dc, db, kw, d_cap, g, wt, reps, n=64):
         row["wave_admit"] = dict(
             ms=time_ms(torch, lambda: wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw), reps),
             plain_ms=k9_plain_ms)
+        row["wave_admit"].update(k9_cluster(torch, db, row["wave_admit"]["ms"], row["gang_scan"]["ms"]))
     bad = {k: v for k, v in row.items() if k.endswith("_err") or k == "k9_vs_k5_nom"}
     if any(bad.values()):
         raise AssertionError(f"{name}: kernels with nominations differ from their plain versions: {bad}")
@@ -4115,6 +4183,8 @@ def sampling_rows(torch, device, reps=3, n_nodes=5000, P=512, modes=None):
             ("gang_scan", lambda: gang.gang_schedule(dc, db, g, v_cap, d_cap=d_cap)),
             ("wave_speculate", lambda: wave.wave_speculate(dc, db, g, d_cap=d_cap)),
             ("wave_admit", lambda: wave.wave_admit(dc, db, g, hk, c0_base, *targs, **tkw)))})}
+    rows["default"]["wave_admit"].update(k9_cluster(torch, db, rows["default"]["wave_admit"]["ms"],
+                                                    rows["default"]["gang_scan"]["ms"]))
     log(phase="sampling_kernel_check", **rows["default"])
     for mode, m in step_modes(n_nodes).items():
         if mode == "default" or (modes is not None and mode not in modes):
@@ -4157,6 +4227,7 @@ def sampling_rows(torch, device, reps=3, n_nodes=5000, P=512, modes=None):
                                                 reps), plain_ms=k8_plain, bound_ms=b8, bound_by=by8, library_ms=None)
         row["wave_admit"] = dict(ms=time_ms(torch, lambda: wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw, **m),
                                             reps), plain_ms=k9_plain, bound_ms=b9, bound_by=by9, library_ms=None)
+        row["wave_admit"].update(k9_cluster(torch, db, row["wave_admit"]["ms"], row["gang_scan"]["ms"]))
         for k in ("gang_scan", "wave_speculate", "wave_admit"):
             row[k]["default_ms"] = rows["default"][k]["ms"]
         log(phase="sampling_kernel_check", **row)
@@ -4504,6 +4575,19 @@ def phase_sampling(torch, device):
     return rows, k11, k19, drains, parity
 
 
+# The kernels redesigned after their port, as the kernels line names them.
+DESIGNS = {
+    "wave_admit": "one thread-block cluster of 16 CTAs (8 where the card admits no cluster of 16) on neighbouring "
+                  "SMs, each over a slice of the nodes with its usage rows, carries, node statics and each pod's "
+                  "planes (bulk copies one pod ahead) in shared memory; four exchanges a pod (sums with the "
+                  "min-match, the counts, the spread normalizers, the argmax) push each CTA's part into every "
+                  "CTA's shared memory with st.async on an mbarrier",
+    "fork_view": "source-stationary: one 16-byte source vector per thread in registers, one int4 store per fork "
+                 "masked by the fork's alive byte (node-major planes) or uchar4 (node-minor planes), a plane per "
+                 "blockIdx.y, a chunk of forks per blockIdx.z",
+}
+
+
 def main() -> int:
     try:
         import torch
@@ -4606,7 +4690,7 @@ def main() -> int:
     # gang-path drain with priorities on cuda and on the CPU
     checks["narrow_candidates"] = phase_preempt_kernels(torch, device)
     phase_preempt_drains(torch, device)
-    preempt_l = phase_preempt_parity(torch, device)
+    preempt_l = phase_preempt_parity(torch, device, n_nodes=300, n_placed=900, n_pods=1200)
 
     # gang coscheduling: K11 against its plain version (and, gangs cleared,
     # against K9) at config10's, config4's and the mixed shape; bench_gang's
@@ -4633,7 +4717,7 @@ def main() -> int:
     checks["volume_topology_mask"] = phase_volume_kernels(torch, device)
     statefulset_l, k12_err = phase_statefulset(torch, device)
     checks["volume_topology_mask"]["max_abs_err"] = max(checks["volume_topology_mask"]["max_abs_err"], k12_err)
-    phase_volume_parity(torch, device)
+    phase_volume_parity(torch, device, n_nodes=600, n_vol=360, n_gangs=12, n_spread=192)
 
     # DRA claims: K13, K14 and K11's DRA mode against their plain versions
     # at config4's node set; bench_dra's drain (config11) at full size; the
@@ -4666,7 +4750,7 @@ def main() -> int:
     k17_rows, k18_row_, k18_shape = phase_explain_kernels(torch, device)
     dd_rows = phase_dra_slots(torch, device)
     explain_l = phase_explain(torch, device, k18=k18_shape)
-    dra_large_l = phase_dra_large(torch, device)
+    dra_large_l = phase_dra_large(torch, device, n_nodes=30, n_pods=900)
     checks["explain_stack"] = dict(k17_rows["config4"]["explain_stack"], mixed=k17_rows["mixed"]["explain_stack"],
                                    max_abs_err=max(r["k17_err"] for r in k17_rows.values()))
     checks["pipeline_score"] = dict(route_err=k18_row_["route_err"], **k18_row_["pipeline_score"])
@@ -4763,6 +4847,8 @@ def main() -> int:
         if name == "wave_speculate":  # K8 is also the workloads dispatch's speculation
             kernels[-1]["also"] = dict(replaces="kubernetes_tpu/ops/coscheduling.py:287", path="config10",
                                        launches=config10_l[name])
+        if name in DESIGNS:
+            kernels[-1]["design"] = DESIGNS[name]
         if name == "tie_bits":  # K19 also draws the parity copies' bits
             kernels[-1]["also"] = dict(replaces="kubernetes_tpu/scheduler.py:4990", path="sampling_parity",
                                        launches=sum(v[name] for v in sampling_parity_l.values()))

@@ -17,8 +17,18 @@
 //                                    in place of the label values)
 //   visit_rank [k, n]       -> -1   (only when the caller passes one)
 // and copies the node's row elsewhere, so an absent node is exactly a node
-// that was never packed.  Design: one thread per output cell, grid-stride
-// over the four planes in turn; a masked copy, so nothing is reused.
+// that was never packed.  Design: source-stationary.  blockIdx.y picks the
+// plane (no thread branches over planes) and blockIdx.z a chunk of
+// FORK_CHUNK forks; a thread loads one 16-byte vector of the source plane
+// once, keeps it in registers and stores one int4 per fork of its chunk,
+// masked by the fork's alive bytes: one byte in a node-major plane whose
+// width is a multiple of 4 (the vector is one node's columns), a uchar4 in
+// a node-minor plane (dom_ids' rows, visit_rank, a one-column taint plane;
+// the vector is four consecutive nodes) when N is a multiple of 4.  The
+// node index is computed once per vector; the fork loop steps pointers by
+// the plane's size, with no div or mod.  A plane of another width, or
+// whose pointers are not 16-byte aligned, takes the same loop cell by
+// cell.
 //
 // K16 reduces each fork's outcome after its admission: over the live valid
 // pods (valid[p] && fk_pod_live[k, p]) the count placed (chosen >= 0), the
@@ -40,49 +50,62 @@ using namespace ktpu;
 namespace {
 
 constexpr int VIEW_THREADS = 256;
+constexpr int FORK_CHUNK = 8;  // forks per thread
+constexpr int MAX_PLANES = 6;
 constexpr int SUM_THREADS = 256;
 constexpr int MAX_ND = 16;
 constexpr long long DENSITY_SCALE = 1000000;
 
+// One source plane of K15: [N, width] node-major (node = cell / width), or,
+// with width 0, [rows, N] node-minor (node = cell % N); `cells` source
+// cells, each fork's copy `cells` apart in dst.
+struct Plane {
+  const int* src;
+  int* dst;
+  int cells, width, fill, vec;  // vec: the 16-byte vector path
+};
+
+struct Planes {
+  Plane p[MAX_PLANES];
+};
+
+__device__ __forceinline__ int4 fill4(int v) { return make_int4(v, v, v, v); }
+
 __global__ void __launch_bounds__(VIEW_THREADS)
-    fork_view_kernel(const int* __restrict__ labels, const int* __restrict__ tkey, const int* __restrict__ tval,
-                     const int* __restrict__ teff, const int* __restrict__ vrank, const int* __restrict__ dom,
-                     const unsigned char* __restrict__ alive, int* out_labels, int* out_tkey, int* out_tval,
-                     int* out_teff, int* out_vrank, int* out_dom, int KF, int N, int L, int T) {
-  const long long n_lab = (long long)KF * N * L;
-  const long long n_taint = (long long)KF * N * T;
-  const long long n_dom = (long long)KF * L * N;
-  const long long n_vr = vrank != nullptr ? (long long)KF * N : 0;
-  const long long total = n_lab + n_taint + n_dom + n_vr;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
-    long long j = i;
-    if (j < n_lab) {  // [k, n, l]
-      const long long kn = j / L;
-      const int n = (int)(kn % N);
-      out_labels[j] = alive[kn] ? labels[(long long)n * L + j % L] : ABSENT;
-      continue;
+    fork_view_kernel(const Planes planes, const unsigned char* __restrict__ alive, int KF, int N) {
+  const Plane pl = planes.p[blockIdx.y];
+  const int k0 = blockIdx.z * FORK_CHUNK;
+  const int nk = min(FORK_CHUNK, KF - k0);
+  const int stride = gridDim.x * blockDim.x;
+  const unsigned char* const al0 = alive + (long long)k0 * N;
+  if (pl.vec) {
+    const int nv = pl.cells >> 2;
+    const int4* const src = reinterpret_cast<const int4*>(pl.src);
+    int4* const dst0 = reinterpret_cast<int4*>(pl.dst) + (long long)k0 * nv;
+    const int4 gone = fill4(pl.fill);
+    for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < nv; v += stride) {
+      const int4 s = src[v];
+      int4* d = dst0 + v;
+      if (pl.width) {  // one node's columns
+        const unsigned char* al = al0 + (v << 2) / pl.width;
+        for (int k = 0; k < nk; ++k, al += N, d += nv) *d = *al ? s : gone;
+      } else {  // four consecutive nodes
+        const uchar4* al = reinterpret_cast<const uchar4*>(al0 + (v << 2) % N);
+        const int step = N >> 2;
+        for (int k = 0; k < nk; ++k, al += step, d += nv) {
+          const uchar4 m = *al;
+          *d = make_int4(m.x ? s.x : pl.fill, m.y ? s.y : pl.fill, m.z ? s.z : pl.fill, m.w ? s.w : pl.fill);
+        }
+      }
     }
-    j -= n_lab;
-    if (j < n_taint) {  // [k, n, t]
-      const long long kn = j / T;
-      const long long src = (kn % N) * T + j % T;
-      const bool a = alive[kn];
-      out_tkey[j] = a ? tkey[src] : PAD;
-      out_tval[j] = a ? tval[src] : PAD;
-      out_teff[j] = a ? teff[src] : PAD;
-      continue;
+  } else {
+    int* const dst0 = pl.dst + (long long)k0 * pl.cells;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < pl.cells; i += stride) {
+      const int s = pl.src[i];
+      const unsigned char* al = al0 + (pl.width ? i / pl.width : i % N);
+      int* d = dst0 + i;
+      for (int k = 0; k < nk; ++k, al += N, d += pl.cells) *d = *al ? s : pl.fill;
     }
-    j -= n_taint;
-    if (j < n_dom) {  // [k, l, n]
-      const int n = (int)(j % N);
-      const long long kl = j / N;
-      const long long k = kl / L;
-      out_dom[j] = alive[k * N + n] ? dom[(kl % L) * N + n] : -1;
-      continue;
-    }
-    j -= n_dom;  // [k, n]
-    out_vrank[j] = alive[j] ? vrank[j % N] : -1;
   }
 }
 
@@ -140,19 +163,48 @@ __global__ void __launch_bounds__(SUM_THREADS)
 
 }  // namespace
 
+namespace {
+
+bool aligned(const void* p, unsigned bytes) { return (reinterpret_cast<unsigned long long>(p) % bytes) == 0; }
+
+// The plane of [N, width] (width > 1) or of `rows` rows of N (width 0).
+Plane plane(const int* src, int* dst, int N, int width, int rows, int fill, const unsigned char* alive) {
+  Plane p{src, dst, width ? N * width : rows * N, width, fill, 0};
+  const bool fits = width ? width % 4 == 0 : (N % 4 == 0 && aligned(alive, 4));
+  p.vec = fits && aligned(src, 16) && aligned(dst, 16);
+  return p;
+}
+
+}  // namespace
+
 // Enqueues K15 on `stream` and returns the launch status.  vrank and
 // out_vrank may be null (no visit-rank plane).
 extern "C" int ktpu_fork_view(const int* labels, const int* tkey, const int* tval, const int* teff, const int* vrank,
                               const int* dom, const unsigned char* alive, int* out_labels, int* out_tkey,
                               int* out_tval, int* out_teff, int* out_vrank, int* out_dom, int KF, int N, int L, int T,
                               void* stream) {
-  const long long total = (long long)KF * N * (2LL * L + T + (vrank != nullptr ? 1 : 0));
-  if (total == 0) return 0;
-  long long blocks = (total + VIEW_THREADS - 1) / VIEW_THREADS;
-  if (blocks > 132LL * 32) blocks = 132LL * 32;
-  fork_view_kernel<<<(int)blocks, VIEW_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      labels, tkey, tval, teff, vrank, dom, alive, out_labels, out_tkey, out_tval, out_teff, out_vrank, out_dom, KF,
-      N, L, T);
+  if ((long long)N * (L > T ? L : T) >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  Planes ps{};
+  int n = 0, widest = 0;
+  auto add = [&](const Plane& p) {
+    if (p.cells == 0) return;
+    ps.p[n++] = p;
+    const int units = p.vec ? p.cells >> 2 : p.cells;
+    if (units > widest) widest = units;
+  };
+  // a node-major plane [N, W]: one row of N when W is 1, none when W is 0
+  auto node_major = [&](const int* src, int* dst, int W, int fill) {
+    return plane(src, dst, N, W == 1 ? 0 : W, W == 1 ? 1 : 0, fill, alive);
+  };
+  add(node_major(labels, out_labels, L, ABSENT));
+  add(node_major(tkey, out_tkey, T, PAD));
+  add(node_major(tval, out_tval, T, PAD));
+  add(node_major(teff, out_teff, T, PAD));
+  add(plane(dom, out_dom, N, 0, L, -1, alive));
+  if (vrank != nullptr) add(plane(vrank, out_vrank, N, 0, 1, -1, alive));
+  if (n == 0 || KF == 0) return 0;
+  const dim3 grid((widest + VIEW_THREADS - 1) / VIEW_THREADS, n, (KF + FORK_CHUNK - 1) / FORK_CHUNK);
+  fork_view_kernel<<<grid, VIEW_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(ps, alive, KF, N);
   return (int)cudaGetLastError();
 }
 

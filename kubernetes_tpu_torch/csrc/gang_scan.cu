@@ -173,7 +173,8 @@ __global__ void __launch_bounds__(SCAN_THREADS) gang_scan_kernel(const GangScanA
     for (long long i = tid; i < cells; i += blockDim.x) base[i] = 0;
   }
   const Counters k = counters(a, base);
-  const StepScratch scratch{a.feas, a.ip_raw, a.sp_raw, a.sp_cnt, k.seen, D};
+  const StepScratch scratch = global_scratch(a, a.feas, a.ip_raw, a.sp_raw, a.sp_cnt, k.seen, D);
+  BlockPolicy pol{0, a.N};
   __syncthreads();
 
   for (int p = 0; p < a.P; ++p) {
@@ -186,10 +187,10 @@ __global__ void __launch_bounds__(SCAN_THREADS) gang_scan_kernel(const GangScanA
     __syncthreads();
     peer_pass(a, k, p, true, &s_any_dyn);
     __syncthreads();
-    const StepOut out = pod_step_block(a, p, ScanDyn{a, k, p + 1}, s_any_dyn != 0, scratch, sh, -1);
+    const StepOut out = pod_step_block(a, p, ScanDyn{a, k, p + 1}, s_any_dyn != 0, scratch, sh, -1, true, pol);
     if (tid == 0) {
       write_step(a, p, out);
-      commit_usage(a, p, out.choice);
+      commit_usage(a, scratch.use, p, out.choice);
       advance_cursor(a, out);
     }
     __syncthreads();  // the commit is visible to every thread of the block

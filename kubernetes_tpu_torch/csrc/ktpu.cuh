@@ -6,6 +6,7 @@
 // any change here is made there too.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace ktpu {
@@ -645,12 +646,21 @@ struct WaveArgs {
   const int* c0;                    // [P]      K9: the speculative nodes
   int* kinds;                       // [P]      K9: demote kind
   int* cterms;                      // [P]      K9: conflicting term slot
-  int* sums;                        // K8: [P, C, Dsp] domain stamps; K9: the per-pod
-                                    // region unless sums_smem (see wave.cu)
-  int* carries;                     // K9: [(Tsp + 2 Tip + Tpt) * N] unless carry_smem
+  int* sums;                        // K8: [P, C, Dsp] domain stamps; K11: the per-pod region
+                                    // unless sums_smem; K9: [cluster, xch_cells] the CTAs'
+                                    // exchange slabs unless sums_smem (see wave.cu)
+  int* carries;                     // K9, K11: [(Tsp + 2 Tip + Tpt) * N] unless carry_smem
   const unsigned char* lane;        // K8: [P, N] the port lane (null: every port free); the
                                     // workloads dispatch's DRA verdict against free0
+  int* admit_info;                  // K9: [2 + CL_PHASES] out: the cluster's CTAs, its cluster
+                                    // barriers over the batch, the leader's cycles per phase
+                                    // (null: not written)
   int Tsp, Tip, Tpt, W, Dsp, D2, hostname_key, has_ports, sums_smem, carry_smem;
+  // K9 (ktpu_wave_admit_plan): the cluster's CTAs, the nodes of each CTA's
+  // slice, the slice's usage and step rows in shared memory, the ints of
+  // one CTA's exchange slab, and the staging of the slice's node statics
+  // and of each pod's planes in shared memory
+  int cluster, slice, rows_smem, xch_cells, stage;
 };
 
 // The gang admission's rows and outputs (csrc/workloads.cu): K11 takes a
@@ -882,6 +892,9 @@ namespace step {
 // namespace ktpu::step, apart from the fast path's helpers).  Scores are
 // int64; every division is a floor division; the spread score's 32.32 fixed
 // point uses an arithmetic >> and round-half-to-even, as _spread_raw does.
+// Who steps which nodes, and how the block-wide parts combine, is the
+// caller's policy (BlockPolicy, ClusterPolicy below): one body of the step
+// for one block and for a thread-block cluster.
 // ---------------------------------------------------------------------------
 
 constexpr int N_DIAG = 9;
@@ -950,16 +963,98 @@ __device__ __forceinline__ int dom_at(const GangScanArgs& a, int key, int n) {
   return key >= 0 && key < a.K ? a.dom_ids[(long long)key * a.N + n] : -1;
 }
 
-// Per-node scratch of one step (global memory; one set per block).
+// The usage state's rows, node n at row n - lo: requested [., Rn], nonzero
+// [., 2] and num_pods [.].  All N nodes in global memory (lo = 0), or, in
+// K9's cluster, the CTA's slice in its shared memory.
+struct UsageRows {
+  int* requested;
+  int* nonzero;
+  int* num_pods;
+  int lo;
+  __device__ __forceinline__ int& req(int Rn, int n, int r) const { return requested[(long long)(n - lo) * Rn + r]; }
+  __device__ __forceinline__ int& nz(int n, int l) const { return nonzero[2LL * (n - lo) + l]; }
+  __device__ __forceinline__ int& pods(int n) const { return num_pods[n - lo]; }
+};
+
+__device__ __forceinline__ UsageRows usage_rows(const GangScanArgs& a) {
+  return UsageRows{a.requested, a.nonzero, a.num_pods, 0};
+}
+
+// The cluster's per-node statics, node n at n - lo and dom_ids' rows ld
+// wide: all N nodes in global memory (lo = 0, ld = N), or K9's copy of a
+// CTA's slice in its shared memory.
+struct NodeRows {
+  const int* allocatable;   // [., Rn]
+  const int* allowed_pods;  // [.]
+  const unsigned char* node_valid;
+  const int* visit_rank;    // [.] (null without the sampling window)
+  const int* dom_ids;       // [K, ld]
+  int lo, ld, K, Rn;
+  __device__ __forceinline__ int alloc(int n, int r) const { return allocatable[(long long)(n - lo) * Rn + r]; }
+  __device__ __forceinline__ int allowed(int n) const { return allowed_pods[n - lo]; }
+  __device__ __forceinline__ bool valid(int n) const { return node_valid[n - lo] != 0; }
+  __device__ __forceinline__ int vrank(int n) const { return visit_rank[n - lo]; }
+  // node n's compact domain id under topology key `key` (-1: absent)
+  __device__ __forceinline__ int dom(int key, int n) const {
+    return key >= 0 && key < K ? dom_ids[(long long)key * ld + n - lo] : -1;
+  }
+};
+
+__device__ __forceinline__ NodeRows global_nodes(const GangScanArgs& a) {
+  return NodeRows{a.allocatable, a.allowed_pods, a.node_valid, a.visit_rank, a.dom_ids, 0, a.N, a.K, a.Rn};
+}
+
+// Pod p's rows of the [P, N] statics and its slots' rows of the [P, C, N] /
+// [P, AT, N] ones, node n at n - lo and slot rows ld apart: global memory
+// (lo = 0, ld = N), or K9's staged copy of a CTA's slice.  `extra` is null
+// without an extra score.
+struct PodPlanes {
+  const unsigned char *mask, *all_keys, *viol, *d_unsched, *d_nodename, *d_taints, *d_nodeaff, *d_ports, *d_extra;
+  const long long *ip_sym, *sc_taint, *sc_nodeaff, *sc_image, *extra;
+  const unsigned char *sp_te, *sp_dom_pres, *sp_counting;  // [C, ld]
+  const int *sp_dom_cnt, *sp_node_cnt, *sp_sc_dom;          // [C, ld]
+  const int* ip_dom_cnt;                                    // [AT, ld]
+  int lo, ld;
+  __device__ __forceinline__ long long at(int n) const { return n - lo; }
+  __device__ __forceinline__ long long at(int c, int n) const { return (long long)c * ld + n - lo; }
+};
+
+__device__ __forceinline__ PodPlanes global_planes(const GangScanArgs& a, int p) {
+  const long long pn = (long long)p * a.N, pc = pn * a.C, pu = pn * a.AT;
+  return PodPlanes{a.static_mask + pn, a.sp_all_keys + pn, a.ip_viol_existing + pn, a.d_unsched + pn,
+                   a.d_nodename + pn, a.d_taints + pn, a.d_nodeaff + pn, a.d_ports + pn, a.d_extra + pn,
+                   a.ip_sym + pn, a.sc_taint + pn, a.sc_nodeaff + pn, a.sc_image + pn,
+                   a.extra_score != nullptr ? a.extra_score + pn : nullptr,
+                   a.sp_te + pc, a.sp_dom_pres + pc, a.sp_counting + pc, a.sp_dom_cnt + pc, a.sp_node_cnt + pc,
+                   a.sp_sc_dom + pc, a.ip_dom_cnt + pu, 0, a.N};
+}
+
+// Per-node rows of one step, node n at n - lo and sp_cnt's row c ld wide:
+// global memory over all N nodes (lo = 0, ld = N; one set per block), or a
+// cluster CTA's slice in its shared memory.  `use` is the usage state the
+// step reads.
 struct StepScratch {
   unsigned char* feas;  // [N]
   long long* ip_raw;    // [N]
   long long* sp_raw;    // [N]
-  int* sp_cnt;          // [C, N] the spread score's per-node counts
+  int* sp_cnt;          // [C, ld] the spread score's per-node counts
   int* seen;            // [C, seen_stride] stamp of the last step that counted
-                        // a domain (the spread score's domain counts)
+                        // a domain (BlockPolicy's distinct-domain count)
   int seen_stride;
+  int lo, ld;
+  UsageRows use;
+  NodeRows nodes;
+  __device__ __forceinline__ unsigned char& feas_of(int n) const { return feas[n - lo]; }
+  __device__ __forceinline__ long long& ip_of(int n) const { return ip_raw[n - lo]; }
+  __device__ __forceinline__ long long& sp_of(int n) const { return sp_raw[n - lo]; }
+  __device__ __forceinline__ int& cnt_of(int c, int n) const { return sp_cnt[(long long)c * ld + n - lo]; }
 };
+
+// The global rows of a step over all N nodes.
+__device__ __forceinline__ StepScratch global_scratch(const GangScanArgs& a, unsigned char* feas, long long* ip_raw,
+                                                      long long* sp_raw, int* sp_cnt, int* seen, int seen_stride) {
+  return StepScratch{feas, ip_raw, sp_raw, sp_cnt, seen, seen_stride, 0, a.N, usage_rows(a), global_nodes(a)};
+}
 
 // The block's shared memory for a step.
 struct StepShared {
@@ -1022,17 +1117,20 @@ __device__ inline long long fit_score(const GangScanArgs& a, long long a0, long 
   return a.strat_id == 2 ? fdiv(2 * total + wsum, 2 * wsum) : fdiv(total, wsum);
 }
 
-// Node n's place in the rotation from the cursor (the walk's position).
-__device__ __forceinline__ int visit_pos(const GangScanArgs& a, int n, int start, int nv) {
-  int r = (a.visit_rank[n] - start) % nv;
+// A node's place in the rotation from the cursor (the walk's position),
+// from its visit rank.
+__device__ __forceinline__ int visit_pos(int rank, int start, int nv) {
+  int r = (rank - start) % nv;
   return r < 0 ? r + nv : r;
 }
 
 // The sampling window's walk: the position, in visit order from `start`, of
-// the sample_k-th feasible node (sc_feas), or -1 when fewer are feasible.
-// Chunks of blockDim positions, one ballot and a per-warp prefix each; it
-// stops at the chunk that reaches sample_k.  Every thread gets the result.
-__device__ inline int window_stop(const GangScanArgs& a, const unsigned char* sc_feas, int start, int nv) {
+// the sample_k-th feasible node (feas(n): node n's verdict), or -1 when fewer
+// are feasible.  Chunks of blockDim positions, one ballot and a per-warp
+// prefix each; it stops at the chunk that reaches sample_k.  Every thread
+// gets the result.
+template <class F>
+__device__ inline int window_stop(const GangScanArgs& a, F feas, int start, int nv) {
   __shared__ int s_cnt[32];
   __shared__ int s_win[2];  // running count, stop position
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
@@ -1048,7 +1146,7 @@ __device__ inline int window_stop(const GangScanArgs& a, const unsigned char* sc
       int r = start + i;
       if (r >= nv) r -= nv;
       const int n = a.visit_order[r];
-      f = n >= 0 && sc_feas[n];
+      f = n >= 0 && feas(n);
     }
     const unsigned bal = __ballot_sync(FULL_MASK, f);
     if (lane == 0) s_cnt[warp] = __popc(bal);
@@ -1074,7 +1172,10 @@ __device__ inline int window_stop(const GangScanArgs& a, const unsigned char* sc
 // requested) against allocatable minus the usage state, and, with `nom`,
 // minus the open nominations on n of priority >= prio (each also counts as
 // a pod).
-__device__ inline bool step_fits(const GangScanArgs& a, int n, const int* req, bool all_zero, int prio, bool nom) {
+template <class Vals>
+__device__ inline bool step_fits(const GangScanArgs& a, const StepScratch& sc, int n, const Vals& pv, bool all_zero,
+                                 int prio, bool nom) {
+  const UsageRows& use = sc.use;
   int g0 = 0, g1 = 0;
   if (nom) {
     g0 = a.nom_off[n];
@@ -1082,14 +1183,14 @@ __device__ inline bool step_fits(const GangScanArgs& a, int n, const int* req, b
   }
   long long n_nom = 0;
   for (int g = g0; g < g1; ++g) n_nom += a.nom_prio[g] >= prio;
-  if (a.num_pods[n] + n_nom + 1 > a.allowed_pods[n]) return false;
+  if (use.pods(n) + n_nom + 1 > sc.nodes.allowed(n)) return false;
   if (all_zero) return true;
   for (int r = 0; r < a.Rp; ++r) {
-    const long long v = req[r];
+    const long long v = pv.req(r);
     if (r >= N_FIXED_LANES && v == 0) continue;  // unrequested scalar lane
     long long avail = 0;
     if (r < a.Rn) {
-      avail = (long long)a.allocatable[(long long)n * a.Rn + r] - a.requested[(long long)n * a.Rn + r];
+      avail = (long long)sc.nodes.alloc(n, r) - use.req(a.Rn, n, r);
       for (int g = g0; g < g1; ++g)
         if (a.nom_prio[g] >= prio) avail -= a.nom_req[(long long)g * a.Rn + r];
     }
@@ -1098,336 +1199,16 @@ __device__ inline bool step_fits(const GangScanArgs& a, int n, const int* req, b
   return true;
 }
 
-// One pod's Filter -> Score -> Select against the usage state in `a`
-// (requested / nonzero / num_pods, read only here: the caller commits).
-// `at` >= 0 asks for the verdict's pieces at that node (the wave's demotion
-// attribution).  Without `diagnose` the reason counts stay 0 and the
-// diagnosis masks are not read (a caller that emits only the choice).
-// Every thread of the block calls it and gets the result.
-template <class Dyn>
-__device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, bool any_dyn,
-                                  const StepScratch& sc, const StepShared& sh, int at, bool diagnose = true) {
-  const int tid = threadIdx.x;
-  const int N = a.N, C = a.C, AT = a.AT;
-  for (int c = tid; c < C; c += blockDim.x) sh.s_ndom[c] = 0;
-  __syncthreads();
-
-  // ---- spread min-match per constraint (filtering.go:313 minMatch),
-  // RED_CHUNK constraints per block-wide reduction
-  for (int c0 = 0; c0 < C; c0 += RED_CHUNK) {
-    const int nc = C - c0 < RED_CHUNK ? C - c0 : RED_CHUNK;
-    long long v[RED_CHUNK];
-    int op[RED_CHUNK];
-    for (int i = 0; i < RED_CHUNK; ++i) {
-      v[i] = I32_MAX;
-      op[i] = RED_MIN;
-    }
-    for (int n = tid; n < N; n += blockDim.x)
-      for (int i = 0; i < nc; ++i) {
-        const long long pc = (long long)p * C + c0 + i;
-        const long long o = pc * N + n;
-        if (!a.sp_te[o]) continue;
-        const int d = dom_at(a, a.sp_key[pc], n);
-        const long long total = a.sp_dom_cnt[o] + dyn.f(c0 + i, pc, n, d);
-        if (total < v[i]) v[i] = total;
-      }
-    block_reduce(v, op, nc, sh.s_buf);
-    if (tid < nc) {
-      const long long pc = (long long)p * C + c0 + tid;
-      const int md = a.min_domains[pc];
-      sh.s_min[c0 + tid] = (md > 0 && a.sp_ndom[pc] < md) ? 0 : (int)v[tid];
-    }
-  }
-  __syncthreads();
-
-  // ---- filters, diagnosis, and the normalizers' min / max
-  bool has_aff = false, has_soft = false;
-  for (int u = 0; u < AT; ++u) has_aff = has_aff || a.ip_is_aff[(long long)p * AT + u];
-  for (int c = 0; c < C; ++c) has_soft = has_soft || a.sp_soft[(long long)p * C + c];
-  const bool any_match = a.ip_any_static[p] || any_dyn;
-  const bool escape = has_aff && !any_match && a.ip_self_all[p];
-  const int* req = a.requests + (long long)p * a.Rp;
-  bool all_zero = true;
-  for (int r = 0; r < a.Rp; ++r) all_zero = all_zero && req[r] == 0;
-  const int prio = a.priority[p];
-  const int stamp = p + 1;
-  const bool sampling = a.sample_k > 0;
-  const int nv = a.n_valid > 1 ? a.n_valid : 1;
-  int start = 0;  // the cursor, in [0, nv) like the reference's (vr - start) % nv
-  if (sampling) {
-    start = *a.sample_start % nv;
-    if (start < 0) start += nv;
-  }
-
-  // 0 n_feas, 1..9 reason counts, 10 taint max, 11 naff max, 12 ip min,
-  // 13 ip max, 14 counted nodes
-  long long red[15];
-  const int red_op[15] = {RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM,
-                          RED_SUM, RED_SUM, RED_MAX, RED_MAX, RED_MIN, RED_MAX, RED_SUM};
-  for (int i = 0; i < 15; ++i) red[i] = identity(red_op[i]);
-  red[10] = red[11] = 0;  // max(where(feas, raw, 0))
-  // a feasible node's share of the normalizers
-  auto count_feasible = [&](int n, long long pn, long long ip_raw) {
-    red[0] += 1;
-    if (a.sc_taint[pn] > red[10]) red[10] = a.sc_taint[pn];
-    if (a.sc_nodeaff[pn] > red[11]) red[11] = a.sc_nodeaff[pn];
-    if (ip_raw < red[12]) red[12] = ip_raw;
-    if (ip_raw > red[13]) red[13] = ip_raw;
-    if (a.sp_all_keys[pn]) {
-      red[14] += 1;
-      // distinct domains among the counted nodes, per non-hostname
-      // constraint (the hostname's topology size is red[14])
-      for (int c = 0; c < C; ++c) {
-        const long long pc = (long long)p * C + c;
-        if (a.sp_is_host[pc]) continue;
-        const int d = dom_at(a, a.sp_key[pc], n);
-        if (d < 0) continue;
-        if (atomicExch(sc.seen + (long long)c * sc.seen_stride + d, stamp) != stamp) atomicAdd(sh.s_ndom + c, 1);
-      }
-    }
-  };
-  for (int n = tid; n < N; n += blockDim.x) {
-    const long long pn = (long long)p * N + n;
-    const bool m_portb = dyn.portb(n);
-    // m_fit: the resource fit with the nominations charged (the filter);
-    // fit_own: without them (the wave's demotion attribution, which the
-    // reference computes from the usage state alone)
-    bool m_fit = true, fit_own = true;
-    if (a.check_fit) {
-      fit_own = step_fits(a, n, req, all_zero, prio, false);
-      m_fit = fit_own;
-      if (a.nom_off != nullptr && a.nom_off[n + 1] > a.nom_off[n])
-        m_fit = step_fits(a, n, req, all_zero, prio, true);
-    }
-    bool m_spread = true;
-    int sp_term = -1;
-    for (int c = 0; c < C; ++c) {
-      const long long pc = (long long)p * C + c;
-      const long long o = pc * N + n;
-      const int d = dom_at(a, a.sp_key[pc], n);
-      const bool host = a.sp_is_host[pc];
-      const long long total = a.sp_dom_cnt[o] + dyn.f(c, pc, n, d);
-      const long long skew = total + (a.sp_self[pc] ? 1 : 0) - sh.s_min[c];
-      const bool c_ok = d >= 0 && (!a.sp_dom_pres[o] || skew <= a.max_skew[pc]);
-      if (a.sp_hard[pc] && !c_ok) {
-        m_spread = false;
-        if (sp_term < 0) sp_term = c;
-      }
-      sc.sp_cnt[(long long)c * N + n] =
-          (host ? a.sp_node_cnt[o] : a.sp_sc_dom[o]) + dyn.sc(c, pc, n, d, host);
-    }
-    bool m_interpod = true;
-    long long ip_raw = 0;
-    int ip_term = -1;
-    if (AT) {
-      ip_raw = a.ip_sym[pn];
-      bool viol2 = false, aff_ok = true, topo_all = true;
-      long long pref = 0;
-      for (int u = 0; u < AT; ++u) {
-        const long long pu = (long long)p * AT + u;
-        const long long o = pu * N + n;
-        const int d = dom_at(a, a.ip_key[pu], n);
-        const bool present = d >= 0;
-        const long long tot = a.ip_dom_cnt[o] + dyn.ip(u, pu, n, d);
-        if (a.ip_is_anti[pu] && present && tot > 0) {
-          viol2 = true;
-          if (ip_term < 0) ip_term = u;
-        }
-        if (a.ip_is_aff[pu]) {
-          aff_ok = aff_ok && present && tot > 0;
-          topo_all = topo_all && present;
-        }
-        if (present) pref += tot * a.ip_pref_w[pu];
-      }
-      const bool ok3 = aff_ok || (escape && topo_all);
-      m_interpod = !a.ip_viol_existing[pn] && !viol2 && ok3 && !dyn.viol(n);
-      ip_raw += pref + dyn.sym(n);
-    }
-    const bool feas = a.static_mask[pn] && m_portb && m_fit && m_spread && m_interpod;
-    sc.feas[n] = feas;
-    sc.ip_raw[n] = ip_raw;
-    if (n == at) {
-      sh.s_at[0] = m_portb;
-      sh.s_at[1] = m_spread;
-      sh.s_at[2] = m_interpod;
-      sh.s_at[3] = fit_own;
-      sh.s_at[4] = sp_term;
-      sh.s_at[5] = ip_term;
-    }
-
-    // first failure in the filter chain's order
-    if (diagnose && a.node_valid[n]) {
-      const bool comp[N_DIAG] = {a.d_unsched[pn] != 0, a.d_nodename[pn] != 0, a.d_taints[pn] != 0,
-                                 a.d_nodeaff[pn] != 0, a.d_ports[pn] && m_portb, a.d_extra[pn] != 0,
-                                 m_fit, m_spread, m_interpod};
-      for (int r = 0; r < N_DIAG; ++r)
-        if (!comp[r]) {
-          red[1 + r] += 1;
-          break;
-        }
-    }
-    if (feas && !sampling) count_feasible(n, pn, ip_raw);
-  }
-  int processed = 0;
-  if (sampling) {
-    // the window: keep the feasible nodes up to the sample_k-th in visit
-    // order (all of them when fewer are feasible)
-    __syncthreads();  // every node's verdict is in sc.feas
-    const int stop = window_stop(a, sc.feas, start, nv);
-    processed = stop >= 0 ? stop + 1 : nv;
-    for (int n = tid; n < N; n += blockDim.x) {
-      const bool keep = sc.feas[n] && a.visit_rank[n] >= 0 && (stop < 0 || visit_pos(a, n, start, nv) <= stop);
-      sc.feas[n] = keep;
-      if (keep) count_feasible(n, (long long)p * N + n, sc.ip_raw[n]);
-    }
-  }
-  block_reduce(red, red_op, 15, sh.s_buf);
-  StepOut out;
-  out.processed = processed;
-  out.n_feas = red[0];
-  for (int r = 0; r < N_DIAG; ++r) out.rc[r] = red[1 + r];
-
-  // ---- spread score (_spread_raw): topology weights, then per-node raws
-  long long sp_mn = I64_MAX, sp_mx = -I64_MAX, n_use = 0;
-  if (C && a.w_spread) {
-    for (int c = tid; c < C; c += blockDim.x) {
-      const long long pc = (long long)p * C + c;
-      const long long size = a.sp_is_host[pc] ? red[14] : sh.s_ndom[c];
-      sh.s_wfx[c] = a.log_tab[size < 0 ? 0 : (size >= a.L ? a.L - 1 : size)];
-    }
-    __syncthreads();
-    long long v[3] = {I64_MAX, -I64_MAX - 1, 0};
-    const int op[3] = {RED_MIN, RED_MAX, RED_SUM};
-    for (int n = tid; n < N; n += blockDim.x) {
-      if (!sc.feas[n]) continue;
-      const long long pn = (long long)p * N + n;
-      long long raw = 0;
-      bool use = true;
-      if (has_soft) {
-        use = a.sp_all_keys[pn];  // valid & feas == counted
-        long long total_fx = 0;
-        for (int c = 0; c < C; ++c) {
-          const long long pc = (long long)p * C + c;
-          if (!a.sp_soft[pc]) continue;
-          total_fx += (long long)sc.sp_cnt[(long long)c * N + n] * sh.s_wfx[c] +
-                      (long long)(a.max_skew[pc] - 1) * (1LL << FX);
-        }
-        const long long q = total_fx >> FX;  // arithmetic shift
-        const long long frac = total_fx & ((1LL << FX) - 1);
-        const long long half = 1LL << (FX - 1);
-        raw = q + ((frac > half || (frac == half && (q & 1))) ? 1 : 0);
-      }
-      sc.sp_raw[n] = raw;
-      if (use) {
-        if (raw < v[0]) v[0] = raw;
-        if (raw > v[1]) v[1] = raw;
-        v[2] += 1;
-      }
-    }
-    block_reduce(v, op, 3, sh.s_buf);
-    sp_mn = v[0];
-    sp_mx = v[1];
-    n_use = v[2];
-  }
-
-  // ---- weighted total and the argmax over the feasible nodes: first max by
-  // slot; with a tie key the (total, bits) maximum; in the window without
-  // one, the first max in visit order
-  long long best = -I64_MAX - 1;
-  int best_t = I32_MAX, best_n = I32_MAX;
-  const long long taint_mx = red[10], naff_mx = red[11], ip_mn = red[12], ip_mx = red[13];
-  unsigned tk0 = (unsigned)a.tie_k0, tk1 = (unsigned)a.tie_k1;
-  if (a.tie_on) rng::fold_in(tk0, tk1, (unsigned)a.attempt_base + (unsigned)p);
-  for (int n = tid; n < N; n += blockDim.x) {
-    if (!sc.feas[n]) continue;
-    const long long pn = (long long)p * N + n;
-    long long total = 0;
-    if (a.w_taint) {
-      const long long raw = a.sc_taint[pn];
-      total += a.w_taint * (taint_mx > 0 ? MAX_NODE_SCORE - fdiv(MAX_NODE_SCORE * raw, taint_mx) : MAX_NODE_SCORE);
-    }
-    if (a.w_naff) {
-      const long long raw = a.sc_nodeaff[pn];
-      total += a.w_naff * (naff_mx > 0 ? fdiv(MAX_NODE_SCORE * raw, naff_mx) : raw);
-    }
-    if (a.w_spread) {
-      long long s = MAX_NODE_SCORE;  // C == 0: every feasible node is "used", mx == 0
-      if (C) {
-        const bool use = !has_soft || a.sp_all_keys[pn];
-        s = 0;
-        if (use && n_use > 0)
-          s = sp_mx == 0 ? MAX_NODE_SCORE
-                         : fdiv(MAX_NODE_SCORE * (sp_mx + sp_mn - sc.sp_raw[n]), sp_mx > 1 ? sp_mx : 1);
-      }
-      total += a.w_spread * s;
-    }
-    if (a.w_ip) {
-      const long long diff = ip_mx - ip_mn;
-      total += a.w_ip * (diff > 0 ? fdiv(MAX_NODE_SCORE * (sc.ip_raw[n] - ip_mn), diff) : 0);
-    }
-    if (a.w_fit || a.w_bal) {
-      const long long a0 = a.allocatable[(long long)n * a.Rn + LANE_CPU];
-      const long long a1 = a.allocatable[(long long)n * a.Rn + LANE_MEM];
-      const long long c0 = (long long)a.nonzero[2 * n] + a.nonzero_req[2 * p];
-      const long long c1 = (long long)a.nonzero[2 * n + 1] + a.nonzero_req[2 * p + 1];
-      if (a.w_fit) total += a.w_fit * fit_score(a, a0, a1, c0, c1);
-      total += score_total(a0, a1, c0, c1, (long long)a.requested[(long long)n * a.Rn + LANE_CPU] + req[LANE_CPU],
-                           (long long)a.requested[(long long)n * a.Rn + LANE_MEM] + req[LANE_MEM], 0, 0, a.w_bal,
-                           0);
-    }
-    if (a.w_img) total += a.w_img * a.sc_image[pn];
-    if (a.extra_score) total += a.extra_score[pn];
-    long long key = total;
-    int tie = n;
-    if (a.tie_on)
-      key = total * (1LL << 33) + rng::bits_at(tk0, tk1, (unsigned)n);
-    else if (sampling)
-      tie = visit_pos(a, n, start, nv);
-    better(best, best_t, best_n, key, tie, n);
-  }
-  __shared__ int s_best_t[32];
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int off = 16; off > 0; off >>= 1) {
-    const long long ov = __shfl_down_sync(FULL_MASK, best, off);
-    const int ot = __shfl_down_sync(FULL_MASK, best_t, off);
-    const int oi = __shfl_down_sync(FULL_MASK, best_n, off);
-    better(best, best_t, best_n, ov, ot, oi);
-  }
-  if (lane == 0) {
-    sh.s_best_v[warp] = best;
-    s_best_t[warp] = best_t;
-    sh.s_best_i[warp] = best_n;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x >> 5;
-    best = lane < n_warps ? sh.s_best_v[lane] : -I64_MAX - 1;
-    best_t = lane < n_warps ? s_best_t[lane] : I32_MAX;
-    best_n = lane < n_warps ? sh.s_best_i[lane] : I32_MAX;
-    for (int off = 16; off > 0; off >>= 1) {
-      const long long ov = __shfl_down_sync(FULL_MASK, best, off);
-      const int ot = __shfl_down_sync(FULL_MASK, best_t, off);
-      const int oi = __shfl_down_sync(FULL_MASK, best_n, off);
-      better(best, best_t, best_n, ov, ot, oi);
-    }
-    __syncwarp();
-    if (lane == 0) sh.s_best_i[0] = out.n_feas > 0 ? best_n : ABSENT;
-  }
-  __syncthreads();
-  out.choice = sh.s_best_i[0];
-  __syncthreads();  // s_best_i is written again by the next step
-  return out;
-}
-
-// The usage commit of one placement (usage_carry_update); one thread.
-__device__ __forceinline__ void commit_usage(const GangScanArgs& a, int p, int choice) {
+// The usage commit of one placement (usage_carry_update) into `use`; one
+// thread.
+__device__ __forceinline__ void commit_usage(const GangScanArgs& a, const UsageRows& use, int p, int choice) {
   if (choice < 0) return;
   const int* req = a.requests + (long long)p * a.Rp;
   const int rn = a.Rn < a.Rp ? a.Rn : a.Rp;
-  for (int r = 0; r < rn; ++r) a.requested[(long long)choice * a.Rn + r] += req[r];
-  a.nonzero[2 * choice] += a.nonzero_req[2 * p];
-  a.nonzero[2 * choice + 1] += a.nonzero_req[2 * p + 1];
-  a.num_pods[choice] += 1;
+  for (int r = 0; r < rn; ++r) use.req(a.Rn, choice, r) += req[r];
+  use.nz(choice, 0) += a.nonzero_req[2 * p];
+  use.nz(choice, 1) += a.nonzero_req[2 * p + 1];
+  use.pods(choice) += 1;
 }
 
 // nextStartNodeIndex (schedule_one.go:625): the window's cursor advances by
@@ -1443,6 +1224,970 @@ __device__ __forceinline__ void write_step(const GangScanArgs& a, int p, const S
   a.chosen[p] = out.choice;
   a.n_feas[p] = out.n_feas;
   for (int r = 0; r < N_DIAG; ++r) a.reason_counts[(long long)p * N_DIAG + r] = out.rc[r];
+}
+
+// Pod p's per-slot and per-pod values (its rows of the [P, C], [P, AT],
+// [P, Rp] arrays of GangScanArgs and WaveArgs): read where they lie
+// (GlobalVals: K5, K8, K11), or from K9's copy in the CTA's shared memory
+// (StagedVals), which the cluster refills at each pod, so that no step
+// phase waits on these small global reads.  The
+// two have the same accessors; rev_anti / rev_w are the anti-affinity flag
+// and the symmetric weight of the i-th admitting term t (WaveDyn's list).
+struct GlobalVals {
+  const GangScanArgs* a;
+  const WaveArgs* w;  // null for K5
+  int p;
+  __device__ __forceinline__ long long pc(int c) const { return (long long)p * a->C + c; }
+  __device__ __forceinline__ long long pu(int u) const { return (long long)p * a->AT + u; }
+  __device__ int sp_key(int c) const { return a->sp_key[pc(c)]; }
+  __device__ bool sp_host(int c) const { return a->sp_is_host[pc(c)]; }
+  __device__ bool sp_self(int c) const { return a->sp_self[pc(c)]; }
+  __device__ int max_skew(int c) const { return a->max_skew[pc(c)]; }
+  __device__ bool sp_hard(int c) const { return a->sp_hard[pc(c)]; }
+  __device__ bool sp_soft(int c) const { return a->sp_soft[pc(c)]; }
+  __device__ int min_domains(int c) const { return a->min_domains[pc(c)]; }
+  __device__ long long sp_ndom(int c) const { return a->sp_ndom[pc(c)]; }
+  __device__ int tid_sp(int c) const { return w->tid_sp[pc(c)]; }
+  __device__ int ip_key(int u) const { return a->ip_key[pu(u)]; }
+  __device__ bool ip_anti(int u) const { return a->ip_is_anti[pu(u)]; }
+  __device__ bool ip_aff(int u) const { return a->ip_is_aff[pu(u)]; }
+  __device__ long long ip_pref_w(int u) const { return a->ip_pref_w[pu(u)]; }
+  __device__ int ip_key_idx(int u) const { return a->ip_key_idx[pu(u)]; }
+  __device__ int tid_ip(int u) const { return w->tid_ip[pu(u)]; }
+  __device__ int req(int r) const { return a->requests[(long long)p * a->Rp + r]; }
+  __device__ int nz_req(int l) const { return a->nonzero_req[2 * p + l]; }
+  __device__ int priority() const { return a->priority[p]; }
+  __device__ bool any_static() const { return a->ip_any_static[p]; }
+  __device__ bool self_all() const { return a->ip_self_all[p]; }
+  __device__ long long rep_term(int t) const { return (long long)w->rep_ip_p[t] * a->AT + w->rep_ip_u[t]; }
+  __device__ bool rev_anti(int, int t) const { return a->ip_is_anti[rep_term(t)]; }
+  __device__ long long rev_w(int, int t) const { return a->ip_sym_w[rep_term(t)]; }
+  // pod p matches the selector of distinct spread / inter-pod term t
+  __device__ bool sp_match(int t) const {
+    const int rp = w->rep_sp_p[t];
+    return rp >= 0 && a->C && a->sp_bmatch[((long long)rp * a->C + w->rep_sp_c[t]) * a->P + p];
+  }
+  __device__ bool ip_match(int t) const {
+    const int rp = w->rep_ip_p[t];
+    return rp >= 0 && a->AT && a->ip_bmatch[((long long)rp * a->AT + w->rep_ip_u[t]) * a->P + p];
+  }
+  __device__ void note_rev(const GangScanArgs&, const WaveArgs&, int, int) const {}
+};
+
+// The staged copy: ints [C] sp_key, sp_is_host, sp_self, max_skew, sp_hard,
+// sp_soft, min_domains, tid_sp; [AT] ip_key, ip_is_anti, ip_is_aff,
+// ip_key_idx, tid_ip; requests [Rp], nonzero_req [2], priority,
+// ip_any_static, ip_self_all, then rev_anti [Tip], sp_match [Tsp], ip_match
+// [Tip]; int64 [C] sp_ndom, [AT] ip_pref_w, then rev_w [Tip].
+struct StagedVals {
+  int* v;
+  long long* l;
+  int C, AT, Rp, Tsp, Tip;
+  __host__ __device__ static long long ints(int C, int AT, int Rp, int Tsp, int Tip) {
+    return 8LL * C + 5LL * AT + Rp + 5 + 2LL * Tip + Tsp;
+  }
+  __host__ __device__ static long long longs(int C, int AT, int Tip) { return (long long)C + AT + Tip; }
+  __device__ int sp_key(int c) const { return v[c]; }
+  __device__ bool sp_host(int c) const { return v[C + c]; }
+  __device__ bool sp_self(int c) const { return v[2 * C + c]; }
+  __device__ int max_skew(int c) const { return v[3 * C + c]; }
+  __device__ bool sp_hard(int c) const { return v[4 * C + c]; }
+  __device__ bool sp_soft(int c) const { return v[5 * C + c]; }
+  __device__ int min_domains(int c) const { return v[6 * C + c]; }
+  __device__ long long sp_ndom(int c) const { return l[c]; }
+  __device__ int tid_sp(int c) const { return v[7 * C + c]; }
+  __device__ int ip_key(int u) const { return v[8 * C + u]; }
+  __device__ bool ip_anti(int u) const { return v[8 * C + AT + u]; }
+  __device__ bool ip_aff(int u) const { return v[8 * C + 2 * AT + u]; }
+  __device__ int ip_key_idx(int u) const { return v[8 * C + 3 * AT + u]; }
+  __device__ int tid_ip(int u) const { return v[8 * C + 4 * AT + u]; }
+  __device__ long long ip_pref_w(int u) const { return l[C + u]; }
+  __device__ int req(int r) const { return v[8 * C + 5 * AT + r]; }
+  __device__ int nz_req(int k) const { return v[8 * C + 5 * AT + Rp + k]; }
+  __device__ int priority() const { return v[8 * C + 5 * AT + Rp + 2]; }
+  __device__ bool any_static() const { return v[8 * C + 5 * AT + Rp + 3]; }
+  __device__ bool self_all() const { return v[8 * C + 5 * AT + Rp + 4]; }
+  __device__ bool rev_anti(int i, int) const { return v[8 * C + 5 * AT + Rp + 5 + i]; }
+  __device__ long long rev_w(int i, int) const { return l[C + AT + i]; }
+  __device__ bool sp_match(int t) const { return v[8 * C + 5 * AT + Rp + 5 + Tip + t]; }
+  __device__ bool ip_match(int t) const { return v[8 * C + 5 * AT + Rp + 5 + Tip + Tsp + t]; }
+  // pod p's values into the copy, one element a thread (the caller's next
+  // barrier publishes them)
+  __device__ void fill(const GangScanArgs& a, const WaveArgs& w, int p) const {
+    const GlobalVals g{&a, &w, p};
+    const int n_int = 8 * C + 5 * AT + Rp + 5, n_all = n_int + C + AT + Tsp + Tip;
+    for (int j = threadIdx.x; j < n_all; j += blockDim.x) {
+      if (j >= n_int + C + AT) {  // the terms p matches
+        const int t = j - n_int - C - AT;
+        v[n_int + Tip + t] = t < Tsp ? g.sp_match(t) : g.ip_match(t - Tsp);
+        continue;
+      }
+      if (j >= n_int) {
+        const int k = j - n_int;
+        l[k] = k < C ? g.sp_ndom(k) : g.ip_pref_w(k - C);
+        continue;
+      }
+      int x;
+      if (j < 8 * C) {
+        const int f = j / C, c = j - f * C;
+        x = f == 0 ? g.sp_key(c) : f == 1 ? g.sp_host(c) : f == 2 ? g.sp_self(c) : f == 3 ? g.max_skew(c)
+          : f == 4 ? g.sp_hard(c) : f == 5 ? g.sp_soft(c) : f == 6 ? g.min_domains(c) : g.tid_sp(c);
+      } else if (j < 8 * C + 5 * AT) {
+        const int f = (j - 8 * C) / AT, u = j - 8 * C - f * AT;
+        x = f == 0 ? g.ip_key(u) : f == 1 ? g.ip_anti(u) : f == 2 ? g.ip_aff(u) : f == 3 ? g.ip_key_idx(u)
+                                                                                             : g.tid_ip(u);
+      } else {
+        const int k = j - 8 * C - 5 * AT;
+        x = k < Rp ? g.req(k) : k < Rp + 2 ? g.nz_req(k - Rp) : k == Rp + 2 ? g.priority()
+          : k == Rp + 3 ? g.any_static() : g.self_all();
+      }
+      v[j] = x;
+    }
+  }
+  // the i-th admitting term t's flag and weight, from its representative
+  __device__ void note_rev(const GangScanArgs& a, const WaveArgs& w, int i, int t) const {
+    const GlobalVals g{&a, &w, 0};
+    v[8 * C + 5 * AT + Rp + 5 + i] = g.rev_anti(i, t);
+    l[C + AT + i] = g.rev_w(i, t);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The step's policies: the nodes a block steps and the step's block- or
+// cluster-wide parts, so that one body of pod_step_block serves one block
+// (BlockPolicy: K5, K8, K11) and a thread-block cluster (ClusterPolicy: K9).
+// A policy has lo / hi, the nodes [lo, hi) this block steps, and
+//   begin(sh, C)                       before the step's first pass
+//   count_domain(sc, sh, c, d, stamp)  domain d of slot c holds a counted node
+//   reduce(v, op, nv, sh)              sums / mins / maxes over every node
+//   reduce_counts(v, op, nv, sh, C)    the same, with sh.s_ndom complete after it
+//   window(a, feas, start, nv)         the sampling window's stop (window_stop)
+//   argmax(key, tie, n, n_feas, sh, at)  the choice: the largest key, then
+//                                      the smallest tie (slot or visit
+//                                      position)
+//   gather(tot, part, cells)           pod_tables' sums: tot = every block's
+//                                      part summed (one block: the same cells)
+//   cursor(a), advance(a, out)         the sampling window's cursor
+//   owns(n), leader()                  n is in [lo, hi); the thread that
+//                                      writes the pod's outputs
+//   at_flags(sh, at, f)                the verdict's pieces at node `at`
+// Every combine is over int64 sums, mins and maxes, or over the argmax's
+// total order (key, tie, slot), so any combine order gives the same answer.
+// ---------------------------------------------------------------------------
+
+// One block over all N nodes: block_reduce, the distinct domains by stamps
+// in sc.seen, the window's walk over sc.feas, a two-level argmax.
+struct BlockPolicy {
+  static constexpr bool kPremin = false;  // the step computes its min-match
+  int lo, hi;
+  __device__ bool owns(int n) const { return n >= lo && n < hi; }
+  __device__ bool leader() const { return threadIdx.x == 0; }
+  __device__ int cursor(const GangScanArgs& a) const { return *a.sample_start; }
+  __device__ void begin(const StepShared& sh, int C) const {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) sh.s_ndom[c] = 0;
+  }
+  __device__ void count_domain(const StepScratch& sc, const StepShared& sh, int c, int d, int stamp) const {
+    if (atomicExch(sc.seen + (long long)c * sc.seen_stride + d, stamp) != stamp) atomicAdd(sh.s_ndom + c, 1);
+  }
+  template <int NV>
+  __device__ void reduce(long long (&v)[NV], const int (&op)[NV], int nv, const StepShared& sh) const {
+    block_reduce(v, op, nv, sh.s_buf);
+  }
+  template <int NV>
+  __device__ void reduce_counts(long long (&v)[NV], const int (&op)[NV], int nv, const StepShared& sh, int) const {
+    block_reduce(v, op, nv, sh.s_buf);
+  }
+  template <class F>
+  __device__ int window(const GangScanArgs& a, F feas, int start, int nv) const {
+    return window_stop(a, feas, start, nv);
+  }
+  __device__ int argmax(long long best, int best_t, int best_n, long long n_feas, const StepShared& sh, int) const {
+    __shared__ int s_best_t[32];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int off = 16; off > 0; off >>= 1) {
+      const long long ov = __shfl_down_sync(FULL_MASK, best, off);
+      const int ot = __shfl_down_sync(FULL_MASK, best_t, off);
+      const int oi = __shfl_down_sync(FULL_MASK, best_n, off);
+      better(best, best_t, best_n, ov, ot, oi);
+    }
+    if (lane == 0) {
+      sh.s_best_v[warp] = best;
+      s_best_t[warp] = best_t;
+      sh.s_best_i[warp] = best_n;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int n_warps = blockDim.x >> 5;
+      best = lane < n_warps ? sh.s_best_v[lane] : -I64_MAX - 1;
+      best_t = lane < n_warps ? s_best_t[lane] : I32_MAX;
+      best_n = lane < n_warps ? sh.s_best_i[lane] : I32_MAX;
+      for (int off = 16; off > 0; off >>= 1) {
+        const long long ov = __shfl_down_sync(FULL_MASK, best, off);
+        const int ot = __shfl_down_sync(FULL_MASK, best_t, off);
+        const int oi = __shfl_down_sync(FULL_MASK, best_n, off);
+        better(best, best_t, best_n, ov, ot, oi);
+      }
+      __syncwarp();
+      if (lane == 0) sh.s_best_i[0] = n_feas > 0 ? best_n : ABSENT;
+    }
+    __syncthreads();
+    const int choice = sh.s_best_i[0];
+    __syncthreads();  // s_best_i is written again by the next step
+    return choice;
+  }
+  __device__ void gather(int*, int*, long long) const { __syncthreads(); }
+  __device__ void advance(const GangScanArgs& a, const StepOut& out) const {
+    if (threadIdx.x == 0) advance_cursor(a, out);
+  }
+  __device__ void at_flags(const StepShared& sh, int, int (&f)[6]) const {
+    for (int i = 0; i < 6; ++i) f[i] = sh.s_at[i];
+  }
+  __device__ void begin_pod() const {}
+  __device__ void end_pod() const {}
+  __device__ void stage_pod(const GangScanArgs&, int) const {}
+  __device__ PodPlanes planes(const GangScanArgs& a, int p) const { return global_planes(a, p); }
+  __device__ GlobalVals vals(const GangScanArgs& a, const WaveArgs* w, int p) const { return GlobalVals{&a, w, p}; }
+  __device__ void stage_vals(const GangScanArgs&, const WaveArgs&, int) const {}
+};
+
+// ---------------------------------------------------------------------------
+// One thread-block cluster of G CTAs on neighbouring SMs (K9).  CTA `rank`
+// steps the nodes [lo, hi) of its slice (S nodes a CTA, a multiple of 32),
+// and the step's block-wide parts cross the cluster through distributed
+// shared memory (DSMEM).  Every exchange pushes: each CTA first combines
+// its own warps, then stores its result into row `rank` of every CTA's
+// receive rows with st.async, whose bytes complete on the receiver's
+// exchange mbarrier; each CTA waits on its own mbarrier for the G rows and
+// combines them in its own shared memory.  So an exchange costs no
+// cluster-wide fence: barrier.cluster's arrive.release / wait.acquire would
+// add a GPU-scope membar and an invalidation of the SM's L1 (MEMBAR.ALL.GPU,
+// CCTL.IVALL in its SASS), after which every phase would re-read its global
+// and spilled values from L2.  Where the exchange slab lies in global
+// memory (it does not fit in shared memory) the exchanges fall back to
+// barrier.cluster.  The exchanges of one pod:
+//   gather   pod_tables' per-domain sums, each CTA's over its slice, summed
+//            into each CTA's totals, with the spread min-match's parts
+//            (wave::tables_min) combined by min: s_min follows here;
+//   window   (sampling) each CTA writes its slice's verdict bits into every
+//            CTA's copy of the N-bit map (a word is 32 nodes of one slice,
+//            so it has one writer); each CTA walks visit_order[] on its own
+//            copy: all agree on the stop and advance their cursors alike;
+//   reduce_counts  the 15-value reduction, with the distinct counted
+//            domains, which stamps per CTA would count once per CTA: each
+//            CTA flags the domains [C, Dsp] its counted nodes hold (plain
+//            stores: no atomics queue on a domain's word), pushes them as
+//            bits [C, Dw], and s_ndom[c] is the popcount of their OR;
+//   reduce   the spread score's min / max / count;
+//   argmax   each CTA's best (key, tie, slot), and to rank 0 the verdict's
+//            pieces at the speculative node from the CTA that owns it.
+// Buffers alternate between two sets by exchange (`phase`): a receive row
+// is written again only by a CTA that has already received this CTA's part
+// of the exchange in between, which this CTA pushes after reading the row.
+// The pod's planes and values are staged in shared memory (K9's kernel,
+// ClusterPolicy::issue / StagedVals), so the passes between exchanges read
+// shared memory.
+// ---------------------------------------------------------------------------
+
+constexpr int CLUSTER_MAX = 16;
+constexpr int CLUSTER_THREADS = 384;
+constexpr int CL_WARPS = CLUSTER_THREADS / 32;
+constexpr int XV = 16;         // values in a reduction row
+constexpr int CL_PHASES = 19;  // the leader's phase clocks
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// `p` (shared memory of this CTA) in the shared memory of CTA r.
+template <class T>
+__device__ __forceinline__ T* on_rank(T* p, int r) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, (unsigned)r);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+// This CTA's shared address `a` as the shared::cluster address in CTA r.
+__device__ __forceinline__ unsigned cluster_addr(unsigned a, int r) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(a), "r"(r));
+  return out;
+}
+
+// A store into another CTA's shared memory that completes its byte count
+// on that CTA's mbarrier `bar` (both shared::cluster addresses): the
+// receiver sees the value once the barrier's phase completes, with no
+// cluster-wide fence on either side.
+__device__ __forceinline__ void st_async(unsigned addr, long long v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];\n" ::"r"(addr), "l"(v),
+               "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void st_async(unsigned addr, int v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(addr), "r"(v),
+               "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// One arrival on `bar` that also expects `bytes` more of its phase.
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// Spin until the phase of `bar` with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile("{\n\t.reg .pred q;\n\tmbarrier.try_wait.parity.shared::cta.b64 q, [%1], %2;\n\tselp.u32 %0, 1, 0, q;\n}\n"
+                 : "=r"(done)
+                 : "r"(bar), "r"(parity)
+                 : "memory");
+}
+
+// The exchange slab of CTA `rank`: shared memory, or its `stride` ints of a
+// global array of one slab per CTA.
+struct Xch {
+  long long stride;
+  int rank, smem;
+  __device__ __forceinline__ int* peer(int* p, int r) const { return smem ? on_rank(p, r) : p + (r - rank) * stride; }
+  __device__ __forceinline__ int ld(const int* p) const { return smem ? *p : __ldcg(p); }
+  __device__ __forceinline__ void st(int* p, int v) const {
+    if (smem) *p = v;
+    else __stcg(p, v);
+  }
+};
+
+// The cluster policy's shared memory beside the exchange slab.
+struct ClusterShared {
+  long long wrow[CL_WARPS * XV];          // each warp's values
+  int wrow_t[CL_WARPS], wrow_n[CL_WARPS];  // each warp's argmax tie key and slot
+  long long recv[2 * CLUSTER_MAX * XV];    // [2][G][XV] the CTAs' reduction rows
+  long long recv_v[2 * CLUSTER_MAX];       // [2][G] the CTAs' argmax keys,
+  int recv_t[2 * CLUSTER_MAX], recv_n[2 * CLUSTER_MAX];  // tie keys and slots
+  long long res[XV];                       // a reduction's results
+  long long clock[CL_PHASES];              // the leader's cycles per phase
+  unsigned long long xbar[2];              // the exchanges' mbarriers, alternating
+  int at_recv[6];                          // rank 0: the verdict's pieces at the speculative node
+  int choice;
+};
+
+struct ClusterPolicy {
+  static constexpr bool kPremin = true;  // the min-match rides pod_tables' exchange
+  int lo, hi, S;       // this CTA's nodes [lo, hi); S a CTA
+  int rank, G;         // this CTA's rank, the cluster's CTAs
+  int cur;             // the sampling window's cursor (every thread holds it)
+  int phase;           // the set of receive rows the next exchange writes
+  int syncs;           // exchanges so far (each a cluster-wide synchronization)
+  ClusterShared* cs;
+  int* flags;          // [C, Dsp] exchange slab: the domains this CTA counted
+  int* recv_bits;      // [G, C, Dw] exchange slab: every CTA's, as bits
+  int* recv_part;      // [G, cells] exchange slab: every CTA's pod_tables sums
+  int* wmap;           // [ceil(N / 32)] exchange slab: the window's verdict bits
+  int* s_min;          // [C] shared: the min-match (StepShared::s_min)
+  int C, Dsp, Dw;
+  Xch x;
+  unsigned char* stage;      // [2][stage_bytes] shared: two pods' staged planes (null: the global rows)
+  unsigned long long* mbar;  // [2] shared: their mbarriers
+  long long stage_bytes;
+  StagedVals sv;             // the pod's values, in shared memory
+  int xj;                    // the pod's exchanges so far
+  long long t_last;    // the leader's clock at its last mark
+
+  __device__ bool owns(int n) const { return n >= lo && n < hi; }
+  __device__ bool leader() const { return rank == 0 && threadIdx.x == 0; }
+  __device__ int cursor(const GangScanArgs&) const { return cur; }
+  // the leader's cycles since its last mark go to phase k: for the pod's
+  // exchange j, 3 j the work before it, 3 j + 1 its CTA-local combine and
+  // pushes, 3 j + 2 the wait for every CTA's part and the combine;
+  // CL_PHASES - 1 the commit and the outputs
+  __device__ void mark(int k) {
+    if (!leader()) return;
+    const long long t = clock64();
+    cs->clock[k] += t - t_last;
+    t_last = t;
+  }
+  __device__ void begin_pod() {
+    xj = 0;
+    if (leader()) t_last = clock64();
+  }
+  __device__ void end_pod() { mark(CL_PHASES - 1); }
+  __device__ void begin_exchange() { mark(min(3 * xj, CL_PHASES - 4)); }
+  __device__ void end_exchange() {
+    mark(min(3 * xj + 2, CL_PHASES - 2));
+    ++xj;
+  }
+  // The end of an exchange's pushes: with the slab in shared memory, wait
+  // for this CTA's `bytes` on the exchange's mbarrier (the pushes are
+  // st.async); else one cluster barrier (barrier.cluster arrive.release /
+  // wait.acquire, which also fences global memory).
+  __device__ void sync(unsigned bytes) {
+    mark(min(3 * xj + 1, CL_PHASES - 3));
+    if (x.smem) {
+      const unsigned bar = smem_u32(cs->xbar + (phase & 1));
+      if (threadIdx.x == 0) mbar_expect(bar, bytes);
+      mbar_wait(bar, (phase >> 1) & 1);
+    } else {
+      cluster_barrier();
+    }
+    ++syncs;
+  }
+  // v into `dst` (this CTA's static shared memory) of CTA r, for this
+  // exchange
+  template <class T>
+  __device__ void push(T* dst, int r, T v) const {
+    if (x.smem) st_async(cluster_addr(smem_u32(dst), r), v, cluster_addr(smem_u32(cs->xbar + (phase & 1)), r));
+    else *on_rank(dst, r) = v;
+  }
+  // v into `dst` (this CTA's exchange slab) of CTA r, for this exchange
+  __device__ void push_slab(int* dst, int r, int v) const {
+    if (x.smem) st_async(cluster_addr(smem_u32(dst), r), v, cluster_addr(smem_u32(cs->xbar + (phase & 1)), r));
+    else x.st(x.peer(dst, r), v);
+  }
+  // K9's staging of each pod's planes (PodPlanes) for its slice into one
+  // of two shared buffers (planes() reads the layout: five int64 rows,
+  // 3 C + AT int32 rows, 9 + 3 C byte rows, each S wide), by one thread's
+  // bulk copies (cp.async.bulk) that complete on the buffer's mbarrier:
+  // pod p + 1's go out when pod p starts, so they arrive while pod p steps.
+  __device__ void issue(const GangScanArgs& a, int p) const {
+    const int C = a.C, AT = a.AT, len = hi - lo, b = p & 1;
+    const bool ip = AT > 0, extra = a.extra_score != nullptr;
+    const unsigned bar = smem_u32(mbar + b);
+    const unsigned long long tx = (unsigned long long)len * ((8 + ip + 3LL * C) + 8 * (3 + ip + extra) + 4 * (3LL * C + AT));
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect(bar, (unsigned)tx);
+    if (len <= 0) return;
+    unsigned char* const buf = stage + (long long)b * stage_bytes;
+    const long long s = S;
+    auto copy = [&](long long dst, const void* plane, long long row, int e) {
+      const char* src = static_cast<const char*>(plane) + (row * a.N + lo) * e;
+      asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                       smem_u32(buf + dst)),
+                   "l"(src), "r"((unsigned)(len * e)), "r"(bar)
+                   : "memory");
+    };
+    const long long i32 = 40 * s, u8 = (40 + 12LL * C + 4LL * AT) * s;
+    if (ip) copy(0, a.ip_sym, p, 8);
+    copy(8 * s, a.sc_taint, p, 8);
+    copy(16 * s, a.sc_nodeaff, p, 8);
+    copy(24 * s, a.sc_image, p, 8);
+    if (extra) copy(32 * s, a.extra_score, p, 8);
+    for (int c = 0; c < C; ++c) {
+      const long long pc = (long long)p * C + c;
+      copy(i32 + 4 * c * s, a.sp_dom_cnt, pc, 4);
+      copy(i32 + 4 * (C + c) * s, a.sp_node_cnt, pc, 4);
+      copy(i32 + 4 * (2LL * C + c) * s, a.sp_sc_dom, pc, 4);
+      copy(u8 + (9 + c) * s, a.sp_te, pc, 1);
+      copy(u8 + (9LL + C + c) * s, a.sp_dom_pres, pc, 1);
+      copy(u8 + (9LL + 2 * C + c) * s, a.sp_counting, pc, 1);
+    }
+    for (int u = 0; u < AT; ++u) copy(i32 + 4 * (3LL * C + u) * s, a.ip_dom_cnt, (long long)p * AT + u, 4);
+    const unsigned char* const u8p[9] = {a.static_mask, a.sp_all_keys, a.ip_viol_existing, a.d_unsched,
+                                         a.d_nodename, a.d_taints, a.d_nodeaff, a.d_ports, a.d_extra};
+    for (int k = 0; k < 9; ++k)
+      if (k != 2 || ip) copy(u8 + k * s, u8p[k], p, 1);
+  }
+  __device__ void stage_pod(const GangScanArgs& a, int p) const {
+    if (stage == nullptr) return;
+    if (threadIdx.x == 0 && p + 1 < a.P) issue(a, p + 1);
+    mbar_wait(smem_u32(mbar + (p & 1)), (p >> 1) & 1);
+  }
+  __device__ StagedVals vals(const GangScanArgs&, const WaveArgs*, int) const { return sv; }
+  __device__ void stage_vals(const GangScanArgs& a, const WaveArgs& w, int p) const { sv.fill(a, w, p); }
+  __device__ PodPlanes planes(const GangScanArgs& a, int p) const {
+    if (stage == nullptr) return global_planes(a, p);
+    const long long s = S, C = a.C, AT = a.AT;
+    unsigned char* const b = stage + (long long)(p & 1) * stage_bytes;
+    const long long* L = reinterpret_cast<const long long*>(b);
+    const int* I = reinterpret_cast<const int*>(b + 40 * s);
+    const unsigned char* U = b + (40 + 12 * C + 4 * AT) * s;
+    return PodPlanes{U, U + s, U + 2 * s, U + 3 * s, U + 4 * s, U + 5 * s, U + 6 * s, U + 7 * s, U + 8 * s,
+                     L, L + s, L + 2 * s, L + 3 * s, a.extra_score != nullptr ? L + 4 * s : nullptr,
+                     U + 9 * s, U + (9 + C) * s, U + (9 + 2 * C) * s,
+                     I, I + C * s, I + 2 * C * s, I + 3 * C * s, lo, S};
+  }
+  __device__ void begin(const StepShared& sh, int C) const {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) sh.s_ndom[c] = 0;
+    for (int j = threadIdx.x; j < C * Dsp; j += blockDim.x) x.st(flags + j, 0);
+  }
+  __device__ void count_domain(const StepScratch&, const StepShared&, int c, int d, int) const {
+    x.st(flags + c * Dsp + d, 1);
+  }
+  // this CTA's values (its warps combined) into row `rank` of every CTA's
+  // receive set of this phase, and, with `push_bits`, its domain bits; then
+  // the barrier
+  // (the first nv of NV values: the loops unroll, so v stays in registers)
+  template <int NV>
+  __device__ void post(long long (&v)[NV], const int (&op)[NV], int nv, int C, bool push_bits) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = threadIdx.x;
+    begin_exchange();
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (i >= nv) break;
+      for (int off = 16; off > 0; off >>= 1) v[i] = combine(v[i], __shfl_down_sync(FULL_MASK, v[i], off), op[i]);
+      if (lane == 0) cs->wrow[warp * XV + i] = v[i];
+    }
+    __syncthreads();
+    if (t < G * nv) {
+      const int r = t / nv, i = t - r * nv;
+      long long y = identity(op[i]);
+      for (int w2 = 0; w2 < CL_WARPS; ++w2) y = combine(y, cs->wrow[w2 * XV + i], op[i]);
+      push(cs->recv + ((phase & 1) * CLUSTER_MAX + rank) * XV + i, r, y);
+    }
+    if (push_bits) {  // word k = (c, w) of this CTA's flags as bits, to every CTA
+      const int cw = C * Dw;
+      for (int j = t; j < G * cw; j += blockDim.x) {
+        const int r = j / cw, k = j - r * cw, c = k / Dw, d0 = (k - c * Dw) * 32;
+        unsigned word = 0;
+        for (int b = 0; b < 32 && d0 + b < Dsp; ++b) word |= (x.ld(flags + c * Dsp + d0 + b) != 0 ? 1u : 0u) << b;
+        push_slab(recv_bits + rank * cw + k, r, (int)word);
+      }
+    }
+    sync(8u * G * nv + (push_bits ? 4u * G * C * Dw : 0u));
+  }
+  // value i over the G receive rows into res[i] (warp i, lane r for rank r)
+  template <int NV>
+  __device__ void combine_rows(const int (&op)[NV], int nv) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long* rows = cs->recv + (phase & 1) * CLUSTER_MAX * XV;
+    for (int i = warp; i < nv; i += CL_WARPS) {
+      long long y = lane < G ? rows[lane * XV + i] : identity(op[i]);
+      for (int off = 16; off > 0; off >>= 1) y = combine(y, __shfl_down_sync(FULL_MASK, y, off), op[i]);
+      if (lane == 0) cs->res[i] = y;
+    }
+  }
+  template <int NV>
+  __device__ void finish(long long (&v)[NV], int nv) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i < nv) v[i] = cs->res[i];
+    ++phase;
+    end_exchange();
+  }
+  template <int NV>
+  __device__ void reduce(long long (&v)[NV], const int (&op)[NV], int nv, const StepShared&) {
+    post(v, op, nv, 0, false);
+    combine_rows(op, nv);
+    finish(v, nv);
+  }
+  template <int NV>
+  __device__ void reduce_counts(long long (&v)[NV], const int (&op)[NV], int nv, const StepShared& sh, int C) {
+    post(v, op, nv, C, true);
+    combine_rows(op, nv);
+    const int cw = C * Dw;
+    for (int j = threadIdx.x; j < cw; j += blockDim.x) {
+      unsigned o = 0;
+      for (int r = 0; r < G; ++r) o |= (unsigned)x.ld(recv_bits + r * cw + j);
+      if (o) atomicAdd(sh.s_ndom + j / Dw, __popc(o));
+    }
+    finish(v, nv);
+  }
+  template <class F>
+  __device__ int window(const GangScanArgs& a, F feas, int start, int nv) {
+    const int lane = threadIdx.x & 31;
+    begin_exchange();
+    for (int base = lo + (threadIdx.x & ~31); base < hi; base += blockDim.x) {
+      const int n = base + lane;
+      const unsigned bal = __ballot_sync(FULL_MASK, n < hi && feas(n));
+      if (lane < G) push_slab(wmap + (base >> 5), lane, (int)bal);
+    }
+    sync(4u * ((a.N + 31) >> 5));  // every word of the map, once
+    ++phase;
+    end_exchange();
+    return window_stop(a, [&](int n) { return ((unsigned)x.ld(wmap + (n >> 5)) >> (n & 31)) & 1u; }, start, nv);
+  }
+  __device__ int argmax(long long best, int best_t, int best_n, long long n_feas, const StepShared& sh, int at) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = threadIdx.x;
+    begin_exchange();
+    for (int off = 16; off > 0; off >>= 1) {
+      const long long ov = __shfl_down_sync(FULL_MASK, best, off);
+      const int ot = __shfl_down_sync(FULL_MASK, best_t, off);
+      const int oi = __shfl_down_sync(FULL_MASK, best_n, off);
+      better(best, best_t, best_n, ov, ot, oi);
+    }
+    if (lane == 0) {
+      cs->wrow[warp * XV] = best;
+      cs->wrow_t[warp] = best_t;
+      cs->wrow_n[warp] = best_n;
+    }
+    __syncthreads();
+    const int set = (phase & 1) * CLUSTER_MAX;
+    if (t < G) {
+      long long v = -I64_MAX - 1;
+      int tk = I32_MAX, i = I32_MAX;
+      for (int w2 = 0; w2 < CL_WARPS; ++w2) better(v, tk, i, cs->wrow[w2 * XV], cs->wrow_t[w2], cs->wrow_n[w2]);
+      push(cs->recv_v + set + rank, t, v);
+      push(cs->recv_t + set + rank, t, tk);
+      push(cs->recv_n + set + rank, t, i);
+    }
+    // the verdict's pieces at the speculative node, from its CTA to rank 0
+    if (at >= 0 && owns(at) && t >= G && t < G + 6) push(cs->at_recv + (t - G), 0, sh.s_at[t - G]);
+    sync(16u * G + (rank == 0 && at >= 0 ? 24u : 0u));
+    if (warp == 0) {
+      long long v = lane < G ? cs->recv_v[set + lane] : -I64_MAX - 1;
+      int tk = lane < G ? cs->recv_t[set + lane] : I32_MAX;
+      int i = lane < G ? cs->recv_n[set + lane] : I32_MAX;
+      for (int off = 16; off > 0; off >>= 1) {
+        const long long ov = __shfl_down_sync(FULL_MASK, v, off);
+        const int ot = __shfl_down_sync(FULL_MASK, tk, off);
+        const int oi = __shfl_down_sync(FULL_MASK, i, off);
+        better(v, tk, i, ov, ot, oi);
+      }
+      if (lane == 0) cs->choice = n_feas > 0 ? i : ABSENT;
+    }
+    __syncthreads();
+    ++phase;
+    end_exchange();
+    return cs->choice;
+  }
+  // tot = every CTA's `part` summed: each CTA pushes its part into row
+  // `rank` of every CTA's recv_part, then adds up its own rows
+  // With the sums, the min-match's parts (tables_min: C Dsp per-domain
+  // mins, then C direct mins, right after the `sums` sum cells in `part`)
+  // are combined by min, and the spread min-match s_min follows here.
+  __device__ void gather(int* tot, int* part, long long sums) {
+    const long long cells = sums + (long long)C * Dsp + C;
+    begin_exchange();
+    __syncthreads();  // this CTA's part is complete
+    for (long long j = threadIdx.x; j < G * cells; j += blockDim.x) {
+      const int r = (int)(j / cells);
+      const long long i = j - r * cells;
+      push_slab(recv_part + rank * cells + i, r, x.ld(part + i));
+    }
+    sync(4u * G * (unsigned)cells);
+    for (long long i = threadIdx.x; i < cells; i += blockDim.x) {
+      int s = i < sums ? 0 : I32_MAX;
+      for (int r = 0; r < G; ++r) {
+        const int y = x.ld(recv_part + r * cells + i);
+        s = i < sums ? s + y : min(s, y);
+      }
+      tot[i] = s;
+    }
+    __syncthreads();
+    // minMatch per slot: the direct min, or a domain's min plus its peers
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      const int* m = tot + sums;
+      long long v = m[(long long)C * Dsp + c];
+      for (int d = 0; d < Dsp; ++d) {
+        const int md = m[(long long)c * Dsp + d];
+        if (md < I32_MAX && md + (long long)tot[(long long)c * Dsp + d] < v) v = md + (long long)tot[(long long)c * Dsp + d];
+      }
+      const int md = sv.min_domains(c);
+      s_min[c] = (md > 0 && sv.sp_ndom(c) < md) ? 0 : (int)v;
+    }
+    ++phase;
+    end_exchange();
+  }
+  // pod_tables' start: the min-match parts (after the `sums` cells of
+  // `part`) start at I32_MAX; wave::tables_min fills them
+  __device__ void tables_begin(int* part, long long sums) const {
+    for (long long i = threadIdx.x; i < (long long)C * Dsp + C; i += blockDim.x) x.st(part + sums + i, I32_MAX);
+  }
+
+  __device__ void advance(const GangScanArgs& a, const StepOut& out) {
+    if (a.sample_k <= 0) return;
+    const int nv = a.n_valid > 1 ? a.n_valid : 1;
+    cur = (int)(((long long)cur + out.processed) % nv);
+  }
+  // (rank 0: pushed by the CTA that owns `at` in the argmax's exchange)
+  __device__ void at_flags(const StepShared&, int, int (&f)[6]) const {
+    for (int i = 0; i < 6; ++i) f[i] = cs->at_recv[i];
+  }
+};
+
+// One pod's Filter -> Score -> Select against the usage state sc.use (read
+// only here: the caller commits), over the nodes [pol.lo, pol.hi) with the
+// policy's block- or cluster-wide parts.  `at` >= 0 asks for the verdict's
+// pieces at that node (the wave's demotion attribution), in sh.s_at of the
+// block that steps it.  Without `diagnose` the reason counts stay 0 and the
+// diagnosis masks are not read (a caller that emits only the choice).
+// Every thread of the block, or of the cluster, calls it and gets the
+// result.
+template <class Dyn, class Pol>
+__device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, bool any_dyn, const StepScratch& sc,
+                                  const StepShared& sh, int at, bool diagnose, Pol& pol) {
+  const int tid = threadIdx.x;
+  const int C = a.C, AT = a.AT, lo = pol.lo, hi = pol.hi;
+  const UsageRows& use = sc.use;
+  const NodeRows& nd = sc.nodes;
+  const PodPlanes pr = pol.planes(a, p);
+  const auto pv = pol.vals(a, nullptr, p);
+  pol.begin(sh, C);
+  __syncthreads();
+
+  // ---- spread min-match per constraint (filtering.go:313 minMatch),
+  // RED_CHUNK constraints per reduction (a cluster's came with pod_tables)
+  for (int c0 = 0; !Pol::kPremin && c0 < C; c0 += RED_CHUNK) {
+    const int nc = C - c0 < RED_CHUNK ? C - c0 : RED_CHUNK;
+    long long v[RED_CHUNK];
+    int op[RED_CHUNK];
+    for (int i = 0; i < RED_CHUNK; ++i) {
+      v[i] = I32_MAX;
+      op[i] = RED_MIN;
+    }
+    for (int n = lo + tid; n < hi; n += blockDim.x)
+#pragma unroll
+      for (int i = 0; i < RED_CHUNK; ++i) {
+        if (i >= nc) break;
+        const long long pc = (long long)p * C + c0 + i;
+        const long long o = pr.at(c0 + i, n);
+        if (!pr.sp_te[o]) continue;
+        const int d = nd.dom(pv.sp_key(c0 + i), n);
+        const long long total = pr.sp_dom_cnt[o] + dyn.f(c0 + i, pc, n, d);
+        if (total < v[i]) v[i] = total;
+      }
+    pol.reduce(v, op, nc, sh);
+    if (tid < nc) {
+      const int md = pv.min_domains(c0 + tid);
+      sh.s_min[c0 + tid] = (md > 0 && pv.sp_ndom(c0 + tid) < md) ? 0 : (int)v[tid];
+    }
+  }
+  __syncthreads();
+
+  // ---- filters, diagnosis, and the normalizers' min / max
+  bool has_aff = false, has_soft = false;
+  for (int u = 0; u < AT; ++u) has_aff = has_aff || pv.ip_aff(u);
+  for (int c = 0; c < C; ++c) has_soft = has_soft || pv.sp_soft(c);
+  const bool any_match = pv.any_static() || any_dyn;
+  const bool escape = has_aff && !any_match && pv.self_all();
+  bool all_zero = true;
+  for (int r = 0; r < a.Rp; ++r) all_zero = all_zero && pv.req(r) == 0;
+  const int prio = pv.priority();
+  const int stamp = p + 1;
+  const bool sampling = a.sample_k > 0;
+  const int nv = a.n_valid > 1 ? a.n_valid : 1;
+  int start = 0;  // the cursor, in [0, nv) like the reference's (vr - start) % nv
+  if (sampling) {
+    start = pol.cursor(a) % nv;
+    if (start < 0) start += nv;
+  }
+
+  // 0 n_feas, 1..9 reason counts, 10 taint max, 11 naff max, 12 ip min,
+  // 13 ip max, 14 counted nodes
+  long long red[15];
+  const int red_op[15] = {RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM,
+                          RED_SUM, RED_SUM, RED_MAX, RED_MAX, RED_MIN, RED_MAX, RED_SUM};
+  for (int i = 0; i < 15; ++i) red[i] = identity(red_op[i]);
+  red[10] = red[11] = 0;  // max(where(feas, raw, 0))
+  // a feasible node's share of the normalizers
+  auto count_feasible = [&](int n, long long ip_raw) {
+    const long long pn = pr.at(n);
+    red[0] += 1;
+    if (pr.sc_taint[pn] > red[10]) red[10] = pr.sc_taint[pn];
+    if (pr.sc_nodeaff[pn] > red[11]) red[11] = pr.sc_nodeaff[pn];
+    if (ip_raw < red[12]) red[12] = ip_raw;
+    if (ip_raw > red[13]) red[13] = ip_raw;
+    if (pr.all_keys[pn]) {
+      red[14] += 1;
+      // distinct domains among the counted nodes, per non-hostname
+      // constraint (the hostname's topology size is red[14])
+      for (int c = 0; c < C; ++c) {
+        if (pv.sp_host(c)) continue;
+        const int d = nd.dom(pv.sp_key(c), n);
+        if (d < 0) continue;
+        pol.count_domain(sc, sh, c, d, stamp);
+      }
+    }
+  };
+  for (int n = lo + tid; n < hi; n += blockDim.x) {
+    const long long pn = pr.at(n);
+    const bool m_portb = dyn.portb(n);
+    // m_fit: the resource fit with the nominations charged (the filter);
+    // fit_own: without them (the wave's demotion attribution, which the
+    // reference computes from the usage state alone)
+    bool m_fit = true, fit_own = true;
+    if (a.check_fit) {
+      fit_own = step_fits(a, sc, n, pv, all_zero, prio, false);
+      m_fit = fit_own;
+      if (a.nom_off != nullptr && a.nom_off[n + 1] > a.nom_off[n])
+        m_fit = step_fits(a, sc, n, pv, all_zero, prio, true);
+    }
+    bool m_spread = true;
+    int sp_term = -1;
+    for (int c = 0; c < C; ++c) {
+      const long long pc = (long long)p * C + c;
+      const long long o = pr.at(c, n);
+      const int d = nd.dom(pv.sp_key(c), n);
+      const bool host = pv.sp_host(c);
+      const long long total = pr.sp_dom_cnt[o] + dyn.f(c, pc, n, d);
+      const long long skew = total + (pv.sp_self(c) ? 1 : 0) - sh.s_min[c];
+      const bool c_ok = d >= 0 && (!pr.sp_dom_pres[o] || skew <= pv.max_skew(c));
+      if (pv.sp_hard(c) && !c_ok) {
+        m_spread = false;
+        if (sp_term < 0) sp_term = c;
+      }
+      sc.cnt_of(c, n) = (host ? pr.sp_node_cnt[o] : pr.sp_sc_dom[o]) + dyn.sc(c, pc, n, d, host);
+    }
+    bool m_interpod = true;
+    long long ip_raw = 0;
+    int ip_term = -1;
+    if (AT) {
+      ip_raw = pr.ip_sym[pn];
+      bool viol2 = false, aff_ok = true, topo_all = true;
+      long long pref = 0;
+      for (int u = 0; u < AT; ++u) {
+        const long long pu = (long long)p * AT + u;
+        const int d = nd.dom(pv.ip_key(u), n);
+        const bool present = d >= 0;
+        const long long tot = pr.ip_dom_cnt[pr.at(u, n)] + dyn.ip(u, pu, n, d);
+        if (pv.ip_anti(u) && present && tot > 0) {
+          viol2 = true;
+          if (ip_term < 0) ip_term = u;
+        }
+        if (pv.ip_aff(u)) {
+          aff_ok = aff_ok && present && tot > 0;
+          topo_all = topo_all && present;
+        }
+        if (present) pref += tot * pv.ip_pref_w(u);
+      }
+      const bool ok3 = aff_ok || (escape && topo_all);
+      m_interpod = !pr.viol[pn] && !viol2 && ok3 && !dyn.viol(n);
+      ip_raw += pref + dyn.sym(n);
+    }
+    const bool feas = pr.mask[pn] && m_portb && m_fit && m_spread && m_interpod;
+    sc.feas_of(n) = feas;
+    sc.ip_of(n) = ip_raw;
+    if (n == at) {
+      sh.s_at[0] = m_portb;
+      sh.s_at[1] = m_spread;
+      sh.s_at[2] = m_interpod;
+      sh.s_at[3] = fit_own;
+      sh.s_at[4] = sp_term;
+      sh.s_at[5] = ip_term;
+    }
+
+    // first failure in the filter chain's order
+    if (diagnose && nd.valid(n)) {
+      const bool comp[N_DIAG] = {pr.d_unsched[pn] != 0, pr.d_nodename[pn] != 0, pr.d_taints[pn] != 0,
+                                 pr.d_nodeaff[pn] != 0, pr.d_ports[pn] && m_portb, pr.d_extra[pn] != 0,
+                                 m_fit, m_spread, m_interpod};
+#pragma unroll
+      for (int r = 0; r < N_DIAG; ++r)
+        if (!comp[r]) {
+          red[1 + r] += 1;
+          break;
+        }
+    }
+    if (feas && !sampling) count_feasible(n, ip_raw);
+  }
+  int processed = 0;
+  if (sampling) {
+    // the window: keep the feasible nodes up to the sample_k-th in visit
+    // order (all of them when fewer are feasible)
+    __syncthreads();  // every node's verdict is in sc.feas
+    const int stop = pol.window(a, [&](int n) { return sc.feas_of(n) != 0; }, start, nv);
+    processed = stop >= 0 ? stop + 1 : nv;
+    for (int n = lo + tid; n < hi; n += blockDim.x) {
+      const bool keep = sc.feas_of(n) && nd.vrank(n) >= 0 && (stop < 0 || visit_pos(nd.vrank(n), start, nv) <= stop);
+      sc.feas_of(n) = keep;
+      if (keep) count_feasible(n, sc.ip_of(n));
+    }
+  }
+  pol.reduce_counts(red, red_op, 15, sh, C);
+  StepOut out;
+  out.processed = processed;
+  out.n_feas = red[0];
+  for (int r = 0; r < N_DIAG; ++r) out.rc[r] = red[1 + r];
+
+  // ---- spread score (_spread_raw): topology weights, then per-node raws
+  long long sp_mn = I64_MAX, sp_mx = -I64_MAX, n_use = 0;
+  if (C && a.w_spread) {
+    for (int c = tid; c < C; c += blockDim.x) {
+      const long long size = pv.sp_host(c) ? red[14] : sh.s_ndom[c];
+      sh.s_wfx[c] = a.log_tab[size < 0 ? 0 : (size >= a.L ? a.L - 1 : size)];
+    }
+    __syncthreads();
+    long long v[3] = {I64_MAX, -I64_MAX - 1, 0};
+    const int op[3] = {RED_MIN, RED_MAX, RED_SUM};
+    for (int n = lo + tid; n < hi; n += blockDim.x) {
+      if (!sc.feas_of(n)) continue;
+      const long long pn = pr.at(n);
+      long long raw = 0;
+      bool use_n = true;
+      if (has_soft) {
+        use_n = pr.all_keys[pn];  // valid & feas == counted
+        long long total_fx = 0;
+        for (int c = 0; c < C; ++c) {
+          if (!pv.sp_soft(c)) continue;
+          total_fx += (long long)sc.cnt_of(c, n) * sh.s_wfx[c] + (long long)(pv.max_skew(c) - 1) * (1LL << FX);
+        }
+        const long long q = total_fx >> FX;  // arithmetic shift
+        const long long frac = total_fx & ((1LL << FX) - 1);
+        const long long half = 1LL << (FX - 1);
+        raw = q + ((frac > half || (frac == half && (q & 1))) ? 1 : 0);
+      }
+      sc.sp_of(n) = raw;
+      if (use_n) {
+        if (raw < v[0]) v[0] = raw;
+        if (raw > v[1]) v[1] = raw;
+        v[2] += 1;
+      }
+    }
+    pol.reduce(v, op, 3, sh);
+    sp_mn = v[0];
+    sp_mx = v[1];
+    n_use = v[2];
+  }
+
+  // ---- weighted total and the argmax over the feasible nodes: first max by
+  // slot; with a tie key the (total, bits) maximum; in the window without
+  // one, the first max in visit order
+  long long best = -I64_MAX - 1;
+  int best_t = I32_MAX, best_n = I32_MAX;
+  const long long taint_mx = red[10], naff_mx = red[11], ip_mn = red[12], ip_mx = red[13];
+  unsigned tk0 = (unsigned)a.tie_k0, tk1 = (unsigned)a.tie_k1;
+  if (a.tie_on) rng::fold_in(tk0, tk1, (unsigned)a.attempt_base + (unsigned)p);
+  for (int n = lo + tid; n < hi; n += blockDim.x) {
+    if (!sc.feas_of(n)) continue;
+    const long long pn = pr.at(n);
+    long long total = 0;
+    if (a.w_taint) {
+      const long long raw = pr.sc_taint[pn];
+      total += a.w_taint * (taint_mx > 0 ? MAX_NODE_SCORE - fdiv(MAX_NODE_SCORE * raw, taint_mx) : MAX_NODE_SCORE);
+    }
+    if (a.w_naff) {
+      const long long raw = pr.sc_nodeaff[pn];
+      total += a.w_naff * (naff_mx > 0 ? fdiv(MAX_NODE_SCORE * raw, naff_mx) : raw);
+    }
+    if (a.w_spread) {
+      long long s = MAX_NODE_SCORE;  // C == 0: every feasible node is "used", mx == 0
+      if (C) {
+        const bool use_n = !has_soft || pr.all_keys[pn];
+        s = 0;
+        if (use_n && n_use > 0)
+          s = sp_mx == 0 ? MAX_NODE_SCORE
+                         : fdiv(MAX_NODE_SCORE * (sp_mx + sp_mn - sc.sp_of(n)), sp_mx > 1 ? sp_mx : 1);
+      }
+      total += a.w_spread * s;
+    }
+    if (a.w_ip) {
+      const long long diff = ip_mx - ip_mn;
+      total += a.w_ip * (diff > 0 ? fdiv(MAX_NODE_SCORE * (sc.ip_of(n) - ip_mn), diff) : 0);
+    }
+    if (a.w_fit || a.w_bal) {
+      const long long a0 = nd.alloc(n, LANE_CPU);
+      const long long a1 = nd.alloc(n, LANE_MEM);
+      const long long c0 = (long long)use.nz(n, 0) + pv.nz_req(0);
+      const long long c1 = (long long)use.nz(n, 1) + pv.nz_req(1);
+      if (a.w_fit) total += a.w_fit * fit_score(a, a0, a1, c0, c1);
+      total += score_total(a0, a1, c0, c1, (long long)use.req(a.Rn, n, LANE_CPU) + pv.req(LANE_CPU),
+                           (long long)use.req(a.Rn, n, LANE_MEM) + pv.req(LANE_MEM), 0, 0, a.w_bal, 0);
+    }
+    if (a.w_img) total += a.w_img * pr.sc_image[pn];
+    if (pr.extra) total += pr.extra[pn];
+    long long key = total;
+    int tie = n;
+    if (a.tie_on)
+      key = total * (1LL << 33) + rng::bits_at(tk0, tk1, (unsigned)n);
+    else if (sampling)
+      tie = visit_pos(nd.vrank(n), start, nv);
+    better(best, best_t, best_n, key, tie, n);
+  }
+  out.choice = pol.argmax(best, best_t, best_n, out.n_feas, sh, at);
+  return out;
 }
 
 }  // namespace step
@@ -1474,42 +2219,56 @@ __host__ __device__ inline long long carry_cells(const GangScanArgs& a, const Wa
   return ((long long)w.Tsp + 2LL * w.Tip + w.Tpt) * a.N;
 }
 
+// The carries' rows: node n at column n - clo of rows cld wide (all N nodes
+// in one block's shared or global memory: clo = 0, cld = N; a cluster CTA's
+// slice in its shared memory: its lo and slice width).  The pod_tables sums
+// land in g1p / g2p / gfp / anyp, which are g1 / g2 / gf / any_dyn in one
+// block and the CTA's partial sums in a cluster (ClusterPolicy::gather adds
+// them up into g1 .. any_dyn).
 struct Region {
   int *g1, *g2, *seen, *gf, *rev, *conf, *n_rev, *n_conf, *any_dyn;
+  int *g1p, *g2p, *gfp, *anyp;
   int *cnt_sp, *cnt_ip, *rev_cnt, *occ_pt;
+  int clo, cld;
+  __device__ __forceinline__ int& csp(int t, int n) const { return cnt_sp[(long long)t * cld + n - clo]; }
+  __device__ __forceinline__ int& cip(int t, int n) const { return cnt_ip[(long long)t * cld + n - clo]; }
+  __device__ __forceinline__ int& rev_at(int t, int n) const { return rev_cnt[(long long)t * cld + n - clo]; }
+  __device__ __forceinline__ int& occ(int t, int n) const { return occ_pt[(long long)t * cld + n - clo]; }
 };
 
 // The admitted batch peers' counts for pod p's step, from the carries and
-// the per-pod sums.
+// the per-pod sums; `v` is pod p's values (step::GlobalVals / StagedVals).
+template <class Vals>
 struct WaveDyn {
   const GangScanArgs& a;
   const WaveArgs& w;
   Region r;
   int p;
   const unsigned char* dra_row;  // K11 with claims: pod p's DRA verdict per node (null: none)
-  __device__ int f(int c, long long pc, int n, int d) const {
-    const int t = w.tid_sp[pc];
+  step::PodPlanes pr;            // pod p's planes
+  Vals v;
+  __device__ int f(int c, long long, int n, int d) const {
+    const int t = v.tid_sp(c);
     if (t < 0 || d < 0) return 0;
-    if (a.sp_is_host[pc]) return a.sp_te[pc * a.N + n] ? r.cnt_sp[(long long)t * a.N + n] : 0;
+    if (v.sp_host(c)) return pr.sp_te[pr.at(c, n)] ? r.csp(t, n) : 0;
     return r.g1[(long long)c * w.Dsp + d];
   }
-  __device__ int sc(int c, long long pc, int n, int d, bool host) const {
-    const int t = w.tid_sp[pc];
+  __device__ int sc(int c, long long, int n, int d, bool host) const {
+    const int t = v.tid_sp(c);
     if (t < 0) return 0;
-    if (host) return r.cnt_sp[(long long)t * a.N + n];
+    if (host) return r.csp(t, n);
     return d >= 0 ? r.g2[(long long)c * w.Dsp + d] : 0;
   }
-  __device__ int ip(int u, long long pu, int n, int d) const {
-    const int t = w.tid_ip[pu];
+  __device__ int ip(int u, long long, int n, int d) const {
+    const int t = v.tid_ip(u);
     if (t < 0 || d < 0) return 0;
-    if (a.ip_key[pu] == w.hostname_key) return r.cnt_ip[(long long)t * a.N + n];
+    if (v.ip_key(u) == w.hostname_key) return r.cip(t, n);
     return r.gf[(long long)u * w.D2 + d];
   }
   __device__ bool viol(int n) const {
     for (int i = 0; i < *r.n_rev; ++i) {
       const int t = r.rev[i];
-      const long long ru = (long long)w.rep_ip_p[t] * a.AT + w.rep_ip_u[t];
-      if (a.ip_is_anti[ru] && r.rev_cnt[(long long)t * a.N + n] > 0) return true;
+      if (v.rev_anti(i, t) && r.rev_at(t, n) > 0) return true;
     }
     return false;
   }
@@ -1517,35 +2276,80 @@ struct WaveDyn {
     long long s = 0;
     for (int i = 0; i < *r.n_rev; ++i) {
       const int t = r.rev[i];
-      const long long ru = (long long)w.rep_ip_p[t] * a.AT + w.rep_ip_u[t];
-      s += a.ip_sym_w[ru] * (long long)r.rev_cnt[(long long)t * a.N + n];
+      s += v.rev_w(i, t) * (long long)r.rev_at(t, n);
     }
     return s;
   }
   __device__ bool portb(int n) const {
     if (dra_row != nullptr && !dra_row[n]) return false;
     for (int i = 0; i < *r.n_conf; ++i)
-      if (r.occ_pt[(long long)r.conf[i] * a.N + n] > 0) return false;
+      if (r.occ(r.conf[i], n) > 0) return false;
     return true;
   }
 };
 
-// Pod p's per-domain sums, admitting terms and conflicting port terms.
-__device__ inline void pod_tables(const GangScanArgs& a, const WaveArgs& w, const Region& r, int p) {
+// A cluster CTA's parts of pod p's spread min-match over its slice, into
+// `m` (ClusterPolicy::gather combines them): per slot c, m[c Dsp + d] the
+// min of sp_dom_cnt over c's eligible nodes in domain d (the peers' count
+// there, g1[c, d], is the same for all of them and is added after the
+// exchange), and m[C Dsp + c] the min of the whole total over the eligible
+// nodes that need no g1 (no term, no domain, or a hostname slot, whose peer
+// count is the node's carry); one atomic per warp and domain.
+template <class Vals, class Pol>
+__device__ inline void tables_min(const GangScanArgs& a, const Region& r, int p, const step::PodPlanes& pr,
+                                  const step::NodeRows& nd, const Vals& pv, int* m, const Pol& pol) {
+  const int lane = threadIdx.x & 31, C = a.C, Dsp = pol.Dsp;
+  for (int c = 0; c < C; ++c) {
+    const int t = pv.tid_sp(c), key = pv.sp_key(c);
+    const bool host = pv.sp_host(c);
+    for (int base = pol.lo + (threadIdx.x & ~31); base < pol.hi; base += blockDim.x) {
+      const int n = base + lane;
+      int dom = -1, val = step::I32_MAX, direct = step::I32_MAX;
+      if (n < pol.hi && pr.sp_te[pr.at(c, n)]) {
+        const int d = nd.dom(key, n), cnt = pr.sp_dom_cnt[pr.at(c, n)];
+        if (t < 0 || d < 0) direct = cnt;
+        else if (host) direct = cnt + r.csp(t, n);
+        else {
+          dom = d;
+          val = cnt;
+        }
+      }
+      const unsigned peers = __match_any_sync(step::FULL_MASK, dom);
+      const int dm = __reduce_min_sync(peers, val);
+      if (dom >= 0 && lane == __ffs(peers) - 1) atomicMin(m + (long long)c * Dsp + dom, dm);
+      const int best = __reduce_min_sync(step::FULL_MASK, direct);
+      if (lane == 0 && best < step::I32_MAX) atomicMin(m + (long long)C * Dsp + c, best);
+    }
+  }
+}
+
+// Pod p's per-domain sums over the policy's nodes, gathered into g1 / g2 /
+// gf / any_dyn, and its admitting terms and conflicting port terms.
+template <class Pol>
+__device__ inline void pod_tables(const GangScanArgs& a, const WaveArgs& w, const Region& r, int p,
+                                  const step::NodeRows& nd, Pol& pol) {
   const int tid = threadIdx.x;
-  const int C = a.C, AT = a.AT, N = a.N, P = a.P;
-  for (long long i = tid; i < 2LL * C * w.Dsp; i += blockDim.x) r.g1[i] = 0;  // g1 and g2
-  for (long long i = tid; i < (long long)AT * w.D2; i += blockDim.x) r.gf[i] = 0;
+  const int C = a.C, AT = a.AT, P = a.P;
+  const step::PodPlanes pr = pol.planes(a, p);
+  const auto pv = pol.vals(a, &w, p);
+  for (long long i = tid; i < 2LL * C * w.Dsp; i += blockDim.x) r.g1p[i] = 0;  // g1 and g2
+  for (long long i = tid; i < (long long)AT * w.D2; i += blockDim.x) r.gfp[i] = 0;
   if (tid == 0) {
     *r.n_rev = 0;
     *r.n_conf = 0;
-    *r.any_dyn = 0;
+    *r.anyp = 0;
   }
+  const long long sums = 2LL * C * w.Dsp + (long long)AT * w.D2 + 1;  // g1, g2, gf, any_dyn
+  if constexpr (Pol::kPremin) pol.tables_begin(r.g1p, sums);
   __syncthreads();
   // the distinct inter-pod terms whose selector admits p (m_ip_all[:, p])
   for (int t = tid; t < w.Tip; t += blockDim.x) {
     const int rp = w.rep_ip_p[t];
-    if (rp >= 0 && a.ip_bmatch[((long long)rp * AT + w.rep_ip_u[t]) * P + p]) r.rev[atomicAdd(r.n_rev, 1)] = t;
+    if (rp >= 0 && a.ip_bmatch[((long long)rp * AT + w.rep_ip_u[t]) * P + p]) {
+      const int i = atomicAdd(r.n_rev, 1);
+      r.rev[i] = t;
+      pv.note_rev(a, w, i, t);
+    }
   }
   // the port terms p's own ports conflict with
   if (w.has_ports) {
@@ -1560,75 +2364,74 @@ __device__ inline void pod_tables(const GangScanArgs& a, const WaveArgs& w, cons
   }
   // the slots' carry rows per domain
   for (int c = 0; c < C; ++c) {
-    const long long pc = (long long)p * C + c;
-    const int t = w.tid_sp[pc];
-    if (t < 0 || a.sp_is_host[pc]) continue;
-    const int key = a.sp_key[pc];
-    for (int n = tid; n < N; n += blockDim.x) {
-      const int v = r.cnt_sp[(long long)t * N + n];
+    const int t = pv.tid_sp(c);
+    if (t < 0 || pv.sp_host(c)) continue;
+    const int key = pv.sp_key(c);
+    for (int n = pol.lo + tid; n < pol.hi; n += blockDim.x) {
+      const int v = r.csp(t, n);
       if (!v) continue;
-      const int d = dom_at(a, key, n);
+      const int d = nd.dom(key, n);
       if (d < 0) continue;
-      if (a.sp_te[pc * N + n]) atomicAdd(r.g1 + (long long)c * w.Dsp + d, v);
-      if (a.sp_counting[pc * N + n]) atomicAdd(r.g2 + (long long)c * w.Dsp + d, v);
+      if (pr.sp_te[pr.at(c, n)]) atomicAdd(r.g1p + (long long)c * w.Dsp + d, v);
+      if (pr.sp_counting[pr.at(c, n)]) atomicAdd(r.g2p + (long long)c * w.Dsp + d, v);
     }
   }
   for (int u = 0; u < AT; ++u) {
-    const long long pu = (long long)p * AT + u;
-    const int t = w.tid_ip[pu];
+    const int t = pv.tid_ip(u);
     if (t < 0) continue;
-    const int key = a.ip_key[pu];
+    const int key = pv.ip_key(u);
     const bool host = key == w.hostname_key;
-    const bool aff = a.ip_is_aff[pu];
-    for (int n = tid; n < N; n += blockDim.x) {
-      const int v = r.cnt_ip[(long long)t * N + n];
+    const bool aff = pv.ip_aff(u);
+    for (int n = pol.lo + tid; n < pol.hi; n += blockDim.x) {
+      const int v = r.cip(t, n);
       if (!v) continue;
-      if (aff) *r.any_dyn = 1;
+      if (aff) *r.anyp = 1;
       if (host) continue;
-      const int d = dom_at(a, key, n);
-      if (d >= 0) atomicAdd(r.gf + (long long)u * w.D2 + d, v);
+      const int d = nd.dom(key, n);
+      if (d >= 0) atomicAdd(r.gfp + (long long)u * w.D2 + d, v);
     }
   }
-  __syncthreads();
+  if constexpr (Pol::kPremin) tables_min(a, r, p, pr, nd, pv, r.g1p + sums, pol);
+  pol.gather(r.g1, r.g1p, sums);
 }
 
-// Commit pod p's placement at `choice` into the carries.
-__device__ inline void commit_carries(const GangScanArgs& a, const WaveArgs& w, const Region& r, int p, int choice) {
+// Commit pod p's placement at `choice` into the carries: the node column of
+// each matching term where the policy owns `choice`, and p's own inter-pod
+// terms over their topology domains at the policy's nodes.
+template <class Pol>
+__device__ inline void commit_carries(const GangScanArgs& a, const WaveArgs& w, const Region& r, int p, int choice,
+                                      const step::NodeRows& nd, const Pol& pol) {
   const int tid = threadIdx.x;
-  const int C = a.C, AT = a.AT, N = a.N, P = a.P;
-  // one node column per term that p matches (distinct t: no two threads
-  // touch one cell)
-  for (int t = tid; t < w.Tsp; t += blockDim.x) {
-    const int rp = w.rep_sp_p[t];
-    if (rp >= 0 && C && a.sp_bmatch[((long long)rp * C + w.rep_sp_c[t]) * P + p])
-      r.cnt_sp[(long long)t * N + choice] += 1;
+  const int AT = a.AT;
+  const auto pv = pol.vals(a, &w, p);
+  if (pol.owns(choice)) {
+    // one node column per term that p matches (distinct t: no two threads
+    // touch one cell)
+    for (int t = tid; t < w.Tsp; t += blockDim.x)
+      if (pv.sp_match(t)) r.csp(t, choice) += 1;
+    for (int t = tid; t < w.Tip; t += blockDim.x)
+      if (pv.ip_match(t)) r.cip(t, choice) += 1;
+    if (w.has_ports && tid == 0)
+      for (int k = 0; k < w.W; ++k) {
+        const int t = w.tid_pt[(long long)p * w.W + k];
+        if (t >= 0) r.occ(t, choice) += 1;
+      }
   }
-  for (int t = tid; t < w.Tip; t += blockDim.x) {
-    const int rp = w.rep_ip_p[t];
-    if (rp >= 0 && AT && a.ip_bmatch[((long long)rp * AT + w.rep_ip_u[t]) * P + p])
-      r.cnt_ip[(long long)t * N + choice] += 1;
-  }
-  if (w.has_ports && tid == 0)
-    for (int k = 0; k < w.W; ++k) {
-      const int t = w.tid_pt[(long long)p * w.W + k];
-      if (t >= 0) r.occ_pt[(long long)t * N + choice] += 1;
-    }
   // p's own terms over their topology domains (one thread per node)
-  for (int n = tid; n < N; n += blockDim.x)
+  for (int n = pol.lo + tid; n < pol.hi; n += blockDim.x)
     for (int u = 0; u < AT; ++u) {
-      const long long pu = (long long)p * AT + u;
-      const int t = w.tid_ip[pu];
-      if (t < 0 || a.ip_key_idx[pu] < 0) continue;
-      const int key = a.ip_key[pu];
+      const int t = pv.tid_ip(u);
+      if (t < 0 || pv.ip_key_idx(u) < 0) continue;
+      const int key = pv.ip_key(u);
       const int at_dom = dom_at(a, key, choice);
       if (at_dom < 0) continue;
-      const bool in = key == w.hostname_key ? n == choice : dom_at(a, key, n) == at_dom;
-      if (in) r.rev_cnt[(long long)t * N + n] += 1;
+      const bool in = key == w.hostname_key ? n == choice : nd.dom(key, n) == at_dom;
+      if (in) r.rev_at(t, n) += 1;
     }
 }
 
-// The carries' and the per-pod region's layout over `sums` and `carries`
-// (shared or global memory, as the kernel placed them).
+// One block's carries and per-pod region over `sums` and `carries` (shared
+// or global memory, as the kernel placed them), all N nodes.
 __device__ inline Region make_region(const GangScanArgs& a, const WaveArgs& w, int* sums, int* carries) {
   Region r;
   r.g1 = sums;
@@ -1640,6 +2443,12 @@ __device__ inline Region make_region(const GangScanArgs& a, const WaveArgs& w, i
   r.n_rev = r.conf + w.Tpt;
   r.n_conf = r.n_rev + 1;
   r.any_dyn = r.n_conf + 1;
+  r.g1p = r.g1;
+  r.g2p = r.g2;
+  r.gfp = r.gf;
+  r.anyp = r.any_dyn;
+  r.clo = 0;
+  r.cld = a.N;
   r.cnt_sp = carries;
   r.cnt_ip = r.cnt_sp + (long long)w.Tsp * a.N;
   r.rev_cnt = r.cnt_ip + (long long)w.Tip * a.N;
@@ -1647,9 +2456,9 @@ __device__ inline Region make_region(const GangScanArgs& a, const WaveArgs& w, i
   return r;
 }
 
-// The dynamic shared memory of an admission kernel (K9, K11): s_wfx [C]
-// (int64), s_min [C], s_ndom [C], then the per-pod region when sums_smem
-// and the carries when carry_smem.
+// The dynamic shared memory of K11's block: s_wfx [C] (int64), s_min [C],
+// s_ndom [C], then the per-pod region when sums_smem and the carries when
+// carry_smem.
 inline size_t admit_smem(const GangScanArgs& a, const WaveArgs& w) {
   size_t bytes = (size_t)a.C * (sizeof(long long) + 2 * sizeof(int));
   if (w.sums_smem) bytes += (size_t)sums_cells(a, w) * sizeof(int);
@@ -1658,11 +2467,11 @@ inline size_t admit_smem(const GangScanArgs& a, const WaveArgs& w) {
 }
 
 // ---------------------------------------------------------------------------
-// The admission kernel, one persistent block of ADMIT_THREADS that loops
-// over the pods.  admit_kernel<false> is K9 (wave.cu: the demotion stats
-// against the speculative node c0); admit_kernel<true> is K11
-// (workloads.cu: the gang checkpoint and rollback, no demotion stats).
-// Each source instantiates its own mode, so the two never share a symbol.
+// The admission recurrence, one body for K9 and K11: admit_loop<false> is K9
+// (the demotion stats against the speculative node c0; a ClusterPolicy, the
+// cluster kernel in csrc/wave.cu), admit_loop<true> is K11 (the gang
+// checkpoint and rollback, no demotion stats; one persistent block of
+// ADMIT_THREADS, admit_kernel below, csrc/workloads.cu).
 // ---------------------------------------------------------------------------
 
 constexpr int ADMIT_THREADS = 1024;
@@ -1722,10 +2531,112 @@ __device__ inline void dra_commit(const WorkloadsArgs& k, int N, int p, int choi
   }
 }
 
+// The pods in order: per pod, pod_tables, the shared step (with the verdict's
+// pieces at the speculative node for K9), the commit of the carries and the
+// usage (by the policy that owns the chosen node), then the outputs from the
+// policy's leader.  The gang checkpoint (K11) is one block's.
+template <bool kGangs, class Pol>
+__device__ void admit_loop(const GangScanArgs& a, const WaveArgs& w, const WorkloadsArgs& k, const Region& r,
+                           const step::StepScratch& sc, const step::StepShared& sh, Pol& pol) {
+  using namespace step;
+  const int tid = threadIdx.x;
+  int landed = 0;  // K11: the same in every thread, each reads the step's choice
+  for (int p = 0; p < a.P; ++p) {
+    int gid = -1;
+    bool is_first = false;
+    if constexpr (kGangs) {
+      gid = k.gang_id[p];
+      is_first = gid >= 0 && k.gang_first[p];
+      if (is_first) {  // the state before the first member's own step
+        checkpoint(a, w, k, r, true);
+        __syncthreads();
+      }
+    }
+    int choice = ABSENT;
+    pol.stage_pod(a, p);
+    if (!a.valid[p]) {  // a pad row: nothing feasible, nothing committed
+      if (pol.leader()) {
+        write_step(a, p, StepOut{ABSENT, 0, {0, 0, 0, 0, 0, 0, 0, 0, 0}});
+        if constexpr (!kGangs) {
+          w.kinds[p] = DEMOTE_NONE;
+          w.cterms[p] = -1;
+        }
+      }
+    } else {
+      const unsigned char* dra_row = nullptr;
+      if constexpr (kGangs) {
+        if (k.dra_match != nullptr) {  // the pod's DRA verdict per node, its port lane
+          const dra::PodRows dr = dra_rows(k, a.N, p);
+          unsigned long long* const words =
+              k.dra_scratch == nullptr ? nullptr : k.dra_scratch + (long long)tid * dra::scratch_words(k.DD);
+          for (int n = tid; n < a.N; n += blockDim.x)
+            k.dra_row[n] = dra::node_verdict_any(dr, k.free, k.claim_node, n, words);
+          dra_row = k.dra_row;
+          __syncthreads();
+        }
+      }
+      pol.begin_pod();
+      pol.stage_vals(a, w, p);
+      pod_tables(a, w, r, p, sc.nodes, pol);
+      const int spec = kGangs ? -1 : w.c0[p];
+      const auto pv = pol.vals(a, &w, p);
+      const StepOut out = pod_step_block(a, p, WaveDyn<decltype(pv)>{a, w, r, p, dra_row, pol.planes(a, p), pv},
+                                         *r.any_dyn != 0, sc, sh, spec, true, pol);
+      choice = out.choice;
+      if (choice >= 0) commit_carries(a, w, r, p, choice, sc.nodes, pol);
+      if (tid == 0 && choice >= 0 && pol.owns(choice)) commit_usage(a, sc.use, p, choice);
+      if (pol.leader()) {
+        if constexpr (kGangs) {
+          k.assigned[p] = choice;
+          if (k.dra_match != nullptr && choice >= 0) dra_commit(k, a.N, p, choice);
+        } else {  // the demotion, from the pre-commit verdict at the speculative node
+          int kind = DEMOTE_NONE, cterm = -1;
+          if (choice != spec) {
+            if (spec < 0) {
+              kind = DEMOTE_UPGRADE;
+            } else {
+              int at[6];
+              pol.at_flags(sh, spec, at);
+              if (!at[0]) kind = DEMOTE_PORTS;
+              else if (!at[1]) kind = DEMOTE_SPREAD;
+              else if (!at[2]) kind = DEMOTE_AFFINITY;
+              else if (a.check_fit && !at[3]) kind = DEMOTE_FIT;
+              else kind = DEMOTE_SCORE;
+              cterm = kind == DEMOTE_SPREAD ? at[4] : (kind == DEMOTE_AFFINITY ? at[5] : -1);
+            }
+          }
+          w.kinds[p] = kind;
+          w.cterms[p] = cterm;
+        }
+        write_step(a, p, out);
+      }
+      pol.advance(a, out);
+      pol.end_pod();
+    }
+    bool fail = false;
+    if constexpr (kGangs) {
+      landed = (is_first ? 0 : landed) + (gid >= 0 && choice >= 0 ? 1 : 0);
+      const bool is_last = gid >= 0 && k.gang_last[p];
+      fail = is_last && landed < k.gang_need[p];
+      if (is_last && tid == 0 && gid < k.g_cap) {
+        k.gang_admit[gid] = fail ? 0 : 1;
+        k.gang_landed[gid] = landed;
+      }
+    }
+    __syncthreads();  // the commits are visible to every thread of the block
+    if (fail) {  // K11: the gang rolls back whole
+      checkpoint(a, w, k, r, false);
+      __syncthreads();
+    }
+  }
+}
+
+// K11's kernel: one persistent block of ADMIT_THREADS over all N nodes.
 template <bool kGangs>
 __global__ void __launch_bounds__(ADMIT_THREADS)
     admit_kernel(const GangScanArgs a, const WaveArgs w, const WorkloadsArgs k) {
   using namespace step;
+  static_assert(kGangs, "K9 is the cluster kernel of csrc/wave.cu");
   // dynamic: s_wfx [C] (int64), s_min [C], s_ndom [C], then the per-pod
   // region when sums_smem and the carries when carry_smem
   extern __shared__ long long s_dyn[];
@@ -1751,112 +2662,33 @@ __global__ void __launch_bounds__(ADMIT_THREADS)
   if (w.sums_smem)  // the domain stamps start at 0 (global ones: the wrapper)
     for (long long i = tid; i < (long long)C * w.Dsp; i += blockDim.x) sums[2LL * C * w.Dsp + i] = 0;
   const Region r = make_region(a, w, sums, carries);
-  const StepScratch sc{a.feas, a.ip_raw, a.sp_raw, a.sp_cnt, r.seen, w.Dsp};
-  if constexpr (kGangs) {
-    // the first gang member that saves and the first that may restore: the
-    // checkpoint starts as the initial state (the reference's carry), which
-    // only a gang whose last member comes before any first member reads;
-    // plan_batch never lays one out, so the copy is normally skipped
-    __shared__ int s_order[2];
-    if (tid == 0) s_order[0] = s_order[1] = a.P;
-    for (int i = tid; i < a.P; i += blockDim.x) k.assigned[i] = ABSENT;
-    for (int i = tid; i < k.g_cap; i += blockDim.x) {
-      k.gang_admit[i] = -1;
-      k.gang_landed[i] = 0;
-    }
-    __syncthreads();
-    for (int i = tid; i < a.P; i += blockDim.x)
-      if (k.gang_id[i] >= 0) {
-        if (k.gang_first[i]) atomicMin(&s_order[0], i);
-        if (k.gang_last[i]) atomicMin(&s_order[1], i);
-      }
-    __syncthreads();
-    if (s_order[1] < s_order[0]) checkpoint(a, w, k, r, true);
+  const StepScratch sc = global_scratch(a, a.feas, a.ip_raw, a.sp_raw, a.sp_cnt, r.seen, w.Dsp);
+  // the first gang member that saves and the first that may restore: the
+  // checkpoint starts as the initial state (the reference's carry), which
+  // only a gang whose last member comes before any first member reads;
+  // plan_batch never lays one out, so the copy is normally skipped
+  __shared__ int s_order[2];
+  if (tid == 0) s_order[0] = s_order[1] = a.P;
+  for (int i = tid; i < a.P; i += blockDim.x) k.assigned[i] = ABSENT;
+  for (int i = tid; i < k.g_cap; i += blockDim.x) {
+    k.gang_admit[i] = -1;
+    k.gang_landed[i] = 0;
   }
   __syncthreads();
-
-  int landed = 0;  // K11: the same in every thread, each reads the step's choice
-  for (int p = 0; p < a.P; ++p) {
-    int gid = -1;
-    bool is_first = false;
-    if constexpr (kGangs) {
-      gid = k.gang_id[p];
-      is_first = gid >= 0 && k.gang_first[p];
-      if (is_first) {  // the state before the first member's own step
-        checkpoint(a, w, k, r, true);
-        __syncthreads();
-      }
+  for (int i = tid; i < a.P; i += blockDim.x)
+    if (k.gang_id[i] >= 0) {
+      if (k.gang_first[i]) atomicMin(&s_order[0], i);
+      if (k.gang_last[i]) atomicMin(&s_order[1], i);
     }
-    int choice = ABSENT;
-    if (!a.valid[p]) {  // a pad row: nothing feasible, nothing committed
-      if (tid == 0) {
-        write_step(a, p, StepOut{ABSENT, 0, {0, 0, 0, 0, 0, 0, 0, 0, 0}});
-        if constexpr (!kGangs) {
-          w.kinds[p] = DEMOTE_NONE;
-          w.cterms[p] = -1;
-        }
-      }
-    } else {
-      const unsigned char* dra_row = nullptr;
-      if constexpr (kGangs) {
-        if (k.dra_match != nullptr) {  // the pod's DRA verdict per node, its port lane
-          const dra::PodRows dr = dra_rows(k, a.N, p);
-          unsigned long long* const words =
-              k.dra_scratch == nullptr ? nullptr : k.dra_scratch + (long long)tid * dra::scratch_words(k.DD);
-          for (int n = tid; n < a.N; n += blockDim.x)
-            k.dra_row[n] = dra::node_verdict_any(dr, k.free, k.claim_node, n, words);
-          dra_row = k.dra_row;
-          __syncthreads();
-        }
-      }
-      pod_tables(a, w, r, p);
-      const int spec = kGangs ? -1 : w.c0[p];
-      const StepOut out = pod_step_block(a, p, WaveDyn{a, w, r, p, dra_row}, *r.any_dyn != 0, sc, sh, spec);
-      choice = out.choice;
-      if (choice >= 0) commit_carries(a, w, r, p, choice);
-      if (tid == 0) {
-        if constexpr (kGangs) {
-          k.assigned[p] = choice;
-          if (k.dra_match != nullptr && choice >= 0) dra_commit(k, a.N, p, choice);
-        } else {  // the demotion, from the pre-commit verdict at the speculative node
-          int kind = DEMOTE_NONE, cterm = -1;
-          if (choice != spec) {
-            if (spec < 0) kind = DEMOTE_UPGRADE;
-            else if (!s_at[0]) kind = DEMOTE_PORTS;
-            else if (!s_at[1]) kind = DEMOTE_SPREAD;
-            else if (!s_at[2]) kind = DEMOTE_AFFINITY;
-            else if (a.check_fit && !s_at[3]) kind = DEMOTE_FIT;
-            else kind = DEMOTE_SCORE;
-            cterm = kind == DEMOTE_SPREAD ? s_at[4] : (kind == DEMOTE_AFFINITY ? s_at[5] : -1);
-          }
-          w.kinds[p] = kind;
-          w.cterms[p] = cterm;
-        }
-        write_step(a, p, out);
-        commit_usage(a, p, choice);
-        advance_cursor(a, out);
-      }
-    }
-    bool fail = false;
-    if constexpr (kGangs) {
-      landed = (is_first ? 0 : landed) + (gid >= 0 && choice >= 0 ? 1 : 0);
-      const bool is_last = gid >= 0 && k.gang_last[p];
-      fail = is_last && landed < k.gang_need[p];
-      if (is_last && tid == 0 && gid < k.g_cap) {
-        k.gang_admit[gid] = fail ? 0 : 1;
-        k.gang_landed[gid] = landed;
-      }
-    }
-    __syncthreads();  // the commits are visible to every thread of the block
-    if (fail) {  // K11: the gang rolls back whole
-      checkpoint(a, w, k, r, false);
-      __syncthreads();
-    }
-  }
+  __syncthreads();
+  if (s_order[1] < s_order[0]) checkpoint(a, w, k, r, true);
+  __syncthreads();
+  BlockPolicy pol{0, a.N};
+  admit_loop<kGangs>(a, w, k, r, sc, sh, pol);
 }
 
-// The dynamic shared memory one admission block may take on this device:
-// the opt-in per-block limit less the kernel's static shared memory.
+// The dynamic shared memory one K11 block may take on this device: the
+// opt-in per-block limit less the kernel's static shared memory.
 template <bool kGangs>
 int admit_smem_max() {
   int dev = 0, optin = 0;
@@ -1867,11 +2699,10 @@ int admit_smem_max() {
   return optin - (int)fa.sharedSizeBytes;
 }
 
-// Enqueues the admission kernel on `stream` and returns the launch status
+// Enqueues K11's kernel on `stream` and returns the launch status
 // (cudaGetLastError).
 template <bool kGangs>
 int admit_launch(const GangScanArgs& a, const WaveArgs& w, const WorkloadsArgs& k, void* stream) {
-  if (!kGangs && a.P == 0) return 0;
   const size_t smem = admit_smem(a, w);
   cudaError_t e = cudaFuncSetAttribute(admit_kernel<kGangs>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;

@@ -22,9 +22,8 @@
 // step (the planner's target bonus, reference ops/gang.py:901-902); K8 and
 // K11 take it, K5 and K9 get a null pointer.
 //
-// K9: the serial recurrence choice_i = F_i(S + sum_{j<i} delta(choice_j)),
-// in ONE persistent block of 1024 threads that loops over the pods, as K5
-// does.  It carries per-term per-node counts instead of a peer list:
+// K9: the serial recurrence choice_i = F_i(S + sum_{j<i} delta(choice_j)).
+// It carries per-term per-node counts instead of a peer list:
 //   cnt_sp  [Tsp, N]  committed pods matching spread term t, per node
 //   cnt_ip  [Tip, N]  committed pods matching inter-pod term t, per node
 //   rev_cnt [Tip, N]  committed pods' own term t, spread over its topology
@@ -46,16 +45,48 @@
 //   * attributes a demotion (kind, first violating slot) from the pre-commit
 //     verdict at the speculative node;
 //   * advances the sampling window's cursor (reference :974).
-// The carries sit in dynamic shared memory when they fit (the card's opt-in
-// limit, capped by ops/wave.py ADMIT_SMEM_CAP), else in a global scratch
-// row; the per-pod sums and lists likewise.
+// The pods' steps are serial; the nodes of one step are not.  So K9 is ONE
+// thread-block cluster (cudaLaunchKernelEx with a cluster dimension) of G
+// CTAs of CLUSTER_THREADS on neighbouring SMs: G = 16 where
+// cudaOccupancyMaxActiveClusters admits a cluster of 16 at the kernel's
+// shared memory (a non-portable size), else 8; ops/wave.py
+// ADMIT_CLUSTER_CAP caps it.  CTA r owns the nodes [r S, r S + S), S a
+// multiple of 32, and keeps in its own shared memory, where they fit (the
+// card's opt-in limit, or ops/wave.py ADMIT_SMEM_CAP; otherwise global
+// memory):
+//   * its exchange slab (the per-domain sums, the min-match parts, the
+//     domain flags, the window's map, and every CTA's pushed rows of them);
+//   * its slice's usage rows (requested / nonzero / num_pods, staged in at
+//     the start and written back at the end) and the step's per-node rows
+//     (feas, ip_raw, sp_raw, sp_cnt);
+//   * its slice's node statics (allocatable, allowed_pods, node_valid,
+//     visit_rank, the dom_ids rows), copied once, and each pod's planes
+//     (its [P, N] and slot rows of the statics, ClusterPolicy::issue): one
+//     thread's bulk copies (cp.async.bulk) into one of two buffers complete
+//     on an mbarrier, pod p + 1's issued when pod p starts (ADMIT_STAGE
+//     False, or rows not 16-byte aligned: the global rows);
+//   * its carry columns (the mixed shape's Tip = 201 terms do not fit).
+// Each pod's small per-slot values (StagedVals) are copied in at its start.
+// Every node loop of the step, of pod_tables and of commit_carries walks
+// the slice, and the step's block-wide parts cross the cluster in four
+// exchanges a pod (five with the sampling window), each CTA pushing its
+// part into every CTA's shared memory with st.async on an mbarrier
+// (ktpu::step::ClusterPolicy): pod_tables' sums with the spread
+// min-match, the 15-value reduction with the distinct counted domains
+// (per-CTA flags, ORed as bits), the window's verdict bits (every CTA
+// walks its own copy of the N-bit map, so all agree on the stop and
+// advance their cursors alike), the spread min / max / count and the
+// argmax.  The usage and carry commits are made by the CTA that owns the
+// chosen node, rev_cnt's by every CTA over its slice.  The verdict's pieces
+// at the speculative node are pushed to rank 0 by the CTA that owns it;
+// rank 0 writes every output.  No combine is order-dependent (int64 sums,
+// mins, maxes, the argmax's total order), so the choice is the reference's.
+// The rank-0 leader's clock per phase comes back in WaveArgs::admit_info.
 //
-// K9 is ktpu::wave::admit_kernel<false> (csrc/ktpu.cuh), whose gang mode is
-// K11 (csrc/workloads.cu).
-//
-// Bound on the H100: K9 is the recurrence, as K5 (one SM of 132, ~6 block
-// reductions and their barriers per pod); K8 fills the card but repeats one
-// pod's reads of its [P, N] static rows per block.
+// Bound on the H100: K9 is the recurrence: per pod four exchanges and one
+// pass over a slice of N / G nodes per step phase from shared memory, on G
+// SMs of 132; K8 fills the card but repeats one pod's reads of its [P, N]
+// static rows per block.
 #include "ktpu.cuh"
 
 using namespace ktpu;
@@ -93,18 +124,280 @@ __global__ void __launch_bounds__(SPEC_THREADS) wave_speculate_kernel(const Gang
   const long long N = a.N;
   const StepShared sh{s_buf, s_dyn, reinterpret_cast<int*>(s_dyn + C), reinterpret_cast<int*>(s_dyn + C) + C,
                       s_best_v, s_best_i, nullptr};
-  const StepScratch sc{a.feas + p * N, a.ip_raw + p * N, a.sp_raw + p * N, a.sp_cnt + p * C * N,
-                       w.sums + (long long)p * C * w.Dsp, w.Dsp};
-  const StepOut out = pod_step_block(a, p, ZeroDyn{w.lane ? w.lane + p * N : nullptr}, false, sc, sh, -1, false);
+  const StepScratch sc = global_scratch(a, a.feas + p * N, a.ip_raw + p * N, a.sp_raw + p * N, a.sp_cnt + p * C * N,
+                                        w.sums + (long long)p * C * w.Dsp, w.Dsp);
+  BlockPolicy pol{0, a.N};
+  const StepOut out = pod_step_block(a, p, ZeroDyn{w.lane ? w.lane + p * N : nullptr}, false, sc, sh, -1, false, pol);
   if (threadIdx.x == 0) a.chosen[p] = out.choice;
 }
 
 size_t speculate_smem(const GangScanArgs& a) { return (size_t)a.C * (sizeof(long long) + 2 * sizeof(int)); }
 
-}  // namespace
+// ---- K9: the cluster ------------------------------------------------------
 
-// The dynamic shared memory one K9 block may take on this device.
-extern "C" int ktpu_wave_admit_smem_max() { return admit_smem_max<false>(); }
+// The nodes of one CTA's slice: N / G rounded up to a multiple of 32 (a
+// window-map word has one writer).
+int slice_nodes(int N, int G) { return ((N + G - 1) / G + 31) / 32 * 32; }
+
+// The ints of one CTA's exchange slab: its partial sums (g1p, g2p [C, Dsp],
+// gfp [AT, D2], anyp) with its min-match parts ([C, Dsp] and [C]:
+// `part_cells`) and every CTA's [G, part_cells], its
+// counted-domain flags [C, Dsp] and every CTA's as bits [G, C, Dw], the window's map
+// [ceil(N / 32)], then its totals (g1, g2, gf, any_dyn, the min-match
+// parts), the term lists [Tip] and [Tpt] and their two lengths.
+__host__ __device__ inline long long part_cells(const GangScanArgs& a, const WaveArgs& w) {
+  return 3LL * a.C * w.Dsp + (long long)a.AT * w.D2 + 1 + a.C;
+}
+__host__ __device__ inline int dom_words(const WaveArgs& w) { return (w.Dsp + 31) >> 5; }
+__host__ __device__ inline long long slab_cells(const GangScanArgs& a, const WaveArgs& w) {
+  return (2LL + w.cluster) * part_cells(a, w) + (long long)a.C * w.Dsp + (long long)w.cluster * a.C * dom_words(w) +
+         ((a.N + 31) >> 5) + w.Tip + w.Tpt + 2;
+}
+
+// Bytes of one pod's staged planes for an S-node slice (ClusterPolicy::
+// planes' layout): five int64 rows, 3 C + AT int32 rows, 9 + 3 C byte rows.
+__host__ __device__ inline long long stage_bytes(const GangScanArgs& a, int S) {
+  return (49LL + 15LL * a.C + 4LL * a.AT) * S;
+}
+
+// Byte offsets of K9's dynamic shared memory (only the parts placed there),
+// each part 16-byte aligned: s_wfx [C] (int64), s_min [C], s_ndom [C], the
+// pod's values (StagedVals: ints, then int64s); the
+// exchange slab (sums_smem); the slice's usage rows requested [S, Rn],
+// nonzero [S, 2], num_pods [S] and step rows ip_raw / sp_raw [S] (int64),
+// sp_cnt [C, S], feas [S] (rows_smem); its node statics allocatable
+// [S, Rn], allowed_pods [S], visit_rank [S], dom_ids [K, S], node_valid [S]
+// and two pods' staged planes (stage); the carries [Tsp + 2 Tip + Tpt, S]
+// (carry_smem).
+struct ClusterLayout {
+  size_t wfx, smin, sndom, vals_i, vals_l, slab, req, nz, pods, ip_raw, sp_raw, sp_cnt, feas, alloc, allowed, vrank, dom, valid,
+      stage, carries, bytes;
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(const GangScanArgs& a, const WaveArgs& w) {
+  const size_t S = w.slice, C = a.C;
+  ClusterLayout l{};
+  size_t o = 0;
+  auto take = [&](size_t bytes) {
+    const size_t at = o;
+    o = (o + bytes + 15) / 16 * 16;
+    return at;
+  };
+  l.wfx = take(8 * C);
+  l.smin = take(4 * C);
+  l.sndom = take(4 * C);
+  l.vals_i = take(4 * (size_t)StagedVals::ints(a.C, a.AT, a.Rp, w.Tsp, w.Tip));
+  l.vals_l = take(8 * (size_t)StagedVals::longs(a.C, a.AT, w.Tip));
+  if (w.sums_smem) l.slab = take(4 * (size_t)w.xch_cells);
+  if (w.rows_smem) {
+    l.req = take(4 * S * a.Rn);
+    l.nz = take(8 * S);
+    l.pods = take(4 * S);
+    l.ip_raw = take(8 * S);
+    l.sp_raw = take(8 * S);
+    l.sp_cnt = take(4 * C * S);
+    l.feas = take(S);
+  }
+  if (w.stage) {
+    l.alloc = take(4 * S * a.Rn);
+    l.allowed = take(4 * S);
+    l.vrank = take(4 * S);
+    l.dom = take(4 * S * a.K);
+    l.valid = take(S);
+    l.stage = take(2 * (size_t)stage_bytes(a, w.slice));
+  }
+  if (w.carry_smem) l.carries = take(4 * S * ((size_t)w.Tsp + 2 * (size_t)w.Tip + w.Tpt));
+  l.bytes = o;
+  return l;
+}
+
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1) admit_cluster_kernel(const GangScanArgs a, const WaveArgs w) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  __shared__ ClusterShared s_cl;
+  __shared__ int s_at[6];
+  __shared__ unsigned long long s_mbar[2];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), G = (int)cluster.num_blocks();
+  const int tid = threadIdx.x;
+  const int N = a.N, C = a.C, AT = a.AT, S = w.slice;
+  const int lo = min(N, rank * S), hi = min(N, lo + S), len = hi - lo;
+  const ClusterLayout l = cluster_layout(a, w);
+  const StepShared sh{nullptr, reinterpret_cast<long long*>(s_raw + l.wfx), reinterpret_cast<int*>(s_raw + l.smin),
+                      reinterpret_cast<int*>(s_raw + l.sndom), nullptr, nullptr, s_at};
+
+  // the exchange slab, then the region over it and the carries
+  const Xch x{(long long)w.xch_cells, rank, w.sums_smem};
+  int* const slab = w.sums_smem ? reinterpret_cast<int*>(s_raw + l.slab) : w.sums + (long long)rank * w.xch_cells;
+  const long long cd = (long long)C * w.Dsp, xp = part_cells(a, w);
+  const int Dw = dom_words(w);
+  Region r;
+  r.g1p = slab;
+  r.g2p = r.g1p + cd;
+  r.gfp = r.g2p + cd;
+  r.anyp = r.gfp + (long long)AT * w.D2;
+  int* const recv_part = r.g1p + xp;
+  int* const flags = recv_part + (long long)G * xp;
+  int* const recv_bits = flags + cd;
+  int* const wmap = recv_bits + (long long)G * C * Dw;
+  r.g1 = wmap + ((N + 31) >> 5);
+  r.g2 = r.g1 + cd;
+  r.gf = r.g2 + cd;
+  r.any_dyn = r.gf + (long long)AT * w.D2;
+  r.rev = r.g1 + xp;
+  r.conf = r.rev + w.Tip;
+  r.n_rev = r.conf + w.Tpt;
+  r.n_conf = r.n_rev + 1;
+  r.seen = nullptr;
+  int* carries = w.carries;
+  r.clo = 0;
+  r.cld = N;
+  if (w.carry_smem) {
+    carries = reinterpret_cast<int*>(s_raw + l.carries);
+    r.clo = lo;
+    r.cld = S;
+    for (long long i = tid; i < ((long long)w.Tsp + 2LL * w.Tip + w.Tpt) * S; i += blockDim.x) carries[i] = 0;
+  }
+  r.cnt_sp = carries;
+  r.cnt_ip = r.cnt_sp + (long long)w.Tsp * r.cld;
+  r.rev_cnt = r.cnt_ip + (long long)w.Tip * r.cld;
+  r.occ_pt = r.rev_cnt + (long long)w.Tip * r.cld;
+
+  // the step's rows and the usage rows: the slice in shared memory, staged
+  // in from the usage state, or the global rows; likewise the node statics
+  StepScratch sc = global_scratch(a, a.feas, a.ip_raw, a.sp_raw, a.sp_cnt, nullptr, 0);
+  if (w.rows_smem) {
+    sc.feas = s_raw + l.feas;
+    sc.ip_raw = reinterpret_cast<long long*>(s_raw + l.ip_raw);
+    sc.sp_raw = reinterpret_cast<long long*>(s_raw + l.sp_raw);
+    sc.sp_cnt = reinterpret_cast<int*>(s_raw + l.sp_cnt);
+    sc.lo = lo;
+    sc.ld = S;
+    sc.use = UsageRows{reinterpret_cast<int*>(s_raw + l.req), reinterpret_cast<int*>(s_raw + l.nz),
+                       reinterpret_cast<int*>(s_raw + l.pods), lo};
+    for (int i = tid; i < len * a.Rn; i += blockDim.x) sc.use.requested[i] = a.requested[(long long)lo * a.Rn + i];
+    for (int i = tid; i < 2 * len; i += blockDim.x) sc.use.nonzero[i] = a.nonzero[2LL * lo + i];
+    for (int i = tid; i < len; i += blockDim.x) sc.use.num_pods[i] = a.num_pods[lo + i];
+  }
+  if (w.stage) {
+    int* const alloc = reinterpret_cast<int*>(s_raw + l.alloc);
+    int* const allowed = reinterpret_cast<int*>(s_raw + l.allowed);
+    int* const vrank = reinterpret_cast<int*>(s_raw + l.vrank);
+    int* const dom = reinterpret_cast<int*>(s_raw + l.dom);
+    unsigned char* const valid = s_raw + l.valid;
+    for (int i = tid; i < len * a.Rn; i += blockDim.x) alloc[i] = a.allocatable[(long long)lo * a.Rn + i];
+    for (int i = tid; i < len; i += blockDim.x) {
+      allowed[i] = a.allowed_pods[lo + i];
+      vrank[i] = a.visit_rank != nullptr ? a.visit_rank[lo + i] : -1;
+      valid[i] = a.node_valid[lo + i];
+    }
+    for (long long i = tid; i < (long long)a.K * len; i += blockDim.x) {
+      const long long k = i / len, n = i - k * len;
+      dom[k * S + n] = a.dom_ids[k * N + lo + n];
+    }
+    sc.nodes = NodeRows{alloc, allowed, valid, a.visit_rank != nullptr ? vrank : nullptr, dom, lo, S, a.K, a.Rn};
+  }
+  if (tid == 0) {  // the staging's and the exchanges' mbarriers, one arrival a phase
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(smem_u32(s_mbar + b), 1);
+      mbar_init(smem_u32(s_cl.xbar + b), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  if (tid < CL_PHASES) s_cl.clock[tid] = 0;
+  ClusterPolicy pol{};
+  pol.lo = lo;
+  pol.hi = hi;
+  pol.S = S;
+  pol.rank = rank;
+  pol.G = G;
+  pol.cur = a.sample_k > 0 ? *a.sample_start : 0;
+  pol.cs = &s_cl;
+  pol.flags = flags;
+  pol.recv_bits = recv_bits;
+  pol.recv_part = recv_part;
+  pol.wmap = wmap;
+  pol.s_min = sh.s_min;
+  pol.C = C;
+  pol.Dsp = w.Dsp;
+  pol.Dw = Dw;
+  pol.x = x;
+  pol.stage = w.stage ? s_raw + l.stage : nullptr;
+  pol.mbar = s_mbar;
+  pol.stage_bytes = stage_bytes(a, S);
+  pol.sv = StagedVals{reinterpret_cast<int*>(s_raw + l.vals_i), reinterpret_cast<long long*>(s_raw + l.vals_l), C,
+                      AT, a.Rp, w.Tsp, w.Tip};
+  cluster_barrier();  // every CTA of the cluster runs before any DSMEM access
+  if (w.stage && tid == 0 && a.P > 0) pol.issue(a, 0);
+  admit_loop<false>(a, w, WorkloadsArgs{}, r, sc, sh, pol);
+
+  if (w.rows_smem) {  // the slice's usage rows back to the usage state
+    const UsageRows& use = sc.use;
+    for (int i = tid; i < len * a.Rn; i += blockDim.x) a.requested[(long long)lo * a.Rn + i] = use.requested[i];
+    for (int i = tid; i < 2 * len; i += blockDim.x) a.nonzero[2LL * lo + i] = use.nonzero[i];
+    for (int i = tid; i < len; i += blockDim.x) a.num_pods[lo + i] = use.num_pods[i];
+  }
+  if (pol.leader()) {
+    if (a.sample_k > 0) *a.sample_start = pol.cur;
+    if (w.admit_info != nullptr) {
+      w.admit_info[0] = G;
+      w.admit_info[1] = pol.syncs;
+      for (int k = 0; k < CL_PHASES; ++k) w.admit_info[2 + k] = (int)(s_cl.clock[k] >> 4);
+    }
+  }
+  cluster_barrier();  // no CTA leaves while a peer may still read its shared memory
+}
+
+// The planes ClusterPolicy::issue copies, each 16-byte aligned (a bulk
+// copy's rule; N % 32 == 0 keeps every slice's rows so).
+bool stage_aligned(const GangScanArgs& a) {
+  const void* planes[] = {a.sc_taint, a.sc_nodeaff, a.sc_image, a.extra_score, a.sp_dom_cnt, a.sp_node_cnt,
+                          a.sp_sc_dom, a.sp_te, a.sp_dom_pres, a.sp_counting, a.static_mask, a.sp_all_keys,
+                          a.d_unsched, a.d_nodename, a.d_taints, a.d_nodeaff, a.d_ports, a.d_extra,
+                          a.AT ? a.ip_sym : nullptr, a.AT ? a.ip_dom_cnt : nullptr,
+                          a.AT ? a.ip_viol_existing : nullptr};
+  for (const void* p : planes)
+    if (reinterpret_cast<unsigned long long>(p) % 16) return false;
+  return a.N % 32 == 0;
+}
+
+// K9's placement at cluster size G: slice, exchange slab, and, in that order
+// while they fit in `budget` bytes beside the fixed s_wfx / s_min / s_ndom,
+// the exchange slab, the slice's rows, its node statics with the pods'
+// staged planes (when `stage` allows it), and its carries in shared memory.
+void place(const GangScanArgs& a, WaveArgs& w, int G, long long budget, bool stage) {
+  w.cluster = G;
+  w.slice = slice_nodes(a.N, G);
+  w.xch_cells = (int)slab_cells(a, w);
+  w.sums_smem = w.rows_smem = w.stage = w.carry_smem = 0;
+  int* const flags[4] = {&w.sums_smem, &w.rows_smem, &w.stage, &w.carry_smem};
+  for (int* f : flags) {
+    if (f == &w.stage && !stage) continue;
+    *f = 1;
+    if ((long long)cluster_layout(a, w).bytes > budget) {
+      *f = 0;
+      if (f != &w.stage) return;
+    }
+  }
+}
+
+cudaLaunchConfig_t cluster_config(const WaveArgs& w, size_t smem, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(w.cluster, 1, 1);
+  cfg.blockDim = dim3(CLUSTER_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = w.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+}  // namespace
 
 // Enqueues K8 on `stream` and returns the launch status (cudaGetLastError).
 extern "C" int ktpu_wave_speculate(const GangScanArgs* args, const WaveArgs* wave, void* stream) {
@@ -117,7 +410,53 @@ extern "C" int ktpu_wave_speculate(const GangScanArgs* args, const WaveArgs* wav
   return (int)cudaGetLastError();
 }
 
-// Enqueues K9 on `stream` and returns the launch status (cudaGetLastError).
+// K9's launch plan into `wave`: the cluster size (16 where the card admits
+// one cluster of 16 at the kernel's shared memory and cluster_cap allows
+// it, else 8), the slice and what sits in shared memory under
+// min(smem_cap, the card's opt-in limit less the static shared memory);
+// the pods' planes are staged only with `stage` and 16-byte aligned rows.
+// Returns a CUDA status.
+extern "C" int ktpu_wave_admit_plan(const GangScanArgs* args, WaveArgs* wave, int cluster_cap, int smem_cap,
+                                    int stage) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, admit_cluster_kernel);
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(admit_cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  const long long limit = (long long)optin - (long long)fa.sharedSizeBytes;
+  const long long budget = smem_cap < limit ? smem_cap : limit;
+  const bool staged = stage && stage_aligned(*args);
+  if (cluster_cap >= CLUSTER_MAX) {
+    place(*args, *wave, CLUSTER_MAX, budget, staged);
+    const size_t smem = cluster_layout(*args, *wave).bytes;
+    e = cudaFuncSetAttribute(admit_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int clusters = 0;
+    if (e == cudaSuccess) {
+      cudaLaunchAttribute attr[1];
+      const cudaLaunchConfig_t cfg = cluster_config(*wave, smem, nullptr, attr);
+      e = cudaOccupancyMaxActiveClusters(&clusters, admit_cluster_kernel, &cfg);
+    }
+    if (e == cudaSuccess && clusters >= 1) return 0;
+    cudaGetLastError();  // the query's error is not the launch's
+  }
+  place(*args, *wave, 8, budget, staged);  // the portable size; a launch the card refuses raises
+  return 0;
+}
+
+// Enqueues K9 (one cluster, as ktpu_wave_admit_plan laid it out) on
+// `stream` and returns the launch status (cudaGetLastError).
 extern "C" int ktpu_wave_admit(const GangScanArgs* args, const WaveArgs* wave, void* stream) {
-  return admit_launch<false>(*args, *wave, WorkloadsArgs{}, stream);
+  if (args->P == 0) return 0;
+  const size_t smem = cluster_layout(*args, *wave).bytes;
+  cudaError_t e = cudaFuncSetAttribute(admit_cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(admit_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(*wave, smem, static_cast<cudaStream_t>(stream), attr);
+  e = cudaLaunchKernelEx(&cfg, admit_cluster_kernel, *args, *wave);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }

@@ -7,8 +7,10 @@
 // allocation carries, :297-432); the speculation pass (:287-295) is the
 // wave's, so it is K8 (csrc/wave.cu) with K14's DRA lane (csrc/dra.cu).  The recurrence is K9's: K11 is
 // ktpu::wave::admit_kernel<true> (csrc/ktpu.cuh), one persistent block of
-// 1024 threads that loops over the pods in plan_batch order, each step
-// ktpu::step::pod_step_block with the peers' counts read from the carries.
+// 1024 threads that runs ktpu::wave::admit_loop, the loop K9 runs on a
+// thread-block cluster, here with ktpu::step::BlockPolicy: over the pods in
+// plan_batch order, each step ktpu::step::pod_step_block with the peers'
+// counts read from the carries.
 // No host ports reach it (the workloads gate refuses them), so Tpt = 0, and
 // no demotion is attributed.
 //
@@ -39,7 +41,7 @@
 // node.  The checkpoint then also covers claim_node's CL ints and free's
 // N DD bytes.
 //
-// Bound on the H100: the recurrence, as K9 (one SM of 132; ~6 block
+// Bound on the H100: the recurrence, as K5 (one SM of 132; ~6 block
 // reductions and their barriers per pod); the checkpoint adds one
 // block-wide copy of ((Rn + 3 + Tsp + 2 Tip) N + P) int32s per gang, and a
 // second per gang that rolls back.  Rolling back by an undo log of the
@@ -51,7 +53,7 @@ using namespace ktpu::wave;
 // The dynamic shared memory one K11 block may take on this device.
 extern "C" int ktpu_workloads_admit_smem_max() { return admit_smem_max<true>(); }
 
-// The threads of one K11 (and K9) block: the rows of WorkloadsArgs.dra_scratch.
+// The threads of one K11 block: the rows of WorkloadsArgs.dra_scratch.
 extern "C" int ktpu_admit_threads() { return ADMIT_THREADS; }
 
 // Enqueues K11 on `stream` and returns the launch status (cudaGetLastError).

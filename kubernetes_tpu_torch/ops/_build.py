@@ -228,8 +228,11 @@ class GangScanArgs(ctypes.Structure):
 class WaveArgs(ctypes.Structure):
     """Mirror of csrc/ktpu.cuh WaveArgs (pointers, then ints)."""
 
-    _PTRS = "tid_sp rep_sp_p rep_sp_c tid_ip rep_ip_p rep_ip_u tid_pt port_conf c0 kinds cterms sums carries lane".split()
-    _INTS = "Tsp Tip Tpt W Dsp D2 hostname_key has_ports sums_smem carry_smem".split()
+    _PTRS = (
+        "tid_sp rep_sp_p rep_sp_c tid_ip rep_ip_p rep_ip_u tid_pt port_conf c0 kinds cterms sums carries lane "
+        "admit_info"
+    ).split()
+    _INTS = "Tsp Tip Tpt W Dsp D2 hostname_key has_ports sums_smem carry_smem cluster slice rows_smem xch_cells stage".split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
@@ -316,6 +319,9 @@ def load() -> ctypes.CDLL:
     for fn in ("ktpu_wave_speculate", "ktpu_wave_admit"):
         getattr(lib, fn).argtypes = [ctypes.POINTER(GangScanArgs), ctypes.POINTER(WaveArgs), vp]
         getattr(lib, fn).restype = ctypes.c_int
+    lib.ktpu_wave_admit_plan.argtypes = [ctypes.POINTER(GangScanArgs), ctypes.POINTER(WaveArgs), ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_int]
+    lib.ktpu_wave_admit_plan.restype = ctypes.c_int
     lib.ktpu_workloads_admit.argtypes = [ctypes.POINTER(GangScanArgs), ctypes.POINTER(WaveArgs),
                                          ctypes.POINTER(WorkloadsArgs), vp]
     lib.ktpu_workloads_admit.restype = ctypes.c_int
@@ -338,8 +344,7 @@ def load() -> ctypes.CDLL:
     u32 = ctypes.c_uint32
     lib.ktpu_tie_bits.argtypes = [u32, u32, u32, ctypes.c_int, ctypes.c_int, vp, vp]
     lib.ktpu_tie_bits.restype = ctypes.c_int
-    for fn in ("ktpu_gang_scan_smem_max", "ktpu_wave_admit_smem_max", "ktpu_workloads_admit_smem_max",
-               "ktpu_admit_threads"):
+    for fn in ("ktpu_gang_scan_smem_max", "ktpu_workloads_admit_smem_max", "ktpu_admit_threads"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
     lib.ktpu_error_string.argtypes = [ctypes.c_int]

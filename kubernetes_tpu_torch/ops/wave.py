@@ -30,7 +30,8 @@ the wrapper takes for CPU tensors; for CUDA tensors it launches the
 hand-written kernels (csrc/wave.cu) or raises:
 
   K8 wave_speculate   the speculation pass, one block per pod
-  K9 wave_admit       the admission pass, one persistent block
+  K9 wave_admit       the admission pass, one thread-block cluster of 8 or
+                      16 CTAs, each over a slice of the nodes
 
 The factored algebra below (``term_match_rows``, ``factored_*``) is kept one
 to one with the reference's functions of the same names.  Both passes take
@@ -79,9 +80,23 @@ DEMOTE_KINDS = {
     DEMOTE_PORTS: "ports",
 }
 
-# The most dynamic shared memory K9 may put its carries in (the card's own
-# limit applies below it); above it they go to global scratch rows.
+# The most dynamic shared memory K9 (a CTA of its cluster) and K11 may put
+# their per-pod sums, rows and carries in (the card's own limit applies below
+# it); above it they go to global scratch rows.
 ADMIT_SMEM_CAP = 1 << 30
+# The most CTAs in K9's cluster: 16 where the card admits a cluster of 16 at
+# the kernel's shared memory, else 8 (the portable size); 8 here forces 8.
+ADMIT_CLUSTER_CAP = 16
+# K9 stages each pod's [P, N] and slot rows of its slice into shared memory,
+# one pod ahead (bulk copies), and its node statics once; False reads them
+# from global memory.
+ADMIT_STAGE = True
+ADMIT_PHASES = 19  # csrc/ktpu.cuh CL_PHASES
+# K9's last launch: {"cluster": its CTAs, "staged": whether it staged the
+# planes, "info": int32 [2 + ADMIT_PHASES] on the card (the CTAs, the
+# cluster-wide exchanges over the batch, then the rank-0 leader's cycles / 16
+# per phase)}; read "info" after a synchronize.
+admit_stats: Dict[str, object] = {}
 
 
 # ---------------------------------------------------------------------------
@@ -753,19 +768,16 @@ def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=
     return c0
 
 
-def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, weights, check_fit,
-               has_ports, tid_pt, port_conf, nom, c0, kinds, cterms, smem_max: int, extra_score=None, mode=None):
-    """The argument blocks of a kernel that runs K9's admission recurrence
-    (K9, and K11 in ops/coscheduling.py): (GangScanArgs, WaveArgs, usage
-    state, (chosen, n_feas, reason_counts)).  The usage state starts as
-    copies of the cluster's rows.  The domain sums use DeviceCluster.dom_ids,
-    which numbers a key's domains as ip_cdv_tab does, so the table itself is
-    not read.  ``smem_max`` is the kernel's dynamic shared memory limit: the
-    per-pod sums and then the carries go to shared memory where they fit,
-    else to global scratch rows.  ``extra_score`` (i64 [P, N], or None)
-    adds to every node's total; ``mode`` (gang.step_mode, None: the default
-    branch) selects the step's branches, with the cursor in the usage
-    state."""
+def _admit_blocks(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, weights,
+                  check_fit, has_ports, tid_pt, port_conf, nom, c0, kinds, cterms, extra_score=None, mode=None):
+    """The argument blocks of the admission recurrence before its memory is
+    placed: (GangScanArgs, WaveArgs, usage state, (chosen, n_feas,
+    reason_counts)).  The usage state starts as copies of the cluster's rows.
+    The domain sums use DeviceCluster.dom_ids, which numbers a key's domains
+    as ip_cdv_tab does, so the table itself is not read.  ``extra_score``
+    (i64 [P, N], or None) adds to every node's total; ``mode``
+    (gang.step_mode, None: the default branch) selects the step's branches,
+    with the cursor in the usage state."""
     dev = dc.node_valid.device
     g = gang.GangStatics(*(t.contiguous() for t in g))
     P, N = g.static_mask.shape
@@ -787,13 +799,6 @@ def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_
                    feas=_zeros(dev, N, BOOL), ip_raw=_zeros(dev, N, I64), sp_raw=_zeros(dev, N, I64),
                    sp_cnt=_zeros(dev, C * N))
     a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom, extra_score, mode)
-    sums_cells = 3 * C * Dsp + AT * D2 + Tip + Tpt + 3
-    carry_cells = (Tsp + 2 * Tip + Tpt) * N
-    smem_max = min(smem_max, ADMIT_SMEM_CAP) - 16 * C
-    sums_smem = 4 * sums_cells <= smem_max
-    carry_smem = sums_smem and 4 * (sums_cells + carry_cells) <= smem_max
-    sums = _zeros(dev, 1 if sums_smem else sums_cells)
-    carries = _zeros(dev, 1 if carry_smem else carry_cells)
     w = _build.WaveArgs()
     gang._set_ptrs(w, dev, [
         ("tid_sp", tid_sp, I32, (P, tid_sp.shape[1])), ("rep_sp_p", rep_sp_p, I32, (Tsp,)),
@@ -801,13 +806,37 @@ def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_
         ("rep_ip_p", rep_ip_p, I32, (Tip,)), ("rep_ip_u", rep_ip_u, I32, (Tip,)),
         ("tid_pt", tid_pt, I32, (P, W)), ("port_conf", port_conf, BOOL, tuple(port_conf.shape)),
         ("c0", c0, I32, (P,)), ("kinds", kinds, I32, (P,)), ("cterms", cterms, I32, (P,)),
-        ("sums", sums, I32, None), ("carries", carries, I32, None),
     ])
     if (C and tid_sp.shape[1] != C) or (AT and tid_ip.shape[1] != AT):
         raise ValueError("admission: the term tables' slot axes differ from the statics'")
     w.Tsp, w.Tip, w.Tpt, w.W, w.Dsp, w.D2 = Tsp, Tip, Tpt, W, Dsp, D2
     w.hostname_key = int(hostname_key)
     w.has_ports = int(bool(has_ports))
+    return a, w, state, outs
+
+
+def _carry_cells(w, N: int) -> int:
+    return (w.Tsp + 2 * w.Tip + w.Tpt) * N
+
+
+def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, weights, check_fit,
+               has_ports, tid_pt, port_conf, nom, c0, kinds, cterms, smem_max: int, extra_score=None, mode=None):
+    """The argument blocks of K11 (ops/coscheduling.py), one block over all
+    N nodes: _admit_blocks, with the per-pod sums and then the carries in
+    shared memory where they fit under ``smem_max`` (the kernel's dynamic
+    shared memory limit), else in global scratch rows."""
+    a, w, state, outs = _admit_blocks(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
+                                      rep_ip_u, weights, check_fit, has_ports, tid_pt, port_conf, nom, c0, kinds,
+                                      cterms, extra_score, mode)
+    dev = dc.node_valid.device
+    C, N = a.C, a.N
+    sums_cells = 3 * C * w.Dsp + a.AT * w.D2 + w.Tip + w.Tpt + 3
+    carry_cells = _carry_cells(w, N)
+    smem_max = min(smem_max, ADMIT_SMEM_CAP) - 16 * C
+    sums_smem = 4 * sums_cells <= smem_max
+    carry_smem = sums_smem and 4 * (sums_cells + carry_cells) <= smem_max
+    gang._set_ptrs(w, dev, [("sums", _zeros(dev, 1 if sums_smem else sums_cells), I32, None),
+                            ("carries", _zeros(dev, 1 if carry_smem else carry_cells), I32, None)])
     w.sums_smem, w.carry_smem = int(sums_smem), int(carry_smem)
     return a, w, state, outs
 
@@ -815,18 +844,31 @@ def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_
 def _wave_admit_cuda(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                      ip_cdv_tab, weights, check_fit, d_cap, d2_cap, has_ports, tid_pt, port_conf, nom_node=None,
                      nom_prio=None, nom_req=None, **mode):
-    """K9 launch: the admission recurrence in one persistent block; the
+    """K9 launch: the admission recurrence in one thread-block cluster, laid
+    out by ktpu_wave_admit_plan (the cluster size under
+    ADMIT_CLUSTER_CAP, shared memory under ADMIT_SMEM_CAP), with the
+    exchange slabs and carries that do not fit in global scratch rows; the
     cursor comes back in the tallies."""
     dev = dc.node_valid.device
     lib = _build.load()
-    P = g.static_mask.shape[0]
+    P, N = g.static_mask.shape
     kinds = torch.empty((P,), dtype=I32, device=dev)
     cterms = torch.empty((P,), dtype=I32, device=dev)
-    nom = gang.nominations_csr(nom_node, nom_prio, nom_req, g.static_mask.shape[1], dev)
-    a, w, state, outs = admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
-                                   weights, check_fit, has_ports, tid_pt, port_conf, nom, c0, kinds, cterms,
-                                   lib.ktpu_wave_admit_smem_max(), mode=gang.step_mode(**mode))
+    nom = gang.nominations_csr(nom_node, nom_prio, nom_req, N, dev)
+    a, w, state, outs = _admit_blocks(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
+                                      rep_ip_u, weights, check_fit, has_ports, tid_pt, port_conf, nom, c0, kinds,
+                                      cterms, mode=gang.step_mode(**mode))
+    rc = lib.ktpu_wave_admit_plan(ctypes.byref(a), ctypes.byref(w), int(ADMIT_CLUSTER_CAP),
+                                  int(min(ADMIT_SMEM_CAP, 2**31 - 1)), int(bool(ADMIT_STAGE)))
+    _build.check_launch(lib, rc, "wave_admit")
+    info = torch.zeros((2 + ADMIT_PHASES,), dtype=I32, device=dev)
+    gang._set_ptrs(w, dev, [
+        ("sums", _zeros(dev, 1 if w.sums_smem else w.cluster * w.xch_cells), I32, None),
+        ("carries", _zeros(dev, 1 if w.carry_smem else _carry_cells(w, N)), I32, None),
+        ("admit_info", info, I32, (2 + ADMIT_PHASES,)),
+    ])
     rc = lib.ktpu_wave_admit(ctypes.byref(a), ctypes.byref(w), _build.stream_handle(dev))
     _build.check_launch(lib, rc, "wave_admit")
     _build.launches["wave_admit"] += 1
+    admit_stats.update(cluster=int(w.cluster), staged=bool(w.stage), info=info)
     return (*outs, state, kinds, cterms)

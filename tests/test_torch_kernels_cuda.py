@@ -670,3 +670,197 @@ def test_sampling_scheduler_on_cuda_matches_cpu(cuda):
     assert s_cuda.metrics["wave_batches"] == 2
     chip_smoke.phase_sampling_drains(torch, cuda, n_nodes=300, n_pods=700, n_host_nodes=60, n_host_pods=16,
                                      n_seedless_nodes=300, n_seedless_pods=64, n_small_nodes=40)
+
+
+# ---- K9 as a thread-block cluster; K15 as a source-stationary copy ----------
+
+
+def _k9_pods(n, prefix):
+    """Pods with a hostname-keyed spread slot (DoNotSchedule on odd pods,
+    ScheduleAnyway on even ones) beside a zone-keyed one, a required
+    hostname anti-affinity term on every third pod and a preferred zone
+    affinity on the next: K9's hostname-keyed carry rows beside its domain
+    sums."""
+    from kubernetes_tpu_torch.api import (
+        Affinity, Container, LabelSelector, Pod, PodAffinity, PodAffinityTerm, PodAntiAffinity,
+        TopologySpreadConstraint, WeightedPodAffinityTerm,
+    )
+
+    pods = []
+    for i in range(n):
+        app, grp = f"a{i % 5}", f"g{i % 7}"
+        sel = LabelSelector(match_labels={"app": app})
+        spread = (
+            TopologySpreadConstraint(max_skew=2, topology_key=chip_smoke.HOSTNAME,
+                                     when_unsatisfiable="DoNotSchedule" if i % 2 else "ScheduleAnyway",
+                                     label_selector=sel),
+            TopologySpreadConstraint(max_skew=3, topology_key=chip_smoke.ZONE, when_unsatisfiable="DoNotSchedule",
+                                     label_selector=sel),
+        )
+        affinity = None
+        if i % 3 == 0:
+            affinity = Affinity(pod_anti_affinity=PodAntiAffinity(required_during_scheduling_ignored_during_execution=(
+                PodAffinityTerm(topology_key=chip_smoke.HOSTNAME,
+                                label_selector=LabelSelector(match_labels={"grp": grp})),)))
+        elif i % 3 == 1:
+            affinity = Affinity(pod_affinity=PodAffinity(preferred_during_scheduling_ignored_during_execution=(
+                WeightedPodAffinityTerm(weight=5, pod_affinity_term=PodAffinityTerm(
+                    topology_key=chip_smoke.ZONE, label_selector=sel)),)))
+        pods.append(Pod(name=f"{prefix}-{i}", labels={"app": app, "grp": grp}, topology_spread_constraints=spread,
+                        affinity=affinity,
+                        containers=[Container(name="c", requests={"cpu": f"{100 + 50 * (i % 5)}m",
+                                                                  "memory": "256Mi"})]))
+    return pods
+
+
+def _k9_world(case):
+    """(nodes, placed, pending, P) of a K9 case: hostname-keyed pods on 10
+    nodes (N = 16, below one 32-node slice), 200 nodes (N = 256: half of a
+    16-CTA cluster's slices empty) and 2,100 nodes (N = 3,072: slices of
+    192 or 384 nodes); the port-contended mix (Tpt > 0); a
+    tests/gen.py-style mixed batch with ports."""
+    if case == "ports":
+        nodes = chip_smoke.basic_nodes(200, zones=4)
+        placed = chip_smoke.place_round_robin(chip_smoke.port_heavy_pods(200, seed=3, prefix="placed"), nodes)
+        return nodes, placed, chip_smoke.port_heavy_pods(128, seed=7), 128
+    if case == "gen":
+        return (*chip_smoke.gen_cluster(13, 150, 40, 128, 64), 128)
+    n_nodes, n_placed, P = {"hostname16": (10, 12, 64), "hostname256": (200, 150, 128),
+                            "hostname3072": (2100, 1000, 128)}[case]
+    nodes = chip_smoke.basic_nodes(n_nodes, zones=4)
+    return nodes, chip_smoke.place_round_robin(_k9_pods(n_placed, "placed"), nodes), _k9_pods(P, "new"), P
+
+
+def _k9_check(cuda, world, cap, nominate=False, mode=None):
+    """K9 against wave_admit_plain on one batch of `world`, exact on chosen,
+    n_feas, the reason counts, the tallies (the usage rows and the cursor),
+    kinds and conflicting terms, with the cluster capped at `cap` CTAs (and
+    taking that many); with 64 open nominations when `nominate`, and the
+    step `mode` (gang.step_mode's keywords).  Returns (c0, the plain
+    outputs, the packed cluster)."""
+    from kubernetes_tpu_torch.ops import wave as ops_wave
+
+    nodes, placed, pending, P = world
+    dc, db, kw, d_cap, flags, wt = chip_smoke.wave_inputs(torch, cuda, nodes, placed, pending, P=P)
+    tab = {k: kw[k] for k in ("sp_keys", "sp_cdv_tab", "ip_keys")}
+    hk = kw["hostname_key"]
+    g = ops_gang.precompute_plain(dc, db, hk, kw["v_cap"], hard_pod_affinity_weight=1,
+                                  enabled=ops_gang.ALL_FILTER_KERNELS, **dict(flags, has_ports=False), **tab)
+    extra = dict(chip_smoke.nominations(torch, dc, db) if nominate else {}, **(mode or {}))
+    targs = [wt[k] for k in chip_smoke.WAVE_TABLES]
+    tkw = dict(d_cap=d_cap, d2_cap=wt["d2_cap"], has_ports=wt["has_ports"], tid_pt=wt["tid_pt"],
+               port_conf=wt["port_conf"], **extra)
+    c0 = ops_wave.wave_speculate_plain(dc, db, g, d_cap=d_cap, **extra)
+    want = ops_wave.wave_admit_plain(dc, db, g, hk, c0, *targs, **tkw)
+    n0 = _build.launches["wave_admit"]
+    got = ops_wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw)
+    torch.cuda.synchronize()
+    assert _build.launches["wave_admit"] == n0 + 1
+    assert ops_wave.admit_stats["cluster"] == cap
+    assert ops_wave.admit_stats["info"].tolist()[0] == cap
+    for a, b in zip(got[:3] + got[4:], want[:3] + want[4:]):
+        _equal(a, b)
+    assert set(got[3]) == set(want[3])
+    for k in want[3]:
+        _equal(got[3][k], want[3][k])
+    return c0, want, dc
+
+
+@pytest.mark.parametrize("smem_cap", [1 << 30, 0], ids=["shared", "global"])
+@pytest.mark.parametrize("cap", [16, 8], ids=["cluster16", "cluster8"])
+@pytest.mark.parametrize("case", ["hostname16", "hostname256", "hostname3072", "ports", "gen"])
+def test_wave_admit_cluster_matches_plain(cuda, case, cap, smem_cap, monkeypatch):
+    """K9 at both cluster sizes, its slices' rows and carries in shared
+    memory and (ADMIT_SMEM_CAP = 0) in global memory, on clusters whose N
+    is below one slice, leaves CTAs without nodes, or splits into slices of
+    192 / 384 nodes; with hostname-keyed spread and inter-pod slots, the
+    port carry and a mixed batch.  Where N spans several slices, some pod
+    speculates on a node that a CTA other than rank 0 owns, and some pod is
+    demoted (its attribution read from that CTA)."""
+    from kubernetes_tpu_torch.ops import wave as ops_wave
+
+    monkeypatch.setattr(ops_wave, "ADMIT_SMEM_CAP", smem_cap)
+    monkeypatch.setattr(ops_wave, "ADMIT_CLUSTER_CAP", cap)
+    c0, want, dc = _k9_check(cuda, _k9_world(case), cap)
+    assert int((want[0] >= 0).sum()) > 0
+    if case in ("hostname256", "hostname3072", "gen"):
+        assert int((c0 >= 32).sum()) > 0
+    if case in ("hostname256", "hostname3072", "ports"):
+        assert int((want[4] != ops_wave.DEMOTE_NONE).sum()) > 0
+
+
+@pytest.mark.parametrize("cap", [16, 8], ids=["cluster16", "cluster8"])
+@pytest.mark.parametrize("mode", ["wrap", "wrap_tie", "compat_all", "most_allocated", "rtcr", "tie", "nominated"])
+def test_wave_admit_cluster_step_modes_match_plain(cuda, mode, cap, monkeypatch):
+    """K9 at both cluster sizes in the step's branches on 200 nodes (N =
+    256): the sampling window from a cursor 10 nodes before the end, so the
+    walk wraps across the slices (with and without a tie key); the window
+    over every node (k = n); MostAllocated; RequestedToCapacityRatio; a tie
+    key alone; 64 open nominations.  The cursor the tallies carry out is
+    the plain version's."""
+    from kubernetes_tpu_torch.ops import rng
+    from kubernetes_tpu_torch.ops import wave as ops_wave
+
+    monkeypatch.setattr(ops_wave, "ADMIT_CLUSTER_CAP", cap)
+    n = 200
+    tie = dict(tie_key=rng.prng_key(chip_smoke.TIE_SEED), attempt_base=4321)
+    modes = {
+        "wrap": dict(sample_k=100, sample_start=n - 10),
+        "wrap_tie": dict(sample_k=100, sample_start=n - 10, **tie),
+        "compat_all": dict(sample_k=n, sample_start=n - 10),
+        "most_allocated": dict(fit_strategy=(1, (), (1, 1))),
+        "rtcr": dict(fit_strategy=(2, chip_smoke.SHAPE_RTCR, (1, 1))),
+        "tie": tie,
+        "nominated": None,
+    }
+    _, want, _ = _k9_check(cuda, _k9_world("hostname256"), cap, nominate=mode == "nominated", mode=modes[mode])
+    if mode.startswith("wrap"):  # the cursor went round past the last node
+        assert int(want[3]["sample_start"]) < n - 10
+
+
+def _fork_planes(cuda, N, L, T, KF, misaligned, seed=3):
+    """Seeded node planes (labels [N, L], taints [N, T], dom_ids [L, N],
+    visit_rank [N]) and fork alive rows [KF, N] on the card; with
+    `misaligned`, every plane a view one int past a 16-byte boundary."""
+    import types
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def plane(shape):
+        vals = torch.from_numpy(rng.integers(-2, 50, size=shape, dtype=np.int32))
+        if not misaligned:
+            return vals.to(cuda)
+        buf = torch.empty((vals.numel() + 1,), dtype=torch.int32, device=cuda)
+        out = buf[1:].view(shape)
+        out.copy_(vals.to(cuda))
+        return out
+
+    dc = types.SimpleNamespace(node_labels=plane((N, L)), taint_key=plane((N, T)), taint_val=plane((N, T)),
+                               taint_effect=plane((N, T)), dom_ids=plane((L, N)),
+                               node_valid=torch.ones((N,), dtype=torch.bool, device=cuda))
+    alive = torch.from_numpy(rng.random((KF, N)) < 0.7).to(cuda)
+    return dc, alive, plane((N,))
+
+
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("N,L,T,KF", [(5120, 8, 1, 64), (301, 3, 0, 13), (77, 5, 3, 9), (64, 4, 4, 8), (5, 1, 2, 3)])
+def test_fork_view_kernel_matches_plain(cuda, N, L, T, KF, misaligned):
+    """K15 against fork_cluster_view_plain, with and without the visit-rank
+    plane: config4's planes (KF = 64, N = 5,120, L = 8, T = 1: every plane
+    on the vector path); odd N, L and T, T = 0, a partial chunk of forks;
+    widths that are multiples of 4; and planes one int off a 16-byte
+    boundary (the cell-by-cell path)."""
+    from kubernetes_tpu_torch.ops import counterfactual as cf
+
+    dc, alive, vr = _fork_planes(cuda, N, L, T, KF, misaligned)
+    for visit_rank in (vr, None):
+        n0 = _build.launches["fork_view"]
+        got = cf.fork_cluster_view(dc, alive, visit_rank)
+        want = cf.fork_cluster_view_plain(dc, alive, visit_rank)
+        torch.cuda.synchronize()
+        assert _build.launches["fork_view"] == n0 + 1
+        assert set(got) == set(want)
+        for k in want:
+            _equal(got[k], want[k])
