@@ -10,7 +10,8 @@ Phases, one output line each (several for 2 and 4):
   2. each kernel against its plain PyTorch version on the card, exact
      equality of every output (all outputs are integer or bool, so the
      tolerance is zero), at the slice's shapes: K1 static_eval at S=16 over
-     the 10k-node bucket, K2 sig_scan at P=4096, K3 usage_checksum on K2's
+     the 10k-node bucket, K2 sig_scan at P=4096 with 16 and with 512
+     signatures (its trees' launches, its step floor), K3 usage_checksum on K2's
      final state, and K4 resident_run at config0's shape (P=16384, N=10240,
      S=16 with the nine north-star signatures, W=2048) in both tail modes,
      on the north-star feed, on an interleaved feed that makes the adaptive
@@ -40,13 +41,16 @@ Phases, one output line each (several for 2 and 4):
      (N=5000 in 8 zones, P=512, 45,000 placed spread pods), config3's (N=1000,
      P=512, 4,500 placed anti-affinity pods) and a tests/gen.py-style mixed
      batch at N=5000 with 500 placed pods, with each kernel's, its plain version's and (K7) a
-     float64 torch.matmul's time; then drains through Scheduler(): config4
+     float64 torch.matmul's time, and K5's cluster (its CTAs, exchanges and
+     microseconds a pod) and K5 at 8 CTAs, exact, with its time; then drains through Scheduler(): config4
      (5k nodes, 50k spread pods) and config3 (1k nodes, 5k anti-affinity
      pods) under waveDispatch: false, with their zone-skew and
      anti-affinity checks, and 20k preferred-affinity pods on config0's 10k
-     tiered nodes under the default configuration; and a parity drain of
-     1,536 mixed gang-path pods on 250 nodes, on cuda and on the CPU, whose
-     placements and diagnoses must be identical;
+     tiered nodes under the default configuration (its first 512
+     placements against the CPU's); and a parity drain of 1,152 mixed
+     gang-path pods on 250 nodes (three batches; cut from 1,536 for time),
+     on cuda and on the CPU, whose placements and diagnoses must be
+     identical;
   6. the wave: K8 wave_speculate and K9 wave_admit against their plain
      versions, exact on every output, and K9 against K5 on the same
      statics, at config4's and config3's shapes, a port-contended batch and
@@ -72,8 +76,8 @@ Phases, one output line each (several for 2 and 4):
      with identical bindings, evictions and nominations, every preemptor
      bound, each node emptied of exactly its two victims, no node over its
      allocatable; the same drain at 5,000 nodes with 250 preemptors on
-     cuda; and a gang-path drain with priorities (300 nodes, 900 placed
-     priority-0 pods, 1,200 spread and anti-affinity pods (cut from 500 /
+     cuda; and a gang-path drain with priorities (120 nodes, 360 placed
+     priority-0 pods, 480 spread and anti-affinity pods (cut from 500 /
      1,500 / 2,000 for time) at priorities 0 /
      50 / 100, some too big to fit before a preemption) in two rounds on
      cuda and on the CPU, identical (K10 narrows this drain's gang-path
@@ -133,7 +137,7 @@ Phases, one output line each (several for 2 and 4):
      bench_plan (config14: 300 nodes in 4 zones, 1,500 placed pods, 96
      backlog pods, 64 mixed forks of clone adds, cordons, evictions and
      scales) on the kernel engine (K15, K1, K7, K8, K11 per fork, K16),
-     the first 16 forks equal to the serial engine's (plannerKernel off)
+     the first 8 forks (cut from 16 for time) equal to the serial engine's (plannerKernel off)
      and to the kernel engine of a device="cpu" scheduler (the plain
      versions) on those forks, and every fork equal to the same fork run
      alone, with the wall times and launches of the
@@ -186,7 +190,8 @@ Phases, one output line each (several for 2 and 4):
      400; cut from 800 / 1,600) against the port's serial oracle loop with
      K19's bits, 0 diffs;
  14. the kernels line (K8 named as the workloads speculation too, K19 as
-     the parity copies' draw, K9's and K15's redesigns under "design").
+     the parity copies' draw, the redesigns of K2, K5, K9 and K15 under
+     "design").
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Without
@@ -801,13 +806,15 @@ def k1_inputs(device, n_nodes=10000, seed=3):
     return nt, DeviceCluster.from_host(nt, vocab, device), DeviceBatch.from_host(pb, device)
 
 
-def k2_inputs(torch, device, nt, mask, P=4096, seed=5):
-    """Sixteen signatures (one all-zero, one asking for an extended lane)
-    over K1's statics-feasible mask, a pod feed with -1 pads, and a usage
-    state with overcommitted nodes."""
+def k2_inputs(torch, device, nt, mask, P=4096, seed=5, S=None):
+    """S signatures (one all-zero, one asking for an extended lane; by
+    default one per row of K1's statics-feasible mask, more repeat its
+    rows), a pod feed with -1 pads, and a usage state with overcommitted
+    nodes."""
     g = torch.Generator().manual_seed(seed)
     N, R = nt.allocatable.shape
-    S = mask.shape[0]
+    S = mask.shape[0] if S is None else S
+    mask = mask.cpu()[torch.arange(S) % mask.shape[0]]
     alloc = torch.as_tensor(nt.allocatable, dtype=torch.int64).clone()
     alloc[::7, R - 1] = 4  # an extended resource on every 7th node
     req = torch.zeros((S, R), dtype=torch.int64)
@@ -941,6 +948,77 @@ def precompute_static_bound(dc, db, has_images):
     return static_bound(dc, db, ops_fp.static_eval(dc, db, every, has_images))
 
 
+def k2_row(torch, fixed, state0, w, reps, floor=True):
+    """K2 against its plain version on one feed, exact on the choices and
+    the final usage state, then the kernel's time, the plain version's, the
+    bounds and (with `floor`) the step floor: the same launch over one
+    node, so each step is only its fixed costs.  Logs and returns the row,
+    and the kernel's final state."""
+    from kubernetes_tpu_torch.ops import fastpath as ops_fp
+
+    def fresh():
+        return {k: v.clone() for k, v in state0.items()}
+
+    def run(fn, st, fx=fixed):
+        return fn(fx["sig_ids"], fx["sig_req"], fx["sig_nz"], fx["sig_allzero"], fx["sig_ok"], fx["sig_img"],
+                  fx["alloc"], fx["allowed"], st["used"], st["nz0"], st["nz1"], st["num_pods"], **w)[0]
+
+    scratch, st_p, plain_out = {}, fresh(), []
+
+    def reset():
+        for k, v in state0.items():
+            scratch.setdefault(k, torch.empty_like(v)).copy_(v)
+
+    # the plain version, timed: its last run's choices and state are the
+    # check's
+    plain_ms = time_ms(torch, lambda: plain_out.append(run(ops_fp.sig_scan_plain, st_p)), 1,
+                       setup=lambda: [st_p[k].copy_(v) for k, v in state0.items()])
+    st_k = fresh()
+    ch_k = run(ops_fp.sig_scan, st_k)
+    torch.cuda.synchronize() if ch_k.device.type == "cuda" else None
+    err = max([max_abs_err(torch, ch_k, plain_out[-1])] + [max_abs_err(torch, st_k[k], st_p[k]) for k in st_k])
+    if err:
+        raise AssertionError("sig_scan kernel != plain version")
+    ms = time_ms(torch, lambda: run(ops_fp.sig_scan, scratch), reps, setup=reset)
+    # the scan's cycles a placed pod in the warp that repairs the pod's own
+    # tree (the last, timed launch's): the chosen row, the keys, the
+    # repairs, the barrier
+    info = ops_fp.sig_scan_stats["info"].tolist()
+    cycles = dict(zip(("row", "keys", "repairs", "barrier"), (round(c / max(info[0], 1)) for c in info[1:])))
+    tree_smem = ops_fp.sig_scan_stats["tree_smem"]
+    launches = ops_fp.sig_scan_stats["launches"]  # the kernels the timed call enqueued
+    P = fixed["sig_ids"].shape[0]
+    S = fixed["sig_req"].shape[0]
+    live = int((fixed["sig_ids"] >= 0).sum().item())
+    placed = int((ch_k >= 0).sum().item())
+    trees = int(torch.unique(fixed["sig_ids"][fixed["sig_ids"] >= 0]).numel())
+    Nn, R = fixed["alloc"].shape
+    n1, _ = ops_fp.tree_entries(Nn)
+    # bytes: each input read once, the usage state written once, the
+    # choices; operations: a key (fit and score) is ~R * 4 + 40, and the
+    # design needs one per (present signature, node) to build the trees,
+    # one per present signature per placed pod, and the chosen tree's
+    # re-reductions of its group (32 entries) and its root (n1), 4
+    # operations an entry; a full re-score per pod, the reference's step,
+    # is the upper count kept for comparison
+    k2_bytes = nbytes(*fixed.values()) + 2 * nbytes(*state0.values()) + P * 4
+    key_ops = R * 4 + 40
+    bound, by = bound_ms(k2_bytes, (trees * Nn + placed * trees) * key_ops + placed * (32 + n1) * 4)
+    full_bound, _ = bound_ms(k2_bytes, live * Nn * key_ops)
+    row = dict(P=P, S=S, live_pods=live, trees=trees, N=Nn, placed=placed, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by, us_per_placed_pod=ms * 1e3 / max(placed, 1),
+               tree_smem=tree_smem, cycles_per_placed_pod=cycles, kernel_launches_per_call=launches)
+    # computed, not measured: logged beside the row, kept out of the kernels line
+    derived = dict(full_rescore_bound_ms=full_bound, bytes_bound_ms=k2_bytes / PEAK_BYTES_S * 1e3, tree_groups=n1)
+    if floor:
+        one = {k: (v[:, :1].contiguous() if k in ("sig_ok", "sig_img") else
+                   v[:1].contiguous() if k in ("alloc", "allowed") else v) for k, v in fixed.items()}
+        st1 = {k: v[:1].clone() for k, v in state0.items()}
+        row["step_floor_ms"] = time_ms(torch, lambda: run(ops_fp.sig_scan, st1, one), reps)
+    log(phase="kernel_check", kernel="sig_scan", **row, **derived)
+    return row, st_k
+
+
 def phase_kernels(torch, device, n_nodes=10000, reps=20):
     from kubernetes_tpu_torch.ops import fastpath as ops_fp
     from kubernetes_tpu_torch.ops import resident as ops_res
@@ -963,53 +1041,10 @@ def phase_kernels(torch, device, n_nodes=10000, reps=20):
         ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by)
 
     # K2 ------------------------------------------------------------------
-    fixed, state0 = k2_inputs(torch, device, nt, got["mask"])
     w = dict(w_fit=1, w_bal=1, w_img=1, check_fit=True)
-
-    def fresh():
-        return {k: v.clone() for k, v in state0.items()}
-
-    def run(fn, st):
-        return fn(fixed["sig_ids"], fixed["sig_req"], fixed["sig_nz"], fixed["sig_allzero"],
-                  fixed["sig_ok"], fixed["sig_img"], fixed["alloc"], fixed["allowed"],
-                  st["used"], st["nz0"], st["nz1"], st["num_pods"], **w)[0]
-
-    st_k, st_p = fresh(), fresh()
-    ch_k = run(ops_fp.sig_scan, st_k)
-    ch_p = run(ops_fp.sig_scan_plain, st_p)
-    torch.cuda.synchronize() if device.type == "cuda" else None
-    k2_err = max([max_abs_err(torch, ch_k, ch_p)] + [max_abs_err(torch, st_k[k], st_p[k]) for k in st_k])
-    if k2_err:
-        raise AssertionError("sig_scan kernel != plain version")
-    placed = int((ch_k >= 0).sum().item())
-    scratch = {}
-
-    def reset():
-        for k, v in state0.items():
-            scratch.setdefault(k, torch.empty_like(v)).copy_(v)
-
-    k2_ms = time_ms(torch, lambda: run(ops_fp.sig_scan, scratch), reps, setup=reset)
-    k2_plain_ms = time_ms(torch, lambda: run(ops_fp.sig_scan_plain, scratch), 1, setup=reset)
-    P = fixed["sig_ids"].shape[0]
-    live = int((fixed["sig_ids"] >= 0).sum().item())
-    Nn, R = fixed["alloc"].shape
-    k2_bytes = nbytes(*fixed.values()) + 2 * nbytes(*state0.values()) + P * 4
-    k2_bound, k2_by = bound_ms(k2_bytes, live * Nn * (R * 4 + 40))
-    # the recurrence's floor in this design: the same launch over one node,
-    # so each of the P steps is only its reduction and barriers
-    one = {k: (v[:, :1].contiguous() if k in ("sig_ok", "sig_img") else
-               v[:1].contiguous() if k in ("alloc", "allowed") else v) for k, v in fixed.items()}
-    st1 = {k: v[:1].clone() for k, v in state0.items()}
-
-    def run_one():
-        ops_fp.sig_scan(one["sig_ids"], one["sig_req"], one["sig_nz"], one["sig_allzero"],
-                        one["sig_ok"], one["sig_img"], one["alloc"], one["allowed"],
-                        st1["used"], st1["nz0"], st1["nz1"], st1["num_pods"], **w)
-
-    step_floor_ms = time_ms(torch, run_one, reps)
-    log(phase="kernel_check", kernel="sig_scan", P=P, live_pods=live, N=Nn, placed=placed,
-        max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
-        bytes_bound_ms=k2_bytes / PEAK_BYTES_S * 1e3, step_floor_ms=step_floor_ms)
+    k2, st_k = k2_row(torch, *k2_inputs(torch, device, nt, got["mask"]), w, reps)
+    k2_wide, _ = k2_row(torch, *k2_inputs(torch, device, nt, got["mask"], S=512), w, reps, floor=False)
+    Nn = st_k["used"].shape[0]
 
     # K3 ------------------------------------------------------------------
     args = (st_k["used"], st_k["nz0"], st_k["nz1"], st_k["num_pods"])
@@ -1031,8 +1066,7 @@ def phase_kernels(torch, device, n_nodes=10000, reps=20):
     return {
         "static_eval": dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound,
                             bound_by=k1_by, library_ms=None),
-        "sig_scan": dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound,
-                         bound_by=k2_by, library_ms=None, step_floor_ms=step_floor_ms),
+        "sig_scan": dict(k2, max_abs_err=max(k2["max_abs_err"], k2_wide["max_abs_err"]), library_ms=None, s512=k2_wide),
         "usage_checksum": dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
                                bound_by=k3_by, library_ms=k3_lib_ms),
     }
@@ -1268,6 +1302,40 @@ def gang_bounds(torch, dc, db, g, chosen, n_feas, weights):
     return k6, k7, bound_ms(k5_bytes(torch, dc, db, g, chosen, n_feas, weights), k5_ops)
 
 
+def k5_cluster(torch, db, ms):
+    """K5's cluster beside its time `ms` (its last launch was the timed
+    one): the CTAs, the cluster-wide exchanges per valid pod (mbarrier
+    exchanges, or cluster barriers where the exchange slab lies in global
+    memory), the microseconds per valid pod, whether the pods' planes were
+    staged in shared memory, and the rank-0 leader's cycles per pod in each
+    phase: for each of the pod's exchanges (with spread slots the
+    min-match, the filter's counts, the spread normalizers, the argmax;
+    without them the counts and the argmax; the window's after the counts)
+    the work before it, its pushes and its wait, then the commit (last)."""
+    from kubernetes_tpu_torch.ops import gang
+
+    torch.cuda.synchronize()
+    pods = max(int(db.valid.sum().item()), 1)
+    info = gang.scan_stats["info"].tolist()
+    return dict(cluster=info[0], exchanges_per_pod=info[1] / pods, us_per_pod=ms * 1e3 / pods,
+                staged=gang.scan_stats["staged"], leader_cycles_per_pod=[round(16 * c / pods) for c in info[2:]])
+
+
+def k5_capped(torch, fn, cap):
+    """fn() with K5's cluster capped at `cap` CTAs; (its result, the CTAs
+    its last K5 launch took)."""
+    from kubernetes_tpu_torch.ops import gang
+
+    old = gang.SCAN_CLUSTER_CAP
+    gang.SCAN_CLUSTER_CAP = cap
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out, gang.scan_stats["cluster"]
+    finally:
+        gang.SCAN_CLUSTER_CAP = old
+
+
 def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "config3"), nominated=("config4",)):
     """K5, K6 and K7 against their plain versions on the card: precompute
     (K1 + K6 + K7) against precompute_plain on every one of the 39
@@ -1313,10 +1381,19 @@ def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "
         # the composites' parts: K1 and K7 as the precompute launches them
         row["static_eval_bound_ms"] = precompute_static_bound(dc, db, flags["has_images"])[0]
         row["k6_bound_ms"], row["k7_bound_ms"] = b6, b7
+        k5 = lambda: gang.gang_schedule(dc, db, want, v_cap, d_cap=d_cap)  # noqa: E731
+        k5_ms = time_ms(torch, k5, reps)
         row["gang_scan"] = dict(
-            ms=time_ms(torch, lambda: gang.gang_schedule(dc, db, want, v_cap, d_cap=d_cap), reps),
-            plain_ms=time_ms(torch, lambda: gang.gang_schedule_plain(dc, db, want, v_cap, d_cap=d_cap), 1),
-            bound_ms=b5, bound_by=by5, library_ms=None)
+            ms=k5_ms, plain_ms=time_ms(torch, lambda: gang.gang_schedule_plain(dc, db, want, v_cap, d_cap=d_cap), 1),
+            bound_ms=b5, bound_by=by5, library_ms=None, **k5_cluster(torch, db, k5_ms))
+        # the same statics on a cluster of 8 CTAs, exact too
+        (c8, n8, r8, t8), ctas = k5_capped(torch, k5, 8)
+        err8 = max([max_abs_err(torch, c8, cp), max_abs_err(torch, n8, np_), max_abs_err(torch, r8, rp)]
+                   + [max_abs_err(torch, t8[k], tp[k]) for k in tp])
+        if err8 or ctas != 8:
+            raise AssertionError(f"{name}: K5 ({ctas} CTAs) differs from its plain version by {err8}")
+        ms8, _ = k5_capped(torch, lambda: time_ms(torch, k5, reps), 8)
+        row["gang_scan"]["cluster8"] = dict(k5_cluster(torch, db, ms8), ms=ms8, max_abs_err=err8)
         if flags["has_spread"]:
             row["gang_spread_statics"] = dict(
                 ms=time_ms(torch, lambda: gang.spread_statics(dc, db, naff, taints, hk), reps),
@@ -4577,6 +4654,17 @@ def phase_sampling(torch, device):
 
 # The kernels redesigned after their port, as the kernels line names them.
 DESIGNS = {
+    "sig_scan": "an incremental argmax: sig_mark flags the batch's signatures, sig_build (a grid of (signature, "
+                "1,024 nodes) blocks) keys every (present signature, node) and builds each signature's 32-ary "
+                "tournament tree of (key, lowest node) maxima; one block then reads a root per pod, commits, "
+                "re-keys only the chosen node in every tree and repairs each tree along that node's path (an "
+                "entry keeps its place unless the new key beats it or its node lay in the changed child); "
+                "inner levels in shared memory while they fit",
+    "gang_scan": "one thread-block cluster of 16 CTAs (8 where the card admits no cluster of 16) on neighbouring "
+                 "SMs running the shared step under ClusterPolicyT<false>, laid out and staged as K9; every CTA "
+                 "walks the committed peers itself into its own per-domain counters (no exchange carries them), "
+                 "reading their nodes from its own copy of the choices; 4 exchanges a pod with spread slots "
+                 "(min-match, counts, spread normalizers, argmax), 2 without",
     "wave_admit": "one thread-block cluster of 16 CTAs (8 where the card admits no cluster of 16) on neighbouring "
                   "SMs, each over a slice of the nodes with its usage rows, carries, node statics and each pod's "
                   "planes (bulk copies one pod ahead) in shared memory; four exchanges a pod (sums with the "
@@ -4660,7 +4748,7 @@ def main() -> int:
                                          wave_dispatch=False)
     phase_gang_drain(torch, "preferred", device, tier_nodes(10000), preferred_pods(20000),
                      ("static_eval", "gang_interpod_statics", "gang_scan"),
-                     check=first_pods_match_cpu(torch, tier_nodes(10000), preferred_pods(1024)))
+                     check=first_pods_match_cpu(torch, tier_nodes(10000), preferred_pods(512)))
     phase_gang_parity(torch, device)
 
     # the wave: K8 and K9 against their plain versions (and K9 against K5)
@@ -4690,7 +4778,7 @@ def main() -> int:
     # gang-path drain with priorities on cuda and on the CPU
     checks["narrow_candidates"] = phase_preempt_kernels(torch, device)
     phase_preempt_drains(torch, device)
-    preempt_l = phase_preempt_parity(torch, device, n_nodes=300, n_placed=900, n_pods=1200)
+    preempt_l = phase_preempt_parity(torch, device, n_nodes=200, n_placed=600, n_pods=800)
 
     # gang coscheduling: K11 against its plain version (and, gangs cleared,
     # against K9) at config10's, config4's and the mixed shape; bench_gang's
@@ -4734,12 +4822,12 @@ def main() -> int:
     # the counterfactual planner: K15 and K16 against their plain versions
     # at 64 forks over config4's node set, K8 and K11 with a target score;
     # config14 (bench_plan) on the kernel engine against the serial engine
-    # and the CPU's plain run on its first 16 forks, and the 64 forks one
+    # and the CPU's plain run on its first 8 forks, and the 64 forks one
     # at a time; the three planners
     # at full width
     k15, k16, es_row = phase_planner_kernels(torch, device)
     checks["fork_view"], checks["fork_summary"] = k15, k16
-    config14_l = phase_config14(torch, device)
+    config14_l = phase_config14(torch, device, ref_forks=8)
     phase_planner_full(torch, device)
     # explain and the independent pipeline: K17 at config4's and the mixed
     # shape, K18 at the K18 shape, each against its plain version, and the

@@ -9,6 +9,9 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <mutex>
+#include <vector>
+
 namespace ktpu {
 
 constexpr int ABSENT = -1;
@@ -126,25 +129,66 @@ __device__ __forceinline__ bool ns_member(bool ns_all, const int* ns_ids,
 // c > a to 0 first; BalancedAllocation divides 50 * |d| + den - 1 by
 // den >= 1), so C++ truncation equals the reference's floor division.
 
-// NodeResourcesFit in integer form: the pod count, then every requested
-// lane against allocatable minus used, where `extra` (a request row
-// committed on top of `used`, or nullptr) is added to the usage.  An
-// unrequested extended lane always fits; an all-zero request skips the
-// lanes.
+// NodeResourcesFit's pod count: one more pod fits under `allowed`.
+__device__ __forceinline__ bool pods_fit(int num_pods, int allowed) { return num_pods + 1 <= allowed; }
+
+// NodeResourcesFit's rule for lane r of a request: the request v fits in
+// `room` (allocatable minus used); an all-zero request skips the lanes, and
+// an unrequested extended lane always fits.
+__device__ __forceinline__ bool lane_fits(bool all_zero, int r, long long v, long long room) {
+  return all_zero || (r >= N_FIXED_LANES && v == 0) || v <= room;
+}
+
+// NodeResourcesFit in integer form: the pod count, then every lane of the
+// request (lane_fits), where `extra` (a request row committed on top of
+// `used`, or nullptr) is added to the usage.
 __device__ __forceinline__ bool fits(const long long* req, bool all_zero,
                                      const long long* alloc,
                                      const long long* used,
                                      const long long* extra, int num_pods,
                                      int allowed, int R) {
-  if (num_pods + 1 > allowed) return false;
-  if (all_zero) return true;
-  for (int r = 0; r < R; ++r) {
-    const long long v = req[r];
-    if (r >= N_FIXED_LANES && v == 0) continue;  // unrequested scalar
-    const long long u = used[r] + (extra ? extra[r] : 0);
-    if (v > alloc[r] - u) return false;
-  }
+  if (!pods_fit(num_pods, allowed)) return false;
+  for (int r = 0; r < R; ++r)
+    if (!lane_fits(all_zero, r, req[r], alloc[r] - used[r] - (extra ? extra[r] : 0))) return false;
   return true;
+}
+
+// LeastAllocated's term for one of the cpu and memory lanes, as n / d:
+// (al - c) * MAX_NODE_SCORE / al with allocatable al > 0 and the non-zero
+// request sum c <= al; else n = 0, d = 1.
+__device__ __forceinline__ void least_parts(long long al, long long c, long long& n, long long& d) {
+  if (al > 0 && c <= al) {
+    n = (al - c) * MAX_NODE_SCORE;
+    d = al;
+  } else {
+    n = 0;
+    d = 1;
+  }
+}
+
+// LeastAllocated from its two terms' sum: their mean over the lanes with
+// allocatable > 0 (a lane without is a term of 0).
+__device__ __forceinline__ long long least_mean(long long sum, long long a0, long long a1) {
+  return a0 > 0 && a1 > 0 ? sum / 2 : sum;
+}
+
+// BalancedAllocation's numerator and denominator, its score MAX_NODE_SCORE
+// - n / d: with a0, a1 > 0, r0 / r1 clamped to them, n = 50 |r0 a1 - r1 a0|
+// + d - 1 and d = a0 a1 (the ceiling of 50 |.| / d); else n = 0, d = 1.
+// (K2's key_warp divides it, and least_parts' two, on lanes of their own.)
+__device__ __forceinline__ void balanced_parts(long long a0, long long a1, long long r0, long long r1, long long& n,
+                                               long long& d) {
+  if (a0 > 0 && a1 > 0) {
+    if (r0 > a0) r0 = a0;
+    if (r1 > a1) r1 = a1;
+    long long x = r0 * a1 - r1 * a0;
+    if (x < 0) x = -x;
+    d = a0 * a1;
+    n = 50 * x + d - 1;
+  } else {
+    n = 0;
+    d = 1;
+  }
 }
 
 // w_fit * LeastAllocated + w_bal * BalancedAllocation + w_img * img for one
@@ -157,29 +201,15 @@ __device__ __forceinline__ long long score_total(long long a0, long long a1,
                                                  int w_bal, int w_img) {
   long long total = 0;
   if (w_fit) {
-    long long sum = 0;
-    int w = 0;
-    if (a0 > 0) {
-      sum += c0 > a0 ? 0 : (a0 - c0) * MAX_NODE_SCORE / a0;
-      ++w;
-    }
-    if (a1 > 0) {
-      sum += c1 > a1 ? 0 : (a1 - c1) * MAX_NODE_SCORE / a1;
-      ++w;
-    }
-    total += w_fit * (w ? sum / w : 0);
+    long long n0, d0, n1, d1;
+    least_parts(a0, c0, n0, d0);
+    least_parts(a1, c1, n1, d1);
+    total += w_fit * least_mean(n0 / d0 + n1 / d1, a0, a1);
   }
   if (w_bal) {
-    long long bal = MAX_NODE_SCORE;
-    if (a0 > 0 && a1 > 0) {
-      if (r0 > a0) r0 = a0;
-      if (r1 > a1) r1 = a1;
-      long long d = r0 * a1 - r1 * a0;
-      if (d < 0) d = -d;
-      const long long den = a0 * a1;
-      bal = MAX_NODE_SCORE - (50 * d + den - 1) / den;
-    }
-    total += w_bal * bal;
+    long long n, d;
+    balanced_parts(a0, a1, r0, r1, n, d);
+    total += w_bal * (MAX_NODE_SCORE - n / d);
   }
   if (w_img) total += w_img * img;
   return total;
@@ -368,8 +398,23 @@ struct SigScanArgs {
   long long* nz1;                   // [N]     updated in place
   int* num_pods;                    // [N]     updated in place
   int* choices;                     // [P]     out: node index or -1
+  // the trees (csrc/sig_scan.cu), scratch allocated by the wrapper: per
+  // signature a leaf per node, its n1 = ceil(N / 32) groups and its root
+  // (M = n1 + 1 entries a tree: the S n1 groups, then the S roots)
+  unsigned char* present;           // [S]     the signature occurs in the batch
+  long long* sig_rows;              // [S, R + 3] request, non-zero cpu / memory, all-zero flag
+  int* tree_sig;                    // [S]     the present signatures, in order
+  long long* leaves;                // [S, N]  each node's key (score, -1 infeasible)
+  long long* lv_val;                // [S M]   the groups' and roots' keys
+  int* lv_idx;                      // [S M]   their nodes
+  long long* info;                  // [5] out: the placed pods, then the cycles (summed over them,
+                                    // in the warp that repairs the pod's own tree) of the chosen
+                                    // row, the keys, the repairs and the barrier (null: not written)
   int P, N, R, S;
   int w_fit, w_bal, w_img, check_fit;
+  int tree_smem;                    // out: the scan's parts in shared memory (0 none, 1 the
+                                    // request rows, tree list and roots, 2 and the groups)
+  int launches;                     // out: the kernels ktpu_sig_scan enqueued
 };
 
 struct ResidentArgs {
@@ -570,9 +615,7 @@ struct GangScanArgs {
   const int* ip_key;                // [P, AT] key per inter-pod slot
   const int* kd2_key;               // [KD2]   key per ip_key_idx entry
   // scratch, zeroed by the wrapper
-  int* cnt;                         // [(3C + AT + 2 KD2) * D] peer counters
-                                    // by compact domain id, unless use_smem
-  int* cnt_h;                       // [C, N]   peers per node (score)
+  int* cnt_h;                       // [C, N]   K5: peers per node (score)
   int* port_stamp;                  // [N]
   unsigned char* feas;              // [N]
   long long* ip_raw;                // [N]
@@ -597,7 +640,7 @@ struct GangScanArgs {
   const int* visit_rank;            // [N]
   const int* visit_order;           // [n_valid]
   int* sample_start;                // [1]
-  int N, K, Rn, Rp, L, P, C, AT, KD2, D, JP, use_smem;
+  int N, K, Rn, Rp, L, P, C, AT, KD2, D, JP;
   int w_taint, w_naff, w_spread, w_ip, w_fit, w_bal, w_img, check_fit;
   // strat_id: 0 LeastAllocated, 1 MostAllocated, 2 RequestedToCapacityRatio,
   // over the cpu and memory lanes with weights w_cpu / w_mem
@@ -647,19 +690,22 @@ struct WaveArgs {
   int* kinds;                       // [P]      K9: demote kind
   int* cterms;                      // [P]      K9: conflicting term slot
   int* sums;                        // K8: [P, C, Dsp] domain stamps; K11: the per-pod region
-                                    // unless sums_smem; K9: [cluster, xch_cells] the CTAs'
-                                    // exchange slabs unless sums_smem (see wave.cu)
-  int* carries;                     // K9, K11: [(Tsp + 2 Tip + Tpt) * N] unless carry_smem
+                                    // unless sums_smem; K5, K9: [cluster, xch_cells] the CTAs'
+                                    // exchange slabs unless sums_smem (see gang_scan.cu, wave.cu)
+  int* carries;                     // K9, K11: [(Tsp + 2 Tip + Tpt) * N] unless carry_smem;
+                                    // K5: [cluster, (2 C + AT + 2 KD2) * D] the CTAs' peer
+                                    // counters unless carry_smem
   const unsigned char* lane;        // K8: [P, N] the port lane (null: every port free); the
                                     // workloads dispatch's DRA verdict against free0
-  int* admit_info;                  // K9: [2 + CL_PHASES] out: the cluster's CTAs, its cluster
-                                    // barriers over the batch, the leader's cycles per phase
+  int* admit_info;                  // K5, K9: [2 + CL_PHASES] out: the cluster's CTAs, its
+                                    // exchanges over the batch, the leader's cycles per phase
                                     // (null: not written)
   int Tsp, Tip, Tpt, W, Dsp, D2, hostname_key, has_ports, sums_smem, carry_smem;
-  // K9 (ktpu_wave_admit_plan): the cluster's CTAs, the nodes of each CTA's
-  // slice, the slice's usage and step rows in shared memory, the ints of
-  // one CTA's exchange slab, and the staging of the slice's node statics
-  // and of each pod's planes in shared memory
+  // K5 and K9 (ktpu_gang_scan_plan, ktpu_wave_admit_plan): the cluster's
+  // CTAs, the nodes of each CTA's slice, the slice's usage and step rows in
+  // shared memory, the ints of one CTA's exchange slab, and the staging of
+  // the slice's node statics and of each pod's planes in shared memory.  K5
+  // reads no term tables (tid_sp / tid_ip null, Tsp = Tip = Tpt = 0).
   int cluster, slice, rows_smem, xch_cells, stage;
 };
 
@@ -1312,7 +1358,8 @@ struct StagedVals {
   __device__ bool sp_match(int t) const { return v[8 * C + 5 * AT + Rp + 5 + Tip + t]; }
   __device__ bool ip_match(int t) const { return v[8 * C + 5 * AT + Rp + 5 + Tip + Tsp + t]; }
   // pod p's values into the copy, one element a thread (the caller's next
-  // barrier publishes them)
+  // barrier publishes them); K5 has no term tables (tid_sp / tid_ip null,
+  // Tsp = Tip = 0): its term ids read -1
   __device__ void fill(const GangScanArgs& a, const WaveArgs& w, int p) const {
     const GlobalVals g{&a, &w, p};
     const int n_int = 8 * C + 5 * AT + Rp + 5, n_all = n_int + C + AT + Tsp + Tip;
@@ -1331,11 +1378,12 @@ struct StagedVals {
       if (j < 8 * C) {
         const int f = j / C, c = j - f * C;
         x = f == 0 ? g.sp_key(c) : f == 1 ? g.sp_host(c) : f == 2 ? g.sp_self(c) : f == 3 ? g.max_skew(c)
-          : f == 4 ? g.sp_hard(c) : f == 5 ? g.sp_soft(c) : f == 6 ? g.min_domains(c) : g.tid_sp(c);
+          : f == 4 ? g.sp_hard(c) : f == 5 ? g.sp_soft(c) : f == 6 ? g.min_domains(c)
+          : w.tid_sp != nullptr ? g.tid_sp(c) : -1;
       } else if (j < 8 * C + 5 * AT) {
         const int f = (j - 8 * C) / AT, u = j - 8 * C - f * AT;
         x = f == 0 ? g.ip_key(u) : f == 1 ? g.ip_anti(u) : f == 2 ? g.ip_aff(u) : f == 3 ? g.ip_key_idx(u)
-                                                                                             : g.tid_ip(u);
+          : w.tid_ip != nullptr ? g.tid_ip(u) : -1;
       } else {
         const int k = j - 8 * C - 5 * AT;
         x = k < Rp ? g.req(k) : k < Rp + 2 ? g.nz_req(k - Rp) : k == Rp + 2 ? g.priority()
@@ -1574,8 +1622,11 @@ struct ClusterShared {
   int choice;
 };
 
-struct ClusterPolicy {
-  static constexpr bool kPremin = true;  // the min-match rides pod_tables' exchange
+// kPre: the spread min-match comes with pod_tables' exchange (K9's gather);
+// without it (K5) the step reduces its own min-match across the cluster.
+template <bool kPre>
+struct ClusterPolicyT {
+  static constexpr bool kPremin = kPre;
   int lo, hi, S;       // this CTA's nodes [lo, hi); S a CTA
   int rank, G;         // this CTA's rank, the cluster's CTAs
   int cur;             // the sampling window's cursor (every thread holds it)
@@ -1897,6 +1948,145 @@ struct ClusterPolicy {
     for (int i = 0; i < 6; ++i) f[i] = cs->at_recv[i];
   }
 };
+using ClusterPolicy = ClusterPolicyT<true>;
+
+// ---- the cluster kernels' common set-up (K5 csrc/gang_scan.cu, K9
+// csrc/wave.cu) ----------------------------------------------------------
+
+// The nodes of one CTA's slice: N / G rounded up to a multiple of 32 (a
+// window-map word has one writer).
+inline int slice_nodes(int N, int G) { return ((N + G - 1) / G + 31) / 32 * 32; }
+
+// Bytes of one pod's staged planes for an S-node slice (ClusterPolicy::
+// planes' layout): five int64 rows, 3 C + AT int32 rows, 9 + 3 C byte rows.
+__host__ __device__ inline long long stage_bytes(const GangScanArgs& a, int S) {
+  return (49LL + 15LL * a.C + 4LL * a.AT) * S;
+}
+
+// The planes ClusterPolicy::issue copies, each 16-byte aligned (a bulk
+// copy's rule; N % 32 == 0 keeps every slice's rows so).
+inline bool stage_aligned(const GangScanArgs& a) {
+  const void* planes[] = {a.sc_taint, a.sc_nodeaff, a.sc_image, a.extra_score, a.sp_dom_cnt, a.sp_node_cnt,
+                          a.sp_sc_dom, a.sp_te, a.sp_dom_pres, a.sp_counting, a.static_mask, a.sp_all_keys,
+                          a.d_unsched, a.d_nodename, a.d_taints, a.d_nodeaff, a.d_ports, a.d_extra,
+                          a.AT ? a.ip_sym : nullptr, a.AT ? a.ip_dom_cnt : nullptr,
+                          a.AT ? a.ip_viol_existing : nullptr};
+  for (const void* p : planes)
+    if (reinterpret_cast<unsigned long long>(p) % 16) return false;
+  return a.N % 32 == 0;
+}
+
+// One cluster of `G` CTAs of CLUSTER_THREADS with `smem` bytes of dynamic
+// shared memory each (attr: the one launch attribute's storage).
+inline cudaLaunchConfig_t cluster_config(int G, size_t smem, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G, 1, 1);
+  cfg.blockDim = dim3(CLUSTER_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The cluster size a kernel takes: 16 where cluster_cap allows it and the
+// card admits one cluster of 16 at `smem(16)` bytes of shared memory a CTA
+// (a non-portable size), else 8 (the portable size; a launch the card
+// refuses raises).  The card's verdict is kept by (kernel, device, bytes):
+// its query costs two attribute calls and an occupancy call, and a drain
+// asks for every batch at the same few sizes.  (Each launch sets the
+// kernel's attributes itself.)  Returns a CUDA status.
+template <class Kernel, class Smem>
+inline cudaError_t cluster_size(Kernel kernel, int cluster_cap, Smem smem, int* G) {
+  struct Verdict {
+    const void* kernel;
+    int dev;
+    size_t bytes;
+    bool fits;
+  };
+  static std::mutex mu;
+  static std::vector<Verdict> seen;
+  *G = 8;
+  if (cluster_cap < CLUSTER_MAX) return cudaSuccess;
+  const size_t bytes = smem(CLUSTER_MAX);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const void* k = reinterpret_cast<const void*>(kernel);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (const Verdict& v : seen)
+      if (v.kernel == k && v.dev == dev && v.bytes == bytes) {
+        if (v.fits) *G = CLUSTER_MAX;
+        return cudaSuccess;
+      }
+  }
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  int clusters = 0;
+  if (e == cudaSuccess) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(CLUSTER_MAX, bytes, nullptr, attr);
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  }
+  const bool fits = e == cudaSuccess && clusters >= 1;
+  cudaGetLastError();  // the query's error is not the launch's
+  if (fits) *G = CLUSTER_MAX;
+  std::lock_guard<std::mutex> lock(mu);
+  seen.push_back({k, dev, bytes, fits});
+  return cudaSuccess;
+}
+
+// The slice [use.lo, use.lo + len) of the usage state into `use` (shared
+// memory), or back out of it.
+__device__ inline void copy_usage(const GangScanArgs& a, const UsageRows& use, int len, bool in) {
+  const long long lo = use.lo;
+  for (int i = threadIdx.x; i < len * a.Rn; i += blockDim.x) {
+    if (in) use.requested[i] = a.requested[lo * a.Rn + i];
+    else a.requested[lo * a.Rn + i] = use.requested[i];
+  }
+  for (int i = threadIdx.x; i < 2 * len; i += blockDim.x) {
+    if (in) use.nonzero[i] = a.nonzero[2 * lo + i];
+    else a.nonzero[2 * lo + i] = use.nonzero[i];
+  }
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    if (in) use.num_pods[i] = a.num_pods[lo + i];
+    else a.num_pods[lo + i] = use.num_pods[i];
+  }
+}
+
+// The slice [lo, lo + len) of the node statics copied into shared memory
+// (rows S wide): allocatable [S, Rn], allowed_pods, visit_rank, dom_ids
+// [K, S], node_valid.
+__device__ inline NodeRows stage_nodes(const GangScanArgs& a, int* alloc, int* allowed, int* vrank, int* dom,
+                                       unsigned char* valid, int lo, int len, int S) {
+  for (int i = threadIdx.x; i < len * a.Rn; i += blockDim.x) alloc[i] = a.allocatable[(long long)lo * a.Rn + i];
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    allowed[i] = a.allowed_pods[lo + i];
+    vrank[i] = a.visit_rank != nullptr ? a.visit_rank[lo + i] : -1;
+    valid[i] = a.node_valid[lo + i];
+  }
+  for (long long i = threadIdx.x; i < (long long)a.K * len; i += blockDim.x) {
+    const long long k = i / len, n = i - k * len;
+    dom[k * S + n] = a.dom_ids[k * a.N + lo + n];
+  }
+  return NodeRows{alloc, allowed, valid, a.visit_rank != nullptr ? vrank : nullptr, dom, lo, S, a.K, a.Rn};
+}
+
+// The staging's and the exchanges' mbarriers, one arrival a phase; one
+// thread, before the cluster's first barrier.
+__device__ inline void init_mbars(unsigned long long* stage_bars, ClusterShared& cs) {
+  for (int b = 0; b < 2; ++b) {
+    mbar_init(smem_u32(stage_bars + b), 1);
+    mbar_init(smem_u32(cs.xbar + b), 1);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
 
 // One pod's Filter -> Score -> Select against the usage state sc.use (read
 // only here: the caller commits), over the nodes [pol.lo, pol.hi) with the

@@ -135,10 +135,6 @@ size_t speculate_smem(const GangScanArgs& a) { return (size_t)a.C * (sizeof(long
 
 // ---- K9: the cluster ------------------------------------------------------
 
-// The nodes of one CTA's slice: N / G rounded up to a multiple of 32 (a
-// window-map word has one writer).
-int slice_nodes(int N, int G) { return ((N + G - 1) / G + 31) / 32 * 32; }
-
 // The ints of one CTA's exchange slab: its partial sums (g1p, g2p [C, Dsp],
 // gfp [AT, D2], anyp) with its min-match parts ([C, Dsp] and [C]:
 // `part_cells`) and every CTA's [G, part_cells], its
@@ -152,12 +148,6 @@ __host__ __device__ inline int dom_words(const WaveArgs& w) { return (w.Dsp + 31
 __host__ __device__ inline long long slab_cells(const GangScanArgs& a, const WaveArgs& w) {
   return (2LL + w.cluster) * part_cells(a, w) + (long long)a.C * w.Dsp + (long long)w.cluster * a.C * dom_words(w) +
          ((a.N + 31) >> 5) + w.Tip + w.Tpt + 2;
-}
-
-// Bytes of one pod's staged planes for an S-node slice (ClusterPolicy::
-// planes' layout): five int64 rows, 3 C + AT int32 rows, 9 + 3 C byte rows.
-__host__ __device__ inline long long stage_bytes(const GangScanArgs& a, int S) {
-  return (49LL + 15LL * a.C + 4LL * a.AT) * S;
 }
 
 // Byte offsets of K9's dynamic shared memory (only the parts placed there),
@@ -275,35 +265,13 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1) admit_cluster_kernel(const
     sc.ld = S;
     sc.use = UsageRows{reinterpret_cast<int*>(s_raw + l.req), reinterpret_cast<int*>(s_raw + l.nz),
                        reinterpret_cast<int*>(s_raw + l.pods), lo};
-    for (int i = tid; i < len * a.Rn; i += blockDim.x) sc.use.requested[i] = a.requested[(long long)lo * a.Rn + i];
-    for (int i = tid; i < 2 * len; i += blockDim.x) sc.use.nonzero[i] = a.nonzero[2LL * lo + i];
-    for (int i = tid; i < len; i += blockDim.x) sc.use.num_pods[i] = a.num_pods[lo + i];
+    copy_usage(a, sc.use, len, true);
   }
-  if (w.stage) {
-    int* const alloc = reinterpret_cast<int*>(s_raw + l.alloc);
-    int* const allowed = reinterpret_cast<int*>(s_raw + l.allowed);
-    int* const vrank = reinterpret_cast<int*>(s_raw + l.vrank);
-    int* const dom = reinterpret_cast<int*>(s_raw + l.dom);
-    unsigned char* const valid = s_raw + l.valid;
-    for (int i = tid; i < len * a.Rn; i += blockDim.x) alloc[i] = a.allocatable[(long long)lo * a.Rn + i];
-    for (int i = tid; i < len; i += blockDim.x) {
-      allowed[i] = a.allowed_pods[lo + i];
-      vrank[i] = a.visit_rank != nullptr ? a.visit_rank[lo + i] : -1;
-      valid[i] = a.node_valid[lo + i];
-    }
-    for (long long i = tid; i < (long long)a.K * len; i += blockDim.x) {
-      const long long k = i / len, n = i - k * len;
-      dom[k * S + n] = a.dom_ids[k * N + lo + n];
-    }
-    sc.nodes = NodeRows{alloc, allowed, valid, a.visit_rank != nullptr ? vrank : nullptr, dom, lo, S, a.K, a.Rn};
-  }
-  if (tid == 0) {  // the staging's and the exchanges' mbarriers, one arrival a phase
-    for (int b = 0; b < 2; ++b) {
-      mbar_init(smem_u32(s_mbar + b), 1);
-      mbar_init(smem_u32(s_cl.xbar + b), 1);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (w.stage)
+    sc.nodes = stage_nodes(a, reinterpret_cast<int*>(s_raw + l.alloc), reinterpret_cast<int*>(s_raw + l.allowed),
+                           reinterpret_cast<int*>(s_raw + l.vrank), reinterpret_cast<int*>(s_raw + l.dom),
+                           s_raw + l.valid, lo, len, S);
+  if (tid == 0) init_mbars(s_mbar, s_cl);
 
   if (tid < CL_PHASES) s_cl.clock[tid] = 0;
   ClusterPolicy pol{};
@@ -332,12 +300,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1) admit_cluster_kernel(const
   if (w.stage && tid == 0 && a.P > 0) pol.issue(a, 0);
   admit_loop<false>(a, w, WorkloadsArgs{}, r, sc, sh, pol);
 
-  if (w.rows_smem) {  // the slice's usage rows back to the usage state
-    const UsageRows& use = sc.use;
-    for (int i = tid; i < len * a.Rn; i += blockDim.x) a.requested[(long long)lo * a.Rn + i] = use.requested[i];
-    for (int i = tid; i < 2 * len; i += blockDim.x) a.nonzero[2LL * lo + i] = use.nonzero[i];
-    for (int i = tid; i < len; i += blockDim.x) a.num_pods[lo + i] = use.num_pods[i];
-  }
+  if (w.rows_smem) copy_usage(a, sc.use, len, false);  // the slice's usage rows back to the usage state
   if (pol.leader()) {
     if (a.sample_k > 0) *a.sample_start = pol.cur;
     if (w.admit_info != nullptr) {
@@ -347,19 +310,6 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1) admit_cluster_kernel(const
     }
   }
   cluster_barrier();  // no CTA leaves while a peer may still read its shared memory
-}
-
-// The planes ClusterPolicy::issue copies, each 16-byte aligned (a bulk
-// copy's rule; N % 32 == 0 keeps every slice's rows so).
-bool stage_aligned(const GangScanArgs& a) {
-  const void* planes[] = {a.sc_taint, a.sc_nodeaff, a.sc_image, a.extra_score, a.sp_dom_cnt, a.sp_node_cnt,
-                          a.sp_sc_dom, a.sp_te, a.sp_dom_pres, a.sp_counting, a.static_mask, a.sp_all_keys,
-                          a.d_unsched, a.d_nodename, a.d_taints, a.d_nodeaff, a.d_ports, a.d_extra,
-                          a.AT ? a.ip_sym : nullptr, a.AT ? a.ip_dom_cnt : nullptr,
-                          a.AT ? a.ip_viol_existing : nullptr};
-  for (const void* p : planes)
-    if (reinterpret_cast<unsigned long long>(p) % 16) return false;
-  return a.N % 32 == 0;
 }
 
 // K9's placement at cluster size G: slice, exchange slab, and, in that order
@@ -380,21 +330,6 @@ void place(const GangScanArgs& a, WaveArgs& w, int G, long long budget, bool sta
       if (f != &w.stage) return;
     }
   }
-}
-
-cudaLaunchConfig_t cluster_config(const WaveArgs& w, size_t smem, cudaStream_t stream, cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(w.cluster, 1, 1);
-  cfg.blockDim = dim3(CLUSTER_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = w.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
 }
 
 }  // namespace
@@ -423,26 +358,18 @@ extern "C" int ktpu_wave_admit_plan(const GangScanArgs* args, WaveArgs* wave, in
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncAttributes fa;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, admit_cluster_kernel);
-  if (e == cudaSuccess) e = cudaFuncSetAttribute(admit_cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return (int)e;
   const long long limit = (long long)optin - (long long)fa.sharedSizeBytes;
   const long long budget = smem_cap < limit ? smem_cap : limit;
   const bool staged = stage && stage_aligned(*args);
-  if (cluster_cap >= CLUSTER_MAX) {
-    place(*args, *wave, CLUSTER_MAX, budget, staged);
-    const size_t smem = cluster_layout(*args, *wave).bytes;
-    e = cudaFuncSetAttribute(admit_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    int clusters = 0;
-    if (e == cudaSuccess) {
-      cudaLaunchAttribute attr[1];
-      const cudaLaunchConfig_t cfg = cluster_config(*wave, smem, nullptr, attr);
-      e = cudaOccupancyMaxActiveClusters(&clusters, admit_cluster_kernel, &cfg);
-    }
-    if (e == cudaSuccess && clusters >= 1) return 0;
-    cudaGetLastError();  // the query's error is not the launch's
-  }
-  place(*args, *wave, 8, budget, staged);  // the portable size; a launch the card refuses raises
-  return 0;
+  auto smem = [&](int G) {
+    place(*args, *wave, G, budget, staged);
+    return cluster_layout(*args, *wave).bytes;
+  };
+  int G = 8;
+  e = cluster_size(admit_cluster_kernel, cluster_cap, smem, &G);
+  if (e == cudaSuccess) smem(G);
+  return (int)e;
 }
 
 // Enqueues K9 (one cluster, as ktpu_wave_admit_plan laid it out) on
@@ -455,7 +382,7 @@ extern "C" int ktpu_wave_admit(const GangScanArgs* args, const WaveArgs* wave, v
     e = cudaFuncSetAttribute(admit_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(*wave, smem, static_cast<cudaStream_t>(stream), attr);
+  const cudaLaunchConfig_t cfg = cluster_config(wave->cluster, smem, static_cast<cudaStream_t>(stream), attr);
   e = cudaLaunchKernelEx(&cfg, admit_cluster_kernel, *args, *wave);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -160,9 +160,9 @@ class SigScanArgs(ctypes.Structure):
 
     _PTRS = (
         "ids sig_req sig_nz sig_allzero sig_ok sig_img alloc allowed "
-        "used nz0 nz1 num_pods choices"
+        "used nz0 nz1 num_pods choices present sig_rows tree_sig leaves lv_val lv_idx info"
     ).split()
-    _INTS = "P N R S w_fit w_bal w_img check_fit".split()
+    _INTS = "P N R S w_fit w_bal w_img check_fit tree_smem launches".split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
@@ -214,12 +214,12 @@ class GangScanArgs(ctypes.Structure):
         "sp_bmatch sp_is_host sp_counting sp_node_cnt sp_sc_dom sp_all_keys ip_dom_cnt "
         "ip_viol_existing ip_sym ip_any_static ip_self_all ip_bmatch ip_is_aff ip_is_anti ip_pref_w ip_sym_w "
         "ip_key_idx sc_taint sc_nodeaff sc_image port_b d_nodename d_unsched d_taints d_nodeaff "
-        "d_ports d_extra chosen n_feas reason_counts dom_ids sp_key ip_key kd2_key cnt cnt_h port_stamp "
+        "d_ports d_extra chosen n_feas reason_counts dom_ids sp_key ip_key kd2_key cnt_h port_stamp "
         "feas ip_raw sp_raw sp_cnt priority nom_off nom_prio nom_req extra_score fit_shape visit_rank "
         "visit_order sample_start"
     ).split()
     _INTS = (
-        "N K Rn Rp L P C AT KD2 D JP use_smem w_taint w_naff w_spread w_ip w_fit w_bal w_img check_fit "
+        "N K Rn Rp L P C AT KD2 D JP w_taint w_naff w_spread w_ip w_fit w_bal w_img check_fit "
         "strat_id n_shape w_cpu w_mem sample_k n_valid tie_on tie_k0 tie_k1 attempt_base"
     ).split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
@@ -294,7 +294,7 @@ def load() -> ctypes.CDLL:
     vp = ctypes.c_void_p
     lib.ktpu_static_eval.argtypes = [ctypes.POINTER(StaticEvalArgs), vp]
     lib.ktpu_static_eval.restype = ctypes.c_int
-    lib.ktpu_sig_scan.argtypes = [ctypes.POINTER(SigScanArgs), vp]
+    lib.ktpu_sig_scan.argtypes = [ctypes.POINTER(SigScanArgs), ctypes.c_int, vp]
     lib.ktpu_sig_scan.restype = ctypes.c_int
     lib.ktpu_usage_checksum.argtypes = [
         vp, ctypes.c_longlong, vp, vp, vp, ctypes.c_longlong, vp, vp
@@ -312,11 +312,13 @@ def load() -> ctypes.CDLL:
     for fn, st in (
         ("ktpu_gang_spread_statics", GangSpreadArgs),
         ("ktpu_gang_interpod_statics", GangInterpodArgs),
-        ("ktpu_gang_scan", GangScanArgs),
     ):
         getattr(lib, fn).argtypes = [ctypes.POINTER(st), vp]
         getattr(lib, fn).restype = ctypes.c_int
-    for fn in ("ktpu_wave_speculate", "ktpu_wave_admit"):
+    lib.ktpu_gang_scan_plan.argtypes = [ctypes.POINTER(GangScanArgs), ctypes.POINTER(WaveArgs), ctypes.c_int,
+                                        ctypes.c_int]
+    lib.ktpu_gang_scan_plan.restype = ctypes.c_int
+    for fn in ("ktpu_gang_scan", "ktpu_wave_speculate", "ktpu_wave_admit"):
         getattr(lib, fn).argtypes = [ctypes.POINTER(GangScanArgs), ctypes.POINTER(WaveArgs), vp]
         getattr(lib, fn).restype = ctypes.c_int
     lib.ktpu_wave_admit_plan.argtypes = [ctypes.POINTER(GangScanArgs), ctypes.POINTER(WaveArgs), ctypes.c_int,
@@ -344,7 +346,7 @@ def load() -> ctypes.CDLL:
     u32 = ctypes.c_uint32
     lib.ktpu_tie_bits.argtypes = [u32, u32, u32, ctypes.c_int, ctypes.c_int, vp, vp]
     lib.ktpu_tie_bits.restype = ctypes.c_int
-    for fn in ("ktpu_gang_scan_smem_max", "ktpu_workloads_admit_smem_max", "ktpu_admit_threads"):
+    for fn in ("ktpu_workloads_admit_smem_max", "ktpu_admit_threads"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
     lib.ktpu_error_string.argtypes = [ctypes.c_int]

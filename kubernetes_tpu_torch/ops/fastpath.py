@@ -333,6 +333,26 @@ def sig_scan_plain(sig_ids, sig_req, sig_nz, sig_allzero, sig_ok, sig_img, alloc
     return choices, (used, nz0, nz1, num_pods)
 
 
+# The most dynamic shared memory K2's scan block may put the signatures'
+# request rows, its trees' roots and groups in (the card's own limit
+# applies below it); what does not fit stays in global memory.
+SIG_TREE_SMEM_CAP = 1 << 30
+# K2's last call: {"tree_smem": the parts of its scan in shared memory (0
+# none, 1 the request rows, the tree list and the roots, 2 and the groups),
+# "launches": the kernels it enqueued, "info": int64 [5] on the card (the
+# placed pods, then the cycles summed over them in the warp that repairs the
+# pod's own tree: the chosen row, the keys, the repairs, the barrier)}; read
+# "info" after a synchronize.
+sig_scan_stats: dict = {}
+
+
+def tree_entries(N: int):
+    """K2's tree over N leaves (csrc/sig_scan.cu): its 32-node groups n1 and
+    the entries above the leaves, n1 + 1 with the root."""
+    n1 = (max(int(N), 0) + 31) // 32
+    return n1, n1 + 1
+
+
 def _sig_scan_cuda(sig_ids, sig_req, sig_nz, sig_allzero, sig_ok, sig_img, alloc, allowed,
                    used, nz0, nz1, num_pods, w_fit, w_bal, w_img, check_fit):
     dev = sig_ids.device
@@ -358,7 +378,19 @@ def _sig_scan_cuda(sig_ids, sig_req, sig_nz, sig_allzero, sig_ok, sig_img, alloc
     a.choices = choices.data_ptr()
     a.P, a.N, a.R, a.S = P, N, R, Sg
     a.w_fit, a.w_bal, a.w_img, a.check_fit = int(w_fit), int(w_bal), int(w_img), int(bool(check_fit))
-    rc = lib.ktpu_sig_scan(ctypes.byref(a), _build.stream_handle(dev))
+    # the trees: a leaf per (signature, node), then per signature its
+    # 32-node groups and its root; the scan keeps the request rows, the
+    # roots and the groups in shared memory while they fit
+    _, M = tree_entries(N)
+    scratch = [("present", (Sg,), torch.uint8), ("sig_rows", (Sg * (R + 3),), I64), ("tree_sig", (Sg,), I32),
+               ("leaves", (Sg * N,), I64), ("lv_val", (Sg * M,), I64), ("lv_idx", (Sg * M,), I32)]
+    keep = [torch.empty(tuple(max(d, 1) for d in shape), dtype=dt, device=dev) for _, shape, dt in scratch]
+    for (f, _, _), t in zip(scratch, keep):
+        setattr(a, f, t.data_ptr())
+    info = torch.zeros((5,), dtype=I64, device=dev)
+    a.info = info.data_ptr()
+    rc = lib.ktpu_sig_scan(ctypes.byref(a), int(min(SIG_TREE_SMEM_CAP, 2**31 - 1)), _build.stream_handle(dev))
     _build.check_launch(lib, rc, "sig_scan")
     _build.launches["sig_scan"] += 1
+    sig_scan_stats.update(tree_smem=int(a.tree_smem), launches=int(a.launches), info=info)
     return choices, (used, nz0, nz1, num_pods)

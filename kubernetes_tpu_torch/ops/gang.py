@@ -957,9 +957,19 @@ def gang_run(
 # ---------------------------------------------------------------------------
 
 _STATIC_ALL = frozenset({"NodeName", "NodeUnschedulable", "TaintToleration", "NodeAffinity"})
-# The most dynamic shared memory K5 may put its peer counters in (the card's
-# own limit applies below it); above it they go to a global scratch row.
+# The most dynamic shared memory a CTA of K5's cluster may put its exchange
+# slab, peer counters, slice rows and staged planes in (the card's own limit
+# applies below it); what does not fit goes to global scratch rows.
 SCAN_SMEM_CAP = 1 << 30
+# The most CTAs in K5's cluster: 16 where the card admits a cluster of 16 at
+# the kernel's shared memory, else 8 (the portable size); 8 here forces 8.
+SCAN_CLUSTER_CAP = 16
+CL_PHASES = 19  # csrc/ktpu.cuh CL_PHASES: the cluster leader's clocks (K5, K9)
+# K5's last launch: {"cluster": its CTAs, "staged": whether it staged the
+# planes, "info": int32 [2 + CL_PHASES] on the card (the CTAs, the
+# cluster-wide exchanges over the batch, then the rank-0 leader's cycles / 16
+# per phase)}; read "info" after a synchronize.
+scan_stats: dict = {}
 # GangStatics fields K5 does not read: it takes the compact domain ids from
 # DeviceCluster.dom_ids under the batch's topology keys instead.
 _SCAN_UNREAD = frozenset({"sp_dv", "sp_cdv", "ip_dv", "ip_key_cols"})
@@ -1198,7 +1208,9 @@ def _precompute_cuda(dc, db, hostname_key, *, hard_pod_affinity_weight, has_inte
 
 def _scan_domains(dc, db, g: GangStatics, C: int, AT: int):
     """K5's topology keys: per spread slot, per inter-pod slot, and per
-    ip_key_idx entry; and D, the largest compact-domain count among them."""
+    ip_key_idx entry; D, the largest compact-domain count among them; and
+    Dsp, max_domains of the live pods' non-hostname spread slots (a cluster
+    launch's counted domains).  One device-to-host copy for both."""
     dev = dc.node_valid.device
     K = dc.node_labels.shape[1]
     sp_key = db.tsc_topo[:, :C].contiguous()
@@ -1210,8 +1222,19 @@ def _scan_domains(dc, db, g: GangStatics, C: int, AT: int):
     keys = torch.cat([sp_key.reshape(-1), ip_key.reshape(-1)]).long()
     counts = torch.tensor(tuple(dc.dom_counts) + (0,), dtype=torch.int64, device=dev)
     keys = torch.where((keys >= 0) & (keys < K), keys, K)
-    D = int(counts[keys].max().item()) if keys.numel() else 0
-    return sp_key, ip_key, kd2_key, max(D, 1)
+    sp_live = db.valid[:, None] & ~g.sp_is_host & (sp_key >= 0) & (sp_key < K)
+    sp = torch.where(sp_live, sp_key.long(), K).reshape(-1)
+    D, Dsp = (torch.cat([counts[k], counts[K:]]).max() for k in (keys, sp))  # counts[K] = 0: none
+    D, Dsp = torch.stack([D, Dsp]).tolist()
+    return sp_key, ip_key, kd2_key, max(D, 1), max(Dsp, 1)
+
+
+def max_domains(dc, keys, live) -> int:
+    """The largest compact-domain count among the topology keys of the
+    slots in ``live`` (keys and live [P, S]); at least 1."""
+    counts = dc.dom_counts
+    k = set(keys[live].cpu().tolist())
+    return max([counts[x] for x in k if 0 <= x < len(counts)] + [1])
 
 
 def visit_order(dc) -> torch.Tensor:
@@ -1249,8 +1272,8 @@ def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch, 
     ``outs`` (chosen, n_feas, reason_counts), the ``scratch`` tensors, the
     nominations' CSR (``nominations_csr``, or None), ``extra_score`` (i64
     [P, N], or None: a null pointer) and ``mode`` (``step_mode``; None: the
-    default branch), after the wrapper checks.  K5's counter layout
-    (``use_smem``) is left at 0 for the caller."""
+    default branch), after the wrapper checks.  ``a.Dsp`` (an attribute,
+    not a field) is _scan_domains' Dsp."""
     mode = step_mode() if mode is None else mode
     dev = dc.node_valid.device
     P, N = g.static_mask.shape
@@ -1262,7 +1285,7 @@ def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch, 
     Rn = dc.allocatable.shape[1]
     Rp = db.requests.shape[1]
     L = dc.log_tab.shape[0]
-    sp_key, ip_key, kd2_key, D = _scan_domains(dc, db, g, C, AT)
+    sp_key, ip_key, kd2_key, D, Dsp = _scan_domains(dc, db, g, C, AT)
     chosen, n_feas, reason_counts = outs
     spec = _statics_spec(P, N, C, AT, KD2, JP)
     a = _build.GangScanArgs()
@@ -1290,7 +1313,6 @@ def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch, 
     if extra_score is not None:
         _set_ptrs(a, dev, [("extra_score", extra_score.contiguous(), I64, (P, N))])
     a.N, a.K, a.Rn, a.Rp, a.L, a.P, a.C, a.AT, a.KD2, a.D, a.JP = N, K, Rn, Rp, L, P, C, AT, KD2, D, JP
-    a.use_smem = 0
     (a.w_taint, a.w_naff, a.w_spread, a.w_ip, a.w_fit, a.w_bal, a.w_img) = (int(w) for w in weights)
     a.check_fit = int(bool(check_fit))
     strat_id, shape, (a.w_cpu, a.w_mem) = mode["fit_strategy"]
@@ -1310,20 +1332,22 @@ def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch, 
         a.tie_on = 1
         a.tie_k0, a.tie_k1 = (_word(k) for k in mode["tie_key"])
         a.attempt_base = _word(mode["attempt_base"])
+    a.Dsp = Dsp
     return a
 
 
 def _gang_scan_cuda(dc, db, g: GangStatics, weights, check_fit, nom_node=None, nom_prio=None, nom_req=None,
                     **mode):
-    """K5 launch: the whole batch's scan in one persistent block; ``mode``
-    is step_mode's dict (the cursor rides the state)."""
+    """K5 launch: the whole batch's scan in one thread-block cluster, laid
+    out by ktpu_gang_scan_plan (the cluster size under SCAN_CLUSTER_CAP,
+    shared memory under SCAN_SMEM_CAP), with the exchange slabs and peer
+    counters that do not fit in global scratch rows, one set per CTA;
+    ``mode`` is step_mode's dict (the cursor rides the state)."""
     dev = dc.node_valid.device
     lib = _build.load()
     g = GangStatics(*(t.contiguous() for t in g))
     P, N = g.static_mask.shape
     C = g.sp_dv.shape[1]
-    AT = g.ip_dv.shape[1]
-    KD2 = g.ip_key_cols.shape[0]
     mode = step_mode(**mode)
     state = _state0(dc, mode["sample_start"])
     chosen = torch.empty((P,), dtype=I32, device=dev)
@@ -1334,19 +1358,25 @@ def _gang_scan_cuda(dc, db, g: GangStatics, weights, check_fit, nom_node=None, n
         return torch.zeros(tuple(max(s, 1) for s in shape), dtype=dtype, device=dev)
 
     scratch = dict(
-        cnt=zeros(1), cnt_h=zeros(C, N), port_stamp=zeros(N),
+        cnt_h=zeros(C, N), port_stamp=zeros(N),
         feas=zeros(N, dtype=BOOL), ip_raw=zeros(N, dtype=I64), sp_raw=zeros(N, dtype=I64), sp_cnt=zeros(C, N),
     )
     nom = nominations_csr(nom_node, nom_prio, nom_req, N, dev)
     a = step_args(dc, db, g, weights, check_fit, state, (chosen, n_feas, reason_counts), scratch, nom, mode=mode)
-    cells = (3 * C + AT + 2 * KD2) * a.D
-    smem_max = min(lib.ktpu_gang_scan_smem_max(), SCAN_SMEM_CAP) - 16 * C
-    use_smem = 4 * cells <= smem_max
-    if not use_smem:  # the counters in a global scratch row
-        scratch["cnt"] = zeros(cells)
-        _set_ptrs(a, dev, [("cnt", scratch["cnt"], I32, None)])
-    a.use_smem = int(use_smem)
-    rc = lib.ktpu_gang_scan(ctypes.byref(a), _build.stream_handle(dev))
+    w = _build.WaveArgs()
+    w.Dsp = a.Dsp  # the counted domains' flags
+    rc = lib.ktpu_gang_scan_plan(ctypes.byref(a), ctypes.byref(w), int(SCAN_CLUSTER_CAP),
+                                 int(min(SCAN_SMEM_CAP, 2**31 - 1)))
+    _build.check_launch(lib, rc, "gang_scan")
+    cells = (2 * C + a.AT + 2 * a.KD2) * a.D
+    info = torch.zeros((2 + CL_PHASES,), dtype=I32, device=dev)
+    _set_ptrs(w, dev, [
+        ("sums", zeros(1 if w.sums_smem else w.cluster * w.xch_cells), I32, None),
+        ("carries", zeros(1 if w.carry_smem else w.cluster * cells), I32, None),
+        ("admit_info", info, I32, (2 + CL_PHASES,)),
+    ])
+    rc = lib.ktpu_gang_scan(ctypes.byref(a), ctypes.byref(w), _build.stream_handle(dev))
     _build.check_launch(lib, rc, "gang_scan")
     _build.launches["gang_scan"] += 1
+    scan_stats.update(cluster=int(w.cluster), staged=bool(w.stage), info=info)
     return chosen, n_feas, reason_counts, state

@@ -91,7 +91,7 @@ ADMIT_CLUSTER_CAP = 16
 # one pod ahead (bulk copies), and its node statics once; False reads them
 # from global memory.
 ADMIT_STAGE = True
-ADMIT_PHASES = 19  # csrc/ktpu.cuh CL_PHASES
+ADMIT_PHASES = gang.CL_PHASES
 # K9's last launch: {"cluster": its CTAs, "staged": whether it staged the
 # planes, "info": int32 [2 + ADMIT_PHASES] on the card (the CTAs, the
 # cluster-wide exchanges over the batch, then the rank-0 leader's cycles / 16
@@ -721,14 +721,6 @@ def wave_run(dc, db, hostname_key: int, v_cap: int, tid_sp, rep_sp_p, rep_sp_c, 
 # ---------------------------------------------------------------------------
 
 
-def _max_domains(dc, keys, live) -> int:
-    """The largest compact-domain count among the topology keys of the
-    slots in ``live`` (keys and live [P, S]); at least 1."""
-    counts = dc.dom_counts
-    k = set(keys[live].cpu().tolist())
-    return max([counts[x] for x in k if 0 <= x < len(counts)] + [1])
-
-
 def _zeros(dev, n, dtype=I32):
     return torch.zeros((max(int(n), 1),), dtype=dtype, device=dev)
 
@@ -743,7 +735,7 @@ def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=
     g = gang.GangStatics(*(t.contiguous() for t in g))
     P, N = g.static_mask.shape
     C = g.sp_dv.shape[1]
-    Dsp = _max_domains(dc, db.tsc_topo[:, :C], db.valid[:, None] & ~g.sp_is_host)
+    Dsp = gang.max_domains(dc, db.tsc_topo[:, :C], db.valid[:, None] & ~g.sp_is_host)
     mode = gang.step_mode(**mode)
     state = {"requested": dc.requested, "nonzero": dc.nonzero_req, "num_pods": dc.num_pods}  # read only
     if mode["sample_k"] is not None:
@@ -751,7 +743,7 @@ def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=
     c0 = torch.empty((P,), dtype=I32, device=dev)
     outs = (c0, torch.empty((P,), dtype=I64, device=dev), torch.empty((P, N_DIAG), dtype=I64, device=dev))
     # per-block scratch rows: each block holds one pod's step
-    scratch = dict(cnt=_zeros(dev, 1), cnt_h=_zeros(dev, 1), port_stamp=_zeros(dev, 1),
+    scratch = dict(cnt_h=_zeros(dev, 1), port_stamp=_zeros(dev, 1),
                    feas=_zeros(dev, P * N, BOOL), ip_raw=_zeros(dev, P * N, I64), sp_raw=_zeros(dev, P * N, I64),
                    sp_cnt=_zeros(dev, P * C * N))
     nom = gang.nominations_csr(nom_node, nom_prio, nom_req, N, dev)
@@ -789,13 +781,13 @@ def _admit_blocks(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, r
     if port_conf is None:
         port_conf = torch.zeros((1, 1), dtype=BOOL, device=dev)
     W = tid_pt.shape[1]
-    Dsp = _max_domains(dc, db.tsc_topo[:, :C], db.valid[:, None] & ~g.sp_is_host)
-    D2 = _max_domains(dc, db.aff_topo[:, :AT], db.valid[:, None] & (db.aff_topo[:, :AT] != hostname_key))
+    Dsp = gang.max_domains(dc, db.tsc_topo[:, :C], db.valid[:, None] & ~g.sp_is_host)
+    D2 = gang.max_domains(dc, db.aff_topo[:, :AT], db.valid[:, None] & (db.aff_topo[:, :AT] != hostname_key))
     mode = gang.step_mode() if mode is None else mode
     state = gang._state0(dc, mode["sample_start"])
     outs = (torch.empty((P,), dtype=I32, device=dev), torch.empty((P,), dtype=I64, device=dev),
             torch.empty((P, N_DIAG), dtype=I64, device=dev))
-    scratch = dict(cnt=_zeros(dev, 1), cnt_h=_zeros(dev, 1), port_stamp=_zeros(dev, 1),
+    scratch = dict(cnt_h=_zeros(dev, 1), port_stamp=_zeros(dev, 1),
                    feas=_zeros(dev, N, BOOL), ip_raw=_zeros(dev, N, I64), sp_raw=_zeros(dev, N, I64),
                    sp_cnt=_zeros(dev, C * N))
     a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom, extra_score, mode)

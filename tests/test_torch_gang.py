@@ -177,3 +177,20 @@ def test_precompute_requires_tables():
         p_gang.precompute(pk.pdc, pk.pdb, pk.hk, pk.v_cap, has_interpod=False)
     with pytest.raises(ValueError, match="ip_keys"):
         p_gang.precompute(pk.pdc, pk.pdb, pk.hk, pk.v_cap, has_spread=False)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_scan_domains_counts_match_max_domains(case):
+    """K5's domain counts, both from one copy to the host: D over every
+    spread and inter-pod key, and Dsp (the cluster launch's counted
+    domains) as max_domains gives it over the live pods' non-hostname
+    spread slots."""
+    pk = packed(case)
+    _, tp = pk.port_tables()
+    g = p_gang.precompute(pk.pdc, pk.pdb, pk.hk, pk.v_cap, **tp)
+    dc, db = pk.pdc, pk.pdb
+    C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
+    *_, D, Dsp = p_gang._scan_domains(dc, db, g, C, AT)
+    keys = torch.cat([db.tsc_topo[:, :C], db.aff_topo[:, :AT]], dim=1)
+    assert D == p_gang.max_domains(dc, keys, torch.ones_like(keys, dtype=torch.bool))
+    assert Dsp == p_gang.max_domains(dc, db.tsc_topo[:, :C], db.valid[:, None] & ~g.sp_is_host)

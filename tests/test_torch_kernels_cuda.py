@@ -864,3 +864,177 @@ def test_fork_view_kernel_matches_plain(cuda, N, L, T, KF, misaligned):
         assert set(got) == set(want)
         for k in want:
             _equal(got[k], want[k])
+
+
+# ---- K5 on the thread-block cluster; K2 as an incremental argmax ------------
+
+
+def _k5_check(cuda, world, cap, nominate=False, mode=None):
+    """K5 against gang_schedule_plain on one batch of `world` (_k9_world's
+    cases), exact on chosen, n_feas, the reason counts and the tallies (the
+    usage rows and the cursor), with the cluster capped at `cap` CTAs (and
+    taking that many); with 64 open nominations when `nominate`, and the
+    step `mode` (gang.step_mode's keywords).  Returns the plain outputs."""
+    nodes, placed, pending, P = world
+    dc, db, kw, d_cap, flags = chip_smoke.gang_inputs(torch, cuda, nodes, placed, pending, P=P)
+    tab = {k: kw[k] for k in ("sp_keys", "sp_cdv_tab", "ip_keys")}
+    g = ops_gang.precompute_plain(dc, db, kw["hostname_key"], kw["v_cap"], hard_pod_affinity_weight=1,
+                                  enabled=ops_gang.ALL_FILTER_KERNELS, **flags, **tab)
+    extra = dict(chip_smoke.nominations(torch, dc, db) if nominate else {}, **(mode or {}))
+    n0 = _build.launches["gang_scan"]
+    got = ops_gang.gang_schedule(dc, db, g, kw["v_cap"], d_cap=d_cap, **extra)
+    torch.cuda.synchronize()
+    assert _build.launches["gang_scan"] == n0 + 1
+    assert ops_gang.scan_stats["cluster"] == cap
+    assert ops_gang.scan_stats["info"].tolist()[0] == cap
+    want = ops_gang.gang_schedule_plain(dc, db, g, kw["v_cap"], d_cap=d_cap, **extra)
+    for a, b in zip(got[:3], want[:3]):
+        _equal(a, b)
+    assert set(got[3]) == set(want[3])
+    for k in want[3]:
+        _equal(got[3][k], want[3][k])
+    return want
+
+
+@pytest.mark.parametrize("smem_cap", [1 << 30, 0], ids=["shared", "global"])
+@pytest.mark.parametrize("cap", [16, 8], ids=["cluster16", "cluster8"])
+@pytest.mark.parametrize("case", ["hostname16", "hostname256", "hostname3072", "ports", "gen"])
+def test_gang_scan_cluster_matches_plain(cuda, case, cap, smem_cap, monkeypatch):
+    """K5 at both cluster sizes, its exchange slab, peer counters and
+    slices' rows in shared memory and (SCAN_SMEM_CAP = 0) in global memory,
+    on clusters whose N is below one 16-CTA cluster's 512 nodes (N = 16,
+    256) or splits into slices of 192 / 384 nodes; with hostname-keyed
+    spread and inter-pod slots (counters D = N wide), the host-port stamps
+    and a mixed batch; some pod lands on a node a CTA other than rank 0
+    owns."""
+    monkeypatch.setattr(ops_gang, "SCAN_SMEM_CAP", smem_cap)
+    monkeypatch.setattr(ops_gang, "SCAN_CLUSTER_CAP", cap)
+    want = _k5_check(cuda, _k9_world(case), cap)
+    assert int((want[0] >= 0).sum()) > 0
+    if case in ("hostname256", "hostname3072", "gen"):
+        assert int((want[0] >= 32).sum()) > 0
+
+
+@pytest.mark.parametrize("cap", [16, 8], ids=["cluster16", "cluster8"])
+@pytest.mark.parametrize("mode", ["wrap", "wrap_tie", "compat_all", "most_allocated", "rtcr", "tie", "nominated"])
+def test_gang_scan_cluster_step_modes_match_plain(cuda, mode, cap, monkeypatch):
+    """K5 at both cluster sizes in the step's branches on 200 nodes (N =
+    256), as K9's cluster test: the sampling window from a cursor 10 nodes
+    before the end (the walk wraps across the slices; with and without a
+    tie key), the window over every node, MostAllocated,
+    RequestedToCapacityRatio, a tie key alone, 64 open nominations.  The
+    cursor the tallies carry out is the plain version's."""
+    from kubernetes_tpu_torch.ops import rng
+
+    monkeypatch.setattr(ops_gang, "SCAN_CLUSTER_CAP", cap)
+    n = 200
+    tie = dict(tie_key=rng.prng_key(chip_smoke.TIE_SEED), attempt_base=4321)
+    modes = {
+        "wrap": dict(sample_k=100, sample_start=n - 10),
+        "wrap_tie": dict(sample_k=100, sample_start=n - 10, **tie),
+        "compat_all": dict(sample_k=n, sample_start=n - 10),
+        "most_allocated": dict(fit_strategy=(1, (), (1, 1))),
+        "rtcr": dict(fit_strategy=(2, chip_smoke.SHAPE_RTCR, (1, 1))),
+        "tie": tie,
+        "nominated": None,
+    }
+    want = _k5_check(cuda, _k9_world("hostname256"), cap, nominate=mode == "nominated", mode=modes[mode])
+    if mode.startswith("wrap"):  # the cursor went round past the last node
+        assert int(want[3]["sample_start"]) < n - 10
+
+
+def _k2_case(cuda, N, S, P, seed=19, pads=0.05, prefix=0, ties=False, none_fit=False, R=4):
+    """A K2 feed made from a seed: S signatures (one all-zero, one asking
+    for an extended lane) over N nodes with overcommitted rows, R resource
+    lanes, P pod ids with a share of -1 pads and a masked prefix of `prefix`
+    pads; `ties` makes every node alike (every score ties), `none_fit` asks
+    more than any node has and leaves one signature statics-feasible
+    nowhere."""
+    g = torch.Generator().manual_seed(seed)
+    alloc = torch.zeros((N, R), dtype=torch.int64)
+    alloc[:, 0] = 8000 if ties else torch.randint(1, 5, (N,), generator=g) * 2000
+    alloc[:, 1] = 16384 if ties else torch.randint(1, 5, (N,), generator=g) * 4096
+    alloc[::7, 3] = 4
+    used = torch.zeros_like(alloc) if ties else (alloc * torch.randint(0, 60, (N, 1), generator=g)) // 100
+    if not ties:
+        used[::11, 1] = alloc[::11, 1] + 1
+    req = torch.zeros((S, R), dtype=torch.int64)
+    req[:, 0] = torch.randint(100, 900, (S,), generator=g)
+    req[:, 1] = torch.randint(64, 2048, (S,), generator=g)
+    req[0] = 0
+    if S > 1:
+        req[1, 3] = 1
+    if R > 4 and S > 2:  # a high extended lane on every third node
+        alloc[::3, R - 1] = 2
+        req[2, R - 1] = 1
+    ok = torch.ones((S, N), dtype=torch.bool) if ties else torch.rand((S, N), generator=g) < 0.8
+    if none_fit:
+        req[:, 0] = 10**9
+        ok[-1] = False
+    ids = torch.randint(0, S, (P,), generator=g, dtype=torch.int32)
+    ids[torch.rand(P, generator=g) < pads] = -1
+    ids[:prefix] = -1
+    fixed = dict(sig_ids=ids, sig_req=req, sig_nz=torch.stack([req[:, 0].clamp(min=100), req[:, 1].clamp(min=200)], 1),
+                 sig_allzero=(req == 0).all(1), sig_ok=ok,
+                 sig_img=torch.zeros((S, N), dtype=torch.int64) if ties else torch.randint(0, 101, (S, N), generator=g),
+                 alloc=alloc, allowed=torch.full((N,), 110, dtype=torch.int32))
+    state = dict(used=used, nz0=used[:, 0].clone(), nz1=used[:, 1].clone(),
+                 num_pods=torch.zeros((N,), dtype=torch.int32) if ties else
+                 torch.randint(0, 40, (N,), generator=g, dtype=torch.int32))
+    to = lambda d: {k: v.to(cuda).contiguous() for k, v in d.items()}  # noqa: E731
+    return to(fixed), to(state)
+
+
+K2_CASES = {
+    "s1": dict(N=700, S=1, P=1024),
+    "s16": dict(N=10240 + 7, S=16, P=4096),
+    "s512": dict(N=3000, S=512, P=2048),
+    "all_pads": dict(N=700, S=16, P=512, pads=1.0),
+    "one_pod": dict(N=700, S=16, P=1, pads=0.0),
+    "ties": dict(N=700, S=4, P=1024, ties=True),
+    "none_fit": dict(N=700, S=4, P=512, none_fit=True),
+    "n1": dict(N=1, S=4, P=64),
+    "masked_prefix": dict(N=700, S=16, P=1024, prefix=700),
+    "wide_rows": dict(N=700, S=16, P=1024, R=16),  # a node's row is 2 R + 4 = 36 wide: no read-ahead
+}
+
+
+@pytest.mark.parametrize("smem_cap", [1 << 30, 0], ids=["shared", "global"])
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_sig_scan_incremental_matches_plain(cuda, case, smem_cap, monkeypatch):
+    """K2's trees against sig_scan_plain, exact on the choices and the
+    usage rows updated in place: 1, 16 and 512 signatures, all-pad and
+    one-pod batches, every node tied, nothing fitting, N = 1 and N =
+    10,240 + 7, a masked prefix as resident_run's serial tail passes, 16
+    resource lanes (a row too wide for a lane each); the request rows and
+    the trees' roots in shared memory, and the groups too where they fit
+    (all but S = 512), or (SIG_TREE_SMEM_CAP = 0) all in global memory;
+    three kernels enqueued a call."""
+    monkeypatch.setattr(ops_fp, "SIG_TREE_SMEM_CAP", smem_cap)
+    fx, state = _k2_case(cuda, **K2_CASES[case])
+    shared = None
+    w = dict(w_fit=1, w_bal=1, w_img=1, check_fit=True)
+    outs = []
+    for fn in (ops_fp.sig_scan, ops_fp.sig_scan_plain):
+        st = {k: v.clone() for k, v in state.items()}
+        n0 = _build.launches["sig_scan"]
+        ch, _ = fn(fx["sig_ids"], fx["sig_req"], fx["sig_nz"], fx["sig_allzero"], fx["sig_ok"], fx["sig_img"],
+                   fx["alloc"], fx["allowed"], st["used"], st["nz0"], st["nz1"], st["num_pods"], **w)
+        torch.cuda.synchronize()
+        assert _build.launches["sig_scan"] == n0 + (fn is ops_fp.sig_scan)
+        if fn is ops_fp.sig_scan and int(fx["sig_ids"].numel()):
+            shared = ops_fp.sig_scan_stats["tree_smem"]
+            assert ops_fp.sig_scan_stats["launches"] == 3  # sig_mark, sig_build, the scan
+        outs.append((ch, st))
+    assert shared in (None, 0 if smem_cap == 0 else 2 if case != "s512" else 1)
+    (ch_k, st_k), (ch_p, st_p) = outs
+    _equal(ch_k, ch_p)
+    for k in st_k:
+        _equal(st_k[k], st_p[k])
+    live = fx["sig_ids"] >= 0
+    if case == "ties":
+        assert int(ch_p[live][0]) == 0
+    if case == "none_fit":
+        assert bool((ch_p == -1).all())
+    if case in ("s1", "s16", "s512", "masked_prefix"):
+        assert int((ch_p >= 0).sum()) > 0
