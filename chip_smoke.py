@@ -969,10 +969,10 @@ def k2_row(torch, fixed, state0, w, reps, floor=True):
         for k, v in state0.items():
             scratch.setdefault(k, torch.empty_like(v)).copy_(v)
 
-    # the plain version, timed: its last run's choices and state are the
-    # check's
-    plain_ms = time_ms(torch, lambda: plain_out.append(run(ops_fp.sig_scan_plain, st_p)), 1,
-                       setup=lambda: [st_p[k].copy_(v) for k, v in state0.items()])
+    # the plain version, timed once (host clock): its choices and state are
+    # the check's
+    out, plain_ms = timed_once(torch, lambda: run(ops_fp.sig_scan_plain, st_p))
+    plain_out.append(out)
     st_k = fresh()
     ch_k = run(ops_fp.sig_scan, st_k)
     torch.cuda.synchronize() if ch_k.device.type == "cuda" else None
@@ -1336,6 +1336,21 @@ def k5_capped(torch, fn, cap):
         gang.SCAN_CLUSTER_CAP = old
 
 
+def without_own_terms(db):
+    """`db` with its pods' own inter-pod term axis cut to width 0 (AT = 0):
+    K7 then launches ext_kernel alone (the placed pods' terms against the
+    pods), whose outputs do not read that axis."""
+    import dataclasses
+
+    def cut(t):
+        return t[:, :0].contiguous()
+
+    tab = db.aff_table
+    tab = dataclasses.replace(tab, **{f.name: cut(getattr(tab, f.name)) for f in dataclasses.fields(tab)})
+    return dataclasses.replace(db, aff_table=tab, **{k: cut(getattr(db, k)) for k in (
+        "aff_kind", "aff_topo", "aff_weight", "aff_ns_all", "aff_ns_ids")})
+
+
 def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "config3"), nominated=("config4",)):
     """K5, K6 and K7 against their plain versions on the card: precompute
     (K1 + K6 + K7) against precompute_plain on every one of the 39
@@ -1363,9 +1378,9 @@ def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "
         errs = {f: max_abs_err(torch, getattr(got, f), getattr(want, f)) for f in gang.GangStatics._fields}
         if any(errs.values()):
             raise AssertionError(f"{name}: precompute kernels != plain on {[f for f, e in errs.items() if e]}")
-        outs = [fn(dc, db, want, v_cap, d_cap=d_cap) for fn in (gang.gang_schedule, gang.gang_schedule_plain)]
-        torch.cuda.synchronize()
-        (ck, nk, rk, tk), (cp, np_, rp, tp) = outs
+        ck, nk, rk, tk = gang.gang_schedule(dc, db, want, v_cap, d_cap=d_cap)
+        (cp, np_, rp, tp), k5_plain_ms = timed_once(torch, lambda: gang.gang_schedule_plain(dc, db, want, v_cap,
+                                                                                             d_cap=d_cap))
         k5_err = max([max_abs_err(torch, ck, cp), max_abs_err(torch, nk, np_), max_abs_err(torch, rk, rp)]
                      + [max_abs_err(torch, tk[k], tp[k]) for k in tk])
         if k5_err:
@@ -1384,7 +1399,7 @@ def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "
         k5 = lambda: gang.gang_schedule(dc, db, want, v_cap, d_cap=d_cap)  # noqa: E731
         k5_ms = time_ms(torch, k5, reps)
         row["gang_scan"] = dict(
-            ms=k5_ms, plain_ms=time_ms(torch, lambda: gang.gang_schedule_plain(dc, db, want, v_cap, d_cap=d_cap), 1),
+            ms=k5_ms, plain_ms=k5_plain_ms,
             bound_ms=b5, bound_by=by5, library_ms=None, **k5_cluster(torch, db, k5_ms))
         # the same statics on a cluster of 8 CTAs, exact too
         (c8, n8, r8, t8), ctas = k5_capped(torch, k5, 8)
@@ -1405,12 +1420,25 @@ def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "
             w = torch.ones_like(dc.term_kind, dtype=torch.float64)
             lhs = (pre.ext_match.to(torch.float64) * w[:, None]).T.contiguous()
             rhs = pre.ext_topo_eq.to(torch.float64).contiguous()
+            # ext_kernel alone (inter-pod on, AT = 0, ports off): the part of
+            # K7 that computes what the matmul does, exact against the full
+            # launch's ip_viol_existing and ip_sym
+            db0 = without_own_terms(db)
+            ext = gang.interpod_statics(dc, db0, do_interpod=True, do_ports=False)
+            full = gang.interpod_statics(dc, db, do_interpod=True, do_ports=True)
+            torch.cuda.synchronize()
+            ext_err = max(max_abs_err(torch, ext[k], full[k]) for k in ("ip_viol_existing", "ip_sym"))
+            if ext_err:
+                raise AssertionError(f"{name}: ext_kernel alone differs from the full K7 launch ({ext_err})")
             row["gang_interpod_statics"] = dict(
                 ms=time_ms(torch, lambda: gang.interpod_statics(dc, db, do_interpod=True, do_ports=True), reps),
                 plain_ms=time_ms(torch, lambda: (gang.interpod_statics_plain(dc, db, v_cap, tab["ip_keys"]),
                                                  gang.port_masks_plain(dc, db)), 1),
                 bound_ms=b7, bound_by=by7, library_ms=time_ms(torch, lambda: torch.matmul(lhs, rhs), reps),
-                library_call=f"torch.matmul float64 [{lhs.shape[0]}, {lhs.shape[1]}] x [{rhs.shape[0]}, {rhs.shape[1]}]")
+                library_call=f"torch.matmul float64 [{lhs.shape[0]}, {lhs.shape[1]}] x [{rhs.shape[0]}, {rhs.shape[1]}]",
+                ext_kernel_alone_ms=time_ms(torch, lambda: gang.interpod_statics(dc, db0, do_interpod=True,
+                                                                                 do_ports=False), reps),
+                ext_kernel_alone_err=ext_err)
         log(phase="gang_kernel_check", **row)
         rows[name] = row
         if name in wave_on:
@@ -1441,8 +1469,41 @@ def wave_shapes(n_ports=1000, n_mixed=5000, P=512):
 WAVE_TABLES = ("tid_sp", "rep_sp_p", "rep_sp_c", "tid_ip", "rep_ip_p", "rep_ip_u", "ip_cdv_tab")
 
 
+# Lane operations counted for one int64 floor division: the card has no
+# integer divide instruction, and the shortest sequence the compiler emits
+# for one (both operands in 32 bits, as the scores' are) is a float
+# reciprocal estimate and its integer fix-ups, about 20 instructions (I2F,
+# MUFU.RCP, F2I, five IMADs, the compares and corrections).  A convention
+# for the bound, not a measurement.
+DIV64_OPS = 20
+
+
+def k8_ops(db, g, spec_feas, weights):
+    """K8's integer operations from this run's inputs: per (live pod, live
+    node) the filter's compares and ANDs (mask, port lane, the pod count
+    and 3 per request lane, 8 per live spread slot and per live inter-pod
+    term); per speculatively feasible node the normalizers' counts (12),
+    the spread raw (6 + 4 per live slot) and the weighted total with its
+    argmax (30) plus its int64 floor divisions: one each for the taint,
+    node-affinity, spread and inter-pod scores when weighted, three for
+    LeastAllocated (a lane's fraction each, their mean) and one for
+    BalancedAllocation.  Returns (operations, divisions)."""
+    C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
+    valid = db.valid
+    sp_live = ((db.tsc_topo[:, :C] >= 0) & valid[:, None]).sum(1)
+    ip_live = ((db.aff_kind[:, :AT] >= 0) & valid[:, None]).sum(1)
+    n_live = int(g.static_mask.shape[1])
+    Rp = db.requests.shape[1]
+    divs = (int(weights[0] != 0) + int(weights[1] != 0) + int(weights[2] != 0 and C > 0) + int(weights[3] != 0 and AT > 0)
+            + 3 * int(weights[4] != 0) + int(weights[5] != 0))
+    per_pair = (valid.long() * (6 + 3 * Rp) + 8 * (sp_live + ip_live)) * n_live
+    per_feas = spec_feas * (12 + 6 + 4 * sp_live + 30 + divs * DIV64_OPS)
+    return int((per_pair + per_feas).sum().item()), int((spec_feas * divs).sum().item())
+
+
 def wave_bounds(torch, dc, db, g, wt, c0, spec_feas, chosen, n_feas, weights):
-    """(K8, K9) bound_ms from this run's inputs.  K8's only output is c0:
+    """(K8, K9) bound_ms from this run's inputs, and K8's bytes bound
+    alone.  K8's only output is c0:
     it must read static_mask (already the AND of the diagnosis masks) at
     every valid (pod, node); each live spread slot's eligibility and domain
     count rows there too (the min-match runs over every eligible node); a
@@ -1455,8 +1516,8 @@ def wave_bounds(torch, dc, db, g, wt, c0, spec_feas, chosen, n_feas, weights):
     diagnosis masks feed only reason counts, which K8 does not emit.  K9:
     K5's k5_bytes for the same statics and placements (reason counts
     included), plus the wave tables, the stats, and one pass over the live
-    carry rows ([T, N] int32).  Operations: ~80 + 3 Rp integer operations
-    per (pod, node), 12 more per live slot."""
+    carry rows ([T, N] int32).  Operations: K8's k8_ops; K9's ~80 + 3 Rp
+    integer operations per (pod, node), 12 more per live slot."""
     P, N = g.static_mask.shape
     C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
     valid = db.valid
@@ -1481,7 +1542,8 @@ def wave_bounds(torch, dc, db, g, wt, c0, spec_feas, chosen, n_feas, weights):
                                                                    if wt["has_ports"] else 0)
     b9 = k5_bytes(torch, dc, db, g, chosen, n_feas, weights) + nbytes(*(wt[k] for k in WAVE_TABLES[:6]))
     b9 += nbytes(wt["tid_pt"], wt["port_conf"], c0) + 2 * P * 4 + t_live * n_live * 4
-    return bound_ms(b8, ops), bound_ms(b9, ops + t_live * n_live * 2)
+    return (bound_ms(b8, k8_ops(db, g, spec_feas, weights)[0]), bound_ms(b9, ops + t_live * n_live * 2),
+            b8 / PEAK_BYTES_S * 1e3)
 
 
 def wave_check(torch, dc, db, kw, d_cap, flags, wt, g=None, k5=None):
@@ -1493,7 +1555,8 @@ def wave_check(torch, dc, db, kw, d_cap, flags, wt, g=None, k5=None):
     caller has them (a batch without ports), else K5 runs here on the
     statics with ports.  K9 runs on the plain version's c0, so it is checked
     apart from K8.  Returns (g, K5's statics, plain c0, speculatively
-    feasible counts, plain admission outputs, errors)."""
+    feasible counts, the plain versions' host-clock ms {"k8", "k9"} (one
+    run each, the checked one), plain admission outputs, errors)."""
     from kubernetes_tpu_torch.ops import gang, wave
 
     hk, v_cap = kw["hostname_key"], kw["v_cap"]
@@ -1501,13 +1564,14 @@ def wave_check(torch, dc, db, kw, d_cap, flags, wt, g=None, k5=None):
     plain = dict(hard_pod_affinity_weight=1, enabled=gang.ALL_FILTER_KERNELS, **tab)
     if g is None:
         g = gang.precompute_plain(dc, db, hk, v_cap, **dict(flags, has_ports=False), **plain)
+    g = gang.GangStatics(*(t.contiguous() for t in g))  # as the kernels' precompute returns them
     targs = [wt[k] for k in WAVE_TABLES]
     tkw = dict(d_cap=d_cap, d2_cap=wt["d2_cap"], has_ports=wt["has_ports"], tid_pt=wt["tid_pt"],
                port_conf=wt["port_conf"])
     spec_feas = torch.zeros((db.valid.shape[0],), dtype=torch.int64, device=dc.node_valid.device)
-    c0 = wave.wave_speculate_plain(dc, db, g, d_cap=d_cap, n_feas=spec_feas)
+    c0, k8_plain = timed_once(torch, lambda: wave.wave_speculate_plain(dc, db, g, d_cap=d_cap, n_feas=spec_feas))
     c0_k = wave.wave_speculate(dc, db, g, d_cap=d_cap)
-    adm = wave.wave_admit_plain(dc, db, g, hk, c0, *targs, **tkw)
+    adm, k9_plain = timed_once(torch, lambda: wave.wave_admit_plain(dc, db, g, hk, c0, *targs, **tkw))
     adm_k = wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw)
     g5 = g if not wt["has_ports"] else gang.precompute_plain(dc, db, hk, v_cap, **flags, **plain)
     ck, nk, rk = k5 if k5 is not None else gang.gang_schedule(dc, db, g5, v_cap, d_cap=d_cap)[:3]
@@ -1517,7 +1581,7 @@ def wave_check(torch, dc, db, kw, d_cap, flags, wt, g=None, k5=None):
                 k9_err=max([max_abs_err(torch, u, v) for u, v in ((ca, cb), (na, nb), (ra, rb), (ka, kb), (xa, xb))]
                            + [max_abs_err(torch, ta[k], tb[k]) for k in ta]),
                 k9_vs_k5=max(max_abs_err(torch, ck, ca), max_abs_err(torch, nk, na), max_abs_err(torch, rk, ra)))
-    return g, g5, c0, spec_feas, adm, errs
+    return g, g5, c0, spec_feas, dict(k8=k8_plain, k9=k9_plain), adm, errs
 
 
 # the phases of K9's leader clocks (admit_stats["info"][2:]): for each of
@@ -1527,6 +1591,28 @@ def wave_check(torch, dc, db, kw, d_cap, flags, wt, g=None, k5=None):
 # the combine; then the commit
 K9_PHASES = tuple(f"{name}{part}" for name in ("tables", "filter", "spread", "argmax")
                   for part in ("", "_push", "_exchange"))
+
+
+# K8's phase clocks (wave.spec_stats["info"]): per reduction kind, the pass
+# before it and the reduction (a group barrier)
+K8_PHASES = tuple(f"{name}{part}" for name in ("min", "counts", "window", "spread", "argmax")
+                  for part in ("", "_reduce"))
+
+
+def k8_clocks(torch, db):
+    """K8's last launch: the group thread 0's cycles per pod in each phase,
+    its groups' mean time, the span from the first group's start to the
+    last one's end and the mean number of groups in flight (globaltimer)."""
+    from kubernetes_tpu_torch.ops import wave
+
+    torch.cuda.synchronize()
+    info = wave.spec_stats["info"][db.valid].double()
+    dur = info[:, 1] - info[:, 0]
+    span = float(info[:, 1].max() - info[:, 0].min())
+    cycles = info[:, 2:].mean(0).tolist()
+    return dict(group_us=float(dur.mean()) / 1e3, span_us=span / 1e3,
+                groups_in_flight=float(dur.sum()) / span,
+                leader_cycles_per_pod={k: round(c) for k, c in zip(K8_PHASES, cycles)})
 
 
 def k9_cluster(torch, db, ms, k5_ms):
@@ -1575,7 +1661,7 @@ def wave_row(torch, name, dc, db, kw, d_cap, flags, wt, reps, g=None, k5=None):
     row."""
     from kubernetes_tpu_torch.ops import gang, wave
 
-    g, g5, c0, spec_feas, adm, errs = wave_check(torch, dc, db, kw, d_cap, flags, wt, g=g,
+    g, g5, c0, spec_feas, plain_ms, adm, errs = wave_check(torch, dc, db, kw, d_cap, flags, wt, g=g,
                                                   k5=k5[:3] if k5 is not None else None)
     if any(errs.values()):
         raise AssertionError(f"{name}: wave kernels differ: {errs}")
@@ -1584,7 +1670,10 @@ def wave_row(torch, name, dc, db, kw, d_cap, flags, wt, reps, g=None, k5=None):
     tkw = dict(d_cap=d_cap, d2_cap=wt["d2_cap"], has_ports=wt["has_ports"], tid_pt=wt["tid_pt"],
                port_conf=wt["port_conf"])
     chosen, n_feas = adm[0], adm[1]
-    (b8, by8), (b9, by9) = wave_bounds(torch, dc, db, g, wt, c0, spec_feas, chosen, n_feas, gang.DEFAULT_WEIGHTS)
+    (b8, by8), (b9, by9), bytes8_ms = wave_bounds(torch, dc, db, g, wt, c0, spec_feas, chosen, n_feas,
+                                                   gang.DEFAULT_WEIGHTS)
+    ops8, divs8 = k8_ops(db, g, spec_feas, gang.DEFAULT_WEIGHTS)
+    ops8_ms = ops8 / PEAK_ISSUE_OPS_S * 1e3
     row = dict(shape=name, N=int(dc.node_valid.sum().item()), P=int(db.valid.sum().item()),
                placed=int(dc.epod_valid.sum().item()), terms=wt["n_terms"], has_ports=wt["has_ports"],
                Tsp=_live(wt["rep_sp_p"]), Tip=_live(wt["rep_ip_p"]),
@@ -1594,11 +1683,14 @@ def wave_row(torch, name, dc, db, kw, d_cap, flags, wt, reps, g=None, k5=None):
                demoted=int((chosen != c0).sum().item()), **errs)
     row["wave_speculate"] = dict(
         ms=time_ms(torch, lambda: wave.wave_speculate(dc, db, g, d_cap=d_cap), reps),
-        plain_ms=time_ms(torch, lambda: wave.wave_speculate_plain(dc, db, g, d_cap=d_cap), 1),
-        bound_ms=b8, bound_by=by8, library_ms=None)
+        plain_ms=plain_ms["k8"],
+        bound_ms=b8, bound_by=by8, library_ms=None, ops_bound_ms=ops8_ms,
+        bytes_bound_ms=bytes8_ms, int64_divisions=divs8, div64_ops=DIV64_OPS)
+    wave.wave_speculate(dc, db, g, d_cap=d_cap)
+    row["wave_speculate"].update(k8_clocks(torch, db))
     row["wave_admit"] = dict(
         ms=time_ms(torch, lambda: wave.wave_admit(dc, db, g, hk, c0, *targs, **tkw), reps),
-        plain_ms=time_ms(torch, lambda: wave.wave_admit_plain(dc, db, g, hk, c0, *targs, **tkw), 1),
+        plain_ms=plain_ms["k9"],
         bound_ms=b9, bound_by=by9, library_ms=None)
     row["gang_scan_ms_same_statics"] = (k5[3] if k5 is not None else
                                         time_ms(torch, lambda: gang.gang_schedule(dc, db, g5, v_cap, d_cap=d_cap),
@@ -2458,21 +2550,16 @@ def workloads_shapes(n_config10=1000, n_config4=5000, n_mixed=5000, P=512):
     ]
 
 
-def k11_bound(torch, dc, db, g, wt, rows, chosen, n_feas, gang_admit, weights, dra=None):
+def k11_bound(torch, dc, db, g, wt, rows, chosen, n_feas, weights, dra=None):
     """K11's bound_ms from this run's inputs: K9's bytes for the same
     statics and placements (k5_bytes, the wave tables, one pass over the
     live carry rows) without the demotion stats, plus the gang rows and the
     outputs (the choices before and after rollback, the gang verdicts).
     Operations: K9's.  With ``dra`` (the DRA mode's inputs) also the match
     tensor read once, the request rows, and the two carries read and
-    written once; and a verdict step per (pod, node, slot, device).  The
-    checkpoint's copies are the kernel's design, not the function's work (a
-    rollback needs only undo the members' commits), so they stay out of the
-    bound: the third value is their bytes, each copy a read and a write of
-    ((Rn + 3 + Tsp + 2 Tip) N + P) int32s (and with DRA CL int32s and N DD
-    bytes), one at each gang's first member and one at each rollback."""
-    from kubernetes_tpu_torch.ops import coscheduling as cos
-
+    written once; and a verdict step per (pod, node, slot, device).  A
+    rollback undoes the members' commits, work of the size of the commits
+    themselves, counted in neither."""
     P, N = g.static_mask.shape
     C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
     valid = db.valid
@@ -2485,27 +2572,40 @@ def k11_bound(torch, dc, db, g, wt, rows, chosen, n_feas, gang_admit, weights, d
     b += t_live * n_live * 4 + nbytes(*(rows[k] for k in ("gang_id", "gang_first", "gang_last", "gang_need")))
     b += 2 * P * 4 + 2 * rows["g_cap"] * 4
     ops = n_live * (p_live * (db.requests.shape[1] * 3 + 80) + (slots + terms) * 12) + t_live * n_live * 2
-    DD = CL = 0
     if dra is not None:
         _, DQ, _, DD = dra["match"].shape
-        CL = dra["claim_node0"].shape[0]
         b += nbytes(dra["match"], *(dra[k] for k in ("req_count", "req_all", "req_cl", "q_valid", "req_bad", "ref_cl")))
         b += 2 * nbytes(dra["free0"], dra["claim_node0"])
         ops += p_live * n_live * DQ * DD * 2
-    copies = int((rows["gang_first"] & (rows["gang_id"] >= 0)).sum().item()) + int((gang_admit == 0).sum().item())
-    cells = cos.ckpt_cells(n_live, dc.allocatable.shape[1], p_live, _live(wt["rep_sp_p"]), _live(wt["rep_ip_p"]),
-                           DD, CL)
-    return (*bound_ms(b, ops), copies * cells * 8)
+    return bound_ms(b, ops)
+
+
+def k11_variant(torch, fn, cap):
+    """fn() with K11's (and K9's) cluster capped at `cap` CTAs; (its result,
+    the CTAs K11's last launch took)."""
+    from kubernetes_tpu_torch.ops import coscheduling as cos
+    from kubernetes_tpu_torch.ops import wave
+
+    old = wave.ADMIT_CLUSTER_CAP
+    wave.ADMIT_CLUSTER_CAP = cap
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out, cos.admit_stats["cluster"]
+    finally:
+        wave.ADMIT_CLUSTER_CAP = old
 
 
 def workloads_row(torch, name, dc, db, kw, d_cap, flags, wt, rows, reps, nom=None, composite=False):
     """K11 against workloads_admit_plain on one packed batch and its gang
     rows, exact on every output (the choices after and before rollback,
-    n_feas, the reason counts, the tallies, gang_admit, gang_landed), and
-    K11 with the gang rows cleared against K9 on the same statics (the same
-    recurrence without the gangs); then K11's time, the plain version's
-    (one run), K9's with the gang rows cleared (the checkpoint's cost is the
-    difference) and the bound; with `composite`, also workloads_run's bound,
+    n_feas, the reason counts, the tallies, gang_admit, gang_landed), on its
+    cluster of 16 CTAs and capped at 8, and K11 with the gang rows cleared
+    against K9 on the same statics (the same recurrence without the gangs);
+    then K11's time, the plain version's (one run), K9's with the gang rows
+    cleared (K11 / K9: the gangs' cost, the rollbacks' undo included), the
+    cluster, the placements the rollbacks undid, and the bound; with
+    `composite`, also workloads_run's bound,
     the sum of the bounds of the kernels it launches here (K1, K6 with
     spread, K7, K8, K11).  Statics: precompute on the card without the
     port axis, as workloads_run runs it (K1, K6 and K7 are held against
@@ -2519,6 +2619,9 @@ def workloads_row(torch, name, dc, db, kw, d_cap, flags, wt, rows, reps, nom=Non
     gk = [rows[k] for k in ("gang_id", "gang_first", "gang_last", "gang_need", "g_cap")]
     tkw = dict(d_cap=d_cap, d2_cap=wt["d2_cap"], **(nom or {}))
     got = cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw)
+    torch.cuda.synchronize()
+    cluster, undone = cos.admit_stats["cluster"], int(cos.admit_stats["undone"].item())
+    got8, ctas8 = k11_variant(torch, lambda: cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw), 8)
     want, plain_ms = timed_once(torch, lambda: cos.workloads_admit_plain(dc, db, g, hk, *targs, *gk, **tkw))
     P = db.valid.shape[0]
     cleared = [torch.full((P,), -1, dtype=torch.int32, device=dc.node_valid.device),
@@ -2535,13 +2638,17 @@ def workloads_row(torch, name, dc, db, kw, d_cap, flags, wt, rows, reps, nom=Non
             x for x in o[5:] if x is not None]
 
     errs = dict(k11_err=max(max_abs_err(torch, a, b) for a, b in zip(outs(got), outs(want))),
+                k11_cluster8_err=max(max_abs_err(torch, a, b) for a, b in zip(outs(got8), outs(want))),
                 k11_vs_k9=max(max_abs_err(torch, free[0], k9[0]), max_abs_err(torch, free[1], k9[0]),
                               max_abs_err(torch, free[2], k9[1]), max_abs_err(torch, free[3], k9[2])))
-    if any(errs.values()):
-        raise AssertionError(f"{name}: workloads_admit differs: {errs}")
+    if any(errs.values()) or ctas8 != 8:
+        raise AssertionError(f"{name}: workloads_admit differs ({ctas8} CTAs capped at 8): {errs}")
     chosen, raw, n_feas, _, _, gang_admit, gang_landed, _ = want
-    b11, by11, ckpt_bytes = k11_bound(torch, dc, db, g, wt, rows, raw, n_feas, gang_admit, gang.DEFAULT_WEIGHTS)
-    row = dict(shape=name, ckpt_bytes=ckpt_bytes, N=int(dc.node_valid.sum().item()), P=int(db.valid.sum().item()),
+    if undone != int(((chosen < 0) & (raw >= 0)).sum().item()):
+        raise AssertionError(f"{name}: K11 undid {undone} placements, the rolled-back members placed differ")
+    b11, by11 = k11_bound(torch, dc, db, g, wt, rows, raw, n_feas, gang.DEFAULT_WEIGHTS)
+    row = dict(shape=name, cluster=cluster, undone=undone, N=int(dc.node_valid.sum().item()),
+               P=int(db.valid.sum().item()),
                placed=int(dc.epod_valid.sum().item()), C=g.sp_dv.shape[1], AT=g.ip_dv.shape[1],
                Tsp=_live(wt["rep_sp_p"]), Tip=_live(wt["rep_ip_p"]), nominations=len(nom["nom_node"]) if nom else 0,
                gangs=int((gang_admit >= 0).sum().item()), admitted=int((gang_admit == 1).sum().item()),
@@ -2555,6 +2662,10 @@ def workloads_row(torch, name, dc, db, kw, d_cap, flags, wt, rows, reps, nom=Non
         plain_ms=plain_ms, bound_ms=b11, bound_by=by11, library_ms=None)
     row["wave_admit_ms_same_statics_no_gangs"] = time_ms(torch, lambda: wave.wave_admit(dc, db, g, hk, c0, *targs,
                                                                                         **tkw), reps)
+    row["k11_over_k9"] = row["workloads_admit"]["ms"] / row["wave_admit_ms_same_statics_no_gangs"]
+    ms8, _ = k11_variant(torch, lambda: time_ms(torch, lambda: cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw),
+                                                reps), 8)
+    row["workloads_admit"]["cluster8"] = dict(ms=ms8, max_abs_err=errs["k11_cluster8_err"])
     if composite:  # workloads_run's bound: its kernels' bounds at this shape
         spec_feas = torch.zeros((P,), dtype=torch.int64, device=dc.node_valid.device)
         c0p = wave.wave_speculate_plain(dc, db, g, d_cap=d_cap, n_feas=spec_feas, **(nom or {}))
@@ -3186,6 +3297,10 @@ def dra_kernel_row(torch, name, dc, db, kw, d_cap, flags, wt, dt, rows, reps):
     dra = dict(match=match, free0=dt["free0"], claim_node0=dt["claim_node0"],
                **{k: dt[k] for k in ("req_count", "req_all", "req_cl", "q_valid", "req_bad", "ref_cl")})
     got = cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw, dra=dra)
+    torch.cuda.synchronize()
+    k11_stats = dict(k11_cluster=cos.admit_stats["cluster"], k11_claims_smem=cos.admit_stats["claims_smem"],
+                     k11_undone=int(cos.admit_stats["undone"].item()))
+    got8, ctas8 = k11_variant(torch, lambda: cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw, dra=dra), 8)
     want, k11_plain_ms = timed_once(torch, lambda: cos.workloads_admit_plain(dc, db, g, hk, *targs, *gk, **tkw,
                                                                               dra=dra))
     torch.cuda.synchronize()
@@ -3193,7 +3308,9 @@ def dra_kernel_row(torch, name, dc, db, kw, d_cap, flags, wt, dt, rows, reps):
     def outs(o):
         return list(o[:4]) + [o[4][k] for k in ("requested", "nonzero", "num_pods")] + list(o[5:])
 
-    k11_err = max(max_abs_err(torch, a, b) for a, b in zip(outs(got), outs(want)))
+    k11_err = max(max_abs_err(torch, a, b) for a, b in zip(outs(got) + outs(got8), outs(want) + outs(want)))
+    if ctas8 != 8:
+        raise AssertionError(f"{name}: K11 capped at 8 CTAs took {ctas8}")
     if k13_err or k14_err or k8_lane_err or k11_err:
         raise AssertionError(f"{name}: DRA kernels differ: K13 {k13_err}, K14 {k14_err}, K8 with the lane "
                              f"{k8_lane_err}, K11 {k11_err}")
@@ -3218,7 +3335,7 @@ def dra_kernel_row(torch, name, dc, db, kw, d_cap, flags, wt, dt, rows, reps):
     k8_lane_ms = time_ms(torch, lambda: wave.wave_speculate(dc, db, g, d_cap=d_cap, lane=lane), reps)
     k11_ms = time_ms(torch, lambda: cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw, dra=dra), reps)
     k11_nodra_ms = time_ms(torch, lambda: cos.workloads_admit(dc, db, g, hk, *targs, *gk, **tkw), reps)
-    b11, by11, ckpt11 = k11_bound(torch, dc, db, g, wt, rows, raw, n_feas, gang_admit, gang.DEFAULT_WEIGHTS, dra=dra)
+    b11, by11 = k11_bound(torch, dc, db, g, wt, rows, raw, n_feas, gang.DEFAULT_WEIGHTS, dra=dra)
     # bounds: bytes each input read once and each output written once; the
     # operations (a few integer compares per selector slot and device
     # attribute; a popcount walk per request slot) are far below them
@@ -3231,9 +3348,9 @@ def dra_kernel_row(torch, name, dc, db, kw, d_cap, flags, wt, dt, rows, reps):
     k14_bound, k14_by = bound_ms(b14, ops14)
     row = dict(shape=name, P=P, DQ=DQ, N=N, DD=DD, DS=DS, DV=DV, DA=DA, CL=dt["claim_node0"].shape[0],
                CQ=dt["ref_cl"].shape[1], k13_err=k13_err, k14_err=k14_err, k8_lane_err=k8_lane_err,
-               k11_err=k11_err, **cover, k8_lane_ms=k8_lane_ms, k8_lane_plain_ms=k8_lane_plain_ms,
+               k11_err=k11_err, **cover, **k11_stats, k8_lane_ms=k8_lane_ms, k8_lane_plain_ms=k8_lane_plain_ms,
                k11_dra_ms=k11_ms, k11_dra_plain_ms=k11_plain_ms, k11_claims_cleared_ms=k11_nodra_ms,
-               k11_dra_bound_ms=b11, k11_dra_bound_by=by11, k11_dra_ckpt_bytes=ckpt11,
+               k11_dra_bound_ms=b11, k11_dra_bound_by=by11, k11_dra_over_cleared=k11_ms / k11_nodra_ms,
                k13_bytes=b13, k14_bytes=b14)
     row["dra_selector_match"] = dict(max_abs_err=k13_err, ms=k13_ms, plain_ms=k13_plain_ms, bound_ms=k13_bound,
                                      bound_by=k13_by, library_ms=None)
@@ -3714,7 +3831,7 @@ def config14_bound(torch, sched, forks, backlog):
     a11, v11 = seen["k11"]
     dc, db, g = a11["dc"], a11["db"], a11["g"]
     b1 = precompute_static_bound(dc, db, bool((db.img_ids >= 0).any()))
-    _, raw, n_feas, _, _, gang_admit = v11[:6]
+    _, raw, n_feas = v11[:3]
     weights = a11.get("weights", gang.DEFAULT_WEIGHTS)
     wt = {k: a11[k] for k in WAVE_TABLES}
     wt.update(has_ports=False, tid_pt=torch.zeros((0,), dtype=torch.int32), port_conf=torch.zeros((0,), dtype=torch.bool))
@@ -3724,7 +3841,7 @@ def config14_bound(torch, sched, forks, backlog):
     spec_feas = torch.zeros((db.valid.shape[0],), dtype=torch.int64, device=dc.node_valid.device)
     wave.wave_speculate_plain(**dict(a8, n_feas=spec_feas))
     b8 = wave_bounds(torch, dc, db, g, wt, c0, spec_feas, raw, n_feas, weights)[0]
-    b11 = k11_bound(torch, dc, db, g, wt, rows, raw, n_feas, gang_admit, weights)
+    b11 = k11_bound(torch, dc, db, g, wt, rows, raw, n_feas, weights)
     parts = dict(fork_view=b15[0], fork_summary=b16[0], static_eval=b1[0], gang_interpod_statics=b7[0],
                  wave_speculate=b8[0], workloads_admit=b11[0], forks=kf, per_fork=b1[0] + b7[0] + b8[0] + b11[0])
     return b15[0] + b16[0] + kf * parts["per_fork"], parts
@@ -4288,8 +4405,8 @@ def sampling_rows(torch, device, reps=3, n_nodes=5000, P=512, modes=None):
         if any(errs.values()):
             raise AssertionError(f"sampling {mode}: kernels differ from their plain versions: {errs}")
         (_, _, (b5, by5)) = gang_bounds(torch, dc, db, g, cp, np_, gang.DEFAULT_WEIGHTS)
-        (b8, by8), (b9, by9) = wave_bounds(torch, dc, db, g, wt, c0, spec_feas, adm[0], adm[1],
-                                           gang.DEFAULT_WEIGHTS)
+        (b8, by8), (b9, by9), _ = wave_bounds(torch, dc, db, g, wt, c0, spec_feas, adm[0], adm[1],
+                                              gang.DEFAULT_WEIGHTS)
         row = dict(shape="config4_nodes", mode=mode, N=int(dc.node_valid.sum().item()), P=int(db.valid.sum().item()),
                    placed=int(dc.epod_valid.sum().item()), scheduled=int((cp >= 0).sum().item()),
                    sample_k=m.get("sample_k"), cursor_in=m.get("sample_start"),
@@ -4343,7 +4460,7 @@ def k11_strategy_row(torch, device, reps=3, n_nodes=1000, P=512):
     moved = int((default[1] != got[1]).sum().item())
     if not moved:
         raise AssertionError("K11: MostAllocated moved no placement off the default branch's")
-    b11, by11, _ = k11_bound(torch, dc, db, g, wt, rows, want[1], want[2], want[5], gang.DEFAULT_WEIGHTS)
+    b11, by11 = k11_bound(torch, dc, db, g, wt, rows, want[1], want[2], gang.DEFAULT_WEIGHTS)
     row = dict(shape=name, mode="most_allocated", N=int(dc.node_valid.sum().item()), P=int(db.valid.sum().item()),
                k11_err=err, moved_from_default=moved, gangs_admitted=int((want[5] == 1).sum().item()),
                workloads_admit=dict(

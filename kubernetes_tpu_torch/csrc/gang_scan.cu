@@ -18,7 +18,7 @@
 // (ops/gang.py SCAN_CLUSTER_CAP caps it); CTA r owns the nodes
 // [r S, r S + S), S a multiple of 32.  The per-pod verdict, scores and
 // argmax are ktpu::step::pod_step_block under ClusterPolicyT<false>
-// (csrc/ktpu.cuh), the body K8, K9 and K11 run, with each pod's planes
+// (csrc/ktpu.cuh), the body K9 and K11 run, with each pod's planes
 // staged one pod ahead and its values copied in at its start as K9 does;
 // its block-wide parts cross the cluster as st.async pushes on mbarriers:
 // the spread min-match (the step's own reduction: K5 has no pod_tables
@@ -265,8 +265,8 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1) gang_scan_kernel(const Gan
   const int N = a.N, C = a.C, S = w.slice;
   const int lo = min(N, rank * S), hi = min(N, lo + S), len = hi - lo;
   const ScanLayout l = scan_layout(a, w);
-  const StepShared sh{nullptr, reinterpret_cast<long long*>(s_raw + l.wfx), reinterpret_cast<int*>(s_raw + l.smin),
-                      reinterpret_cast<int*>(s_raw + l.sndom), nullptr, nullptr, s_at};
+  const StepShared sh{reinterpret_cast<long long*>(s_raw + l.wfx), reinterpret_cast<int*>(s_raw + l.smin),
+                      reinterpret_cast<int*>(s_raw + l.sndom), s_at};
 
   // the exchange slab: the domain flags and bits, the window's map, the
   // choices' copy
@@ -285,7 +285,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1) gang_scan_kernel(const Gan
   // the step's rows, the usage rows and the per-node peer counts: the slice
   // in shared memory (the usage staged in from the usage state), or the
   // global rows; likewise the node statics
-  StepScratch sc = global_scratch(a, a.feas, a.ip_raw, a.sp_raw, a.sp_cnt, nullptr, 0);
+  StepScratch sc = global_scratch(a, a.feas, a.ip_raw, a.sp_raw, a.sp_cnt);
   SliceCounts sl{a.cnt_h, a.port_stamp, 0, N};
   if (w.rows_smem) {
     sc.feas = s_raw + l.feas;

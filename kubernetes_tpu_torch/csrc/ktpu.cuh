@@ -689,19 +689,21 @@ struct WaveArgs {
   const int* c0;                    // [P]      K9: the speculative nodes
   int* kinds;                       // [P]      K9: demote kind
   int* cterms;                      // [P]      K9: conflicting term slot
-  int* sums;                        // K8: [P, C, Dsp] domain stamps; K11: the per-pod region
-                                    // unless sums_smem; K5, K9: [cluster, xch_cells] the CTAs'
-                                    // exchange slabs unless sums_smem (see gang_scan.cu, wave.cu)
+  int* sums;                        // K5, K9, K11: [cluster, xch_cells] the CTAs' exchange slabs
+                                    // unless sums_smem (see gang_scan.cu, wave.cu)
   int* carries;                     // K9, K11: [(Tsp + 2 Tip + Tpt) * N] unless carry_smem;
                                     // K5: [cluster, (2 C + AT + 2 KD2) * D] the CTAs' peer
                                     // counters unless carry_smem
   const unsigned char* lane;        // K8: [P, N] the port lane (null: every port free); the
                                     // workloads dispatch's DRA verdict against free0
-  int* admit_info;                  // K5, K9: [2 + CL_PHASES] out: the cluster's CTAs, its
+  int* admit_info;                  // K5, K9, K11: [2 + CL_PHASES] out: the cluster's CTAs, its
                                     // exchanges over the batch, the leader's cycles per phase
                                     // (null: not written)
+  long long* spec_info;             // K8: [P, 2 + SPEC_PHASES] out: each pod's group's start and
+                                    // end (globaltimer ns) and its thread 0's cycles per phase
+                                    // (null: not written)
   int Tsp, Tip, Tpt, W, Dsp, D2, hostname_key, has_ports, sums_smem, carry_smem;
-  // K5 and K9 (ktpu_gang_scan_plan, ktpu_wave_admit_plan): the cluster's
+  // K5, K9 and K11 (ktpu_gang_scan_plan, admit_plan): the cluster's
   // CTAs, the nodes of each CTA's slice, the slice's usage and step rows in
   // shared memory, the ints of one CTA's exchange slab, and the staging of
   // the slice's node statics and of each pod's planes in shared memory.  K5
@@ -711,10 +713,11 @@ struct WaveArgs {
 
 // The gang admission's rows and outputs (csrc/workloads.cu): K11 takes a
 // GangScanArgs (whose `chosen` receives each step's choice before any
-// rollback, the `raw` output), a WaveArgs without ports and this block.  In
-// a batch with DRA claims (dra_match not null) it also takes K13's match
-// tensor, the request rows of ops/dra.py dra_tables and the two allocation
-// carries, updated in place.
+// rollback, the `raw` output), a WaveArgs without ports, laid out for the
+// cluster as K9's, and this block.  In a batch with DRA claims (dra_match
+// not null) it also takes K13's match tensor, the request rows of
+// ops/dra.py dra_tables and the two allocation carries, updated in place.
+// K9 gets an empty one.
 struct WorkloadsArgs {
   const int* gang_id;               // [P]      gang slot per pod (-1: none)
   const unsigned char* gang_first;  // [P]      the gang's first member
@@ -723,9 +726,8 @@ struct WorkloadsArgs {
   int* assigned;                    // [P]      out: the choices after rollback
   int* gang_admit;                  // [g_cap]  out: -1 unjudged, 0 rolled back, 1 admitted
   int* gang_landed;                 // [g_cap]  out: members placed in the batch
-  int* ckpt;                        // the checkpoint: requested [N, Rn], nonzero [N, 2],
-                                    // num_pods [N], assigned [P], carries [(Tsp + 2 Tip) N],
-                                    // then with DRA claim_node [CL] and free's N DD bytes
+  int* choice_log;                  // [cluster, P] scratch: each CTA's copy of the choices (the undo)
+  int* undone;                      // [1]      out: placements the rollbacks undid (null: not written)
   const unsigned char* dra_match;   // [P, DQ, N, DD] K13's match (null: no DRA)
   const int* req_count;             // [P, DQ]  ExactCount count
   const unsigned char* req_all;     // [P, DQ]  AllocationMode=All
@@ -734,11 +736,15 @@ struct WorkloadsArgs {
   const unsigned char* req_bad;     // [P, DQ]  device class missing
   const int* ref_cl;                // [P, CQ]  claim slots the pod references
   unsigned char* free;              // [N, DD]  carry: no allocated claim holds the device
-  int* claim_node;                  // [CL]     carry: node of a referenced claim (-1 none)
+  int* claim_node;                  // [CL]     carry: node of a referenced claim (-1 none); in: the
+                                    // batch's start, out: its end
   unsigned char* dra_row;           // [N]      scratch: the step's DRA verdict per node
-  unsigned long long* dra_scratch;  // [ADMIT_THREADS, 2 ceil(DD/64)] per-thread verdict words
-                                    // past dra::REG_DD slots (null below)
-  int g_cap, DQ, DD, CQ, CL;
+  unsigned long long* dra_scratch;  // [cluster * CLUSTER_THREADS, 2 ceil(DD/64)] per-thread verdict
+                                    // words past dra::REG_DD slots (null below)
+  unsigned long long* take_log;     // [P, ceil(DD/64)] scratch: the devices each pod took (the undo)
+  int* claims;                      // [cluster, 2 CL] scratch: each CTA's copy of claim_node and the
+                                    // pinners, unless claims_smem
+  int g_cap, DQ, DD, CQ, CL, claims_smem;
 };
 
 namespace ktpu {
@@ -882,26 +888,31 @@ __device__ __forceinline__ bool node_verdict_any(const PodRows& r, const unsigne
 }
 
 // dra_commit's take at node n: `free` row n loses every device the pod's
-// active slots take (the walk of node_feasible with take_acc).
+// active slots take (the walk of node_feasible with take_acc); the cleared
+// devices go to `log` as ceil(DD / 64) bit words (K11's undo).
 template <int W>
 __device__ __forceinline__ void take_words(const PodRows& r, unsigned char* free, const int* claim_node, int n,
-                                           unsigned long long* scratch) {
+                                           unsigned long long* scratch, unsigned long long* log) {
   const int nw = (r.DD + 63) >> 6;
   unsigned long long fs_r[W > 0 ? W : 1], m_r[W > 0 ? W : 1];
   unsigned long long* fs = W > 0 ? fs_r : scratch;
   unsigned long long* m = W > 0 ? m_r : scratch + nw;
   verdict_words(r, free, claim_node, n, true, fs, m);
   unsigned char* const fr = free + (long long)n * r.DD;
+  for (int w = 0; w < nw; ++w) log[w] = 0;
   for (int d = 0; d < r.DD; ++d)
-    if (fr[d] && !((fs[d >> 6] >> (d & 63)) & 1ULL)) fr[d] = 0;
+    if (fr[d] && !((fs[d >> 6] >> (d & 63)) & 1ULL)) {
+      fr[d] = 0;
+      log[d >> 6] |= 1ULL << (d & 63);
+    }
 }
 
 __device__ __forceinline__ void node_take(const PodRows& r, unsigned char* free, const int* claim_node, int n,
-                                          unsigned long long* scratch) {
-  if (r.DD <= 64) take_words<1>(r, free, claim_node, n, scratch);
-  else if (r.DD <= 128) take_words<2>(r, free, claim_node, n, scratch);
-  else if (r.DD <= REG_DD) take_words<4>(r, free, claim_node, n, scratch);
-  else take_words<0>(r, free, claim_node, n, scratch);
+                                          unsigned long long* scratch, unsigned long long* log) {
+  if (r.DD <= 64) take_words<1>(r, free, claim_node, n, scratch, log);
+  else if (r.DD <= 128) take_words<2>(r, free, claim_node, n, scratch, log);
+  else if (r.DD <= REG_DD) take_words<4>(r, free, claim_node, n, scratch, log);
+  else take_words<0>(r, free, claim_node, n, scratch, log);
 }
 
 }  // namespace dra
@@ -911,17 +922,20 @@ namespace ktpu {
 namespace step {
 
 // ---------------------------------------------------------------------------
-// The gang path's per-pod step, shared by K5 (gang_scan), K8 (wave_speculate)
-// and K9 (wave_admit), as the reference shares gang.pod_step,
+// The gang path's per-pod step, shared by K5 (gang_scan), K9 (wave_admit)
+// and K11 (workloads_admit), as the reference shares gang.pod_step,
 // spread_constraints and interpod_constraints between the scan, the wave's
-// speculation and its admission: the dynamic resource fit, the spread and
+// admission and the workloads' (K8, the speculation, has a body of its own
+// in csrc/wave.cu, with no batch peers, over the same per-node helpers:
+// step_fits, spread_verdict, interpod_verdict, count_feasible, spread_raw,
+// node_total): the dynamic resource fit, the spread and
 // inter-pod verdicts from the batch peers' counts, the first-failure reason
 // counts in DIAG_KERNELS order, the seven weighted scores with their
 // normalizations over the live feasible set, and the first-max argmax (ties
 // to the lower node index).  It carries the reference's optional branches
 // too: the NodeResourcesFit strategy (strat_id, fit_score), the sampling
 // window (sample_k: the feasible set cut to the first sample_k feasible
-// nodes in visit order from the cursor, one block-wide prefix count walking
+// nodes in visit order from the cursor, a prefix count walking
 // visit_order[] in chunks of blockDim; without a tie key, ties go to the
 // first node in that order) and the seeded tie-break (tie_on: the argmax of
 // total * 2^33 + bits, the bits of fold_in(key, attempt_base + p) at the
@@ -938,9 +952,8 @@ namespace step {
 // namespace ktpu::step, apart from the fast path's helpers).  Scores are
 // int64; every division is a floor division; the spread score's 32.32 fixed
 // point uses an arithmetic >> and round-half-to-even, as _spread_raw does.
-// Who steps which nodes, and how the block-wide parts combine, is the
-// caller's policy (BlockPolicy, ClusterPolicy below): one body of the step
-// for one block and for a thread-block cluster.
+// Who steps which nodes, and how the cluster-wide parts combine, is the
+// caller's policy (ClusterPolicyT below).
 // ---------------------------------------------------------------------------
 
 constexpr int N_DIAG = 9;
@@ -1063,6 +1076,18 @@ struct PodPlanes {
   int lo, ld;
   __device__ __forceinline__ long long at(int n) const { return n - lo; }
   __device__ __forceinline__ long long at(int c, int n) const { return (long long)c * ld + n - lo; }
+  // the values the shared per-node verdicts read (spread_verdict and the
+  // rest below), at node n of slot c / term u
+  __device__ __forceinline__ int dom_cnt(int c, int n) const { return sp_dom_cnt[at(c, n)]; }
+  __device__ __forceinline__ bool dom_pres(int c, int n) const { return sp_dom_pres[at(c, n)]; }
+  __device__ __forceinline__ int node_cnt(int c, int n) const { return sp_node_cnt[at(c, n)]; }
+  __device__ __forceinline__ int sc_dom(int c, int n) const { return sp_sc_dom[at(c, n)]; }
+  __device__ __forceinline__ int ip_cnt(int u, int n) const { return ip_dom_cnt[at(u, n)]; }
+  __device__ __forceinline__ long long sym(int n) const { return ip_sym[at(n)]; }
+  __device__ __forceinline__ bool violated(int n) const { return viol[at(n)]; }
+  __device__ __forceinline__ long long taint(int n) const { return sc_taint[at(n)]; }
+  __device__ __forceinline__ long long naff(int n) const { return sc_nodeaff[at(n)]; }
+  __device__ __forceinline__ bool counted(int n) const { return all_keys[at(n)]; }
 };
 
 __device__ __forceinline__ PodPlanes global_planes(const GangScanArgs& a, int p) {
@@ -1076,17 +1101,13 @@ __device__ __forceinline__ PodPlanes global_planes(const GangScanArgs& a, int p)
 }
 
 // Per-node rows of one step, node n at n - lo and sp_cnt's row c ld wide:
-// global memory over all N nodes (lo = 0, ld = N; one set per block), or a
-// cluster CTA's slice in its shared memory.  `use` is the usage state the
-// step reads.
+// global memory over all N nodes (lo = 0, ld = N), or a cluster CTA's
+// slice in its shared memory.  `use` is the usage state the step reads.
 struct StepScratch {
   unsigned char* feas;  // [N]
   long long* ip_raw;    // [N]
   long long* sp_raw;    // [N]
   int* sp_cnt;          // [C, ld] the spread score's per-node counts
-  int* seen;            // [C, seen_stride] stamp of the last step that counted
-                        // a domain (BlockPolicy's distinct-domain count)
-  int seen_stride;
   int lo, ld;
   UsageRows use;
   NodeRows nodes;
@@ -1098,18 +1119,15 @@ struct StepScratch {
 
 // The global rows of a step over all N nodes.
 __device__ __forceinline__ StepScratch global_scratch(const GangScanArgs& a, unsigned char* feas, long long* ip_raw,
-                                                      long long* sp_raw, int* sp_cnt, int* seen, int seen_stride) {
-  return StepScratch{feas, ip_raw, sp_raw, sp_cnt, seen, seen_stride, 0, a.N, usage_rows(a), global_nodes(a)};
+                                                      long long* sp_raw, int* sp_cnt) {
+  return StepScratch{feas, ip_raw, sp_raw, sp_cnt, 0, a.N, usage_rows(a), global_nodes(a)};
 }
 
-// The block's shared memory for a step.
+// The CTA's shared memory for a step.
 struct StepShared {
-  long long* s_buf;     // [32 * 16] block_reduce
   long long* s_wfx;     // [C] topology weights
   int* s_min;           // [C] min-match
   int* s_ndom;          // [C] distinct counted domains
-  long long* s_best_v;  // [32]
-  int* s_best_i;        // [32]; [0] carries the choice out
   int* s_at;            // [6] at the node `at`: m_portb, m_spread, m_interpod,
                         // m_fit, first violating hard spread slot, first
                         // violated anti-affinity slot
@@ -1161,6 +1179,58 @@ __device__ inline long long fit_score(const GangScanArgs& a, long long a0, long 
   }
   if (wsum <= 0) return 0;
   return a.strat_id == 2 ? fdiv(2 * total + wsum, 2 * wsum) : fdiv(total, wsum);
+}
+
+// The spread score's raw at a node from its 32.32 fixed-point sum
+// (_spread_raw): an arithmetic >> and round-half-to-even.
+__device__ __forceinline__ long long spread_round(long long total_fx) {
+  const long long q = total_fx >> FX;  // arithmetic shift
+  const long long frac = total_fx & ((1LL << FX) - 1);
+  const long long half = 1LL << (FX - 1);
+  return q + ((frac > half || (frac == half && (q & 1))) ? 1 : 0);
+}
+
+// One pod's score normalizers over its feasible set: the taint and
+// node-affinity raws' maxima (0 when none is positive), the inter-pod
+// raws' min and max, and the spread raws' min, max and count over the
+// nodes that count (n_use).
+struct ScoreNorms {
+  long long taint_mx, naff_mx, ip_mn, ip_mx, sp_mn, sp_mx, n_use;
+};
+
+// A feasible node's weighted total before the extra score: the seven
+// weighted scores, each normalized over the feasible set as the reference
+// does.  `slots`: the pod has spread slots (C > 0); `sp_use`: the node
+// counts for the spread score; a0 / a1 the cpu / memory allocatable, c0 /
+// c1 the non-zero request sums (node + pod), r0 / r1 the used + requested
+// cpu / memory.
+__device__ __forceinline__ long long node_total(const GangScanArgs& a, const ScoreNorms& m, bool slots, bool sp_use,
+                                                long long taint, long long naff, long long sp_raw, long long ip_raw,
+                                                long long a0, long long a1, long long c0, long long c1, long long r0,
+                                                long long r1, long long img) {
+  long long total = 0;
+  if (a.w_taint)
+    total += a.w_taint * (m.taint_mx > 0 ? MAX_NODE_SCORE - fdiv(MAX_NODE_SCORE * taint, m.taint_mx) : MAX_NODE_SCORE);
+  if (a.w_naff) total += a.w_naff * (m.naff_mx > 0 ? fdiv(MAX_NODE_SCORE * naff, m.naff_mx) : naff);
+  if (a.w_spread) {
+    long long s = MAX_NODE_SCORE;  // no slot: every feasible node is "used", mx == 0
+    if (slots) {
+      s = 0;
+      if (sp_use && m.n_use > 0)
+        s = m.sp_mx == 0 ? MAX_NODE_SCORE : fdiv(MAX_NODE_SCORE * (m.sp_mx + m.sp_mn - sp_raw), m.sp_mx > 1 ? m.sp_mx : 1);
+    }
+    total += a.w_spread * s;
+  }
+  if (a.w_ip) {
+    const long long diff = m.ip_mx - m.ip_mn;
+    total += a.w_ip * (diff > 0 ? fdiv(MAX_NODE_SCORE * (ip_raw - m.ip_mn), diff) : 0);
+  }
+  if (a.w_fit || a.w_bal) {
+    if (a.w_fit) total += a.w_fit * fit_score(a, a0, a1, c0, c1);
+    total += score_total(a0, a1, c0, c1, r0, r1, 0, 0, a.w_bal, 0);
+  }
+  if (a.w_img) total += a.w_img * img;
+  return total;
 }
 
 // A node's place in the rotation from the cursor (the walk's position),
@@ -1215,9 +1285,10 @@ __device__ inline int window_stop(const GangScanArgs& a, F feas, int start, int 
 
 // NodeResourcesFit at node n for the pod with requests `req` and priority
 // `prio`: pod count and every requested lane (a scalar lane only when
-// requested) against allocatable minus the usage state, and, with `nom`,
-// minus the open nominations on n of priority >= prio (each also counts as
-// a pod).
+// requested, lane_fits) against allocatable minus the usage state, and,
+// with `nom`, minus the open nominations on n of priority >= prio (each
+// also counts as a pod).  Every load is issued before the verdict, with
+// no early return, so a node costs one memory round trip, not one a lane.
 template <class Vals>
 __device__ inline bool step_fits(const GangScanArgs& a, const StepScratch& sc, int n, const Vals& pv, bool all_zero,
                                  int prio, bool nom) {
@@ -1229,32 +1300,155 @@ __device__ inline bool step_fits(const GangScanArgs& a, const StepScratch& sc, i
   }
   long long n_nom = 0;
   for (int g = g0; g < g1; ++g) n_nom += a.nom_prio[g] >= prio;
-  if (use.pods(n) + n_nom + 1 > sc.nodes.allowed(n)) return false;
-  if (all_zero) return true;
+  bool ok = use.pods(n) + n_nom + 1 <= sc.nodes.allowed(n);
   for (int r = 0; r < a.Rp; ++r) {
-    const long long v = pv.req(r);
-    if (r >= N_FIXED_LANES && v == 0) continue;  // unrequested scalar lane
     long long avail = 0;
     if (r < a.Rn) {
       avail = (long long)sc.nodes.alloc(n, r) - use.req(a.Rn, n, r);
       for (int g = g0; g < g1; ++g)
         if (a.nom_prio[g] >= prio) avail -= a.nom_req[(long long)g * a.Rn + r];
     }
-    if (v > avail) return false;
+    ok = ok && lane_fits(all_zero, r, pv.req(r), avail);
   }
-  return true;
+  return ok;
 }
 
-// The usage commit of one placement (usage_carry_update) into `use`; one
-// thread.
-__device__ __forceinline__ void commit_usage(const GangScanArgs& a, const UsageRows& use, int p, int choice) {
+// The per-node verdicts and counts of the step, written once for the shared
+// body (pod_step_block: K5, K9, K11) and K8's peer-free one (csrc/wave.cu).
+// The pod's planes come as a view with PodPlanes' accessors (dom_cnt ...
+// counted) and the nodes' domains as one with NodeRows::dom: the step's
+// PodPlanes and NodeRows, or K8's views over its kernel parameters.  The
+// batch peers' counts come in as a functor: the step's Dyn, or zero.
+
+// Slot c's score-side count at node n without peers: per node for a
+// hostname constraint, per domain otherwise.
+template <class Planes, class Vals>
+__device__ __forceinline__ long long slot_count(const Planes& pr, const Vals& pv, int c, int n) {
+  return pv.sp_host(c) ? pr.node_cnt(c, n) : pr.sc_dom(c, n);
+}
+
+// PodTopologySpread's filter at node n (filtering.go): for every hard slot
+// c, n's domain d is present and, where the domain counts, its count plus
+// peer(c, d) (the batch peers'), plus 1 for a self-matching pod, minus the
+// min-match s_min[c] is within max_skew.  each(c, d) sees every slot with
+// n's domain; term is the first hard slot that fails (-1: none).
+template <class Planes, class Nodes, class Vals, class Peer, class Each>
+__device__ __forceinline__ bool spread_verdict(const Planes& pr, const Nodes& nd, const Vals& pv, const int* s_min,
+                                               int C, int n, Peer peer, Each each, int& term) {
+  bool ok = true;
+  term = -1;
+  for (int c = 0; c < C; ++c) {
+    const int d = nd.dom(pv.sp_key(c), n);
+    const long long skew = pr.dom_cnt(c, n) + peer(c, d) + (pv.sp_self(c) ? 1 : 0) - s_min[c];
+    const bool c_ok = d >= 0 && (!pr.dom_pres(c, n) || skew <= pv.max_skew(c));
+    if (pv.sp_hard(c) && !c_ok) {
+      ok = false;
+      if (term < 0) term = c;
+    }
+    each(c, d);
+  }
+  return ok;
+}
+
+// InterPodAffinity's filter at node n (filtering.go) over the pod's AT
+// terms, each term's count in n's domain d being ip_cnt plus peer(u, d):
+// no existing pod's anti-affinity against the pod (violated), no
+// anti-affinity term matched in its domain, and every affinity term
+// matched, or the escape (`escape`: nothing matches yet and the pod matches
+// itself) where n has every affinity key.  raw gets the pod's inter-pod raw
+// at n before the peers' symmetric terms: sym plus each present term's
+// count times its preferred weight; term, the first anti-affinity term
+// matched (-1: none).
+template <class Planes, class Nodes, class Vals, class Peer>
+__device__ __forceinline__ bool interpod_verdict(const Planes& pr, const Nodes& nd, const Vals& pv, int AT, int n,
+                                                 bool escape, Peer peer, long long& raw, int& term) {
+  const long long sym = pr.sym(n);
+  const bool viol = pr.violated(n);
+  bool viol2 = false, aff_ok = true, topo_all = true;
+  long long pref = 0;
+  term = -1;
+  for (int u = 0; u < AT; ++u) {
+    const int d = nd.dom(pv.ip_key(u), n);
+    const bool present = d >= 0;
+    const long long tot = pr.ip_cnt(u, n) + peer(u, d);
+    if (pv.ip_anti(u) && present && tot > 0) {
+      viol2 = true;
+      if (term < 0) term = u;
+    }
+    if (pv.ip_aff(u)) {
+      aff_ok = aff_ok && present && tot > 0;
+      topo_all = topo_all && present;
+    }
+    if (present) pref += tot * pv.ip_pref_w(u);
+  }
+  raw = sym + pref;
+  return !viol && !viol2 && (aff_ok || (escape && topo_all));
+}
+
+// The values a feasible node adds to its pod's normalizers, f[0..FEAS_VALS)
+// of one reduction: the feasible count, the taint and node-affinity raws'
+// maxima, the inter-pod raws' min and max, and the nodes that count (every
+// spread key present); count_domain(c, d) for each non-hostname slot c with
+// n's domain d present at a node that counts (the distinct domains are the
+// topology size of slot c).  feas_init sets their start values, feas_op(i)
+// is value i's op.
+constexpr int FEAS_VALS = 6;
+
+__host__ __device__ constexpr int feas_op(int i) {
+  return i == 3 ? RED_MIN : (i == 1 || i == 2 || i == 4) ? RED_MAX : RED_SUM;
+}
+
+__device__ __forceinline__ void feas_init(long long* f) {
+  f[0] = 0;
+  f[1] = f[2] = 0;  // max(where(feas, raw, 0))
+  f[3] = I64_MAX;
+  f[4] = -I64_MAX - 1;
+  f[5] = 0;
+}
+
+template <class Planes, class Nodes, class Vals, class CountDomain>
+__device__ __forceinline__ void count_feasible(const Planes& pr, const Nodes& nd, const Vals& pv, int C, int n,
+                                               long long ip_raw, long long* f, CountDomain count_domain) {
+  const long long tr = pr.taint(n), nr = pr.naff(n);
+  f[0] += 1;
+  if (tr > f[1]) f[1] = tr;
+  if (nr > f[2]) f[2] = nr;
+  if (ip_raw < f[3]) f[3] = ip_raw;
+  if (ip_raw > f[4]) f[4] = ip_raw;
+  if (pr.counted(n)) {
+    f[5] += 1;
+    for (int c = 0; c < C; ++c) {
+      if (pv.sp_host(c)) continue;
+      const int d = nd.dom(pv.sp_key(c), n);
+      if (d >= 0) count_domain(c, d);
+    }
+  }
+}
+
+// The spread score's raw at a node (_spread_raw) over the pod's soft slots:
+// cnt(c), the slot's score-side count there, times its topology weight
+// wfx[c], plus (max_skew - 1), in 32.32 fixed point, rounded.
+template <class Vals, class Cnt>
+__device__ __forceinline__ long long spread_raw(const Vals& pv, int C, const long long* wfx, Cnt cnt) {
+  long long total_fx = 0;
+  for (int c = 0; c < C; ++c) {
+    if (!pv.sp_soft(c)) continue;
+    total_fx += (long long)cnt(c) * wfx[c] + (long long)(pv.max_skew(c) - 1) * (1LL << FX);
+  }
+  return spread_round(total_fx);
+}
+
+// The usage commit of one placement (usage_carry_update) into `use`, or
+// with delta = -1 its undo (K11's rollback); one thread.
+__device__ __forceinline__ void commit_usage(const GangScanArgs& a, const UsageRows& use, int p, int choice,
+                                             int delta = 1) {
   if (choice < 0) return;
   const int* req = a.requests + (long long)p * a.Rp;
   const int rn = a.Rn < a.Rp ? a.Rn : a.Rp;
-  for (int r = 0; r < rn; ++r) use.req(a.Rn, choice, r) += req[r];
-  use.nz(choice, 0) += a.nonzero_req[2 * p];
-  use.nz(choice, 1) += a.nonzero_req[2 * p + 1];
-  use.pods(choice) += 1;
+  for (int r = 0; r < rn; ++r) use.req(a.Rn, choice, r) += delta * req[r];
+  use.nz(choice, 0) += delta * a.nonzero_req[2 * p];
+  use.nz(choice, 1) += delta * a.nonzero_req[2 * p + 1];
+  use.pods(choice) += delta;
 }
 
 // nextStartNodeIndex (schedule_one.go:625): the window's cursor advances by
@@ -1274,9 +1468,9 @@ __device__ __forceinline__ void write_step(const GangScanArgs& a, int p, const S
 
 // Pod p's per-slot and per-pod values (its rows of the [P, C], [P, AT],
 // [P, Rp] arrays of GangScanArgs and WaveArgs): read where they lie
-// (GlobalVals: K5, K8, K11), or from K9's copy in the CTA's shared memory
-// (StagedVals), which the cluster refills at each pod, so that no step
-// phase waits on these small global reads.  The
+// (GlobalVals: K11's undo), or from the copy in the CTA's shared memory
+// (StagedVals: K5, K9 and K11's steps, K8's groups), refilled at each pod,
+// so that no step phase waits on these small global reads.  The
 // two have the same accessors; rev_anti / rev_w are the anti-affinity flag
 // and the symmetric weight of the i-th admitting term t (WaveDyn's list).
 struct GlobalVals {
@@ -1360,10 +1554,12 @@ struct StagedVals {
   // pod p's values into the copy, one element a thread (the caller's next
   // barrier publishes them); K5 has no term tables (tid_sp / tid_ip null,
   // Tsp = Tip = 0): its term ids read -1
-  __device__ void fill(const GangScanArgs& a, const WaveArgs& w, int p) const {
+  __device__ void fill(const GangScanArgs& a, const WaveArgs& w, int p) const { fill(a, w, p, threadIdx.x, blockDim.x); }
+  // the same by threads t0 of nt (K8: one pod's group of warps)
+  __device__ void fill(const GangScanArgs& a, const WaveArgs& w, int p, int t0, int nt) const {
     const GlobalVals g{&a, &w, p};
     const int n_int = 8 * C + 5 * AT + Rp + 5, n_all = n_int + C + AT + Tsp + Tip;
-    for (int j = threadIdx.x; j < n_all; j += blockDim.x) {
+    for (int j = t0; j < n_all; j += nt) {
       if (j >= n_int + C + AT) {  // the terms p matches
         const int t = j - n_int - C - AT;
         v[n_int + Tip + t] = t < Tsp ? g.sp_match(t) : g.ip_match(t - Tsp);
@@ -1401,10 +1597,10 @@ struct StagedVals {
 };
 
 // ---------------------------------------------------------------------------
-// The step's policies: the nodes a block steps and the step's block- or
-// cluster-wide parts, so that one body of pod_step_block serves one block
-// (BlockPolicy: K5, K8, K11) and a thread-block cluster (ClusterPolicy: K9).
-// A policy has lo / hi, the nodes [lo, hi) this block steps, and
+// The step's policy: the nodes a CTA steps and the step's cluster-wide
+// parts, so that one body of pod_step_block serves the thread-block
+// clusters of K5 (ClusterPolicyT<false>), K9 and K11 (ClusterPolicy).
+// A policy has lo / hi, the nodes [lo, hi) this CTA steps, and
 //   begin(sh, C)                       before the step's first pass
 //   count_domain(sc, sh, c, d, stamp)  domain d of slot c holds a counted node
 //   reduce(v, op, nv, sh)              sums / mins / maxes over every node
@@ -1423,83 +1619,8 @@ struct StagedVals {
 // total order (key, tie, slot), so any combine order gives the same answer.
 // ---------------------------------------------------------------------------
 
-// One block over all N nodes: block_reduce, the distinct domains by stamps
-// in sc.seen, the window's walk over sc.feas, a two-level argmax.
-struct BlockPolicy {
-  static constexpr bool kPremin = false;  // the step computes its min-match
-  int lo, hi;
-  __device__ bool owns(int n) const { return n >= lo && n < hi; }
-  __device__ bool leader() const { return threadIdx.x == 0; }
-  __device__ int cursor(const GangScanArgs& a) const { return *a.sample_start; }
-  __device__ void begin(const StepShared& sh, int C) const {
-    for (int c = threadIdx.x; c < C; c += blockDim.x) sh.s_ndom[c] = 0;
-  }
-  __device__ void count_domain(const StepScratch& sc, const StepShared& sh, int c, int d, int stamp) const {
-    if (atomicExch(sc.seen + (long long)c * sc.seen_stride + d, stamp) != stamp) atomicAdd(sh.s_ndom + c, 1);
-  }
-  template <int NV>
-  __device__ void reduce(long long (&v)[NV], const int (&op)[NV], int nv, const StepShared& sh) const {
-    block_reduce(v, op, nv, sh.s_buf);
-  }
-  template <int NV>
-  __device__ void reduce_counts(long long (&v)[NV], const int (&op)[NV], int nv, const StepShared& sh, int) const {
-    block_reduce(v, op, nv, sh.s_buf);
-  }
-  template <class F>
-  __device__ int window(const GangScanArgs& a, F feas, int start, int nv) const {
-    return window_stop(a, feas, start, nv);
-  }
-  __device__ int argmax(long long best, int best_t, int best_n, long long n_feas, const StepShared& sh, int) const {
-    __shared__ int s_best_t[32];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int off = 16; off > 0; off >>= 1) {
-      const long long ov = __shfl_down_sync(FULL_MASK, best, off);
-      const int ot = __shfl_down_sync(FULL_MASK, best_t, off);
-      const int oi = __shfl_down_sync(FULL_MASK, best_n, off);
-      better(best, best_t, best_n, ov, ot, oi);
-    }
-    if (lane == 0) {
-      sh.s_best_v[warp] = best;
-      s_best_t[warp] = best_t;
-      sh.s_best_i[warp] = best_n;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const int n_warps = blockDim.x >> 5;
-      best = lane < n_warps ? sh.s_best_v[lane] : -I64_MAX - 1;
-      best_t = lane < n_warps ? s_best_t[lane] : I32_MAX;
-      best_n = lane < n_warps ? sh.s_best_i[lane] : I32_MAX;
-      for (int off = 16; off > 0; off >>= 1) {
-        const long long ov = __shfl_down_sync(FULL_MASK, best, off);
-        const int ot = __shfl_down_sync(FULL_MASK, best_t, off);
-        const int oi = __shfl_down_sync(FULL_MASK, best_n, off);
-        better(best, best_t, best_n, ov, ot, oi);
-      }
-      __syncwarp();
-      if (lane == 0) sh.s_best_i[0] = n_feas > 0 ? best_n : ABSENT;
-    }
-    __syncthreads();
-    const int choice = sh.s_best_i[0];
-    __syncthreads();  // s_best_i is written again by the next step
-    return choice;
-  }
-  __device__ void gather(int*, int*, long long) const { __syncthreads(); }
-  __device__ void advance(const GangScanArgs& a, const StepOut& out) const {
-    if (threadIdx.x == 0) advance_cursor(a, out);
-  }
-  __device__ void at_flags(const StepShared& sh, int, int (&f)[6]) const {
-    for (int i = 0; i < 6; ++i) f[i] = sh.s_at[i];
-  }
-  __device__ void begin_pod() const {}
-  __device__ void end_pod() const {}
-  __device__ void stage_pod(const GangScanArgs&, int) const {}
-  __device__ PodPlanes planes(const GangScanArgs& a, int p) const { return global_planes(a, p); }
-  __device__ GlobalVals vals(const GangScanArgs& a, const WaveArgs* w, int p) const { return GlobalVals{&a, w, p}; }
-  __device__ void stage_vals(const GangScanArgs&, const WaveArgs&, int) const {}
-};
-
 // ---------------------------------------------------------------------------
-// One thread-block cluster of G CTAs on neighbouring SMs (K9).  CTA `rank`
+// One thread-block cluster of G CTAs on neighbouring SMs (K5, K9, K11).  CTA `rank`
 // steps the nodes [lo, hi) of its slice (S nodes a CTA, a multiple of 32),
 // and the step's block-wide parts cross the cluster through distributed
 // shared memory (DSMEM).  Every exchange pushes: each CTA first combines
@@ -2155,33 +2276,16 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
     if (start < 0) start += nv;
   }
 
-  // 0 n_feas, 1..9 reason counts, 10 taint max, 11 naff max, 12 ip min,
-  // 13 ip max, 14 counted nodes
-  long long red[15];
-  const int red_op[15] = {RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM, RED_SUM,
-                          RED_SUM, RED_SUM, RED_MAX, RED_MAX, RED_MIN, RED_MAX, RED_SUM};
-  for (int i = 0; i < 15; ++i) red[i] = identity(red_op[i]);
-  red[10] = red[11] = 0;  // max(where(feas, raw, 0))
-  // a feasible node's share of the normalizers
-  auto count_feasible = [&](int n, long long ip_raw) {
-    const long long pn = pr.at(n);
-    red[0] += 1;
-    if (pr.sc_taint[pn] > red[10]) red[10] = pr.sc_taint[pn];
-    if (pr.sc_nodeaff[pn] > red[11]) red[11] = pr.sc_nodeaff[pn];
-    if (ip_raw < red[12]) red[12] = ip_raw;
-    if (ip_raw > red[13]) red[13] = ip_raw;
-    if (pr.all_keys[pn]) {
-      red[14] += 1;
-      // distinct domains among the counted nodes, per non-hostname
-      // constraint (the hostname's topology size is red[14])
-      for (int c = 0; c < C; ++c) {
-        if (pv.sp_host(c)) continue;
-        const int d = nd.dom(pv.sp_key(c), n);
-        if (d < 0) continue;
-        pol.count_domain(sc, sh, c, d, stamp);
-      }
-    }
-  };
+  // 0..5 the normalizers' counts over the feasible set (count_feasible),
+  // 6..14 the reason counts
+  constexpr int NR = FEAS_VALS + N_DIAG;
+  long long red[NR];
+  const int red_op[NR] = {feas_op(0), feas_op(1), feas_op(2), feas_op(3), feas_op(4), feas_op(5), RED_SUM, RED_SUM,
+                          RED_SUM,    RED_SUM,    RED_SUM,    RED_SUM,    RED_SUM,    RED_SUM,    RED_SUM};
+  feas_init(red);
+  for (int r = 0; r < N_DIAG; ++r) red[FEAS_VALS + r] = 0;
+  // the distinct counted domains per slot (count_feasible)
+  auto count_domain = [&](int c, int d) { pol.count_domain(sc, sh, c, d, stamp); };
   for (int n = lo + tid; n < hi; n += blockDim.x) {
     const long long pn = pr.at(n);
     const bool m_portb = dyn.portb(n);
@@ -2195,47 +2299,22 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
       if (a.nom_off != nullptr && a.nom_off[n + 1] > a.nom_off[n])
         m_fit = step_fits(a, sc, n, pv, all_zero, prio, true);
     }
-    bool m_spread = true;
     int sp_term = -1;
-    for (int c = 0; c < C; ++c) {
-      const long long pc = (long long)p * C + c;
-      const long long o = pr.at(c, n);
-      const int d = nd.dom(pv.sp_key(c), n);
-      const bool host = pv.sp_host(c);
-      const long long total = pr.sp_dom_cnt[o] + dyn.f(c, pc, n, d);
-      const long long skew = total + (pv.sp_self(c) ? 1 : 0) - sh.s_min[c];
-      const bool c_ok = d >= 0 && (!pr.sp_dom_pres[o] || skew <= pv.max_skew(c));
-      if (pv.sp_hard(c) && !c_ok) {
-        m_spread = false;
-        if (sp_term < 0) sp_term = c;
-      }
-      sc.cnt_of(c, n) = (host ? pr.sp_node_cnt[o] : pr.sp_sc_dom[o]) + dyn.sc(c, pc, n, d, host);
-    }
+    const bool m_spread = spread_verdict(
+        pr, nd, pv, sh.s_min, C, n, [&](int c, int d) { return dyn.f(c, (long long)p * C + c, n, d); },
+        [&](int c, int d) {
+          sc.cnt_of(c, n) = slot_count(pr, pv, c, n) + dyn.sc(c, (long long)p * C + c, n, d, pv.sp_host(c));
+        },
+        sp_term);
     bool m_interpod = true;
     long long ip_raw = 0;
     int ip_term = -1;
     if (AT) {
-      ip_raw = pr.ip_sym[pn];
-      bool viol2 = false, aff_ok = true, topo_all = true;
-      long long pref = 0;
-      for (int u = 0; u < AT; ++u) {
-        const long long pu = (long long)p * AT + u;
-        const int d = nd.dom(pv.ip_key(u), n);
-        const bool present = d >= 0;
-        const long long tot = pr.ip_dom_cnt[pr.at(u, n)] + dyn.ip(u, pu, n, d);
-        if (pv.ip_anti(u) && present && tot > 0) {
-          viol2 = true;
-          if (ip_term < 0) ip_term = u;
-        }
-        if (pv.ip_aff(u)) {
-          aff_ok = aff_ok && present && tot > 0;
-          topo_all = topo_all && present;
-        }
-        if (present) pref += tot * pv.ip_pref_w(u);
-      }
-      const bool ok3 = aff_ok || (escape && topo_all);
-      m_interpod = !pr.viol[pn] && !viol2 && ok3 && !dyn.viol(n);
-      ip_raw += pref + dyn.sym(n);
+      m_interpod = interpod_verdict(
+                       pr, nd, pv, AT, n, escape, [&](int u, int d) { return dyn.ip(u, (long long)p * AT + u, n, d); },
+                       ip_raw, ip_term) &&
+                   !dyn.viol(n);
+      ip_raw += dyn.sym(n);
     }
     const bool feas = pr.mask[pn] && m_portb && m_fit && m_spread && m_interpod;
     sc.feas_of(n) = feas;
@@ -2257,11 +2336,11 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
 #pragma unroll
       for (int r = 0; r < N_DIAG; ++r)
         if (!comp[r]) {
-          red[1 + r] += 1;
+          red[FEAS_VALS + r] += 1;
           break;
         }
     }
-    if (feas && !sampling) count_feasible(n, ip_raw);
+    if (feas && !sampling) count_feasible(pr, nd, pv, C, n, ip_raw, red, count_domain);
   }
   int processed = 0;
   if (sampling) {
@@ -2273,20 +2352,20 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
     for (int n = lo + tid; n < hi; n += blockDim.x) {
       const bool keep = sc.feas_of(n) && nd.vrank(n) >= 0 && (stop < 0 || visit_pos(nd.vrank(n), start, nv) <= stop);
       sc.feas_of(n) = keep;
-      if (keep) count_feasible(n, sc.ip_of(n));
+      if (keep) count_feasible(pr, nd, pv, C, n, sc.ip_of(n), red, count_domain);
     }
   }
-  pol.reduce_counts(red, red_op, 15, sh, C);
+  pol.reduce_counts(red, red_op, NR, sh, C);
   StepOut out;
   out.processed = processed;
   out.n_feas = red[0];
-  for (int r = 0; r < N_DIAG; ++r) out.rc[r] = red[1 + r];
+  for (int r = 0; r < N_DIAG; ++r) out.rc[r] = red[FEAS_VALS + r];
 
   // ---- spread score (_spread_raw): topology weights, then per-node raws
   long long sp_mn = I64_MAX, sp_mx = -I64_MAX, n_use = 0;
   if (C && a.w_spread) {
     for (int c = tid; c < C; c += blockDim.x) {
-      const long long size = pv.sp_host(c) ? red[14] : sh.s_ndom[c];
+      const long long size = pv.sp_host(c) ? red[5] : sh.s_ndom[c];
       sh.s_wfx[c] = a.log_tab[size < 0 ? 0 : (size >= a.L ? a.L - 1 : size)];
     }
     __syncthreads();
@@ -2294,21 +2373,8 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
     const int op[3] = {RED_MIN, RED_MAX, RED_SUM};
     for (int n = lo + tid; n < hi; n += blockDim.x) {
       if (!sc.feas_of(n)) continue;
-      const long long pn = pr.at(n);
-      long long raw = 0;
-      bool use_n = true;
-      if (has_soft) {
-        use_n = pr.all_keys[pn];  // valid & feas == counted
-        long long total_fx = 0;
-        for (int c = 0; c < C; ++c) {
-          if (!pv.sp_soft(c)) continue;
-          total_fx += (long long)sc.cnt_of(c, n) * sh.s_wfx[c] + (long long)(pv.max_skew(c) - 1) * (1LL << FX);
-        }
-        const long long q = total_fx >> FX;  // arithmetic shift
-        const long long frac = total_fx & ((1LL << FX) - 1);
-        const long long half = 1LL << (FX - 1);
-        raw = q + ((frac > half || (frac == half && (q & 1))) ? 1 : 0);
-      }
+      const bool use_n = !has_soft || pr.all_keys[pr.at(n)];  // valid & feas == counted
+      const long long raw = has_soft ? spread_raw(pv, C, sh.s_wfx, [&](int c) { return sc.cnt_of(c, n); }) : 0;
       sc.sp_of(n) = raw;
       if (use_n) {
         if (raw < v[0]) v[0] = raw;
@@ -2327,46 +2393,24 @@ __device__ StepOut pod_step_block(const GangScanArgs& a, int p, const Dyn& dyn, 
   // one, the first max in visit order
   long long best = -I64_MAX - 1;
   int best_t = I32_MAX, best_n = I32_MAX;
-  const long long taint_mx = red[10], naff_mx = red[11], ip_mn = red[12], ip_mx = red[13];
+  const ScoreNorms norms{red[1], red[2], red[3], red[4], sp_mn, sp_mx, n_use};
   unsigned tk0 = (unsigned)a.tie_k0, tk1 = (unsigned)a.tie_k1;
   if (a.tie_on) rng::fold_in(tk0, tk1, (unsigned)a.attempt_base + (unsigned)p);
   for (int n = lo + tid; n < hi; n += blockDim.x) {
     if (!sc.feas_of(n)) continue;
     const long long pn = pr.at(n);
-    long long total = 0;
-    if (a.w_taint) {
-      const long long raw = pr.sc_taint[pn];
-      total += a.w_taint * (taint_mx > 0 ? MAX_NODE_SCORE - fdiv(MAX_NODE_SCORE * raw, taint_mx) : MAX_NODE_SCORE);
-    }
-    if (a.w_naff) {
-      const long long raw = pr.sc_nodeaff[pn];
-      total += a.w_naff * (naff_mx > 0 ? fdiv(MAX_NODE_SCORE * raw, naff_mx) : raw);
-    }
-    if (a.w_spread) {
-      long long s = MAX_NODE_SCORE;  // C == 0: every feasible node is "used", mx == 0
-      if (C) {
-        const bool use_n = !has_soft || pr.all_keys[pn];
-        s = 0;
-        if (use_n && n_use > 0)
-          s = sp_mx == 0 ? MAX_NODE_SCORE
-                         : fdiv(MAX_NODE_SCORE * (sp_mx + sp_mn - sc.sp_of(n)), sp_mx > 1 ? sp_mx : 1);
-      }
-      total += a.w_spread * s;
-    }
-    if (a.w_ip) {
-      const long long diff = ip_mx - ip_mn;
-      total += a.w_ip * (diff > 0 ? fdiv(MAX_NODE_SCORE * (sc.ip_of(n) - ip_mn), diff) : 0);
-    }
+    long long a0 = 0, a1 = 0, c0 = 0, c1 = 0, r0 = 0, r1 = 0;
     if (a.w_fit || a.w_bal) {
-      const long long a0 = nd.alloc(n, LANE_CPU);
-      const long long a1 = nd.alloc(n, LANE_MEM);
-      const long long c0 = (long long)use.nz(n, 0) + pv.nz_req(0);
-      const long long c1 = (long long)use.nz(n, 1) + pv.nz_req(1);
-      if (a.w_fit) total += a.w_fit * fit_score(a, a0, a1, c0, c1);
-      total += score_total(a0, a1, c0, c1, (long long)use.req(a.Rn, n, LANE_CPU) + pv.req(LANE_CPU),
-                           (long long)use.req(a.Rn, n, LANE_MEM) + pv.req(LANE_MEM), 0, 0, a.w_bal, 0);
+      a0 = nd.alloc(n, LANE_CPU);
+      a1 = nd.alloc(n, LANE_MEM);
+      c0 = (long long)use.nz(n, 0) + pv.nz_req(0);
+      c1 = (long long)use.nz(n, 1) + pv.nz_req(1);
+      r0 = (long long)use.req(a.Rn, n, LANE_CPU) + pv.req(LANE_CPU);
+      r1 = (long long)use.req(a.Rn, n, LANE_MEM) + pv.req(LANE_MEM);
     }
-    if (a.w_img) total += a.w_img * pr.sc_image[pn];
+    long long total = node_total(a, norms, C > 0, !has_soft || pr.all_keys[pn], pr.sc_taint[pn], pr.sc_nodeaff[pn],
+                                 a.w_spread && C ? sc.sp_of(n) : 0, sc.ip_of(n), a0, a1, c0, c1, r0, r1,
+                                 a.w_img ? pr.sc_image[pn] : 0);
     if (pr.extra) total += pr.extra[pn];
     long long key = total;
     int tie = n;
@@ -2397,26 +2441,16 @@ namespace wave {
 
 using step::dom_at;
 
-// The regions.  Per pod (sums): g1 [C, Dsp], g2 [C, Dsp], seen [C, Dsp],
-// gf [AT, D2], the admitting-term list [Tip] and the conflicting-port-term
-// list [Tpt], then two list lengths and the any_dyn flag.  Carries:
-// cnt_sp [Tsp, N], cnt_ip [Tip, N], rev_cnt [Tip, N], occ_pt [Tpt, N].
-__host__ __device__ inline long long sums_cells(const GangScanArgs& a, const WaveArgs& w) {
-  return 3LL * a.C * w.Dsp + (long long)a.AT * w.D2 + w.Tip + w.Tpt + 3;
-}
-
-__host__ __device__ inline long long carry_cells(const GangScanArgs& a, const WaveArgs& w) {
-  return ((long long)w.Tsp + 2LL * w.Tip + w.Tpt) * a.N;
-}
-
-// The carries' rows: node n at column n - clo of rows cld wide (all N nodes
-// in one block's shared or global memory: clo = 0, cld = N; a cluster CTA's
-// slice in its shared memory: its lo and slice width).  The pod_tables sums
-// land in g1p / g2p / gfp / anyp, which are g1 / g2 / gf / any_dyn in one
-// block and the CTA's partial sums in a cluster (ClusterPolicy::gather adds
-// them up into g1 .. any_dyn).
+// A cluster CTA's region: the per-pod sums g1 / g2 [C, Dsp] (spread,
+// filter and score sides), gf [AT, D2] (inter-pod) and any_dyn, which
+// ClusterPolicy::gather adds up from every CTA's partial sums g1p / g2p /
+// gfp / anyp; the admitting-term list [Tip] and the conflicting-port-term
+// list [Tpt] with their two lengths; and the carries cnt_sp [Tsp, N],
+// cnt_ip [Tip, N], rev_cnt [Tip, N], occ_pt [Tpt, N], node n at column
+// n - clo of rows cld wide (global memory: clo = 0, cld = N; the CTA's
+// slice in its shared memory: its lo and slice width).
 struct Region {
-  int *g1, *g2, *seen, *gf, *rev, *conf, *n_rev, *n_conf, *any_dyn;
+  int *g1, *g2, *gf, *rev, *conf, *n_rev, *n_conf, *any_dyn;
   int *g1p, *g2p, *gfp, *anyp;
   int *cnt_sp, *cnt_ip, *rev_cnt, *occ_pt;
   int clo, cld;
@@ -2585,27 +2619,22 @@ __device__ inline void pod_tables(const GangScanArgs& a, const WaveArgs& w, cons
   pol.gather(r.g1, r.g1p, sums);
 }
 
-// Commit pod p's placement at `choice` into the carries: the node column of
-// each matching term where the policy owns `choice`, and p's own inter-pod
-// terms over their topology domains at the policy's nodes.
-template <class Pol>
-__device__ inline void commit_carries(const GangScanArgs& a, const WaveArgs& w, const Region& r, int p, int choice,
-                                      const step::NodeRows& nd, const Pol& pol) {
+// Commit pod p's placement at `choice` into the carries, or with delta = -1
+// undo it (K11's rollback): the node column of each term p matches where
+// the policy owns `choice`, and p's own inter-pod terms over their
+// topology domains at the policy's nodes.  `pv` is pod p's values.
+template <class Vals, class Pol>
+__device__ inline void commit_carries(const GangScanArgs& a, const WaveArgs& w, const Region& r, const Vals& pv,
+                                      int choice, const step::NodeRows& nd, const Pol& pol, int delta = 1) {
   const int tid = threadIdx.x;
   const int AT = a.AT;
-  const auto pv = pol.vals(a, &w, p);
   if (pol.owns(choice)) {
     // one node column per term that p matches (distinct t: no two threads
     // touch one cell)
     for (int t = tid; t < w.Tsp; t += blockDim.x)
-      if (pv.sp_match(t)) r.csp(t, choice) += 1;
+      if (pv.sp_match(t)) r.csp(t, choice) += delta;
     for (int t = tid; t < w.Tip; t += blockDim.x)
-      if (pv.ip_match(t)) r.cip(t, choice) += 1;
-    if (w.has_ports && tid == 0)
-      for (int k = 0; k < w.W; ++k) {
-        const int t = w.tid_pt[(long long)p * w.W + k];
-        if (t >= 0) r.occ(t, choice) += 1;
-      }
+      if (pv.ip_match(t)) r.cip(t, choice) += delta;
   }
   // p's own terms over their topology domains (one thread per node)
   for (int n = pol.lo + tid; n < pol.hi; n += blockDim.x)
@@ -2616,91 +2645,42 @@ __device__ inline void commit_carries(const GangScanArgs& a, const WaveArgs& w, 
       const int at_dom = dom_at(a, key, choice);
       if (at_dom < 0) continue;
       const bool in = key == w.hostname_key ? n == choice : nd.dom(key, n) == at_dom;
-      if (in) r.rev_at(t, n) += 1;
+      if (in) r.rev_at(t, n) += delta;
     }
 }
 
-// One block's carries and per-pod region over `sums` and `carries` (shared
-// or global memory, as the kernel placed them), all N nodes.
-__device__ inline Region make_region(const GangScanArgs& a, const WaveArgs& w, int* sums, int* carries) {
-  Region r;
-  r.g1 = sums;
-  r.g2 = r.g1 + (long long)a.C * w.Dsp;
-  r.seen = r.g2 + (long long)a.C * w.Dsp;
-  r.gf = r.seen + (long long)a.C * w.Dsp;
-  r.rev = r.gf + (long long)a.AT * w.D2;
-  r.conf = r.rev + w.Tip;
-  r.n_rev = r.conf + w.Tpt;
-  r.n_conf = r.n_rev + 1;
-  r.any_dyn = r.n_conf + 1;
-  r.g1p = r.g1;
-  r.g2p = r.g2;
-  r.gfp = r.gf;
-  r.anyp = r.any_dyn;
-  r.clo = 0;
-  r.cld = a.N;
-  r.cnt_sp = carries;
-  r.cnt_ip = r.cnt_sp + (long long)w.Tsp * a.N;
-  r.rev_cnt = r.cnt_ip + (long long)w.Tip * a.N;
-  r.occ_pt = r.rev_cnt + (long long)w.Tip * a.N;
-  return r;
-}
-
-// The dynamic shared memory of K11's block: s_wfx [C] (int64), s_min [C],
-// s_ndom [C], then the per-pod region when sums_smem and the carries when
-// carry_smem.
-inline size_t admit_smem(const GangScanArgs& a, const WaveArgs& w) {
-  size_t bytes = (size_t)a.C * (sizeof(long long) + 2 * sizeof(int));
-  if (w.sums_smem) bytes += (size_t)sums_cells(a, w) * sizeof(int);
-  if (w.carry_smem) bytes += (size_t)carry_cells(a, w) * sizeof(int);
-  return bytes;
+// The wave's port terms of p at `choice` (K9; the workloads dispatch has no
+// host ports): one thread.
+__device__ inline void commit_ports(const WaveArgs& w, const Region& r, int p, int choice) {
+  for (int k = 0; k < w.W; ++k) {
+    const int t = w.tid_pt[(long long)p * w.W + k];
+    if (t >= 0) r.occ(t, choice) += 1;
+  }
 }
 
 // ---------------------------------------------------------------------------
-// The admission recurrence, one body for K9 and K11: admit_loop<false> is K9
-// (the demotion stats against the speculative node c0; a ClusterPolicy, the
-// cluster kernel in csrc/wave.cu), admit_loop<true> is K11 (the gang
-// checkpoint and rollback, no demotion stats; one persistent block of
-// ADMIT_THREADS, admit_kernel below, csrc/workloads.cu).
+// The admission recurrence, one kernel for K9 and K11: admit_loop<false> is
+// K9 (the demotion stats against the speculative node c0), admit_loop<true>
+// is K11 (the gangs, no demotion stats), both on one thread-block cluster
+// (admit_cluster_kernel below; csrc/wave.cu, csrc/workloads.cu).
 // ---------------------------------------------------------------------------
-
-constexpr int ADMIT_THREADS = 1024;
 
 enum Demote { DEMOTE_NONE = 0, DEMOTE_SPREAD = 1, DEMOTE_AFFINITY = 2, DEMOTE_SCORE = 3, DEMOTE_FIT = 4,
               DEMOTE_UPGRADE = 5, DEMOTE_PORTS = 6 };
 
-// K11: block-wide copy of the carried state into the checkpoint (save) or
-// back out of it.  The carries cnt_sp, cnt_ip and rev_cnt are contiguous
-// from r.cnt_sp (make_region), and occ_pt is empty (no ports).  With DRA
-// the allocation carries follow: claim_node's CL ints, then free's bytes.
-__device__ inline void checkpoint(const GangScanArgs& a, const WaveArgs& w, const WorkloadsArgs& k, const Region& r,
-                                  bool save) {
-  int* const seg[5] = {a.requested, a.nonzero, a.num_pods, k.assigned, r.cnt_sp};
-  const long long len[5] = {(long long)a.N * a.Rn, 2LL * a.N, (long long)a.N, (long long)a.P,
-                            ((long long)w.Tsp + 2LL * w.Tip) * a.N};
-  long long off = 0;
-  for (int s = 0; s < 5; ++s) {
-    int* const st = seg[s];
-    int* const ck = k.ckpt + off;
-    for (long long i = threadIdx.x; i < len[s]; i += blockDim.x) {
-      if (save) ck[i] = st[i];
-      else st[i] = ck[i];
-    }
-    off += len[s];
-  }
-  if (k.dra_match != nullptr) {
-    int* const ck = k.ckpt + off;
-    for (int i = threadIdx.x; i < k.CL; i += blockDim.x) {
-      if (save) ck[i] = k.claim_node[i];
-      else k.claim_node[i] = ck[i];
-    }
-    unsigned char* const ckb = reinterpret_cast<unsigned char*>(ck + k.CL);
-    for (long long i = threadIdx.x; i < (long long)a.N * k.DD; i += blockDim.x) {
-      if (save) ckb[i] = k.free[i];
-      else k.free[i] = ckb[i];
-    }
-  }
-}
+// K11's per-CTA record of the batch, for the rollback by undo: every pod's
+// choice, the CTA's copy of claim_node and, per claim, the pod that pinned
+// it in this batch (-1: none), and the first pod a rollback undoes (the
+// most recent gang's first member, or the pod after the last rollback; 0
+// before either).  Every CTA keeps its own copies and applies the same
+// pins from the choice every CTA knows, so no CTA reads another's.
+struct GangLog {
+  int* choice;  // [P]
+  int* claim;   // [CL]
+  int* pinner;  // [CL]
+  int start;
+  int undone;   // the leader's count of undone placements
+};
 
 // K11 with claims: pod p's rows of WorkloadsArgs.
 __device__ __forceinline__ dra::PodRows dra_rows(const WorkloadsArgs& k, int N, int p) {
@@ -2708,26 +2688,84 @@ __device__ __forceinline__ dra::PodRows dra_rows(const WorkloadsArgs& k, int N, 
                        N, k.DD, k.CL);
 }
 
-// K11 with claims: commit pod p's placement at `choice` into the allocation
-// carries (ops/dra.py dra_commit): its take row at the chosen node leaves
-// `free`, and every claim it references that is still unallocated pins to
-// the node.  One thread.
-__device__ inline void dra_commit(const WorkloadsArgs& k, int N, int p, int choice) {
-  dra::node_take(dra_rows(k, N, p), k.free, k.claim_node, choice,
-                 k.dra_scratch == nullptr ? nullptr : k.dra_scratch + (long long)threadIdx.x * dra::scratch_words(k.DD));
+// This thread's verdict words past dra::REG_DD device slots (null below).
+__device__ __forceinline__ unsigned long long* dra_words(const WorkloadsArgs& k) {
+  if (k.dra_scratch == nullptr) return nullptr;
+  const long long row = (long long)cooperative_groups::this_cluster().block_rank() * blockDim.x + threadIdx.x;
+  return k.dra_scratch + row * dra::scratch_words(k.DD);
+}
+
+// K11 with claims: commit pod p's placement at `choice` into the
+// allocation carries (ops/dra.py dra_commit), thread 0 of each CTA: the CTA
+// that owns the node takes the pod's devices there (free's row, logged in
+// take_log's row p), then every CTA pins, in its own copy, each claim the
+// pod references that is still unallocated.
+template <class Pol>
+__device__ inline void dra_commit(const WorkloadsArgs& k, int N, int p, int choice, GangLog& gl, const Pol& pol) {
+  const int nw = (k.DD + 63) >> 6;
+  if (pol.owns(choice))
+    dra::node_take(dra_rows(k, N, p), k.free, gl.claim, choice, dra_words(k), k.take_log + (long long)p * nw);
   for (int c = 0; c < k.CQ; ++c) {
     const int cl = k.ref_cl[(long long)p * k.CQ + c];
-    if (cl >= 0 && cl < k.CL && k.claim_node[cl] < 0) k.claim_node[cl] = choice;
+    if (cl >= 0 && cl < k.CL && gl.claim[cl] < 0) {
+      gl.claim[cl] = choice;
+      gl.pinner[cl] = p;
+    }
+  }
+}
+
+// K11's rollback: undo the placements of the pods gl.start .. p (the
+// reference restores the state saved before the most recent first member's
+// step, or the initial state, and every commit since is additive): each
+// from its recorded choice, the usage and term columns by the CTA that
+// owns the node, the reverse counts by every CTA over its slice (the split
+// of the commit), with claims the take from the log and the pins this
+// batch made; the pods' `assigned` read -1 again.  One thread owns each
+// cell across the pods (a term column's thread, a node's thread, thread 0),
+// so the pods need no barrier between them.
+template <class Pol>
+__device__ inline void undo_gang(const GangScanArgs& a, const WaveArgs& w, const WorkloadsArgs& k, const Region& r,
+                                 const step::StepScratch& sc, const Pol& pol, GangLog& gl, int p) {
+  const int nw = (k.DD + 63) >> 6;
+  for (int q = gl.start; q <= p; ++q) {
+    const int c = gl.choice[q];
+    if (c < 0) continue;
+    commit_carries(a, w, r, step::GlobalVals{&a, &w, q}, c, sc.nodes, pol, -1);
+    if (threadIdx.x == 0) {
+      if (pol.owns(c)) {
+        step::commit_usage(a, sc.use, q, c, -1);
+        if (k.dra_match != nullptr) {
+          unsigned char* const fr = k.free + (long long)c * k.DD;
+          const unsigned long long* const log = k.take_log + (long long)q * nw;
+          for (int d = 0; d < k.DD; ++d)
+            if ((log[d >> 6] >> (d & 63)) & 1ULL) fr[d] = 1;
+        }
+      }
+      if (k.dra_match != nullptr)
+        for (int j = 0; j < k.CQ; ++j) {
+          const int cl = k.ref_cl[(long long)q * k.CQ + j];
+          if (cl >= 0 && cl < k.CL && gl.pinner[cl] == q) {
+            gl.claim[cl] = ABSENT;
+            gl.pinner[cl] = ABSENT;
+          }
+        }
+    }
+    if (pol.leader()) {
+      k.assigned[q] = ABSENT;
+      ++gl.undone;
+    }
   }
 }
 
 // The pods in order: per pod, pod_tables, the shared step (with the verdict's
 // pieces at the speculative node for K9), the commit of the carries and the
-// usage (by the policy that owns the chosen node), then the outputs from the
-// policy's leader.  The gang checkpoint (K11) is one block's.
+// usage (by the CTA that owns the chosen node), then the outputs from the
+// policy's leader.  K11 also keeps the gangs: its DRA verdict per node
+// first, the allocation commit, and at a gang's last member the admission
+// or the rollback (undo_gang).
 template <bool kGangs, class Pol>
 __device__ void admit_loop(const GangScanArgs& a, const WaveArgs& w, const WorkloadsArgs& k, const Region& r,
-                           const step::StepScratch& sc, const step::StepShared& sh, Pol& pol) {
+                           const step::StepScratch& sc, const step::StepShared& sh, Pol& pol, GangLog& gl) {
   using namespace step;
   const int tid = threadIdx.x;
   int landed = 0;  // K11: the same in every thread, each reads the step's choice
@@ -2737,10 +2775,7 @@ __device__ void admit_loop(const GangScanArgs& a, const WaveArgs& w, const Workl
     if constexpr (kGangs) {
       gid = k.gang_id[p];
       is_first = gid >= 0 && k.gang_first[p];
-      if (is_first) {  // the state before the first member's own step
-        checkpoint(a, w, k, r, true);
-        __syncthreads();
-      }
+      if (is_first) gl.start = p;  // a rollback restores the state before this pod's step
     }
     int choice = ABSENT;
     pol.stage_pod(a, p);
@@ -2755,12 +2790,11 @@ __device__ void admit_loop(const GangScanArgs& a, const WaveArgs& w, const Workl
     } else {
       const unsigned char* dra_row = nullptr;
       if constexpr (kGangs) {
-        if (k.dra_match != nullptr) {  // the pod's DRA verdict per node, its port lane
+        if (k.dra_match != nullptr) {  // the pod's DRA verdict per node of the slice, its port lane
           const dra::PodRows dr = dra_rows(k, a.N, p);
-          unsigned long long* const words =
-              k.dra_scratch == nullptr ? nullptr : k.dra_scratch + (long long)tid * dra::scratch_words(k.DD);
-          for (int n = tid; n < a.N; n += blockDim.x)
-            k.dra_row[n] = dra::node_verdict_any(dr, k.free, k.claim_node, n, words);
+          unsigned long long* const words = dra_words(k);
+          for (int n = pol.lo + tid; n < pol.hi; n += blockDim.x)
+            k.dra_row[n] = dra::node_verdict_any(dr, k.free, gl.claim, n, words);
           dra_row = k.dra_row;
           __syncthreads();
         }
@@ -2773,12 +2807,17 @@ __device__ void admit_loop(const GangScanArgs& a, const WaveArgs& w, const Workl
       const StepOut out = pod_step_block(a, p, WaveDyn<decltype(pv)>{a, w, r, p, dra_row, pol.planes(a, p), pv},
                                          *r.any_dyn != 0, sc, sh, spec, true, pol);
       choice = out.choice;
-      if (choice >= 0) commit_carries(a, w, r, p, choice, sc.nodes, pol);
-      if (tid == 0 && choice >= 0 && pol.owns(choice)) commit_usage(a, sc.use, p, choice);
+      if (choice >= 0) commit_carries(a, w, r, pv, choice, sc.nodes, pol);
+      if (tid == 0 && choice >= 0 && pol.owns(choice)) {
+        commit_usage(a, sc.use, p, choice);
+        if (w.has_ports) commit_ports(w, r, p, choice);
+      }
+      if constexpr (kGangs) {
+        if (tid == 0 && k.dra_match != nullptr && choice >= 0) dra_commit(k, a.N, p, choice, gl, pol);
+      }
       if (pol.leader()) {
         if constexpr (kGangs) {
           k.assigned[p] = choice;
-          if (k.dra_match != nullptr && choice >= 0) dra_commit(k, a.N, p, choice);
         } else {  // the demotion, from the pre-commit verdict at the speculative node
           int kind = DEMOTE_NONE, cterm = -1;
           if (choice != spec) {
@@ -2805,98 +2844,309 @@ __device__ void admit_loop(const GangScanArgs& a, const WaveArgs& w, const Workl
     }
     bool fail = false;
     if constexpr (kGangs) {
+      if (tid == 0) gl.choice[p] = choice;
       landed = (is_first ? 0 : landed) + (gid >= 0 && choice >= 0 ? 1 : 0);
       const bool is_last = gid >= 0 && k.gang_last[p];
       fail = is_last && landed < k.gang_need[p];
-      if (is_last && tid == 0 && gid < k.g_cap) {
+      if (is_last && pol.leader() && gid < k.g_cap) {
         k.gang_admit[gid] = fail ? 0 : 1;
         k.gang_landed[gid] = landed;
       }
     }
-    __syncthreads();  // the commits are visible to every thread of the block
-    if (fail) {  // K11: the gang rolls back whole
-      checkpoint(a, w, k, r, false);
-      __syncthreads();
+    __syncthreads();  // the commits are visible to every thread of the CTA
+    if constexpr (kGangs) {
+      if (fail) {  // the gang rolls back whole
+        undo_gang(a, w, k, r, sc, pol, gl, p);
+        gl.start = p + 1;
+        __syncthreads();
+      }
     }
   }
 }
 
-// K11's kernel: one persistent block of ADMIT_THREADS over all N nodes.
+// ---- the cluster kernel's layout and launch (K9 csrc/wave.cu, K11
+// csrc/workloads.cu) --------------------------------------------------------
+
+// The ints of one CTA's exchange slab: its partial sums (g1p, g2p [C, Dsp],
+// gfp [AT, D2], anyp) with its min-match parts ([C, Dsp] and [C]:
+// `part_cells`) and every CTA's [G, part_cells], its counted-domain flags
+// [C, Dsp] and every CTA's as bits [G, C, Dw], the window's map
+// [ceil(N / 32)], then its totals (g1, g2, gf, any_dyn, the min-match
+// parts), the term lists [Tip] and [Tpt] and their two lengths.
+__host__ __device__ inline long long part_cells(const GangScanArgs& a, const WaveArgs& w) {
+  return 3LL * a.C * w.Dsp + (long long)a.AT * w.D2 + 1 + a.C;
+}
+__host__ __device__ inline int dom_words(const WaveArgs& w) { return (w.Dsp + 31) >> 5; }
+__host__ __device__ inline long long slab_cells(const GangScanArgs& a, const WaveArgs& w) {
+  return (2LL + w.cluster) * part_cells(a, w) + (long long)a.C * w.Dsp + (long long)w.cluster * a.C * dom_words(w) +
+         ((a.N + 31) >> 5) + w.Tip + w.Tpt + 2;
+}
+
+// Byte offsets of the cluster kernel's dynamic shared memory (only the
+// parts placed there), each part 16-byte aligned: s_wfx [C] (int64), s_min
+// [C], s_ndom [C], the pod's values (StagedVals: ints, then int64s); the
+// exchange slab (sums_smem); the slice's usage rows requested [S, Rn],
+// nonzero [S, 2], num_pods [S] and step rows ip_raw / sp_raw [S] (int64),
+// sp_cnt [C, S], feas [S] (rows_smem); its node statics allocatable
+// [S, Rn], allowed_pods [S], visit_rank [S], dom_ids [K, S], node_valid [S]
+// and two pods' staged planes (stage); the carries [Tsp + 2 Tip + Tpt, S]
+// (carry_smem); K11 with claims its copy of claim_node [CL] and the
+// pinners [CL] (WorkloadsArgs::claims_smem).
+struct ClusterLayout {
+  size_t wfx, smin, sndom, vals_i, vals_l, slab, req, nz, pods, ip_raw, sp_raw, sp_cnt, feas, alloc, allowed, vrank,
+      dom, valid, stage, carries, claims, bytes;
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(const GangScanArgs& a, const WaveArgs& w,
+                                                        const WorkloadsArgs& k) {
+  const size_t S = w.slice, C = a.C;
+  ClusterLayout l{};
+  size_t o = 0;
+  auto take = [&](size_t bytes) {
+    const size_t at = o;
+    o = (o + bytes + 15) / 16 * 16;
+    return at;
+  };
+  l.wfx = take(8 * C);
+  l.smin = take(4 * C);
+  l.sndom = take(4 * C);
+  l.vals_i = take(4 * (size_t)step::StagedVals::ints(a.C, a.AT, a.Rp, w.Tsp, w.Tip));
+  l.vals_l = take(8 * (size_t)step::StagedVals::longs(a.C, a.AT, w.Tip));
+  if (w.sums_smem) l.slab = take(4 * (size_t)w.xch_cells);
+  if (w.rows_smem) {
+    l.req = take(4 * S * a.Rn);
+    l.nz = take(8 * S);
+    l.pods = take(4 * S);
+    l.ip_raw = take(8 * S);
+    l.sp_raw = take(8 * S);
+    l.sp_cnt = take(4 * C * S);
+    l.feas = take(S);
+  }
+  if (w.stage) {
+    l.alloc = take(4 * S * a.Rn);
+    l.allowed = take(4 * S);
+    l.vrank = take(4 * S);
+    l.dom = take(4 * S * a.K);
+    l.valid = take(S);
+    l.stage = take(2 * (size_t)step::stage_bytes(a, w.slice));
+  }
+  if (w.carry_smem) l.carries = take(4 * S * ((size_t)w.Tsp + 2 * (size_t)w.Tip + w.Tpt));
+  if (k.claims_smem) l.claims = take(8 * (size_t)k.CL);
+  l.bytes = o;
+  return l;
+}
+
+// The admission recurrence on one thread-block cluster: K9 (kGangs false,
+// `k` empty) or K11 (kGangs true).  Laid out as csrc/wave.cu describes.
 template <bool kGangs>
-__global__ void __launch_bounds__(ADMIT_THREADS)
-    admit_kernel(const GangScanArgs a, const WaveArgs w, const WorkloadsArgs k) {
+__global__ void __launch_bounds__(step::CLUSTER_THREADS, 1)
+    admit_cluster_kernel(const GangScanArgs a, const WaveArgs w, const WorkloadsArgs k) {
   using namespace step;
-  static_assert(kGangs, "K9 is the cluster kernel of csrc/wave.cu");
-  // dynamic: s_wfx [C] (int64), s_min [C], s_ndom [C], then the per-pod
-  // region when sums_smem and the carries when carry_smem
-  extern __shared__ long long s_dyn[];
-  __shared__ long long s_buf[32 * 16];
-  __shared__ long long s_best_v[32];
-  __shared__ int s_best_i[32];
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  __shared__ ClusterShared s_cl;
   __shared__ int s_at[6];
+  __shared__ unsigned long long s_mbar[2];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), G = (int)cluster.num_blocks();
   const int tid = threadIdx.x;
-  const int C = a.C;
-  const StepShared sh{s_buf, s_dyn, reinterpret_cast<int*>(s_dyn + C), reinterpret_cast<int*>(s_dyn + C) + C,
-                      s_best_v, s_best_i, s_at};
-  int* next = sh.s_ndom + C;
-  int* sums = w.sums;
-  if (w.sums_smem) {
-    sums = next;
-    next += sums_cells(a, w);
-  }
+  const int N = a.N, C = a.C, AT = a.AT, S = w.slice;
+  const int lo = min(N, rank * S), hi = min(N, lo + S), len = hi - lo;
+  const ClusterLayout l = cluster_layout(a, w, k);
+  const StepShared sh{reinterpret_cast<long long*>(s_raw + l.wfx), reinterpret_cast<int*>(s_raw + l.smin),
+                      reinterpret_cast<int*>(s_raw + l.sndom), s_at};
+
+  // the exchange slab, then the region over it and the carries
+  const Xch x{(long long)w.xch_cells, rank, w.sums_smem};
+  int* const slab = w.sums_smem ? reinterpret_cast<int*>(s_raw + l.slab) : w.sums + (long long)rank * w.xch_cells;
+  const long long cd = (long long)C * w.Dsp, xp = part_cells(a, w);
+  const int Dw = dom_words(w);
+  Region r;
+  r.g1p = slab;
+  r.g2p = r.g1p + cd;
+  r.gfp = r.g2p + cd;
+  r.anyp = r.gfp + (long long)AT * w.D2;
+  int* const recv_part = r.g1p + xp;
+  int* const flags = recv_part + (long long)G * xp;
+  int* const recv_bits = flags + cd;
+  int* const wmap = recv_bits + (long long)G * C * Dw;
+  r.g1 = wmap + ((N + 31) >> 5);
+  r.g2 = r.g1 + cd;
+  r.gf = r.g2 + cd;
+  r.any_dyn = r.gf + (long long)AT * w.D2;
+  r.rev = r.g1 + xp;
+  r.conf = r.rev + w.Tip;
+  r.n_rev = r.conf + w.Tpt;
+  r.n_conf = r.n_rev + 1;
   int* carries = w.carries;
+  r.clo = 0;
+  r.cld = N;
   if (w.carry_smem) {
-    carries = next;
-    for (long long i = tid; i < carry_cells(a, w); i += blockDim.x) carries[i] = 0;
+    carries = reinterpret_cast<int*>(s_raw + l.carries);
+    r.clo = lo;
+    r.cld = S;
+    for (long long i = tid; i < ((long long)w.Tsp + 2LL * w.Tip + w.Tpt) * S; i += blockDim.x) carries[i] = 0;
   }
-  if (w.sums_smem)  // the domain stamps start at 0 (global ones: the wrapper)
-    for (long long i = tid; i < (long long)C * w.Dsp; i += blockDim.x) sums[2LL * C * w.Dsp + i] = 0;
-  const Region r = make_region(a, w, sums, carries);
-  const StepScratch sc = global_scratch(a, a.feas, a.ip_raw, a.sp_raw, a.sp_cnt, r.seen, w.Dsp);
-  // the first gang member that saves and the first that may restore: the
-  // checkpoint starts as the initial state (the reference's carry), which
-  // only a gang whose last member comes before any first member reads;
-  // plan_batch never lays one out, so the copy is normally skipped
-  __shared__ int s_order[2];
-  if (tid == 0) s_order[0] = s_order[1] = a.P;
-  for (int i = tid; i < a.P; i += blockDim.x) k.assigned[i] = ABSENT;
-  for (int i = tid; i < k.g_cap; i += blockDim.x) {
-    k.gang_admit[i] = -1;
-    k.gang_landed[i] = 0;
+  r.cnt_sp = carries;
+  r.cnt_ip = r.cnt_sp + (long long)w.Tsp * r.cld;
+  r.rev_cnt = r.cnt_ip + (long long)w.Tip * r.cld;
+  r.occ_pt = r.rev_cnt + (long long)w.Tip * r.cld;
+
+  // the step's rows and the usage rows: the slice in shared memory, staged
+  // in from the usage state, or the global rows; likewise the node statics
+  StepScratch sc = global_scratch(a, a.feas, a.ip_raw, a.sp_raw, a.sp_cnt);
+  if (w.rows_smem) {
+    sc.feas = s_raw + l.feas;
+    sc.ip_raw = reinterpret_cast<long long*>(s_raw + l.ip_raw);
+    sc.sp_raw = reinterpret_cast<long long*>(s_raw + l.sp_raw);
+    sc.sp_cnt = reinterpret_cast<int*>(s_raw + l.sp_cnt);
+    sc.lo = lo;
+    sc.ld = S;
+    sc.use = UsageRows{reinterpret_cast<int*>(s_raw + l.req), reinterpret_cast<int*>(s_raw + l.nz),
+                       reinterpret_cast<int*>(s_raw + l.pods), lo};
+    copy_usage(a, sc.use, len, true);
   }
-  __syncthreads();
-  for (int i = tid; i < a.P; i += blockDim.x)
-    if (k.gang_id[i] >= 0) {
-      if (k.gang_first[i]) atomicMin(&s_order[0], i);
-      if (k.gang_last[i]) atomicMin(&s_order[1], i);
+  if (w.stage)
+    sc.nodes = stage_nodes(a, reinterpret_cast<int*>(s_raw + l.alloc), reinterpret_cast<int*>(s_raw + l.allowed),
+                           reinterpret_cast<int*>(s_raw + l.vrank), reinterpret_cast<int*>(s_raw + l.dom),
+                           s_raw + l.valid, lo, len, S);
+  // K11: the gang record (the choices' and claims' copies of this CTA) and
+  // rank 0's outputs cleared
+  GangLog gl{};
+  if constexpr (kGangs) {
+    gl.choice = k.choice_log + (long long)rank * a.P;
+    if (k.dra_match != nullptr) {
+      gl.claim = k.claims_smem ? reinterpret_cast<int*>(s_raw + l.claims) : k.claims + 2LL * rank * k.CL;
+      gl.pinner = gl.claim + k.CL;
+      for (int i = tid; i < k.CL; i += blockDim.x) {
+        gl.claim[i] = k.claim_node[i];
+        gl.pinner[i] = ABSENT;
+      }
     }
-  __syncthreads();
-  if (s_order[1] < s_order[0]) checkpoint(a, w, k, r, true);
-  __syncthreads();
-  BlockPolicy pol{0, a.N};
-  admit_loop<kGangs>(a, w, k, r, sc, sh, pol);
+    if (rank == 0) {
+      for (int i = tid; i < a.P; i += blockDim.x) k.assigned[i] = ABSENT;
+      for (int i = tid; i < k.g_cap; i += blockDim.x) {
+        k.gang_admit[i] = -1;
+        k.gang_landed[i] = 0;
+      }
+    }
+  }
+  if (tid == 0) init_mbars(s_mbar, s_cl);
+
+  if (tid < CL_PHASES) s_cl.clock[tid] = 0;
+  ClusterPolicy pol{};
+  pol.lo = lo;
+  pol.hi = hi;
+  pol.S = S;
+  pol.rank = rank;
+  pol.G = G;
+  pol.cur = a.sample_k > 0 ? *a.sample_start : 0;
+  pol.cs = &s_cl;
+  pol.flags = flags;
+  pol.recv_bits = recv_bits;
+  pol.recv_part = recv_part;
+  pol.wmap = wmap;
+  pol.s_min = sh.s_min;
+  pol.C = C;
+  pol.Dsp = w.Dsp;
+  pol.Dw = Dw;
+  pol.x = x;
+  pol.stage = w.stage ? s_raw + l.stage : nullptr;
+  pol.mbar = s_mbar;
+  pol.stage_bytes = stage_bytes(a, S);
+  pol.sv = StagedVals{reinterpret_cast<int*>(s_raw + l.vals_i), reinterpret_cast<long long*>(s_raw + l.vals_l), C,
+                      AT, a.Rp, w.Tsp, w.Tip};
+  cluster_barrier();  // every CTA of the cluster runs before any DSMEM access
+  if (w.stage && tid == 0 && a.P > 0) pol.issue(a, 0);
+  admit_loop<kGangs>(a, w, k, r, sc, sh, pol, gl);
+
+  if (w.rows_smem) copy_usage(a, sc.use, len, false);  // the slice's usage rows back to the usage state
+  if (pol.leader()) {
+    if (a.sample_k > 0) *a.sample_start = pol.cur;
+    if (w.admit_info != nullptr) {
+      w.admit_info[0] = G;
+      w.admit_info[1] = pol.syncs;
+      for (int j = 0; j < CL_PHASES; ++j) w.admit_info[2 + j] = (int)(s_cl.clock[j] >> 4);
+    }
+    if constexpr (kGangs) {
+      if (k.undone != nullptr) *k.undone = gl.undone;
+    }
+  }
+  if constexpr (kGangs) {  // rank 0's copy of claim_node is the batch's
+    if (rank == 0 && k.dra_match != nullptr)
+      for (int i = tid; i < k.CL; i += blockDim.x) k.claim_node[i] = gl.claim[i];
+  }
+  cluster_barrier();  // no CTA leaves while a peer may still read its shared memory
 }
 
-// The dynamic shared memory one K11 block may take on this device: the
-// opt-in per-block limit less the kernel's static shared memory.
+// The placement at cluster size G: slice, exchange slab, and, in that order
+// while they fit in `budget` bytes beside the fixed s_wfx / s_min / s_ndom,
+// the exchange slab, the slice's rows, its node statics with the pods'
+// staged planes (when `stage` allows it), and its carries in shared memory;
+// then K11's claim copies where they still fit.
+inline void place(const GangScanArgs& a, WaveArgs& w, WorkloadsArgs& k, int G, long long budget, bool stage) {
+  w.cluster = G;
+  w.slice = step::slice_nodes(a.N, G);
+  w.xch_cells = (int)slab_cells(a, w);
+  w.sums_smem = w.rows_smem = w.stage = w.carry_smem = 0;
+  k.claims_smem = 0;
+  int* const flags[4] = {&w.sums_smem, &w.rows_smem, &w.stage, &w.carry_smem};
+  for (int* f : flags) {
+    if (f == &w.stage && !stage) continue;
+    *f = 1;
+    if ((long long)cluster_layout(a, w, k).bytes > budget) {
+      *f = 0;
+      if (f != &w.stage) break;
+    }
+  }
+  if (k.dra_match != nullptr) {
+    k.claims_smem = 1;
+    if ((long long)cluster_layout(a, w, k).bytes > budget) k.claims_smem = 0;
+  }
+}
+
+// The launch plan into `w` (and K11's `k`): the cluster size (16 where the
+// card admits one cluster of 16 at the kernel's shared memory and
+// cluster_cap allows it, else 8), the slice and what sits in shared memory
+// under min(smem_cap, the card's opt-in limit less the static shared
+// memory); the pods' planes are staged only with `stage` and 16-byte
+// aligned rows.  Returns a CUDA status.
 template <bool kGangs>
-int admit_smem_max() {
+int admit_plan(const GangScanArgs& a, WaveArgs& w, WorkloadsArgs& k, int cluster_cap, int smem_cap, int stage) {
   int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess) return 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncAttributes fa;
-  if (cudaFuncGetAttributes(&fa, admit_kernel<kGangs>) != cudaSuccess) return 0;
-  return optin - (int)fa.sharedSizeBytes;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, admit_cluster_kernel<kGangs>);
+  if (e != cudaSuccess) return (int)e;
+  const long long limit = (long long)optin - (long long)fa.sharedSizeBytes;
+  const long long budget = smem_cap < limit ? smem_cap : limit;
+  const bool staged = stage && step::stage_aligned(a);
+  auto smem = [&](int G) {
+    place(a, w, k, G, budget, staged);
+    return cluster_layout(a, w, k).bytes;
+  };
+  int G = 8;
+  e = step::cluster_size(admit_cluster_kernel<kGangs>, cluster_cap, smem, &G);
+  if (e == cudaSuccess) smem(G);
+  return (int)e;
 }
 
-// Enqueues K11's kernel on `stream` and returns the launch status
-// (cudaGetLastError).
+// Enqueues the cluster kernel (as admit_plan laid it out) on `stream` and
+// returns the launch status (cudaGetLastError).
 template <bool kGangs>
 int admit_launch(const GangScanArgs& a, const WaveArgs& w, const WorkloadsArgs& k, void* stream) {
-  const size_t smem = admit_smem(a, w);
-  cudaError_t e = cudaFuncSetAttribute(admit_kernel<kGangs>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (a.P == 0) return 0;
+  const size_t smem = cluster_layout(a, w, k).bytes;
+  cudaError_t e =
+      cudaFuncSetAttribute(admit_cluster_kernel<kGangs>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(admit_cluster_kernel<kGangs>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  admit_kernel<kGangs><<<1, ADMIT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a, w, k);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = step::cluster_config(w.cluster, smem, static_cast<cudaStream_t>(stream), attr);
+  e = cudaLaunchKernelEx(&cfg, admit_cluster_kernel<kGangs>, a, w, k);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

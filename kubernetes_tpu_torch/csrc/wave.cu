@@ -4,23 +4,32 @@
 // Replace the JAX root kubernetes_tpu/ops/wave.py:666 wave_schedule (its
 // speculation, a vmap of gang.pod_step over the batch against the frozen
 // snapshot, :798-805; and its admission, a lax.scan over the term-factored
-// carries, :807-976 with the algebra of :442-643).  The verdict, scores and
-// argmax of one pod are ktpu::step::pod_step_block (csrc/ktpu.cuh), the
-// same device code K5 runs; only the batch peers' counts differ.
+// carries, :807-976 with the algebra of :442-643).  K9's verdict, scores
+// and argmax of one pod are ktpu::step::pod_step_block (csrc/ktpu.cuh), the
+// device code K5 and K11 run; K8 has a peer-free body of its own over the
+// same helpers.
 //
-// K8: every pod's verdict is independent, so the grid has one block per pod
-// (512 blocks at a config4 batch) and the threads of a block walk the nodes.
-// The peers' counts are zero and every port is free; the usage state is the
-// cluster's own, read only.  Each block has its own per-node scratch rows.
-// Output: c0, the speculative node per pod (no reason counts, so the
-// diagnosis masks are not read).  In sampling mode every block reads the
-// batch's initial cursor and none advances it (reference :794-805).  An optional [P, N] lane (WaveArgs::lane)
-// is read as the port verdict: the workloads dispatch passes its DRA
-// verdict against the pre-batch allocation state there (K14, csrc/dra.cu),
-// as the reference puts it in spec_one's m_portb.  An optional [P, N]
-// int64 GangScanArgs::extra_score adds to every node's total in the shared
-// step (the planner's target bonus, reference ops/gang.py:901-902); K8 and
-// K11 take it, K5 and K9 get a null pointer.
+// K8: every pod's verdict is independent of the others' (the peers' counts
+// are zero and every port is free; the usage state is the cluster's own,
+// read only), so K8 is laid out for throughput: CTAs of SPEC_CTA threads,
+// each a tile of two pods, each pod stepped by its own group of eight
+// warps that synchronizes on a named barrier of its own.  A
+// group keeps its pod on chip (its values, its feasibility bits, the
+// counted domains' bits) and recomputes the per-node raws where a pass
+// needs them; its passes load a node's inputs before any branch on them;
+// a reduction is one group barrier.  K8 has its own body, not the shared
+// pod_step_block, over the same helpers (see the block comment of
+// wave_speculate_kernel).  Output: c0, the speculative node per pod (no
+// reason counts, so the diagnosis masks are not read).  In sampling mode
+// every pod reads the batch's initial cursor and none advances it
+// (reference :794-805).  An optional [P, N] lane (WaveArgs::lane) is read
+// as the port verdict: the workloads dispatch passes its DRA verdict
+// against the pre-batch allocation state there (K14, csrc/dra.cu), as the
+// reference puts it in spec_one's m_portb.  An optional [P, N] int64
+// GangScanArgs::extra_score adds to every node's total (the planner's
+// target bonus, reference ops/gang.py:901-902); K8 and K11 take it, K5 and
+// K9 get a null pointer.  Each group's thread 0 writes its pod's start and
+// end (globaltimer) and its cycles per phase to WaveArgs::spec_info.
 //
 // K9: the serial recurrence choice_i = F_i(S + sum_{j<i} delta(choice_j)).
 // It carries per-term per-node counts instead of a peer list:
@@ -46,7 +55,9 @@
 //     verdict at the speculative node;
 //   * advances the sampling window's cursor (reference :974).
 // The pods' steps are serial; the nodes of one step are not.  So K9 is ONE
-// thread-block cluster (cudaLaunchKernelEx with a cluster dimension) of G
+// thread-block cluster (ktpu::wave::admit_cluster_kernel<false> in
+// csrc/ktpu.cuh, which K11 launches as <true>; cudaLaunchKernelEx with a
+// cluster dimension) of G
 // CTAs of CLUSTER_THREADS on neighbouring SMs: G = 16 where
 // cudaOccupancyMaxActiveClusters admits a cluster of 16 at the kernel's
 // shared memory (a non-portable size), else 8; ops/wave.py
@@ -85,8 +96,10 @@
 //
 // Bound on the H100: K9 is the recurrence: per pod four exchanges and one
 // pass over a slice of N / G nodes per step phase from shared memory, on G
-// SMs of 132; K8 fills the card but repeats one pod's reads of its [P, N]
-// static rows per block.
+// SMs of 132.  K8 is bound by the latency of its node passes: each group
+// walks N / (32 W) nodes a thread per pass, with about one global round
+// trip a node (the pod's [P, N] rows, the node statics in L2) and its int64
+// floor divisions in the total; the card holds some 500 groups at once.
 #include "ktpu.cuh"
 
 using namespace ktpu;
@@ -95,295 +108,463 @@ using namespace ktpu::wave;
 
 namespace {
 
-constexpr int SPEC_THREADS = 256;
+// ---- K8: a tile of pods per CTA, a group of warps per pod ----------------
+//
+// The speculation is P independent steps over one frozen snapshot, so K8 is
+// laid out for throughput: a CTA of SPEC_CTA threads holds a tile of pods,
+// each stepped by its own group of W warps, which synchronize on a named
+// barrier of their own (bar.sync 1 + group) and never on the CTA.  A group
+// keeps everything of its pod on chip: the pod's per-slot values
+// (StagedVals, copied once), its feasibility as N bits, the distinct
+// counted domains as [C, Dw] bit words (shared atomicOr, no return value),
+// the min-match and the topology weights; the per-node raws that the
+// block-per-pod step wrote to global rows and read back (ip_raw, sp_raw,
+// sp_cnt) are recomputed from the pod's planes in the pass that needs them.
+// Each pass walks the nodes a warp-wide row at a time, every load of a
+// node issued before any branch on it (the fit, spread and inter-pod
+// verdicts are ANDed, not short-circuited), so a node costs about one
+// memory round trip, not one per check.  A reduction is a warp shuffle,
+// one row per warp in shared memory and one group barrier (the rows
+// alternate between two sets), four a pod (five with the window, one more
+// for the min-match with spread slots).  The verdicts, counts and scores
+// are the shared step's, with the peers' counts zero (NoPeer):
+// step_fits, spread_verdict, interpod_verdict, count_feasible, slot_count,
+// spread_raw, node_total (fit_score, least_parts, least_mean,
+// balanced_parts), fdiv, visit_pos, rng.
 
-// No committed peer: speculation against the frozen snapshot, every port
-// free unless the caller's lane row says otherwise (the workloads
-// dispatch's DRA verdict).
-struct ZeroDyn {
-  const unsigned char* lane;  // pod p's [N] row of WaveArgs::lane, or null
-  __device__ int f(int, long long, int, int) const { return 0; }
-  __device__ int sc(int, long long, int, int, bool) const { return 0; }
-  __device__ int ip(int, long long, int, int) const { return 0; }
-  __device__ bool viol(int) const { return false; }
-  __device__ long long sym(int) const { return 0; }
-  __device__ bool portb(int n) const { return lane == nullptr || lane[n]; }
+constexpr int SPEC_CTA = 512;  // threads a CTA
+constexpr int SPEC_WARPS = 8;  // warps of a pod's group: two pods a CTA
+// CTAs an SM holds at once: 64 registers a thread.  More groups in flight
+// beat the spills this forces (on an H100 at config4: 0.23 ms at 64
+// registers against 0.46 ms at 160, and against 0.26 ms with 4 warps a pod
+// at 128).
+constexpr int SPEC_MIN_CTAS = 2;
+constexpr int SPEC_PHASES = 10;   // the leader's clocks: (pass, reduction) per SpecKind
+enum SpecKind { SPEC_MIN = 0, SPEC_COUNTS = 1, SPEC_WINDOW = 2, SPEC_SPREAD = 3, SPEC_ARGMAX = 4 };
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// One group's shared memory, per-group offsets (each 16-byte aligned): the
+// pod's StagedVals (ints, int64s), s_min [C], the topology weights [W, C]
+// (int64, one row per warp), the domain bits [C, Dw], the feasibility bits
+// [ceil(N / 32)].
+struct SpecLayout {
+  size_t vals_i, vals_l, smin, wfx, flags, feas, bytes;
 };
 
-__global__ void __launch_bounds__(SPEC_THREADS) wave_speculate_kernel(const GangScanArgs a, const WaveArgs w) {
-  extern __shared__ long long s_dyn[];  // s_wfx [C] (int64), s_min [C], s_ndom [C]
-  __shared__ long long s_buf[32 * 16];
-  __shared__ long long s_best_v[32];
-  __shared__ int s_best_i[32];
-  const int p = blockIdx.x;
-  if (!a.valid[p]) {  // a pad row: no node
-    if (threadIdx.x == 0) a.chosen[p] = ABSENT;
-    return;
-  }
-  const int C = a.C;
-  const long long N = a.N;
-  const StepShared sh{s_buf, s_dyn, reinterpret_cast<int*>(s_dyn + C), reinterpret_cast<int*>(s_dyn + C) + C,
-                      s_best_v, s_best_i, nullptr};
-  const StepScratch sc = global_scratch(a, a.feas + p * N, a.ip_raw + p * N, a.sp_raw + p * N, a.sp_cnt + p * C * N,
-                                        w.sums + (long long)p * C * w.Dsp, w.Dsp);
-  BlockPolicy pol{0, a.N};
-  const StepOut out = pod_step_block(a, p, ZeroDyn{w.lane ? w.lane + p * N : nullptr}, false, sc, sh, -1, false, pol);
-  if (threadIdx.x == 0) a.chosen[p] = out.choice;
-}
+__host__ __device__ inline int spec_dom_words(const WaveArgs& w) { return (w.Dsp + 31) >> 5; }
 
-size_t speculate_smem(const GangScanArgs& a) { return (size_t)a.C * (sizeof(long long) + 2 * sizeof(int)); }
-
-// ---- K9: the cluster ------------------------------------------------------
-
-// The ints of one CTA's exchange slab: its partial sums (g1p, g2p [C, Dsp],
-// gfp [AT, D2], anyp) with its min-match parts ([C, Dsp] and [C]:
-// `part_cells`) and every CTA's [G, part_cells], its
-// counted-domain flags [C, Dsp] and every CTA's as bits [G, C, Dw], the window's map
-// [ceil(N / 32)], then its totals (g1, g2, gf, any_dyn, the min-match
-// parts), the term lists [Tip] and [Tpt] and their two lengths.
-__host__ __device__ inline long long part_cells(const GangScanArgs& a, const WaveArgs& w) {
-  return 3LL * a.C * w.Dsp + (long long)a.AT * w.D2 + 1 + a.C;
-}
-__host__ __device__ inline int dom_words(const WaveArgs& w) { return (w.Dsp + 31) >> 5; }
-__host__ __device__ inline long long slab_cells(const GangScanArgs& a, const WaveArgs& w) {
-  return (2LL + w.cluster) * part_cells(a, w) + (long long)a.C * w.Dsp + (long long)w.cluster * a.C * dom_words(w) +
-         ((a.N + 31) >> 5) + w.Tip + w.Tpt + 2;
-}
-
-// Byte offsets of K9's dynamic shared memory (only the parts placed there),
-// each part 16-byte aligned: s_wfx [C] (int64), s_min [C], s_ndom [C], the
-// pod's values (StagedVals: ints, then int64s); the
-// exchange slab (sums_smem); the slice's usage rows requested [S, Rn],
-// nonzero [S, 2], num_pods [S] and step rows ip_raw / sp_raw [S] (int64),
-// sp_cnt [C, S], feas [S] (rows_smem); its node statics allocatable
-// [S, Rn], allowed_pods [S], visit_rank [S], dom_ids [K, S], node_valid [S]
-// and two pods' staged planes (stage); the carries [Tsp + 2 Tip + Tpt, S]
-// (carry_smem).
-struct ClusterLayout {
-  size_t wfx, smin, sndom, vals_i, vals_l, slab, req, nz, pods, ip_raw, sp_raw, sp_cnt, feas, alloc, allowed, vrank, dom, valid,
-      stage, carries, bytes;
-};
-
-__host__ __device__ inline ClusterLayout cluster_layout(const GangScanArgs& a, const WaveArgs& w) {
-  const size_t S = w.slice, C = a.C;
-  ClusterLayout l{};
+__host__ __device__ inline SpecLayout spec_layout(const GangScanArgs& a, const WaveArgs& w, int W) {
+  SpecLayout l{};
   size_t o = 0;
   auto take = [&](size_t bytes) {
     const size_t at = o;
     o = (o + bytes + 15) / 16 * 16;
     return at;
   };
-  l.wfx = take(8 * C);
-  l.smin = take(4 * C);
-  l.sndom = take(4 * C);
-  l.vals_i = take(4 * (size_t)StagedVals::ints(a.C, a.AT, a.Rp, w.Tsp, w.Tip));
-  l.vals_l = take(8 * (size_t)StagedVals::longs(a.C, a.AT, w.Tip));
-  if (w.sums_smem) l.slab = take(4 * (size_t)w.xch_cells);
-  if (w.rows_smem) {
-    l.req = take(4 * S * a.Rn);
-    l.nz = take(8 * S);
-    l.pods = take(4 * S);
-    l.ip_raw = take(8 * S);
-    l.sp_raw = take(8 * S);
-    l.sp_cnt = take(4 * C * S);
-    l.feas = take(S);
-  }
-  if (w.stage) {
-    l.alloc = take(4 * S * a.Rn);
-    l.allowed = take(4 * S);
-    l.vrank = take(4 * S);
-    l.dom = take(4 * S * a.K);
-    l.valid = take(S);
-    l.stage = take(2 * (size_t)stage_bytes(a, w.slice));
-  }
-  if (w.carry_smem) l.carries = take(4 * S * ((size_t)w.Tsp + 2 * (size_t)w.Tip + w.Tpt));
+  l.vals_i = take(4 * (size_t)StagedVals::ints(a.C, a.AT, a.Rp, 0, 0));
+  l.vals_l = take(8 * (size_t)StagedVals::longs(a.C, a.AT, 0));
+  l.smin = take(4 * (size_t)a.C);
+  l.wfx = take(8 * (size_t)W * a.C);
+  l.flags = take(4 * (size_t)a.C * spec_dom_words(w));
+  l.feas = take(4 * (size_t)((a.N + 31) >> 5));
   l.bytes = o;
   return l;
 }
 
-__global__ void __launch_bounds__(CLUSTER_THREADS, 1) admit_cluster_kernel(const GangScanArgs a, const WaveArgs w) {
-  extern __shared__ __align__(16) unsigned char s_raw[];
-  __shared__ ClusterShared s_cl;
-  __shared__ int s_at[6];
-  __shared__ unsigned long long s_mbar[2];
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), G = (int)cluster.num_blocks();
-  const int tid = threadIdx.x;
-  const int N = a.N, C = a.C, AT = a.AT, S = w.slice;
-  const int lo = min(N, rank * S), hi = min(N, lo + S), len = hi - lo;
-  const ClusterLayout l = cluster_layout(a, w);
-  const StepShared sh{nullptr, reinterpret_cast<long long*>(s_raw + l.wfx), reinterpret_cast<int*>(s_raw + l.smin),
-                      reinterpret_cast<int*>(s_raw + l.sndom), nullptr, nullptr, s_at};
+// A pod's group: W warps, thread t of T = 32 W, on named barrier 1 + g.
+template <int W>
+struct SpecGroup {
+  static constexpr int T = 32 * W;
+  int g, t, lane, warp;
+  __device__ void sync() const { asm volatile("bar.sync %0, %1;" ::"r"(1 + g), "r"(T) : "memory"); }
+};
 
-  // the exchange slab, then the region over it and the carries
-  const Xch x{(long long)w.xch_cells, rank, w.sums_smem};
-  int* const slab = w.sums_smem ? reinterpret_cast<int*>(s_raw + l.slab) : w.sums + (long long)rank * w.xch_cells;
-  const long long cd = (long long)C * w.Dsp, xp = part_cells(a, w);
-  const int Dw = dom_words(w);
-  Region r;
-  r.g1p = slab;
-  r.g2p = r.g1p + cd;
-  r.gfp = r.g2p + cd;
-  r.anyp = r.gfp + (long long)AT * w.D2;
-  int* const recv_part = r.g1p + xp;
-  int* const flags = recv_part + (long long)G * xp;
-  int* const recv_bits = flags + cd;
-  int* const wmap = recv_bits + (long long)G * C * Dw;
-  r.g1 = wmap + ((N + 31) >> 5);
-  r.g2 = r.g1 + cd;
-  r.gf = r.g2 + cd;
-  r.any_dyn = r.gf + (long long)AT * w.D2;
-  r.rev = r.g1 + xp;
-  r.conf = r.rev + w.Tip;
-  r.n_rev = r.conf + w.Tpt;
-  r.n_conf = r.n_rev + 1;
-  r.seen = nullptr;
-  int* carries = w.carries;
-  r.clo = 0;
-  r.cld = N;
-  if (w.carry_smem) {
-    carries = reinterpret_cast<int*>(s_raw + l.carries);
-    r.clo = lo;
-    r.cld = S;
-    for (long long i = tid; i < ((long long)w.Tsp + 2LL * w.Tip + w.Tpt) * S; i += blockDim.x) carries[i] = 0;
+// The group's reductions: NV values (nv live) under their ops; every
+// thread gets the results.  rows: [2][W][RED_CHUNK] (this group's), set by
+// the parity of the reduction's count.
+template <int W, int NV>
+__device__ __forceinline__ void group_reduce(const SpecGroup<W>& gr, long long (&v)[NV], const int (&op)[NV], int nv,
+                                             long long (*rows)[W][RED_CHUNK], int& k) {
+  long long(*r)[RED_CHUNK] = rows[k & 1];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (i >= nv) break;
+    for (int off = 16; off > 0; off >>= 1) v[i] = combine(v[i], __shfl_down_sync(FULL_MASK, v[i], off), op[i]);
+    if (gr.lane == 0) r[gr.warp][i] = v[i];
   }
-  r.cnt_sp = carries;
-  r.cnt_ip = r.cnt_sp + (long long)w.Tsp * r.cld;
-  r.rev_cnt = r.cnt_ip + (long long)w.Tip * r.cld;
-  r.occ_pt = r.rev_cnt + (long long)w.Tip * r.cld;
-
-  // the step's rows and the usage rows: the slice in shared memory, staged
-  // in from the usage state, or the global rows; likewise the node statics
-  StepScratch sc = global_scratch(a, a.feas, a.ip_raw, a.sp_raw, a.sp_cnt, nullptr, 0);
-  if (w.rows_smem) {
-    sc.feas = s_raw + l.feas;
-    sc.ip_raw = reinterpret_cast<long long*>(s_raw + l.ip_raw);
-    sc.sp_raw = reinterpret_cast<long long*>(s_raw + l.sp_raw);
-    sc.sp_cnt = reinterpret_cast<int*>(s_raw + l.sp_cnt);
-    sc.lo = lo;
-    sc.ld = S;
-    sc.use = UsageRows{reinterpret_cast<int*>(s_raw + l.req), reinterpret_cast<int*>(s_raw + l.nz),
-                       reinterpret_cast<int*>(s_raw + l.pods), lo};
-    copy_usage(a, sc.use, len, true);
+  gr.sync();
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (i >= nv) break;
+    long long y = identity(op[i]);
+    for (int w2 = 0; w2 < W; ++w2) y = combine(y, r[w2][i], op[i]);
+    v[i] = y;
   }
-  if (w.stage)
-    sc.nodes = stage_nodes(a, reinterpret_cast<int*>(s_raw + l.alloc), reinterpret_cast<int*>(s_raw + l.allowed),
-                           reinterpret_cast<int*>(s_raw + l.vrank), reinterpret_cast<int*>(s_raw + l.dom),
-                           s_raw + l.valid, lo, len, S);
-  if (tid == 0) init_mbars(s_mbar, s_cl);
-
-  if (tid < CL_PHASES) s_cl.clock[tid] = 0;
-  ClusterPolicy pol{};
-  pol.lo = lo;
-  pol.hi = hi;
-  pol.S = S;
-  pol.rank = rank;
-  pol.G = G;
-  pol.cur = a.sample_k > 0 ? *a.sample_start : 0;
-  pol.cs = &s_cl;
-  pol.flags = flags;
-  pol.recv_bits = recv_bits;
-  pol.recv_part = recv_part;
-  pol.wmap = wmap;
-  pol.s_min = sh.s_min;
-  pol.C = C;
-  pol.Dsp = w.Dsp;
-  pol.Dw = Dw;
-  pol.x = x;
-  pol.stage = w.stage ? s_raw + l.stage : nullptr;
-  pol.mbar = s_mbar;
-  pol.stage_bytes = stage_bytes(a, S);
-  pol.sv = StagedVals{reinterpret_cast<int*>(s_raw + l.vals_i), reinterpret_cast<long long*>(s_raw + l.vals_l), C,
-                      AT, a.Rp, w.Tsp, w.Tip};
-  cluster_barrier();  // every CTA of the cluster runs before any DSMEM access
-  if (w.stage && tid == 0 && a.P > 0) pol.issue(a, 0);
-  admit_loop<false>(a, w, WorkloadsArgs{}, r, sc, sh, pol);
-
-  if (w.rows_smem) copy_usage(a, sc.use, len, false);  // the slice's usage rows back to the usage state
-  if (pol.leader()) {
-    if (a.sample_k > 0) *a.sample_start = pol.cur;
-    if (w.admit_info != nullptr) {
-      w.admit_info[0] = G;
-      w.admit_info[1] = pol.syncs;
-      for (int k = 0; k < CL_PHASES; ++k) w.admit_info[2 + k] = (int)(s_cl.clock[k] >> 4);
-    }
-  }
-  cluster_barrier();  // no CTA leaves while a peer may still read its shared memory
+  ++k;
 }
 
-// K9's placement at cluster size G: slice, exchange slab, and, in that order
-// while they fit in `budget` bytes beside the fixed s_wfx / s_min / s_ndom,
-// the exchange slab, the slice's rows, its node statics with the pods'
-// staged planes (when `stage` allows it), and its carries in shared memory.
-void place(const GangScanArgs& a, WaveArgs& w, int G, long long budget, bool stage) {
-  w.cluster = G;
-  w.slice = slice_nodes(a.N, G);
-  w.xch_cells = (int)slab_cells(a, w);
-  w.sums_smem = w.rows_smem = w.stage = w.carry_smem = 0;
-  int* const flags[4] = {&w.sums_smem, &w.rows_smem, &w.stage, &w.carry_smem};
-  for (int* f : flags) {
-    if (f == &w.stage && !stage) continue;
-    *f = 1;
-    if ((long long)cluster_layout(a, w).bytes > budget) {
-      *f = 0;
-      if (f != &w.stage) return;
+// The group's argmax of (key, tie, slot) by `better`; every thread gets the
+// slot.  rows: [2][W] keys, tie keys, slots.
+template <int W>
+__device__ __forceinline__ int group_argmax(const SpecGroup<W>& gr, long long v, int tk, int i, long long (*rv)[W],
+                                            int (*rt)[W], int (*ri)[W], int& k) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const long long ov = __shfl_down_sync(FULL_MASK, v, off);
+    const int ot = __shfl_down_sync(FULL_MASK, tk, off);
+    const int oi = __shfl_down_sync(FULL_MASK, i, off);
+    better(v, tk, i, ov, ot, oi);
+  }
+  const int b = k & 1;
+  if (gr.lane == 0) {
+    rv[b][gr.warp] = v;
+    rt[b][gr.warp] = tk;
+    ri[b][gr.warp] = i;
+  }
+  gr.sync();
+  v = -I64_MAX - 1;
+  tk = I32_MAX;
+  i = I32_MAX;
+  for (int w2 = 0; w2 < W; ++w2) better(v, tk, i, rv[b][w2], rt[b][w2], ri[b][w2]);
+  ++k;
+  return i;
+}
+
+// The sampling window's stop over the group (window_stop's walk): the
+// position, in visit order from `start`, of the sample_k-th feasible node,
+// or -1.  win: [W + 1] of the group's shared memory.
+template <int W>
+__device__ int group_window(const GangScanArgs& a, const SpecGroup<W>& gr, const unsigned* feas, int start, int nv,
+                            int* win) {
+  if (gr.t == 0) win[W] = -1;
+  int run = 0;
+  for (int base = 0; base < nv; base += SpecGroup<W>::T) {
+    const int i = base + gr.t;
+    bool f = false;
+    if (i < nv) {
+      int r = start + i;
+      if (r >= nv) r -= nv;
+      const int n = a.visit_order[r];
+      f = n >= 0 && ((feas[n >> 5] >> (n & 31)) & 1u);
+    }
+    const unsigned bal = __ballot_sync(FULL_MASK, f);
+    if (gr.lane == 0) win[gr.warp] = __popc(bal);
+    gr.sync();
+    int off = run, total = 0;
+    for (int w2 = 0; w2 < W; ++w2) {
+      if (w2 < gr.warp) off += win[w2];
+      total += win[w2];
+    }
+    if (f && off + __popc(bal & (FULL_MASK >> (31 - gr.lane))) == a.sample_k) win[W] = i;
+    gr.sync();
+    run += total;
+    if (win[W] >= 0) break;
+  }
+  return win[W];
+}
+
+// No batch peer: the peers' counts in the shared verdicts are zero, and no
+// per-slot row is kept.
+struct NoPeer {
+  __device__ long long operator()(int, int) const { return 0; }
+};
+struct NoSlot {
+  __device__ void operator()(int, int) const {}
+};
+
+// Pod p's planes and the nodes' domains as the shared verdicts read them
+// (PodPlanes' accessors, NodeRows::dom), addressed from the kernel's
+// parameters at each read: a group holds three offsets, not a pointer per
+// plane, in its 64 registers.
+struct ArgPlanes {
+  const GangScanArgs& a;
+  long long pn, pc, pu;  // p N, p C N, p AT N
+  __device__ ArgPlanes(const GangScanArgs& a_, int p)
+      : a(a_), pn((long long)p * a_.N), pc(pn * a_.C), pu(pn * a_.AT) {}
+  __device__ __forceinline__ long long at(int c, int n) const { return pc + (long long)c * a.N + n; }
+  __device__ __forceinline__ int dom_cnt(int c, int n) const { return a.sp_dom_cnt[at(c, n)]; }
+  __device__ __forceinline__ bool dom_pres(int c, int n) const { return a.sp_dom_pres[at(c, n)]; }
+  __device__ __forceinline__ int node_cnt(int c, int n) const { return a.sp_node_cnt[at(c, n)]; }
+  __device__ __forceinline__ int sc_dom(int c, int n) const { return a.sp_sc_dom[at(c, n)]; }
+  __device__ __forceinline__ int ip_cnt(int u, int n) const { return a.ip_dom_cnt[pu + (long long)u * a.N + n]; }
+  __device__ __forceinline__ long long sym(int n) const { return a.ip_sym[pn + n]; }
+  __device__ __forceinline__ bool violated(int n) const { return a.ip_viol_existing[pn + n]; }
+  __device__ __forceinline__ long long taint(int n) const { return a.sc_taint[pn + n]; }
+  __device__ __forceinline__ long long naff(int n) const { return a.sc_nodeaff[pn + n]; }
+  __device__ __forceinline__ bool counted(int n) const { return a.sp_all_keys[pn + n]; }
+};
+
+struct ArgNodes {
+  const GangScanArgs& a;
+  __device__ __forceinline__ int dom(int key, int n) const { return dom_at(a, key, n); }
+};
+
+// Pod p's inter-pod raw at node n without batch peers (interpod_verdict's
+// raw; the verdict itself is not needed here).
+__device__ __forceinline__ long long spec_ip_raw(const ArgPlanes& pr, const ArgNodes& nd, const StagedVals& sv, int AT,
+                                                 int n) {
+  long long raw = 0;
+  int term;
+  interpod_verdict(pr, nd, sv, AT, n, false, NoPeer{}, raw, term);
+  return raw;
+}
+
+// Pod p's spread raw at node n without batch peers (weights wfx [C]).
+__device__ __forceinline__ long long spec_sp_raw(const ArgPlanes& pr, const StagedVals& sv, int C, int n,
+                                                 const long long* wfx) {
+  return spread_raw(sv, C, wfx, [&](int c) { return slot_count(pr, sv, c, n); });
+}
+
+__global__ void __launch_bounds__(SPEC_CTA, SPEC_MIN_CTAS) wave_speculate_kernel(const GangScanArgs a, const WaveArgs w) {
+  constexpr int W = SPEC_WARPS, PODS = SPEC_CTA / (32 * W), T = 32 * W;
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  __shared__ long long s_red[PODS][2][W][RED_CHUNK];
+  __shared__ long long s_arg_v[PODS][2][W];
+  __shared__ int s_arg_t[PODS][2][W], s_arg_i[PODS][2][W];
+  __shared__ int s_win[PODS][W + 1];
+  const SpecGroup<W> gr{(int)threadIdx.x / T, (int)threadIdx.x % T, (int)threadIdx.x & 31, ((int)threadIdx.x % T) >> 5};
+  const int p = blockIdx.x * PODS + gr.g;
+  if (p >= a.P) return;  // the group's barrier counts only its own threads
+  const bool timed = w.spec_info != nullptr && gr.t == 0;
+  const long long t0 = timed ? global_ns() : 0;
+  long long clk[SPEC_PHASES], t_last = timed ? clock64() : 0;
+  for (int k = 0; k < SPEC_PHASES; ++k) clk[k] = 0;
+  auto mark = [&](int k) {
+    if (!timed) return;
+    const long long t = clock64();
+    clk[k] += t - t_last;
+    t_last = t;
+  };
+  if (!a.valid[p]) {  // a pad row: no node
+    if (gr.t == 0) a.chosen[p] = ABSENT;
+    return;
+  }
+  const int N = a.N, C = a.C, AT = a.AT, t = gr.t, lane = gr.lane;
+  const long long pn0 = (long long)p * N;
+  const SpecLayout L = spec_layout(a, w, W);
+  // the cluster's own usage rows and node statics (the fit's; a node
+  // without nominations gets the own verdict from the charged step_fits)
+  const StepScratch own = global_scratch(a, nullptr, nullptr, nullptr, nullptr);
+  const ArgPlanes pr(a, p);
+  const ArgNodes nd{a};
+  unsigned char* const sm = s_raw + (size_t)gr.g * L.bytes;
+  const StagedVals sv{reinterpret_cast<int*>(sm + L.vals_i), reinterpret_cast<long long*>(sm + L.vals_l), C, AT, a.Rp,
+                      0, 0};
+  int* const s_min = reinterpret_cast<int*>(sm + L.smin);
+  long long* const wfx = reinterpret_cast<long long*>(sm + L.wfx) + (long long)gr.warp * C;
+  unsigned* const flags = reinterpret_cast<unsigned*>(sm + L.flags);
+  unsigned* const feas = reinterpret_cast<unsigned*>(sm + L.feas);
+  const int Dw = spec_dom_words(w);
+  int k = 0;  // the group's reductions so far
+  sv.fill(a, w, p, t, T);
+  for (int j = t; j < C * Dw; j += T) flags[j] = 0;
+  gr.sync();
+
+  // ---- the spread min-match per slot (no batch peer: sp_dom_cnt alone)
+  for (int c0 = 0; c0 < C; c0 += RED_CHUNK) {
+    const int nc = C - c0 < RED_CHUNK ? C - c0 : RED_CHUNK;
+    long long v[RED_CHUNK];
+    int op[RED_CHUNK];
+    for (int i = 0; i < RED_CHUNK; ++i) {
+      v[i] = I32_MAX;
+      op[i] = RED_MIN;
+    }
+    for (int n = t; n < N; n += T)
+#pragma unroll
+      for (int i = 0; i < RED_CHUNK; ++i) {
+        if (i >= nc) break;
+        const long long o = pr.at(c0 + i, n);
+        const bool te = a.sp_te[o];
+        const long long cnt = a.sp_dom_cnt[o];
+        if (te && cnt < v[i]) v[i] = cnt;
+      }
+    mark(2 * SPEC_MIN);
+    group_reduce(gr, v, op, nc, s_red[gr.g], k);
+    if (t < nc) {
+      const int md = sv.min_domains(c0 + t);
+      s_min[c0 + t] = (md > 0 && sv.sp_ndom(c0 + t) < md) ? 0 : (int)v[t];
+    }
+    mark(2 * SPEC_MIN + 1);
+  }
+  if (C) gr.sync();  // s_min
+
+  // ---- filters and the normalizers' counts
+  bool has_aff = false, has_soft = false;
+  for (int u = 0; u < AT; ++u) has_aff = has_aff || sv.ip_aff(u);
+  for (int c = 0; c < C; ++c) has_soft = has_soft || sv.sp_soft(c);
+  const bool escape = has_aff && !sv.any_static() && sv.self_all();
+  bool all_zero = true;
+  for (int r = 0; r < a.Rp; ++r) all_zero = all_zero && sv.req(r) == 0;
+  const int prio = sv.priority();
+  const bool sampling = a.sample_k > 0;
+  const int nv = a.n_valid > 1 ? a.n_valid : 1;
+  int start = 0;
+  if (sampling) {
+    start = *a.sample_start % nv;
+    if (start < 0) start += nv;
+  }
+  long long red[FEAS_VALS];
+  const int red_op[FEAS_VALS] = {feas_op(0), feas_op(1), feas_op(2), feas_op(3), feas_op(4), feas_op(5)};
+  feas_init(red);
+  auto count_domain = [&](int c, int d) {
+    if (d < 32 * Dw) atomicOr(flags + c * Dw + (d >> 5), 1u << (d & 31));
+  };
+  for (int base = gr.warp * 32; base < N; base += T) {
+    const int n = base + lane;
+    bool f = false;
+    if (n < N) {
+      const long long pn = pn0 + n;
+      const bool m_mask = a.static_mask[pn];
+      const bool m_portb = w.lane == nullptr || w.lane[pn];
+      const bool m_fit = !a.check_fit || step_fits(a, own, n, sv, all_zero, prio, a.nom_off != nullptr);
+      int term;
+      const bool m_spread = spread_verdict(pr, nd, sv, s_min, C, n, NoPeer{}, NoSlot{}, term);
+      bool m_interpod = true;
+      long long ip_raw = 0;
+      if (AT) m_interpod = interpod_verdict(pr, nd, sv, AT, n, escape, NoPeer{}, ip_raw, term);
+      f = m_mask && m_portb && m_fit && m_spread && m_interpod;
+      if (f && !sampling) count_feasible(pr, nd, sv, C, n, ip_raw, red, count_domain);
+    }
+    const unsigned bal = __ballot_sync(FULL_MASK, f);
+    if (lane == 0) feas[base >> 5] = bal;
+  }
+  if (sampling) {  // keep the feasible nodes up to the sample_k-th in visit order
+    mark(2 * SPEC_WINDOW);
+    gr.sync();  // every node's verdict is in feas
+    const int stop = group_window(a, gr, feas, start, nv, s_win[gr.g]);
+    mark(2 * SPEC_WINDOW + 1);
+    for (int base = gr.warp * 32; base < N; base += T) {
+      const int n = base + lane;
+      bool keep = false;
+      if (n < N && ((feas[base >> 5] >> lane) & 1u)) {
+        const int vr = a.visit_rank[n];
+        keep = vr >= 0 && (stop < 0 || visit_pos(vr, start, nv) <= stop);
+        if (keep) count_feasible(pr, nd, sv, C, n, AT ? spec_ip_raw(pr, nd, sv, AT, n) : 0, red, count_domain);
+      }
+      const unsigned bal = __ballot_sync(FULL_MASK, keep);
+      if (lane == 0) feas[base >> 5] = bal;
+    }
+  }
+  mark(2 * SPEC_COUNTS);
+  group_reduce(gr, red, red_op, FEAS_VALS, s_red[gr.g], k);
+  const long long n_feas = red[0];
+  mark(2 * SPEC_COUNTS + 1);
+
+  // ---- spread score: each warp's topology weights from the domain bits,
+  // then the raws' min / max / count over the nodes that count
+  ScoreNorms norms{red[1], red[2], red[3], red[4], I64_MAX, -I64_MAX, 0};
+  if (C && a.w_spread) {
+    for (int c = 0; c < C; ++c) {
+      long long size = red[5];
+      if (!sv.sp_host(c)) {
+        int s = 0;
+        for (int j = lane; j < Dw; j += 32) s += __popc(flags[c * Dw + j]);
+        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL_MASK, s, off);
+        size = s;
+      }
+      if (lane == 0) wfx[c] = a.log_tab[size < 0 ? 0 : (size >= a.L ? a.L - 1 : size)];
+    }
+    __syncwarp();
+    long long v[3] = {I64_MAX, -I64_MAX - 1, 0};
+    const int op[3] = {RED_MIN, RED_MAX, RED_SUM};
+    for (int base = gr.warp * 32; base < N; base += T) {
+      const int n = base + lane;
+      if (n >= N || !((feas[base >> 5] >> lane) & 1u)) continue;
+      const bool use_n = !has_soft || a.sp_all_keys[pn0 + n];
+      const long long raw = has_soft ? spec_sp_raw(pr, sv, C, n, wfx) : 0;
+      if (use_n) {
+        if (raw < v[0]) v[0] = raw;
+        if (raw > v[1]) v[1] = raw;
+        v[2] += 1;
+      }
+    }
+    mark(2 * SPEC_SPREAD);
+    group_reduce(gr, v, op, 3, s_red[gr.g], k);
+    norms.sp_mn = v[0];
+    norms.sp_mx = v[1];
+    norms.n_use = v[2];
+    mark(2 * SPEC_SPREAD + 1);
+  }
+
+  // ---- the weighted total and the argmax over the feasible nodes
+  long long best = -I64_MAX - 1;
+  int best_t = I32_MAX, best_n = I32_MAX;
+  unsigned tk0 = (unsigned)a.tie_k0, tk1 = (unsigned)a.tie_k1;
+  if (a.tie_on) rng::fold_in(tk0, tk1, (unsigned)a.attempt_base + (unsigned)p);
+  for (int base = gr.warp * 32; base < N; base += T) {
+    const int n = base + lane;
+    if (n >= N || !((feas[base >> 5] >> lane) & 1u)) continue;
+    const long long rn = (long long)n * a.Rn;
+    long long a0 = 0, a1 = 0, c0 = 0, c1 = 0, r0 = 0, r1 = 0;
+    if (a.w_fit || a.w_bal) {
+      a0 = a.allocatable[rn + LANE_CPU];
+      a1 = a.allocatable[rn + LANE_MEM];
+      c0 = (long long)a.nonzero[2LL * n] + sv.nz_req(0);
+      c1 = (long long)a.nonzero[2LL * n + 1] + sv.nz_req(1);
+      r0 = (long long)a.requested[rn + LANE_CPU] + sv.req(LANE_CPU);
+      r1 = (long long)a.requested[rn + LANE_MEM] + sv.req(LANE_MEM);
+    }
+    const bool sp_on = a.w_spread && C;
+    const long long pn = pn0 + n;
+    long long total = node_total(a, norms, C > 0, !has_soft || a.sp_all_keys[pn], a.sc_taint[pn], a.sc_nodeaff[pn],
+                                 sp_on && has_soft ? spec_sp_raw(pr, sv, C, n, wfx) : 0,
+                                 a.w_ip && AT ? spec_ip_raw(pr, nd, sv, AT, n) : 0, a0, a1, c0, c1, r0, r1,
+                                 a.w_img ? a.sc_image[pn] : 0);
+    if (a.extra_score != nullptr) total += a.extra_score[pn];
+    long long key = total;
+    int tie = n;
+    if (a.tie_on)
+      key = total * (1LL << 33) + rng::bits_at(tk0, tk1, (unsigned)n);
+    else if (sampling)
+      tie = visit_pos(a.visit_rank[n], start, nv);
+    better(best, best_t, best_n, key, tie, n);
+  }
+  mark(2 * SPEC_ARGMAX);
+  const int choice = group_argmax(gr, best, best_t, best_n, s_arg_v[gr.g], s_arg_t[gr.g], s_arg_i[gr.g], k);
+  mark(2 * SPEC_ARGMAX + 1);
+  if (gr.t == 0) {
+    a.chosen[p] = n_feas > 0 ? choice : ABSENT;
+    if (timed) {
+      long long* const row = w.spec_info + (long long)p * (2 + SPEC_PHASES);
+      row[0] = t0;
+      row[1] = global_ns();
+      for (int j = 0; j < SPEC_PHASES; ++j) row[2 + j] = clk[j];
     }
   }
 }
 
 }  // namespace
 
-// Enqueues K8 on `stream` and returns the launch status (cudaGetLastError).
+// Enqueues K8 on `stream` and returns the launch status (cudaGetLastError):
+// CTAs of SPEC_CTA threads, a group of SPEC_WARPS warps a pod.
 extern "C" int ktpu_wave_speculate(const GangScanArgs* args, const WaveArgs* wave, void* stream) {
   if (args->P == 0) return 0;
-  const size_t smem = speculate_smem(*args);
-  cudaError_t e =
-      cudaFuncSetAttribute(wave_speculate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr int PODS = SPEC_CTA / (32 * SPEC_WARPS);
+  const size_t smem = PODS * spec_layout(*args, *wave, SPEC_WARPS).bytes;
+  cudaError_t e = cudaFuncSetAttribute(wave_speculate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  wave_speculate_kernel<<<args->P, SPEC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(*args, *wave);
+  wave_speculate_kernel<<<(args->P + PODS - 1) / PODS, SPEC_CTA, smem, static_cast<cudaStream_t>(stream)>>>(*args,
+                                                                                                           *wave);
   return (int)cudaGetLastError();
 }
 
-// K9's launch plan into `wave`: the cluster size (16 where the card admits
-// one cluster of 16 at the kernel's shared memory and cluster_cap allows
-// it, else 8), the slice and what sits in shared memory under
-// min(smem_cap, the card's opt-in limit less the static shared memory);
-// the pods' planes are staged only with `stage` and 16-byte aligned rows.
+// K9's launch plan into `wave` (ktpu::wave::admit_plan): the cluster size
+// (16 where the card admits one cluster of 16 at the kernel's shared memory
+// and cluster_cap allows it, else 8), the slice and what sits in shared
+// memory under smem_cap; the pods' planes staged only with `stage`.
 // Returns a CUDA status.
 extern "C" int ktpu_wave_admit_plan(const GangScanArgs* args, WaveArgs* wave, int cluster_cap, int smem_cap,
                                     int stage) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaFuncAttributes fa;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, admit_cluster_kernel);
-  if (e != cudaSuccess) return (int)e;
-  const long long limit = (long long)optin - (long long)fa.sharedSizeBytes;
-  const long long budget = smem_cap < limit ? smem_cap : limit;
-  const bool staged = stage && stage_aligned(*args);
-  auto smem = [&](int G) {
-    place(*args, *wave, G, budget, staged);
-    return cluster_layout(*args, *wave).bytes;
-  };
-  int G = 8;
-  e = cluster_size(admit_cluster_kernel, cluster_cap, smem, &G);
-  if (e == cudaSuccess) smem(G);
-  return (int)e;
+  WorkloadsArgs none{};
+  return admit_plan<false>(*args, *wave, none, cluster_cap, smem_cap, stage);
 }
 
 // Enqueues K9 (one cluster, as ktpu_wave_admit_plan laid it out) on
 // `stream` and returns the launch status (cudaGetLastError).
 extern "C" int ktpu_wave_admit(const GangScanArgs* args, const WaveArgs* wave, void* stream) {
-  if (args->P == 0) return 0;
-  const size_t smem = cluster_layout(*args, *wave).bytes;
-  cudaError_t e = cudaFuncSetAttribute(admit_cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(admit_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(wave->cluster, smem, static_cast<cudaStream_t>(stream), attr);
-  e = cudaLaunchKernelEx(&cfg, admit_cluster_kernel, *args, *wave);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return admit_launch<false>(*args, *wave, WorkloadsArgs{}, stream);
 }

@@ -293,10 +293,12 @@ def explain_whatif(sched, pod: Pod, node_name: str) -> dict:
         evict_uids = [v.uid for v in victims.pods]
 
     # the one-fork planner on the same engine as the batched planners; the
-    # host dry run above is its parity reference
+    # host dry run above is its parity reference.  A debug answer: any
+    # failure of the planner is reported as the answer's error, as the
+    # reference does, and then the answer has no verdict and no parity
     try:
         k = whatif_after_evictions(sched, pod, node_name, evict_uids)
-    except ValueError as e:
+    except Exception as e:  # noqa: BLE001
         k = {"error": str(e)}
     out["kernel"] = k
     if "feasible" in k:

@@ -230,7 +230,7 @@ class WaveArgs(ctypes.Structure):
 
     _PTRS = (
         "tid_sp rep_sp_p rep_sp_c tid_ip rep_ip_p rep_ip_u tid_pt port_conf c0 kinds cterms sums carries lane "
-        "admit_info"
+        "admit_info spec_info"
     ).split()
     _INTS = "Tsp Tip Tpt W Dsp D2 hostname_key has_ports sums_smem carry_smem cluster slice rows_smem xch_cells stage".split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
@@ -240,10 +240,10 @@ class WorkloadsArgs(ctypes.Structure):
     """Mirror of csrc/ktpu.cuh WorkloadsArgs (pointers, then ints)."""
 
     _PTRS = (
-        "gang_id gang_first gang_last gang_need assigned gang_admit gang_landed ckpt "
-        "dra_match req_count req_all req_cl q_valid req_bad ref_cl free claim_node dra_row dra_scratch"
+        "gang_id gang_first gang_last gang_need assigned gang_admit gang_landed choice_log undone "
+        "dra_match req_count req_all req_cl q_valid req_bad ref_cl free claim_node dra_row dra_scratch take_log claims"
     ).split()
-    _INTS = "g_cap DQ DD CQ CL".split()
+    _INTS = "g_cap DQ DD CQ CL claims_smem".split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
@@ -324,6 +324,9 @@ def load() -> ctypes.CDLL:
     lib.ktpu_wave_admit_plan.argtypes = [ctypes.POINTER(GangScanArgs), ctypes.POINTER(WaveArgs), ctypes.c_int,
                                          ctypes.c_int, ctypes.c_int]
     lib.ktpu_wave_admit_plan.restype = ctypes.c_int
+    lib.ktpu_workloads_admit_plan.argtypes = [ctypes.POINTER(GangScanArgs), ctypes.POINTER(WaveArgs),
+                                              ctypes.POINTER(WorkloadsArgs), ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.ktpu_workloads_admit_plan.restype = ctypes.c_int
     lib.ktpu_workloads_admit.argtypes = [ctypes.POINTER(GangScanArgs), ctypes.POINTER(WaveArgs),
                                          ctypes.POINTER(WorkloadsArgs), vp]
     lib.ktpu_workloads_admit.restype = ctypes.c_int
@@ -346,9 +349,8 @@ def load() -> ctypes.CDLL:
     u32 = ctypes.c_uint32
     lib.ktpu_tie_bits.argtypes = [u32, u32, u32, ctypes.c_int, ctypes.c_int, vp, vp]
     lib.ktpu_tie_bits.restype = ctypes.c_int
-    for fn in ("ktpu_workloads_admit_smem_max", "ktpu_admit_threads"):
-        getattr(lib, fn).argtypes = []
-        getattr(lib, fn).restype = ctypes.c_int
+    lib.ktpu_cluster_threads.argtypes = []
+    lib.ktpu_cluster_threads.restype = ctypes.c_int
     lib.ktpu_error_string.argtypes = [ctypes.c_int]
     lib.ktpu_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -18,12 +18,12 @@ One dispatch schedules a batch in the wave's two passes (ops/wave.py):
      reference), and a placement takes its devices at the chosen node and
      pins its claims there, so in-batch contention resolves in queue
      order.  The planner (workloads/gang.py ``plan_batch``) lays each
-     gang's members out contiguously; at a gang's first member the pass
-     snapshots its whole carried state (the usage rows, the assignment row,
-     the factored counts and the allocation carries) and, at the gang's
-     last member, admits the gang only when the members placed in this
-     batch cover its remaining minMember need.  Otherwise the snapshot is
-     restored whole: later pods see a state in which the gang never
+     gang's members out contiguously; at the gang's last member the pass
+     admits the gang only when the members placed in this batch cover its
+     remaining minMember need.  Otherwise the carried state returns to
+     where it stood before the gang's first member's step (the reference
+     snapshots it there; the port undoes the placements made since, which
+     is the same state): later pods see a state in which the gang never
      happened (its devices free, its claims unpinned), and the members read
      -1 in ``chosen`` while ``raw`` keeps the choices the pass made for
      them.
@@ -40,10 +40,10 @@ the factored carries are the wave's.  Each pass has a plain PyTorch version
 (the reference's formulas), which the wrapper takes for CPU tensors; for
 CUDA tensors it launches the hand-written kernel or raises:
 
-  K11 workloads_admit        the admission pass with the gang checkpoint
-                             and, for a batch with claims, the allocation
-                             carries, one persistent block
-                             (csrc/workloads.cu)
+  K11 workloads_admit        the admission pass with the gang rollback by
+                             undo and, for a batch with claims, the
+                             allocation carries, on K9's thread-block
+                             cluster (csrc/workloads.cu)
   K12 volume_topology_mask   the bound-PV mask, a thread per (pod, node)
                              (csrc/volume.cu)
 
@@ -60,7 +60,7 @@ from kubernetes_tpu_torch.ops import _build
 from kubernetes_tpu_torch.ops import dra as dra_ops
 from kubernetes_tpu_torch.ops import gang
 from kubernetes_tpu_torch.ops import wave
-from kubernetes_tpu_torch.ops.common import DTable, dnf_any, eval_table
+from kubernetes_tpu_torch.ops.common import DTable, dnf_any, eval_table, usage_carry_update
 from kubernetes_tpu_torch.ops.gang import N_DIAG
 from kubernetes_tpu_torch.snapshot.interner import ABSENT
 
@@ -132,10 +132,8 @@ def _volume_topology_mask_cuda(dc, vol_table: DTable, vol_valid, vol_bad):
     return out
 
 
-# the carried state snapshotted at a gang's first member (with the
-# assignment row, and the allocation carries in a batch with claims)
-_CK_USAGE = ("requested", "nonzero", "num_pods")
-_CK_CARRIES = ("cnt_sp", "cnt_ip", "rev_cnt")
+# the usage rows a placement commits
+_USAGE = ("requested", "nonzero", "num_pods")
 # a pod's request rows of ops/dra.py, in node_feasible_plain's order
 _DRA_ROWS = ("req_count", "req_all", "req_cl", "q_valid", "req_bad", "ref_cl")
 
@@ -152,37 +150,45 @@ def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
     [P, DQ, N, DD], ``free0``, ``claim_node0`` and the request rows of
     ops/dra.py; the allocation carries start from free0 and claim_node0.
     ``extra_score`` (i64 [P, N], or None) adds to every node's total.
-    Returns (chosen i32 [P] after rollback, raw i32 [P] before it, n_feas
-    i64 [P], reason_counts i64 [P, N_DIAG], tallies, gang_admit i32 [g_cap]
-    (-1 unjudged, 0 rolled back, 1 admitted), gang_landed i32 [g_cap],
-    claim_node i32 [CL] after the batch, or None without ``dra``)."""
+
+    A failed gang rolls back by undo, as K11 does: the reference restores
+    the state saved before the most recent first member's step (the initial
+    state before any first member), and every commit since is additive, so
+    the pass subtracts the commits of the pods from that point, or from the
+    pod after the last rollback, through the failing member, each from its
+    recorded choice (usage, term columns and the reverse counts; with
+    claims its take row at the node and the claims it pinned), and their
+    ``assigned`` read -1 again.  Returns (chosen i32 [P] after rollback, raw
+    i32 [P] before it, n_feas i64 [P], reason_counts i64 [P, N_DIAG],
+    tallies, gang_admit i32 [g_cap] (-1 unjudged, 0 rolled back, 1
+    admitted), gang_landed i32 [g_cap], claim_node i32 [CL] after the
+    batch, or None without ``dra``)."""
     P, N = g.static_mask.shape
     nom = gang.nominations_onehot(nom_node, nom_prio, nom_req, N)
     C, AT = g.sp_dv.shape[1], g.ip_dv.shape[1]
     dev = g.static_mask.device
+    Rn = dc.requested.shape[1]
     true_n = torch.ones((N,), dtype=BOOL, device=dev)
     m_sp_all, m_ip_all, t_anti, t_w = wave.term_match_rows(g, rep_sp_p, rep_sp_c, rep_ip_p, rep_ip_u)
     state = gang._state0(dc)  # pod_step commits the usage rows in place
     assigned = torch.full((P,), ABSENT, dtype=I32, device=dev)
-    carries = wave.factored_carry_init(rep_sp_p.shape[0], rep_ip_p.shape[0], N, 0, dev)
+    Tsp, Tip = rep_sp_p.shape[0], rep_ip_p.shape[0]
+    carries = wave.factored_carry_init(Tsp, Tip, N, 0, dev)
     alloc = {} if dra is None else {"free": dra["free0"].clone(), "claim_node": dra["claim_node0"].clone()}
-
-    def snapshot():
-        return {k: v.clone() for k, v in (*state.items(), ("assigned", assigned), *carries.items(), *alloc.items())}
-
-    ck = snapshot()  # the checkpoint starts as the initial state, as the reference's carry
     raw = torch.full((P,), ABSENT, dtype=I32, device=dev)
     n_feas = torch.zeros((P,), dtype=I64, device=dev)
     reason_counts = torch.zeros((P, N_DIAG), dtype=I64, device=dev)
     gang_admit = torch.full((g_cap,), -1, dtype=I32, device=dev)
     gang_landed = torch.zeros((g_cap,), dtype=I32, device=dev)
     landed = 0
+    log_start = 0  # the first pod whose commit a rollback undoes
+    undo = {}  # pod -> (its carry deltas, its cleared free bits at the node, the claims it pinned)
     gid_all, first_all, last_all, need_all = (t.tolist() for t in (gang_id, gang_first, gang_last, gang_need))
     for p in range(P):
         in_gang = gid_all[p] >= 0
         is_first = bool(first_all[p]) and in_gang
         if is_first:
-            ck = snapshot()
+            log_start = p
         sdyn = wave.factored_spread_dyn(g, p, tid_sp, carries["cnt_sp"], d_cap) if C else wave._zero_sdyn(C, N, dev)
         idyn, ip_aux = wave._zero_idyn(AT, N, dev), None
         if AT:
@@ -196,10 +202,15 @@ def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
         choice, nf, rc = gang.pod_step(dc, db, g, p, state, hv, check_fit=check_fit, weights=weights, d_cap=d_cap,
                                        nom=nom, extra_score=extra_score, fit_strategy=fit_strategy)
         assigned[p] = choice
-        carries = wave.factored_carry_update(carries, p, choice, m_sp_all, m_ip_all, ip_aux)
+        zero = wave.factored_carry_init(Tsp, Tip, N, 0, dev)
+        delta = wave.factored_carry_update(zero, p, choice, m_sp_all, m_ip_all, ip_aux)
+        carries = {k: carries[k] + delta[k] for k in carries}
+        cleared = pinned = None
         if dra is not None:
-            alloc["free"], alloc["claim_node"] = dra_ops.dra_commit_plain(alloc["free"], alloc["claim_node"], choice,
-                                                                          take, dra["ref_cl"][p])
+            free, cn = alloc["free"], alloc["claim_node"]
+            alloc["free"], alloc["claim_node"] = dra_ops.dra_commit_plain(free, cn, choice, take, dra["ref_cl"][p])
+            cleared, pinned = free & ~alloc["free"], cn != alloc["claim_node"]
+        undo[p] = (delta, cleared, pinned)
         raw[p] = choice
         n_feas[p] = nf
         reason_counts[p] = rc
@@ -207,16 +218,24 @@ def workloads_admit_plain(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
         landed = (0 if is_first else landed) + int(c >= 0 and in_gang)
         if bool(last_all[p]) and in_gang:
             fail = landed < need_all[p]
-            if fail:
-                for k in _CK_USAGE:
-                    state[k] = ck[k].clone()
-                assigned = ck["assigned"].clone()
-                carries = {k: ck[k].clone() for k in _CK_CARRIES}
-                alloc = {k: ck[k].clone() for k in alloc}
+            if fail:  # undo the commits since the checkpoint
+                for q in range(log_start, p + 1):
+                    if int(raw[q]) < 0:
+                        continue
+                    delta, cleared, pinned = undo[q]
+                    usage_carry_update({k: state[k] for k in _USAGE},
+                                            {"requested": -db.requests[q][:Rn], "nonzero": -db.nonzero_req[q],
+                                             "num_pods": -1}, raw[q], raw[q] >= 0)
+                    carries = {k: carries[k] - delta[k] for k in carries}
+                    if dra is not None:
+                        alloc["free"] = alloc["free"] | cleared
+                        alloc["claim_node"] = torch.where(pinned, ABSENT, alloc["claim_node"])
+                    assigned[q] = ABSENT
+                log_start = p + 1
             if gid_all[p] < g_cap:
                 gang_admit[gid_all[p]] = 0 if fail else 1
                 gang_landed[gid_all[p]] = landed
-    tallies = {k: state[k] for k in _CK_USAGE}
+    tallies = {k: state[k] for k in _USAGE}
     return assigned, raw, n_feas, reason_counts, tallies, gang_admit, gang_landed, alloc.get("claim_node")
 
 
@@ -326,45 +345,46 @@ def workloads_run(dc, db, hostname_key: int, v_cap: int, g_cap: int, tid_sp, rep
 # CUDA: K11
 # ---------------------------------------------------------------------------
 
-
-def ckpt_cells(N: int, Rn: int, P: int, Tsp: int, Tip: int, DD: int = 0, CL: int = 0) -> int:
-    """int32 cells of K11's checkpoint: requested [N, Rn], nonzero [N, 2],
-    num_pods [N], assigned [P], the carries [(Tsp + 2 Tip), N] and, in a
-    batch with claims, claim_node [CL] and free's N·DD bytes."""
-    return N * Rn + 2 * N + N + P + (Tsp + 2 * Tip) * N + CL + (N * DD + 3) // 4
+# K11's last launch: {"cluster": its CTAs, "claims_smem": whether the CTAs'
+# claim copies sat in shared memory, "undone": int32 [1], the placements its
+# rollbacks undid (read it after a synchronize)}.
+admit_stats: dict = {}
 
 
 def _workloads_admit_cuda(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,
                           ip_cdv_tab, gang_id, gang_first, gang_last, gang_need, g_cap, weights, check_fit, d_cap,
                           d2_cap, nom_node=None, nom_prio=None, nom_req=None, dra=None, extra_score=None,
                           fit_strategy=gang.DEFAULT_FIT_STRATEGY):
-    """K11 launch: K9's argument blocks with no port carry, plus the gang
-    rows, the assignment row, the outputs, the global checkpoint and, with
-    ``dra``, the match tensor, the request rows and the allocation carries
-    (copies of free0 and claim_node0, updated in place)."""
+    """K11 launch: K9's argument blocks with no port carry, laid out for the
+    thread-block cluster by ktpu_workloads_admit_plan under K9's knobs
+    (ops/wave.py ADMIT_CLUSTER_CAP, ADMIT_SMEM_CAP, ADMIT_STAGE), plus the
+    gang rows, the outputs, each CTA's row of the batch's choices and, with
+    ``dra``, the match tensor, the request rows, the allocation carries
+    (copies of free0 and claim_node0, updated in place), the take log and,
+    where they do not fit in shared memory, the CTAs' claim copies."""
     dev = dc.node_valid.device
     lib = _build.load()
     P, N = g.static_mask.shape
-    Rn = dc.allocatable.shape[1]
     unused = torch.empty((P,), dtype=I32, device=dev)  # K9's c0 / kinds / cterms: not read or written
     nom = gang.nominations_csr(nom_node, nom_prio, nom_req, N, dev)
-    a, w, state, outs = wave.admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
-                                        rep_ip_u, weights, check_fit, False, None, None, nom, unused, unused, unused,
-                                        lib.ktpu_workloads_admit_smem_max(), extra_score,
-                                        gang.step_mode(fit_strategy))
+    a, w, state, outs = wave._admit_blocks(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
+                                           rep_ip_u, weights, check_fit, False, None, None, nom, unused, unused,
+                                           unused, extra_score, gang.step_mode(fit_strategy))
     raw, n_feas, reason_counts = outs  # K11 writes each step's choice through GangScanArgs.chosen
     assigned = torch.empty((P,), dtype=I32, device=dev)
     gang_admit = torch.empty((g_cap,), dtype=I32, device=dev)
     gang_landed = torch.empty((g_cap,), dtype=I32, device=dev)
+    undone = torch.zeros((1,), dtype=I32, device=dev)
     DQ = DD = CQ = CL = 0
     claim_node = None
+    k = _build.WorkloadsArgs()
     ptrs = [
         ("gang_id", gang_id.to(I32).contiguous(), I32, (P,)),
         ("gang_first", gang_first.to(BOOL).contiguous(), BOOL, (P,)),
         ("gang_last", gang_last.to(BOOL).contiguous(), BOOL, (P,)),
         ("gang_need", gang_need.to(I32).contiguous(), I32, (P,)),
         ("assigned", assigned, I32, (P,)), ("gang_admit", gang_admit, I32, (g_cap,)),
-        ("gang_landed", gang_landed, I32, (g_cap,)),
+        ("gang_landed", gang_landed, I32, (g_cap,)), ("undone", undone, I32, (1,)),
     ]
     if dra is not None:
         _, DQ, _, DD = dra["match"].shape
@@ -381,18 +401,30 @@ def _workloads_admit_cuda(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, t
             ("free", dra["free0"].clone().contiguous(), BOOL, (N, DD)),
             ("claim_node", claim_node, I32, (CL,)),
             ("dra_row", torch.empty((N,), dtype=BOOL, device=dev), BOOL, (N,)),
+            ("take_log", torch.empty((P * ((DD + 63) // 64),), dtype=torch.int64, device=dev), torch.int64, None),
         ]
-        if DD > dra_ops.REG_DD:  # the verdict words past the registers, a row per thread
-            rows = lib.ktpu_admit_threads()
-            words = torch.empty((rows * dra_ops.scratch_words(DD),), dtype=torch.int64, device=dev)
-            ptrs.append(("dra_scratch", words, torch.int64, None))
-    ckpt = torch.empty((ckpt_cells(N, Rn, P, w.Tsp, w.Tip, DD, CL),), dtype=I32, device=dev)
-    ptrs.append(("ckpt", ckpt, I32, None))
-    k = _build.WorkloadsArgs()
     gang._set_ptrs(k, dev, ptrs)
     k.g_cap = int(g_cap)
     k.DQ, k.DD, k.CQ, k.CL = DQ, DD, CQ, CL
+    rc = lib.ktpu_workloads_admit_plan(ctypes.byref(a), ctypes.byref(w), ctypes.byref(k),
+                                       int(wave.ADMIT_CLUSTER_CAP), int(min(wave.ADMIT_SMEM_CAP, 2**31 - 1)),
+                                       int(bool(wave.ADMIT_STAGE)))
+    _build.check_launch(lib, rc, "workloads_admit")
+    G = int(w.cluster)
+    gang._set_ptrs(w, dev, [
+        ("sums", wave._zeros(dev, 1 if w.sums_smem else G * w.xch_cells), I32, None),
+        ("carries", wave._zeros(dev, 1 if w.carry_smem else wave._carry_cells(w, N)), I32, None),
+    ])
+    scratch = [("choice_log", torch.empty((G * P,), dtype=I32, device=dev), I32, None)]
+    if dra is not None and not k.claims_smem:
+        scratch.append(("claims", torch.empty((G * 2 * CL,), dtype=I32, device=dev), I32, None))
+    if DD > dra_ops.REG_DD:  # the verdict words past the registers, a row per thread of the cluster
+        rows = G * lib.ktpu_cluster_threads()
+        scratch.append(("dra_scratch", torch.empty((rows * dra_ops.scratch_words(DD),), dtype=torch.int64,
+                                                   device=dev), torch.int64, None))
+    gang._set_ptrs(k, dev, scratch)
     rc = lib.ktpu_workloads_admit(ctypes.byref(a), ctypes.byref(w), ctypes.byref(k), _build.stream_handle(dev))
     _build.check_launch(lib, rc, "workloads_admit")
     _build.launches["workloads_admit"] += 1
+    admit_stats.update(cluster=G, claims_smem=bool(k.claims_smem), undone=undone)
     return assigned, raw, n_feas, reason_counts, state, gang_admit, gang_landed, claim_node

@@ -1206,19 +1206,25 @@ def _precompute_cuda(dc, db, hostname_key, *, hard_pod_affinity_weight, has_inte
     )
 
 
-def _scan_domains(dc, db, g: GangStatics, C: int, AT: int):
+def _scan_domains(dc, db, g: GangStatics, C: int, AT: int, dsp=None):
     """K5's topology keys: per spread slot, per inter-pod slot, and per
     ip_key_idx entry; D, the largest compact-domain count among them; and
     Dsp, max_domains of the live pods' non-hostname spread slots (a cluster
-    launch's counted domains).  One device-to-host copy for both."""
+    launch's counted domains).  One device-to-host copy for both.  A kernel
+    that keeps no peer counters (K8) gives its own bound on the counted
+    domains as ``dsp``: then no D is taken (0) and nothing is copied."""
     dev = dc.node_valid.device
     K = dc.node_labels.shape[1]
     sp_key = db.tsc_topo[:, :C].contiguous()
     ip_key = db.aff_topo[:, :AT].contiguous()
     KD2 = g.ip_key_cols.shape[0]
-    kd2_key = torch.full((KD2,), ABSENT, dtype=I32, device=dev)
+    # one key per index; the pad slots land in a spare cell KD2
+    kd2_key = torch.full((KD2 + 1,), ABSENT, dtype=I32, device=dev)
     has_key = g.ip_key_idx >= 0
-    kd2_key[g.ip_key_idx[has_key].long()] = ip_key[has_key]  # one key per index
+    kd2_key.scatter_(0, torch.where(has_key, g.ip_key_idx, KD2).long().reshape(-1), ip_key.reshape(-1))
+    kd2_key = kd2_key[:KD2]
+    if dsp is not None:
+        return sp_key, ip_key, kd2_key, 0, dsp
     keys = torch.cat([sp_key.reshape(-1), ip_key.reshape(-1)]).long()
     counts = torch.tensor(tuple(dc.dom_counts) + (0,), dtype=torch.int64, device=dev)
     keys = torch.where((keys >= 0) & (keys < K), keys, K)
@@ -1265,7 +1271,7 @@ def _word(x: int) -> int:
 
 
 def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch, nom=None,
-              extra_score=None, mode=None) -> "_build.GangScanArgs":
+              extra_score=None, mode=None, dsp=None) -> "_build.GangScanArgs":
     """The GangScanArgs of a kernel that runs the shared per-pod step (K5,
     and the wave's K8 and K9): the statics, the usage ``state``
     (requested / nonzero / num_pods, and sample_start [] in sampling mode),
@@ -1273,7 +1279,9 @@ def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch, 
     nominations' CSR (``nominations_csr``, or None), ``extra_score`` (i64
     [P, N], or None: a null pointer) and ``mode`` (``step_mode``; None: the
     default branch), after the wrapper checks.  ``a.Dsp`` (an attribute,
-    not a field) is _scan_domains' Dsp."""
+    not a field) is _scan_domains' Dsp; ``dsp`` (a kernel without peer
+    counters: its bound on the counted domains, or None) leaves ``a.D`` 0
+    and spares _scan_domains its device-to-host copy."""
     mode = step_mode() if mode is None else mode
     dev = dc.node_valid.device
     P, N = g.static_mask.shape
@@ -1285,7 +1293,7 @@ def step_args(dc, db, g: GangStatics, weights, check_fit, state, outs, scratch, 
     Rn = dc.allocatable.shape[1]
     Rp = db.requests.shape[1]
     L = dc.log_tab.shape[0]
-    sp_key, ip_key, kd2_key, D, Dsp = _scan_domains(dc, db, g, C, AT)
+    sp_key, ip_key, kd2_key, D, Dsp = _scan_domains(dc, db, g, C, AT, dsp)
     chosen, n_feas, reason_counts = outs
     spec = _statics_spec(P, N, C, AT, KD2, JP)
     a = _build.GangScanArgs()

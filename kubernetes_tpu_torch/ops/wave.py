@@ -80,16 +80,17 @@ DEMOTE_KINDS = {
     DEMOTE_PORTS: "ports",
 }
 
-# The most dynamic shared memory K9 (a CTA of its cluster) and K11 may put
-# their per-pod sums, rows and carries in (the card's own limit applies below
-# it); above it they go to global scratch rows.
+# The most dynamic shared memory a CTA of K9's and K11's cluster may put its
+# exchange slab, rows, staged planes and carries in (the card's own limit
+# applies below it); above it they go to global scratch rows.
 ADMIT_SMEM_CAP = 1 << 30
-# The most CTAs in K9's cluster: 16 where the card admits a cluster of 16 at
-# the kernel's shared memory, else 8 (the portable size); 8 here forces 8.
+# The most CTAs in K9's and K11's cluster: 16 where the card admits a
+# cluster of 16 at the kernel's shared memory, else 8 (the portable size);
+# 8 here forces 8.
 ADMIT_CLUSTER_CAP = 16
-# K9 stages each pod's [P, N] and slot rows of its slice into shared memory,
-# one pod ahead (bulk copies), and its node statics once; False reads them
-# from global memory.
+# K9 and K11 stage each pod's [P, N] and slot rows of its slice into shared
+# memory, one pod ahead (bulk copies), and its node statics once; False
+# reads them from global memory.
 ADMIT_STAGE = True
 ADMIT_PHASES = gang.CL_PHASES
 # K9's last launch: {"cluster": its CTAs, "staged": whether it staged the
@@ -97,6 +98,14 @@ ADMIT_PHASES = gang.CL_PHASES
 # cluster-wide exchanges over the batch, then the rank-0 leader's cycles / 16
 # per phase)}; read "info" after a synchronize.
 admit_stats: Dict[str, object] = {}
+# K8's phase clocks: per reduction (the min-match, the filter's counts, the
+# window, the spread normalizers, the argmax) the pass before it and the
+# reduction itself.
+SPEC_PHASES = 10
+# K8's last launch: {"info": int64 [P, 2 + SPEC_PHASES] on the card (each
+# pod's group's start and end, globaltimer ns, then its thread 0's cycles
+# per phase; a pad row stays 0)}; read "info" after a synchronize.
+spec_stats: Dict[str, object] = {}
 
 
 # ---------------------------------------------------------------------------
@@ -727,29 +736,29 @@ def _zeros(dev, n, dtype=I32):
 
 def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=None, nom_req=None, lane=None,
                          extra_score=None, **mode):
-    """K8 launch: one block per pod against the cluster's own usage rows
-    (``lane``: the port lane, and ``extra_score``, null pointers when
-    None); in sampling mode every block reads the initial cursor."""
+    """K8 launch: a group of warps per pod against the cluster's
+    own usage rows (``lane``: the port lane, and ``extra_score``, null
+    pointers when None); in sampling mode every pod reads the initial
+    cursor.  No host sync: the domain bits are sized by the cluster's
+    largest domain count, a host int."""
     dev = dc.node_valid.device
     lib = _build.load()
     g = gang.GangStatics(*(t.contiguous() for t in g))
     P, N = g.static_mask.shape
-    C = g.sp_dv.shape[1]
-    Dsp = gang.max_domains(dc, db.tsc_topo[:, :C], db.valid[:, None] & ~g.sp_is_host)
     mode = gang.step_mode(**mode)
     state = {"requested": dc.requested, "nonzero": dc.nonzero_req, "num_pods": dc.num_pods}  # read only
     if mode["sample_k"] is not None:
         state["sample_start"] = torch.tensor(mode["sample_start"], dtype=I32, device=dev)
     c0 = torch.empty((P,), dtype=I32, device=dev)
     outs = (c0, torch.empty((P,), dtype=I64, device=dev), torch.empty((P, N_DIAG), dtype=I64, device=dev))
-    # per-block scratch rows: each block holds one pod's step
-    scratch = dict(cnt_h=_zeros(dev, 1), port_stamp=_zeros(dev, 1),
-                   feas=_zeros(dev, P * N, BOOL), ip_raw=_zeros(dev, P * N, I64), sp_raw=_zeros(dev, P * N, I64),
-                   sp_cnt=_zeros(dev, P * C * N))
+    scratch = {k: _zeros(dev, 1, dt) for k, dt in (("cnt_h", I32), ("port_stamp", I32), ("feas", BOOL),
+                                                   ("ip_raw", I64), ("sp_raw", I64), ("sp_cnt", I32))}
     nom = gang.nominations_csr(nom_node, nom_prio, nom_req, N, dev)
-    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom, extra_score, mode)
+    Dsp = max(tuple(dc.dom_counts) + (1,))
+    a = gang.step_args(dc, db, g, weights, check_fit, state, outs, scratch, nom, extra_score, mode, dsp=Dsp)
     w = _build.WaveArgs()
-    ptrs = [("sums", _zeros(dev, P * C * Dsp), I32, None)]
+    info = torch.zeros((P, 2 + SPEC_PHASES), dtype=I64, device=dev)
+    ptrs = [("spec_info", info, I64, (P, 2 + SPEC_PHASES))]
     if lane is not None:
         ptrs.append(("lane", lane.contiguous(), BOOL, (P, N)))
     gang._set_ptrs(w, dev, ptrs)
@@ -757,6 +766,7 @@ def _wave_speculate_cuda(dc, db, g, weights, check_fit, nom_node=None, nom_prio=
     rc = lib.ktpu_wave_speculate(ctypes.byref(a), ctypes.byref(w), _build.stream_handle(dev))
     _build.check_launch(lib, rc, "wave_speculate")
     _build.launches["wave_speculate"] += 1
+    spec_stats.update(info=info)
     return c0
 
 
@@ -809,28 +819,6 @@ def _admit_blocks(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, r
 
 def _carry_cells(w, N: int) -> int:
     return (w.Tsp + 2 * w.Tip + w.Tpt) * N
-
-
-def admit_args(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u, weights, check_fit,
-               has_ports, tid_pt, port_conf, nom, c0, kinds, cterms, smem_max: int, extra_score=None, mode=None):
-    """The argument blocks of K11 (ops/coscheduling.py), one block over all
-    N nodes: _admit_blocks, with the per-pod sums and then the carries in
-    shared memory where they fit under ``smem_max`` (the kernel's dynamic
-    shared memory limit), else in global scratch rows."""
-    a, w, state, outs = _admit_blocks(dc, db, g, hostname_key, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p,
-                                      rep_ip_u, weights, check_fit, has_ports, tid_pt, port_conf, nom, c0, kinds,
-                                      cterms, extra_score, mode)
-    dev = dc.node_valid.device
-    C, N = a.C, a.N
-    sums_cells = 3 * C * w.Dsp + a.AT * w.D2 + w.Tip + w.Tpt + 3
-    carry_cells = _carry_cells(w, N)
-    smem_max = min(smem_max, ADMIT_SMEM_CAP) - 16 * C
-    sums_smem = 4 * sums_cells <= smem_max
-    carry_smem = sums_smem and 4 * (sums_cells + carry_cells) <= smem_max
-    gang._set_ptrs(w, dev, [("sums", _zeros(dev, 1 if sums_smem else sums_cells), I32, None),
-                            ("carries", _zeros(dev, 1 if carry_smem else carry_cells), I32, None)])
-    w.sums_smem, w.carry_smem = int(sums_smem), int(carry_smem)
-    return a, w, state, outs
 
 
 def _wave_admit_cuda(dc, db, g, hostname_key, c0, tid_sp, rep_sp_p, rep_sp_c, tid_ip, rep_ip_p, rep_ip_u,

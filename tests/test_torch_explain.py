@@ -386,6 +386,35 @@ def test_explain_whatif_preemption_victims():
     assert "unknown node" in out2["error"]
 
 
+@pytest.mark.parametrize("failure", [RuntimeError("device lost"), KeyError("fork"), ValueError("bad fork")],
+                         ids=["RuntimeError", "KeyError", "ValueError"])
+def test_explain_whatif_planner_failure_answers_as_reference(monkeypatch, failure):
+    """The one-fork planner failing inside explain_whatif, the same failure
+    monkeypatched on both sides: the answer carries the failure as
+    kernel.error, keeps the host dry run's verdict, and has no parity, as
+    the reference's does (its debug surface answers, whatever the error)."""
+    import kubernetes_tpu.planner.plan as j_plan
+    import kubernetes_tpu_torch.planner.plan as p_plan
+
+    def fail(*args, **kwargs):
+        raise failure
+
+    monkeypatch.setattr(j_plan, "whatif_after_evictions", fail)
+    monkeypatch.setattr(p_plan, "whatif_after_evictions", fail)
+    pair = twins()
+    for tw in pair:
+        tw.pl_obs = j_obs if tw.api is JAX_API else p_obs
+        for i in range(2):
+            tw.node(f"n{i}", cpu="2")
+        for i in range(4):
+            tw.add(f"low-{i}", cpu="900m", prio=0)
+        tw.s.schedule_pending()
+        tw.add("hi", cpu="1500m", prio=10)
+    out = _whatif_both(pair, "n0", "hi")
+    assert out["kernel"] == {"error": str(failure)}
+    assert out["feasible_after_preemption"] is True and "parity" not in out
+
+
 # ---- explain between drains -------------------------------------------------
 
 

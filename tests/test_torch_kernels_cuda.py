@@ -460,8 +460,8 @@ def test_workloads_admit_kernel_gang_sizes_match_plain(cuda, case, size):
 def test_workloads_admit_kernel_restores_initial_state(cuda):
     """A gang whose last member comes before any gang's first member (no
     plan_batch layout, but a valid input) rolls back to the batch's initial
-    state, as the reference's carry starts: K11 then copies that state
-    before the loop."""
+    state, as the reference's carry starts: K11 undoes every placement from
+    the batch's first pod."""
     seed, n_nodes, n_placed, n_pending, _ = WAVE_CASES[0]
     nodes, placed, pending = chip_smoke.gen_cluster(seed, n_nodes, n_placed, n_pending - 8, ports_from=n_pending)
     dc, db, kw, d_cap, flags, wt = chip_smoke.wave_inputs(torch, cuda, nodes, placed, pending, P=128)
@@ -469,6 +469,116 @@ def test_workloads_admit_kernel_restores_initial_state(cuda):
     rows["gang_first"][0] = False
     row = chip_smoke.workloads_row(torch, "gen", dc, db, kw, d_cap, flags, wt, rows, reps=1)
     assert row["k11_err"] == 0 and row["k11_vs_k9"] == 0 and row["rolled_back_members"] > 0
+
+
+def _undo_rows(cuda, layout, n_live, P):
+    """Gang rows of the undo layouts: `overlapping` (gang A on the even
+    positions of the first 12 pods, B on the odd ones, A needing one more
+    member than it has; a gang nested in another), `last_first` (a gang's
+    last member before any first member, then a gang whose last member
+    precedes its own first), `pad_rows` (gangs running past the last live
+    pod into the pad rows, one with a pad row in its middle)."""
+    import numpy as np
+
+    g_id, first, last, need = (np.full(P, -1, np.int32), np.zeros(P, bool), np.zeros(P, bool),
+                               np.zeros(P, np.int32))
+
+    def gang(gid, pos, k, f=True, l=True):
+        g_id[pos], need[pos] = gid, k
+        first[pos[0]] |= f
+        last[pos[-1]] |= l
+
+    if layout == "overlapping":
+        gang(0, list(range(0, 12, 2)), 7)
+        gang(1, list(range(1, 12, 2)), 3)
+        gang(2, [12, 13, 17, 18], 2)
+        gang(3, [14, 15, 16], 4)
+    elif layout == "last_first":
+        gang(0, [0, 1, 2], 4, f=False)
+        gang(1, [5, 7], 99, f=False, l=False)
+        last[5] = first[7] = True
+        gang(2, [9, 10, 11], 2)
+    else:
+        gang(0, [0, 1, 2], 2)
+        gang(1, [n_live - 3, n_live - 2, n_live - 1, n_live], 4)
+        gang(2, [n_live - 6, n_live - 5, n_live + 1, n_live + 2], 2)
+    rows = dict(gang_id=g_id, gang_first=first, gang_last=last, gang_need=need)
+    return dict({k: torch.from_numpy(v).to(cuda) for k, v in rows.items()}, g_cap=8)
+
+
+@pytest.mark.parametrize("cap", [16, 8], ids=["cluster16", "cluster8"])
+@pytest.mark.parametrize("layout", ["overlapping", "last_first", "pad_rows"])
+def test_workloads_admit_cluster_undo_layouts_match_plain(cuda, layout, cap, monkeypatch):
+    """K11's rollback by undo on the layouts plan_batch never makes, on a
+    cluster of 16 CTAs and of 8, against workloads_admit_plain (which the
+    CPU tests hold against the JAX package's checkpoint in the same
+    layouts), with open nominations; the placements it undid equal the
+    rolled-back members that had placed."""
+    from kubernetes_tpu_torch.ops import wave as ops_wave
+
+    monkeypatch.setattr(ops_wave, "ADMIT_CLUSTER_CAP", cap)
+    seed, n_nodes, n_placed, n_pending, _ = WAVE_CASES[0]
+    nodes, placed, pending = chip_smoke.gen_cluster(seed, n_nodes, n_placed, n_pending - 8, ports_from=n_pending)
+    dc, db, kw, d_cap, flags, wt = chip_smoke.wave_inputs(torch, cuda, nodes, placed, pending, P=128)
+    rows = _undo_rows(cuda, layout, len(pending), 128)
+    nom = chip_smoke.nominations(torch, dc, db, 16)
+    row = chip_smoke.workloads_row(torch, layout, dc, db, kw, d_cap, flags, wt, rows, reps=1, nom=nom)
+    assert row["k11_err"] == 0 and row["k11_cluster8_err"] == 0 and row["cluster"] == cap
+    assert row["rolled_back"] > 0 and row["undone"] == row["rolled_back_members"] > 0
+
+
+@pytest.mark.parametrize("cap", [16, 8], ids=["cluster16", "cluster8"])
+def test_workloads_admit_cluster_extra_score_matches_plain(cuda, cap, monkeypatch):
+    """K11 with the planner's extra score (seeded, up to three times a
+    score's range, every fourth pod's best node lifted) under rolling-back
+    gangs, at both cluster sizes."""
+    from kubernetes_tpu_torch.ops import wave as ops_wave
+
+    monkeypatch.setattr(ops_wave, "ADMIT_CLUSTER_CAP", cap)
+    name, nodes, placed, pending, need, _ = chip_smoke.workloads_shapes(100, 400, 400, P=128)[1]
+    dc, db, kw, d_cap, flags, wt = chip_smoke.wave_inputs(torch, cuda, nodes, placed, pending, P=128)
+    rows = chip_smoke.gang_rows(torch, cuda, int(db.valid.sum().item()), 128, need)
+    g = ops_gang.precompute(dc, db, **kw, **dict(flags, has_ports=False))
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    es = torch.randint(0, 300, tuple(g.static_mask.shape), dtype=torch.int64, device=cuda, generator=gen)
+    targs = [wt[k] for k in chip_smoke.WAVE_TABLES]
+    gk = [rows[k] for k in ("gang_id", "gang_first", "gang_last", "gang_need", "g_cap")]
+    tkw = dict(d_cap=d_cap, d2_cap=wt["d2_cap"], extra_score=es)
+    got = ops_cos.workloads_admit(dc, db, g, kw["hostname_key"], *targs, *gk, **tkw)
+    want = ops_cos.workloads_admit_plain(dc, db, g, kw["hostname_key"], *targs, *gk, **tkw)
+    for a, b in zip(got[:4] + got[5:7], want[:4] + want[5:7]):
+        _equal(a, b)
+    for k in want[4]:
+        _equal(got[4][k], want[4][k])
+    assert ops_cos.admit_stats["cluster"] == cap and int((want[5] == 0).sum().item()) > 0
+
+
+@pytest.mark.parametrize("shape", range(4), ids=["config4", "config3", "ports", "mixed"])
+def test_wave_speculate_lanes_match_plain(cuda, shape):
+    """K8 at chip_smoke's four wave shapes (reduced) against
+    wave_speculate_plain with each optional input: none, 16
+    open nominations, a seeded extra score, a port lane with a fifth of its
+    cells false, each step mode (the window with and without a tie key,
+    the window over every node, MostAllocated, RequestedToCapacityRatio)."""
+    from kubernetes_tpu_torch.ops import wave as ops_wave
+
+    shapes = chip_smoke.gang_shapes(400, 150, 400, 400, P=128)[:2] + chip_smoke.wave_shapes(80, 400, P=128)
+    _, nodes, placed, pending = shapes[shape]
+    dc, db, kw, d_cap, flags, wt = chip_smoke.wave_inputs(torch, cuda, nodes, placed, pending, P=128)
+    g = ops_gang.precompute(dc, db, **kw, **dict(flags, has_ports=False))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    lanes = {"none": {}, "nominated": chip_smoke.nominations(torch, dc, db, 16),
+             "extra_score": dict(extra_score=torch.randint(0, 300, tuple(g.static_mask.shape), dtype=torch.int64,
+                                                           device=cuda, generator=gen)),
+             "lane": dict(lane=torch.rand(tuple(g.static_mask.shape), device=cuda, generator=gen) < 0.8)}
+    lanes.update(chip_smoke.step_modes(int(dc.node_valid.sum().item())))
+    n0 = _build.launches["wave_speculate"]
+    for name, extra in lanes.items():
+        got = ops_wave.wave_speculate(dc, db, g, d_cap=d_cap, **extra)
+        want = ops_wave.wave_speculate_plain(dc, db, g, d_cap=d_cap, **extra)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want.cpu()), name
+    assert _build.launches["wave_speculate"] == n0 + len(lanes)
 
 
 def test_workloads_scheduler_on_cuda_matches_cpu(cuda):
