@@ -41,7 +41,11 @@ Phases, one output line each (several for 2 and 4):
      (N=5000 in 8 zones, P=512, 45,000 placed spread pods), config3's (N=1000,
      P=512, 4,500 placed anti-affinity pods) and a tests/gen.py-style mixed
      batch at N=5000 with 500 placed pods, with each kernel's, its plain version's and (K7) a
-     float64 torch.matmul's time, and K5's cluster (its CTAs, exchanges and
+     float64 torch.matmul's time, K6's and K7's spans (each of their
+     kernels' first block's start to last block's end), K7's placed terms
+     alone (the terms kernel and ext) with their own bound beside the
+     matmul, K7's ports-only launch (every config4 batch's) against
+     port_masks_plain, exact, with its time, and K5's cluster (its CTAs, exchanges and
      microseconds a pod) and K5 at 8 CTAs, exact, with its time; then drains through Scheduler(): config4
      (5k nodes, 50k spread pods) and config3 (1k nodes, 5k anti-affinity
      pods) under waveDispatch: false, with their zone-skew and
@@ -190,8 +194,8 @@ Phases, one output line each (several for 2 and 4):
      400; cut from 800 / 1,600) against the port's serial oracle loop with
      K19's bits, 0 diffs;
  14. the kernels line (K8 named as the workloads speculation too, K19 as
-     the parity copies' draw, the redesigns of K2, K5, K9 and K15 under
-     "design").
+     the parity copies' draw, the redesigns of K2, K5, K6, K7, K9 and K15
+     under "design").
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Without
@@ -655,14 +659,134 @@ def gen_cluster(seed, n_nodes, n_placed, n_pending, ports_from=0):
     return nodes, placed, pending
 
 
-def _gang_pack(torch, device, nodes, placed, pending, P):
+STATICS_WORLDS = ("preferred_anti", "dead_terms", "three_keys", "spread_keys", "namespaces")
+REGION = "topology.kubernetes.io/region"
+
+
+def statics_world(kind, seed, api=None):
+    """(nodes, placed pods, pending pods, mutate) of one of K6's and K7's
+    scenarios (STATICS_WORLDS), built with `api` (a module with the API
+    types and Resource; the port's by default): preferred anti-affinity
+    beside required and preferred affinity; placed terms of deleting pods,
+    on nodes without the zone label and over a key no node carries (mutate
+    marks every seventh placed row invalid in the packed arrays); terms over
+    the hostname, the zone and the region; two or three spread constraints
+    a pod with both inclusion policies, node affinity and tolerations over
+    tainted nodes; namespace lists, namespace label selectors and
+    all-namespace terms.  mutate(ep) edits the packed placed pods before
+    any side reads them (None: no edit)."""
+    if api is None:
+        import kubernetes_tpu_torch.api as api
+    rng = random.Random(seed * 31 + len(kind))
+    apps, namespaces, keys = ("web", "db", "cache", "batch"), ("default", "prod", "dev"), (HOSTNAME, ZONE, REGION)
+
+    def node(i, zone_frac=1.0, taint_frac=0.0):
+        labels = {HOSTNAME: f"node-{i}", REGION: f"region-{i % 2}"}
+        if rng.random() < zone_frac:
+            labels[ZONE] = f"zone-{rng.randrange(4)}"
+        if rng.random() < 0.5:
+            labels["disk"] = rng.choice(("ssd", "hdd"))
+        taints = (api.Taint(key="dedicated", value="infra", effect="NoSchedule"),) if rng.random() < taint_frac else ()
+        return api.Node(name=f"node-{i}", labels=labels, taints=taints,
+                        capacity=api.Resource.from_map({"cpu": "16", "memory": "64Gi", "pods": 110}))
+
+    def sel():
+        if rng.random() < 0.7:
+            return api.LabelSelector(match_labels={"app": rng.choice(apps)})
+        return api.LabelSelector(match_expressions=(
+            api.LabelSelectorRequirement("app", rng.choice(("In", "NotIn")), tuple(rng.sample(apps, 2))),))
+
+    def term(key, ns_modes):
+        kw = dict(topology_key=key, label_selector=sel())
+        mode = rng.choice(ns_modes)
+        if mode == "list":
+            kw["namespaces"] = tuple(rng.sample(namespaces, 2))
+        elif mode == "all":
+            kw["namespace_selector"] = api.LabelSelector()
+        elif mode == "labels":
+            kw["namespace_selector"] = api.LabelSelector(match_labels={"team": "core"})
+        return api.PodAffinityTerm(**kw)
+
+    def interpod(tkeys, ns_modes=("own",), required=True):
+        def w(k):
+            return api.WeightedPodAffinityTerm(weight=rng.randrange(1, 101), pod_affinity_term=term(k, ns_modes))
+
+        req = (lambda: (term(rng.choice(tkeys), ns_modes),)) if required else (lambda: ())
+        return api.Affinity(
+            pod_affinity=api.PodAffinity(required_during_scheduling_ignored_during_execution=req(),
+                                         preferred_during_scheduling_ignored_during_execution=tuple(
+                                             w(k) for k in tkeys[:2])),
+            pod_anti_affinity=api.PodAntiAffinity(required_during_scheduling_ignored_during_execution=req(),
+                                                  preferred_during_scheduling_ignored_during_execution=tuple(
+                                                      w(k) for k in tkeys)))
+
+    def spread(skeys):
+        return tuple(api.TopologySpreadConstraint(
+            max_skew=rng.randrange(1, 4), topology_key=k,
+            when_unsatisfiable=rng.choice(("DoNotSchedule", "ScheduleAnyway")), label_selector=sel(),
+            min_domains=rng.choice((None, 2)) if k != HOSTNAME else None,
+            node_affinity_policy=rng.choice(("Honor", "Ignore")), node_taints_policy=rng.choice(("Honor", "Ignore")))
+            for k in skeys)
+
+    def node_terms():
+        na = api.NodeAffinity(required_during_scheduling_ignored_during_execution=api.NodeSelector((
+            api.NodeSelectorTerm(match_expressions=(
+                api.NodeSelectorRequirement("disk", "In", (rng.choice(("ssd", "hdd")),)),)),)))
+        return dict(affinity=api.Affinity(node_affinity=na) if rng.random() < 0.5 else None,
+                    tolerations=(api.Toleration(key="dedicated", operator="Exists", effect="NoSchedule"),)
+                    if rng.random() < 0.5 else ())
+
+    def pod(name, node_name="", ns="default", affinity=None, spread_on=(), **kw):
+        return api.Pod(name=name, namespace=ns, node_name=node_name, labels={"app": rng.choice(apps)},
+                       affinity=affinity, topology_spread_constraints=spread(spread_on),
+                       containers=[api.Container(name="c", requests={"cpu": "100m", "memory": "64Mi"})], **kw)
+
+    mutate = None
+    if kind == "preferred_anti":
+        nodes = [node(i) for i in range(16)]
+        placed = [pod(f"pl-{j}", nodes[rng.randrange(16)].name, affinity=interpod(keys[:2])) for j in range(40)]
+        pending = [pod(f"pe-{i}", affinity=interpod(keys[:2], required=i % 3 == 0)) for i in range(24)]
+    elif kind == "dead_terms":
+        nodes = [node(i, zone_frac=0.6) for i in range(16)]
+        placed = [pod(f"pl-{j}", nodes[rng.randrange(16)].name, affinity=interpod((ZONE, "example.com/rack", HOSTNAME)),
+                      deletion_timestamp=1.0 if j % 5 == 1 else None) for j in range(40)]
+        pending = [pod(f"pe-{i}", affinity=interpod((ZONE, HOSTNAME)), spread_on=(ZONE,)) for i in range(24)]
+
+        def mutate(ep):
+            ep.valid[[i for i in range(ep.valid.shape[0]) if i % 7 == 3]] = False  # rows whose pod has gone
+
+    elif kind == "three_keys":
+        nodes = [node(i) for i in range(20)]
+        placed = [pod(f"pl-{j}", nodes[rng.randrange(20)].name, affinity=interpod(keys)) for j in range(48)]
+        pending = [pod(f"pe-{i}", affinity=interpod(keys)) for i in range(24)]
+    elif kind == "spread_keys":
+        nodes = [node(i, zone_frac=0.8, taint_frac=0.3) for i in range(20)]
+        placed = [pod(f"pl-{j}", nodes[rng.randrange(20)].name, ns=rng.choice(namespaces)) for j in range(60)]
+        pending = [pod(f"pe-{i}", ns=rng.choice(namespaces), spread_on=rng.sample(keys, 2 + i % 2), **node_terms())
+                   for i in range(24)]
+    elif kind == "namespaces":
+        nodes = [node(i) for i in range(16)]
+        modes = ("own", "list", "all", "labels")
+        placed = [pod(f"pl-{j}", nodes[rng.randrange(16)].name, ns=rng.choice(namespaces),
+                      affinity=interpod(keys[:2], modes)) for j in range(48)]
+        pending = [pod(f"pe-{i}", ns=rng.choice(namespaces), affinity=interpod(keys[:2], modes), spread_on=(ZONE,))
+                   for i in range(24)]
+    else:
+        raise ValueError(kind)
+    return nodes, placed, pending, mutate
+
+
+def _gang_pack(torch, device, nodes, placed, pending, P, mutate=None):
     """Pack a cluster with its placed pods and one pending batch through the
-    port's packers, as the scheduler's mirror does, onto `device`."""
+    port's packers, as the scheduler's mirror does, onto `device`; mutate
+    (statics_world's) edits the packed placed pods first."""
     from kubernetes_tpu_torch.ops import gang
     from kubernetes_tpu_torch.ops.common import DeviceBatch, DeviceCluster
     from kubernetes_tpu_torch.snapshot.schema import bucket_cap
 
     pc, pb = packed_snapshot(nodes, placed, pending, P)
+    if mutate is not None:
+        mutate(pc.existing)
     nt, ep, vocab = pc.nodes, pc.existing, pc.vocab
     hk = vocab.label_keys.lookup(HOSTNAME)
     tables = gang.batch_tables(pb.tsc_topo_key, pb.aff_topo_key, nt.label_vals, hk)
@@ -679,11 +803,11 @@ def _gang_pack(torch, device, nodes, placed, pending, P):
     return dc, DeviceBatch.from_host(pb, device), kw, d_cap, flags, pb, nt
 
 
-def gang_inputs(torch, device, nodes, placed, pending, P=512):
+def gang_inputs(torch, device, nodes, placed, pending, P=512, mutate=None):
     """Pack a cluster with its placed pods and one pending batch through the
     port's packers, as the scheduler's mirror does, onto `device`.  Returns
     (dc, db, kwargs of precompute without the has_* flags, d_cap, flags)."""
-    return _gang_pack(torch, device, nodes, placed, pending, P)[:5]
+    return _gang_pack(torch, device, nodes, placed, pending, P, mutate)[:5]
 
 
 def wave_inputs(torch, device, nodes, placed, pending, P=512):
@@ -1302,6 +1426,33 @@ def gang_bounds(torch, dc, db, g, chosen, n_feas, weights):
     return k6, k7, bound_ms(k5_bytes(torch, dc, db, g, chosen, n_feas, weights), k5_ops)
 
 
+def ext_bound(dc, db, out):
+    """K7's placed terms against the batch (the terms kernel and ext) as
+    bound_ms: the bytes of its outputs (ip_viol_existing, ip_sym) and of the
+    live placed terms' records and tables read once, against the
+    operations of the term selectors (R * (V + 4) + 12 per live term and
+    pod) and of the node sums (4 per node, pod and used key)."""
+    P = db.valid.shape[0]
+    N = dc.node_labels.shape[0]
+    m_live = _live(dc.term_kind)
+    _, _, TR, TV = dc.term_table.req_vals.shape
+    live = dc.term_kind >= 0
+    keys = int(dc.term_topo[live].unique().numel())
+    terms = m_live * (4 * 4 + 4 * (3 * TR + TR * TV) + 1 + 4 * dc.term_ns_ids.shape[1])
+    return bound_ms(nbytes(out["ip_viol_existing"], out["ip_sym"]) + terms,
+                    P * m_live * (TR * (TV + 4) + 12) + P * N * 4 * keys)
+
+
+def ports_bound(db, dc, out):
+    """K7's port kernel as bound_ms: d_ports and port_b written once, the
+    wanted and used port tables read once, against 6 operations per
+    (wanted, used) pair of every (pod, node) and (pod, peer)."""
+    P, W = db.want_ppk.shape
+    N, U = dc.used_ppk.shape
+    return bound_ms(nbytes(out["d_ports"], out["port_b"], db.want_ppk, db.want_ip, db.want_wild, dc.used_ppk,
+                           dc.used_ip, dc.used_wild), P * N * W * U * 6 + P * P * W * W * 6)
+
+
 def k5_cluster(torch, db, ms):
     """K5's cluster beside its time `ms` (its last launch was the timed
     one): the CTAs, the cluster-wide exchanges per valid pod (mbarrier
@@ -1410,19 +1561,31 @@ def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "
         ms8, _ = k5_capped(torch, lambda: time_ms(torch, k5, reps), 8)
         row["gang_scan"]["cluster8"] = dict(k5_cluster(torch, db, ms8), ms=ms8, max_abs_err=err8)
         if flags["has_spread"]:
+            k6_ms = time_ms(torch, lambda: gang.spread_statics(dc, db, naff, taints, hk), reps)
             row["gang_spread_statics"] = dict(
-                ms=time_ms(torch, lambda: gang.spread_statics(dc, db, naff, taints, hk), reps),
+                ms=k6_ms, span_us=gang.statics_spans("spread"),
                 plain_ms=time_ms(torch, lambda: gang.spread_statics_plain(dc, db, naff, taints, hk, v_cap,
                                                                           tab["sp_keys"], tab["sp_cdv_tab"]), 1),
                 bound_ms=b6, bound_by=by6, library_ms=None)
+        # the launch every config4 batch makes (NodePorts on, no inter-pod
+        # terms): K7's port kernel alone
+        ports = lambda: gang.interpod_statics(dc, db, do_interpod=False, do_ports=True)  # noqa: E731
+        got_p = ports()
+        want_p = gang.port_masks_plain(dc, db)
+        ports_err = max(max_abs_err(torch, got_p[k], w) for k, w in zip(("d_ports", "port_b"), want_p))
+        if ports_err:
+            raise AssertionError(f"{name}: K7's ports-only launch differs from port_masks_plain ({ports_err})")
+        row["k7_err"] = max(row["k7_err"], ports_err)
+        row["k7_ports_only"] = dict(ms=time_ms(torch, ports, reps), span_us=gang.statics_spans("interpod")["ports"],
+                                    bound_ms=ports_bound(db, dc, got_p)[0], max_abs_err=ports_err)
         if flags["has_interpod"]:
             pre = F.interpod_precompute(dc, db)
             w = torch.ones_like(dc.term_kind, dtype=torch.float64)
             lhs = (pre.ext_match.to(torch.float64) * w[:, None]).T.contiguous()
             rhs = pre.ext_topo_eq.to(torch.float64).contiguous()
-            # ext_kernel alone (inter-pod on, AT = 0, ports off): the part of
-            # K7 that computes what the matmul does, exact against the full
-            # launch's ip_viol_existing and ip_sym
+            # ext alone (inter-pod on, AT = 0, ports off: the terms kernel and
+            # ext): the part of K7 that computes what the matmul does, exact
+            # against the full launch's ip_viol_existing and ip_sym
             db0 = without_own_terms(db)
             ext = gang.interpod_statics(dc, db0, do_interpod=True, do_ports=False)
             full = gang.interpod_statics(dc, db, do_interpod=True, do_ports=True)
@@ -1430,15 +1593,19 @@ def phase_gang_kernels(torch, device, reps=5, shapes=None, wave_on=("config4", "
             ext_err = max(max_abs_err(torch, ext[k], full[k]) for k in ("ip_viol_existing", "ip_sym"))
             if ext_err:
                 raise AssertionError(f"{name}: ext_kernel alone differs from the full K7 launch ({ext_err})")
+            k7_ms = time_ms(torch, lambda: gang.interpod_statics(dc, db, do_interpod=True, do_ports=True), reps)
+            k7_span = gang.statics_spans("interpod")
+            ext_ms = time_ms(torch, lambda: gang.interpod_statics(dc, db0, do_interpod=True, do_ports=False), reps)
+            ext_span = gang.statics_spans("interpod")
+            be, bye = ext_bound(dc, db, full)
             row["gang_interpod_statics"] = dict(
-                ms=time_ms(torch, lambda: gang.interpod_statics(dc, db, do_interpod=True, do_ports=True), reps),
+                ms=k7_ms, span_us=k7_span,
                 plain_ms=time_ms(torch, lambda: (gang.interpod_statics_plain(dc, db, v_cap, tab["ip_keys"]),
                                                  gang.port_masks_plain(dc, db)), 1),
                 bound_ms=b7, bound_by=by7, library_ms=time_ms(torch, lambda: torch.matmul(lhs, rhs), reps),
                 library_call=f"torch.matmul float64 [{lhs.shape[0]}, {lhs.shape[1]}] x [{rhs.shape[0]}, {rhs.shape[1]}]",
-                ext_kernel_alone_ms=time_ms(torch, lambda: gang.interpod_statics(dc, db0, do_interpod=True,
-                                                                                 do_ports=False), reps),
-                ext_kernel_alone_err=ext_err)
+                ext_kernel_alone_ms=ext_ms, ext_kernel_alone_span_us=ext_span, ext_kernel_alone_bound_ms=be,
+                ext_kernel_alone_bound_by=bye, ext_kernel_alone_err=ext_err)
         log(phase="gang_kernel_check", **row)
         rows[name] = row
         if name in wave_on:
@@ -4787,6 +4954,18 @@ DESIGNS = {
                   "planes (bulk copies one pod ahead) in shared memory; four exchanges a pod (sums with the "
                   "min-match, the counts, the spread normalizers, the argmax) push each CTA's part into every "
                   "CTA's shared memory with st.async on an mbarrier",
+    "gang_spread_statics": "classes (a warp a constraint finds its first equal selector, where the placed pods "
+                           "outnumber the constraints 2:1), a match kernel (a tile of 4-8 representative "
+                           "selectors in shared memory against 256 placed pods a block, each pod's row read once "
+                           "for the tile, 32-pod match words by ballot), then a block per (pod, constraint): node "
+                           "counts from the bits in shared memory, the domain sums in shared memory (warp-"
+                           "aggregated for keys of up to 64 domains), domain tiles past the budget, node-major "
+                           "16- and 4-byte loads and stores; no host sync in the wrapper",
+    "gang_interpod_statics": "a terms kernel (each placed term's key, domain, weight and anti flag, the used keys "
+                             "marked), ext (a block of 512 threads a pod, the cells of the used keys only in shared "
+                             "memory, domain tiles past the budget), the classes and match kernels over the pods' "
+                             "own terms and a block per (pod, term) with its domain cells in shared memory; the "
+                             "port kernel as before; no host sync in the wrapper",
     "fork_view": "source-stationary: one 16-byte source vector per thread in registers, one int4 store per fork "
                  "masked by the fork's alive byte (node-major planes) or uchar4 (node-minor planes), a plane per "
                  "blockIdx.y, a chunk of forks per blockIdx.z",
@@ -4974,6 +5153,8 @@ def main() -> int:
                         ("gang_interpod_statics", "k7_err")):
         checks[kernel] = dict(max_abs_err=max(row[err] for row in gang.values()),
                               **gang["config3" if kernel == "gang_interpod_statics" else "config4"][kernel])
+    # K7 as every config4 batch launches it: the port kernel alone
+    checks["gang_interpod_statics"]["ports_only_config4"] = gang["config4"]["k7_ports_only"]
     for kernel, err in (("wave_speculate", "k8_err"), ("wave_admit", "k9_err")):
         checks[kernel] = dict(max_abs_err=max(row[err] for row in wave.values()), **wave["config4"][kernel])
     # each of K5, K8 and K9 in the step modes of phase 13, and the launches of

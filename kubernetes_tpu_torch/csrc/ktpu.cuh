@@ -454,7 +454,9 @@ struct GangSpreadArgs {
   const int* node_labels;           // [N, K]
   const int* val_ints;              // [NVI]
   const int* dom_ids;               // [K, N] compact domain id per key, -1 absent
-  const int* dom_counts;            // [K]    distinct domains per key
+  const int* dom_size;              // [K]    distinct domains per key (DeviceCluster.dom_size)
+  const int* dom_off;               // [K + 1] prefix sums of dom_size
+  const int* dom_vals;              // [DSUM]  each domain's label value id, at dom_off[key] + domain
   const int* epod_node;             // [E]
   const int* epod_ns;               // [E]
   const int* epod_labels;           // [E, K]
@@ -488,8 +490,11 @@ struct GangSpreadArgs {
   int* sp_sc_dom;                   // [P, C, N]
   unsigned char* sp_all_keys;       // [P, N]
   int* sp_cdv;                      // [P, C, N]
-  int* acc;                         // [P * C, 3, D] scratch: per-domain sums
-  int N, K, NVI, E, P, C, R, V, D, hostname_key;
+  // scratch
+  int* rep;                         // [P * C] (classes) the first constraint with the same selector and namespace
+  unsigned* match;                  // [P * C, EW] bit e: placed pod e matches the (representative) constraint
+  unsigned long long* span;         // [span_rows, 2] per kernel and SM: ~first start, last end (globaltimer ns)
+  int N, K, NVI, E, P, C, R, V, EW, D, hostname_key, smem_cap, class_ratio, span_rows;
 };
 
 // K7: the inter-pod half of the gang precompute and the host-port masks
@@ -499,8 +504,9 @@ struct GangInterpodArgs {
   const int* node_labels;           // [N, K]
   const int* val_ints;              // [NVI]
   const int* dom_ids;               // [K, N]
-  const int* dom_counts;            // [K]
-  const int* dom_off;               // [K + 1] prefix sums of dom_counts
+  const int* dom_size;              // [K]     distinct domains per key
+  const int* dom_off;               // [K + 1] prefix sums of dom_size (DeviceCluster.dom_off)
+  const int* dom_vals;              // [DSUM]  each domain's label value id, at dom_off[key] + domain
   const int* epod_node;             // [E]
   const int* epod_ns;               // [E]
   const int* epod_labels;           // [E, K]
@@ -546,10 +552,13 @@ struct GangInterpodArgs {
   unsigned char* d_ports;           // [P, N]
   unsigned char* port_b;            // [P, P]
   // scratch
-  int* ext_acc;                     // [P, 2, DSUM] per (key, domain) sums
-  int* inc_acc;                     // [P * AT, D] per-domain matches
-  int N, K, NVI, E, M, TR, TV, TNS, U, P, AT, AR, AV, NS, W;
-  int DSUM, D, hard_weight, do_interpod, do_ports;
+  int* ext_term;                    // [M, 4] per placed term: key (-1: never counts), domain, symmetric weight, anti
+  int* key_used;                    // [K]    some live placed term uses the key
+  int* inc_rep;                     // [P * AT] (classes) the first term with the same selector and namespace set
+  unsigned* inc_match;              // [P * AT, EW] bit e: placed pod e matches the (representative) term
+  unsigned long long* span;         // [span_rows, 2] per kernel and SM: ~first start, last end (globaltimer ns)
+  int N, K, NVI, E, M, TR, TV, TNS, U, P, AT, AR, AV, NS, W, EW;
+  int DSUM, D, hard_weight, do_interpod, do_ports, smem_cap, class_ratio, span_rows;
 };
 
 // K5: the gang scan (csrc/gang_scan.cu).

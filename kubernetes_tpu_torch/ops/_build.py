@@ -182,12 +182,12 @@ class GangSpreadArgs(ctypes.Structure):
     """Mirror of csrc/ktpu.cuh GangSpreadArgs (pointers, then ints)."""
 
     _PTRS = (
-        "node_labels val_ints dom_ids dom_counts epod_node epod_ns epod_labels epod_valid epod_deleting "
+        "node_labels val_ints dom_ids dom_size dom_off dom_vals epod_node epod_ns epod_labels epod_valid epod_deleting "
         "valid ns_id labels tsc_key tsc_op tsc_vals tsc_rhs tsc_tv tsc_topo tsc_hard honor_aff honor_taints "
         "naff taints sp_dv sp_te sp_dom_cnt sp_dom_pres sp_ndom sp_self sp_bmatch sp_counting sp_node_cnt "
-        "sp_sc_dom sp_all_keys sp_cdv acc"
+        "sp_sc_dom sp_all_keys sp_cdv rep match span"
     ).split()
-    _INTS = "N K NVI E P C R V D hostname_key".split()
+    _INTS = "N K NVI E P C R V EW D hostname_key smem_cap class_ratio span_rows".split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
@@ -195,13 +195,16 @@ class GangInterpodArgs(ctypes.Structure):
     """Mirror of csrc/ktpu.cuh GangInterpodArgs (pointers, then ints)."""
 
     _PTRS = (
-        "node_labels val_ints dom_ids dom_counts dom_off epod_node epod_ns epod_labels epod_valid "
+        "node_labels val_ints dom_ids dom_size dom_off dom_vals epod_node epod_ns epod_labels epod_valid "
         "term_pod term_kind term_topo term_weight tt_key tt_op tt_vals tt_rhs tt_tv term_ns_all term_ns_ids "
         "used_ppk used_ip used_wild valid ns_id labels aff_key aff_op aff_vals aff_rhs aff_tv aff_kind "
         "aff_topo aff_ns_all aff_ns_ids want_ppk want_ip want_wild ip_dv ip_dom_cnt ip_viol_existing ip_sym "
-        "inc_any self_ok ip_bmatch d_ports port_b ext_acc inc_acc"
+        "inc_any self_ok ip_bmatch d_ports port_b ext_term key_used inc_rep inc_match span"
     ).split()
-    _INTS = "N K NVI E M TR TV TNS U P AT AR AV NS W DSUM D hard_weight do_interpod do_ports".split()
+    _INTS = (
+        "N K NVI E M TR TV TNS U P AT AR AV NS W EW DSUM D hard_weight do_interpod do_ports smem_cap class_ratio "
+        "span_rows"
+    ).split()
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 

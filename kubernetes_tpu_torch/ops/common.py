@@ -3,9 +3,13 @@
 Dataclasses of tensors take the place of the JAX package's registered
 pytrees; the field names and dtypes are the reference's.  The scalar
 vocabulary ids stay host ints: the kernels take them as launch arguments.
-``DeviceCluster.dom_ids`` has no counterpart there: the CUDA kernels of the
-gang path accumulate per topology domain under these compact ids, where the
-reference segments over the whole label-value vocabulary.
+``DeviceCluster.dom_ids`` (with ``dom_size`` and ``dom_off``, each key's
+domain count and their prefix sums, and ``dom_vals``, each domain's label
+value) has no counterpart there: the CUDA kernels of the gang path
+accumulate per topology domain under these compact ids, where the reference
+segments over the whole label-value vocabulary, and read a node's label
+value for a key as the value of its domain (a node-major [K, N] row, where
+``node_labels`` is node-minor).
 
 The conjunction-table evaluator is the vectorized analogue of
 labels.Selector.Matches / nodeaffinity.RequiredNodeAffinity.Match.
@@ -72,11 +76,13 @@ def log_table(n_cap: int) -> np.ndarray:
 def domain_ids(label_vals: np.ndarray):
     """Per label key, each node's compact domain id: the rank of its value id
     among the distinct values present in that column (-1 where absent), as
-    gang.batch_tables numbers them.  Returns (ids i32 [K, N], counts [K])."""
+    gang.batch_tables numbers them.  Returns (ids i32 [K, N], counts [K],
+    values i32 [sum(counts)]: each key's distinct value ids in rank order,
+    key after key)."""
     lv = np.asarray(label_vals)
     N, K = lv.shape
     ids = np.full((K, N), -1, np.int32)
-    counts = []
+    counts, values = [], []
     for k in range(K):
         col = lv[:, k]
         pos = col >= 0
@@ -85,8 +91,9 @@ def domain_ids(label_vals: np.ndarray):
             uniq, inv = np.unique(col[pos], return_inverse=True)
             ids[k, pos] = inv.astype(np.int32)
             n = len(uniq)
+            values.append(uniq.astype(np.int32))
         counts.append(n)
-    return ids, tuple(counts)
+    return ids, tuple(counts), np.concatenate(values or [np.zeros(0, np.int32)]).astype(np.int32)
 
 
 @dataclass
@@ -126,13 +133,16 @@ class DeviceCluster:
     term_ns_ids: Any  # i32 [M, NS]
     log_tab: Any  # i64 [N+2]  fixed-point round(log(i+2)·2^32)
     dom_ids: Any  # i32 [K, N]  compact per-key domain ids (domain_ids)
+    dom_size: Any  # i32 [K]  distinct domains per key (dom_counts on the device)
+    dom_off: Any  # i32 [K + 1]  prefix sums of dom_size
+    dom_vals: Any  # i32 [sum(dom_size)]  each key's domains' label value ids, at dom_off[key] + domain id
     visit_rank: Any  # i32 [N]  zone-round-robin visit rank (-1: pad row)
     # scalar ids resolved from the vocab
     name_key: int  # label-key id of metadata.name
     unsched_key: int  # label-key id of node.kubernetes.io/unschedulable
     empty_val: int  # label-val id of ""
     n_valid_nodes: int  # number of real nodes
-    dom_counts: tuple = ()  # distinct domains per key (host ints)
+    dom_counts: tuple = ()  # distinct domains per key (host ints; dom_size on the device)
 
     @classmethod
     def host_tree(cls, nt: NodeTensors, vocab: Vocab, ep: ExistingPodTensors = None) -> "DeviceCluster":
@@ -157,7 +167,7 @@ class DeviceCluster:
             # numeric selectors (Gt / Lt) read val_ints at node label value
             # ids, which must lie inside the table (the packers keep this)
             raise ValueError("node label value ids outrun the packed value table")
-        ids, counts = domain_ids(lv)
+        ids, counts, values = domain_ids(lv)
         return cls(
             allocatable=np.asarray(nt.allocatable, np.int32),
             requested=np.asarray(nt.requested, np.int32),
@@ -189,6 +199,9 @@ class DeviceCluster:
             term_ns_ids=np.asarray(ep.term_ns_ids, np.int32),
             log_tab=log_table(np.asarray(nt.valid).shape[0]),
             dom_ids=ids,
+            dom_size=np.asarray(counts, np.int32).reshape(-1),
+            dom_off=np.concatenate([[0], np.cumsum(counts, dtype=np.int64)]).astype(np.int32),
+            dom_vals=values,
             visit_rank=np.asarray(nt.visit_rank, np.int32),
             name_key=int(name_key),
             unsched_key=int(unsched_key),

@@ -970,6 +970,29 @@ CL_PHASES = 19  # csrc/ktpu.cuh CL_PHASES: the cluster leader's clocks (K5, K9)
 # cluster-wide exchanges over the batch, then the rank-0 leader's cycles / 16
 # per phase)}; read "info" after a synchronize.
 scan_stats: dict = {}
+# The most dynamic shared memory a block of K6's domain kernel or K7's ext
+# and domain kernels may put its domain cells in (the card's own limit
+# applies below it); a key (ext: the used keys) with more cells is walked in
+# domain tiles.
+STATICS_SMEM_CAP = 1 << 30
+# K6 / K7 collapse equal selectors to one representative before matching
+# (a warp a selector, comparing it with every earlier one) where the placed
+# pods number at least this many times the selectors (csrc/gang_statics.cu
+# use_classes); 0 always.  Measured on the H100: classes win at 10 and 88
+# times (config3, config4), lose at 1 and 0.25 (the mixed shape's K6 and
+# K7 own terms).
+STATICS_CLASS_RATIO = 2
+# The kernels of a K6 / K7 launch, in the order of their rows in its span
+# table (csrc/gang_statics.cu SpreadSpan, InterpodSpan), and the rows a
+# kernel has there, one an SM (SPAN_SMS).
+SPREAD_KERNELS = ("classes", "match", "domain")
+INTERPOD_KERNELS = ("terms", "ext", "inc_classes", "inc_match", "inc_domain", "ports")
+SPAN_SMS = 256
+# The last K6 / K7 launch's span table: {"spread" / "interpod": int64
+# [kernels, SPAN_SMS, 2] on the card, per kernel and SM its blocks' first
+# start (complemented) and last end (globaltimer ns), 0 where no block
+# ran}; statics_spans reads it.
+statics_stats: dict = {}
 # GangStatics fields K5 does not read: it takes the compact domain ids from
 # DeviceCluster.dom_ids under the batch's topology keys instead.
 _SCAN_UNREAD = frozenset({"sp_dv", "sp_cdv", "ip_dv", "ip_key_cols"})
@@ -1019,14 +1042,16 @@ def _table_ptrs(prefix, tab, lead, R, V):
 
 def spread_statics(dc: DeviceCluster, db: DeviceBatch, naff, taints, hostname_key: int) -> dict:
     """K6 launch: the spread half of precompute on CUDA tensors; ``naff`` /
-    ``taints`` are the unconditional [P, N] node-affinity and taint masks."""
+    ``taints`` are the unconditional [P, N] node-affinity and taint masks.
+    No host-to-device copy and no synchronize: the domain counts are the
+    cluster's device leaf ``dom_size``, the scratch is each constraint's
+    representative and the match bits."""
     dev = dc.node_valid.device
     lib = _build.load()
     N, K = dc.node_labels.shape
     E = dc.epod_node.shape[0]
     P, C = db.tsc_topo.shape
     _, _, R, V = db.tsc_table.req_vals.shape
-    D = max(max(dc.dom_counts, default=0), 1)
     out = {
         "sp_dv": torch.empty((P, C, N), dtype=I32, device=dev),
         "sp_te": torch.empty((P, C, N), dtype=BOOL, device=dev),
@@ -1041,12 +1066,16 @@ def spread_statics(dc: DeviceCluster, db: DeviceBatch, naff, taints, hostname_ke
         "sp_all_keys": torch.empty((P, N), dtype=BOOL, device=dev),
         "sp_cdv": torch.empty((P, C, N), dtype=I32, device=dev),
     }
-    acc = torch.empty((P * C * 3 * D,), dtype=I32, device=dev)
-    dom_counts = torch.tensor(dc.dom_counts or (0,), dtype=I32, device=dev)
+    EW = -(-E // 32)
+    _check_rows(N, dc.dom_ids, naff, taints)
+    rep = torch.empty((max(P * C, 1),), dtype=I32, device=dev)
+    match = torch.empty((max(P * C * EW, 1),), dtype=I32, device=dev)
+    span = torch.empty((len(SPREAD_KERNELS), SPAN_SMS, 2), dtype=I64, device=dev)
     a = _build.GangSpreadArgs()
     _set_ptrs(a, dev, [
         ("node_labels", dc.node_labels, I32, (N, K)), ("val_ints", dc.val_ints, I32, None),
-        ("dom_ids", dc.dom_ids, I32, (K, N)), ("dom_counts", dom_counts, I32, None),
+        ("dom_ids", dc.dom_ids, I32, (K, N)), ("dom_size", dc.dom_size, I32, (K,)),
+        ("dom_off", dc.dom_off, I32, (K + 1,)), ("dom_vals", dc.dom_vals, I32, (sum(dc.dom_counts),)),
         ("epod_node", dc.epod_node, I32, (E,)), ("epod_ns", dc.epod_ns, I32, (E,)),
         ("epod_labels", dc.epod_labels, I32, (E, K)), ("epod_valid", dc.epod_valid, BOOL, (E,)),
         ("epod_deleting", dc.epod_deleting, BOOL, (E,)), ("valid", db.valid, BOOL, (P,)),
@@ -1055,20 +1084,28 @@ def spread_statics(dc: DeviceCluster, db: DeviceBatch, naff, taints, hostname_ke
         ("tsc_topo", db.tsc_topo, I32, (P, C)), ("tsc_hard", db.tsc_hard, BOOL, (P, C)),
         ("honor_aff", db.tsc_honor_affinity, BOOL, (P, C)), ("honor_taints", db.tsc_honor_taints, BOOL, (P, C)),
         ("naff", naff, BOOL, (P, N)), ("taints", taints, BOOL, (P, N)),
-        *[(k, t, t.dtype, tuple(t.shape)) for k, t in out.items()], ("acc", acc, I32, None),
+        *[(k, t, t.dtype, tuple(t.shape)) for k, t in out.items()], ("rep", rep, I32, None),
+        ("match", match, I32, None), ("span", span, I64, None),
     ])
-    a.N, a.K, a.NVI, a.E, a.P, a.C, a.R, a.V, a.D = N, K, dc.val_ints.shape[0], E, P, C, R, V, D
-    a.hostname_key = int(hostname_key)
+    a.N, a.K, a.NVI, a.E, a.P, a.C, a.R, a.V = N, K, dc.val_ints.shape[0], E, P, C, R, V
+    a.EW, a.D, a.hostname_key = EW, max(dc.dom_counts, default=0), int(hostname_key)
+    a.smem_cap, a.class_ratio = int(min(STATICS_SMEM_CAP, 2**31 - 1)), int(STATICS_CLASS_RATIO)
+    a.span_rows = len(SPREAD_KERNELS) * SPAN_SMS
     rc = lib.ktpu_gang_spread_statics(ctypes.byref(a), _build.stream_handle(dev))
     _build.check_launch(lib, rc, "gang_spread_statics")
     _build.launches["gang_spread_statics"] += 1
+    statics_stats["spread"] = span
     return out
 
 
 def interpod_statics(dc: DeviceCluster, db: DeviceBatch, *, do_interpod: bool, do_ports: bool,
                      hard_pod_affinity_weight: int = 1) -> dict:
     """K7 launch: the inter-pod half of precompute (raw per-term outputs)
-    and the host-port masks, on CUDA tensors."""
+    and the host-port masks, on CUDA tensors.  No host-to-device copy and
+    no synchronize: the domain counts and their prefix sums are the
+    cluster's device leaves ``dom_size`` / ``dom_off``; the scratch is the
+    placed terms' records, the used-key marks, each own term's
+    representative and the match bits."""
     dev = dc.node_valid.device
     lib = _build.load()
     N, K = dc.node_labels.shape
@@ -1081,10 +1118,6 @@ def interpod_statics(dc: DeviceCluster, db: DeviceBatch, *, do_interpod: bool, d
     _, _, AR, AV = db.aff_table.req_vals.shape
     NS = db.aff_ns_ids.shape[2]
     W = db.want_ppk.shape[1]
-    counts = list(dc.dom_counts) or [0]
-    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    DSUM = max(int(off[-1]), 1)
-    D = max(max(counts), 1)
     out = {
         "ip_dv": torch.empty((P, AT, N), dtype=I32, device=dev),
         "ip_dom_cnt": torch.empty((P, AT, N), dtype=I32, device=dev),
@@ -1096,16 +1129,21 @@ def interpod_statics(dc: DeviceCluster, db: DeviceBatch, *, do_interpod: bool, d
         "d_ports": torch.empty((P, N), dtype=BOOL, device=dev),
         "port_b": torch.empty((P, P), dtype=BOOL, device=dev),
     }
-    ext_acc = torch.empty((P * 2 * DSUM if do_interpod else 1,), dtype=I32, device=dev)
-    inc_acc = torch.empty((P * AT * D if do_interpod else 1,), dtype=I32, device=dev)
-    dom_counts = torch.tensor(counts, dtype=I32, device=dev)
-    dom_off = torch.from_numpy(off).to(dev)
+    EW = -(-E // 32)
+    inc = bool(do_interpod) and P * AT > 0
+    _check_rows(N, dc.dom_ids)
+    ext_term = torch.empty((max(M, 1), 4), dtype=I32, device=dev)
+    key_used = torch.empty((max(K, 1),), dtype=I32, device=dev)
+    inc_rep = torch.empty((max(P * AT, 1),), dtype=I32, device=dev)
+    inc_match = torch.empty((max(P * AT * EW, 1) if inc else 1,), dtype=I32, device=dev)
+    span = torch.empty((len(INTERPOD_KERNELS), SPAN_SMS, 2), dtype=I64, device=dev)
     a = _build.GangInterpodArgs()
     _set_ptrs(a, dev, [
         ("node_labels", dc.node_labels, I32, (N, K)), ("val_ints", dc.val_ints, I32, None),
-        ("dom_ids", dc.dom_ids, I32, (K, N)), ("dom_counts", dom_counts, I32, None),
-        ("dom_off", dom_off, I32, None), ("epod_node", dc.epod_node, I32, (E,)),
-        ("epod_ns", dc.epod_ns, I32, (E,)), ("epod_labels", dc.epod_labels, I32, (E, K)),
+        ("dom_ids", dc.dom_ids, I32, (K, N)), ("dom_size", dc.dom_size, I32, (K,)),
+        ("dom_off", dc.dom_off, I32, (K + 1,)), ("dom_vals", dc.dom_vals, I32, (sum(dc.dom_counts),)),
+        ("epod_node", dc.epod_node, I32, (E,)), ("epod_ns", dc.epod_ns, I32, (E,)),
+        ("epod_labels", dc.epod_labels, I32, (E, K)),
         ("epod_valid", dc.epod_valid, BOOL, (E,)), ("term_pod", dc.term_pod, I32, (M,)),
         ("term_kind", dc.term_kind, I32, (M,)), ("term_topo", dc.term_topo, I32, (M,)),
         ("term_weight", dc.term_weight, I32, (M,)),
@@ -1120,15 +1158,51 @@ def interpod_statics(dc: DeviceCluster, db: DeviceBatch, *, do_interpod: bool, d
         ("want_ppk", db.want_ppk, I32, (P, W)), ("want_ip", db.want_ip, I32, (P, W)),
         ("want_wild", db.want_wild, BOOL, (P, W)),
         *[(k, t, t.dtype, tuple(t.shape)) for k, t in out.items()],
-        ("ext_acc", ext_acc, I32, None), ("inc_acc", inc_acc, I32, None),
+        ("ext_term", ext_term, I32, None), ("key_used", key_used, I32, None), ("inc_rep", inc_rep, I32, None),
+        ("inc_match", inc_match, I32, None), ("span", span, I64, None),
     ])
     a.N, a.K, a.NVI, a.E, a.M, a.TR, a.TV, a.TNS, a.U = N, K, dc.val_ints.shape[0], E, M, TR, TV, TNS, U
-    a.P, a.AT, a.AR, a.AV, a.NS, a.W, a.DSUM, a.D = P, AT, AR, AV, NS, W, DSUM, D
+    a.P, a.AT, a.AR, a.AV, a.NS, a.W, a.EW = P, AT, AR, AV, NS, W, EW
+    a.DSUM, a.D = sum(dc.dom_counts), max(dc.dom_counts, default=0)
     a.hard_weight = int(hard_pod_affinity_weight)
     a.do_interpod, a.do_ports = int(bool(do_interpod)), int(bool(do_ports))
+    a.smem_cap, a.class_ratio = int(min(STATICS_SMEM_CAP, 2**31 - 1)), int(STATICS_CLASS_RATIO)
+    a.span_rows = len(INTERPOD_KERNELS) * SPAN_SMS
     rc = lib.ktpu_gang_interpod_statics(ctypes.byref(a), _build.stream_handle(dev))
     _build.check_launch(lib, rc, "gang_interpod_statics")
     _build.launches["gang_interpod_statics"] += 1
+    statics_stats["interpod"] = span
+    return out
+
+
+def _check_rows(N: int, *rows) -> None:
+    """K6's / K7's node passes take four nodes a thread in 16- and 4-byte
+    accesses: the node bucket must be a multiple of 4 and each input row
+    base 16-byte aligned (DeviceCluster's leaves and a fork's rows are; the
+    outputs are the wrapper's own)."""
+    if N % 4:
+        raise ValueError(f"K6 / K7 need a node bucket that is a multiple of 4, got {N}")
+    for t in rows:
+        if t.data_ptr() % 16:
+            raise ValueError(f"K6 / K7 need 16-byte aligned rows, got a base at {t.data_ptr():#x}")
+
+
+def statics_spans(which: str) -> dict:
+    """The last K6 (``"spread"``) or K7 (``"interpod"``) launch's span per
+    kernel that ran, in microseconds: from its first block's start to its
+    last block's end (globaltimer), and ``"all"`` over the launch.
+    Synchronizes."""
+    names = SPREAD_KERNELS if which == "spread" else INTERPOD_KERNELS
+    rows = statics_stats[which].cpu()
+    out, first, last = {}, [], []
+    for name, sm in zip(names, rows):
+        ran = sm[:, 1] != 0
+        if bool(ran.any()):
+            first.append(int((~sm[ran, 0]).min()))
+            last.append(int(sm[ran, 1].max()))
+            out[name] = (last[-1] - first[-1]) / 1e3
+    if first:
+        out["all"] = (max(last) - min(first)) / 1e3
     return out
 
 

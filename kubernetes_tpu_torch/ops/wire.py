@@ -3,7 +3,8 @@
 Flattens a dataclass tree of numpy arrays into ONE contiguous byte buffer
 (pinned when the target is a CUDA device), ships it with one non-blocking
 copy, and rebuilds each leaf as a typed ``view`` of a slice at a static,
-8-byte-aligned offset — the PyTorch form of the JAX package's ``pack_tree`` /
+16-byte-aligned offset (so that kernels may read a leaf's rows 16 bytes at a
+time) — the PyTorch form of the JAX package's ``pack_tree`` /
 ``_unpacker.run`` pair.  Leaves that are Python ints (scalar ids) pass
 through unchanged.
 """
@@ -16,7 +17,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-_ALIGN = 8
+_ALIGN = 16
 
 _TORCH_DTYPE = {
     np.dtype(np.bool_): torch.bool,

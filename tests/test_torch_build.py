@@ -62,3 +62,38 @@ def test_set_ptrs_keeps_each_operand_alive():
     gang._set_ptrs(a, cpu, [("sp_key", torch.zeros((2, 2), dtype=torch.int32), torch.int32, (2, 2))])
     gc.collect()
     assert ref() is None  # replaced under the same name: released
+
+
+@pytest.mark.parametrize("enum,names", [("SpreadSpan", "SPREAD_KERNELS"), ("InterpodSpan", "INTERPOD_KERNELS")])
+def test_statics_span_rows_match_the_kernel_ids(enum, names):
+    """K6's / K7's span table: the wrapper names its kernels in the order of
+    the kernel ids csrc/gang_statics.cu writes them under, with as many rows
+    a kernel (SPAN_SMS), and sizes it by their count (the entry point
+    rejects another size)."""
+    from kubernetes_tpu_torch.ops import gang
+
+    text = (_build.CSRC / "gang_statics.cu").read_text()
+    ids = [i.strip() for i in re.search(r"enum " + enum + r" \{(.*?)\};", text, re.S).group(1).split(",")]
+    assert ids[-1].endswith("_KERNELS") and len(ids) - 1 == len(getattr(gang, names))
+    assert [i.split("_", 1)[1].lower() for i in ids[:-1]] == list(getattr(gang, names))
+    assert int(re.search(r"constexpr int SPAN_SMS = (\d+);", text).group(1)) == gang.SPAN_SMS
+
+
+@pytest.mark.parametrize("case", ["aligned", "odd_bucket", "misaligned_row"])
+def test_statics_row_check(case):
+    """K6 / K7 read and write four nodes a thread: their wrappers take a
+    node bucket that is a multiple of 4 with 16-byte aligned input rows,
+    and raise on anything else rather than launch."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import gang
+
+    rows = torch.zeros((3, 16), dtype=torch.int32)
+    if case == "aligned":
+        gang._check_rows(16, rows, rows[1])
+        return
+    with pytest.raises(ValueError):
+        if case == "odd_bucket":
+            gang._check_rows(10, rows)
+        else:
+            gang._check_rows(12, rows.flatten()[1:13])

@@ -1148,3 +1148,145 @@ def test_sig_scan_incremental_matches_plain(cuda, case, smem_cap, monkeypatch):
         assert bool((ch_p == -1).all())
     if case in ("s1", "s16", "s512", "masked_prefix"):
         assert int((ch_p >= 0).sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# K6 gang_spread_statics and K7 gang_interpod_statics: match bits, domain
+# cells in shared memory (domain tiles past the budget), no host sync
+# ---------------------------------------------------------------------------
+
+STATICS_CASES = [(kind, seed) for kind in chip_smoke.STATICS_WORLDS for seed in (3, 8)]
+
+
+def _statics_check(cuda, nodes, placed, pending, P, mutate=None, hard_weight=1, fork=None):
+    """precompute (K1 + K6 + K7) against precompute_plain on every
+    GangStatics field, exactly, and each kernel of the two launches
+    recorded a span; `fork` maps the packed cluster to the one checked, and
+    the batch's tables are then built off that cluster's labels (a fork's
+    gone nodes have none), as tests/test_torch_gang_statics.py builds the
+    reference's."""
+    dc, db, kw, d_cap, flags = chip_smoke.gang_inputs(torch, cuda, nodes, placed, pending, P=P, mutate=mutate)
+    if fork is not None:
+        dc = fork(dc)
+        tables = ops_gang.batch_tables(db.tsc_topo.cpu().numpy(), db.aff_topo.cpu().numpy(),
+                                       dc.node_labels.cpu().numpy(), kw["hostname_key"])
+        kw.update({k: torch.as_tensor(tables[k], device=cuda) for k in ("sp_keys", "sp_cdv_tab", "ip_keys")})
+    tab = {k: kw[k] for k in ("sp_keys", "sp_cdv_tab", "ip_keys")}
+    n0 = dict(_build.launches)
+    got = ops_gang.precompute(dc, db, **kw, **flags, hard_pod_affinity_weight=hard_weight)
+    want = ops_gang.precompute_plain(dc, db, kw["hostname_key"], kw["v_cap"], hard_pod_affinity_weight=hard_weight,
+                                     enabled=ops_gang.ALL_FILTER_KERNELS, **flags, **tab)
+    for f in ops_gang.GangStatics._fields:
+        _equal(getattr(got, f), getattr(want, f))
+    if flags["has_spread"]:
+        assert _build.launches["gang_spread_statics"] == n0["gang_spread_statics"] + 1
+        spans = ops_gang.statics_spans("spread")
+        assert {"match", "domain", "all"} <= set(spans) and min(spans.values()) > 0
+    if flags["has_interpod"]:
+        assert _build.launches["gang_interpod_statics"] == n0["gang_interpod_statics"] + 1
+        spans = ops_gang.statics_spans("interpod")
+        assert {"ext", "ports", "all"} <= set(spans) and min(spans.values()) > 0
+    return dc, db, got
+
+
+@pytest.mark.parametrize("ratio", [2, 0], ids=["classes-auto", "classes"])
+@pytest.mark.parametrize("kind,seed", STATICS_CASES, ids=[f"{k}-{s}" for k, s in STATICS_CASES])
+def test_gang_statics_kernels_match_plain_on_the_scenarios(cuda, kind, seed, ratio, monkeypatch):
+    """K6 and K7 on the scenarios tests/test_torch_gang_statics.py holds the
+    plain versions to against the JAX package (negative symmetric weights
+    under a hard weight of 100, dead placed terms, three keys, spread
+    policies, namespace sets); with STATICS_CLASS_RATIO = 0 the selectors
+    are always collapsed to their representatives first."""
+    monkeypatch.setattr(ops_gang, "STATICS_CLASS_RATIO", ratio)
+    nodes, placed, pending, mutate = chip_smoke.statics_world(kind, seed)
+    _statics_check(cuda, nodes, placed, pending, P=32, mutate=mutate,
+                   hard_weight=100 if kind == "preferred_anti" else 1)
+
+
+@pytest.mark.parametrize("ratio", [2, 0], ids=["tiles", "tiles-classes"])
+@pytest.mark.parametrize("world", ["gen", "three_keys"])
+def test_gang_statics_domain_tiles_match_plain(cuda, world, ratio, monkeypatch):
+    """With the shared budget capped (STATICS_SMEM_CAP = 512 bytes: one
+    word of 32 cells a tile) K6's domain kernel, K7's ext and its domain
+    kernel walk the hostname key's 200 domains (ext: every used key's) in
+    tiles, carrying the sums across them, with and without the selector
+    classes, and equal the plain versions."""
+    monkeypatch.setattr(ops_gang, "STATICS_SMEM_CAP", 512)
+    monkeypatch.setattr(ops_gang, "STATICS_CLASS_RATIO", ratio)
+    if world == "gen":
+        nodes, placed, pending = chip_smoke.gen_cluster(101, 200, 300, 128)
+        mutate = None
+    else:
+        nodes, placed, pending, mutate = chip_smoke.statics_world(world, 5)
+        extra = [chip_smoke.gen_node(chip_smoke.random.Random(7), i) for i in range(20, 220)]
+        nodes = nodes + extra
+    dc, _, got = _statics_check(cuda, nodes, placed, pending, P=128, mutate=mutate)
+    assert max(dc.dom_counts) > 32 and bool(got.ip_viol_existing.any())
+
+
+def test_gang_statics_ports_only_launch(cuda):
+    """K7 with the inter-pod half off (the launch config4's batches make:
+    NodePorts on, no inter-pod terms) equals port_masks_plain."""
+    nodes, placed, pending = chip_smoke.gen_cluster(13, 150, 40, 128)
+    dc, db, *_ = chip_smoke.gang_inputs(torch, cuda, nodes, placed, pending, P=128)
+    n0 = _build.launches["gang_interpod_statics"]
+    got = ops_gang.interpod_statics(dc, db, do_interpod=False, do_ports=True)
+    d_ports, port_b = ops_gang.port_masks_plain(dc, db)
+    _equal(got["d_ports"], d_ports)
+    _equal(got["port_b"], port_b)
+    assert bool((~d_ports).any()) and _build.launches["gang_interpod_statics"] == n0 + 1
+    assert set(ops_gang.statics_spans("interpod")) == {"ports", "all"}
+
+
+def test_gang_statics_on_a_fork_view(cuda):
+    """K6 and K7 over a planner fork's cluster (K15's view: gone nodes with
+    ABSENT labels and domain ids -1, their placed pods evicted) equal the
+    plain versions on it."""
+    from kubernetes_tpu_torch.ops import counterfactual as ops_cf
+
+    def fork(dc):
+        alive = dc.node_valid.clone()
+        gone = torch.nonzero(alive).flatten()[torch.tensor([3, 17, 40])]
+        alive[gone] = False
+        ep_valid = dc.epod_valid & ~torch.isin(dc.epod_node, gone.to(dc.epod_node.dtype))
+        planes = {k: v[None] for k, v in dict(
+            fk_alive=alive, fk_unsched=dc.unschedulable, fk_alloc=dc.allocatable, fk_req=dc.requested,
+            fk_nz=dc.nonzero_req, fk_npods=dc.num_pods, fk_epod_valid=ep_valid).items()}
+        view = ops_cf.fork_cluster_view(dc, planes["fk_alive"], visit_rank=dc.visit_rank)
+        out = ops_cf._fork_cluster(dc, view, planes, 0, int(alive.sum().item()))
+        assert bool((out.dom_ids[:, gone] == -1).all()) and out.dom_size is dc.dom_size
+        return out
+
+    nodes, placed, pending = chip_smoke.gen_cluster(33, 120, 200, 64)
+    _statics_check(cuda, nodes, placed, pending, P=64, fork=fork)
+
+
+def test_gang_statics_wrappers_do_not_synchronize(cuda):
+    """Neither wrapper waits for the card: launched behind a long
+    torch.cuda._sleep, both return while the card is still busy, in a
+    fraction of the sleep's time."""
+    import time
+
+    nodes, placed, pending = chip_smoke.gen_cluster(101, 200, 300, 128)
+    dc, db, kw, d_cap, flags = chip_smoke.gang_inputs(torch, cuda, nodes, placed, pending, P=128)
+    st = ops_fp.static_eval_plain(dc, db, frozenset({"TaintToleration", "NodeAffinity"}), False)
+    naff, taints = st["m_nodeaff"].contiguous(), st["m_taints"].contiguous()
+
+    def both():
+        ops_gang.spread_statics(dc, db, naff, taints, kw["hostname_key"])
+        ops_gang.interpod_statics(dc, db, do_interpod=True, do_ports=True)
+
+    both()  # warm-up: the build and the first launches
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(200_000_000)
+    b.record()
+    torch.cuda.synchronize()
+    sleep_s = a.elapsed_time(b) / 1e3
+    t0 = time.perf_counter()
+    torch.cuda._sleep(200_000_000)
+    both()
+    host_s = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert busy and host_s < sleep_s / 2, (host_s, sleep_s)

@@ -1,9 +1,12 @@
 """Times the workloads engine's kernels of one checkout on the card: K8
-(wave_speculate) on the plain statics laid out two ways, and K5, K9 and K11
-on the contiguous ones.
+(wave_speculate) on the plain statics laid out two ways, K5, K9 and K11
+on the contiguous ones, and the precompute's K6 (gang_spread_statics) and
+K7 (gang_interpod_statics).
 
-The four shapes are chip_smoke.py's wave rows: config4 and config3
-(gang_shapes), ports and mixed (wave_shapes), each a batch of 512 pods.
+The shapes are chip_smoke.py's wave rows: config4 and config3
+(gang_shapes), ports and mixed (wave_shapes), and gang_mixed (gang_shapes'
+mixed batch, with host ports: K6's and K7's mixed row), each a batch of 512
+pods.
 The statics are the plain precompute's (gang.precompute_plain without
 ports), as chip_smoke.py's wave checks make them.  K8 is timed
 
@@ -16,6 +19,13 @@ ports), as chip_smoke.py's wave checks make them.  K8 is timed
 
 K9 runs on K8's choices, K5 on the same statics (not on the port-contended
 shape), K11 with gangs of 8 of which every fourth needs 9 (it rolls back).
+K6 is timed where the batch has spread constraints, K7 whole (inter-pod
+and ports) and its placed terms alone (the pods' own terms cut away, ports
+off: chip_smoke.without_own_terms) where it has inter-pod terms, and K7's
+ports-only launch (what every config4 batch makes) on every shape; each
+through the wrappers both sides have (spread_statics, interpod_statics),
+with a digest of their outputs and, where the checkout records them, each
+kernel's span (gang.statics_spans).
 
     python3 wave_ab.py [ROOT] [--reps N] [--shapes config4,ports]
 
@@ -41,7 +51,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root", nargs="?", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--shapes", default="config4,config3,ports,mixed", help="comma-separated shape names")
+    ap.add_argument("--shapes", default="config4,config3,gang_mixed,ports,mixed", help="comma-separated shape names")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -53,6 +63,7 @@ def main() -> int:
     import chip_smoke as cs
     from kubernetes_tpu_torch.ops import _build
     from kubernetes_tpu_torch.ops import coscheduling as cos
+    from kubernetes_tpu_torch.ops import fastpath as ops_fp
     from kubernetes_tpu_torch.ops import gang, wave
 
     _build.load()
@@ -60,7 +71,8 @@ def main() -> int:
     reps = args.reps
     out = dict(root=root, card=cs.card_line(), reps=reps)
     shapes = args.shapes.split(",")
-    for name, nodes, placed, pending in cs.gang_shapes()[:2] + cs.wave_shapes():
+    gs = cs.gang_shapes()
+    for name, nodes, placed, pending in gs[:2] + [("gang_mixed", *gs[2][1:])] + cs.wave_shapes():
         if name not in shapes:
             continue
         dc, db, kw, d_cap, flags, wt = cs.wave_inputs(torch, dev, nodes, placed, pending)
@@ -96,9 +108,41 @@ def main() -> int:
             gk = [rows[k] for k in ("gang_id", "gang_first", "gang_last", "gang_need", "g_cap")]
             r["k11"] = cs.time_ms(torch, lambda: cos.workloads_admit(dc, db, g, hk, *targs, *gk, d_cap=d_cap,
                                                                      d2_cap=wt["d2_cap"]), reps)
+        r.update(statics(torch, cs, gang, ops_fp, dc, db, hk, flags, reps))
         out[name] = r
     print(json.dumps(out), flush=True)
     return 0
+
+
+def statics(torch, cs, gang, ops_fp, dc, db, hk, flags, reps):
+    """K6's and K7's launches on one shape: their times (and spans where
+    the checkout records them) and a digest of each launch's outputs."""
+    st = ops_fp.static_eval_plain(dc, db, frozenset({"TaintToleration", "NodeAffinity"}), False)
+    naff, taints = st["m_nodeaff"].contiguous(), st["m_taints"].contiguous()
+    db0 = cs.without_own_terms(db)
+    # (span kind, launch, the outputs it writes; None: all)
+    launches = {"k7_ports_only": ("interpod", lambda: gang.interpod_statics(dc, db, do_interpod=False, do_ports=True),
+                                  ("d_ports", "port_b"))}
+    if flags["has_spread"]:
+        launches["k6"] = ("spread", lambda: gang.spread_statics(dc, db, naff, taints, hk), None)
+    if flags["has_interpod"]:
+        launches["k7"] = ("interpod", lambda: gang.interpod_statics(dc, db, do_interpod=True, do_ports=True), None)
+        launches["k7_ext_alone"] = ("interpod", lambda: gang.interpod_statics(dc, db0, do_interpod=True,
+                                                                              do_ports=False),
+                                    ("ip_viol_existing", "ip_sym"))
+    r = {}
+    for key, (which, fn, written) in launches.items():
+        got = fn()
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for k in sorted(written or got):
+            h.update(k.encode())
+            h.update(got[k].cpu().numpy().tobytes())
+        r[key + "_sha256"] = h.hexdigest()[:16]
+        r[key] = cs.time_ms(torch, fn, reps)
+        if hasattr(gang, "statics_spans"):
+            r[key + "_span_us"] = gang.statics_spans(which)
+    return r
 
 
 if __name__ == "__main__":
